@@ -1,0 +1,312 @@
+"""The dispatching collective API — the PGMPITuneLib "PMPI layer".
+
+Framework code calls these entry points instead of a collective directly.
+Selection order per call:
+
+1. explicit ``impl=`` argument              (unit tests, hillclimbing)
+2. context ``force`` table                  (PGMPITuneCLI ``--module=op:alg=x``)
+3. ``PGTUNE_MODULE`` environment variable   (same syntax as the paper's CLI)
+4. phase-specific performance profiles      (trace-replay tuning; the store
+   matching the active ``api.phase`` tag)
+5. loaded performance profiles              (PGMPITuneD online redirection)
+7. the default implementation
+
+(Step 6 of the JAX package, the hot-swappable fleet ``store_ref``, is not
+ported.)  The JAX package chooses at trace time, so its compiled program
+holds only the winner.  Eager PyTorch chooses on every call, so the
+choice is cached per (cell, phase) inside the active context and a
+repeated call costs one dict lookup after the cell is built.
+
+The context carries the scratch budget (the paper's
+``size_msg_buffer_bytes``): a mock-up whose Table-1 extra memory exceeds
+it is not applied.  Every dispatch is recorded; ``format_footer()`` emits
+the paper's Listing-2 ``#@pgmpi alg <op> <bytes> <impl>`` trailer.
+
+Operands are stacked (``[p, ...]``, see ``core._axis``); cells carry the
+PER-RANK payload bytes, so records, traces and profiles are the same as
+the JAX package's for the same per-rank problem.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import threading
+
+import torch
+
+from repro_torch.core import collectives as C
+from repro_torch.core._axis import StackedAxis
+from repro_torch.core.cell import OP_MM_ROLE, OpCell, dtype_name
+from repro_torch.core.profiles import OP_TO_MPI, ProfileStore
+
+_TLS = threading.local()
+
+DEFAULT_PHASE = "fwd"
+
+
+@dataclasses.dataclass(frozen=True)
+class DispatchRecord:
+    """One dispatched collective: the full problem cell, the impl the
+    dispatcher chose, and the workload phase tag.  Destructures as the
+    ``(op, p, nbytes, impl, phase)`` 5-tuple."""
+    cell: OpCell
+    impl: str
+    phase: str
+
+    def __iter__(self):
+        yield from (self.cell.op, self.cell.p, self.cell.nbytes, self.impl,
+                    self.phase)
+
+
+@dataclasses.dataclass
+class TuneContext:
+    profiles: ProfileStore | None = None
+    force: dict[str, str] = dataclasses.field(default_factory=dict)
+    scratch_budget_bytes: int | None = None
+    record: list[DispatchRecord] = dataclasses.field(default_factory=list)
+    chunk_bytes: int = 0
+    phase_profiles: dict[str, ProfileStore] | None = None
+    # (cell, phase, PGTUNE_MODULE spec) -> impl named by steps 2-7
+    choices: dict = dataclasses.field(default_factory=dict, repr=False)
+
+
+def _ctx() -> TuneContext | None:
+    return getattr(_TLS, "ctx", None)
+
+
+def current_phase() -> str:
+    """The active workload phase tag (see ``phase``); default ``"fwd"``."""
+    return getattr(_TLS, "phase", DEFAULT_PHASE)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Tag every dispatch issued inside with workload phase ``name``
+    (``fwd``, ``bwd``, ``prefill``, ``decode``); the tag is recorded and
+    selects the matching store from ``tuned(phase_profiles=...)``."""
+    prev = current_phase()
+    _TLS.phase = name
+    try:
+        yield
+    finally:
+        _TLS.phase = prev
+
+
+@contextlib.contextmanager
+def tuned(profiles: ProfileStore | None = None,
+          force: dict[str, str] | None = None,
+          scratch_budget_bytes: int | None = None,
+          chunk_bytes: int = 0,
+          phase_profiles: dict[str, ProfileStore] | None = None,
+          record: list | None = None):
+    """Activate tuning for every collective of this module issued inside.
+
+    ``force`` maps op name -> impl name (the CLI library's static
+    selection); ``profiles`` is the PGMPITuneD mode; ``phase_profiles``
+    maps a phase tag to a store consulted before ``profiles`` (what
+    ``tuner.tune_trace`` emits).  ``record`` lets the caller supply the
+    list dispatches are appended to.  Without any of these, defaults are
+    used but calls are still recorded."""
+    prev = _ctx()
+    ctx = TuneContext(profiles=profiles, force=dict(force or {}),
+                      scratch_budget_bytes=scratch_budget_bytes,
+                      chunk_bytes=chunk_bytes,
+                      phase_profiles=(dict(phase_profiles)
+                                      if phase_profiles else None),
+                      record=record if record is not None else [])
+    _TLS.ctx = ctx
+    try:
+        yield ctx
+    finally:
+        _TLS.ctx = prev
+
+
+def parse_module_spec(spec: str) -> dict[str, str]:
+    """Parse the paper's ``--module=allgather:alg=allgather_as_gather_bcast``
+    syntax (';'-separated for multiple ops)."""
+    out: dict[str, str] = {}
+    for part in spec.split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        op, _, alg = part.partition(":")
+        key, _, val = alg.partition("=")
+        if key != "alg" or not val:
+            raise ValueError(f"bad module spec {part!r}")
+        out[op.strip()] = val.strip()
+    return out
+
+
+_ENV_FORCE_CACHE: tuple[str, dict[str, str]] = ("", {})
+
+
+def _env_force() -> tuple[str, dict[str, str]]:
+    """``(raw spec, parsed)`` of ``PGTUNE_MODULE``, parsed once per value."""
+    global _ENV_FORCE_CACHE
+    spec = os.environ.get("PGTUNE_MODULE", "")
+    if spec != _ENV_FORCE_CACHE[0]:
+        _ENV_FORCE_CACHE = (spec, parse_module_spec(spec) if spec else {})
+    return _ENV_FORCE_CACHE
+
+
+def _make_cell(op: str, payload: torch.Tensor, axis: StackedAxis,
+               kw) -> OpCell:
+    """The dispatch-time tuning cell: per-rank payload bytes (stacked bytes
+    / p) plus, for fused ops, the per-rank GEMM read off the operands."""
+    p = axis.size
+    nbytes = payload.numel() * payload.element_size() // p
+    dtype = dtype_name(payload.dtype)
+    role = OP_MM_ROLE.get(op)
+    if role is None:
+        return OpCell(op, p, nbytes, dtype)
+    if role != "scatter":
+        raise KeyError(f"op {op!r} is not ported")
+    # payload x [p*n, K] per rank, rows scattered; w [K, M]
+    mm_k, mm_m = payload.shape[-1], payload.shape[1]
+    mm_n = kw["w"].shape[-1]
+    return OpCell(op, p, nbytes, dtype, mm_k, mm_m, mm_n, role)
+
+
+def _admit(op: str, name: str, cell: OpCell, ctx: TuneContext | None) -> str:
+    """The pow2 guard, the demotion ledger and the scratch budget: an
+    inadmissible choice falls back to the default."""
+    cand = C.REGISTRY[op].get(name)
+    if cand is None:
+        raise KeyError(f"unknown impl {name!r} for op {op!r}")
+    if name == "default":
+        return name
+    p = cell.p
+    if cand.requires_pow2 and (p & (p - 1)) != 0:
+        return "default"
+    if C.is_demoted(op, name):
+        return "default"
+    if (ctx is not None and ctx.scratch_budget_bytes is not None
+            and cand.extra_bytes(cell.nbytes, p) > ctx.scratch_budget_bytes):
+        return "default"
+    return name
+
+
+def _lookup(op: str, cell: OpCell, ph: str, ctx: TuneContext | None,
+            env: dict[str, str]) -> str:
+    """Selection steps 2-7: force table, ``PGTUNE_MODULE``, phase
+    profiles, profiles, default."""
+    name = None
+    if ctx is not None and op in ctx.force:
+        name = ctx.force[op]
+    if name is None and op in env:
+        name = env[op]
+    if name is None and ctx is not None:
+        if ctx.phase_profiles is not None:
+            store = ctx.phase_profiles.get(ph)
+            if store is not None:
+                name = store.lookup_cell(cell)
+        if name is None and ctx.profiles is not None:
+            name = ctx.profiles.lookup_cell(cell)
+    return name or "default"
+
+
+def _select(op: str, payload: torch.Tensor, axis: StackedAxis,
+            impl: str | None, kw) -> str:
+    ctx = _ctx()
+    cell = _make_cell(op, payload, axis, kw)
+    ph = current_phase()
+    name = impl
+    if name is None:
+        spec, env = _env_force()
+        if ctx is None:
+            name = _lookup(op, cell, ph, None, env)
+        else:
+            # the lookup is cached; admission is not, so a demotion made
+            # while the context is open takes effect on the next call
+            key = (cell, ph, spec)
+            name = ctx.choices.get(key)
+            if name is None:
+                name = ctx.choices[key] = _lookup(op, cell, ph, ctx, env)
+    name = _admit(op, name, cell, ctx)
+    if ctx is not None:
+        ctx.record.append(DispatchRecord(cell, name, ph))
+    return name
+
+
+def _dispatch(op: str, payload: torch.Tensor, axis: StackedAxis,
+              impl: str | None, /, **kw):
+    if payload.device != axis.device:
+        raise ValueError(f"{op}: operand on {payload.device}, axis on "
+                         f"{axis.device}")
+    ctx = _ctx()
+    if ctx is not None and ctx.chunk_bytes and "chunk" not in kw:
+        kw["chunk"] = max(1, ctx.chunk_bytes // payload.element_size())
+    name = _select(op, payload, axis, impl, kw)
+    return C.REGISTRY[op][name].fn(payload, axis, **kw)
+
+
+# -- public entry points -----------------------------------------------------
+# Every operand is stacked: dim 0 is the rank (see core._axis).
+
+
+def allgather(x, axis: StackedAxis, *, impl: str | None = None):
+    return _dispatch("allgather", x, axis, impl)
+
+
+def allreduce(x, axis: StackedAxis, *, impl: str | None = None, **kw):
+    return _dispatch("allreduce", x, axis, impl, **kw)
+
+
+def reducescatter(x, axis: StackedAxis, *, impl: str | None = None):
+    return _dispatch("reducescatter", x, axis, impl)
+
+
+def alltoall(x, axis: StackedAxis, *, impl: str | None = None):
+    return _dispatch("alltoall", x, axis, impl)
+
+
+def bcast(x, axis: StackedAxis, *, root: int = 0, impl: str | None = None):
+    return _dispatch("bcast", x, axis, impl, root=root)
+
+
+def gather(x, axis: StackedAxis, *, root: int = 0, impl: str | None = None):
+    return _dispatch("gather", x, axis, impl, root=root)
+
+
+def scatter(x, axis: StackedAxis, *, root: int = 0, impl: str | None = None):
+    return _dispatch("scatter", x, axis, impl, root=root)
+
+
+def reduce(x, axis: StackedAxis, *, root: int = 0, impl: str | None = None,
+           **kw):
+    return _dispatch("reduce", x, axis, impl, root=root, **kw)
+
+
+def scan(x, axis: StackedAxis, *, op: str = "add", impl: str | None = None):
+    return _dispatch("scan", x, axis, impl, op=op)
+
+
+def exscan(x, axis: StackedAxis, *, op: str = "add", impl: str | None = None):
+    return _dispatch("exscan", x, axis, impl, op=op)
+
+
+def matmul_reducescatter(x, w, axis: StackedAxis, *,
+                         impl: str | None = None):
+    """``reduce_scatter(x @ w, rows)``: ``x [p, p*n, K]``, ``w [p, K, M]``
+    or a shared ``[K, M]`` -> ``[p, n, M]``; partial products are summed
+    over ranks and row block i lands on rank i."""
+    return _dispatch("matmul_reducescatter", x, axis, impl, w=w)
+
+
+def format_footer(ctx: TuneContext) -> str:
+    """The paper's Listing-2 footer: which algorithm served each call."""
+    lines = []
+    seen = set()
+    for op, p, nbytes, name, *_phase in ctx.record:
+        key = (op, p, nbytes, name)
+        if key in seen:
+            continue
+        seen.add(key)
+        mpi = OP_TO_MPI.get(op, op)
+        label = "default" if name == "default" else name
+        lines.append(f"#@pgmpi alg {mpi} {nbytes} {label}")
+    if ctx.scratch_budget_bytes is not None:
+        lines.append(
+            f"#@pgmpi config size_msg_buffer_bytes {ctx.scratch_budget_bytes}")
+    return "\n".join(lines)

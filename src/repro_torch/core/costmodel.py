@@ -1,0 +1,405 @@
+"""α-β-γ latency model for collective algorithms.
+
+Model: a mesh axis is a 1-D bidirectional ring.  Per-message cost α + B·β
+per hop, reduction γ per byte.  Formulas are the textbook schedules (Chan
+et al. 2007, the paper's [3]):
+
+  ring all-gather      (p-1)·α + (p-1)·B·β                  (B = per-shard bytes)
+  recursive doubling   log2(p)·α + (p-1)·B·β
+  ring reduce-scatter  (p-1)·α + (p-1)/p·Bt·(β+γ)           (Bt = total bytes)
+  ring all-reduce      2(p-1)·α + 2(p-1)/p·Bt·β + (p-1)/p·Bt·γ
+  binomial tree        ceil(log2 p)·(α + B·β) (+γ for reduce)
+  ring all-to-all      (p-1)·α + p·Bt·β/8      (bisection-limited, bidir ring)
+
+``default_pricing`` selects what the untuned library is assumed to emit:
+``"optimal"`` (defaults already use the best ring schedules) or
+``"naive"`` (tree-based defaults, the paper's JUQUEEN situation).
+``hw_bcast`` models hardware broadcast acceleration.
+
+The presets below (``V5E_ICI``, ``BGQ_LIKE``) are the JAX
+package's TPU v5e and BlueGene/Q constants, kept only as data for parity
+checks: nothing here defaults to them, and no number they give describes
+a GPU.  A ``Topo`` for the card is fitted from its own sweeps
+(``fit_topo`` over ``measure.Bench.sweep_axis``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+from repro_torch.core.collectives import REGISTRY
+
+
+@dataclasses.dataclass(frozen=True)
+class Topo:
+    """One mesh-axis fabric."""
+    name: str
+    alpha: float            # per-message latency (s)
+    link_bw: float          # per-link bandwidth (B/s), one direction
+    gamma: float            # reduction cost (s/B)
+    bidir: bool = True      # ring usable in both directions
+    default_pricing: str = "optimal"   # "optimal" | "naive"
+    hw_bcast: bool = False
+    hw_bcast_speedup: float = 5.0
+    # fused collective-matmul terms: peak matmul throughput, the canonical
+    # output width the geometry-less table assumes, and the per-ring-step
+    # overhead of the fused schedule (kernel issue), which makes fusion
+    # LOSE on small messages.
+    matmul_flops: float = 2.0e14
+    fused_mm_cols: int = 8192
+    fused_step_overhead: float = 1.5e-6
+
+    @property
+    def beta(self) -> float:
+        return 1.0 / self.link_bw
+
+
+# The JAX package's presets (TPU v5e ICI, a BlueGene/Q-like vendor
+# library): parity data only.
+V5E_ICI = Topo("v5e-ici", alpha=1.0e-6, link_bw=50e9, gamma=2.5e-12)
+BGQ_LIKE = Topo("bgq-like", alpha=2.0e-6, link_bw=2e9, gamma=4e-12,
+                default_pricing="naive", hw_bcast=True)
+
+
+def _lstsq_line(points) -> tuple[float, float]:
+    """Closed-form least squares of ``t = intercept + slope·B`` over
+    ``[(B, t), ...]`` (>= 2 distinct sizes required)."""
+    pts = [(float(b), float(t)) for b, t in points]
+    n = len(pts)
+    if n < 2 or len({b for b, _ in pts}) < 2:
+        raise ValueError("fit_topo needs >= 2 distinct payload sizes")
+    mx = sum(b for b, _ in pts) / n
+    my = sum(t for _, t in pts) / n
+    sxx = sum((b - mx) ** 2 for b, _ in pts)
+    sxy = sum((b - mx) * (t - my) for b, t in pts)
+    slope = sxy / sxx
+    return slope, my - slope * mx
+
+
+def fit_topo(p: int, allgather_points, allreduce_points=None, *,
+             name: str = "fit", base: Topo | None = None) -> Topo:
+    """α-β(-γ) of one axis from measured ring sweeps.
+
+    ``allgather_points``: ``(per-shard payload bytes B, seconds)`` of an
+    all-gather on a ``p``-rank axis, fit to ``t = (p-1)·α + (p-1)·β·B``.
+    With ``allreduce_points`` (total-buffer bytes vs seconds) γ is fit
+    from the slope surplus over β; otherwise γ comes from ``base``.
+    Non-link fields (overheads, matmul rate) come from ``base`` when
+    given, else from the ``Topo`` field defaults.
+    """
+    if p < 2:
+        raise ValueError("fit_topo needs an axis of size >= 2")
+    slope, icept = _lstsq_line(allgather_points)
+    alpha = max(icept / (p - 1), 1e-12)
+    beta = max(slope / (p - 1), 1e-16)
+    gamma = base.gamma if base is not None else 0.0
+    if allreduce_points is not None:
+        s2, _ = _lstsq_line(allreduce_points)
+        gamma = max((s2 - 2.0 * (p - 1) / p * beta) * p / (p - 1), 0.0)
+    if base is None:
+        return Topo(name, alpha=alpha, link_bw=1.0 / beta, gamma=gamma)
+    return dataclasses.replace(base, name=name, alpha=alpha,
+                               link_bw=1.0 / beta, gamma=gamma)
+
+
+def _log2c(p: int) -> int:
+    return max(1, math.ceil(math.log2(max(p, 2))))
+
+
+def _is_pow2(p: int) -> bool:
+    return p & (p - 1) == 0
+
+
+# ---------------------------------------------------------------------------
+# primitive schedule costs.  B = bytes "per shard sent" in the op's natural
+# convention (documented per formula).
+# ---------------------------------------------------------------------------
+
+
+def t_ring_allgather(p, B, t: Topo):
+    """B = per-shard contribution bytes; output p·B."""
+    return (p - 1) * t.alpha + (p - 1) * B * t.beta
+
+
+def t_doubling_allgather(p, B, t: Topo):
+    return _log2c(p) * t.alpha + (p - 1) * B * t.beta
+
+
+def t_ring_reduce_scatter(p, Bt, t: Topo):
+    """Bt = total buffer bytes (p·chunk)."""
+    return (p - 1) * t.alpha + (p - 1) / p * Bt * (t.beta + t.gamma)
+
+
+def t_ring_allreduce(p, Bt, t: Topo):
+    return (2 * (p - 1) * t.alpha
+            + 2 * (p - 1) / p * Bt * t.beta
+            + (p - 1) / p * Bt * t.gamma)
+
+
+def t_doubling_allreduce(p, Bt, t: Topo):
+    return _log2c(p) * (t.alpha + Bt * t.beta + Bt * t.gamma)
+
+
+def t_tree(p, B, t: Topo, *, reduce: bool = False, bcast: bool = False):
+    """Binomial tree; B bytes move each round."""
+    a = t.alpha
+    if bcast and t.hw_bcast:
+        a = a / t.hw_bcast_speedup
+    per = a + B * t.beta + (B * t.gamma if reduce else 0.0)
+    return _log2c(p) * per
+
+
+def t_tree_scatter_gather(p, Bt, t: Topo):
+    """Binomial scatter/gather: log p rounds, halving/doubling payload;
+    total bytes ≈ Bt·(p-1)/p."""
+    return _log2c(p) * t.alpha + (p - 1) / p * Bt * t.beta
+
+
+def t_ring_alltoall(p, Bt, t: Topo):
+    """Bt = per-shard buffer (p chunks).  Bisection-limited on a
+    bidirectional ring: byte-hops ≈ Bt·p/4, 2 links per node."""
+    div = 8.0 if t.bidir else 4.0
+    return (p - 1) * t.alpha + p * Bt * t.beta / div
+
+
+def t_fused_matmul(elems: float, t: Topo):
+    """Matmul time of a fused op whose reduced operand has ``elems``
+    elements: 2 MACs per element per output column (canonical width)."""
+    return 2.0 * elems * t.fused_mm_cols / t.matmul_flops
+
+
+def t_overlapped_ring(p, step_comm: float, mm_total: float, t: Topo):
+    """The overlap law of the fused collective-matmul rings: the first
+    chunk's matmul is exposed, every later step costs max(transfer,
+    chunk-matmul) instead of their sum, plus ``fused_step_overhead`` per
+    step."""
+    chunk = mm_total / p + t.fused_step_overhead
+    return chunk + (p - 1) * max(chunk, step_comm)
+
+
+def t_meta(p, t: Topo):
+    """The 2p·I count/displacement exchange of the 'v' emulations."""
+    return t_ring_allgather(p, 8, t)
+
+
+def t_linear_rooted(p, B, t: Topo, *, reduce: bool = False):
+    """Naive rooted gather/scatter/reduce: root talks to p-1 peers serially."""
+    per = t.alpha + B * t.beta + (B * t.gamma if reduce else 0.0)
+    return (p - 1) * per
+
+
+def _pad(B: float, p: int, chunk_bytes: int) -> float:
+    """GL7/GL16 chunk-aligned padding of the buffer."""
+    c = max(float(chunk_bytes), 1.0)
+    k = math.ceil(math.ceil(B / c) / p)
+    return p * k * c
+
+
+# ---------------------------------------------------------------------------
+# per-impl latency.  ``nbytes`` is the byte size of the op's per-rank input
+# (the same key the dispatcher uses).
+# ---------------------------------------------------------------------------
+
+
+def latency(op: str, impl: str, p: int, nbytes: int, topo: Topo,
+            *, chunk_bytes: int = 0) -> float:
+    """Modeled latency (seconds) of one ``impl`` of ``op`` on an axis of
+    size ``p``.  Compositions are priced as the sum of the sub-impls they
+    actually run (see collectives.py)."""
+    if p <= 1:
+        return 0.0
+    B = float(max(nbytes, 1))
+    naive = topo.default_pricing == "naive"
+
+    def ag(Bv):
+        if naive:
+            # linear gather + tree bcast of the full buffer
+            return (t_linear_rooted(p, Bv, topo)
+                    + t_tree(p, p * Bv, topo, bcast=True))
+        return t_ring_allgather(p, Bv, topo)
+
+    def ar(Bv):
+        if naive:
+            return (t_tree(p, Bv, topo, reduce=True)
+                    + t_tree(p, Bv, topo, bcast=True))
+        return t_ring_allreduce(p, Bv, topo)
+
+    def rs(Bt):
+        if naive:
+            return (t_tree(p, Bt, topo, reduce=True)
+                    + t_linear_rooted(p, Bt / p, topo))
+        return t_ring_reduce_scatter(p, Bt, topo)
+
+    def a2a(Bt):
+        if naive:
+            return t_linear_rooted(p, Bt / p, topo) * 2
+        return t_ring_alltoall(p, Bt, topo)
+
+    def dflt_bcast(Bv):
+        return ar(Bv)                      # default bcast is select+psum
+
+    def dflt_gather(Bv):
+        if naive:
+            return t_linear_rooted(p, Bv, topo)
+        return ag(Bv)                      # gather served by all-gather
+
+    def dflt_scatter(Bt):
+        if naive:
+            return t_linear_rooted(p, Bt / p, topo)
+        return a2a(Bt)                     # scatter served by all-to-all
+
+    def dflt_reduce(Bv):
+        if naive:
+            return t_linear_rooted(p, Bv, topo, reduce=True)
+        return ar(Bv)                      # reduce served by psum
+
+    def scan_cost(Bv):
+        return _log2c(p) * (topo.alpha + Bv * topo.beta + Bv * topo.gamma)
+
+    table = {
+        # ---- allgather (B = per-shard contribution) ----
+        ("allgather", "default"): lambda: ag(B),
+        ("allgather", "allgather_as_gather_bcast"):
+            lambda: dflt_gather(B) + dflt_bcast(p * B),
+        ("allgather", "allgather_as_alltoall"): lambda: a2a(p * B),
+        ("allgather", "allgather_as_allreduce"): lambda: ar(p * B),
+        ("allgather", "allgather_as_allgatherv"):
+            lambda: ag(B) + t_meta(p, topo),
+        ("allgather", "allgather_as_ring"):
+            lambda: t_ring_allgather(p, B, topo),
+        ("allgather", "allgather_as_doubling"):
+            lambda: t_doubling_allgather(p, B, topo),
+        # ---- allreduce (B = buffer bytes) ----
+        ("allreduce", "default"): lambda: ar(B),
+        ("allreduce", "allreduce_as_reduce_bcast"):
+            lambda: dflt_reduce(B) + dflt_bcast(B),
+        ("allreduce", "allreduce_as_tree_reduce_bcast"):
+            lambda: (t_tree(p, B, topo, reduce=True)
+                     + t_tree(p, B, topo, bcast=True)),
+        ("allreduce", "allreduce_as_rsb_allgather"):
+            lambda: (t_ring_reduce_scatter(p, B, topo)
+                     + t_ring_allgather(p, B / p, topo)),
+        ("allreduce", "allreduce_as_rs_allgatherv"):
+            lambda: (t_ring_reduce_scatter(p, _pad(B, p, chunk_bytes), topo)
+                     + t_ring_allgather(p, _pad(B, p, chunk_bytes) / p, topo)
+                     + t_meta(p, topo)),
+        ("allreduce", "allreduce_as_doubling"):
+            lambda: t_doubling_allreduce(p, B, topo),
+        # ---- alltoall (B = per-shard buffer, p chunks) ----
+        ("alltoall", "default"): lambda: a2a(B),
+        ("alltoall", "alltoall_as_alltoallv"):
+            lambda: a2a(B) + t_meta(p, topo),
+        ("alltoall", "alltoall_as_ppermute"):
+            lambda: (p - 1) * topo.alpha + p * B * topo.beta / (
+                8.0 if topo.bidir else 4.0),
+        # ---- bcast (B = payload) ----
+        ("bcast", "default"): lambda: dflt_bcast(B),
+        ("bcast", "bcast_as_allgatherv"):
+            lambda: ag(B) + t_meta(p, topo),
+        ("bcast", "bcast_as_scatter_allgather"):
+            lambda: (t_tree_scatter_gather(p, B, topo)
+                     + t_ring_allgather(p, B / p, topo)),
+        ("bcast", "bcast_as_tree"):
+            lambda: t_tree(p, B, topo, bcast=True),
+        # ---- gather (B = per-shard contribution) ----
+        ("gather", "default"): lambda: dflt_gather(B),
+        ("gather", "gather_as_allgather"): lambda: t_ring_allgather(p, B, topo),
+        ("gather", "gather_as_gatherv"):
+            lambda: dflt_gather(B) + t_meta(p, topo),
+        ("gather", "gather_as_reduce"): lambda: dflt_reduce(p * B),
+        ("gather", "gather_as_tree"):
+            lambda: t_tree_scatter_gather(p, p * B, topo),
+        # ---- reduce (B = buffer bytes) ----
+        ("reduce", "default"): lambda: dflt_reduce(B),
+        ("reduce", "reduce_as_allreduce"): lambda: t_ring_allreduce(p, B, topo),
+        ("reduce", "reduce_as_rsb_gather"):
+            lambda: (t_ring_reduce_scatter(p, B, topo)
+                     + t_ring_allgather(p, B / p, topo)),
+        ("reduce", "reduce_as_rs_gatherv"):
+            lambda: (t_ring_reduce_scatter(p, _pad(B, p, chunk_bytes), topo)
+                     + t_ring_allgather(p, _pad(B, p, chunk_bytes) / p, topo)
+                     + t_meta(p, topo)),
+        ("reduce", "reduce_as_tree"):
+            lambda: t_tree(p, B, topo, reduce=True),
+        # ---- reducescatter (B = total buffer bytes, p chunks) ----
+        ("reducescatter", "default"): lambda: rs(B),
+        ("reducescatter", "rsb_as_reduce_scatter"):
+            lambda: dflt_reduce(B) + dflt_scatter(B),
+        ("reducescatter", "rsb_as_reduce_scatter_irr"):
+            lambda: t_ring_reduce_scatter(p, B, topo) + t_meta(p, topo),
+        ("reducescatter", "rsb_as_allreduce"): lambda: dflt_reduce(B),
+        # ---- scan ----
+        ("scan", "default"): lambda: scan_cost(B),
+        ("scan", "scan_as_exscan_reducelocal"):
+            lambda: scan_cost(B) + topo.alpha + B * (topo.beta + topo.gamma),
+        ("exscan", "default"): lambda: scan_cost(B) + topo.alpha + B * topo.beta,
+        # ---- matmul_reducescatter (B = total input-buffer bytes of x, p
+        # row blocks); geometry-less: each ring step moves one reduced
+        # output block (~B/p, canonical square-ish K≈M) and reduces it ----
+        ("matmul_reducescatter", "default"):
+            lambda: t_fused_matmul(B / 4.0, topo) + rs(B),
+        ("matmul_reducescatter", "fused_ring"):
+            lambda: t_overlapped_ring(
+                p, topo.alpha + (B / p) * (topo.beta + topo.gamma),
+                t_fused_matmul(B / 4.0, topo), topo),
+        # ---- scatter (B = total buffer bytes, p chunks) ----
+        ("scatter", "default"): lambda: dflt_scatter(B),
+        ("scatter", "scatter_as_bcast"): lambda: dflt_bcast(B),
+        ("scatter", "scatter_as_scatterv"):
+            lambda: dflt_scatter(B) + t_meta(p, topo),
+        ("scatter", "scatter_as_tree"):
+            lambda: t_tree_scatter_gather(p, B, topo),
+    }
+    key = (op, impl)
+    if key not in table:
+        raise KeyError(f"no cost model for {key}")
+    if REGISTRY[op][impl].requires_pow2 and not _is_pow2(p):
+        return math.inf
+    return float(table[key]())
+
+
+def latency_cell(cell, impl: str, topo: Topo, *,
+                 chunk_bytes: int = 0) -> float:
+    """Modeled latency of one ``OpCell``.  Plain cells (and fused cells
+    without recorded geometry) use the canonical ``latency`` table; a
+    ``matmul_reducescatter`` cell with a recorded GEMM is priced from its
+    true flops ``2·K·M·N`` and true output-block bytes."""
+    if not cell.fused:
+        return latency(cell.op, impl, cell.p, cell.nbytes, topo,
+                       chunk_bytes=chunk_bytes)
+    p = cell.p
+    if p <= 1:
+        return 0.0
+    if cell.op != "matmul_reducescatter":
+        raise KeyError(f"no geometry cost model for {cell.op!r}")
+    imp = REGISTRY[cell.op][impl]
+    if imp.requires_pow2 and not _is_pow2(p):
+        return math.inf
+    mm = 2.0 * cell.mm_k * cell.mm_m * cell.mm_n / topo.matmul_flops
+    bt_out = float(cell.mm_m * cell.mm_n * cell.itemsize)
+    if impl == "default":
+        return mm + latency("reducescatter", "default", p, int(bt_out), topo)
+    blk = bt_out / p
+    step = topo.alpha + blk * (topo.beta + topo.gamma)
+    return t_overlapped_ring(p, step, mm, topo)
+
+
+def sweep(op: str, p: int, nbytes: int, topo: Topo, *,
+          chunk_bytes: int = 0) -> dict[str, float]:
+    """Latency of every registered impl of ``op`` at one (p, nbytes)."""
+    return {name: latency(op, name, p, nbytes, topo, chunk_bytes=chunk_bytes)
+            for name in REGISTRY[op]}
+
+
+def sweep_cell(cell, topo: Topo, *, chunk_bytes: int = 0) -> dict[str, float]:
+    """Latency of every registered impl for one ``OpCell``."""
+    return {name: latency_cell(cell, name, topo, chunk_bytes=chunk_bytes)
+            for name in REGISTRY[cell.op]}
+
+
+def best_impl_cell(cell, topo: Topo, *,
+                   chunk_bytes: int = 0) -> tuple[str, float]:
+    """``(impl, latency)`` of the fastest modeled implementation."""
+    sw = sweep_cell(cell, topo, chunk_bytes=chunk_bytes)
+    name = min(sw, key=sw.get)
+    return name, sw[name]

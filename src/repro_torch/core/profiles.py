@@ -1,0 +1,306 @@
+"""Performance profiles (paper §3.2.2, Listing 1) + O(log M) lookup.
+
+A profile is valid for ONE collective and ONE axis size — and, for the
+fused collective-matmul ops, ONE matmul geometry (``cell.Geom``).  It maps
+message-size ranges (bytes) to a replacement mock-up.  The text format is
+the paper's Listing 1 (MPI op names, numbered algorithm table, ``lo hi
+alg`` range lines) with geometry on a ``#@geom`` header and the tier on a
+``#@tier`` header, both comment lines to a v1 parser; the JSON form (v2)
+carries provenance.  Files are byte-compatible with the JAX package's, so
+either package loads what the other wrote.
+
+Lookup is O(1) to find the (op, p, geom, tier) profile + O(log M) bisect
+over the sorted ranges.  ``lookup_cell`` resolves geometry: exact >
+nearest tuned geometry (same role + dtype + p2 + tier, log-space shape
+distance) > the geometry-less (op, p) profile.
+"""
+from __future__ import annotations
+
+import bisect
+import dataclasses
+import json
+import pathlib
+import warnings
+
+from repro_torch.core.cell import Geom, OpCell
+
+PROFILE_JSON_VERSION = 2
+
+#: the profile-directory manifest the JAX package's fleet loop writes;
+#: not a profile, so ``load`` skips it
+MANIFEST_NAME = "MANIFEST.json"
+
+OP_TO_MPI = {
+    "allgather": "MPI_Allgather",
+    "allreduce": "MPI_Allreduce",
+    "alltoall": "MPI_Alltoall",
+    "bcast": "MPI_Bcast",
+    "gather": "MPI_Gather",
+    "reduce": "MPI_Reduce",
+    "reducescatter": "MPI_Reduce_scatter_block",
+    "scan": "MPI_Scan",
+    "exscan": "MPI_Exscan",
+    "scatter": "MPI_Scatter",
+    # fused collective-matmul extension ops (no MPI counterpart; MPIX_ names
+    # keep the Listing-1 text profiles round-trippable)
+    "allgather_matmul": "MPIX_Allgather_matmul",
+    "matmul_reducescatter": "MPIX_Matmul_reduce_scatter",
+    "matmul_accumulate": "MPIX_Matmul_accumulate",
+    "matmul_reducescatter_2d": "MPIX_Matmul_reduce_scatter_2d",
+}
+MPI_TO_OP = {v: k for k, v in OP_TO_MPI.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class Range:
+    lo: int          # bytes, inclusive
+    hi: int          # bytes, inclusive
+    impl: str        # mock-up name
+
+
+@dataclasses.dataclass
+class Profile:
+    op: str
+    axis_size: int
+    ranges: list[Range] = dataclasses.field(default_factory=list)
+    meta: dict = dataclasses.field(default_factory=dict)
+    geom: Geom | None = None    # fused-op matmul geometry partition
+    tier: str = ""              # interconnect-tier token ("" = flat)
+
+    def __post_init__(self):
+        self.ranges = sorted(self.ranges, key=lambda r: r.lo)
+        self._los = [r.lo for r in self.ranges]
+        for a, b in zip(self.ranges, self.ranges[1:]):
+            if b.lo <= a.hi:
+                raise ValueError(f"overlapping ranges {a} / {b}")
+
+    # -- lookup ------------------------------------------------------------
+    def lookup(self, nbytes: int) -> str | None:
+        """Replacement impl for ``nbytes``, or None (use the default)."""
+        i = bisect.bisect_right(self._los, nbytes) - 1
+        if i >= 0 and self.ranges[i].lo <= nbytes <= self.ranges[i].hi:
+            return self.ranges[i].impl
+        return None
+
+    def lookup_nearest(self, nbytes: int) -> str | None:
+        """``lookup`` that falls back to the CLOSEST range when ``nbytes``
+        misses every range (nearest-geometry resolution)."""
+        hit = self.lookup(nbytes)
+        if hit is not None or not self.ranges:
+            return hit
+        best = min(self.ranges,
+                   key=lambda r: min(abs(nbytes - r.lo), abs(nbytes - r.hi)))
+        return best.impl
+
+    # -- Listing-1 text format ----------------------------------------------
+    def to_text(self) -> str:
+        impls = sorted({r.impl for r in self.ranges})
+        ids = {name: i + 2 for i, name in enumerate(impls)}  # 1 = default
+        lines = [
+            "# pgtune profile v2",
+            OP_TO_MPI.get(self.op, self.op),
+            f"{self.axis_size} # nb. of. processes",
+            f"{len(impls)} # nb. of mock-up impl.",
+        ]
+        if self.tier:
+            lines.insert(1, f"#@tier {self.tier}")
+        if self.geom is not None:
+            g = self.geom
+            line = (f"#@geom {g.dtype} {g.mm_k} {g.mm_m} {g.mm_n} "
+                    f"{g.mm_role}")
+            if g.p2:
+                line += f" {g.p2}"
+            lines.insert(1, line)
+        lines += [f"{ids[name]} {name}" for name in impls]
+        lines.append(f"{len(self.ranges)} # nb. of ranges")
+        lines += [f"{r.lo} {r.hi} {ids[r.impl]}" for r in self.ranges]
+        return "\n".join(lines) + "\n"
+
+    @classmethod
+    def from_text(cls, text: str) -> "Profile":
+        geom = None
+        tier = ""
+        for ln in text.splitlines():
+            if ln.startswith("#@tier"):
+                tier = ln.split(None, 1)[1].strip() if " " in ln else ""
+            if ln.startswith("#@geom"):
+                parts = ln.split()
+                _, dt, k, m, n, role = parts[:6]
+                p2 = int(parts[6]) if len(parts) > 6 else 0
+                geom = Geom(dt, int(k), int(m), int(n), role, p2)
+        raw = [ln.split("#")[0].strip() for ln in text.splitlines()]
+        rows = [ln for ln in raw if ln]
+        opname = rows[0]
+        op = MPI_TO_OP.get(opname, opname)
+        axis_size = int(rows[1])
+        n_impl = int(rows[2])
+        table: dict[int, str] = {}
+        for ln in rows[3:3 + n_impl]:
+            num, name = ln.split(None, 1)
+            table[int(num)] = name.strip()
+        n_ranges = int(rows[3 + n_impl])
+        ranges = []
+        for ln in rows[4 + n_impl:4 + n_impl + n_ranges]:
+            lo, hi, alg = ln.split()
+            ranges.append(Range(int(lo), int(hi), table[int(alg)]))
+        return cls(op=op, axis_size=axis_size, ranges=ranges, geom=geom,
+                   tier=tier)
+
+    # -- JSON ----------------------------------------------------------------
+    def to_json(self) -> str:
+        d = {
+            "version": PROFILE_JSON_VERSION,
+            "op": self.op, "axis_size": self.axis_size,
+            "ranges": [dataclasses.asdict(r) for r in self.ranges],
+            "meta": self.meta,
+        }
+        if self.geom is not None:
+            d["geom"] = dataclasses.asdict(self.geom)
+        if self.tier:
+            d["tier"] = self.tier
+        return json.dumps(d, indent=1)
+
+    @classmethod
+    def from_json(cls, text: str) -> "Profile":
+        d = json.loads(text)
+        geom = Geom(**d["geom"]) if d.get("geom") else None
+        return cls(op=d["op"], axis_size=d["axis_size"],
+                   ranges=[Range(**r) for r in d["ranges"]],
+                   meta=d.get("meta", {}), geom=geom,
+                   tier=d.get("tier", ""))
+
+
+def _geom_tag(geom: Geom) -> str:
+    """Filesystem-safe geometry suffix for profile filenames."""
+    tag = (f"{geom.dtype}_k{geom.mm_k}m{geom.mm_m}n{geom.mm_n}"
+           f"_{geom.mm_role}")
+    if geom.p2:
+        tag += f"_q{geom.p2}"
+    return tag
+
+
+def _tier_tag(tier: str) -> str:
+    """Filesystem-safe tier suffix (the token may carry '/' and '@')."""
+    return tier.replace("/", "--").replace("@", "-")
+
+
+class ProfileStore:
+    """All loaded profiles; the PGMPITuneD in-memory state."""
+
+    def __init__(self, profiles: list[Profile] | None = None):
+        self._by_key: dict[
+            tuple[str, int, Geom | None, str], Profile] = {}
+        for p in profiles or []:
+            self.add(p)
+
+    def add(self, p: Profile) -> None:
+        self._by_key[(p.op, p.axis_size, p.geom, p.tier)] = p
+
+    def get(self, op: str, axis_size: int, geom: Geom | None = None,
+            tier: str = "") -> Profile | None:
+        return self._by_key.get((op, axis_size, geom, tier))
+
+    def lookup(self, op: str, axis_size: int, nbytes: int,
+               tier: str = "") -> str | None:
+        """Geometry-less lookup (plain collectives)."""
+        p = self.get(op, axis_size, tier=tier)
+        return p.lookup(nbytes) if p else None
+
+    def lookup_cell(self, cell: OpCell) -> str | None:
+        """Resolve a dispatch cell: the exact geometry profile first; on an
+        exact miss (no profile for this geometry, or its ranges miss
+        ``cell.nbytes``) the nearest other tuned geometry (same role +
+        dtype + p2 + tier, least log-space shape distance); then the
+        geometry-less (op, axis_size, tier) profile.  Every step is
+        pinned to ``cell.profile_tier()``."""
+        t = cell.profile_tier()
+        g = cell.geom()
+        if g is not None:
+            prof = self._by_key.get((cell.op, cell.p, g, t))
+            if prof is not None:
+                hit = prof.lookup(cell.nbytes)
+                if hit is not None:
+                    return hit
+            near = [(geom, p)
+                    for (op, ax, geom, tr), p in self._by_key.items()
+                    if op == cell.op and ax == cell.p and geom is not None
+                    and geom != g
+                    and tr == t
+                    and geom.mm_role == g.mm_role
+                    and geom.dtype == g.dtype
+                    and geom.p2 == g.p2]
+            if near:
+                _, nprof = min(near,
+                               key=lambda kv: (g.distance(kv[0]), kv[0]))
+                hit = nprof.lookup_nearest(cell.nbytes)
+                if hit is not None:
+                    return hit
+        return self.lookup(cell.op, cell.p, cell.nbytes, t)
+
+    def __len__(self) -> int:
+        return len(self._by_key)
+
+    def __iter__(self):
+        return iter(self._by_key.values())
+
+    # -- disk ----------------------------------------------------------------
+    def save(self, directory: str | pathlib.Path, *,
+             fmt: str = "text") -> None:
+        """Write one file per profile (Listing-1 text or JSON v2)."""
+        d = pathlib.Path(directory)
+        d.mkdir(parents=True, exist_ok=True)
+        for (op, p_size, geom, tier), prof in sorted(
+                self._by_key.items(),
+                key=lambda kv: (kv[0][0], kv[0][1], str(kv[0][2]),
+                                kv[0][3])):
+            stem = f"{op}_p{p_size}"
+            if geom is not None:
+                stem += "_" + _geom_tag(geom)
+            if tier:
+                stem += "_t" + _tier_tag(tier)
+            if fmt == "text":
+                (d / f"{stem}.pgtune").write_text(prof.to_text())
+            else:
+                (d / f"{stem}.json").write_text(prof.to_json())
+
+    @classmethod
+    def load(cls, directory: str | pathlib.Path) -> "ProfileStore":
+        d = pathlib.Path(directory)
+        store = cls()
+        for f in sorted(d.glob("*.pgtune")):
+            text = f.read_text()
+            if not text.lstrip().startswith("# pgtune profile v2"):
+                warnings.warn(
+                    f"profile file {f} is schema v1 (no 'pgtune profile v2' "
+                    "header); v1 parse paths are deprecated — re-save with "
+                    "the current tuner", DeprecationWarning, stacklevel=2)
+            store.add(Profile.from_text(text))
+        for f in sorted(d.glob("*.json")):
+            if f.name == MANIFEST_NAME:
+                continue
+            text = f.read_text()
+            if "version" not in json.loads(text):
+                warnings.warn(
+                    f"profile file {f} is schema v1 (no 'version' field); "
+                    "v1 parse paths are deprecated — re-save with the "
+                    "current tuner", DeprecationWarning, stacklevel=2)
+            store.add(Profile.from_json(text))
+        return store
+
+
+def load_stores(directory: str | pathlib.Path) \
+        -> tuple["ProfileStore | None", dict[str, "ProfileStore"]]:
+    """Load ``(base_store, phase_stores)`` from a profile directory: files
+    at the top level form the base store, each subdirectory holding
+    profiles a phase store keyed by its name (the layout
+    ``tuner.TraceTuneReport.save`` writes)."""
+    d = pathlib.Path(directory)
+    if not d.is_dir():
+        raise FileNotFoundError(f"profile directory {d} does not exist")
+    base = ProfileStore.load(d)
+    phases: dict[str, ProfileStore] = {}
+    for sub in sorted(p for p in d.iterdir() if p.is_dir()):
+        store = ProfileStore.load(sub)
+        if len(store):
+            phases[sub.name] = store
+    return (base if len(base) else None), phases

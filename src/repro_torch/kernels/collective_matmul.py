@@ -1,0 +1,142 @@
+"""Collective matmul on the stacked axis: the block-matmul kernel and the
+matmul-reducescatter ring.
+
+``block_matmul`` is the Hopper counterpart of the TPU kernel
+``repro/kernels/collective_matmul.py:pallas_matmul``: ``x @ w`` with a
+float32 accumulator, output dtype ``promote_types(x, w)``.  Its CUDA
+source, with the bound it works against, is ``csrc/block_matmul.cu``.
+It takes an optional leading batch dim, so one launch covers every
+stacked rank of a ring step (a 2-D ``w`` is shared by the whole batch).
+
+``ring_matmul_reducescatter`` is the ``fused_ring`` mock-up of
+``matmul_reducescatter``: the travelling accumulator picks up one row
+block's partial product per step, and each step's local product is one
+``block_matmul`` launch over all ranks.  On one GPU the hop is a
+device-memory copy, so the ring measures on-chip data movement and launch
+overhead, not a link.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core._axis import StackedAxis, ring_perm
+from repro_torch.kernels import _build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.cuda_library("block_matmul", ["block_matmul.cu"])
+    fn = lib.block_matmul
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+def build() -> None:
+    """Compile (once) and load the CUDA library."""
+    _lib()
+
+
+def block_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: float32 accumulation for float inputs,
+    cast to ``promote_types(x, w)``."""
+    out_dtype = torch.promote_types(x.dtype, w.dtype)
+    if out_dtype.is_floating_point:
+        return torch.matmul(x.float(), w.float()).to(out_dtype)
+    return torch.matmul(x.to(out_dtype), w.to(out_dtype))
+
+
+def block_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [m, k] @ w [k, n]``, or batched ``x [B, m, k] @ w [B, k, n]``
+    (``w`` may stay ``[k, n]``, shared by the batch).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return block_matmul_plain(x, w)
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError(f"block_matmul: x on {x.device}, w on {w.device}")
+    if x.dtype != w.dtype or x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"block_matmul takes float32/bfloat16/float16 "
+                         f"operands of one dtype, got {x.dtype}, {w.dtype}")
+    if x.dim() not in (2, 3) or w.dim() not in (2, 3) or (
+            x.dim() == 2 and w.dim() == 3):
+        raise ValueError(f"block_matmul: unsupported ranks {tuple(x.shape)} "
+                         f"@ {tuple(w.shape)}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("block_matmul needs contiguous operands")
+    batch = x.shape[0] if x.dim() == 3 else 1
+    m, k = x.shape[-2:]
+    k2, n = w.shape[-2:]
+    if k != k2 or (w.dim() == 3 and w.shape[0] != batch):
+        raise ValueError(f"block_matmul: shapes {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)} do not chain")
+    out = torch.empty(tuple(x.shape[:-1]) + (n,), dtype=x.dtype,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    swb = k * n if w.dim() == 3 else 0
+    vec_ok = int(k % 8 == 0 and n % 8 == 0 and x.data_ptr() % 16 == 0
+                 and w.data_ptr() % 16 == 0)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _lib().block_matmul(_DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
+                             out.data_ptr(), batch, m, n, k, m * k, swb,
+                             vec_ok, stream)
+    if rc != 0:
+        raise RuntimeError(f"block_matmul launch failed: CUDA error {rc}")
+    block_matmul.launches += 1
+    return out
+
+
+block_matmul.launches = 0
+
+
+def _local_mm(x: torch.Tensor, w: torch.Tensor, mm: str) -> torch.Tensor:
+    """The per-chunk product: ``"matmul"`` is ``torch.matmul`` in the input
+    dtype (the JAX package's ``"jnp"``), ``"kernel"`` is ``block_matmul``
+    (its ``"pallas"``), ``"auto"`` picks the kernel for CUDA tensors and
+    ``torch.matmul`` for CPU ones."""
+    if mm == "auto":
+        mm = "kernel" if x.is_cuda else "matmul"
+    if mm == "kernel":
+        return block_matmul(x, w)
+    if mm == "matmul":
+        return torch.matmul(x, w)
+    raise ValueError(f"unknown mm {mm!r}")
+
+
+def ring_matmul_reducescatter(x: torch.Tensor, w: torch.Tensor,
+                              axis: StackedAxis, *,
+                              mm: str = "auto") -> torch.Tensor:
+    """``reduce_scatter(x @ w, rows)`` as a ring.
+
+    x: ``[p, p*n, K]`` (each rank holds a different K-slice of the logical
+    operand), w: ``[p, K, M]`` or a shared ``[K, M]`` -> ``[p, n, M]``
+    summed over ranks.  At step s rank r adds its contribution to row
+    block ``(r + p-1-s) % p`` into the accumulator it received, then
+    passes the accumulator one rank on."""
+    p = axis.size
+    out_dtype = torch.promote_types(x.dtype, w.dtype)
+    if p == 1:
+        return _local_mm(x, w, mm).to(out_dtype)
+    rows = x.shape[1]
+    if rows % p:
+        raise ValueError(f"rows {rows} not divisible by axis size {p}")
+    n = rows // p
+    idx = axis.index()
+    lanes = x.reshape((p, p, n) + tuple(x.shape[2:]))
+    acc = None
+    for s in range(p):
+        blk = lanes[idx, (idx + (p - 1 - s)) % p]
+        contrib = _local_mm(blk, w, mm).to(out_dtype)
+        acc = contrib if acc is None else acc + contrib
+        if s < p - 1:
+            acc = axis.pshift(acc, ring_perm(p, 1))
+    return acc

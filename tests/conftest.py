@@ -36,6 +36,8 @@ except ImportError:
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (subprocess SPMD / dryrun)")
+    config.addinivalue_line(
+        "markers", "needs_cuda: runs only where a CUDA device is present")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,108 @@
+"""The port on a CUDA card: each kernel against its plain version, the
+wrappers' checks, and the dispatcher's paths through the kernels.
+
+Every test here needs the card (``needs_cuda``) and skips elsewhere; the
+file imports only torch and the port, so it runs where JAX is absent:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+Tolerances: placement is a copy (exact).  The block matmul accumulates in
+float32 like its plain version but in another order: float32 is held to
+``1e-5`` of the output's magnitude, a 16-bit output to one rounding step
+(``2**-7`` relative).
+"""
+import pytest
+import torch
+
+from _torch_cuda import cuda, needs_cuda  # noqa: F401
+
+from repro_torch.core import api, selfcheck
+from repro_torch.core._axis import StackedAxis
+from repro_torch.kernels import collective_matmul as cmm
+from repro_torch.kernels.pack import guideline_pack, guideline_pack_plain
+
+SHAPES = [(128, 128, 128), (192, 64, 96), (100, 33, 17), (5, 256, 128),
+          (512, 1024, 3072)]
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8,
+                                   torch.int32])
+@pytest.mark.parametrize("R,n,d,p", [(4, 37, 11, 5), (1, 1, 1, 7),
+                                     (8, 512, 3072, 8)])
+def test_pack_kernel_matches_plain(cuda, dtype, R, n, d, p):
+    g = torch.Generator(device="cpu").manual_seed(R + n + d)
+    x = (torch.randn(R, n, d, generator=g) * 20).to(dtype).to(cuda)
+    idx = torch.randint(0, p, (R,), generator=g).to(torch.int32).to(cuda)
+    before = guideline_pack.launches
+    got = guideline_pack(x, idx, p)
+    torch.cuda.synchronize()
+    assert guideline_pack.launches == before + 1
+    assert torch.equal(got, guideline_pack_plain(x, idx, p))
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("shared_w", [False, True])
+def test_block_matmul_kernel_matches_plain(cuda, dtype, m, k, n, shared_w):
+    g = torch.Generator(device="cpu").manual_seed(m + k + n)
+    x = torch.randn(2, m, k, generator=g).to(dtype).to(cuda)
+    w = (torch.randn(*(() if shared_w else (2,)), k, n, generator=g)
+         * k ** -0.5).to(dtype).to(cuda)
+    before = cmm.block_matmul.launches
+    got = cmm.block_matmul(x, w)
+    torch.cuda.synchronize()
+    assert cmm.block_matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (2, m, n)
+    want = cmm.block_matmul_plain(x, w).float()
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    assert float((got.float() - want).abs().max()) <= tol * max(
+        1.0, float(want.abs().max()))
+
+
+@needs_cuda
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.ones(4, 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        cmm.block_matmul(x, x.T.contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        cmm.block_matmul(torch.ones(8, 4, device=cuda).T,
+                         torch.ones(8, 2, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        guideline_pack(torch.ones(1, 8, 4, device=cuda).transpose(1, 2),
+                       torch.zeros(1, dtype=torch.int32, device=cuda), 2)
+    with pytest.raises(ValueError, match="idx on"):
+        guideline_pack(torch.ones(1, 8, 4, device=cuda),
+                       torch.zeros(1, dtype=torch.int32), 2)
+
+
+@needs_cuda
+@pytest.mark.parametrize("p", [8, 6, 3])
+def test_selfcheck_on_card(cuda, p):
+    rep = selfcheck.run(p, cuda)
+    assert rep["failures"] == [] and rep["total"] >= 40
+
+
+@needs_cuda
+def test_dispatch_goes_through_both_kernels(cuda):
+    p = 8
+    axis = StackedAxis(p, cuda)
+    x = torch.randn(p, 16, 64, device=cuda, dtype=torch.bfloat16)
+    xm = torch.randn(p, p * 16, 32, device=cuda, dtype=torch.bfloat16)
+    w = torch.randn(p, 32, 64, device=cuda, dtype=torch.bfloat16)
+    pk, mm = guideline_pack.launches, cmm.block_matmul.launches
+    with api.tuned(force={"allgather": "allgather_as_allreduce",
+                          "matmul_reducescatter": "fused_ring"}) as ctx:
+        got = api.allgather(x, axis)
+        ring = api.matmul_reducescatter(xm, w, axis)
+    torch.cuda.synchronize()
+    assert guideline_pack.launches == pk + 1
+    assert cmm.block_matmul.launches == mm + p
+    assert torch.equal(got, api.allgather(x, axis, impl="default"))
+    dflt = api.matmul_reducescatter(xm, w, axis, impl="default").float()
+    assert float((ring.float() - dflt).abs().max()) <= 2.0 ** -4 * max(
+        1.0, float(dflt.abs().max()))
+    assert [r.impl for r in ctx.record] == ["allgather_as_allreduce",
+                                            "fused_ring"]
