@@ -160,11 +160,13 @@ def _make_cell(op: str, payload: torch.Tensor, axis: StackedAxis,
     role = OP_MM_ROLE.get(op)
     if role is None:
         return OpCell(op, p, nbytes, dtype)
-    if role != "scatter":
+    if role == "gather":     # payload x [n, K] per rank, rows gathered
+        mm_k, mm_m = payload.shape[-1], p * payload.shape[1]
+    elif role == "scatter":  # payload x [p*n, K] per rank, rows scattered
+        mm_k, mm_m = payload.shape[-1], payload.shape[1]
+    else:
         raise KeyError(f"op {op!r} is not ported")
-    # payload x [p*n, K] per rank, rows scattered; w [K, M]
-    mm_k, mm_m = payload.shape[-1], payload.shape[1]
-    mm_n = kw["w"].shape[-1]
+    mm_n = kw["w"].shape[-1]   # w [K, M]
     return OpCell(op, p, nbytes, dtype, mm_k, mm_m, mm_n, role)
 
 
@@ -284,6 +286,16 @@ def scan(x, axis: StackedAxis, *, op: str = "add", impl: str | None = None):
 
 def exscan(x, axis: StackedAxis, *, op: str = "add", impl: str | None = None):
     return _dispatch("exscan", x, axis, impl, op=op)
+
+
+def allgather_matmul(x, w, axis: StackedAxis, *, impl: str | None = None,
+                     return_gathered: bool = False):
+    """``all_gather(x, rows) @ w``: ``x [p, n, K]``, ``w [p, K, M]`` or a
+    shared ``[K, M]`` -> ``[p, p*n, M]``; with ``return_gathered`` also
+    ``all_gather(x)`` ``[p, p*n, K]``.  Fused-vs-unfused is a tuner
+    decision; the dispatch key is the per-rank bytes of ``x``."""
+    return _dispatch("allgather_matmul", x, axis, impl, w=w,
+                     return_gathered=return_gathered)
 
 
 def matmul_reducescatter(x, w, axis: StackedAxis, *,

@@ -19,6 +19,8 @@ scatter         ``[p*n, ...]`` (valid on root)  ``[n, ...]``
 reduce          ``[n, ...]``                    ``[n, ...]`` (valid on root)
 scan            ``[n, ...]``                    inclusive prefix over ranks
 exscan          ``[n, ...]``                    exclusive prefix over ranks
+allgather_      x ``[n, K]``, w ``[K, M]``      ``[p*n, M]``:
+matmul                                          ``all_gather(x) @ w``
 matmul_         x ``[p*n, K]``, w ``[K, M]``    ``[n, M]``: reduce_scatter
 reducescatter                                   of ``x @ w``
 =============== =============================== ===========================
@@ -42,6 +44,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core._axis import StackedAxis, ring_perm, shift_perm
+from repro_torch.core.cell import OP_MM_ROLE
 from repro_torch.kernels.pack import guideline_pack
 
 # ---------------------------------------------------------------------------
@@ -549,6 +552,28 @@ def scatter_as_tree(x, axis: StackedAxis, *, root: int = 0, **_):
 # ---------------------------------------------------------------------------
 
 
+def allgather_matmul_default(x, axis: StackedAxis, *, w,
+                             return_gathered: bool = False, **_):
+    """Unfused composition: all-gather then one dense matmul."""
+    g = axis.all_gather(x)
+    out = torch.matmul(g, w)
+    return (out, g) if return_gathered else out
+
+
+def allgather_matmul_fused_ring(x, axis: StackedAxis, *, w,
+                                return_gathered: bool = False, **_):
+    """(⊕) ring allgather-matmul: chunk s+1 moves while chunk s is
+    multiplied.  The backend check lives here, not at the callsites: a
+    CUDA operand runs the one-kernel ring, a CPU one the ppermute ring."""
+    if x.is_cuda:
+        from repro_torch.kernels import collective_matmul_rdma as rdma
+        return rdma.ring_allgather_matmul_rdma(
+            x, w, axis, return_gathered=return_gathered)
+    from repro_torch.kernels import collective_matmul as cmm
+    return cmm.ring_allgather_matmul(x, w, axis,
+                                     return_gathered=return_gathered)
+
+
 def matmul_reducescatter_default(x, axis: StackedAxis, *, w, **_):
     """Unfused composition: one dense matmul then reduce-scatter."""
     return axis.psum_scatter(torch.matmul(x, w))
@@ -701,6 +726,14 @@ def _reg() -> dict[str, dict[str, Impl]]:
         mk("default", "exscan", exscan_default, None, _nb0),
     ]}
 
+    r["allgather_matmul"] = {i.name: i for i in [
+        mk("default", "allgather_matmul", allgather_matmul_default, None,
+           lambda n, p: p * n, desc="all_gather then dense matmul (unfused)"),
+        mk("fused_ring", "allgather_matmul", allgather_matmul_fused_ring,
+           "EXT", lambda n, p: p * n + 2 * n,
+           desc="ring overlap: chunk matmul while next chunk in flight"),
+    ]}
+
     r["matmul_reducescatter"] = {i.name: i for i in [
         mk("default", "matmul_reducescatter", matmul_reducescatter_default,
            None, lambda n, p: n, desc="dense matmul then psum_scatter"),
@@ -728,8 +761,11 @@ REGISTRY: dict[str, dict[str, Impl]] = _reg()
 
 OPS = tuple(REGISTRY.keys())
 
+#: the fused collective-matmul ops (their cells carry a GEMM geometry)
+FUSED_OPS = tuple(op for op in OPS if op in OP_MM_ROLE)
+
 #: the plain (non-fused) collectives
-FLAT_OPS = tuple(op for op in OPS if op != "matmul_reducescatter")
+FLAT_OPS = tuple(op for op in OPS if op not in FUSED_OPS)
 
 # ---------------------------------------------------------------------------
 # demotion ledger: impls removed from the admissible set at runtime

@@ -27,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
-from repro_torch.core.collectives import REGISTRY
+from repro_torch.core.collectives import FUSED_OPS, REGISTRY
 
 
 @dataclasses.dataclass(frozen=True)
@@ -333,6 +333,15 @@ def latency(op: str, impl: str, p: int, nbytes: int, topo: Topo,
         ("scan", "scan_as_exscan_reducelocal"):
             lambda: scan_cost(B) + topo.alpha + B * (topo.beta + topo.gamma),
         ("exscan", "default"): lambda: scan_cost(B) + topo.alpha + B * topo.beta,
+        # ---- allgather_matmul (B = per-shard contribution bytes of x;
+        # the matmul touches p·B/4 gathered elements): unfused =
+        # collective PLUS matmul, fused = per-step max ----
+        ("allgather_matmul", "default"):
+            lambda: ag(B) + t_fused_matmul(p * B / 4.0, topo),
+        ("allgather_matmul", "fused_ring"):
+            lambda: t_overlapped_ring(
+                p, topo.alpha + B * topo.beta,
+                t_fused_matmul(p * B / 4.0, topo), topo),
         # ---- matmul_reducescatter (B = total input-buffer bytes of x, p
         # row blocks); geometry-less: each ring step moves one reduced
         # output block (~B/p, canonical square-ish K≈M) and reduces it ----
@@ -362,20 +371,27 @@ def latency_cell(cell, impl: str, topo: Topo, *,
                  chunk_bytes: int = 0) -> float:
     """Modeled latency of one ``OpCell``.  Plain cells (and fused cells
     without recorded geometry) use the canonical ``latency`` table; a
-    ``matmul_reducescatter`` cell with a recorded GEMM is priced from its
-    true flops ``2·K·M·N`` and true output-block bytes."""
+    fused cell with a recorded GEMM is priced from its true flops
+    ``2·K·M·N``: the allgather-matmul ring's steps move the per-rank
+    payload, the matmul-reducescatter ring's its true output blocks."""
     if not cell.fused:
         return latency(cell.op, impl, cell.p, cell.nbytes, topo,
                        chunk_bytes=chunk_bytes)
     p = cell.p
     if p <= 1:
         return 0.0
-    if cell.op != "matmul_reducescatter":
+    if cell.op not in FUSED_OPS:
         raise KeyError(f"no geometry cost model for {cell.op!r}")
     imp = REGISTRY[cell.op][impl]
     if imp.requires_pow2 and not _is_pow2(p):
         return math.inf
     mm = 2.0 * cell.mm_k * cell.mm_m * cell.mm_n / topo.matmul_flops
+    if cell.op == "allgather_matmul":
+        # the x chunk is all-gathered over the axis; steps move its bytes
+        if impl == "default":
+            return latency("allgather", "default", p, cell.nbytes, topo) + mm
+        B = float(max(cell.nbytes, 1))
+        return t_overlapped_ring(p, topo.alpha + B * topo.beta, mm, topo)
     bt_out = float(cell.mm_m * cell.mm_n * cell.itemsize)
     if impl == "default":
         return mm + latency("reducescatter", "default", p, int(bt_out), topo)

@@ -29,7 +29,7 @@ from repro_torch.core._axis import StackedAxis
 from repro_torch.core.cell import OpCell
 
 #: ops whose cells carry a fused-matmul geometry the replay must honor
-MATMUL_OPS = ("matmul_reducescatter",)
+MATMUL_OPS = C.FUSED_OPS
 
 
 def problem_shapes(cell: OpCell) -> dict[str, tuple[int, ...]]:
@@ -45,6 +45,9 @@ def problem_shapes(cell: OpCell) -> dict[str, tuple[int, ...]]:
             raise ValueError(
                 f"cell {cell} has no recorded matmul geometry; a fused op "
                 "cannot be replayed without it (v1 trace?)")
+        if cell.op == "allgather_matmul":
+            return {"x": (max(1, cell.mm_m // p), cell.mm_k),
+                    "w": (cell.mm_k, cell.mm_n)}
         rows = max(p, (cell.mm_m // p) * p)   # the scatter must divide
         return {"x": (rows, cell.mm_k), "w": (cell.mm_k, cell.mm_n)}
     itemsize = cell.itemsize

@@ -85,6 +85,10 @@ def run(p: int = 8, device=None, *, seed: int = 42,
         check(f"exscan/{nm}", fn(dev(x), axis), wantscan - x)
 
     wm = rng.normal(size=(w, 4)).astype(np.float32)
+    want_agmm = full @ wm
+    for nm, fn in impls("allgather_matmul"):
+        check(f"allgather_matmul/{nm}", fn(dev(x), axis, w=dev(wm)),
+              np.broadcast_to(want_agmm, (p,) + want_agmm.shape))
     want_mmrs = (xb @ wm).sum(0).reshape(p, n, 4)
     for nm, fn in impls("matmul_reducescatter"):
         check(f"matmul_reducescatter/{nm}", fn(dev(xb), axis, w=dev(wm)),

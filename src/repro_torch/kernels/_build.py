@@ -24,7 +24,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()                      # guards _NAME_LOCKS
+_NAME_LOCKS: dict[str, threading.Lock] = {}   # one build per library
 
 
 def build_dir() -> pathlib.Path:
@@ -52,15 +53,18 @@ def _nvcc() -> str:
 
 def cuda_library(name: str, sources: list[str]) -> ctypes.CDLL:
     """Compile ``csrc/<sources>`` into ``build/kernels/lib<name>-<hash>.so``
-    (once per source content) and load it.  The ptxas report (registers,
-    shared memory, spills) is kept beside it as ``<name>.log``."""
+    (once per content of the sources and the ``csrc/*.cuh`` headers) and
+    load it.  The ptxas report (registers, shared memory, spills) is kept
+    beside it as ``<name>.log``."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:      # libraries of other names build at the same time
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
         paths = [CSRC / s for s in sources]
         h = hashlib.sha256()
-        for p in paths:
+        for p in paths + sorted(CSRC.glob("*.cuh")):   # with the headers
             h.update(p.read_bytes())
         out = build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
         if not out.exists():

@@ -1,5 +1,5 @@
 """Collective matmul on the stacked axis: the block-matmul kernel and the
-matmul-reducescatter ring.
+ppermute rings of allgather-matmul and matmul-reducescatter.
 
 ``block_matmul`` is the Hopper counterpart of the TPU kernel
 ``repro/kernels/collective_matmul.py:pallas_matmul``: ``x @ w`` with a
@@ -7,6 +7,11 @@ float32 accumulator, output dtype ``promote_types(x, w)``.  Its CUDA
 source, with the bound it works against, is ``csrc/block_matmul.cu``.
 It takes an optional leading batch dim, so one launch covers every
 stacked rank of a ring step (a 2-D ``w`` is shared by the whole batch).
+
+``ring_allgather_matmul`` is the JAX package's tier-1 ring: chunk s+1 is
+shifted one rank on while chunk s is multiplied.  It is the CPU path of
+``allgather_matmul``'s ``fused_ring``; on CUDA that impl runs the
+one-kernel ring of ``collective_matmul_rdma``.
 
 ``ring_matmul_reducescatter`` is the ``fused_ring`` mock-up of
 ``matmul_reducescatter``: the travelling accumulator picks up one row
@@ -110,6 +115,41 @@ def _local_mm(x: torch.Tensor, w: torch.Tensor, mm: str) -> torch.Tensor:
     if mm == "matmul":
         return torch.matmul(x, w)
     raise ValueError(f"unknown mm {mm!r}")
+
+
+def ring_allgather_matmul(x: torch.Tensor, w: torch.Tensor,
+                          axis: StackedAxis, *,
+                          return_gathered: bool = False, mm: str = "auto"):
+    """``all_gather(x, rows) @ w`` as a ring.
+
+    x: ``[p, n, K]``, w: ``[p, K, M]`` or a shared ``[K, M]`` ->
+    ``[p, p*n, M]`` (and, with ``return_gathered``, ``all_gather(x)``
+    ``[p, p*n, K]``).  At step s rank r multiplies the chunk that
+    originated on rank ``r - s`` into its rows, and the shift that brings
+    chunk s+1 is issued before chunk s is consumed."""
+    p = axis.size
+    out_dtype = torch.promote_types(x.dtype, w.dtype)
+    if p == 1:
+        out = _local_mm(x, w, mm).to(out_dtype)
+        return (out, x) if return_gathered else out
+    n = x.shape[1]
+    idx = axis.index()
+    out = torch.zeros((p, p, n, w.shape[-1]), dtype=out_dtype,
+                      device=x.device)
+    gath = (torch.zeros((p, p) + tuple(x.shape[1:]), dtype=x.dtype,
+                        device=x.device) if return_gathered else None)
+    cur = x
+    for s in range(p):
+        nxt = axis.pshift(cur, ring_perm(p, 1)) if s < p - 1 else None
+        src = (idx - s) % p                # originating rank of `cur`
+        out[idx, src] = _local_mm(cur, w, mm).to(out_dtype)
+        if return_gathered:
+            gath[idx, src] = cur
+        cur = nxt
+    out = out.view(p, p * n, -1)
+    if return_gathered:
+        return out, gath.view((p, p * n) + tuple(x.shape[2:]))
+    return out
 
 
 def ring_matmul_reducescatter(x: torch.Tensor, w: torch.Tensor,

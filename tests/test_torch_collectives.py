@@ -63,7 +63,7 @@ def run_both(op, nm, p, dtype, seed=0):
     xt = torch.from_numpy(x).to(TORCH_DT[dtype])
     xj = jnp.asarray(x, JAX_DT[dtype])
     axis = StackedAxis(p, device="cpu")
-    if op == "matmul_reducescatter":
+    if op in TC.FUSED_OPS:
         w = rng.integers(-4, 5, size=(3, 4)).astype(np.float32)
         ref = ref_vmap(ref_fn, xj, w=jnp.asarray(w, JAX_DT[dtype]))
         got = port_fn(xt, axis, w=torch.from_numpy(w).to(TORCH_DT[dtype]))

@@ -6,10 +6,11 @@ file imports only torch and the port, so it runs where JAX is absent:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Tolerances: placement is a copy (exact).  The block matmul accumulates in
-float32 like its plain version but in another order: float32 is held to
-``1e-5`` of the output's magnitude, a 16-bit output to one rounding step
-(``2**-7`` relative).
+Tolerances: placement is a copy (exact), and so is the ring's gathered
+output.  The block matmul and the ring accumulate in float32 like their
+plain versions but in another order: float32 is held to ``1e-5`` of the
+output's magnitude, a 16-bit output to one rounding step (``2**-7``
+relative).
 """
 import pytest
 import torch
@@ -19,6 +20,7 @@ from _torch_cuda import cuda, needs_cuda  # noqa: F401
 from repro_torch.core import api, selfcheck
 from repro_torch.core._axis import StackedAxis
 from repro_torch.kernels import collective_matmul as cmm
+from repro_torch.kernels import collective_matmul_rdma as rdma
 from repro_torch.kernels.pack import guideline_pack, guideline_pack_plain
 
 SHAPES = [(128, 128, 128), (192, 64, 96), (100, 33, 17), (5, 256, 128),
@@ -106,3 +108,106 @@ def test_dispatch_goes_through_both_kernels(cuda):
         1.0, float(dflt.abs().max()))
     assert [r.impl for r in ctx.record] == ["allgather_as_allreduce",
                                             "fused_ring"]
+
+
+def _mm_err_ok(got, want):
+    want = want.float()
+    tol = 1e-5 if got.dtype == torch.float32 else 2.0 ** -7
+    return float((got.float() - want).abs().max()) <= tol * max(
+        1.0, float(want.abs().max()))
+
+
+def _agmm_operands(cuda, p, n, k, m, dtype, shared_w, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(p, n, k, generator=g).to(dtype).to(cuda)
+    w = (torch.randn(*(() if shared_w else (p,)), k, m, generator=g)
+         * k ** -0.5).to(dtype).to(cuda)
+    return x, w
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("p,n,k,m", [(2, 5, 7, 9), (3, 100, 33, 17),
+                                     (5, 64, 128, 136), (8, 129, 72, 200),
+                                     (8, 512, 3072, 256)])
+@pytest.mark.parametrize("shared_w", [False, True])
+def test_agmm_ring_kernel_matches_plain(cuda, dtype, p, n, k, m, shared_w):
+    x, w = _agmm_operands(cuda, p, n, k, m, dtype, shared_w, p + n + k + m)
+    axis = StackedAxis(p, cuda)
+    before = rdma.ring_allgather_matmul_rdma.launches
+    out, gath = rdma.ring_allgather_matmul_rdma(x, w, axis,
+                                                return_gathered=True)
+    torch.cuda.synchronize()
+    assert rdma.ring_allgather_matmul_rdma.launches == before + 1
+    want, want_g = rdma.ring_allgather_matmul_rdma_plain(
+        x, w, return_gathered=True)
+    assert out.dtype == dtype and out.shape == (p, p * n, m)
+    assert torch.equal(gath, want_g)
+    assert torch.equal(gath, x.reshape(1, p * n, k).expand(p, -1, -1))
+    assert _mm_err_ok(out, want)
+    again = rdma.ring_allgather_matmul_rdma(x, w, axis)   # flags re-zeroed
+    assert torch.equal(again, out)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,n,k,m", [(4, 5, 7, 9), (3, 64, 256, 128)])
+def test_agmm_blocks_kernel_matches_plain_for_every_rank(cuda, dtype, p, n,
+                                                         k, m):
+    x, w = _agmm_operands(cuda, p, n, k, m, dtype, True, 7)
+    for my in range(p):
+        before = rdma.ring_allgather_matmul_blocks.launches
+        out, gath = rdma.ring_allgather_matmul_blocks(x, w, my)
+        torch.cuda.synchronize()
+        assert rdma.ring_allgather_matmul_blocks.launches == before + 1
+        want, want_g = rdma.ring_allgather_matmul_blocks_plain(x, w, my)
+        assert torch.equal(gath, want_g)
+        assert _mm_err_ok(out, want)
+
+
+@needs_cuda
+def test_agmm_ring_at_p1_is_block_matmul(cuda):
+    x, w = _agmm_operands(cuda, 1, 16, 32, 24, torch.bfloat16, True, 3)
+    before = (rdma.ring_allgather_matmul_rdma.launches,
+              cmm.block_matmul.launches)
+    out, gath = rdma.ring_allgather_matmul_rdma(x, w, StackedAxis(1, cuda),
+                                                return_gathered=True)
+    assert (rdma.ring_allgather_matmul_rdma.launches,
+            cmm.block_matmul.launches) == (before[0], before[1] + 1)
+    assert gath is x and torch.equal(out, cmm.block_matmul(x, w))
+
+
+@needs_cuda
+def test_agmm_ring_refuses_what_it_does_not_take(cuda):
+    axis = StackedAxis(2, cuda)
+    x = torch.ones(2, 4, 8, device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        rdma.ring_allgather_matmul_rdma(x, torch.ones(8, 4, device=cuda,
+                                                      dtype=torch.bfloat16),
+                                        axis)
+    with pytest.raises(ValueError, match="contiguous"):
+        rdma.ring_allgather_matmul_rdma(x, torch.ones(4, 8, device=cuda).T,
+                                        axis)
+    with pytest.raises(ValueError, match="x must be"):
+        rdma.ring_allgather_matmul_rdma(x[0], torch.ones(8, 4, device=cuda),
+                                        axis)
+
+
+@needs_cuda
+def test_allgather_matmul_fused_ring_launches_the_ring_kernel(cuda):
+    p = 8
+    axis = StackedAxis(p, cuda)
+    x, w = _agmm_operands(cuda, p, 64, 256, 128, torch.bfloat16, False, 5)
+    ring, mm = rdma.ring_allgather_matmul_rdma.launches, \
+        cmm.block_matmul.launches
+    with api.tuned(force={"allgather_matmul": "fused_ring"}) as ctx:
+        got, gath = api.allgather_matmul(x, w, axis, return_gathered=True)
+    torch.cuda.synchronize()
+    assert rdma.ring_allgather_matmul_rdma.launches == ring + 1
+    assert cmm.block_matmul.launches == mm
+    want, want_g = api.allgather_matmul(x, w, axis, impl="default",
+                                        return_gathered=True)
+    assert torch.equal(gath, want_g)
+    assert _mm_err_ok(got, want)
+    assert [r.impl for r in ctx.record] == ["fused_ring"]

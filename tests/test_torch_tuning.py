@@ -458,30 +458,29 @@ def _weights(rng):
     x = rng.integers(-3, 4, size=(P, N, D)).astype(np.float32)
     wv = rng.integers(-1, 2, size=(P, D, D // P)).astype(np.float32)
     wo = rng.integers(-1, 2, size=(P, D // P, D)).astype(np.float32)
-    wu = rng.integers(-1, 2, size=(P, D, 2 * D // P)).astype(np.float32)
+    wgu = rng.integers(-1, 2, size=(P, D, 4 * D // P)).astype(np.float32)
     wd = rng.integers(-1, 2, size=(P, 2 * D // P, D)).astype(np.float32)
-    return x, wv, wo, wu, wd
+    return x, wv, wo, wgu, wd
 
 
-def block_port(axis, x, wv, wo, wu, wd):
+def block_port(axis, x, wv, wo, wgu, wd):
     """One sequence-parallel block: all-gather, a stand-in attention
-    projection, matmul-reducescatter, all-gather, up-projection,
-    matmul-reducescatter."""
+    projection, matmul-reducescatter, the gate/up allgather-matmul, a
+    gated linear unit (relu keeps integer values exact), and the
+    MLP-down matmul-reducescatter."""
     h = tapi.allgather(x, axis)
     o = tapi.matmul_reducescatter(torch.matmul(h, wv), wo, axis)
     x2 = x + o
-    h2 = tapi.allgather(x2, axis)
-    u = torch.relu(torch.matmul(h2, wu))
-    return x2 + tapi.matmul_reducescatter(u, wd, axis)
+    g, u = tapi.allgather_matmul(x2, wgu, axis).chunk(2, dim=-1)
+    return x2 + tapi.matmul_reducescatter(torch.relu(g) * u, wd, axis)
 
 
-def block_ref(x, wv, wo, wu, wd):
+def block_ref(x, wv, wo, wgu, wd):
     h = rapi.allgather(x, "x")
     o = rapi.matmul_reducescatter(jnp.matmul(h, wv), wo, "x")
     x2 = x + o
-    h2 = rapi.allgather(x2, "x")
-    u = jax.nn.relu(jnp.matmul(h2, wu))
-    return x2 + rapi.matmul_reducescatter(u, wd, "x")
+    g, u = jnp.split(rapi.allgather_matmul(x2, wgu, "x"), 2, axis=-1)
+    return x2 + rapi.matmul_reducescatter(jax.nn.relu(g) * u, wd, "x")
 
 
 def _run_ref(ws, **ctx):
@@ -517,7 +516,8 @@ def test_whole_slice_on_cpu_matches_reference(tmp_path):
         ttr, rtr = ttrace.Trace.from_context(tctx), rtrace.Trace.from_context(
             rctx)
         assert ttr.to_jsonl() == rtr.to_jsonl()
-        assert ttr.ops() == ["allgather", "matmul_reducescatter"]
+        assert ttr.ops() == ["allgather", "allgather_matmul",
+                             "matmul_reducescatter"]
         # 3. replay the trace, then dispatch under the phase profiles
         for topo, rtopo in TOPOS:
             trr = ttuner.tune_trace(ttr, ttuner.CostModelBackend(topo))
@@ -537,6 +537,7 @@ def test_whole_slice_on_cpu_matches_reference(tmp_path):
                                                          max_nrep=5))
     assert {m.op for m in mrep.measurements} == set(ttr.ops())
     with tapi.tuned(force={"matmul_reducescatter": "fused_ring",
+                           "allgather_matmul": "fused_ring",
                            "allgather": "allgather_as_allreduce"}):
         forced = block_port(axis, *(torch.from_numpy(a) for a in ws))
     np.testing.assert_array_equal(to_np(forced), got)
