@@ -8,23 +8,32 @@ Phases (each raises on failure; nothing is caught):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the kernels from the sources in the checkout (set-up time):
    one ``nvcc`` each for the block matmul and the all-gather-matmul ring,
-   and the Triton JIT for guideline_pack, all started together;
+   and the Triton JIT for guideline_pack, quant_pack and dequant_unpack,
+   all started together;
 3. each kernel against its plain PyTorch version at the slice's shapes and
    at ragged shapes: max error, tolerance, kernel ms, plain ms, the bound,
    and the one PyTorch call that computes the same function, where there
-   is one; the ring's block tier (kernel 4) for every rank;
-4. ``selfcheck`` of every impl at p = 8 and p = 6;
-5. fit an ``h100-stacked`` Topo from ``sweep_axis`` (alpha, beta, gamma);
+   is one; the ring's block tier (kernel 4) for every rank; the wire
+   kernels' q bytes, scales and dequantized values bit for bit, also at
+   the replay's width-1 allgather payload and the K/V weight block;
+4. ``selfcheck`` of every impl (59) at p = 8 and p = 6, with the wire
+   tolerance gate's demotions;
+5. fit an ``h100-stacked`` Topo from ``sweep_axis`` (alpha, beta, gamma),
+   with ``quant_bw`` from quant_pack's phase-3 rate;
 6. ``tune()`` with the measured backend at p = 8 over the flat ops, and the
-   fused ops at llama3.2-3b's GEMM widths; save and reload the profiles;
+   fused ops at llama3.2-3b's GEMM widths (``matmul_accumulate`` at its
+   K/V projection); save and reload the profiles;
 7. record one llama3.2-3b sequence-parallel block (d_model 3072, d_ff
    8192, 4096 tokens, p = 8 ranks stacked on the card) under the tuned
    profiles as a Trace;
 8. replay it with ``tune_trace`` (measured backend), run the block again
    under the new profiles, check it against the default impls, print the
-   ``#@pgmpi`` footer, and force ``allgather_as_allreduce`` and both
-   ``fused_ring`` impls once so every kernel runs whatever the tuner
-   picked.
+   ``#@pgmpi`` footer, and force ``allgather_as_allreduce``, the three
+   ``fused_ring`` impls, ``wire_q8`` on the allgather and ``wire_fp8`` on
+   the gate/up allgather-matmul once, so every kernel runs whatever the
+   tuner picked;
+9. ``torch.profiler`` over one call of the allgather and matmul_accumulate
+   impls at the block's shapes: host time, and device time by kernel.
 
 Kernel launch counts are zeroed just before phase 6 and read after each of
 phases 6-8; every kernel of the main path must have launched in the tune,
@@ -61,6 +70,7 @@ DEVICE = "cuda"
 
 # llama3.2-3b (src/repro/configs/llama3_2_3b.py) at train_4k
 D_MODEL, D_FF, HEADS, HEAD_DIM, TOKENS, P = 3072, 8192, 24, 128, 4096, 8
+KV = 8 * HEAD_DIM          # the K (or V) projection's width: 8 KV heads
 TUNE_SIZES = (1, 1024, 32768, 1_048_576, 16_777_216)
 
 
@@ -90,11 +100,13 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return s.elapsed_time(e) / iters
 
 
-def main_path_kernels(pack, cmm, rdma) -> dict:
+def main_path_kernels(pack, cmm, rdma, quant) -> dict:
     """The wrappers of the kernels the main path runs, by name."""
     return {"guideline_pack": pack.guideline_pack,
             "block_matmul": cmm.block_matmul,
-            "ring_allgather_matmul_rdma": rdma.ring_allgather_matmul_rdma}
+            "ring_allgather_matmul_rdma": rdma.ring_allgather_matmul_rdma,
+            "quant_pack": quant.quant_pack,
+            "dequant_unpack": quant.dequant_unpack}
 
 
 def counts(wrappers: dict) -> dict:
@@ -113,6 +125,30 @@ def require_launched(phase: str, before: dict, after: dict) -> dict:
     if missing:
         raise RuntimeError(f"{phase}: kernels never launched: {missing}")
     return delta
+
+
+def profile_call(torch, label: str, fn) -> None:
+    """Host time of one call of ``fn`` and its device time by kernel name,
+    from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    log(f"[9] {label}: host {host:.4f} ms, device busy {busy:.4f} ms in "
+        f"{sum(e.count for e in rows)} kernels")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[9]   {e.self_device_time_total / 1e3:9.4f} ms x{e.count:4d} "
+            f"{e.key[:90]}")
 
 
 def block(api, axis, torch, x, wv, wo, wgu, wd):
@@ -157,6 +193,7 @@ def main(argv=None) -> int:
     from repro_torch.core.cell import OpCell
     from repro_torch.kernels import _build, collective_matmul as cmm, pack
     from repro_torch.kernels import collective_matmul_rdma as rdma
+    from repro_torch.kernels import quant
 
     torch.backends.cuda.matmul.allow_tf32 = False     # plain f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
@@ -191,6 +228,7 @@ def main(argv=None) -> int:
     for dt in (torch.float32, torch.bfloat16):     # Triton JIT per dtype
         pack.guideline_pack(torch.ones(1, 4, 4, dtype=dt, device=dev),
                             torch.zeros(1, dtype=torch.int32, device=dev), 2)
+    quant.build()
     for th in threads:
         th.join()
     if errs:
@@ -411,10 +449,93 @@ def main(argv=None) -> int:
         f"ms torch.matmul {rec['library_ms']:.4f} ms bound "
         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
+    # the wire kernels (5 and 6): q bytes, scales and dequantized values
+    # bit-equal with the plain versions (tolerance 0)
+    def wire_case(x, wd, out_dtype, quiet=False):
+        q, s = quant.quant_pack(x, wd)
+        wq, ws = quant.quant_pack_plain(x, wd)
+        out = quant.dequant_unpack(q, s, out_dtype)
+        want = quant.dequant_unpack_plain(q, s, out_dtype)
+        mism = int((q.view(torch.uint8) != wq.view(torch.uint8)).sum())
+        ulp = int((s.view(torch.int32) - ws.view(torch.int32)).abs().max())
+        deq_equal = bool(torch.equal(out, want))
+        label = (f"quant_pack/dequant_unpack {wd} x{list(x.shape)} "
+                 f"{x.dtype} -> {out_dtype}")
+        if not quiet:
+            log(f"[3] {label}: q mismatches {mism}, scales max ulp {ulp}, "
+                f"dequant bit-equal {deq_equal}")
+        if mism or ulp or not deq_equal:
+            raise RuntimeError(f"{label} differs from plain")
+        q_err = float((q.float() - wq.float()).abs().max())
+        deq_err = float((out.float() - want.float()).abs().max())
+        return q, s, q_err, deq_err
+
+    wire_rec = {}
+    for label, xw in (("allgather payload", randn(P, TOKENS // P, D_MODEL)),
+                      ("MLP-down accumulator",
+                       randn(P, TOKENS // P, D_MODEL, dtype=torch.float32,
+                             scale=30.0))):
+        for wd in quant.WIRE_DTYPES:
+            q, s, q_err, deq_err = wire_case(xw, wd, xw.dtype)
+            q_bytes = xw.numel() * (xw.element_size() + 1) + s.numel() * 4
+            q_ms = time_ms(torch, lambda: quant.quant_pack(xw, wd))
+            q_plain = time_ms(torch, lambda: quant.quant_pack_plain(xw, wd))
+            d_ms = time_ms(torch, lambda: quant.dequant_unpack(q, s,
+                                                               xw.dtype))
+            d_plain = time_ms(torch, lambda: quant.dequant_unpack_plain(
+                q, s, xw.dtype))
+            bound = q_bytes / H100_BYTES_PER_S * 1e3
+            log(f"[3] quant_pack {label} x{list(xw.shape)} {xw.dtype} -> "
+                f"{wd}: kernel {q_ms:.4f} ms plain {q_plain:.4f} ms bound "
+                f"{bound:.4f} ms (bytes) = "
+                f"{q_bytes / q_ms / 1e6:.1f} GB/s; dequant_unpack kernel "
+                f"{d_ms:.4f} ms plain {d_plain:.4f} ms bound {bound:.4f} ms")
+            if label == "allgather payload" and wd == "int8":
+                wire_rec["quant_pack"] = dict(
+                    name="quant_pack", route="triton",
+                    source="src/repro_torch/kernels/quant.py",
+                    replaces="src/repro/kernels/quant.py:156",
+                    max_abs_err=q_err, ms=q_ms, plain_ms=q_plain,
+                    bound_ms=bound, bound_by="bytes", library_ms=None)
+                wire_rec["dequant_unpack"] = dict(
+                    name="dequant_unpack", route="triton",
+                    source="src/repro_torch/kernels/quant.py",
+                    replaces="src/repro/kernels/quant.py:188",
+                    max_abs_err=deq_err, ms=d_ms, plain_ms=d_plain,
+                    bound_ms=bound, bound_by="bytes", library_ms=None)
+                quant_bw = q_bytes / (q_ms * 1e-3)
+    kernels.update(wire_rec)
+    # the other shapes the main path gives them: the flat-op replay's
+    # width-1 allgather payload (3 MiB bf16 per rank) and the accumulate
+    # rings' K/V weight block [D_MODEL/P, KV] per rank
+    for label, xw in (("replayed allgather payload",
+                       randn(P, TOKENS // P * D_MODEL, 1)),
+                      ("K/V weight block",
+                       randn(P, D_MODEL // P, KV, scale=D_MODEL ** -0.5))):
+        for wd in quant.WIRE_DTYPES:
+            q, s, _, _ = wire_case(xw, wd, xw.dtype)
+            q_ms = time_ms(torch, lambda: quant.quant_pack(xw, wd))
+            d_ms = time_ms(torch, lambda: quant.dequant_unpack(q, s,
+                                                               xw.dtype))
+            log(f"[3] quant_pack {label} x{list(xw.shape)} -> {wd}: kernel "
+                f"{q_ms:.4f} ms; dequant_unpack kernel {d_ms:.4f} ms")
+    for p_ in (1, 3, 5):
+        for n in (13, 3):
+            for d in (5, 7):
+                for dt in (torch.bfloat16, torch.float32):
+                    for wd in quant.WIRE_DTYPES:
+                        wire_case(randn(p_, n, d, dtype=dt, scale=10.0), wd,
+                                  dt, quiet=True)
+    log("[3] wire kernels ragged (p in 1,3,5; n in 13,3; d in 5,7; bf16, "
+        "f32; int8, e4m3): q mismatches 0, scales max ulp 0, dequant "
+        "bit-equal in all 48 cases")
+
     # -- 4. selfcheck ----------------------------------------------------------
     for p_ in (P, 6):
         rep = selfcheck.run(p_, dev)
         log(f"[4] selfcheck p={p_}: {json.dumps(rep)}")
+        log(f"[4] selfcheck p={p_}: {rep['total']} impls, demoted "
+            f"{rep['demoted'] or 'none'}")
         if rep["failures"]:
             raise RuntimeError(f"selfcheck p={p_} failed: {rep['failures']}")
 
@@ -424,18 +545,20 @@ def main(argv=None) -> int:
     ag = bench.sweep_axis("allgather", sw_sizes, count=9)
     ar = bench.sweep_axis("allreduce", sw_sizes, count=9)
     base = costmodel.Topo("h100-stacked", alpha=0.0, link_bw=1.0, gamma=0.0,
-                          matmul_flops=H100_FLOPS["bfloat16"])
+                          matmul_flops=H100_FLOPS["bfloat16"],
+                          quant_bw=quant_bw)
     topo = costmodel.fit_topo(P, ag, ar, name="h100-stacked", base=base)
     log(f"[5] allgather sweep (bytes, s): {ag}")
     log(f"[5] allreduce sweep (bytes, s): {ar}")
     log(f"[5] fitted {topo.name}: alpha {topo.alpha:.4e} s, beta "
         f"{topo.beta:.4e} s/B (link_bw {topo.link_bw / 1e9:.1f} GB/s), "
-        f"gamma {topo.gamma:.4e} s/B")
+        f"gamma {topo.gamma:.4e} s/B, quant_bw "
+        f"{topo.quant_bw / 1e9:.1f} GB/s (quant_pack, phase 3)")
     report["topo"] = dataclasses.asdict(topo)
     del bench
 
     # ======== the main path: tune -> record -> replay -> dispatch ========
-    wrappers = main_path_kernels(pack, cmm, rdma)
+    wrappers = main_path_kernels(pack, cmm, rdma, quant)
     zero_counts(wrappers)
     c0 = counts(wrappers)
 
@@ -450,7 +573,10 @@ def main(argv=None) -> int:
         for rows in (TOKENS // 4, TOKENS)] + [trace.TraceEntry(OpCell(
             "allgather_matmul", P, rows // P * D_MODEL * 2, "bfloat16",
             D_MODEL, rows, 2 * D_FF // P, "gather"))
-            for rows in (TOKENS // 4, TOKENS)])
+            for rows in (TOKENS // 4, TOKENS)] + [trace.TraceEntry(OpCell(
+                "matmul_accumulate", P, D_MODEL // P * KV * 2, "bfloat16",
+                D_MODEL, rows, KV, "contract"))
+                for rows in (TOKENS // 8, TOKENS)])
     grep = tuner.tune_trace(geo, backend)
     store = trep.profiles
     for ph_store in grep.phase_profiles.values():
@@ -526,14 +652,22 @@ def main(argv=None) -> int:
                           "allgather_matmul": "default",
                           "matmul_reducescatter": "default"}):
         ref = block(api, axis, torch, *ws)
+    # matmul_accumulate at the K/V projection: every rank holds its own
+    # 4096-token sequence and one K-block [384, 1024] of the weight
+    xa = randn(P, TOKENS, D_MODEL)
+    wkv = randn(P, D_MODEL // P, KV, scale=D_MODEL ** -0.5)
     with api.tuned() as ctxf:
         ag_forced = api.allgather(x, axis, impl="allgather_as_allreduce")
         h = api.allgather(x, axis)
+        ag_wire = api.allgather(x, axis, impl="wire_q8")
         a = torch.matmul(h, wv)
         mm_forced = api.matmul_reducescatter(a, wo, axis, impl="fused_ring")
         mm_default = api.matmul_reducescatter(a, wo, axis, impl="default")
         agmm_forced = api.allgather_matmul(x, wgu, axis, impl="fused_ring")
         agmm_default = api.allgather_matmul(x, wgu, axis, impl="default")
+        agmm_wire = api.allgather_matmul(x, wgu, axis, impl="wire_fp8")
+        acc_forced = api.matmul_accumulate(xa, wkv, axis, impl="fused_ring")
+        acc_default = api.matmul_accumulate(xa, wkv, axis, impl="default")
     torch.cuda.synchronize()
     c8b = counts(wrappers)
     require_launched("8 dispatch", c8a, c8b)
@@ -550,6 +684,24 @@ def main(argv=None) -> int:
     tol = (2.0 ** -4 + 2.0 ** -7) * scale
     mm_tol = 2.0 ** -4 * scale
     agmm_tol = 2.0 ** -7 * max(1.0, float(agmm_default.float().abs().max()))
+    # the accumulate ring adds its p partial products in bf16 where the
+    # default rounds once: one bf16 step (2**-8) per partial sum
+    acc_tol = P * 2.0 ** -8 * max(1.0, float(acc_default.float().abs().max()))
+    # the wire impls: the gate's max-norm relative bound, wire_tol(dtype,
+    # wire_hops(op, p)); the bf16 output rounds once more (2**-8)
+    for label, got, want, wd, op in (
+            ("allgather wire_q8", ag_wire, h, "int8", "allgather"),
+            ("allgather_matmul wire_fp8", agmm_wire, agmm_default,
+             "float8_e4m3fn", "allgather_matmul")):
+        rel = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max().clamp_min(1e-30))
+        t = quant.wire_tol(wd, selfcheck.wire_hops(op, P))
+        if op != "allgather":
+            t += 2.0 ** -8
+        log(f"[8] {label} vs default: max-norm relative error {rel:.4e} "
+            f"(tolerance {t:.4e}) shape {list(got.shape)}")
+        if tuple(got.shape) != tuple(want.shape) or not rel <= t:
+            raise RuntimeError(f"{label} breaks its wire tolerance: {rel}")
     for label, got, want, t in (
             ("recorded block", out7, ref, tol),
             ("tuned block", out8, ref, tol),
@@ -557,7 +709,9 @@ def main(argv=None) -> int:
             ("matmul_reducescatter fused_ring", mm_forced, mm_default,
              mm_tol),
             ("allgather_matmul fused_ring", agmm_forced, agmm_default,
-             agmm_tol)):
+             agmm_tol),
+            ("matmul_accumulate fused_ring", acc_forced, acc_default,
+             acc_tol)):
         if tuple(got.shape) != tuple(want.shape) or not bool(
                 torch.isfinite(got.float()).all()):
             raise RuntimeError(f"{label}: bad output {tuple(got.shape)}")
@@ -569,6 +723,15 @@ def main(argv=None) -> int:
 
     main_path = {k: c8b[k] - c0[k] for k in c8b}
     log(f"[main path] kernel launches: {json.dumps(main_path)}")
+
+    # -- 9. where one call's device time goes (after the main path's counts)
+    for nm in ("default", "allgather_as_ring", "wire_q8"):
+        profile_call(torch, f"allgather {nm} x{list(x.shape)}",
+                     lambda: api.allgather(x, axis, impl=nm))
+    for nm in ("default", "fused_ring", "wire_q8"):
+        profile_call(torch, f"matmul_accumulate {nm} x{list(xa.shape)} "
+                     f"w{list(wkv.shape)}",
+                     lambda: api.matmul_accumulate(xa, wkv, axis, impl=nm))
     for k, v in main_path.items():
         kernels[k]["launches"] = v
         kernels[k]["main_path"] = True
@@ -583,7 +746,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [{k: kernels[n][k] for k in order}
                                   for n in ("guideline_pack", "block_matmul",
                                             "ring_allgather_matmul_rdma",
-                                            "ring_allgather_matmul_blocks")]}))
+                                            "ring_allgather_matmul_blocks",
+                                            "quant_pack", "dequant_unpack")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -162,11 +162,15 @@ def _make_cell(op: str, payload: torch.Tensor, axis: StackedAxis,
         return OpCell(op, p, nbytes, dtype)
     if role == "gather":     # payload x [n, K] per rank, rows gathered
         mm_k, mm_m = payload.shape[-1], p * payload.shape[1]
+        mm_n = kw["w"].shape[-1]   # w [K, M]
     elif role == "scatter":  # payload x [p*n, K] per rank, rows scattered
         mm_k, mm_m = payload.shape[-1], payload.shape[1]
+        mm_n = kw["w"].shape[-1]
+    elif role == "contract":  # payload: the streamed w block [K/p, M]
+        mm_k, mm_m = p * payload.shape[1], kw["x"].shape[-2]
+        mm_n = payload.shape[-1]
     else:
         raise KeyError(f"op {op!r} is not ported")
-    mm_n = kw["w"].shape[-1]   # w [K, M]
     return OpCell(op, p, nbytes, dtype, mm_k, mm_m, mm_n, role)
 
 
@@ -304,6 +308,17 @@ def matmul_reducescatter(x, w, axis: StackedAxis, *,
     or a shared ``[K, M]`` -> ``[p, n, M]``; partial products are summed
     over ranks and row block i lands on rank i."""
     return _dispatch("matmul_reducescatter", x, axis, impl, w=w)
+
+
+def matmul_accumulate(x, w, axis: StackedAxis, *, impl: str | None = None,
+                      return_gathered: bool = False):
+    """``x @ all_gather(w, rows)``, the contraction-dim collective matmul:
+    ``w [p, K/p, M]`` (each rank's K-block of the weight; its bytes are the
+    dispatch key, since the collective streams them), ``x [p, T, K]`` or a
+    shared ``[T, K]`` -> ``[p, T, M]``; with ``return_gathered`` also
+    ``all_gather(w)`` ``[p, K, M]``."""
+    return _dispatch("matmul_accumulate", w, axis, impl, x=x,
+                     return_gathered=return_gathered)
 
 
 def format_footer(ctx: TuneContext) -> str:

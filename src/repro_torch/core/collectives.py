@@ -39,12 +39,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 from typing import Callable
 
 import torch
 
 from repro_torch.core._axis import StackedAxis, ring_perm, shift_perm
 from repro_torch.core.cell import OP_MM_ROLE
+from repro_torch.kernels import quant as Q
 from repro_torch.kernels.pack import guideline_pack
 
 # ---------------------------------------------------------------------------
@@ -587,6 +589,115 @@ def matmul_reducescatter_fused_ring(x, axis: StackedAxis, *, w, **_):
     return cmm.ring_matmul_reducescatter(x, w, axis)
 
 
+def matmul_accumulate_default(w, axis: StackedAxis, *, x,
+                              return_gathered: bool = False, **_):
+    """Unfused composition: all-gather the K-dim weight blocks, then one
+    dense matmul over the full contraction."""
+    full = axis.all_gather(w)
+    out = torch.matmul(x, full)
+    return (out, full) if return_gathered else out
+
+
+def matmul_accumulate_fused_ring(w, axis: StackedAxis, *, x,
+                                 return_gathered: bool = False, **_):
+    """(⊕) accumulate ring: weight block s+1 moves while block s's partial
+    product accumulates (block-matmul kernel on CUDA)."""
+    from repro_torch.kernels import collective_matmul as cmm
+    return cmm.ring_matmul_accumulate(x, w, axis,
+                                      return_gathered=return_gathered)
+
+
+# ---------------------------------------------------------------------------
+# quantized-wire mock-ups (wire_q8 / wire_fp8): the ring schedules with the
+# travelling operand compressed to an 8-bit wire dtype plus per-block
+# scales (kernels/quant.py: the quant_pack / dequant_unpack kernels on
+# CUDA, their plain versions on the CPU).  Quantize on send, dequantize on
+# receive, and reductions add in float32 after the dequantization.  These
+# are APPROXIMATE impls: selfcheck's tolerance gate demotes one that breaks
+# its wire tolerance.
+# ---------------------------------------------------------------------------
+
+
+def allgather_wire(x, axis: StackedAxis, *, wire_dtype: str = "int8", **_):
+    """(⊕) ring allgather over the quantized wire: each rank's chunk is
+    quantized ONCE at its origin and the (values, scales) pair travels
+    unchanged; the own chunk never crosses the wire and stays exact."""
+    p = axis.size
+    if p == 1:
+        return x
+    n = _n_rows(x)
+    idx = axis.index()
+    out = x.new_zeros((p, p * n) + tuple(x.shape[2:]))
+    _put(out, axis, idx, x, n)
+    q, sc = Q.quantize(x, wire_dtype)
+    for s in range(1, p):
+        q, sc = Q.wire_shift(axis, q, sc, ring_perm(p, 1))
+        _put(out, axis, (idx - s) % p, Q.dequantize(q, sc, x.dtype), n)
+    return out
+
+
+def reducescatter_wire(x, axis: StackedAxis, *, wire_dtype: str = "int8",
+                       **_):
+    """(⊕) ring reduce-scatter over the quantized wire: the travelling
+    accumulator is requantized before every hop, and local contributions
+    are added to the DEQUANTIZED float32 accumulator."""
+    p = axis.size
+    if p == 1:
+        return x
+    n = _n_rows(x) // p
+    idx = axis.index()
+    acc = None
+    for s in range(p):
+        contrib = _take(x, axis, (idx + (p - 1 - s)) % p, n).to(
+            torch.float32)
+        acc = contrib if acc is None else acc + contrib
+        if s < p - 1:
+            q, sc = Q.wire_shift(axis, *Q.quantize(acc, wire_dtype),
+                               ring_perm(p, 1))
+            acc = Q.dequantize(q, sc, torch.float32)
+    return acc.to(x.dtype)
+
+
+def allreduce_wire(x, axis: StackedAxis, *, wire_dtype: str = "int8", **_):
+    """(⊕) quantized-wire allreduce = padded wire reduce-scatter + wire
+    allgather (the GL6 decomposition with both phases on the wire)."""
+    p = axis.size
+    if p == 1:
+        return x
+    n = _n_rows(x)
+    xp = _pad_rows(x, -(-n // p) * p)
+    red = reducescatter_wire(xp, axis, wire_dtype=wire_dtype)
+    return allgather_wire(red, axis, wire_dtype=wire_dtype)[:, :n]
+
+
+def allgather_matmul_wire(x, axis: StackedAxis, *, w,
+                          wire_dtype: str = "int8",
+                          return_gathered: bool = False, **_):
+    """(⊕) ring allgather-matmul with the activation chunk on the
+    quantized wire."""
+    from repro_torch.kernels import collective_matmul as cmm
+    return cmm.ring_allgather_matmul_wire(
+        x, w, axis, wire_dtype=wire_dtype, return_gathered=return_gathered)
+
+
+def matmul_reducescatter_wire(x, axis: StackedAxis, *, w,
+                              wire_dtype: str = "int8", **_):
+    """(⊕) ring matmul-reducescatter with the travelling accumulator on
+    the quantized wire (requantized per hop, float32 accumulation)."""
+    from repro_torch.kernels import collective_matmul as cmm
+    return cmm.ring_matmul_reducescatter_wire(x, w, axis,
+                                              wire_dtype=wire_dtype)
+
+
+def matmul_accumulate_wire(w, axis: StackedAxis, *, x,
+                           wire_dtype: str = "int8",
+                           return_gathered: bool = False, **_):
+    """(⊕) accumulate ring with the weight block on the quantized wire."""
+    from repro_torch.kernels import collective_matmul as cmm
+    return cmm.ring_matmul_accumulate_wire(
+        x, w, axis, wire_dtype=wire_dtype, return_gathered=return_gathered)
+
+
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
@@ -603,6 +714,10 @@ class Impl:
     extra_bytes: Callable[[int, int], int]
     requires_pow2: bool = False
     desc: str = ""
+    # wire dtype of a quantized-wire mock-up ("int8" / "float8_e4m3fn");
+    # None = the wire carries the compute dtype.  Non-None marks the impl
+    # accuracy-conditional: selfcheck's tolerance gate may demote it.
+    wire_dtype: str | None = None
 
     def __call__(self, x, axis, **kw):
         return self.fn(x, axis, **kw)
@@ -617,8 +732,15 @@ def _nb0(nbytes: int, p: int) -> int:  # no extra memory
 
 
 def _reg() -> dict[str, dict[str, Impl]]:
-    def mk(name, op, fn, gl, extra, pow2=False, desc=""):
-        return Impl(name, op, fn, gl, extra, pow2, desc)
+    def mk(name, op, fn, gl, extra, pow2=False, desc="", wire=None):
+        return Impl(name, op, fn, gl, extra, pow2, desc, wire)
+
+    # the quantized-wire family: one impl per wire dtype, the dtype bound
+    # with partial and recorded on the Impl for the cost model and the gate
+    def mk_wire(op, fn, extra, desc):
+        return [mk(nm, op, partial(fn, wire_dtype=wd), "EXT", extra,
+                   desc=f"MPIX_{op}_{nm[5:]}: {desc}", wire=wd)
+                for nm, wd in Q.WIRE_IMPLS]
 
     r: dict[str, dict[str, Impl]] = {}
 
@@ -637,6 +759,10 @@ def _reg() -> dict[str, dict[str, Impl]]:
            "EXT", lambda n, p: p * n),
         mk("allgather_as_doubling", "allgather", allgather_as_doubling,
            "EXT", lambda n, p: p * n, pow2=True),
+        *mk_wire("allgather", allgather_wire,
+                 lambda n, p: p * n + n // 2,
+                 desc="ring with the chunk on the 8-bit wire "
+                      "(quantized once at origin)"),
     ]}
 
     r["allreduce"] = {i.name: i for i in [
@@ -656,6 +782,9 @@ def _reg() -> dict[str, dict[str, Impl]]:
            desc="chunked RS + AGv (Fig.7 winner)"),
         mk("allreduce_as_doubling", "allreduce", allreduce_as_doubling,
            "EXT", _nb0, pow2=True, desc="recursive doubling (latency-opt)"),
+        *mk_wire("allreduce", allreduce_wire,
+                 lambda n, p: (n + p) + (n + p) // p,
+                 desc="padded wire RS + wire AG (GL6 shape, 8-bit wire)"),
     ]}
 
     r["alltoall"] = {i.name: i for i in [
@@ -713,6 +842,10 @@ def _reg() -> dict[str, dict[str, Impl]]:
            rsb_as_reduce_scatter_irr, "GL18", lambda n, p: p * _I),
         mk("rsb_as_allreduce", "reducescatter", rsb_as_allreduce,
            "GL19", lambda n, p: n),
+        *mk_wire("reducescatter", reducescatter_wire,
+                 lambda n, p: 2 * max(n // p, 1),
+                 desc="ring with the travelling accumulator requantized "
+                      "per hop (f32 accumulate)"),
     ]}
 
     r["scan"] = {i.name: i for i in [
@@ -732,6 +865,9 @@ def _reg() -> dict[str, dict[str, Impl]]:
         mk("fused_ring", "allgather_matmul", allgather_matmul_fused_ring,
            "EXT", lambda n, p: p * n + 2 * n,
            desc="ring overlap: chunk matmul while next chunk in flight"),
+        *mk_wire("allgather_matmul", allgather_matmul_wire,
+                 lambda n, p: p * n + 2 * n + n // 2,
+                 desc="fused ring, activation chunk on the 8-bit wire"),
     ]}
 
     r["matmul_reducescatter"] = {i.name: i for i in [
@@ -741,6 +877,24 @@ def _reg() -> dict[str, dict[str, Impl]]:
            matmul_reducescatter_fused_ring, "EXT",
            lambda n, p: 2 * max(n // p, 1),
            desc="ring overlap: travelling accumulator hides matmul"),
+        *mk_wire("matmul_reducescatter", matmul_reducescatter_wire,
+                 lambda n, p: 2 * max(n // p, 1),
+                 desc="fused ring, partial-product accumulator on the "
+                      "8-bit wire (requantized per hop)"),
+    ]}
+
+    r["matmul_accumulate"] = {i.name: i for i in [
+        mk("default", "matmul_accumulate", matmul_accumulate_default, None,
+           lambda n, p: p * n,
+           desc="all_gather K-dim weight then dense matmul (unfused)"),
+        mk("fused_ring", "matmul_accumulate", matmul_accumulate_fused_ring,
+           "EXT", lambda n, p: p * n + 2 * n,
+           desc="ring overlap: weight block in flight while partials "
+                "accumulate"),
+        *mk_wire("matmul_accumulate", matmul_accumulate_wire,
+                 lambda n, p: p * n + 2 * n + n // 2,
+                 desc="fused ring, weight block on the 8-bit wire "
+                      "(quantized once at origin)"),
     ]}
 
     r["scatter"] = {i.name: i for i in [
@@ -789,6 +943,16 @@ def is_demoted(op: str, name: str) -> bool:
     return (op, name) in _DEMOTED
 
 
+def demotions() -> dict[tuple[str, str], str]:
+    """Snapshot of the current demotion ledger (copy)."""
+    return dict(_DEMOTED)
+
+
 def clear_demotions() -> None:
     _DEMOTED.clear()
+
+
+def impl_names(op: str) -> list[str]:
+    """The registered impls of ``op``, ``default`` first."""
+    return list(REGISTRY[op])
 

@@ -19,15 +19,19 @@ et al. 2007, the paper's [3]):
 The presets below (``V5E_ICI``, ``BGQ_LIKE``) are the JAX
 package's TPU v5e and BlueGene/Q constants, kept only as data for parity
 checks: nothing here defaults to them, and no number they give describes
-a GPU.  A ``Topo`` for the card is fitted from its own sweeps
-(``fit_topo`` over ``measure.Bench.sweep_axis``).
+a GPU (their ``quant_bw`` is the v5e HBM rate).  A ``Topo`` for the card
+is fitted from its own sweeps (``fit_topo`` over
+``measure.Bench.sweep_axis``), and its ``quant_bw`` is the measured rate
+of the quantize kernel.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 
-from repro_torch.core.collectives import FUSED_OPS, REGISTRY
+from repro_torch.core.collectives import FUSED_OPS, REGISTRY, impl_names
+from repro_torch.kernels.quant import WIRE_IMPLS, WIRE_ITEMSIZE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +52,11 @@ class Topo:
     matmul_flops: float = 2.0e14
     fused_mm_cols: int = 8192
     fused_step_overhead: float = 1.5e-6
+    # quantize / dequantize rate of the wire_q8 / wire_fp8 mock-ups (B/s):
+    # bytes one pass reads plus writes, over its time.  No default: a card's
+    # rate is measured (``chip_smoke.py`` times the quant_pack kernel), and
+    # pricing a wire impl without it raises.
+    quant_bw: float | None = None
 
     @property
     def beta(self) -> float:
@@ -56,9 +65,10 @@ class Topo:
 
 # The JAX package's presets (TPU v5e ICI, a BlueGene/Q-like vendor
 # library): parity data only.
-V5E_ICI = Topo("v5e-ici", alpha=1.0e-6, link_bw=50e9, gamma=2.5e-12)
+V5E_ICI = Topo("v5e-ici", alpha=1.0e-6, link_bw=50e9, gamma=2.5e-12,
+               quant_bw=819e9)
 BGQ_LIKE = Topo("bgq-like", alpha=2.0e-6, link_bw=2e9, gamma=4e-12,
-                default_pricing="naive", hw_bcast=True)
+                default_pricing="naive", hw_bcast=True, quant_bw=819e9)
 
 
 def _lstsq_line(points) -> tuple[float, float]:
@@ -186,6 +196,35 @@ def t_linear_rooted(p, B, t: Topo, *, reduce: bool = False):
     """Naive rooted gather/scatter/reduce: root talks to p-1 peers serially."""
     per = t.alpha + B * t.beta + (B * t.gamma if reduce else 0.0)
     return (p - 1) * per
+
+
+# ---------------------------------------------------------------------------
+# quantized-wire pricing (wire_q8 / wire_fp8 mock-ups, kernels/quant.py)
+# ---------------------------------------------------------------------------
+
+#: on-wire overhead of the per-block scales (one float32 per 8 rows), at
+#: its bound for rows of >= 32 bytes: 4 / (8 * 32) * 4 = 1/16
+SCALE_FRAC = 1.0 / 16.0
+
+
+def wire_factor(wire_dtype: str, itemsize: int) -> float:
+    """Bytes-on-wire ratio vs the compute dtype (never > 1: quantizing an
+    8-bit payload does not shrink it)."""
+    return min(1.0, WIRE_ITEMSIZE[wire_dtype] / float(max(itemsize, 1)))
+
+
+def wire_bytes(B: float, itemsize: int, wire_dtype: str) -> float:
+    """Bytes a ``B``-byte compute-dtype payload occupies on the wire."""
+    return B * wire_factor(wire_dtype, itemsize) * (1.0 + SCALE_FRAC)
+
+
+def t_quant(B: float, t: Topo) -> float:
+    """One quantize (or dequantize) pass over ``B`` payload bytes: a
+    streaming read plus write at ``quant_bw``."""
+    if t.quant_bw is None:
+        raise ValueError(f"Topo {t.name!r} has no quant_bw: measure the "
+                         "quantize kernel's rate before pricing a wire impl")
+    return 2.0 * B / t.quant_bw
 
 
 def _pad(B: float, p: int, chunk_bytes: int) -> float:
@@ -351,6 +390,16 @@ def latency(op: str, impl: str, p: int, nbytes: int, topo: Topo,
             lambda: t_overlapped_ring(
                 p, topo.alpha + (B / p) * (topo.beta + topo.gamma),
                 t_fused_matmul(B / 4.0, topo), topo),
+        # ---- matmul_accumulate (B = per-rank K-dim weight-block bytes, the
+        # streamed operand; the contraction touches p·B/4 gathered weight
+        # elements): unfused = weight all-gather PLUS matmul, fused = the
+        # weight block in flight while the partial products accumulate ----
+        ("matmul_accumulate", "default"):
+            lambda: ag(B) + t_fused_matmul(p * B / 4.0, topo),
+        ("matmul_accumulate", "fused_ring"):
+            lambda: t_overlapped_ring(
+                p, topo.alpha + B * topo.beta,
+                t_fused_matmul(p * B / 4.0, topo), topo),
         # ---- scatter (B = total buffer bytes, p chunks) ----
         ("scatter", "default"): lambda: dflt_scatter(B),
         ("scatter", "scatter_as_bcast"): lambda: dflt_bcast(B),
@@ -359,6 +408,50 @@ def latency(op: str, impl: str, p: int, nbytes: int, topo: Topo,
         ("scatter", "scatter_as_tree"):
             lambda: t_tree_scatter_gather(p, B, topo),
     }
+    # ---- quantized-wire mock-ups: the same ring schedules with the
+    # travelling operand at wire width (+ scales) plus quantize/dequantize
+    # passes at quant_bw.  The table carries no dtype (latency_cell does),
+    # so the compute dtype is taken as float32, as the /4.0 element counts
+    # above.  Gather-style wires quantize once and dequantize p-1 received
+    # chunks (p passes of B); travelling accumulators requantize and
+    # dequantize every hop (2(p-1) passes of B/p). ----
+    it = 4
+    for nm, wd in WIRE_IMPLS:
+        Bw = wire_bytes(B, it, wd)
+        Bwp = wire_bytes(B / p, it, wd)
+
+        def rs_wire(Bt, Btw):
+            # bytes move at wire width, the float32 accumulate (γ) is
+            # full-width, two quant passes per hop
+            return ((p - 1) * topo.alpha
+                    + (p - 1) / p * Btw * topo.beta
+                    + (p - 1) / p * Bt * topo.gamma
+                    + 2 * (p - 1) / p * t_quant(Bt, topo))
+
+        def ag_wire(Bc, Bcw):
+            # one quant + (p-1) dequant passes
+            return t_ring_allgather(p, Bcw, topo) + p * t_quant(Bc, topo)
+
+        def gather_mm(Bw=Bw):
+            return t_overlapped_ring(
+                p, topo.alpha + Bw * topo.beta,
+                t_fused_matmul(p * B / 4.0, topo) + p * t_quant(B, topo),
+                topo)
+
+        table.update({
+            ("allgather", nm): partial(ag_wire, B, Bw),
+            ("reducescatter", nm): partial(rs_wire, B, Bw),
+            ("allreduce", nm):
+                lambda rs=partial(rs_wire, B, Bw),
+                       ag=partial(ag_wire, B / p, Bwp): rs() + ag(),
+            ("allgather_matmul", nm): gather_mm,
+            ("matmul_accumulate", nm): gather_mm,
+            ("matmul_reducescatter", nm):
+                lambda Bwp=Bwp: t_overlapped_ring(
+                    p, topo.alpha + Bwp * topo.beta + (B / p) * topo.gamma,
+                    t_fused_matmul(B / 4.0, topo)
+                    + 2 * p * t_quant(B / p, topo), topo),
+        })
     key = (op, impl)
     if key not in table:
         raise KeyError(f"no cost model for {key}")
@@ -372,8 +465,10 @@ def latency_cell(cell, impl: str, topo: Topo, *,
     """Modeled latency of one ``OpCell``.  Plain cells (and fused cells
     without recorded geometry) use the canonical ``latency`` table; a
     fused cell with a recorded GEMM is priced from its true flops
-    ``2·K·M·N``: the allgather-matmul ring's steps move the per-rank
-    payload, the matmul-reducescatter ring's its true output blocks."""
+    ``2·K·M·N``: the allgather-matmul and matmul-accumulate rings' steps
+    move the per-rank payload, the matmul-reducescatter ring's its true
+    output blocks; a wire impl moves wire bytes and adds its quantize and
+    dequantize passes."""
     if not cell.fused:
         return latency(cell.op, impl, cell.p, cell.nbytes, topo,
                        chunk_bytes=chunk_bytes)
@@ -386,17 +481,33 @@ def latency_cell(cell, impl: str, topo: Topo, *,
     if imp.requires_pow2 and not _is_pow2(p):
         return math.inf
     mm = 2.0 * cell.mm_k * cell.mm_m * cell.mm_n / topo.matmul_flops
-    if cell.op == "allgather_matmul":
-        # the x chunk is all-gathered over the axis; steps move its bytes
+    if cell.op in ("allgather_matmul", "matmul_accumulate"):
+        # the streamed operand is all-gathered over the axis; steps move
+        # its bytes
         if impl == "default":
             return latency("allgather", "default", p, cell.nbytes, topo) + mm
         B = float(max(cell.nbytes, 1))
-        return t_overlapped_ring(p, topo.alpha + B * topo.beta, mm, topo)
+        step_b = B
+        if imp.wire_dtype:
+            # gather-style wire: steps move wire bytes; 1 quant + (p-1)
+            # dequant passes fold into the overlappable compute
+            step_b = wire_bytes(B, cell.itemsize, imp.wire_dtype)
+            mm = mm + p * t_quant(B, topo)
+        return t_overlapped_ring(p, topo.alpha + step_b * topo.beta, mm,
+                                 topo)
     bt_out = float(cell.mm_m * cell.mm_n * cell.itemsize)
     if impl == "default":
         return mm + latency("reducescatter", "default", p, int(bt_out), topo)
     blk = bt_out / p
     step = topo.alpha + blk * (topo.beta + topo.gamma)
+    if imp.wire_dtype:
+        # travelling accumulator on the wire: block bytes shrink, the
+        # float32 accumulate (γ) stays full-width, requantize + dequantize
+        # per hop fold into the overlappable compute
+        step = (topo.alpha
+                + wire_bytes(blk, cell.itemsize, imp.wire_dtype) * topo.beta
+                + blk * topo.gamma)
+        mm = mm + 2 * p * t_quant(blk, topo)
     return t_overlapped_ring(p, step, mm, topo)
 
 
@@ -404,13 +515,13 @@ def sweep(op: str, p: int, nbytes: int, topo: Topo, *,
           chunk_bytes: int = 0) -> dict[str, float]:
     """Latency of every registered impl of ``op`` at one (p, nbytes)."""
     return {name: latency(op, name, p, nbytes, topo, chunk_bytes=chunk_bytes)
-            for name in REGISTRY[op]}
+            for name in impl_names(op)}
 
 
 def sweep_cell(cell, topo: Topo, *, chunk_bytes: int = 0) -> dict[str, float]:
     """Latency of every registered impl for one ``OpCell``."""
     return {name: latency_cell(cell, name, topo, chunk_bytes=chunk_bytes)
-            for name in REGISTRY[cell.op]}
+            for name in impl_names(cell.op)}
 
 
 def best_impl_cell(cell, topo: Topo, *,

@@ -50,6 +50,10 @@ def _collect() -> list[Guideline]:
             if name.startswith("fused_ring"):
                 stmt = (f"{op}(n) <= {name}(n)  "
                         "[fused overlap must not lose to collective+matmul]")
+            elif name.startswith("wire_"):
+                stmt = (f"{op}(n) <= {name}(n) | err <= tol({impl.wire_dtype})"
+                        "  [quantized wire must win AND hold its per-dtype "
+                        "error bound — accuracy-conditional admissibility]")
             else:
                 stmt = f"{op}(n) <= {name.replace('_as_', ' -> ')}(n)"
             gls.append(Guideline(gl_id=gl_id, op=op, mockup=name,

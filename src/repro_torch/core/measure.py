@@ -36,8 +36,8 @@ def problem_shapes(cell: OpCell) -> dict[str, tuple[int, ...]]:
     """Per-rank operand shapes the replay builds for ``cell``.
 
     ``x`` is the collective payload, ``w`` the second operand of the fused
-    op (absent for plain collectives).  Fused shapes come from the
-    RECORDED GEMM dims.
+    op (absent for plain collectives; for ``matmul_accumulate`` the
+    stationary x).  Fused shapes come from the RECORDED GEMM dims.
     """
     p = cell.p
     if cell.op in MATMUL_OPS:
@@ -48,8 +48,13 @@ def problem_shapes(cell: OpCell) -> dict[str, tuple[int, ...]]:
         if cell.op == "allgather_matmul":
             return {"x": (max(1, cell.mm_m // p), cell.mm_k),
                     "w": (cell.mm_k, cell.mm_n)}
-        rows = max(p, (cell.mm_m // p) * p)   # the scatter must divide
-        return {"x": (rows, cell.mm_k), "w": (cell.mm_k, cell.mm_n)}
+        if cell.op == "matmul_reducescatter":
+            rows = max(p, (cell.mm_m // p) * p)   # the scatter must divide
+            return {"x": (rows, cell.mm_k), "w": (cell.mm_k, cell.mm_n)}
+        # matmul_accumulate: the payload is the K-dim weight block, the
+        # second operand the stationary x [mm_m, p*k_loc]
+        k_loc = max(1, cell.mm_k // p)
+        return {"x": (k_loc, cell.mm_n), "w": (cell.mm_m, p * k_loc)}
     itemsize = cell.itemsize
     n_rows = max(1, cell.nbytes // itemsize)
     if cell.op in ("alltoall", "reducescatter", "scatter"):
@@ -93,7 +98,15 @@ class Bench:
         dt = getattr(torch, cell.dtype or "float32")
         axis = self.axis
         x = torch.ones((self.p,) + shapes["x"], dtype=dt, device=self.device)
-        if cell.op in MATMUL_OPS:
+        if cell.op == "matmul_accumulate":
+            # the payload is the weight block; every rank holds its own
+            # stationary x [mm_m, mm_k]
+            stat = torch.ones((self.p,) + shapes["w"], dtype=dt,
+                              device=self.device)
+
+            def run():
+                return fn(x, axis, x=stat)
+        elif cell.op in MATMUL_OPS:
             w = torch.ones(shapes["w"], dtype=dt, device=self.device)
 
             def run():

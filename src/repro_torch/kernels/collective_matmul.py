@@ -1,5 +1,6 @@
 """Collective matmul on the stacked axis: the block-matmul kernel and the
-ppermute rings of allgather-matmul and matmul-reducescatter.
+ppermute rings of allgather-matmul, matmul-reducescatter and
+matmul-accumulate, with and without the quantized wire.
 
 ``block_matmul`` is the Hopper counterpart of the TPU kernel
 ``repro/kernels/collective_matmul.py:pallas_matmul``: ``x @ w`` with a
@@ -19,6 +20,11 @@ block's partial product per step, and each step's local product is one
 ``block_matmul`` launch over all ranks.  On one GPU the hop is a
 device-memory copy, so the ring measures on-chip data movement and launch
 overhead, not a link.
+
+``ring_matmul_accumulate`` streams the weight's K-blocks past a
+stationary x and adds the partial products; the ``*_wire`` rings are the
+``wire_q8`` / ``wire_fp8`` mock-ups, with the travelling operand on the
+8-bit wire of ``kernels/quant.py``.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch
 
 from repro_torch.core._axis import StackedAxis, ring_perm
 from repro_torch.kernels import _build
+from repro_torch.kernels import quant as Q
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -180,3 +187,179 @@ def ring_matmul_reducescatter(x: torch.Tensor, w: torch.Tensor,
         if s < p - 1:
             acc = axis.pshift(acc, ring_perm(p, 1))
     return acc
+
+
+def _k_slices(x: torch.Tensor, p: int, k_loc: int) -> torch.Tensor:
+    """``x [R, T, p*k_loc]`` viewed as its p contraction slices
+    ``[R, T, p, k_loc]`` (a shared ``[T, K]`` x gets R = 1)."""
+    if x.shape[-1] != p * k_loc:
+        raise ValueError(f"x {tuple(x.shape)} does not contract with p={p} "
+                         f"weight blocks of {k_loc} rows")
+    x3 = x if x.dim() == 3 else x.unsqueeze(0)
+    return x3.reshape(x3.shape[0], x3.shape[1], p, k_loc)
+
+
+def _take_k(xk: torch.Tensor, lane: torch.Tensor,
+            src: torch.Tensor) -> torch.Tensor:
+    """Per rank r, the contraction slice ``src[r]`` of its x: ``[p, T,
+    k_loc]``, contiguous (the block matmul's operand)."""
+    if xk.shape[0] == 1:                 # one x shared by every rank
+        return xk[0].index_select(1, src).transpose(0, 1).contiguous()
+    return xk[lane, :, src].contiguous()
+
+
+def ring_matmul_accumulate(x: torch.Tensor, w: torch.Tensor,
+                           axis: StackedAxis, *,
+                           return_gathered: bool = False, mm: str = "auto"):
+    """``x @ all_gather(w, rows)`` as a ring: the contraction-dim ring.
+
+    w: ``[p, k_loc, M]`` (each rank's K-block of the weight, the payload),
+    x: ``[p, T, p*k_loc]`` or a shared ``[T, p*k_loc]`` -> ``[p, T, M]``
+    (and, with ``return_gathered``, ``all_gather(w)`` ``[p, p*k_loc, M]``).
+    The WEIGHT blocks travel: at step s rank r multiplies the K-slice of
+    its x that matches the block originated by rank ``r - s``, and the
+    shift that brings block s+1 is issued before block s is consumed.
+    Partial products are added in the output dtype, as the JAX package
+    adds them."""
+    p = axis.size
+    out_dtype = torch.promote_types(x.dtype, w.dtype)
+    if p == 1:
+        out = _local_mm(x if x.dim() == 3 else x.unsqueeze(0), w,
+                        mm).to(out_dtype)
+        return (out, w) if return_gathered else out
+    k_loc = w.shape[1]
+    xk = _k_slices(x, p, k_loc)
+    idx = axis.index()
+    gath = (w.new_zeros((p, p) + tuple(w.shape[1:]))
+            if return_gathered else None)
+    acc = None
+    cur = w
+    for s in range(p):
+        nxt = axis.pshift(cur, ring_perm(p, 1)) if s < p - 1 else None
+        src = (idx - s) % p                # originating rank of `cur`
+        contrib = _local_mm(_take_k(xk, idx, src), cur, mm).to(out_dtype)
+        acc = contrib if acc is None else acc + contrib
+        if return_gathered:
+            gath[idx, src] = cur
+        cur = nxt
+    if return_gathered:
+        return acc, gath.view((p, p * k_loc) + tuple(w.shape[2:]))
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# quantized-wire rings (the wire_q8 / wire_fp8 mock-ups): the same
+# issue-before-consume schedules with the TRAVELLING operand sent as an
+# 8-bit wire pair (kernels/quant.py).  A gather-style ring quantizes each
+# payload once at its origin (one quant_pack launch covers every stacked
+# rank) and dequantizes what arrives (one dequant_unpack per step); the
+# travelling accumulator is requantized before every hop and dequantized
+# after it, and its partial sums are added in float32.
+# ---------------------------------------------------------------------------
+
+
+def ring_allgather_matmul_wire(x: torch.Tensor, w: torch.Tensor,
+                               axis: StackedAxis, *,
+                               wire_dtype: str = "int8",
+                               return_gathered: bool = False,
+                               mm: str = "auto"):
+    """``ring_allgather_matmul`` with the travelling activation chunk sent
+    as (8-bit values, per-block scales); the dequantized chunk feeds the
+    step's product.  ``return_gathered`` gives the wire-approximate
+    gathered operand (own chunk exact)."""
+    p = axis.size
+    out_dtype = torch.promote_types(x.dtype, w.dtype)
+    if p == 1:
+        out = _local_mm(x, w, mm).to(out_dtype)
+        return (out, x) if return_gathered else out
+    n = x.shape[1]
+    idx = axis.index()
+    out = torch.zeros((p, p, n, w.shape[-1]), dtype=out_dtype,
+                      device=x.device)
+    gath = (x.new_zeros((p, p) + tuple(x.shape[1:]))
+            if return_gathered else None)
+    q, sc = Q.quantize(x, wire_dtype)
+    cur = x                                # resident chunk: never on the wire
+    for s in range(p):
+        nxt = (Q.wire_shift(axis, q, sc, ring_perm(p, 1)) if s < p - 1
+               else None)
+        src = (idx - s) % p
+        out[idx, src] = _local_mm(cur, w, mm).to(out_dtype)
+        if return_gathered:
+            gath[idx, src] = cur
+        if nxt is not None:
+            q, sc = nxt
+            cur = Q.dequantize(q, sc, x.dtype)
+    out = out.view(p, p * n, -1)
+    if return_gathered:
+        return out, gath.view((p, p * n) + tuple(x.shape[2:]))
+    return out
+
+
+def ring_matmul_reducescatter_wire(x: torch.Tensor, w: torch.Tensor,
+                                   axis: StackedAxis, *,
+                                   wire_dtype: str = "int8",
+                                   mm: str = "auto") -> torch.Tensor:
+    """``ring_matmul_reducescatter`` with the travelling accumulator
+    requantized per hop; contributions are added in float32 after the
+    dequantization and the sum is cast once at the end."""
+    p = axis.size
+    out_dtype = torch.promote_types(x.dtype, w.dtype)
+    if p == 1:
+        return _local_mm(x, w, mm).to(out_dtype)
+    rows = x.shape[1]
+    if rows % p:
+        raise ValueError(f"rows {rows} not divisible by axis size {p}")
+    n = rows // p
+    idx = axis.index()
+    lanes = x.reshape((p, p, n) + tuple(x.shape[2:]))
+    acc = None
+    for s in range(p):
+        blk = lanes[idx, (idx + (p - 1 - s)) % p]
+        contrib = _local_mm(blk, w, mm).to(torch.float32)
+        acc = contrib if acc is None else acc + contrib
+        if s < p - 1:
+            q, sc = Q.wire_shift(axis, *Q.quantize(acc, wire_dtype),
+                               ring_perm(p, 1))
+            acc = Q.dequantize(q, sc, torch.float32)
+    return acc.to(out_dtype)
+
+
+def ring_matmul_accumulate_wire(x: torch.Tensor, w: torch.Tensor,
+                                axis: StackedAxis, *,
+                                wire_dtype: str = "int8",
+                                return_gathered: bool = False,
+                                mm: str = "auto"):
+    """``ring_matmul_accumulate`` with the travelling weight block sent as
+    a wire pair quantized once at its origin; partial products are added
+    in float32 after the dequantization and cast once at the end."""
+    p = axis.size
+    out_dtype = torch.promote_types(x.dtype, w.dtype)
+    if p == 1:
+        out = _local_mm(x if x.dim() == 3 else x.unsqueeze(0), w,
+                        mm).to(out_dtype)
+        return (out, w) if return_gathered else out
+    k_loc = w.shape[1]
+    xk = _k_slices(x, p, k_loc)
+    idx = axis.index()
+    gath = (w.new_zeros((p, p) + tuple(w.shape[1:]))
+            if return_gathered else None)
+    q, sc = Q.quantize(w, wire_dtype)
+    cur = w                                # resident block: never on the wire
+    acc = None
+    for s in range(p):
+        nxt = (Q.wire_shift(axis, q, sc, ring_perm(p, 1)) if s < p - 1
+               else None)
+        src = (idx - s) % p
+        contrib = _local_mm(_take_k(xk, idx, src), cur, mm).to(
+            torch.float32)
+        acc = contrib if acc is None else acc + contrib
+        if return_gathered:
+            gath[idx, src] = cur
+        if nxt is not None:
+            q, sc = nxt
+            cur = Q.dequantize(q, sc, w.dtype)
+    out = acc.to(out_dtype)
+    if return_gathered:
+        return out, gath.view((p, p * k_loc) + tuple(w.shape[2:]))
+    return out

@@ -298,7 +298,7 @@ def test_cell_problem_shapes_and_latency_match_reference(c):
             r.scaled_to(nb))
     for tt, rt in ((tcm.V5E_ICI, rcm.V5E_ICI), (tcm.BGQ_LIKE, rcm.BGQ_LIKE)):
         sw = tcm.sweep_cell(c, tt)
-        assert set(sw) == {"default", "fused_ring"}
+        assert set(sw) == {"default", "fused_ring", "wire_q8", "wire_fp8"}
         for nm, v in sw.items():
             want = rcm.latency_cell(r, nm, rt)
             assert abs(v - want) <= 1e-12 * max(abs(v), abs(want)), (nm, v,

@@ -1,4 +1,5 @@
-"""Parity of every ported impl with the reference impl under ``vmap``.
+"""Parity of every exact ported impl with the reference impl under
+``vmap`` (the quantized-wire impls are in ``test_torch_wire.py``).
 
 The same integer-valued inputs, made from a seed with numpy, go through
 the reference per-shard function under ``jax.vmap(axis_name=)`` and
@@ -32,8 +33,13 @@ JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
 
 
 def _cases(ps):
+    """Every exact ported impl at each p; the quantized-wire impls round
+    their payload, so ``test_torch_wire.py`` holds them to the reference
+    with their own tolerances."""
     out = []
     for op, nm in ported_impls():
+        if TC.REGISTRY[op][nm].wire_dtype is not None:
+            continue
         for p in ps:
             if TC.REGISTRY[op][nm].requires_pow2 and p & (p - 1):
                 continue
@@ -63,7 +69,13 @@ def run_both(op, nm, p, dtype, seed=0):
     xt = torch.from_numpy(x).to(TORCH_DT[dtype])
     xj = jnp.asarray(x, JAX_DT[dtype])
     axis = StackedAxis(p, device="cpu")
-    if op in TC.FUSED_OPS:
+    if op == "matmul_accumulate":
+        # the payload is each rank's [5, 3] weight block; x [4, 5p] is
+        # shared by every rank
+        stat = rng.integers(-4, 5, size=(4, p * rows)).astype(np.float32)
+        ref = ref_vmap(ref_fn, xj, x=jnp.asarray(stat, JAX_DT[dtype]))
+        got = port_fn(xt, axis, x=torch.from_numpy(stat).to(TORCH_DT[dtype]))
+    elif op in TC.FUSED_OPS:
         w = rng.integers(-4, 5, size=(3, 4)).astype(np.float32)
         ref = ref_vmap(ref_fn, xj, w=jnp.asarray(w, JAX_DT[dtype]))
         got = port_fn(xt, axis, w=torch.from_numpy(w).to(TORCH_DT[dtype]))

@@ -7,11 +7,15 @@ file imports only torch and the port, so it runs where JAX is absent:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Tolerances: placement is a copy (exact), and so is the ring's gathered
-output.  The block matmul and the ring accumulate in float32 like their
-plain versions but in another order: float32 is held to ``1e-5`` of the
-output's magnitude, a 16-bit output to one rounding step (``2**-7``
-relative).
+output; the wire kernels' q bytes, scales and dequantized values are
+bit-equal with their plain versions, and a wire impl is held to its
+selfcheck bound ``wire_tol``.  The block matmul and the ring
+accumulate in float32 like their plain versions but in another order:
+float32 is held to ``1e-5`` of the output's magnitude, a 16-bit output to
+one rounding step (``2**-7`` relative); the accumulate ring rounds p
+partial sums, one step each.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -211,3 +215,133 @@ def test_allgather_matmul_fused_ring_launches_the_ring_kernel(cuda):
     assert torch.equal(gath, want_g)
     assert _mm_err_ok(got, want)
     assert [r.impl for r in ctx.record] == ["fused_ring"]
+
+
+# ---------------------------------------------------------------------------
+# the quantized wire: quant_pack / dequant_unpack against their plain
+# versions (q bytes, scales and the dequantized values all bit-equal)
+# ---------------------------------------------------------------------------
+
+C_WIRE = {"wire_q8": "int8", "wire_fp8": "float8_e4m3fn"}
+QUANT_SHAPES = [(1, 13, 5), (3, 13, 7), (5, 3, 5), (3, 3, 7), (1, 8, 1),
+                (8, 64, 3072), (2, 17, 1500)]
+
+
+@needs_cuda
+@pytest.mark.parametrize("wire", ["int8", "float8_e4m3fn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("R,n,d", QUANT_SHAPES)
+def test_quant_kernels_match_plain_bit_for_bit(cuda, wire, dtype, R, n, d):
+    from repro_torch.kernels import quant as Q
+    g = torch.Generator(device="cpu").manual_seed(R * 1000 + n * 10 + d)
+    x = (torch.randn(R, n, d, generator=g)
+         * torch.logspace(-3, 3, n).view(1, n, 1)).to(dtype)
+    x[0, 0, 0] = 0.0
+    if n > 8:
+        x[-1, 8:16] = 0.0                 # an all-zero block: the floor
+    xc = x.to(cuda)
+    before = (Q.quant_pack.launches, Q.dequant_unpack.launches)
+    q, s = Q.quant_pack(xc, wire)
+    out = Q.dequant_unpack(q, s, dtype)
+    torch.cuda.synchronize()
+    assert (Q.quant_pack.launches, Q.dequant_unpack.launches) == (
+        before[0] + 1, before[1] + 1)
+    wq, ws = Q.quant_pack_plain(xc, wire)
+    assert q.dtype == wq.dtype and s.shape == (R, -(-n // 8), 1)
+    assert torch.equal(q.view(torch.uint8), wq.view(torch.uint8))
+    assert torch.equal(s, ws)                  # 0 ulp
+    assert torch.equal(out, Q.dequant_unpack_plain(q, s, dtype))
+    # and the plain version on the CPU computes the same bytes
+    cq, cs = Q.quant_pack_plain(x, wire)
+    assert torch.equal(q.cpu().view(torch.uint8), cq.view(torch.uint8))
+    assert torch.equal(s.cpu(), cs)
+
+
+@needs_cuda
+def test_quant_kernels_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels import quant as Q
+    with pytest.raises(ValueError, match="float32"):
+        Q.quant_pack(torch.ones(2, 8, 4, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        Q.quant_pack(torch.ones(1, 4, 8, device=cuda).transpose(1, 2))
+    q, s = Q.quant_pack(torch.ones(2, 9, 4, device=cuda))
+    with pytest.raises(ValueError, match="scales must be"):
+        Q.dequant_unpack(q, s[:, :1])
+    with pytest.raises(ValueError, match="scales on"):
+        Q.dequant_unpack(q, s.cpu())
+
+
+@needs_cuda
+@pytest.mark.parametrize("p", [8, 3])
+def test_wire_impls_on_card_launch_the_quant_kernels(cuda, p):
+    from repro_torch.kernels import quant as Q
+    axis = StackedAxis(p, cuda)
+    g = torch.Generator(device="cpu").manual_seed(p)
+    x = torch.randn(p, 16, 64, generator=g).to(cuda)
+    for op, nm in (("allgather", "wire_q8"), ("allgather", "wire_fp8")):
+        before = (Q.quant_pack.launches, Q.dequant_unpack.launches)
+        with api.tuned(force={op: nm}) as ctx:
+            got = api.allgather(x, axis)
+        torch.cuda.synchronize()
+        assert [r.impl for r in ctx.record] == [nm]
+        assert (Q.quant_pack.launches, Q.dequant_unpack.launches) == (
+            before[0] + 1, before[1] + p - 1)
+        rel = selfcheck.rel_err(got.cpu().numpy(),
+                                api.allgather(x, axis).cpu().numpy())
+        assert rel <= Q.wire_tol(C_WIRE[nm], 1)
+
+
+@needs_cuda
+@pytest.mark.parametrize("name", sorted(C_WIRE))
+def test_run_gate_on_a_numpy_payload_runs_on_the_card(cuda, name):
+    """With no ``device`` the gate runs on the GPU even for a host payload,
+    so it judges the kernels that CUDA dispatch would run."""
+    from repro_torch.core import collectives as C
+    from repro_torch.kernels import quant as Q
+    p = 8
+    x = np.random.default_rng(3).normal(size=(p, 16, 4)).astype(np.float32)
+    before = (Q.quant_pack.launches, Q.dequant_unpack.launches)
+    try:
+        ok, rel, tol = selfcheck.run_gate("allreduce", name, x)
+        assert not C.demotions()
+    finally:
+        C.clear_demotions()
+    assert ok and rel <= tol
+    assert Q.quant_pack.launches > before[0]
+    assert Q.dequant_unpack.launches > before[1]
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_accumulate_rings_on_card(cuda, dtype):
+    from repro_torch.kernels import quant as Q
+    p, k_loc, T, M = 8, 48, 40, 96
+    axis = StackedAxis(p, cuda)
+    g = torch.Generator(device="cpu").manual_seed(11)
+    x = torch.randn(p, T, p * k_loc, generator=g).to(dtype).to(cuda)
+    w = (torch.randn(p, k_loc, M, generator=g) * (p * k_loc) ** -0.5).to(
+        dtype).to(cuda)
+    dflt, full = api.matmul_accumulate(x, w, axis, impl="default",
+                                       return_gathered=True)
+    scale = max(1.0, float(dflt.float().abs().max()))
+    mm = cmm.block_matmul.launches
+    ring, gath = api.matmul_accumulate(x, w, axis, impl="fused_ring",
+                                       return_gathered=True)
+    torch.cuda.synchronize()
+    assert cmm.block_matmul.launches == mm + p
+    assert torch.equal(gath, full)
+    # p partial sums rounded in the output dtype: one step each
+    step = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    assert float((ring.float() - dflt.float()).abs().max()) <= p * step * scale
+    for nm, wd in C_WIRE.items():
+        before = (Q.quant_pack.launches, Q.dequant_unpack.launches)
+        got = api.matmul_accumulate(x, w, axis, impl=nm)
+        torch.cuda.synchronize()
+        assert (Q.quant_pack.launches, Q.dequant_unpack.launches) == (
+            before[0] + 1, before[1] + p - 1)
+        rel = selfcheck.rel_err(got.float().cpu().numpy(),
+                                dflt.float().cpu().numpy())
+        assert rel <= Q.wire_tol(wd, selfcheck.wire_hops(
+            "matmul_accumulate", p)) + (0 if dtype == torch.float32
+                                        else 2.0 ** -7)

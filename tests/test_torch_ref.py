@@ -84,21 +84,26 @@ def test_reference_registry_counts():
 
 
 def test_port_carries_every_flat_impl_and_the_fused_gather_and_scatter_ops():
-    """The slices so far: every reference impl with no wire dtype and no
-    second axis on the ten flat ops, ``allgather_matmul`` and
-    ``matmul_reducescatter``."""
-    assert TC.FUSED_OPS == ("allgather_matmul", "matmul_reducescatter")
+    """The slices so far: every reference impl with no second axis on the
+    ten flat ops, ``allgather_matmul``, ``matmul_reducescatter`` and
+    ``matmul_accumulate``, the quantized-wire impls included."""
+    assert TC.FUSED_OPS == ("allgather_matmul", "matmul_reducescatter",
+                            "matmul_accumulate")
     assert not set(TC.FLAT_OPS) & set(TC.FUSED_OPS)
     want = {(op, nm) for op, impls in RC.REGISTRY.items()
             for nm, impl in impls.items()
-            if impl.wire_dtype is None and not impl.hier
+            if not impl.hier
             and (op in TC.FLAT_OPS or op in TC.FUSED_OPS)}
     assert set(ported_impls()) == want
-    assert len(want) == 45
+    assert len(want) == 59
+    assert sum(RC.REGISTRY[op][nm].wire_dtype is not None
+               for op, nm in want) == 12
     for op, nm in want:
         r, t = RC.REGISTRY[op][nm], TC.REGISTRY[op][nm]
-        assert (t.guideline, t.requires_pow2) == (r.guideline,
-                                                  r.requires_pow2)
+        assert (t.guideline, t.requires_pow2, t.wire_dtype) == (
+            r.guideline, r.requires_pow2, r.wire_dtype)
+        if t.wire_dtype is not None:
+            assert t.desc == r.desc
         for nbytes, p in ((1, 2), (4096, 8), (10 ** 6, 6)):
             assert t.extra_bytes(nbytes, p) == r.extra_bytes(nbytes, p)
 

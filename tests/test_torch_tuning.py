@@ -5,8 +5,8 @@ footer, and the whole slice on the CPU.
 Parity rules: profile text, trace JSONL and footers are byte-equal; cost
 model values agree to 1e-12 relative; model outputs are computed from
 integer-valued float32 inputs, so they agree exactly.  The reference's
-quantized-wire impls are demoted (its own ledger) while a reference
-``tune`` runs, so both packages tune over the same impl set.
+impls that the port does not carry are demoted (its own ledger) while a
+reference ``tune`` runs, so both packages tune over the same impl set.
 """
 import contextlib
 import dataclasses
@@ -40,12 +40,14 @@ from repro_torch.core import tuner as ttuner
 
 @contextlib.contextmanager
 def reference_without_wire():
-    """Demote the reference's quantized-wire impls (not ported) for the
-    duration, restoring its ledger afterwards."""
+    """Demote the reference's impls that the port does not carry (the
+    two-axis ones) for the duration, restoring its ledger afterwards.
+    The quantized-wire impls are ported: both packages tune them."""
     saved = RC.demotions()
+    ported = set(ported_impls())
     for op, impls in RC.REGISTRY.items():
-        for nm, impl in impls.items():
-            if impl.wire_dtype is not None:
+        for nm in impls:
+            if nm != "default" and (op, nm) not in ported:
                 RC.demote(op, nm, "not ported")
     try:
         yield
@@ -53,6 +55,25 @@ def reference_without_wire():
         RC.clear_demotions()
         for (op, nm), why in saved.items():
             RC.demote(op, nm, why)
+
+
+@contextlib.contextmanager
+def exact_impls_only():
+    """Demote the quantized-wire impls in both packages for the duration
+    (integer-valued inputs then give exact results in any summation
+    order), restoring both ledgers afterwards."""
+    saved = RC.demotions(), TC.demotions()
+    for op, nm in ported_impls():
+        if TC.REGISTRY[op][nm].wire_dtype is not None:
+            RC.demote(op, nm, "exact comparison")
+            TC.demote(op, nm, "exact comparison")
+    try:
+        yield
+    finally:
+        for mod, led in zip((RC, TC), saved):
+            mod.clear_demotions()
+            for (op, nm), why in led.items():
+                mod.demote(op, nm, why)
 
 
 def to_ref_cell(c):
@@ -500,7 +521,8 @@ def test_whole_slice_on_cpu_matches_reference(tmp_path):
     axis = StackedAxis(P, device="cpu")
     sizes = (1, 64, 128, 512, 4096, 1 << 16)
     # 1. tune the flat ops on the cost model; save and reload the profiles
-    with reference_without_wire():
+    # (the wire impls, which round, are compared in test_torch_wire.py)
+    with reference_without_wire(), exact_impls_only():
         rrep = rtuner.tune(list(TC.FLAT_OPS), sizes, axis_size=P,
                            backend=rtuner.CostModelBackend(rcm.V5E_ICI))
         trep = ttuner.tune(list(TC.FLAT_OPS), sizes, axis_size=P,
