@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's tuning loop on one CUDA card, end to end.
+"""Drive the PyTorch port's tuning loop and its serving path on one CUDA
+card, end to end.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -7,15 +8,20 @@ Phases (each raises on failure; nothing is caught):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the kernels from the sources in the checkout (set-up time):
-   one ``nvcc`` each for the block matmul and the all-gather-matmul ring,
-   and the Triton JIT for guideline_pack, quant_pack and dequant_unpack,
-   all started together;
+   one ``nvcc`` each for the block matmul, the all-gather-matmul ring and
+   flash attention, and the Triton JIT for guideline_pack, quant_pack and
+   dequant_unpack, all started together;
 3. each kernel against its plain PyTorch version at the slice's shapes and
    at ragged shapes: max error, tolerance, kernel ms, plain ms, the bound,
    and the one PyTorch call that computes the same function, where there
    is one; the ring's block tier (kernel 4) for every rank; the wire
    kernels' q bytes, scales and dequantized values bit for bit, also at
    the replay's width-1 allgather payload and the K/V weight block;
+   flash attention at the serve path's prefill and decode shapes, the TPU
+   kernel's test cases and ragged lengths, with
+   ``scaled_dot_product_attention`` as the library time, and three planted
+   faults (the causal edge or the filled length off by one, a key block
+   dropped) that its elementwise limit must reject;
 4. ``selfcheck`` of every impl (59) at p = 8 and p = 6, with the wire
    tolerance gate's demotions;
 5. fit an ``h100-stacked`` Topo from ``sweep_axis`` (alpha, beta, gamma),
@@ -33,12 +39,23 @@ Phases (each raises on failure; nothing is caught):
    the gate/up allgather-matmul once, so every kernel runs whatever the
    tuner picked;
 9. ``torch.profiler`` over one call of the allgather and matmul_accumulate
-   impls at the block's shapes: host time, and device time by kernel.
+   impls at the block's shapes: host time, and device time by kernel;
+10. serve llama3.2-3b at full width (28 layers, TP p = 8 stacked on the
+   card, ``attn_impl="flash"``, random weights from a seeded generator):
+   4 requests of 1024 prompt tokens, the prefill's token and 32 greedy
+   decode steps, a 2048-slot KV cache.  Serve under the defaults while
+   recording the trace, ``tune_trace`` it with the measured backend, save
+   and reload the per-phase profiles, serve again under them, and hold
+   the second serve's logits to the first's; then ``torch.profiler`` over
+   one prefill and one decode step for flash attention's device share.
 
 Kernel launch counts are zeroed just before phase 6 and read after each of
 phases 6-8; every kernel of the main path must have launched in the tune,
 replay and dispatch phases.  The ring's block tier is not on the main
-path: its launches are those of phase 3.  The p ranks are stacked on ONE card: a ring hop is a
+path: its launches are those of phase 3.  They are zeroed again just
+before the serve path (phase 10) and read after each serve: flash
+attention must launch once per layer and forward, 28 x 33 times a
+serve.  The p ranks are stacked on ONE card: a ring hop is a
 device-memory copy, so the times measure on-chip data movement and launch
 overhead, not a link between GPUs.
 
@@ -72,6 +89,16 @@ DEVICE = "cuda"
 D_MODEL, D_FF, HEADS, HEAD_DIM, TOKENS, P = 3072, 8192, 24, 128, 4096, 8
 KV = 8 * HEAD_DIM          # the K (or V) projection's width: 8 KV heads
 TUNE_SIZES = (1, 1024, 32768, 1_048_576, 16_777_216)
+# the serve path: llama3.2-3b at full width, TP P stacked (3 q heads and 1
+# KV head per rank); 4 requests of 1024 prompt tokens, the prefill's token
+# and 32 greedy decode steps, a 2048-slot KV cache
+SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE, SERVE_SLOTS = 4, 1024, 32, 2048
+# the re-served logits against the default serve's, max-norm relative: a
+# tuned allreduce adds the p = 8 bf16 partial sums in another order (up to
+# p - 1 roundings where the default rounds once, 2**-8 each) at each of the
+# 57 allreduces of a forward; the JAX package holds its own two attention
+# paths to 2e-2 (tests/test_models_smoke.py:101-104)
+SERVE_RTOL = 5e-2
 
 
 def log(*a):
@@ -127,9 +154,11 @@ def require_launched(phase: str, before: dict, after: dict) -> dict:
     return delta
 
 
-def profile_call(torch, label: str, fn) -> None:
+def profile_call(torch, label: str, fn, tag: str = "9",
+                 needle: str | None = None) -> float | None:
     """Host time of one call of ``fn`` and its device time by kernel name,
-    from ``torch.profiler``."""
+    from ``torch.profiler``; with ``needle``, also the share of the device
+    time spent in kernels whose name contains it (returned)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -144,11 +173,316 @@ def profile_call(torch, label: str, fn) -> None:
     rows = [e for e in prof.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy = sum(e.self_device_time_total for e in rows) / 1e3
-    log(f"[9] {label}: host {host:.4f} ms, device busy {busy:.4f} ms in "
+    log(f"[{tag}] {label}: host {host:.4f} ms, device busy {busy:.4f} ms in "
         f"{sum(e.count for e in rows)} kernels")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[9]   {e.self_device_time_total / 1e3:9.4f} ms x{e.count:4d} "
-            f"{e.key[:90]}")
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:9.4f} ms "
+            f"x{e.count:4d} {e.key[:90]}")
+    if needle is None:
+        return None
+    mine = sum(e.self_device_time_total for e in rows if needle in e.key) / 1e3
+    share = mine / busy if busy else float("nan")
+    log(f"[{tag}] {label}: {needle} {mine:.4f} ms = {100 * share:.2f} % of "
+        "the device time")
+    return share
+
+
+def flash_work(n, sq, hk, g, dh, q0, kv_len, causal, window, itemsize):
+    """(operations, bytes) that one flash-attention call's data needs: 4·dh
+    per visible (query, key) pair (QK^T and PV), and q, out and the keys
+    and values some query sees, each moved once."""
+    pairs, lo_all, hi_all = 0, kv_len, 0
+    for i in range(sq):
+        qpos = q0 + i
+        hi = min(kv_len, qpos + 1) if causal else kv_len
+        lo = max(0, qpos - window + 1) if window else 0
+        if hi > lo:
+            pairs += hi - lo
+            lo_all, hi_all = min(lo_all, lo), max(hi_all, hi)
+    keys = max(0, hi_all - lo_all)
+    flops = 4 * dh * pairs * n * hk * g
+    byts = (2 * n * sq * hk * g * dh + 2 * n * keys * hk * dh) * itemsize
+    return flops, byts
+
+
+def check_flash(torch, fa, randn) -> dict:
+    """Phase 3 for flash attention: the kernel against its plain version at
+    the serve path's shapes, the TPU kernel's test cases and ragged
+    lengths; times, bound and ``scaled_dot_product_attention`` at the
+    prefill and decode shapes.  Returns the kernels-line record (prefill)
+    and the decode numbers."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    name_dt = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
+
+    def held(got, q, k, v, **kw):
+        """(max |got - plain|, its largest share of the elementwise limit
+        ``fa.tolerance``: 3e-5 in float32; in bfloat16 one step of each
+        p, 2^-7 of the attention-weighted |v|, and 2^-6 of |out|)."""
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        diff = (got.float() - want.float()).abs()
+        return (float(diff.max()),
+                float((diff / fa.tolerance(q, k, v, want, **kw)).max()))
+
+    def check(label, q, k, v, **kw):
+        got = fa.flash_attention(q, k, v, **kw)
+        err, share = held(got, q, k, v, **kw)
+        if tuple(got.shape) != tuple(q.shape) or not share <= 1.0 or not bool(
+                torch.isfinite(got.float()).all()):
+            raise RuntimeError(f"flash_attention {label}: error {err} is "
+                               f"{share:.3f} of the limit")
+        return err, share
+
+    def planted(label, q, k, v, bad, **kw):
+        """The limit must reject the kernel run with a fault's arguments
+        ``bad`` against the plain version with the right ones."""
+        err, share = held(fa.flash_attention(q, k, v, **bad), q, k, v, **kw)
+        log(f"[3] flash_attention planted fault, {label}: max_abs_err "
+            f"{err:.3e}, {share:.2f} of the limit")
+        if not share > 1.0:
+            raise RuntimeError(f"flash_attention: the limit passes the "
+                               f"planted fault {label}")
+
+    def timed(label, q, k, v, lib, **kw):
+        err, share = check(label, q, k, v, **kw)
+        n, sq, hk, g, dh = q.shape
+        flops, byts = flash_work(n, sq, hk, g, dh, kw.get("q0", 0),
+                                 kw.get("kv_len") or k.shape[1],
+                                 kw.get("causal", True), kw.get("window", 0),
+                                 q.element_size())
+        t_b, t_f = byts / H100_BYTES_PER_S, flops / H100_FLOPS[
+            name_dt[q.dtype]]
+        rec = dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:88",
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw)),
+            plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, **kw), iters=5),
+            bound_ms=max(t_b, t_f) * 1e3,
+            bound_by="bytes" if t_b > t_f else "operations",
+            library_ms=time_ms(torch, lib))
+        log(f"[3] flash_attention {label} q{list(q.shape)} k{list(k.shape)} "
+            f"{name_dt[q.dtype]} {kw}: max_abs_err {err:.3e} ({share:.3f} "
+            f"of the limit) kernel {rec['ms']:.4f} ms plain "
+            f"{rec['plain_ms']:.4f} ms "
+            f"scaled_dot_product_attention {rec['library_ms']:.4f} ms bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {flops / 1e9:.2f} "
+            f"GFLOP, {byts / 1e6:.2f} MB) = {flops / rec['ms'] / 1e9:.1f} "
+            f"TFLOP/s, {byts / rec['ms'] / 1e6:.1f} GB/s")
+        return rec
+
+    n_fold, g_loc = P * SERVE_BATCH, HEADS // P       # 32 rows, 3 q heads
+    # the serve path's prefill: every rank's 4 x 1024 tokens in one launch
+    q = randn(n_fold, SERVE_PROMPT, 1, g_loc, HEAD_DIM)
+    k = randn(n_fold, SERVE_PROMPT, 1, HEAD_DIM)
+    v = randn(n_fold, SERVE_PROMPT, 1, HEAD_DIM)
+    qb = q.permute(0, 2, 3, 1, 4).reshape(n_fold, g_loc, SERVE_PROMPT,
+                                          HEAD_DIM)
+    kb, vb = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    prefill = timed("serve prefill", q, k, v,
+                    lambda: sdpa(qb, kb, vb, is_causal=True,
+                                 enable_gqa=True), causal=True)
+    # its decode: one token per request against the filled part of a
+    # 2048-slot cache, kv_len 1025 ... 1056
+    q1 = randn(n_fold, 1, 1, g_loc, HEAD_DIM)
+    kc = randn(n_fold, SERVE_SLOTS, 1, HEAD_DIM)
+    vc = randn(n_fold, SERVE_SLOTS, 1, HEAD_DIM)
+    worst = (0.0, 0.0)
+    for kv_len in range(SERVE_PROMPT + 1, SERVE_PROMPT + SERVE_DECODE + 1):
+        worst = tuple(map(max, worst, check(
+            f"decode kv_len {kv_len}", q1, kc, vc, q0=kv_len - 1,
+            kv_len=kv_len)))
+    log(f"[3] flash_attention serve decode q{list(q1.shape)} "
+        f"k{list(kc.shape)} bf16, kv_len {SERVE_PROMPT + 1}..."
+        f"{SERVE_PROMPT + SERVE_DECODE}: max_abs_err {worst[0]:.3e} "
+        f"({worst[1]:.3f} of the limit)")
+    # the limit is fine enough to see the faults it guards against: the
+    # causal edge one key late, the first 32-key block dropped for the
+    # last rows, the last filled slot left out
+    planted("causal edge one key late", q, k, v, dict(q0=1))
+    planted("first key block dropped for the last rows", q, k, v,
+            dict(window=SERVE_PROMPT - 32))
+    planted("last filled slot left out", q1, kc, vc,
+            dict(q0=SERVE_PROMPT, kv_len=SERVE_PROMPT),
+            q0=SERVE_PROMPT, kv_len=SERVE_PROMPT + 1)
+    decode = {}
+    for kv_len in (SERVE_PROMPT + 1, SERVE_PROMPT + SERVE_DECODE):
+        q1b = q1.reshape(n_fold, g_loc, 1, HEAD_DIM)
+        kcb = kc[:, :kv_len].transpose(1, 2)
+        vcb = vc[:, :kv_len].transpose(1, 2)
+        decode[kv_len] = timed(
+            f"serve decode kv_len {kv_len}", q1, kc, vc,
+            lambda: sdpa(q1b, kcb, vcb, enable_gqa=True), q0=kv_len - 1,
+            kv_len=kv_len)
+    # the TPU kernel's test cases (tests/test_kernels.py:22-70), through
+    # its layout [B, H, S, dh]
+    for dt in (torch.float32, torch.bfloat16):
+        for b, hq, hkv, s_, d in ((1, 2, 2, 128, 64), (2, 4, 2, 256, 64),
+                                  (1, 8, 1, 128, 128), (1, 2, 2, 192, 32)):
+            qm, km, vm = fa.to_model_layout(randn(b, hq, s_, d, dtype=dt),
+                                            randn(b, hkv, s_, d, dtype=dt),
+                                            randn(b, hkv, s_, d, dtype=dt))
+            err, share = check("pallas case", qm, km, vm)
+            log(f"[3] flash_attention TPU-test case B{b} Hq{hq} Hkv{hkv} "
+                f"S{s_} dh{d} {name_dt[dt]}: max_abs_err {err:.3e} "
+                f"({share:.3f} of the limit)")
+    for window, cap, sc in ((32, 0.0, 1.0), (64, 0.0, 1.0), (100, 0.0, 1.0),
+                            (0, 30.0, 4.0)):
+        s_ = 128 if cap else 256
+        qm, km, vm = fa.to_model_layout(
+            randn(1, 2, s_, 64, dtype=torch.float32, scale=sc),
+            randn(1, 2, s_, 64, dtype=torch.float32, scale=sc),
+            randn(1, 2, s_, 64, dtype=torch.float32))
+        err, share = check("pallas window/softcap", qm, km, vm,
+                           window=window, softcap=cap)
+        log(f"[3] flash_attention TPU-test case window {window} softcap "
+            f"{cap} float32: max_abs_err {err:.3e} ({share:.3f} of the "
+            f"limit)")
+    # ragged: a 1000-token prefill, a decode at kv_len 777, a head dim that
+    # is not a multiple of 8 (element-wise loads)
+    for label, shapes, dt, kw in (
+            ("ragged prefill", ((4, 1000, 1, 3, 128), (4, 1000, 1, 128)),
+             torch.bfloat16, {}),
+            ("ragged decode", ((8, 1, 2, 3, 128), (8, 1000, 2, 128)),
+             torch.bfloat16, dict(q0=776, kv_len=777)),
+            ("ragged head dim", ((2, 33, 1, 3, 40), (2, 33, 1, 40)),
+             torch.float32, dict(window=9))):
+        err, share = check(label, randn(*shapes[0], dtype=dt),
+                         randn(*shapes[1], dtype=dt),
+                         randn(*shapes[1], dtype=dt), **kw)
+        log(f"[3] flash_attention {label} q{list(shapes[0])} "
+            f"k{list(shapes[1])} {name_dt[dt]} {kw}: max_abs_err {err:.3e} "
+            f"({share:.3f} of the limit)")
+    return {"prefill": prefill, "decode": decode}
+
+
+def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict) -> dict:
+    """Phase 10: serve llama3.2-3b at full width on the card, record ->
+    ``tune_trace`` (measured) -> re-serve, with launch counts of every
+    kernel in ``wrappers`` read around each serve."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import api, profiles, trace, tuner
+    from repro_torch.core._axis import StackedAxis
+    from repro_torch.dist.axes import bind
+    from repro_torch.launch import serve as sv
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_tree
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), attn_impl="flash")
+    axis = StackedAxis(P, dev)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_tree(lm.model_specs(cfg, P), gen, axis)
+    torch.cuda.synchronize()
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, list):
+            for v in t:
+                walk(v)
+        else:
+            leaves.append(t)
+    walk(params)
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"[10] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads x {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, attn_impl "
+        f"{cfg.attn_impl}; TP {P} stacked; weights {w_bytes / 1e9:.3f} GB "
+        f"({cfg.param_count() / 1e9:.3f} B params) drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
+    n_tokens = 1 + SERVE_DECODE
+    per_serve = cfg.n_layers * n_tokens
+    sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, 2)   # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    zero_counts(wrappers)               # the serve path starts here
+    c0 = counts(wrappers)
+    first = sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, n_tokens)
+    c1 = counts(wrappers)
+    rec = trace.Trace.from_context(first.ctx)
+    rec.save(out_dir / "serve_trace.jsonl")
+    for ln in rec.summary().splitlines():
+        log(f"[10] {ln}")
+    t0 = time.perf_counter()
+    rep = tuner.tune_trace(rec, tuner.MeasuredBackend(P, dev, max_nrep=20))
+    log(f"[10] tune_trace in {time.perf_counter() - t0:.1f} s")
+    for m in rep.measurements:
+        log(f"[10] measured {m.op} {m.nbytes}B {m.impl}: "
+            f"{m.latency * 1e3:.4f} ms (nrep {m.nrep})")
+    for ln in rep.summary().splitlines():
+        log(f"[10] {ln}")
+    prof_dir = out_dir / "serve_profiles"
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    rep.save(prof_dir)
+    _, phases = profiles.resolve_stores(prof_dir)
+    log(f"[10] per-phase profiles saved to {prof_dir} and reloaded: "
+        f"{ {ph: len(st) for ph, st in phases.items()} }")
+    c2 = counts(wrappers)
+    second = sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, n_tokens,
+                      phase_profiles=phases)
+    c3 = counts(wrappers)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for label, a, b in (("default serve", c0, c1), ("tune_trace", c1, c2),
+                        ("re-serve", c2, c3)):
+        log(f"[10 {label}] kernel launches: "
+            f"{json.dumps({k: b[k] - a[k] for k in b})}")
+    for label, a, b in (("default serve", c0, c1), ("re-serve", c2, c3)):
+        got = b["flash_attention"] - a["flash_attention"]
+        if got != per_serve:
+            raise RuntimeError(f"{label}: flash_attention launched {got} "
+                               f"times, not {cfg.n_layers} x {n_tokens}")
+    check = sv.check_serves(first, second, SERVE_RTOL)
+    log(f"[10] re-served logits vs the default serve: {check['steps']} "
+        f"steps, max-norm relative error {check['max_rel_err']:.4e} "
+        f"(tolerance {SERVE_RTOL}), tokens diverged at "
+        f"{check['diverged_at']}")
+    for label, res in (("default", first), ("tuned", second)):
+        toks = res.tokens.cpu()
+        if tuple(toks.shape) != (SERVE_BATCH, n_tokens) or not bool(
+                all(torch.isfinite(lg).all() for lg in res.logits)):
+            raise RuntimeError(f"{label} serve: bad output")
+        log(f"[10] {label} tokens, request 0: {toks[0].tolist()}")
+        log(f"[10] {label} serve: prefill {res.prefill_s * 1e3:.2f} ms "
+            f"({SERVE_BATCH * SERVE_PROMPT / res.prefill_s:.0f} tokens/s), "
+            f"decode {res.decode_s_per_token * 1e3:.3f} ms/token "
+            f"({SERVE_BATCH / res.decode_s_per_token:.1f} tokens/s over "
+            f"{SERVE_BATCH} requests), {SERVE_BATCH * n_tokens} tokens in "
+            f"{(res.prefill_s + res.decode_s) * 1e3:.1f} ms")
+    for ln in api.format_footer(second.ctx).splitlines():
+        log(f"[10] {ln}")
+    log(f"[10] peak device memory {peak / 1e9:.3f} GB")
+    launches = {k: c3[k] - c0[k] for k in c3}
+    log(f"[serve path] kernel launches: {json.dumps(launches)}")
+    log(f"[10] weights, warm-up, serve, tune_trace, re-serve in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # where a step's device time goes (after the serve path's counts)
+    with bind(model=axis):
+        caches = lm.init_caches(cfg, SERVE_BATCH, SERVE_SLOTS)
+    pf, dc = sv.build_prefill(cfg, axis), sv.build_decode(cfg, axis)
+    tok = prompts[:, :1]
+    shares = {
+        "prefill": profile_call(torch, "one prefill", lambda: pf(
+            params, {"tokens": prompts}, caches), "10", "fa_bf16_kernel"),
+        "decode": profile_call(torch, "one decode step", lambda: dc(
+            params, tok, caches, SERVE_PROMPT), "10", "fa_bf16_kernel")}
+    return {"launches": launches, "flash_share": shares, "check": check,
+            "peak_bytes": peak,
+            "serves": {label: {"prefill_ms": r.prefill_s * 1e3,
+                               "decode_ms_per_token":
+                                   r.decode_s_per_token * 1e3,
+                               "tokens": r.tokens.cpu().tolist()}
+                       for label, r in (("default", first),
+                                        ("tuned", second))}}
 
 
 def block(api, axis, torch, x, wv, wo, wgu, wd):
@@ -193,6 +527,7 @@ def main(argv=None) -> int:
     from repro_torch.core.cell import OpCell
     from repro_torch.kernels import _build, collective_matmul as cmm, pack
     from repro_torch.kernels import collective_matmul_rdma as rdma
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quant
 
     torch.backends.cuda.matmul.allow_tf32 = False     # plain f32 stays f32
@@ -222,7 +557,7 @@ def main(argv=None) -> int:
             errs.append(e)
 
     threads = [threading.Thread(target=nvcc_build, args=(m,))
-               for m in (cmm, rdma)]     # one nvcc per source, together
+               for m in (cmm, rdma, fa)]  # one nvcc per source, together
     for th in threads:
         th.start()
     for dt in (torch.float32, torch.bfloat16):     # Triton JIT per dtype
@@ -235,7 +570,7 @@ def main(argv=None) -> int:
         raise errs[0]
     torch.cuda.synchronize()
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s")
-    for lib in ("block_matmul", "agmm_ring"):
+    for lib in ("block_matmul", "agmm_ring", "flash_attention"):
         for ln in _build.build_log(lib).splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
                 log(f"[2] ptxas {lib}: {ln.strip()}")
@@ -530,6 +865,12 @@ def main(argv=None) -> int:
         "f32; int8, e4m3): q mismatches 0, scales max ulp 0, dequant "
         "bit-equal in all 48 cases")
 
+    t0 = time.perf_counter()
+    flash = check_flash(torch, fa, randn)
+    log(f"[3] flash_attention checks in {time.perf_counter() - t0:.1f} s")
+    kernels["flash_attention"] = flash["prefill"]
+    report["flash_decode"] = flash["decode"]
+
     # -- 4. selfcheck ----------------------------------------------------------
     for p_ in (P, 6):
         rep = selfcheck.run(p_, dev)
@@ -736,6 +1077,16 @@ def main(argv=None) -> int:
         kernels[k]["launches"] = v
         kernels[k]["main_path"] = True
     kernels["ring_allgather_matmul_blocks"]["main_path"] = False
+
+    # -- 10. the serve path --------------------------------------------------
+    every = dict(wrappers,
+                 ring_allgather_matmul_blocks=rdma.ring_allgather_matmul_blocks,
+                 flash_attention=fa.flash_attention)
+    served = serve_phase(torch, dev, out_dir, every)
+    report["serve"] = served
+    kernels["flash_attention"]["launches"] = served["launches"][
+        "flash_attention"]
+    kernels["flash_attention"]["main_path"] = True
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     (out_dir / "report.json").write_text(json.dumps(report, indent=1))
@@ -747,7 +1098,8 @@ def main(argv=None) -> int:
                                   for n in ("guideline_pack", "block_matmul",
                                             "ring_allgather_matmul_rdma",
                                             "ring_allgather_matmul_blocks",
-                                            "quant_pack", "dequant_unpack")]}))
+                                            "quant_pack", "dequant_unpack",
+                                            "flash_attention")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

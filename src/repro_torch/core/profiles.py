@@ -19,6 +19,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import json
+import os
 import pathlib
 import warnings
 
@@ -304,3 +305,37 @@ def load_stores(directory: str | pathlib.Path) \
         if len(store):
             phases[sub.name] = store
     return (base if len(base) else None), phases
+
+
+PROFILE_DIR_ENV = "PGTUNE_PROFILE_DIR"
+
+
+def resolve_stores(directory: str | pathlib.Path | None = None) \
+        -> tuple["ProfileStore | None", dict[str, "ProfileStore"]]:
+    """Profile-loading precedence: explicit ``directory`` argument >
+    ``$PGTUNE_PROFILE_DIR`` > none (returns ``(None, {})``).
+
+    An explicit directory that is missing or malformed raises (the caller
+    asked for it); a stale or broken env var only warns and serves untuned
+    — it must not crash (or half-initialize profiles in) processes that
+    never asked for them.  The env path is all-or-nothing: any load
+    failure, including a parse error in one phase subdirectory, falls back
+    to the full no-profile mode ``(None, {})``.  (The JAX package's
+    ``watch=True`` fleet mode, a ``StoreRef``, is not ported.)
+    """
+    if directory:
+        return load_stores(directory)
+    d = os.environ.get(PROFILE_DIR_ENV, "")
+    if not d:
+        return None, {}
+    try:
+        return load_stores(d)
+    except FileNotFoundError:
+        warnings.warn(f"${PROFILE_DIR_ENV}={d} does not exist; "
+                      "serving untuned defaults")
+        return None, {}
+    except Exception as e:    # malformed profile text, ...: serve untuned
+        warnings.warn(f"${PROFILE_DIR_ENV}={d} failed to load "
+                      f"({type(e).__name__}: {e}); serving untuned "
+                      "defaults")
+        return None, {}

@@ -1,0 +1,233 @@
+"""Flash attention: the Hopper kernel, its plain version and the oracle.
+
+``flash_attention`` is the Hopper counterpart of the TPU kernel
+``repro/kernels/flash_attention.py:flash_attention``, written for the
+model's flash path (``models/attention.py``) and its layout:
+
+* ``q [N, Sq, HK, G, dh]``, ``k, v [N, Skv, HK, dh]``, out like ``q`` in
+  q's dtype (the model folds its p stacked ranks into N = p·B, so one
+  launch covers every rank of a layer, and groups the G query heads of a
+  KV head, so no KV head is repeated);
+* query i has position ``q0 + i``; key j is seen when ``j < kv_len``,
+  (``causal``) ``j <= q0 + i`` and (``window > 0``) ``j > q0 + i -
+  window``; scores are ``q·k / sqrt(dh)``, then ``softcap · tanh(s /
+  softcap)`` when ``softcap > 0``.
+
+The TPU kernel's function is the case ``q0 = 0``, ``kv_len = Skv``;
+``flash_attention_bhsd`` is that case in its layout ``[B, H, S, dh]``.
+The CUDA source, with the bound it works against, is
+``csrc/flash_attention.cu``; it takes bfloat16 and float32.
+
+``flash_attention_plain`` is a PyTorch copy of the JAX package's
+``models/attention.py:_flash_jnp`` with the same arguments: an online
+softmax over KV chunks of ``CHUNK`` keys, float32 scores and accumulator,
+p rounded to v's dtype before the PV product.  CPU tensors take it; on
+the card it only checks the kernel, within ``tolerance``.  ``flash_attention_ref`` is the oracle of
+``repro/kernels/ref.py:flash_attention_ref`` (Pallas layout).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG = -1e30
+CHUNK = 1024                       # _flash_jnp's KV chunk
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_DH = 256
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.cuda_library("flash_attention", ["flash_attention.cu"])
+    fn = lib.flash_attention
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 14
+                       + [ctypes.c_int] * 2 + [ctypes.c_float]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    return lib
+
+
+def build() -> None:
+    """Compile (once) and load the CUDA library."""
+    _lib()
+
+
+def _check(q, k, v):
+    if q.dim() != 5 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"flash_attention takes q [N, Sq, HK, G, dh] and "
+                         f"k, v [N, Skv, HK, dh], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    n, _, hk, _, dh = q.shape
+    if (tuple(k.shape) != tuple(v.shape) or k.shape[0] != n
+            or k.shape[2] != hk or k.shape[3] != dh):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
+                         f"{v.dtype} differ")
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          softcap: float = 0.0, q0: int = 0,
+                          kv_len: int | None = None) -> torch.Tensor:
+    """The plain PyTorch version (``_flash_jnp``'s schedule): online
+    softmax over KV chunks of ``CHUNK`` keys (halved until it divides
+    Skv)."""
+    _check(q, k, v)
+    n, sq, hk, g, dh = q.shape
+    skv = k.shape[1]
+    kv_len = skv if kv_len is None else kv_len
+    c = min(CHUNK, skv)
+    while c > 1 and skv % c:
+        c //= 2
+    scale = 1.0 / math.sqrt(dh)
+    qpos = q0 + torch.arange(sq, device=q.device)
+    qf = q.float()
+    m = torch.full((n, hk, g, sq), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((n, hk, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((n, hk, g, sq, dh), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, skv, c):
+        kb, vb = k[:, c0:c0 + c], v[:, c0:c0 + c]
+        kpos = torch.arange(c0, c0 + kb.shape[1], device=q.device)
+        s = torch.einsum("nqhgd,nchd->nhgqc", qf, kb.float()) * scale
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        mask = (kpos < kv_len)[None, :].expand(sq, -1)
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        if window:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        s = torch.where(mask, s, torch.full_like(s, NEG))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "nhgqc,nchd->nhgqd", p.to(v.dtype).float(), vb.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, q0: int = 0,
+                    kv_len: int | None = None) -> torch.Tensor:
+    """Attention on the model's layout (see the module docstring).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (the
+    head dim must be contiguous; other dims may be strided views)."""
+    _check(q, k, v)
+    skv = k.shape[1]
+    kv_len = skv if kv_len is None else int(kv_len)
+    if not 0 <= kv_len <= skv:
+        raise ValueError(f"flash_attention: kv_len {kv_len} outside "
+                         f"[0, {skv}]")
+    if q.device.type == "cpu" and k.device.type == "cpu" \
+            and v.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, q0=q0, kv_len=kv_len)
+    if q.device.type != "cuda" or k.device != q.device \
+            or v.device != q.device:
+        raise ValueError(f"flash_attention: q on {q.device}, k on "
+                         f"{k.device}, v on {v.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"flash_attention takes float32/bfloat16, got "
+                         f"{q.dtype}")
+    n, sq, hk, g, dh = q.shape
+    if dh > MAX_DH:
+        raise ValueError(f"flash_attention: head dim {dh} > {MAX_DH}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("flash_attention needs a contiguous head dim")
+    if hk > 65535 or n > 65535:
+        raise ValueError(f"flash_attention: grid ({hk}, {n}) too large")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    strides = (q.stride()[:4] + k.stride()[:3] + v.stride()[:3]
+               + out.stride()[:4])
+    vec_ok = int(dh % 8 == 0 and all(s % 8 == 0 for s in strides[:10])
+                 and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _lib().flash_attention(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), n, sq, skv, hk, g, dh, *strides, int(bool(causal)),
+        int(window), float(softcap or 0.0), int(q0), kv_len,
+        vec_ok, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def tolerance(q, k, v, want: torch.Tensor, **kw) -> torch.Tensor:
+    """The elementwise limit on ``|flash_attention - want|``, ``want``
+    being ``flash_attention_plain(q, k, v, **kw)``.
+
+    float32: the JAX package's kernel test's 3e-5 (summation order).
+    bfloat16: the two differ only where they round.  Each p is rounded to
+    bfloat16 after running maxima that differ (the kernel's 32-key blocks,
+    the plain version's chunks), so a p may land one bfloat16 step (at
+    most 2^-7 of it) apart; over all keys that moves an output by at most
+    2^-7 · A, A being the attention-weighted mean of |v| (the plain
+    version on |v| in float32).  Each side then rounds its output once,
+    half a step (2^-8 of |out|) each, taken as 2^-6 · |want| with margin.
+    A limit of 3e-2 absolute, the reference test's at S <= 256, is the
+    size of a typical output at the serve shapes (|out| ~ 0.04 over ~1000
+    keys) and would pass a kernel that drops a key."""
+    if q.dtype == torch.float32:
+        return torch.full(want.shape, 3e-5, device=want.device)
+    a = flash_attention_plain(q.float(), k.float(), v.float().abs(), **kw)
+    return 2.0 ** -7 * a + 2.0 ** -6 * want.float().abs()
+
+
+def to_model_layout(q, k, v):
+    """Pallas layout ``q [B, Hq, S, dh]``, ``k, v [B, Hkv, S, dh]`` ->
+    model-layout views (no copies)."""
+    b, hq, sq, dh = q.shape
+    hkv = k.shape[1]
+    if hq % hkv:
+        raise ValueError(f"flash_attention: {hq} q heads over {hkv} kv heads")
+    qm = q.unflatten(1, (hkv, hq // hkv)).permute(0, 3, 1, 2, 4)
+    return qm, k.transpose(1, 2), v.transpose(1, 2)
+
+
+def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
+                         softcap: float = 0.0) -> torch.Tensor:
+    """The TPU kernel's function and layout: ``q [B, Hq, Sq, dh]``, ``k, v
+    [B, Hkv, Skv, dh]`` -> ``[B, Hq, Sq, dh]`` in q's dtype (q0 = 0,
+    kv_len = Skv); it goes through ``flash_attention``."""
+    qm, km, vm = to_model_layout(q, k, v)
+    o = flash_attention(qm, km, vm, causal=causal, window=window,
+                        softcap=softcap)
+    return o.permute(0, 2, 3, 1, 4).flatten(1, 2)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """The oracle (``repro/kernels/ref.py:flash_attention_ref``): dense
+    float32 softmax attention, Pallas layout, GQA by repeating KV heads."""
+    b, hq, sq, dh = q.shape
+    g = hq // k.shape[1]
+    kk = torch.repeat_interleave(k, g, dim=1).float()
+    vv = torch.repeat_interleave(v, g, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) / math.sqrt(dh)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = torch.ones((sq, k.shape[2]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = kpos <= qpos
+    if window:
+        mask = mask & (kpos > qpos - window)
+    s = torch.where(mask, s, torch.full_like(s, NEG))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)

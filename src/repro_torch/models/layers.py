@@ -1,0 +1,114 @@
+"""Shared layers: norms, RoPE, gated MLP, the vocab-sharded embedding and
+output head.  Operands are stacked over the ``model`` axis: activations
+``[p, B, S, ...]``, parameters ``[p, *local_shape]`` (``models.params``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.dist import ops
+from repro_torch.dist.axes import AXES, axis_index, has_axis
+from repro_torch.models.params import ParamSpec
+
+
+def _per_rank(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A stacked ``[p, D]`` parameter shaped to broadcast against a stacked
+    ``ndim``-dim activation ``[p, ..., D]``."""
+    return t.reshape(t.shape[0], *([1] * (ndim - 2)), t.shape[-1])
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    """RMS norm with a ``1 + scale`` gain, in float32 inside."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + _per_rank(scale.float(), x.dim()))).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0):
+    """Rotary embedding, half-split; x: ``[..., S, H, hd]``, positions
+    ``[..., S]`` (broadcast against x's leading dims)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., :, None].float() * freq          # [..., S, half]
+    cos = torch.cos(ang)[..., :, None, :]                  # [..., S, 1, half]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# gated MLP (column -> row parallel)
+# ---------------------------------------------------------------------------
+
+
+def mlp_specs(d_model: int, d_ff: int, dtype: str):
+    return {
+        "w_in": ParamSpec((d_model, d_ff), ("data", "model"), dtype=dtype),
+        "w_gate": ParamSpec((d_model, d_ff), ("data", "model"), dtype=dtype),
+        "w_out": ParamSpec((d_ff, d_model), ("model", "data"), dtype=dtype),
+    }
+
+
+def mlp(params, x, *, act=F.silu):
+    h = ops.col_matmul(x, params["w_in"], fsdp_dim=0)
+    g = ops.col_matmul(x, params["w_gate"], fsdp_dim=0)
+    return ops.row_matmul(act(g) * h, params["w_out"], fsdp_dim=1)
+
+
+# ---------------------------------------------------------------------------
+# embedding (vocab sharded over TP, feature over FSDP) and the output head
+# ---------------------------------------------------------------------------
+
+
+def embed_specs(vocab_padded: int, d_model: int, dtype: str):
+    return {"table": ParamSpec((vocab_padded, d_model), ("model", "data"),
+                               scale=d_model ** -0.5, dtype=dtype)}
+
+
+def head_specs(d_model: int, vocab_padded: int, dtype: str):
+    return {"w": ParamSpec((d_model, vocab_padded), ("data", "model"),
+                           dtype=dtype)}
+
+
+def embed_lookup(params, tokens: torch.Tensor, *, scale: float | None = None):
+    """tokens: ``[B, S]`` global ids, the same on every rank; the table
+    ``[p, V_t, D]`` is vocab-sharded over the model axis.  Each rank looks
+    up the ids in its own vocab block (offset ``axis_index * V_t``), zeroes
+    the rest, and the partial embeddings are summed over the axis."""
+    table = ops.fsdp_gather(params["table"], 1)        # [p, V_t, D]
+    p, v_t, d = table.shape
+    if has_axis(AXES.model):
+        t_idx = axis_index(AXES.model)
+    else:
+        t_idx = torch.zeros(p, dtype=torch.int64, device=table.device)
+    local = tokens.unsqueeze(0) - (t_idx * v_t).view(p, *[1] * tokens.dim())
+    ok = (local >= 0) & (local < v_t)
+    rows = local.clamp(0, v_t - 1) + (torch.arange(
+        p, device=table.device) * v_t).view(p, *[1] * tokens.dim())
+    emb = table.reshape(p * v_t, d).index_select(0, rows.reshape(-1))
+    emb = emb.view(*local.shape, d).masked_fill(~ok[..., None], 0)
+    emb = ops.tp_allreduce(emb)
+    if scale is not None:
+        emb = emb * torch.tensor(scale, dtype=emb.dtype, device=emb.device)
+    return emb
+
+
+def lm_logits(params, x, head_params=None, *, final_softcap=None):
+    """x: ``[p, B, S, D]`` -> logits ``[p, B, S, V_t]`` (vocab-sharded,
+    float32)."""
+    if head_params is not None:
+        logits = ops.col_matmul(x, head_params["w"], fsdp_dim=0)
+    else:
+        # the table [V_t, D] transposed is K-sharded on dim 0 over "data"
+        logits = ops.col_matmul(x, params["table"].transpose(1, 2),
+                                fsdp_dim=0)
+    logits = logits.float()
+    if final_softcap:
+        logits = torch.tanh(logits / final_softcap) * final_softcap
+    return logits

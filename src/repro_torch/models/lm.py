@@ -1,0 +1,245 @@
+"""Model assembly: spec trees, forward pass, prefill and decode.
+
+The port's counterpart of the JAX package's ``models/lm.py`` for the
+dense decoder-only LMs (llama / gemma style: ``attn`` and ``attn_local``
+blocks with a gated MLP).  The other block families raise
+``NotImplementedError`` naming the kind: ``mla``, ``moe``, ``rwkv``,
+``mamba``, ``shared_attn``, ``encdec`` and ``vlm`` come with later slices.
+
+Every function runs inside ``dist.axes.bind(model=axis)``: tensors carry
+the rank dim first (``[p, B, S, ...]``), tokens are ``[B, S]`` ids that
+every rank sees.  Layers run in a Python loop; a scanned group of the
+JAX package (``stack_plan``) is a list of per-layer parameter subtrees
+here (``models.params``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.dist.axes import AXES, get_axis
+from repro_torch.models.attention import attention, attn_specs
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (embed_lookup, embed_specs, head_specs,
+                                       lm_logits, mlp, mlp_specs, rms_norm)
+from repro_torch.models.params import ParamSpec, torch_dtype, tree_map_specs
+
+
+# ---------------------------------------------------------------------------
+# stack plan: group the layer pattern into repeating units
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    name: str
+    unit: tuple[str, ...]     # block kinds executed per repetition
+    n_rep: int                # repetitions
+
+
+def _unsupported(cfg: ModelConfig) -> list[str]:
+    kinds = [k for k in cfg.pattern() if k not in ("attn", "attn_local")]
+    if cfg.hybrid_period:
+        kinds.append("shared_attn")
+    for name in ("mla", "moe", "encdec", "vlm"):
+        if getattr(cfg, name) is not None:
+            kinds.append(name)
+    return sorted(set(kinds))
+
+
+def stack_plan(cfg: ModelConfig) -> list[Group]:
+    """The JAX package's grouping: one unit per layer when
+    ``scan_layers`` is off, else the largest prefix of whole
+    ``layer_pattern`` units as one group and the remainder as another."""
+    bad = _unsupported(cfg)
+    if bad:
+        raise NotImplementedError(f"{cfg.name}: block kinds {bad} are not "
+                                  "ported yet (later slices)")
+    pat = list(cfg.pattern())
+    if not cfg.scan_layers:
+        return [Group(f"u{i}", (k,), 1) for i, k in enumerate(pat)]
+    unit = list(cfg.layer_pattern)
+    u = len(unit)
+    n_rep = 0
+    while (n_rep + 1) * u <= len(pat) and \
+            pat[n_rep * u:(n_rep + 1) * u] == unit:
+        n_rep += 1
+    groups = []
+    if n_rep:
+        groups.append(Group("g0", tuple(unit), n_rep))
+    rem = pat[n_rep * u:]
+    if rem:
+        groups.append(Group("g1", tuple(rem), 1))
+    return groups
+
+
+def _block_specs(kind: str, cfg: ModelConfig, tp: int) -> dict:
+    if kind not in ("attn", "attn_local"):
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    return {
+        "ln1": ParamSpec((cfg.d_model,), (None,), init="zeros",
+                         dtype="float32"),
+        "attn": attn_specs(cfg, tp),
+        "ln2": ParamSpec((cfg.d_model,), (None,), init="zeros",
+                         dtype="float32"),
+        "ffn": mlp_specs(cfg.d_model, cfg.d_ff, cfg.dtype),
+    }
+
+
+def _per_group(g: Group, fn) -> Any:
+    """One subtree per repetition of a group with n_rep > 1 (a list), the
+    subtree itself otherwise."""
+    if g.n_rep > 1:
+        return [fn() for _ in range(g.n_rep)]
+    return fn()
+
+
+def model_specs(cfg: ModelConfig, tp: int) -> dict:
+    """The full parameter tree (``ParamSpec`` leaves; a scanned group is a
+    list of per-layer subtrees)."""
+    specs: dict[str, Any] = {"embed": embed_specs(
+        cfg.vocab_padded, cfg.d_model, cfg.dtype)}
+    if not cfg.tie_embeddings:
+        specs["head"] = head_specs(cfg.d_model, cfg.vocab_padded, cfg.dtype)
+    specs["final_norm"] = ParamSpec((cfg.d_model,), (None,), init="zeros",
+                                    dtype="float32")
+    stack: dict[str, Any] = {}
+    for g in stack_plan(cfg):
+        stack[g.name] = _per_group(g, lambda g=g: {
+            f"b{i}_{kind}": _block_specs(kind, cfg, tp)
+            for i, kind in enumerate(g.unit)})
+    specs["stack"] = stack
+    return specs
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def cache_specs(cfg: ModelConfig, batch: int, s_max: int, tp: int) -> dict:
+    """``ParamSpec`` tree of the KV cache (global shapes + shardings)."""
+    hd = cfg.hd
+    kv_dim = "model" if cfg.n_kv_heads % tp == 0 else None
+    n_kv = cfg.n_kv_heads
+
+    def attn_cache():
+        return {"self": {
+            "k": ParamSpec((batch, s_max, n_kv, hd),
+                           ("data", None, kv_dim, None), dtype=cfg.dtype),
+            "v": ParamSpec((batch, s_max, n_kv, hd),
+                           ("data", None, kv_dim, None), dtype=cfg.dtype),
+        }}
+
+    return {"stack": {g.name: _per_group(g, lambda g=g: {
+        f"b{i}_{kind}": attn_cache() for i, kind in enumerate(g.unit)})
+        for g in stack_plan(cfg)}}
+
+
+def init_caches(cfg: ModelConfig, batch_size: int, s_max: int):
+    """Zero caches for the bound model axis: ``[p, B, S_max, KVloc, hd]``
+    per block, each with ``"len": 0``."""
+    axis = get_axis(AXES.model)
+    specs = cache_specs(cfg, batch_size, s_max, axis.size)
+
+    def mk(s: ParamSpec):
+        return torch.zeros((axis.size,) + s.local_shape({"model": axis.size}),
+                           dtype=torch_dtype(s.dtype), device=axis.device)
+
+    tree = tree_map_specs(mk, specs)
+
+    def add_len(node):
+        if isinstance(node, list):
+            return [add_len(n) for n in node]
+        if "k" in node:
+            return {**node, "len": 0}
+        return {k: add_len(v) for k, v in node.items()}
+
+    return add_len(tree)
+
+
+# ---------------------------------------------------------------------------
+# the stack
+# ---------------------------------------------------------------------------
+
+
+def _run_attn_block(p, cfg: ModelConfig, x, *, kind, pos, mode, cache):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    mask_kind = "local" if kind == "attn_local" else "causal"
+    a = attention(p["attn"], cfg, h, pos=pos, kind=mask_kind,
+                  cache=None if cache is None else cache["self"], mode=mode)
+    x = x + a.y
+    new_cache = {"self": a.cache} if a.cache is not None else None
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp(p["ffn"], h2), new_cache
+
+
+def _run_stack(params, cfg: ModelConfig, x, *, pos, mode, caches):
+    """Every layer in order; returns ``(x, new_caches)``."""
+    new_caches: dict[str, Any] = {"stack": {}}
+    for g in stack_plan(cfg):
+        gp = params["stack"][g.name]
+        gc = None if caches is None else caches["stack"][g.name]
+        reps = gp if g.n_rep > 1 else [gp]
+        creps = (gc if g.n_rep > 1 else [gc]) if gc is not None else \
+            [None] * len(reps)
+        out = []
+        for lp, lc in zip(reps, creps):
+            ncs = {}
+            for i, kind in enumerate(g.unit):
+                key = f"b{i}_{kind}"
+                x, nc = _run_attn_block(
+                    lp[key], cfg, x, kind=kind, pos=pos, mode=mode,
+                    cache=None if lc is None else lc[key])
+                if nc is not None:
+                    ncs[key] = nc
+            out.append(ncs)
+        new_caches["stack"][g.name] = out if g.n_rep > 1 else out[0]
+    return x, (new_caches if caches is not None else None)
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch, *, pos0: int = 0):
+    """Returns ``(x, pos)``: the embedded tokens ``[p, B, S, D]`` and the
+    positions ``[1, S]``."""
+    scale = (cfg.d_model ** 0.5) if cfg.scale_embed else None
+    x = embed_lookup(params["embed"], batch["tokens"], scale=scale)
+    pos = pos0 + torch.arange(x.shape[2], device=x.device)[None, :]
+    return x, pos
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+
+def forward(params, cfg: ModelConfig, batch, *, mode: str = "train",
+            caches=None, pos0: int = 0):
+    """Full forward.  Returns ``(logits [p, B, S, V_t], new_caches, aux)``
+    (aux is 0: dense blocks have no auxiliary loss)."""
+    x, pos = _embed_inputs(params, cfg, batch, pos0=pos0)
+    x, new_caches = _run_stack(params, cfg, x, pos=pos, mode=mode,
+                               caches=caches)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = lm_logits(params["embed"], x,
+                       params.get("head") if not cfg.tie_embeddings else None,
+                       final_softcap=cfg.final_softcap)
+    return logits, new_caches, 0.0
+
+
+def prefill(params, cfg: ModelConfig, batch, caches):
+    """Fill caches from a prompt; returns ``(last-token logits [p, B, 1,
+    V_t], caches)``."""
+    logits, new_caches, _ = forward(params, cfg, batch, mode="prefill",
+                                    caches=caches)
+    return logits[:, :, -1:], new_caches
+
+
+def decode_step(params, cfg: ModelConfig, token, caches, t: int):
+    """One-token step.  token: ``[B, 1]`` ids (on the device); t: the
+    current length, a host int, so the step never waits on the device."""
+    logits, new_caches, _ = forward(params, cfg, {"tokens": token},
+                                    mode="decode", caches=caches, pos0=t)
+    return logits, new_caches
+

@@ -345,3 +345,210 @@ def test_matmul_accumulate_rings_on_card(cuda, dtype):
         assert rel <= Q.wire_tol(wd, selfcheck.wire_hops(
             "matmul_accumulate", p)) + (0 if dtype == torch.float32
                                         else 2.0 ** -7)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (kernels/flash_attention.py, csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+# against the oracle: the reference test's bar (float32: summation order,
+# 3e-5; bfloat16: p and the output rounded once each, 3e-2); against the
+# plain version: the elementwise limit FA.tolerance
+FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
+
+
+def _within_limit(FA, got, q, k, v, **kw) -> bool:
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    return bool(((got.float() - want.float()).abs()
+                 <= FA.tolerance(q, k, v, want, **kw)).all())
+
+FLASH_CASES = [
+    # (N, Sq, Skv, HK, G, dh, causal, window, softcap, q0, kv_len)
+    (4, 100, 100, 2, 3, 128, True, 0, 0.0, 0, None),     # ragged prefill
+    (2, 64, 64, 1, 1, 16, True, 0, 0.0, 0, None),
+    (2, 130, 130, 2, 2, 32, True, 40, 0.0, 0, None),     # sliding window
+    (2, 77, 77, 1, 4, 64, False, 0, 0.0, 0, None),       # full
+    (3, 50, 50, 1, 2, 256, True, 0, 30.0, 0, None),      # wide head, cap
+    (8, 1, 256, 1, 3, 128, True, 0, 0.0, 200, 201),      # decode
+    (8, 1, 256, 1, 3, 128, True, 0, 0.0, 255, 256),      # decode, full
+    (4, 3, 128, 2, 2, 64, True, 0, 0.0, 90, 93),         # 3-token step
+    (2, 1, 32, 2, 2, 128, True, 32, 0.0, 31, 32),        # windowed decode
+    (2, 33, 33, 1, 3, 40, True, 0, 0.0, 0, None),        # dh % 8 != 0
+]
+
+
+def _flash_inputs(cuda, case, dtype, seed=0):
+    n, sq, skv, hk, g, dh = case[:6]
+    gen = torch.Generator(device="cpu").manual_seed(seed + sum(case[:6]))
+    q, k, v = (torch.randn(*s, generator=gen).to(dtype).to(cuda)
+               for s in ((n, sq, hk, g, dh), (n, skv, hk, dh),
+                         (n, skv, hk, dh)))
+    return q, k, v
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, dtype, case):
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _flash_inputs(cuda, case, dtype)
+    causal, window, softcap, q0, kv_len = case[6:]
+    kw = dict(causal=causal, window=window, softcap=softcap, q0=q0,
+              kv_len=kv_len)
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == tuple(q.shape)
+    assert bool(torch.isfinite(got.float()).all())
+    assert _within_limit(FA, got, q, k, v, **kw)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,window,softcap", [
+    (1, 2, 2, 128, 64, 0, 0.0), (2, 4, 2, 256, 64, 0, 0.0),
+    (1, 8, 1, 128, 128, 0, 0.0), (1, 2, 2, 192, 32, 0, 0.0),
+    (1, 2, 2, 256, 64, 100, 0.0), (1, 2, 2, 128, 64, 0, 30.0)])
+def test_flash_pallas_layout_matches_the_oracle(cuda, dtype, b, hq, hkv, s,
+                                                d, window, softcap):
+    """The TPU kernel's cases (``tests/test_kernels.py:22-70``) on strided
+    views of the Pallas layout."""
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device="cpu").manual_seed(s + d)
+    scale = 4.0 if softcap else 1.0
+    q = (torch.randn(b, hq, s, d, generator=gen) * scale).to(dtype).to(cuda)
+    k = (torch.randn(b, hkv, s, d, generator=gen) * scale).to(dtype).to(
+        cuda)
+    v = torch.randn(b, hkv, s, d, generator=gen).to(dtype).to(cuda)
+    got = FA.flash_attention_bhsd(q, k, v, window=window, softcap=softcap)
+    want = FA.flash_attention_ref(q, k, v, window=window, softcap=softcap)
+    assert float((got.float() - want.float()).abs().max()) <= FLASH_TOL[
+        dtype]
+
+
+@needs_cuda
+@pytest.mark.parametrize("kv_len", [1024, 1025, 1056, 2048])
+def test_flash_kernel_at_the_serve_shapes(cuda, kv_len):
+    """llama3.2-3b at TP 8 stacked: 32 = 8 ranks x 4 requests, one KV head
+    and 3 q heads per rank; prefill at 1024 tokens, decode in a 2048-slot
+    cache."""
+    from repro_torch.kernels import flash_attention as FA
+    if kv_len == 1024:
+        case = (32, 1024, 1024, 1, 3, 128, True, 0, 0.0, 0, None)
+    else:
+        case = (32, 1, 2048, 1, 3, 128, True, 0, 0.0, kv_len - 1, kv_len)
+    q, k, v = _flash_inputs(cuda, case, torch.bfloat16)
+    kw = dict(zip(("causal", "window", "softcap", "q0", "kv_len"),
+                  case[6:]))
+    assert _within_limit(FA, FA.flash_attention(q, k, v, **kw), q, k, v, **kw)
+
+
+@needs_cuda
+@pytest.mark.parametrize("case,bad", [
+    ((32, 1024, 1024, 1, 3, 128, True, 0, 0.0, 0, None), dict(q0=1)),
+    ((32, 1024, 1024, 1, 3, 128, True, 0, 0.0, 0, None),
+     dict(window=1024 - 32)),
+    ((32, 1, 2048, 1, 3, 128, True, 0, 0.0, 1024, 1025),
+     dict(q0=1024, kv_len=1024)),
+    ((32, 1, 2048, 1, 3, 128, True, 0, 0.0, 1055, 1056),
+     dict(q0=1056, kv_len=1057))])
+def test_flash_limit_rejects_planted_faults_at_the_serve_shapes(cuda, case,
+                                                                bad):
+    """The kernel run with a fault's arguments (the causal edge one key
+    late, the first 32-key block dropped for the last rows, the last
+    filled slot left out, one unfilled slot read) fails the limit that
+    holds it to the plain version."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _flash_inputs(cuda, case, torch.bfloat16)
+    kw = dict(zip(("causal", "window", "softcap", "q0", "kv_len"),
+                  case[6:]))
+    assert not _within_limit(FA, FA.flash_attention(q, k, v, **bad), q, k, v,
+                             **kw)
+
+
+@needs_cuda
+def test_flash_kernel_reads_no_key_beyond_kv_len(cuda):
+    """Keys at or beyond kv_len, and blocks the causal mask hides, are
+    never read: NaNs there change nothing."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _flash_inputs(cuda, (2, 1, 512, 1, 3, 128), torch.bfloat16)
+    want = FA.flash_attention(q, k, v, q0=99, kv_len=100)
+    k[:, 100:] = float("nan")
+    v[:, 100:] = float("nan")
+    assert torch.equal(FA.flash_attention(q, k, v, q0=99, kv_len=100), want)
+
+
+@needs_cuda
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _flash_inputs(cuda, (1, 4, 4, 1, 1, 16), torch.bfloat16)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        FA.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        FA.flash_attention(q, k.transpose(1, 3).contiguous().transpose(1, 3),
+                           v)
+    big = torch.zeros(1, 2, 1, 1, 264, dtype=torch.bfloat16, device=cuda)
+    kb = torch.zeros(1, 2, 1, 264, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention(big, kb, kb)
+    with pytest.raises(ValueError, match="q on"):
+        FA.flash_attention(q.cpu(), k, v)
+
+
+def _smoke_serve_setup(cuda, tp=2):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_tree
+    cfg = dataclasses.replace(get_config("llama3.2-3b").smoke(),
+                              attn_impl="flash")
+    axis = StackedAxis(tp, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    params = init_tree(lm.model_specs(cfg, tp), gen, axis)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 24),
+                            generator=torch.Generator().manual_seed(6)
+                            ).to(cuda)
+    return cfg, axis, params, prompts
+
+
+@needs_cuda
+def test_model_flash_branch_launches_the_kernel_not_the_plain_version(
+        cuda, monkeypatch):
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve as tserve
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain version ran on the card")
+    monkeypatch.setattr(FA, "flash_attention_plain", refuse)
+    cfg, axis, params, prompts = _smoke_serve_setup(cuda)
+    before = FA.flash_attention.launches
+    res = tserve.serve(cfg, axis, params, prompts, 40, 5)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + cfg.n_layers * 5
+    assert res.tokens.shape == (2, 5) and res.tokens.is_cuda
+
+
+@needs_cuda
+def test_serve_on_card_matches_the_cpu(cuda):
+    """The smoke-size serve on the card against the same weights on the
+    CPU (plain attention there): 2e-2 max-norm relative, the JAX
+    package's bar for its two attention paths."""
+    from repro_torch.launch import serve as tserve
+    cfg, axis, params, prompts = _smoke_serve_setup(cuda)
+    on_card = tserve.serve(cfg, axis, params, prompts, 40, 6)
+    cpu_axis = StackedAxis(axis.size, "cpu")
+    on_cpu = tserve.serve(cfg, cpu_axis, _to_cpu(params), prompts.cpu(), 40, 6)
+    card_cpu = tserve.ServeResult(
+        on_card.tokens.cpu(), [lg.cpu() for lg in on_card.logits],
+        on_card.prefill_s, on_card.decode_s, on_card.ctx)
+    report = tserve.check_serves(on_cpu, card_cpu, 2e-2)
+    assert report["steps"] >= 1
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
