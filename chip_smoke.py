@@ -8,9 +8,10 @@ Phases (each raises on failure; nothing is caught):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the kernels from the sources in the checkout (set-up time):
-   one ``nvcc`` each for the block matmul, the all-gather-matmul ring and
-   flash attention, and the Triton JIT for guideline_pack, quant_pack and
-   dequant_unpack, all started together;
+   one ``nvcc`` each for the block matmul, the all-gather-matmul ring,
+   flash attention, the RWKV6 scan and the SSD scan, and the Triton JIT
+   for guideline_pack, quant_pack and dequant_unpack, all started
+   together;
 3. each kernel against its plain PyTorch version at the slice's shapes and
    at ragged shapes: max error, tolerance, kernel ms, plain ms, the bound,
    and the one PyTorch call that computes the same function, where there
@@ -21,7 +22,14 @@ Phases (each raises on failure; nothing is caught):
    kernel's test cases and ragged lengths, with
    ``scaled_dot_product_attention`` as the library time, and three planted
    faults (the causal edge or the filled length off by one, a key block
-   dropped) that its elementwise limit must reject;
+   dropped) that its elementwise limit must reject, and at zamba2's
+   shared-attention shape (dh 64, 4 heads and 4 KV heads per rank); the
+   two scans (``rwkv6_scan``, ``ssd_scan``) at the SSM serves' prefill
+   and decode (S = 1 from a non-zero state), the TPU kernels' test cases
+   (with the strong decay) and ragged lengths, held to their elementwise
+   limits, with planted faults (the inter-chunk state carry dropped, the
+   bonus u left out, the mask's diagonal dropped, the ragged last row left
+   out) that must fail them;
 4. ``selfcheck`` of every impl (59) at p = 8 and p = 6, with the wire
    tolerance gate's demotions;
 5. fit an ``h100-stacked`` Topo from ``sweep_axis`` (alpha, beta, gamma),
@@ -47,15 +55,24 @@ Phases (each raises on failure; nothing is caught):
    recording the trace, ``tune_trace`` it with the measured backend, save
    and reload the per-phase profiles, serve again under them, and hold
    the second serve's logits to the first's; then ``torch.profiler`` over
-   one prefill and one decode step for flash attention's device share.
+   one prefill and one decode step for flash attention's device share;
+11. the same serve for rwkv6-3b (32 RWKV6 layers, 40 heads of 64: 5 per
+   rank) and zamba2-1.2b (38 Mamba2 layers, d_inner 4096 = 64 heads of
+   64, state 64, and one shared attention block after every 6, each
+   occurrence with its own KV cache), at full width with the same
+   requests, each followed by a state-carry check: float32 weights, 2
+   layers, prefill(S - 1) + decode(1) against the full forward at the
+   last position, through the kernels.
 
 Kernel launch counts are zeroed just before phase 6 and read after each of
 phases 6-8; every kernel of the main path must have launched in the tune,
 replay and dispatch phases.  The ring's block tier is not on the main
 path: its launches are those of phase 3.  They are zeroed again just
-before the serve path (phase 10) and read after each serve: flash
-attention must launch once per layer and forward, 28 x 33 times a
-serve.  The p ranks are stacked on ONE card: a ring hop is a
+before each serve path (phases 10 and 11) and read after each serve:
+each model kernel must launch once per block of its kind and forward:
+flash attention 28 x 33 times a llama3.2-3b serve and 6 x 33 times a
+zamba2-1.2b serve, ``rwkv6_scan`` 32 x 33 times a rwkv6-3b serve,
+``ssd_scan`` 38 x 33 times a zamba2-1.2b serve, and no other.  The p ranks are stacked on ONE card: a ring hop is a
 device-memory copy, so the times measure on-chip data movement and launch
 overhead, not a link between GPUs.
 
@@ -93,6 +110,17 @@ TUNE_SIZES = (1, 1024, 32768, 1_048_576, 16_777_216)
 # KV head per rank); 4 requests of 1024 prompt tokens, the prefill's token
 # and 32 greedy decode steps, a 2048-slot KV cache
 SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE, SERVE_SLOTS = 4, 1024, 32, 2048
+# the SSM serves (rwkv6-3b: 40 heads of 64; zamba2-1.2b: d_inner 4096 = 64
+# heads of 64, state 64, and its shared block's 32 heads of 64) and the
+# scans' chunks (kernels/rwkv6_scan.py, kernels/ssd_mamba2.py)
+RWKV_HEADS, ZAMBA_HEADS, RWKV_CHUNK, SSD_CHUNK = 40, 64, 32, 64
+ZAMBA_ATTN_HEADS = 32
+# the state-carry check: 2 requests, a prompt of CARRY_PROMPT - 1 tokens (not
+# a multiple of either chunk) then one decode step, against the full forward
+# over CARRY_PROMPT tokens, float32 weights: the two differ in summation
+# order only (other chunk boundaries in the scans, other GEMM shapes), ~1e-6
+# relative per layer; a wrong s0 or s_fin moves the last logits by O(1)
+CARRY_PROMPT, CARRY_RTOL = 1000, 1e-3
 # the re-served logits against the default serve's, max-norm relative: a
 # tuned allreduce adds the p = 8 bf16 partial sums in another order (up to
 # p - 1 roundings where the default rounds once, 2**-8 each) at each of the
@@ -155,10 +183,10 @@ def require_launched(phase: str, before: dict, after: dict) -> dict:
 
 
 def profile_call(torch, label: str, fn, tag: str = "9",
-                 needle: str | None = None) -> float | None:
+                 needles: tuple = ()) -> dict:
     """Host time of one call of ``fn`` and its device time by kernel name,
-    from ``torch.profiler``; with ``needle``, also the share of the device
-    time spent in kernels whose name contains it (returned)."""
+    from ``torch.profiler``; with ``needles``, also the share of the
+    device time spent in kernels whose name contains each (returned)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -178,13 +206,14 @@ def profile_call(torch, label: str, fn, tag: str = "9",
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[{tag}]   {e.self_device_time_total / 1e3:9.4f} ms "
             f"x{e.count:4d} {e.key[:90]}")
-    if needle is None:
-        return None
-    mine = sum(e.self_device_time_total for e in rows if needle in e.key) / 1e3
-    share = mine / busy if busy else float("nan")
-    log(f"[{tag}] {label}: {needle} {mine:.4f} ms = {100 * share:.2f} % of "
-        "the device time")
-    return share
+    shares = {}
+    for needle in needles:
+        mine = sum(e.self_device_time_total for e in rows
+                   if needle in e.key) / 1e3
+        shares[needle] = mine / busy if busy else float("nan")
+        log(f"[{tag}] {label}: {needle} {mine:.4f} ms = "
+            f"{100 * shares[needle]:.2f} % of the device time")
+    return shares
 
 
 def flash_work(n, sq, hk, g, dh, q0, kv_len, causal, window, itemsize):
@@ -354,13 +383,287 @@ def check_flash(torch, fa, randn) -> dict:
         log(f"[3] flash_attention {label} q{list(shapes[0])} "
             f"k{list(shapes[1])} {name_dt[dt]} {kw}: max_abs_err {err:.3e} "
             f"({share:.3f} of the limit)")
+    # zamba2-1.2b's shared attention at TP 8: 4 heads and 4 KV heads of 64
+    # per rank (G = 1), its prefill and decode in the 2048-slot cache
+    hz = ZAMBA_ATTN_HEADS // P
+    qz, kz, vz = (randn(n_fold, SERVE_PROMPT, hz, *d)
+                  for d in ((1, 64), (64,), (64,)))
+    err, share = check("zamba2 prefill", qz, kz, vz)
+    log(f"[3] flash_attention zamba2 shared block prefill q{list(qz.shape)} "
+        f"k{list(kz.shape)} bf16 causal: max_abs_err {err:.3e} ({share:.3f} "
+        f"of the limit) kernel "
+        f"{time_ms(torch, lambda: fa.flash_attention(qz, kz, vz)):.4f} ms")
+    q1z = randn(n_fold, 1, hz, 1, 64)
+    kcz, vcz = (randn(n_fold, SERVE_SLOTS, hz, 64) for _ in range(2))
+    for kv_len in (SERVE_PROMPT + 1, SERVE_PROMPT + SERVE_DECODE):
+        err, share = check(f"zamba2 decode kv_len {kv_len}", q1z, kcz, vcz,
+                           q0=kv_len - 1, kv_len=kv_len)
+        log(f"[3] flash_attention zamba2 shared block decode "
+            f"q{list(q1z.shape)} k{list(kcz.shape)} kv_len {kv_len}: "
+            f"max_abs_err {err:.3e} ({share:.3f} of the limit)")
     return {"prefill": prefill, "decode": decode}
 
 
-def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict) -> dict:
-    """Phase 10: serve llama3.2-3b at full width on the card, record ->
-    ``tune_trace`` (measured) -> re-serve, with launch counts of every
-    kernel in ``wrappers`` read around each serve."""
+def rwkv_work(n, s, h, hd, itemsize, with_s0):
+    """(operations, bytes) of one rwkv6_scan call: per chunk of Lc rows and
+    (n, h), 3·hd per pair s < t (r·k·exp, its sum) and per bonus row, and
+    one exp per pair and channel; 2·hd² per row (the inter-chunk
+    product), 2·hd per pair s <= t (A·v) and 2·hd² per row for the state
+    update.  Bytes: r, k, v in their type, w and y in float32, u, and s0
+    and s_fin where there is an s0 (s_fin always written)."""
+    ops = 0
+    for c0 in range(0, s, RWKV_CHUNK):
+        lc = min(RWKV_CHUNK, s - c0)
+        pairs = lc * (lc - 1) // 2
+        ops += (4 * hd * pairs + 3 * hd * lc + 2 * hd * hd * lc
+                + 2 * hd * (pairs + lc) + 2 * hd * hd * lc)
+    ops *= n * h
+    byts = (n * s * h * hd * (3 * itemsize + 4 + 4) + P * h * hd * 4
+            + n * h * hd * hd * 4 * (2 if with_s0 else 1))
+    return ops, byts
+
+
+def ssd_work(n, s, h, p_, ns, itemsize, with_s0):
+    """(operations, bytes) of one ssd_scan call: per chunk of Lc rows and
+    (n, h), 2·Ns per pair s <= t (C·B) plus its exp, 2·P per pair (M·xb),
+    2·Ns·P per row twice (the inter-chunk term, the state update).  Bytes:
+    x, B and C in their type (B and C once per row, shared by the heads),
+    dt and y in float32, and s0 / s_fin."""
+    ops = 0
+    for c0 in range(0, s, SSD_CHUNK):
+        lc = min(SSD_CHUNK, s - c0)
+        pairs = lc * (lc + 1) // 2
+        ops += (2 * ns + 1) * pairs + 2 * p_ * pairs + 4 * ns * p_ * lc
+    ops *= n * h
+    byts = (n * s * (h * p_ * itemsize + 2 * ns * itemsize + h * 4
+                     + h * p_ * 4)
+            + n * h * ns * p_ * 4 * (2 if with_s0 else 1))
+    return ops, byts
+
+
+def check_scans(torch, rw, ssd, randn, dev) -> dict:
+    """Phase 3 for the two scans: each kernel against its plain version,
+    held to its elementwise limit (``rwkv6_scan.tolerance``,
+    ``ssd_mamba2.tolerance``: 2^-20·(hd + L, or L + Ns) plus 2^-20·L·the
+    largest log-decay, times the sum of the terms' absolute values), at the
+    serve path's prefill and decode (S = 1 from the prefill's non-zero
+    final state), the TPU kernels' test cases (with the strong decay), a
+    ragged length, and four planted faults that the limit must reject.
+    Returns the kernels-line records (serve prefill)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def uni(*shape, lo=0.0, hi=1.0):
+        return torch.rand(*shape, generator=g, device=dev) * (
+            hi - lo) + lo
+
+    def held(label, fn, plain, lim, ins, quiet=False):
+        (y, sf), (yp, sp), (yl, sl) = fn(*ins), plain(*ins), lim(*ins)
+        share = max(float(((y - yp).abs() / yl).max()),
+                    float(((sf - sp).abs() / sl).max()))
+        err = max(float((y - yp).abs().max()), float((sf - sp).abs().max()))
+        if not share <= 1.0 or not bool(torch.isfinite(y).all()):
+            raise RuntimeError(f"{label}: error {err} is {share:.3f} of the "
+                               "limit")
+        if not quiet:
+            log(f"[3] {label}: max_abs_err {err:.3e} ({share:.4f} of the "
+                "limit)")
+        return err, (y, sf)
+
+    def planted(label, want, lim, bad):
+        share = float(((bad - want).abs() / lim).max())
+        log(f"[3] planted fault, {label}: {share:.2f} of the limit")
+        if not share > 1.0:
+            raise RuntimeError(f"the limit passes the planted fault {label}")
+
+    recs = {}
+    # ---- rwkv6_scan: rwkv6-3b at TP 8 stacked, 4 requests -> N = 32 rows,
+    # 5 heads of 64 per rank; w = exp(-exp(~N(0, 0.5))) as the model makes
+    n, h, hd = P * SERVE_BATCH, RWKV_HEADS // P, 64
+
+    def rwkv_in(s, dt=torch.bfloat16, with_s0=None, nu=P):
+        w = torch.exp(-torch.exp(randn(n, s, h, hd, dtype=torch.float32,
+                                       scale=0.5)))
+        return (randn(n, s, h, hd, dtype=dt), randn(n, s, h, hd, dtype=dt),
+                randn(n, s, h, hd, dtype=dt), w,
+                randn(nu, h, hd, dtype=torch.float32, scale=0.5), with_s0)
+
+    ins = rwkv_in(SERVE_PROMPT)
+    err, (_, s_fin) = held("rwkv6_scan serve prefill", rw.rwkv6_scan,
+                           rw.rwkv6_scan_plain, rw.tolerance, ins)
+    dec = rwkv_in(1, with_s0=s_fin)
+    held("rwkv6_scan serve decode (S = 1, s0 = the prefill's state)",
+         rw.rwkv6_scan, rw.rwkv6_scan_plain, rw.tolerance, dec)
+    flops, byts = rwkv_work(n, SERVE_PROMPT, h, hd, 2, False)
+    t_b, t_f = byts / H100_BYTES_PER_S, flops / H100_FLOPS["float32"]
+    recs["rwkv6_scan"] = dict(
+        name="rwkv6_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:81", max_abs_err=err,
+        ms=time_ms(torch, lambda: rw.rwkv6_scan(*ins)),
+        plain_ms=time_ms(torch, lambda: rw.rwkv6_scan_plain(*ins), iters=3),
+        bound_ms=max(t_b, t_f) * 1e3,
+        bound_by="bytes" if t_b > t_f else "operations", library_ms=None)
+    d_ops, d_byts = rwkv_work(n, 1, h, hd, 2, True)
+    d_ms = time_ms(torch, lambda: rw.rwkv6_scan(*dec))
+    d_bound = max(d_byts / H100_BYTES_PER_S,
+                  d_ops / H100_FLOPS["float32"]) * 1e3
+    rec = recs["rwkv6_scan"]
+    log(f"[3] rwkv6_scan serve prefill r[{n},{SERVE_PROMPT},{h},{hd}] bf16: "
+        f"kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {flops / 1e9:.2f} "
+        f"GFLOP, {byts / 1e6:.2f} MB) = {flops / rec['ms'] / 1e9:.1f} "
+        f"TFLOP/s, {byts / rec['ms'] / 1e6:.1f} GB/s; library none (no "
+        f"one-call equivalent)")
+    log(f"[3] rwkv6_scan serve decode r[{n},1,{h},{hd}]: kernel {d_ms:.4f} ms "
+        f"bound {d_bound:.4f} ms ({d_byts / 1e6:.2f} MB)")
+    recs["rwkv6_decode"] = {"ms": d_ms, "bound_ms": d_bound}
+    # the TPU kernel's cases (tests/test_kernels.py:78-108), its layout
+    for bh, s_, d_, decay in ((2, 64, 16, None), (1, 128, 32, None),
+                              (3, 96, 64, None), (1, 32, 8, None),
+                              (1, 64, 16, 1e-3)):
+        r, k, v = (randn(bh, s_, d_, dtype=torch.float32) for _ in range(3))
+        w = (torch.full((bh, s_, d_), decay, device=dev) if decay
+             else uni(bh, s_, d_, lo=0.4, hi=0.95))
+        u = randn(bh, d_, dtype=torch.float32)
+        held(f"rwkv6_scan TPU-test case BH{bh} S{s_} hd{d_} w "
+             f"{decay or 'in (0.4, 0.95)'}", rw.rwkv6_scan,
+             rw.rwkv6_scan_plain, rw.tolerance,
+             rw.to_model_layout(r, k, v, w, u) + (None,))
+        y, _ = rw.rwkv6_scan_bhsd(r, k, v, w, u)
+        yo, _ = rw.rwkv6_ref(r, k, v, w, u)
+        if not float((y - yo).abs().max()) <= 2e-4:
+            raise RuntimeError("rwkv6_scan differs from the oracle by more "
+                               "than the reference test's 2e-4")
+    # ragged, from a non-zero state; the planted faults there
+    s_r = SERVE_PROMPT - 24
+    ins_r = rwkv_in(s_r, with_s0=s_fin)
+    _, (y_r, _) = held(f"rwkv6_scan ragged S {s_r} from s0", rw.rwkv6_scan,
+                       rw.rwkv6_scan_plain, rw.tolerance, ins_r)
+    held("rwkv6_scan ragged S 75 float32 hd 40", rw.rwkv6_scan,
+         rw.rwkv6_scan_plain, rw.tolerance,
+         (*(randn(3, 75, 2, 40, dtype=torch.float32) for _ in range(3)),
+          uni(3, 75, 2, 40, lo=0.3, hi=0.99),
+          randn(1, 2, 40, dtype=torch.float32), None))
+    want = rw.rwkv6_scan_plain(*ins_r)[0]
+    lim = rw.tolerance(*ins_r)[0]
+    r_, k_, v_, w_, u_, s0_ = ins_r
+    L = rw.CHUNK
+    planted("rwkv6_scan inter-chunk state carry dropped", want, lim,
+            torch.cat([rw.rwkv6_scan(r_[:, c:c + L], k_[:, c:c + L],
+                                     v_[:, c:c + L], w_[:, c:c + L], u_,
+                                     s0_ if c == 0 else None)[0]
+                       for c in range(0, s_r, L)], 1))
+    planted("rwkv6_scan bonus u left out", want, lim, rw.rwkv6_scan(
+        r_, k_, v_, w_, torch.zeros_like(u_), s0_)[0])
+    last = y_r.clone()
+    last[:, -1] = 0
+    planted("rwkv6_scan ragged last row left out", want, lim, last)
+
+    # ---- ssd_scan: zamba2-1.2b at TP 8: 8 heads of 64 per rank, state 64;
+    # dt = softplus(~N(0, 1)), a = exp(~N(0, 0.5)) as the model makes
+    h2, p_, ns = ZAMBA_HEADS // P, 64, 64
+
+    def ssd_in(s, dt=torch.bfloat16, with_s0=None, na=P):
+        bc = randn(n, s, 2 * ns, dtype=dt)
+        return (randn(n, s, h2, p_, dtype=dt),
+                torch.nn.functional.softplus(randn(n, s, h2,
+                                                   dtype=torch.float32)),
+                torch.exp(randn(na, h2, dtype=torch.float32, scale=0.5)),
+                bc[..., :ns], bc[..., ns:], with_s0)
+
+    ins = ssd_in(SERVE_PROMPT)
+    err, (_, s_fin) = held("ssd_scan serve prefill", ssd.ssd_scan,
+                           ssd.ssd_scan_plain, ssd.tolerance, ins)
+    dec = ssd_in(1, with_s0=s_fin)
+    held("ssd_scan serve decode (S = 1, s0 = the prefill's state)",
+         ssd.ssd_scan, ssd.ssd_scan_plain, ssd.tolerance, dec)
+    flops, byts = ssd_work(n, SERVE_PROMPT, h2, p_, ns, 2, False)
+    t_b, t_f = byts / H100_BYTES_PER_S, flops / H100_FLOPS["float32"]
+    recs["ssd_scan"] = dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_mamba2.py:73", max_abs_err=err,
+        ms=time_ms(torch, lambda: ssd.ssd_scan(*ins)),
+        plain_ms=time_ms(torch, lambda: ssd.ssd_scan_plain(*ins), iters=3),
+        bound_ms=max(t_b, t_f) * 1e3,
+        bound_by="bytes" if t_b > t_f else "operations", library_ms=None)
+    d_ops, d_byts = ssd_work(n, 1, h2, p_, ns, 2, True)
+    d_ms = time_ms(torch, lambda: ssd.ssd_scan(*dec))
+    d_bound = max(d_byts / H100_BYTES_PER_S,
+                  d_ops / H100_FLOPS["float32"]) * 1e3
+    rec = recs["ssd_scan"]
+    log(f"[3] ssd_scan serve prefill x[{n},{SERVE_PROMPT},{h2},{p_}] B,C "
+        f"[{n},{SERVE_PROMPT},{ns}] bf16: kernel {rec['ms']:.4f} ms plain "
+        f"{rec['plain_ms']:.4f} ms bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}: {flops / 1e9:.2f} GFLOP, {byts / 1e6:.2f} MB)"
+        f" = {flops / rec['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{byts / rec['ms'] / 1e6:.1f} GB/s; library none (no one-call "
+        f"equivalent)")
+    log(f"[3] ssd_scan serve decode x[{n},1,{h2},{p_}]: kernel {d_ms:.4f} ms "
+        f"bound {d_bound:.4f} ms ({d_byts / 1e6:.2f} MB)")
+    recs["ssd_decode"] = {"ms": d_ms, "bound_ms": d_bound}
+    # the TPU kernel's cases (tests/test_kernels.py:116-140), its layout
+    for bh, s_, pp, nn in ((2, 64, 32, 16), (1, 128, 64, 64),
+                           (4, 96, 16, 8)):
+        x = randn(bh, s_, pp, dtype=torch.float32)
+        dtt = uni(bh, s_, lo=0.05, hi=0.85)
+        a = uni(bh, lo=0.3, hi=2.3)
+        B, C = (randn(bh, s_, nn, dtype=torch.float32) for _ in range(2))
+        held(f"ssd_scan TPU-test case BH{bh} S{s_} P{pp} N{nn}",
+             ssd.ssd_scan, ssd.ssd_scan_plain, ssd.tolerance,
+             ssd.to_model_layout(x, dtt, a, B, C) + (None,))
+        y, _ = ssd.ssd_scan_bhsd(x, dtt, a, B, C)
+        yo, _ = ssd.ssd_ref(x, dtt, a, B, C)
+        if not float((y - yo).abs().max()) <= 3e-4:
+            raise RuntimeError("ssd_scan differs from the oracle by more "
+                               "than the reference test's 3e-4")
+    s_r = SERVE_PROMPT - 24
+    ins_r = ssd_in(s_r, with_s0=s_fin)
+    _, (y_r, _) = held(f"ssd_scan ragged S {s_r} from s0", ssd.ssd_scan,
+                       ssd.ssd_scan_plain, ssd.tolerance, ins_r)
+    bc = randn(3, 130, 80, dtype=torch.float32)
+    held("ssd_scan ragged S 130 float32 P 24 N 40", ssd.ssd_scan,
+         ssd.ssd_scan_plain, ssd.tolerance,
+         (randn(3, 130, 2, 24, dtype=torch.float32),
+          uni(3, 130, 2, lo=0.05, hi=0.85), uni(1, 2, lo=0.3, hi=2.3),
+          bc[..., :40], bc[..., 40:], None))
+    want = ssd.ssd_scan_plain(*ins_r)[0]
+    lim = ssd.tolerance(*ins_r)[0]
+    x_, dt_, a_, B_, C_, s0_ = ins_r
+    L = ssd.CHUNK
+    planted("ssd_scan inter-chunk state carry dropped", want, lim,
+            torch.cat([ssd.ssd_scan(x_[:, c:c + L], dt_[:, c:c + L], a_,
+                                    B_[:, c:c + L], C_[:, c:c + L],
+                                    s0_ if c == 0 else None)[0]
+                       for c in range(0, s_r, L)], 1))
+    diag = (C_.float() * B_.float()).sum(-1)[..., None, None] * \
+        dt_[..., None] * x_.float()
+    planted("ssd_scan diagonal of the mask dropped", want, lim, y_r - diag)
+    last = y_r.clone()
+    last[:, -1] = 0
+    planted("ssd_scan ragged last row left out", want, lim, last)
+    return recs
+
+
+def per_serve_launches(lm, cfg, n_tokens: int) -> dict:
+    """The launches one serve must make of each model kernel: one per
+    block of its kind and forward (the prefill and n_tokens - 1 decode
+    steps)."""
+    kinds = [k for g in lm.stack_plan(cfg) for k in g.unit * g.n_rep]
+    return {"flash_attention": n_tokens * sum(
+                k in ("attn", "attn_local", "shared_attn") for k in kinds),
+            "rwkv6_scan": n_tokens * kinds.count("rwkv"),
+            "ssd_scan": n_tokens * kinds.count("mamba")}
+
+
+def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
+                arch: str, tag: str, needles: tuple) -> dict:
+    """Serve ``arch`` at full width on the card, record -> ``tune_trace``
+    (measured) -> re-serve, with launch counts of every kernel in
+    ``wrappers`` zeroed just before the serve path and read around each
+    serve; each model kernel must launch exactly once per block of its
+    kind and forward.  Then ``torch.profiler`` over one prefill and one
+    decode step: the device share of the kernels named by ``needles``."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import api, profiles, trace, tuner
@@ -371,7 +674,7 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict) -> dict:
     from repro_torch.models.params import init_tree
 
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(get_config("llama3.2-3b"), attn_impl="flash")
+    cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
     axis = StackedAxis(P, dev)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -390,17 +693,18 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict) -> dict:
             leaves.append(t)
     walk(params)
     w_bytes = sum(t.numel() * t.element_size() for t in leaves)
-    log(f"[10] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads x {cfg.hd}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, attn_impl "
-        f"{cfg.attn_impl}; TP {P} stacked; weights {w_bytes / 1e9:.3f} GB "
-        f"({cfg.param_count() / 1e9:.3f} B params) drawn in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers {cfg.layer_pattern}"
+        f"{f' + shared attention every {cfg.hybrid_period}' if cfg.hybrid_period else ''}"
+        f", d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} "
+        f"KV heads x {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}, attn_impl {cfg.attn_impl}; TP {P} stacked; weights "
+        f"{w_bytes / 1e9:.3f} GB ({cfg.param_count() / 1e9:.3f} B params) "
+        f"drawn in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(SEED)
     prompts = torch.as_tensor(rng.integers(
         0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
     n_tokens = 1 + SERVE_DECODE
-    per_serve = cfg.n_layers * n_tokens
+    per_serve = per_serve_launches(lm, cfg, n_tokens)
     sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, 2)   # warm-up
     torch.cuda.reset_peak_memory_stats(dev)
 
@@ -409,22 +713,22 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict) -> dict:
     first = sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, n_tokens)
     c1 = counts(wrappers)
     rec = trace.Trace.from_context(first.ctx)
-    rec.save(out_dir / "serve_trace.jsonl")
+    rec.save(out_dir / f"serve_trace_{cfg.name}.jsonl")
     for ln in rec.summary().splitlines():
-        log(f"[10] {ln}")
+        log(f"[{tag}] {ln}")
     t0 = time.perf_counter()
     rep = tuner.tune_trace(rec, tuner.MeasuredBackend(P, dev, max_nrep=20))
-    log(f"[10] tune_trace in {time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] tune_trace in {time.perf_counter() - t0:.1f} s")
     for m in rep.measurements:
-        log(f"[10] measured {m.op} {m.nbytes}B {m.impl}: "
+        log(f"[{tag}] measured {m.op} {m.nbytes}B {m.impl}: "
             f"{m.latency * 1e3:.4f} ms (nrep {m.nrep})")
     for ln in rep.summary().splitlines():
-        log(f"[10] {ln}")
-    prof_dir = out_dir / "serve_profiles"
+        log(f"[{tag}] {ln}")
+    prof_dir = out_dir / f"serve_profiles_{cfg.name}"
     shutil.rmtree(prof_dir, ignore_errors=True)
     rep.save(prof_dir)
     _, phases = profiles.resolve_stores(prof_dir)
-    log(f"[10] per-phase profiles saved to {prof_dir} and reloaded: "
+    log(f"[{tag}] per-phase profiles saved to {prof_dir} and reloaded: "
         f"{ {ph: len(st) for ph, st in phases.items()} }")
     c2 = counts(wrappers)
     second = sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, n_tokens,
@@ -433,15 +737,16 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict) -> dict:
     peak = torch.cuda.max_memory_allocated(dev)
     for label, a, b in (("default serve", c0, c1), ("tune_trace", c1, c2),
                         ("re-serve", c2, c3)):
-        log(f"[10 {label}] kernel launches: "
+        log(f"[{tag} {label}] kernel launches: "
             f"{json.dumps({k: b[k] - a[k] for k in b})}")
+    log(f"[{tag}] required per serve: {json.dumps(per_serve)}")
     for label, a, b in (("default serve", c0, c1), ("re-serve", c2, c3)):
-        got = b["flash_attention"] - a["flash_attention"]
-        if got != per_serve:
-            raise RuntimeError(f"{label}: flash_attention launched {got} "
-                               f"times, not {cfg.n_layers} x {n_tokens}")
+        for k, want in per_serve.items():
+            if b[k] - a[k] != want:
+                raise RuntimeError(f"{cfg.name} {label}: {k} launched "
+                                   f"{b[k] - a[k]} times, not {want}")
     check = sv.check_serves(first, second, SERVE_RTOL)
-    log(f"[10] re-served logits vs the default serve: {check['steps']} "
+    log(f"[{tag}] re-served logits vs the default serve: {check['steps']} "
         f"steps, max-norm relative error {check['max_rel_err']:.4e} "
         f"(tolerance {SERVE_RTOL}), tokens diverged at "
         f"{check['diverged_at']}")
@@ -449,20 +754,21 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict) -> dict:
         toks = res.tokens.cpu()
         if tuple(toks.shape) != (SERVE_BATCH, n_tokens) or not bool(
                 all(torch.isfinite(lg).all() for lg in res.logits)):
-            raise RuntimeError(f"{label} serve: bad output")
-        log(f"[10] {label} tokens, request 0: {toks[0].tolist()}")
-        log(f"[10] {label} serve: prefill {res.prefill_s * 1e3:.2f} ms "
+            raise RuntimeError(f"{cfg.name} {label} serve: bad output")
+        log(f"[{tag}] {label} tokens, request 0: {toks[0].tolist()}")
+        log(f"[{tag}] {cfg.name} {label} serve: prefill "
+            f"{res.prefill_s * 1e3:.2f} ms "
             f"({SERVE_BATCH * SERVE_PROMPT / res.prefill_s:.0f} tokens/s), "
             f"decode {res.decode_s_per_token * 1e3:.3f} ms/token "
             f"({SERVE_BATCH / res.decode_s_per_token:.1f} tokens/s over "
             f"{SERVE_BATCH} requests), {SERVE_BATCH * n_tokens} tokens in "
             f"{(res.prefill_s + res.decode_s) * 1e3:.1f} ms")
     for ln in api.format_footer(second.ctx).splitlines():
-        log(f"[10] {ln}")
-    log(f"[10] peak device memory {peak / 1e9:.3f} GB")
+        log(f"[{tag}] {ln}")
+    log(f"[{tag}] {cfg.name} peak device memory {peak / 1e9:.3f} GB")
     launches = {k: c3[k] - c0[k] for k in c3}
-    log(f"[serve path] kernel launches: {json.dumps(launches)}")
-    log(f"[10] weights, warm-up, serve, tune_trace, re-serve in "
+    log(f"[serve path {cfg.name}] kernel launches: {json.dumps(launches)}")
+    log(f"[{tag}] weights, warm-up, serve, tune_trace, re-serve in "
         f"{time.perf_counter() - t_phase:.1f} s")
 
     # where a step's device time goes (after the serve path's counts)
@@ -471,18 +777,69 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict) -> dict:
     pf, dc = sv.build_prefill(cfg, axis), sv.build_decode(cfg, axis)
     tok = prompts[:, :1]
     shares = {
-        "prefill": profile_call(torch, "one prefill", lambda: pf(
-            params, {"tokens": prompts}, caches), "10", "fa_bf16_kernel"),
-        "decode": profile_call(torch, "one decode step", lambda: dc(
-            params, tok, caches, SERVE_PROMPT), "10", "fa_bf16_kernel")}
-    return {"launches": launches, "flash_share": shares, "check": check,
-            "peak_bytes": peak,
+        "prefill": profile_call(torch, f"{cfg.name} one prefill", lambda: pf(
+            params, {"tokens": prompts}, caches), tag, needles),
+        "decode": profile_call(torch, f"{cfg.name} one decode step",
+                               lambda: dc(params, tok, caches, SERVE_PROMPT),
+                               tag, needles)}
+    return {"launches": launches, "shares": shares, "check": check,
+            "peak_bytes": peak, "per_serve": per_serve,
             "serves": {label: {"prefill_ms": r.prefill_s * 1e3,
                                "decode_ms_per_token":
                                    r.decode_s_per_token * 1e3,
                                "tokens": r.tokens.cpu().tolist()}
                        for label, r in (("default", first),
                                         ("tuned", second))}}
+
+
+def state_carry_check(torch, dev, wrappers: dict, arch: str) -> float:
+    """Prefill(S - 1) + decode(1) against the full forward at the last
+    position: full width, float32 weights, 2 layers (zamba2: 2 mamba
+    layers with ``hybrid_period`` cut to 2 with the depth, so that one
+    shared attention block follows them), TP P stacked, S =
+    ``CARRY_PROMPT`` (S - 1 is a multiple of neither chunk), through the
+    kernels: the check of the scans' s0 input and s_fin output.  Returns
+    the max-norm relative error; raises above ``CARRY_RTOL``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core._axis import StackedAxis
+    from repro_torch.dist.axes import bind
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_tree
+
+    cut = {"hybrid_period": 2} if arch == "zamba2-1.2b" else {}
+    cfg = dataclasses.replace(get_config(arch), attn_impl="flash",
+                              dtype="float32", n_layers=2, **cut)
+    axis = StackedAxis(P, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    params = init_tree(lm.model_specs(cfg, P), gen, axis)
+    toks = torch.as_tensor(np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab_size, (2, CARRY_PROMPT)), device=dev)
+    before = counts(wrappers)
+    with bind(model=axis):
+        full = lm.forward(params, cfg, {"tokens": toks})[0][:, :, -1]
+        caches = lm.init_caches(cfg, 2, CARRY_PROMPT + 8)
+        _, caches = lm.prefill(params, cfg, {"tokens": toks[:, :-1]}, caches)
+        last, _ = lm.decode_step(params, cfg, toks[:, -1:], caches,
+                                 CARRY_PROMPT - 1)
+    torch.cuda.synchronize()
+    after = counts(wrappers)
+    kinds = [k for g in lm.stack_plan(cfg) for k in g.unit * g.n_rep]
+    rel = float((last[:, :, 0] - full).abs().max() / full.abs().max())
+    launched = {k: after[k] - before[k] for k in after}
+    log(f"[11] state carry {cfg.name} (2 layers {kinds}, float32, TP {P}): "
+        f"prefill {CARRY_PROMPT - 1} + decode 1 vs forward over "
+        f"{CARRY_PROMPT}: max-norm relative error {rel:.3e} (tolerance "
+        f"{CARRY_RTOL}); launches {json.dumps(launched)}")
+    scan = "rwkv6_scan" if arch == "rwkv6-3b" else "ssd_scan"
+    if launched[scan] != 3 * kinds.count(
+            "rwkv" if arch == "rwkv6-3b" else "mamba"):
+        raise RuntimeError(f"state carry {cfg.name}: {scan} launched "
+                           f"{launched[scan]} times")
+    if not rel <= CARRY_RTOL or not bool(torch.isfinite(last).all()):
+        raise RuntimeError(f"state carry {cfg.name}: error {rel} > "
+                           f"{CARRY_RTOL}")
+    return rel
 
 
 def block(api, axis, torch, x, wv, wo, wgu, wd):
@@ -529,6 +886,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import collective_matmul_rdma as rdma
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quant
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.kernels import ssd_mamba2 as ssd
 
     torch.backends.cuda.matmul.allow_tf32 = False     # plain f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
@@ -557,7 +916,7 @@ def main(argv=None) -> int:
             errs.append(e)
 
     threads = [threading.Thread(target=nvcc_build, args=(m,))
-               for m in (cmm, rdma, fa)]  # one nvcc per source, together
+               for m in (cmm, rdma, fa, rw, ssd)]  # one nvcc per source
     for th in threads:
         th.start()
     for dt in (torch.float32, torch.bfloat16):     # Triton JIT per dtype
@@ -570,7 +929,8 @@ def main(argv=None) -> int:
         raise errs[0]
     torch.cuda.synchronize()
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s")
-    for lib in ("block_matmul", "agmm_ring", "flash_attention"):
+    for lib in ("block_matmul", "agmm_ring", "flash_attention",
+                "rwkv6_scan", "ssd_scan"):
         for ln in _build.build_log(lib).splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
                 log(f"[2] ptxas {lib}: {ln.strip()}")
@@ -870,6 +1230,13 @@ def main(argv=None) -> int:
     log(f"[3] flash_attention checks in {time.perf_counter() - t0:.1f} s")
     kernels["flash_attention"] = flash["prefill"]
     report["flash_decode"] = flash["decode"]
+    t0 = time.perf_counter()
+    scans = check_scans(torch, rw, ssd, randn, dev)
+    log(f"[3] scan checks in {time.perf_counter() - t0:.1f} s")
+    kernels["rwkv6_scan"] = scans["rwkv6_scan"]
+    kernels["ssd_scan"] = scans["ssd_scan"]
+    report["scan_decode"] = {"rwkv6_scan": scans["rwkv6_decode"],
+                             "ssd_scan": scans["ssd_decode"]}
 
     # -- 4. selfcheck ----------------------------------------------------------
     for p_ in (P, 6):
@@ -1078,15 +1445,29 @@ def main(argv=None) -> int:
         kernels[k]["main_path"] = True
     kernels["ring_allgather_matmul_blocks"]["main_path"] = False
 
-    # -- 10. the serve path --------------------------------------------------
+    # -- 10. the serve path: llama3.2-3b ----------------------------------
     every = dict(wrappers,
                  ring_allgather_matmul_blocks=rdma.ring_allgather_matmul_blocks,
-                 flash_attention=fa.flash_attention)
-    served = serve_phase(torch, dev, out_dir, every)
+                 flash_attention=fa.flash_attention,
+                 rwkv6_scan=rw.rwkv6_scan, ssd_scan=ssd.ssd_scan)
+    served = serve_phase(torch, dev, out_dir, every, "llama3.2-3b", "10",
+                         ("fa_bf16_kernel",))
     report["serve"] = served
     kernels["flash_attention"]["launches"] = served["launches"][
         "flash_attention"]
     kernels["flash_attention"]["main_path"] = True
+
+    # -- 11. the serve paths of the SSM family ------------------------------
+    report["ssm_serve"] = {}
+    for arch, scan, needles in (
+            ("rwkv6-3b", "rwkv6_scan", ("rwkv6_kernel",)),
+            ("zamba2-1.2b", "ssd_scan", ("ssd_kernel", "fa_bf16_kernel"))):
+        got = serve_phase(torch, dev, out_dir, every, arch, "11", needles)
+        got["state_carry_rel_err"] = state_carry_check(torch, dev, every,
+                                                       arch)
+        report["ssm_serve"][arch] = got
+        kernels[scan]["launches"] = got["launches"][scan]
+        kernels[scan]["main_path"] = True
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     (out_dir / "report.json").write_text(json.dumps(report, indent=1))
@@ -1099,7 +1480,8 @@ def main(argv=None) -> int:
                                             "ring_allgather_matmul_rdma",
                                             "ring_allgather_matmul_blocks",
                                             "quant_pack", "dequant_unpack",
-                                            "flash_attention")]}))
+                                            "flash_attention", "rwkv6_scan",
+                                            "ssd_scan")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

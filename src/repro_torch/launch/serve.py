@@ -15,7 +15,8 @@ offline -> online loop on the recorded traffic::
 
     python -m repro_torch.launch.serve --device cpu --arch llama3.2-3b
 
-(the smoke-size config: default serve, recording; ``tune_trace`` with the
+(also ``--arch rwkv6-3b`` and ``--arch zamba2-1.2b``; the smoke-size
+config: default serve, recording; ``tune_trace`` with the
 measured backend; serve again under the per-phase profiles; the tokens
 and logits must agree).  Without ``--device cpu`` it runs on the card.
 The fleet mode of the JAX package (``store_ref=``, ``plan=``) and its

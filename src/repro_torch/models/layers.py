@@ -13,13 +13,14 @@ from repro_torch.models.params import ParamSpec
 
 
 def _per_rank(t: torch.Tensor, ndim: int) -> torch.Tensor:
-    """A stacked ``[p, D]`` parameter shaped to broadcast against a stacked
-    ``ndim``-dim activation ``[p, ..., D]``."""
-    return t.reshape(t.shape[0], *([1] * (ndim - 2)), t.shape[-1])
+    """A stacked ``[p, *D]`` parameter shaped to broadcast against a
+    stacked ``ndim``-dim activation ``[p, ..., *D]``."""
+    return t.reshape(t.shape[0], *([1] * (ndim - t.dim())), *t.shape[1:])
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
-    """RMS norm with a ``1 + scale`` gain, in float32 inside."""
+    """RMS norm over the last dim with a ``1 + scale`` gain, in float32
+    inside; ``scale`` is stacked, ``[p, D]`` or ``[p, h, D]`` (per head)."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)

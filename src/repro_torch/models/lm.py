@@ -1,10 +1,12 @@
 """Model assembly: spec trees, forward pass, prefill and decode.
 
 The port's counterpart of the JAX package's ``models/lm.py`` for the
-dense decoder-only LMs (llama / gemma style: ``attn`` and ``attn_local``
-blocks with a gated MLP).  The other block families raise
-``NotImplementedError`` naming the kind: ``mla``, ``moe``, ``rwkv``,
-``mamba``, ``shared_attn``, ``encdec`` and ``vlm`` come with later slices.
+decoder-only LMs: dense (llama / gemma style: ``attn`` and ``attn_local``
+blocks with a gated MLP), SSM (rwkv6: ``rwkv`` blocks) and hybrid
+(zamba2: ``mamba`` blocks with one ``shared_attn`` block, its weights
+shared, after every ``hybrid_period`` of them).  The other families raise
+``NotImplementedError`` naming the kind: ``mla``, ``moe``, ``encdec`` and
+``vlm`` come with later slices.
 
 Every function runs inside ``dist.axes.bind(model=axis)``: tensors carry
 the rank dim first (``[p, B, S, ...]``), tokens are ``[B, S]`` ids that
@@ -19,7 +21,9 @@ from typing import Any
 
 import torch
 
+from repro_torch.dist import ops
 from repro_torch.dist.axes import AXES, get_axis
+from repro_torch.models import ssm
 from repro_torch.models.attention import attention, attn_specs
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed_lookup, embed_specs, head_specs,
@@ -40,9 +44,8 @@ class Group:
 
 
 def _unsupported(cfg: ModelConfig) -> list[str]:
-    kinds = [k for k in cfg.pattern() if k not in ("attn", "attn_local")]
-    if cfg.hybrid_period:
-        kinds.append("shared_attn")
+    kinds = [k for k in cfg.pattern()
+             if k not in ("attn", "attn_local", "rwkv", "mamba")]
     for name in ("mla", "moe", "encdec", "vlm"):
         if getattr(cfg, name) is not None:
             kinds.append(name)
@@ -50,17 +53,28 @@ def _unsupported(cfg: ModelConfig) -> list[str]:
 
 
 def stack_plan(cfg: ModelConfig) -> list[Group]:
-    """The JAX package's grouping: one unit per layer when
-    ``scan_layers`` is off, else the largest prefix of whole
-    ``layer_pattern`` units as one group and the remainder as another."""
+    """The JAX package's grouping: a ``shared_attn`` marker after every
+    ``hybrid_period`` layers (zamba2); then one unit per layer when
+    ``scan_layers`` is off, else the largest prefix of whole units
+    (``layer_pattern``, times ``hybrid_period`` plus the marker for a
+    hybrid) as one group and the remainder as another."""
     bad = _unsupported(cfg)
     if bad:
         raise NotImplementedError(f"{cfg.name}: block kinds {bad} are not "
                                   "ported yet (later slices)")
     pat = list(cfg.pattern())
+    if cfg.hybrid_period:
+        out = []
+        for i, k in enumerate(pat):
+            out.append(k)
+            if (i + 1) % cfg.hybrid_period == 0:
+                out.append("shared_attn")
+        pat = out
     if not cfg.scan_layers:
         return [Group(f"u{i}", (k,), 1) for i, k in enumerate(pat)]
     unit = list(cfg.layer_pattern)
+    if cfg.hybrid_period:
+        unit = unit * cfg.hybrid_period + ["shared_attn"]
     u = len(unit)
     n_rep = 0
     while (n_rep + 1) * u <= len(pat) and \
@@ -76,6 +90,10 @@ def stack_plan(cfg: ModelConfig) -> list[Group]:
 
 
 def _block_specs(kind: str, cfg: ModelConfig, tp: int) -> dict:
+    if kind == "rwkv":
+        return ssm.rwkv_specs(cfg, tp)
+    if kind == "mamba":
+        return ssm.mamba_specs(cfg, tp)
     if kind not in ("attn", "attn_local"):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     return {
@@ -98,7 +116,9 @@ def _per_group(g: Group, fn) -> Any:
 
 def model_specs(cfg: ModelConfig, tp: int) -> dict:
     """The full parameter tree (``ParamSpec`` leaves; a scanned group is a
-    list of per-layer subtrees)."""
+    list of per-layer subtrees).  A hybrid's shared attention block lives
+    outside the stack, under ``"shared_attn"``: ``proj_in [2D, D]`` and one
+    attention block."""
     specs: dict[str, Any] = {"embed": embed_specs(
         cfg.vocab_padded, cfg.d_model, cfg.dtype)}
     if not cfg.tie_embeddings:
@@ -109,9 +129,18 @@ def model_specs(cfg: ModelConfig, tp: int) -> dict:
     for g in stack_plan(cfg):
         stack[g.name] = _per_group(g, lambda g=g: {
             f"b{i}_{kind}": _block_specs(kind, cfg, tp)
-            for i, kind in enumerate(g.unit)})
+            for i, kind in enumerate(g.unit) if kind != "shared_attn"})
     specs["stack"] = stack
+    if cfg.hybrid_period:
+        specs["shared_attn"] = {
+            "proj_in": ParamSpec((2 * cfg.d_model, cfg.d_model),
+                                 ("data", None), dtype=cfg.dtype),
+            **_block_specs("attn", _shared_cfg(cfg), tp)}
     return specs
+
+
+def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, moe=None, mla=None)
 
 
 # ---------------------------------------------------------------------------
@@ -120,7 +149,10 @@ def model_specs(cfg: ModelConfig, tp: int) -> dict:
 
 
 def cache_specs(cfg: ModelConfig, batch: int, s_max: int, tp: int) -> dict:
-    """``ParamSpec`` tree of the KV cache (global shapes + shardings)."""
+    """``ParamSpec`` tree of the KV and SSM caches (global shapes +
+    shardings): a KV cache per attention block and per ``shared_attn``
+    occurrence, the token-shift / conv tails and the float32 state S per
+    SSM block."""
     hd = cfg.hd
     kv_dim = "model" if cfg.n_kv_heads % tp == 0 else None
     n_kv = cfg.n_kv_heads
@@ -133,14 +165,45 @@ def cache_specs(cfg: ModelConfig, batch: int, s_max: int, tp: int) -> dict:
                            ("data", None, kv_dim, None), dtype=cfg.dtype),
         }}
 
+    dt, d = cfg.dtype, cfg.d_model
+
+    def ssm_cache(kind):
+        if kind == "rwkv":
+            h = ssm.rwkv_heads_padded(cfg, tp)
+            sd = cfg.ssm.head_dim
+            return {
+                "last_tm": ParamSpec((batch, 1, d), ("data", None, None),
+                                     dtype=dt),
+                "last_cm": ParamSpec((batch, 1, d), ("data", None, None),
+                                     dtype=dt),
+                "s": ParamSpec((batch, h, sd, sd),
+                               ("data", "model", None, None),
+                               dtype="float32"),
+            }
+        di = cfg.ssm.expand * d
+        nh = di // cfg.ssm.head_dim
+        k = cfg.ssm.conv_kernel
+        return {
+            "conv_x": ParamSpec((batch, k - 1, di), ("data", None, "model"),
+                                dtype=dt),
+            "conv_bc": ParamSpec((batch, k - 1, 2 * cfg.ssm.state_dim),
+                                 ("data", None, None), dtype=dt),
+            "s": ParamSpec((batch, nh, cfg.ssm.state_dim, cfg.ssm.head_dim),
+                           ("data", "model", None, None), dtype="float32"),
+        }
+
+    def block_cache(kind):
+        return ssm_cache(kind) if kind in ("rwkv", "mamba") else attn_cache()
+
     return {"stack": {g.name: _per_group(g, lambda g=g: {
-        f"b{i}_{kind}": attn_cache() for i, kind in enumerate(g.unit)})
+        f"b{i}_{kind}": block_cache(kind) for i, kind in enumerate(g.unit)})
         for g in stack_plan(cfg)}}
 
 
 def init_caches(cfg: ModelConfig, batch_size: int, s_max: int):
     """Zero caches for the bound model axis: ``[p, B, S_max, KVloc, hd]``
-    per block, each with ``"len": 0``."""
+    per attention block, each with ``"len": 0``, and ``[p, *local]`` SSM
+    states."""
     axis = get_axis(AXES.model)
     specs = cache_specs(cfg, batch_size, s_max, axis.size)
 
@@ -151,6 +214,8 @@ def init_caches(cfg: ModelConfig, batch_size: int, s_max: int):
     tree = tree_map_specs(mk, specs)
 
     def add_len(node):
+        if isinstance(node, torch.Tensor):
+            return node
         if isinstance(node, list):
             return [add_len(n) for n in node]
         if "k" in node:
@@ -176,9 +241,32 @@ def _run_attn_block(p, cfg: ModelConfig, x, *, kind, pos, mode, cache):
     return x + mlp(p["ffn"], h2), new_cache
 
 
+def _run_block(kind, p, cfg: ModelConfig, x, *, pos, mode, cache, shared_p,
+               resid0):
+    """One block of any ported kind; returns ``(x, new_cache)``."""
+    if kind in ("attn", "attn_local"):
+        return _run_attn_block(p, cfg, x, kind=kind, pos=pos, mode=mode,
+                               cache=cache)
+    if kind == "shared_attn":
+        # zamba2: the shared block on concat(x, resid0), projected in
+        h = ops.matmul_accumulate(torch.cat([x, resid0], dim=-1),
+                                  shared_p["proj_in"])
+        y, c = _run_attn_block(shared_p, _shared_cfg(cfg), h, kind="attn",
+                               pos=pos, mode=mode, cache=cache)
+        return x + y, c
+    if kind == "rwkv":
+        return ssm.rwkv_block(p, cfg, x, state=cache)
+    if kind == "mamba":
+        return ssm.mamba_block(p, cfg, x, state=cache)
+    raise ValueError(kind)
+
+
 def _run_stack(params, cfg: ModelConfig, x, *, pos, mode, caches):
-    """Every layer in order; returns ``(x, new_caches)``."""
+    """Every layer in order; returns ``(x, new_caches)``.  ``resid0``, the
+    embedding output, feeds every ``shared_attn`` block."""
     new_caches: dict[str, Any] = {"stack": {}}
+    resid0 = x
+    shared_p = params.get("shared_attn")
     for g in stack_plan(cfg):
         gp = params["stack"][g.name]
         gc = None if caches is None else caches["stack"][g.name]
@@ -190,9 +278,10 @@ def _run_stack(params, cfg: ModelConfig, x, *, pos, mode, caches):
             ncs = {}
             for i, kind in enumerate(g.unit):
                 key = f"b{i}_{kind}"
-                x, nc = _run_attn_block(
-                    lp[key], cfg, x, kind=kind, pos=pos, mode=mode,
-                    cache=None if lc is None else lc[key])
+                x, nc = _run_block(
+                    kind, lp.get(key), cfg, x, pos=pos, mode=mode,
+                    cache=None if lc is None else lc[key],
+                    shared_p=shared_p, resid0=resid0)
                 if nc is not None:
                     ncs[key] = nc
             out.append(ncs)
@@ -217,7 +306,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch, *, pos0: int = 0):
 def forward(params, cfg: ModelConfig, batch, *, mode: str = "train",
             caches=None, pos0: int = 0):
     """Full forward.  Returns ``(logits [p, B, S, V_t], new_caches, aux)``
-    (aux is 0: dense blocks have no auxiliary loss)."""
+    (aux is 0: no ported block has an auxiliary loss)."""
     x, pos = _embed_inputs(params, cfg, batch, pos0=pos0)
     x, new_caches = _run_stack(params, cfg, x, pos=pos, mode=mode,
                                caches=caches)

@@ -552,3 +552,303 @@ def _to_cpu(tree):
     if isinstance(tree, list):
         return [_to_cpu(v) for v in tree]
     return tree.cpu()
+
+
+# ---------------------------------------------------------------------------
+# the SSM scans (rwkv6_scan, ssd_scan)
+# ---------------------------------------------------------------------------
+
+# (N, S, H, hd, Nu, with s0): the rwkv6-3b serve's prefill and decode at TP
+# 8 stacked (32 = 8 ranks x 4 requests, 5 heads per rank), ragged lengths
+RWKV_CASES = [(32, 1024, 5, 64, 8, False), (32, 1, 5, 64, 8, True),
+              (32, 1023, 5, 64, 8, True), (4, 75, 3, 16, 2, True),
+              (3, 33, 2, 40, 1, False)]
+# (N, S, H, P, Ns, Na, with s0): zamba2-1.2b's (8 heads of 64 per rank,
+# state 64), ragged lengths
+SSD_CASES = [(32, 1024, 8, 64, 64, 8, False), (32, 1, 8, 64, 64, 8, True),
+             (32, 1023, 8, 64, 64, 8, True), (4, 75, 3, 16, 8, 2, True),
+             (3, 130, 2, 24, 40, 1, False)]
+
+
+def _rwkv_in(cuda, case, dtype, seed=0, decay=None):
+    n, s, h, hd, nu, with_s0 = case
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r, k, v = (torch.randn(n, s, h, hd, generator=g).to(dtype).to(cuda)
+               for _ in range(3))
+    w = (torch.full((n, s, h, hd), decay) if decay is not None else
+         torch.rand(n, s, h, hd, generator=g) * 0.55 + 0.4).to(cuda)
+    u = torch.randn(nu, h, hd, generator=g).to(cuda)
+    s0 = torch.randn(n, h, hd, hd, generator=g).to(cuda) if with_s0 else None
+    return r, k, v, w, u, s0
+
+
+def _ssd_in(cuda, case, dtype, seed=0):
+    n, s, h, p, ns, na, with_s0 = case
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(n, s, h, p, generator=g).to(dtype).to(cuda)
+    dt = (torch.rand(n, s, h, generator=g) * 0.8 + 0.05).to(cuda)
+    a = (torch.rand(na, h, generator=g) * 1.7 + 0.3).to(cuda)
+    bc = torch.randn(n, s, 2 * ns, generator=g).to(dtype).to(cuda)
+    s0 = (torch.randn(n, h, ns, p, generator=g).to(cuda) if with_s0
+          else None)
+    return x, dt, a, bc[..., :ns], bc[..., ns:], s0
+
+
+def _share(got, want, lim) -> float:
+    return float(((got - want).abs() / lim).max())
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", RWKV_CASES)
+def test_rwkv6_kernel_matches_plain(cuda, dtype, case):
+    from repro_torch.kernels import rwkv6_scan as RW
+    ins = _rwkv_in(cuda, case, dtype)
+    before = RW.rwkv6_scan.launches
+    y, sf = RW.rwkv6_scan(*ins)
+    torch.cuda.synchronize()
+    assert RW.rwkv6_scan.launches == before + 1
+    want, s_want = RW.rwkv6_scan_plain(*ins)
+    y_lim, s_lim = RW.tolerance(*ins)
+    assert _share(y, want, y_lim) <= 1.0 and _share(sf, s_want, s_lim) <= 1.0
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, dtype, case):
+    from repro_torch.kernels import ssd_mamba2 as SSD
+    ins = _ssd_in(cuda, case, dtype)
+    before = SSD.ssd_scan.launches
+    y, sf = SSD.ssd_scan(*ins)
+    torch.cuda.synchronize()
+    assert SSD.ssd_scan.launches == before + 1
+    want, s_want = SSD.ssd_scan_plain(*ins)
+    y_lim, s_lim = SSD.tolerance(*ins)
+    assert _share(y, want, y_lim) <= 1.0 and _share(sf, s_want, s_lim) <= 1.0
+
+
+@needs_cuda
+@pytest.mark.parametrize("bh,s,hd,chunk", [
+    (2, 64, 16, 16), (1, 128, 32, 32), (3, 96, 64, 16), (1, 32, 8, 32)])
+def test_rwkv6_tpu_layout_matches_the_oracle(cuda, bh, s, hd, chunk):
+    """The TPU kernel's test cases (``tests/test_kernels.py:78-92``) in its
+    layout, against the oracle at the reference test's 2e-4."""
+    from repro_torch.kernels import rwkv6_scan as RW
+    r, k, v, w, u, _ = _rwkv_in(cuda, (bh, s, 1, hd, bh, False),
+                                torch.float32)
+    ins = (r[:, :, 0], k[:, :, 0], v[:, :, 0], w[:, :, 0], u[:, 0])
+    y, sf = RW.rwkv6_scan_bhsd(*ins)
+    yo, so = RW.rwkv6_ref(*ins)
+    assert float((y - yo).abs().max()) <= 2e-4
+    assert float((sf - so).abs().max()) <= 2e-4
+
+
+@needs_cuda
+def test_rwkv6_kernel_strong_decay(cuda):
+    """w = 1e-3 everywhere (``tests/test_kernels.py:95-108``): finite and
+    within the limit and the oracle's 2e-4."""
+    from repro_torch.kernels import rwkv6_scan as RW
+    ins = _rwkv_in(cuda, (1, 64, 1, 16, 1, False), torch.float32,
+                   decay=1e-3)
+    y, _ = RW.rwkv6_scan(*ins)
+    assert bool(torch.isfinite(y).all())
+    assert _share(y, RW.rwkv6_scan_plain(*ins)[0],
+                  RW.tolerance(*ins)[0]) <= 1.0
+    yo, _ = RW.rwkv6_ref(*(t[:, :, 0] for t in ins[:4]), ins[4][:, 0])
+    assert float((y[:, :, 0] - yo).abs().max()) <= 2e-4
+
+
+@needs_cuda
+@pytest.mark.parametrize("bh,s,p,n", [(2, 64, 32, 16), (1, 128, 64, 64),
+                                      (4, 96, 16, 8)])
+def test_ssd_tpu_layout_matches_the_oracle(cuda, bh, s, p, n):
+    from repro_torch.kernels import ssd_mamba2 as SSD
+    x, dt, a, B, C, _ = _ssd_in(cuda, (bh, s, 1, p, n, bh, False),
+                                torch.float32)
+    ins = (x[:, :, 0], dt[:, :, 0], a[:, 0], B.contiguous(), C.contiguous())
+    y, sf = SSD.ssd_scan_bhsd(*ins)
+    yo, so = SSD.ssd_ref(*ins)
+    assert float((y - yo).abs().max()) <= 3e-4
+    assert float((sf - so).abs().max()) <= 3e-4
+
+
+def rwkv_faults(RW, ins, got):
+    """What a faulty kernel would return: the carried state dropped
+    (each chunk scanned from zeros), the bonus u left out, the ragged
+    last row not written."""
+    r, k, v, w, u, s0 = ins
+    L = RW.CHUNK
+    per_chunk = torch.cat([RW.rwkv6_scan(
+        r[:, c:c + L], k[:, c:c + L], v[:, c:c + L], w[:, c:c + L], u,
+        s0 if c == 0 else None)[0] for c in range(0, r.shape[1], L)], 1)
+    last = got.clone()
+    last[:, -1] = 0
+    return {"carried state dropped": per_chunk,
+            "bonus u left out": RW.rwkv6_scan(r, k, v, w,
+                                              torch.zeros_like(u), s0)[0],
+            "ragged last row left out": last}
+
+
+def ssd_faults(SSD, ins, got):
+    """The carried state dropped, the mask's diagonal left out (each row
+    without its own input's term), the ragged last row not written."""
+    x, dt, a, B, C, s0 = ins
+    L = SSD.CHUNK
+    per_chunk = torch.cat([SSD.ssd_scan(
+        x[:, c:c + L], dt[:, c:c + L], a, B[:, c:c + L], C[:, c:c + L],
+        s0 if c == 0 else None)[0] for c in range(0, x.shape[1], L)], 1)
+    diag = (C.float() * B.float()).sum(-1)[..., None, None] * \
+        dt[..., None] * x.float()
+    last = got.clone()
+    last[:, -1] = 0
+    return {"carried state dropped": per_chunk,
+            "mask diagonal dropped": got - diag,
+            "ragged last row left out": last}
+
+
+@needs_cuda
+@pytest.mark.parametrize("kind", ["rwkv", "ssd"])
+def test_scan_limits_reject_planted_faults_at_the_serve_shapes(cuda, kind):
+    from repro_torch.kernels import rwkv6_scan as RW
+    from repro_torch.kernels import ssd_mamba2 as SSD
+    if kind == "rwkv":
+        ins = _rwkv_in(cuda, (32, 1023, 5, 64, 8, True), torch.bfloat16)
+        mod, faults = RW, rwkv_faults
+        scan, plain = RW.rwkv6_scan, RW.rwkv6_scan_plain
+    else:
+        ins = _ssd_in(cuda, (32, 1023, 8, 64, 64, 8, True), torch.bfloat16)
+        mod, faults = SSD, ssd_faults
+        scan, plain = SSD.ssd_scan, SSD.ssd_scan_plain
+    got = scan(*ins)[0]
+    want = plain(*ins)[0]
+    y_lim = mod.tolerance(*ins)[0]
+    assert _share(got, want, y_lim) <= 1.0
+    for label, bad in faults(mod, ins, got).items():
+        assert _share(bad, want, y_lim) > 1.0, label
+
+
+@needs_cuda
+@pytest.mark.parametrize("kind", ["rwkv", "ssd"])
+def test_scans_write_the_final_state_in_place(cuda, kind):
+    """out_state = s0: the kernel reads each (n, h)'s state before it
+    writes it, so the in-place result equals the out-of-place one."""
+    from repro_torch.kernels import rwkv6_scan as RW
+    from repro_torch.kernels import ssd_mamba2 as SSD
+    if kind == "rwkv":
+        ins, scan = _rwkv_in(cuda, (8, 70, 5, 64, 2, True),
+                             torch.bfloat16), RW.rwkv6_scan
+    else:
+        ins, scan = _ssd_in(cuda, (8, 70, 8, 64, 64, 2, True),
+                            torch.bfloat16), SSD.ssd_scan
+    y, sf = scan(*ins)
+    st = ins[-1].clone()
+    y2, out = scan(*ins[:-1], st, out_state=st)
+    assert out is st
+    assert torch.equal(y, y2) and torch.equal(sf, st)
+
+
+@needs_cuda
+@pytest.mark.parametrize("kind", ["rwkv", "ssd"])
+def test_scans_read_nothing_beyond_s(cuda, kind):
+    """Inputs are views of longer buffers whose tail beyond S is NaN: the
+    ragged last chunk's masked rows must not leak into y or s_fin."""
+    from repro_torch.kernels import rwkv6_scan as RW
+    from repro_torch.kernels import ssd_mamba2 as SSD
+    s = 45
+    if kind == "rwkv":
+        full = _rwkv_in(cuda, (4, 64, 3, 64, 2, True), torch.bfloat16)
+        scan, idx = RW.rwkv6_scan, [0, 1, 2, 3]          # r, k, v, w
+    else:
+        full = _ssd_in(cuda, (4, 64, 3, 64, 64, 2, True), torch.bfloat16)
+        scan, idx = SSD.ssd_scan, [0, 1, 3, 4]           # x, dt, B, C
+    clean = [t[:, :s].contiguous() if i in idx else t
+             for i, t in enumerate(full)]
+    want = scan(*clean)
+    for i in idx:
+        full[i][:, s:] = float("nan")
+    got = scan(*[t[:, :s] if i in idx else t for i, t in enumerate(full)])
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+@needs_cuda
+def test_scans_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels import rwkv6_scan as RW
+    from repro_torch.kernels import ssd_mamba2 as SSD
+    r, k, v, w, u, s0 = _rwkv_in(cuda, (2, 5, 1, 16, 1, True),
+                                 torch.bfloat16)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        RW.rwkv6_scan(r.half(), k.half(), v.half(), w, u)
+    with pytest.raises(ValueError, match="w must be float32"):
+        RW.rwkv6_scan(r, k, v, w.bfloat16(), u)
+    strided = torch.zeros(*w.shape[:-1], 2 * w.shape[-1],
+                          device=cuda)[..., ::2]          # head-dim stride 2
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        RW.rwkv6_scan(r, k, v, strided, u)
+    with pytest.raises(ValueError, match="tensors on"):
+        RW.rwkv6_scan(r.cpu(), k, v, w, u)
+    x, dt, a, B, C, t0 = _ssd_in(cuda, (2, 5, 1, 16, 8, 1, True),
+                                 torch.bfloat16)
+    with pytest.raises(ValueError, match="dt must be float32"):
+        SSD.ssd_scan(x, dt.bfloat16(), a, B, C)
+    with pytest.raises(ValueError, match="contiguous s0"):
+        SSD.ssd_scan(x, dt, a, B, C,
+                     t0.transpose(2, 3).contiguous().transpose(2, 3))
+
+
+def _ssm_serve_setup(cuda, arch, tp=2):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_tree
+    cfg = dataclasses.replace(get_config(arch).smoke(), attn_impl="flash",
+                              dtype="float32")
+    axis = StackedAxis(tp, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    params = init_tree(lm.model_specs(cfg, tp), gen, axis)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 21),
+                            generator=torch.Generator().manual_seed(6)
+                            ).to(cuda)
+    return cfg, axis, params, prompts
+
+
+@needs_cuda
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b"])
+def test_ssm_serve_on_card_launches_the_kernels_and_matches_the_cpu(
+        cuda, monkeypatch, arch):
+    """The smoke-size float32 serve on the card goes through the scan
+    kernels (the plain versions refuse to run) once per SSM layer and
+    token, and through flash attention once per shared block and token;
+    its logits equal the CPU serve's on the same weights within 1e-3 of
+    their max-norm (float32 in another summation order: cuBLAS and the
+    kernels' loops against the CPU's)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv6_scan as RW
+    from repro_torch.kernels import ssd_mamba2 as SSD
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import lm
+    cfg, axis, params, prompts = _ssm_serve_setup(cuda, arch)
+    on_cpu = tserve.serve(cfg, StackedAxis(axis.size, "cpu"),
+                          _to_cpu(params), prompts.cpu(), 40, 5)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain version ran on the card")
+    for mod, name in ((RW, "rwkv6_scan_plain"), (SSD, "ssd_scan_plain"),
+                      (FA, "flash_attention_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    kinds = [k for g in lm.stack_plan(cfg) for k in g.unit * g.n_rep]
+    before = (RW.rwkv6_scan.launches, SSD.ssd_scan.launches,
+              FA.flash_attention.launches)
+    on_card = tserve.serve(cfg, axis, params, prompts, 40, 5)
+    torch.cuda.synchronize()
+    got = (RW.rwkv6_scan.launches - before[0],
+           SSD.ssd_scan.launches - before[1],
+           FA.flash_attention.launches - before[2])
+    assert got == (5 * kinds.count("rwkv"), 5 * kinds.count("mamba"),
+                   5 * kinds.count("shared_attn"))
+    card_cpu = tserve.ServeResult(
+        on_card.tokens.cpu(), [lg.cpu() for lg in on_card.logits],
+        on_card.prefill_s, on_card.decode_s, on_card.ctx)
+    report = tserve.check_serves(on_cpu, card_cpu, 1e-3)
+    assert report["steps"] >= 1

@@ -34,7 +34,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_models import port_cfg, port_params, ref_params, ref_shard
+from test_torch_models import (port_cfg, port_params, ref_params, ref_shard,
+                               ssm_params)
 from test_torch_tuning import reference_without_wire
 
 from repro.core import api as rapi
@@ -50,15 +51,17 @@ from repro_torch.core import trace as ttrace
 from repro_torch.core import tuner as ttuner
 from repro_torch.core._axis import StackedAxis
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import rwkv6_scan as RW
+from repro_torch.kernels import ssd_mamba2 as SSD
 from repro_torch.launch import serve as tserve
 
 B, S0, S_MAX, N_TOKENS = 2, 8, 16, 4
 RTOL = 2e-2
 
 
-def _cfg(**kw):
+def _cfg(arch="llama3.2-3b", **kw):
     from repro import configs as rconfigs
-    return dataclasses.replace(rconfigs.get_config("llama3.2-3b").smoke(),
+    return dataclasses.replace(rconfigs.get_config(arch).smoke(),
                                attn_impl="flash", scan_layers=False, **kw)
 
 
@@ -288,6 +291,73 @@ def test_cli_serves_tunes_and_reserves_on_the_cpu(tmp_path, capsys):
     assert "#@pgmpi alg MPI_Allreduce" in out
     assert (tmp_path / "trace.jsonl").exists()
     assert (tmp_path / "profiles").is_dir()
+
+
+@pytest.mark.parametrize("tp", [1, 2, 4])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b"])
+def test_ssm_serve_records_tunes_and_reserves_like_the_reference(
+        arch, tp, tmp_path):
+    """The SSM and hybrid serves, in float32 (where the two packages differ
+    only in summation order, so the bf16 noise that grows with the SSM
+    stacks' depth does not blur the comparison; see
+    ``test_torch_models.test_ssm_lm_forward_matches``): the same records,
+    tokens, logits within 1e-4 max-norm relative, per-phase profiles and
+    re-served picks, tokens and logits as the JAX package; the scans'
+    launch counters stay put (CPU: the plain versions)."""
+    rcfg = _cfg(arch, dtype="float32")
+    tree = ssm_params(rcfg, tp, seed=2)
+    rp = ref_shard(tree, rcfg, tp)
+    params, axis = port_params(tree, rcfg, tp)
+    tcfg = port_cfg(rcfg)
+    prompts = _prompts(rcfg)
+    r_toks, r_lgs, r_ctx = ref_serve(rcfg, tp, rp, prompts)
+    launches = (RW.rwkv6_scan.launches, SSD.ssd_scan.launches,
+                FA.flash_attention.launches)
+    res = tserve.serve(tcfg, axis, params, torch.as_tensor(prompts), S_MAX,
+                       N_TOKENS)
+    assert (RW.rwkv6_scan.launches, SSD.ssd_scan.launches,
+            FA.flash_attention.launches) == launches
+    _check_records(res.ctx, r_ctx)
+    np.testing.assert_array_equal(res.tokens.numpy(), r_toks)
+    for a, b in zip(r_lgs, res.logits):
+        assert np.abs(a - b.numpy()).max() / np.abs(a).max() <= 1e-4
+
+    r_trace = rtrace.Trace.from_context(r_ctx)
+    t_trace = ttrace.Trace.from_context(res.ctx)
+    with reference_without_wire():
+        r_rep = rtuner.tune_trace(
+            r_trace, rtuner.CostModelBackend(rcm.BGQ_LIKE))
+    t_rep = ttuner.tune_trace(t_trace,
+                              ttuner.CostModelBackend(tcm.BGQ_LIKE))
+    for ph, store in r_rep.phase_profiles.items():
+        assert sorted(p.to_text() for p in t_rep.phase_profiles[ph]) == \
+            sorted(p.to_text() for p in store)
+    t_rep.save(tmp_path / "port")
+    _, phases = tprof.resolve_stores(tmp_path / "port")
+    r_toks2, r_lgs2, r_ctx2 = ref_serve(rcfg, tp, rp, prompts,
+                                        phase_profiles=r_rep.phase_profiles)
+    res2 = tserve.serve(tcfg, axis, params, torch.as_tensor(prompts),
+                        S_MAX, N_TOKENS, phase_profiles=phases)
+    # the cost model may pick a wire impl (quantized, so lossy) for the
+    # rwkv channel mix's allgather in both packages: the re-serve is held
+    # to the reference's re-serve, not to the first serve
+    _check_records(res2.ctx, r_ctx2)
+    np.testing.assert_array_equal(res2.tokens.numpy(), r_toks2)
+    for a, b in zip(r_lgs2, res2.logits):
+        assert np.abs(a - b.numpy()).max() / np.abs(a).max() <= 1e-4
+    assert tapi.format_footer(res2.ctx).splitlines() == \
+        rapi.format_footer(r_ctx2).splitlines()
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b"])
+def test_ssm_cli_serves_tunes_and_reserves_on_the_cpu(arch, tmp_path,
+                                                      capsys):
+    assert tserve.main(["--device", "cpu", "--arch", arch, "--tp", "2",
+                        "--batch", "2", "--prompt-len", "9", "--tokens", "3",
+                        "--out", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert f"arch={arch} (smoke)" in out and "logits agree" in out
+    assert (tmp_path / "trace.jsonl").exists()
 
 
 def test_cli_without_a_card_refuses_to_fall_back_to_the_cpu():
