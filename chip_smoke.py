@@ -21,9 +21,15 @@ Phases (each raises on failure; nothing is caught):
    flash attention at the serve path's prefill and decode shapes, the TPU
    kernel's test cases and ragged lengths, with
    ``scaled_dot_product_attention`` as the library time, and three planted
-   faults (the causal edge or the filled length off by one, a key block
-   dropped) that its elementwise limit must reject, and at zamba2's
-   shared-attention shape (dh 64, 4 heads and 4 KV heads per rank); the
+   faults (the causal edge or the filled length off by one, the first
+   128-key block dropped) that its elementwise limit must reject, and at
+   zamba2's shared-attention shape (dh 64, 4 heads and 4 KV heads per
+   rank); each kernel's path counts (the ring's ``wgmma``/``wmma``/``f32``,
+   flash's ``wgmma``/``split_kv``/``mma_sync``/``f32``); the ring's and
+   flash's times both as the events mean over back-to-back calls (each
+   ring call reads the error words back, a host round trip; a decode call
+   is shorter than its host time) and as the kernel's device time from
+   ``torch.profiler``, which is their ``ms`` in the kernels line; the
    two scans (``rwkv6_scan``, ``ssd_scan``) at the SSM serves' prefill
    and decode (S = 1 from a non-zero state), the TPU kernels' test cases
    (with the strong decay) and ragged lengths, held to their elementwise
@@ -45,7 +51,8 @@ Phases (each raises on failure; nothing is caught):
    ``#@pgmpi`` footer, and force ``allgather_as_allreduce``, the three
    ``fused_ring`` impls, ``wire_q8`` on the allgather and ``wire_fp8`` on
    the gate/up allgather-matmul once, so every kernel runs whatever the
-   tuner picked;
+   tuner picked; print ``fused_ring`` against ``default`` at the gate/up
+   cell and the impl ``tune_trace`` picked there;
 9. ``torch.profiler`` over one call of the allgather and matmul_accumulate
    impls at the block's shapes: host time, and device time by kernel;
 10. serve llama3.2-3b at full width (28 layers, TP p = 8 stacked on the
@@ -66,15 +73,18 @@ Phases (each raises on failure; nothing is caught):
 
 Kernel launch counts are zeroed just before phase 6 and read after each of
 phases 6-8; every kernel of the main path must have launched in the tune,
-replay and dispatch phases.  The ring's block tier is not on the main
+replay and dispatch phases, and every launch of the ring on the main path
+must take its ``wgmma`` path.  The ring's block tier is not on the main
 path: its launches are those of phase 3.  They are zeroed again just
 before each serve path (phases 10 and 11) and read after each serve:
 each model kernel must launch once per block of its kind and forward:
 flash attention 28 x 33 times a llama3.2-3b serve and 6 x 33 times a
 zamba2-1.2b serve, ``rwkv6_scan`` 32 x 33 times a rwkv6-3b serve,
-``ssd_scan`` 38 x 33 times a zamba2-1.2b serve, and no other.  The p ranks are stacked on ONE card: a ring hop is a
-device-memory copy, so the times measure on-chip data movement and launch
-overhead, not a link between GPUs.
+``ssd_scan`` 38 x 33 times a zamba2-1.2b serve, and no other; flash's
+prefill launches (one per attention block) must take its ``wgmma`` path
+and its decode launches its ``split_kv`` path.  The p ranks are stacked on
+ONE card: a ring hop is a device-memory copy, so the times measure on-chip
+data movement and launch overhead, not a link between GPUs.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
@@ -171,6 +181,13 @@ def counts(wrappers: dict) -> dict:
 def zero_counts(wrappers: dict) -> None:
     for f in wrappers.values():
         f.launches = 0
+        if hasattr(f, "launches_by_path"):
+            f.launches_by_path = dict.fromkeys(f.launches_by_path, 0)
+
+
+def path_delta(fn, before: dict) -> dict:
+    """The launches of ``fn`` by path since the snapshot ``before``."""
+    return {k: v - before.get(k, 0) for k, v in fn.launches_by_path.items()}
 
 
 def require_launched(phase: str, before: dict, after: dict) -> dict:
@@ -240,8 +257,10 @@ def check_flash(torch, fa, randn) -> dict:
     lengths; times, bound and ``scaled_dot_product_attention`` at the
     prefill and decode shapes.  Returns the kernels-line record (prefill)
     and the decode numbers."""
+    from repro_torch.kernels.variants import device_ms
     sdpa = torch.nn.functional.scaled_dot_product_attention
     name_dt = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
+    last_path = [None]             # the path of the last check's call
 
     def held(got, q, k, v, **kw):
         """(max |got - plain|, its largest share of the elementwise limit
@@ -253,7 +272,11 @@ def check_flash(torch, fa, randn) -> dict:
                 float((diff / fa.tolerance(q, k, v, want, **kw)).max()))
 
     def check(label, q, k, v, **kw):
+        before = dict(fa.flash_attention.launches_by_path)
         got = fa.flash_attention(q, k, v, **kw)
+        took = [k_ for k_, n_ in path_delta(fa.flash_attention,
+                                            before).items() if n_]
+        last_path[0] = took[0] if len(took) == 1 else str(took)
         err, share = held(got, q, k, v, **kw)
         if tuple(got.shape) != tuple(q.shape) or not share <= 1.0 or not bool(
                 torch.isfinite(got.float()).all()):
@@ -280,20 +303,28 @@ def check_flash(torch, fa, randn) -> dict:
                                  q.element_size())
         t_b, t_f = byts / H100_BYTES_PER_S, flops / H100_FLOPS[
             name_dt[q.dtype]]
+        # the kernel's device time (torch.profiler) is the ms of record;
+        # the events mean over back-to-back calls also holds the host
+        # time of each call, which a decode launch does not hide
+        events_ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw))
         rec = dict(
             name="flash_attention", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:88",
             max_abs_err=err,
-            ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw)),
+            ms=device_ms(lambda: fa.flash_attention(q, k, v, **kw),
+                         "fa_"),
             plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(
                 q, k, v, **kw), iters=5),
             bound_ms=max(t_b, t_f) * 1e3,
             bound_by="bytes" if t_b > t_f else "operations",
             library_ms=time_ms(torch, lib))
+        rec["path"] = last_path[0]
+        rec["events_ms"] = events_ms
         log(f"[3] flash_attention {label} q{list(q.shape)} k{list(k.shape)} "
-            f"{name_dt[q.dtype]} {kw}: max_abs_err {err:.3e} ({share:.3f} "
-            f"of the limit) kernel {rec['ms']:.4f} ms plain "
+            f"{name_dt[q.dtype]} {kw} path {rec['path']}: max_abs_err "
+            f"{err:.3e} ({share:.3f} of the limit) kernel device time "
+            f"{rec['ms']:.4f} ms (events mean {events_ms:.4f} ms) plain "
             f"{rec['plain_ms']:.4f} ms "
             f"scaled_dot_product_attention {rec['library_ms']:.4f} ms bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {flops / 1e9:.2f} "
@@ -324,14 +355,15 @@ def check_flash(torch, fa, randn) -> dict:
             kv_len=kv_len)))
     log(f"[3] flash_attention serve decode q{list(q1.shape)} "
         f"k{list(kc.shape)} bf16, kv_len {SERVE_PROMPT + 1}..."
-        f"{SERVE_PROMPT + SERVE_DECODE}: max_abs_err {worst[0]:.3e} "
-        f"({worst[1]:.3f} of the limit)")
+        f"{SERVE_PROMPT + SERVE_DECODE} path {last_path[0]}: max_abs_err "
+        f"{worst[0]:.3e} ({worst[1]:.3f} of the limit)")
     # the limit is fine enough to see the faults it guards against: the
-    # causal edge one key late, the first 32-key block dropped for the
-    # last rows, the last filled slot left out
+    # causal edge one key late, the first 128-key block (the prefill
+    # kernel's block width) dropped for the last rows, the last filled
+    # slot left out
     planted("causal edge one key late", q, k, v, dict(q0=1))
-    planted("first key block dropped for the last rows", q, k, v,
-            dict(window=SERVE_PROMPT - 32))
+    planted("first 128-key block dropped for the last rows", q, k, v,
+            dict(window=SERVE_PROMPT - 128))
     planted("last filled slot left out", q1, kc, vc,
             dict(q0=SERVE_PROMPT, kv_len=SERVE_PROMPT),
             q0=SERVE_PROMPT, kv_len=SERVE_PROMPT + 1)
@@ -389,19 +421,25 @@ def check_flash(torch, fa, randn) -> dict:
     qz, kz, vz = (randn(n_fold, SERVE_PROMPT, hz, *d)
                   for d in ((1, 64), (64,), (64,)))
     err, share = check("zamba2 prefill", qz, kz, vz)
+    zamba_ms = device_ms(lambda: fa.flash_attention(qz, kz, vz), "fa_")
     log(f"[3] flash_attention zamba2 shared block prefill q{list(qz.shape)} "
-        f"k{list(kz.shape)} bf16 causal: max_abs_err {err:.3e} ({share:.3f} "
-        f"of the limit) kernel "
-        f"{time_ms(torch, lambda: fa.flash_attention(qz, kz, vz)):.4f} ms")
+        f"k{list(kz.shape)} bf16 causal path {last_path[0]}: max_abs_err "
+        f"{err:.3e} ({share:.3f} of the limit) kernel device time "
+        f"{zamba_ms:.4f} ms")
     q1z = randn(n_fold, 1, hz, 1, 64)
     kcz, vcz = (randn(n_fold, SERVE_SLOTS, hz, 64) for _ in range(2))
     for kv_len in (SERVE_PROMPT + 1, SERVE_PROMPT + SERVE_DECODE):
+        kw = dict(q0=kv_len - 1, kv_len=kv_len)
         err, share = check(f"zamba2 decode kv_len {kv_len}", q1z, kcz, vcz,
-                           q0=kv_len - 1, kv_len=kv_len)
+                           **kw)
+        zd_ms = device_ms(lambda: fa.flash_attention(q1z, kcz, vcz,
+                                                            **kw), "fa_")
         log(f"[3] flash_attention zamba2 shared block decode "
-            f"q{list(q1z.shape)} k{list(kcz.shape)} kv_len {kv_len}: "
-            f"max_abs_err {err:.3e} ({share:.3f} of the limit)")
-    return {"prefill": prefill, "decode": decode}
+            f"q{list(q1z.shape)} k{list(kcz.shape)} kv_len {kv_len} path "
+            f"{last_path[0]}: max_abs_err {err:.3e} ({share:.3f} of the "
+            f"limit) kernel device time {zd_ms:.4f} ms")
+    return {"prefill": prefill, "decode": decode, "zamba2_prefill_ms":
+            zamba_ms}
 
 
 def rwkv_work(n, s, h, hd, itemsize, with_s0):
@@ -709,9 +747,12 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     torch.cuda.reset_peak_memory_stats(dev)
 
     zero_counts(wrappers)               # the serve path starts here
+    fa_fn = wrappers["flash_attention"]
     c0 = counts(wrappers)
+    f0 = dict(fa_fn.launches_by_path)
     first = sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, n_tokens)
     c1 = counts(wrappers)
+    f1 = dict(fa_fn.launches_by_path)
     rec = trace.Trace.from_context(first.ctx)
     rec.save(out_dir / f"serve_trace_{cfg.name}.jsonl")
     for ln in rec.summary().splitlines():
@@ -731,9 +772,11 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     log(f"[{tag}] per-phase profiles saved to {prof_dir} and reloaded: "
         f"{ {ph: len(st) for ph, st in phases.items()} }")
     c2 = counts(wrappers)
+    f2 = dict(fa_fn.launches_by_path)
     second = sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, n_tokens,
                       phase_profiles=phases)
     c3 = counts(wrappers)
+    f3 = dict(fa_fn.launches_by_path)
     peak = torch.cuda.max_memory_allocated(dev)
     for label, a, b in (("default serve", c0, c1), ("tune_trace", c1, c2),
                         ("re-serve", c2, c3)):
@@ -745,6 +788,18 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
             if b[k] - a[k] != want:
                 raise RuntimeError(f"{cfg.name} {label}: {k} launched "
                                    f"{b[k] - a[k]} times, not {want}")
+    # flash: each attention block's prefill on the wgmma path, its decode
+    # steps on the split-KV path
+    n_attn = per_serve["flash_attention"] // n_tokens
+    want_paths = dict.fromkeys(fa_fn.launches_by_path, 0)
+    want_paths.update(wgmma=n_attn, split_kv=n_attn * (n_tokens - 1))
+    for label, a, b in (("default serve", f0, f1), ("re-serve", f2, f3)):
+        got_paths = {k: b[k] - a[k] for k in b}
+        log(f"[{tag} {label}] flash_attention launches by path: "
+            f"{json.dumps(got_paths)}")
+        if got_paths != want_paths:
+            raise RuntimeError(f"{cfg.name} {label}: flash paths "
+                               f"{got_paths}, not {want_paths}")
     check = sv.check_serves(first, second, SERVE_RTOL)
     log(f"[{tag}] re-served logits vs the default serve: {check['steps']} "
         f"steps, max-norm relative error {check['max_rel_err']:.4e} "
@@ -784,6 +839,7 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
                                tag, needles)}
     return {"launches": launches, "shares": shares, "check": check,
             "peak_bytes": peak, "per_serve": per_serve,
+            "flash_paths": {k: f3[k] - f0[k] for k in f3},
             "serves": {label: {"prefill_ms": r.prefill_s * 1e3,
                                "decode_ms_per_token":
                                    r.decode_s_per_token * 1e3,
@@ -888,6 +944,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import quant
     from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.kernels import ssd_mamba2 as ssd
+    from repro_torch.kernels.variants import device_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False     # plain f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
@@ -1045,8 +1102,11 @@ def main(argv=None) -> int:
         w = randn(*(() if shared_w else (p_,)), k, m, dtype=dt,
                   scale=k ** -0.5)
         ax = StackedAxis(p_, dev)
+        before = dict(rdma.ring_allgather_matmul_rdma.launches_by_path)
         out, gath = rdma.ring_allgather_matmul_rdma(x, w, ax,
                                                     return_gathered=True)
+        path = [k_ for k_, n_ in path_delta(
+            rdma.ring_allgather_matmul_rdma, before).items() if n_]
         want, want_g = rdma.ring_allgather_matmul_rdma_plain(
             x, w, return_gathered=True)
         label = (f"ring_allgather_matmul_rdma p={p_} [{n},{k}]@[{k},{m}] "
@@ -1054,8 +1114,9 @@ def main(argv=None) -> int:
         if not torch.equal(gath, want_g):
             raise RuntimeError(f"{label}: gathered rows differ")
         err, tol = mm_err(label, out, want)
-        log(f"[3] {label}: gathered exact, max_abs_err {err:.3e} "
-            f"(tolerance {tol:.3e})")
+        log(f"[3] {label} path {'/'.join(path) or 'block_matmul'}: "
+            f"gathered exact, max_abs_err "
+            f"{err:.3e} (tolerance {tol:.3e})")
         return x, w, ax, err
 
     def blocks_case(x_all, w, my):
@@ -1068,6 +1129,7 @@ def main(argv=None) -> int:
         return mm_err(label, out, want)
 
     n_r, m_r = TOKENS // P, 2 * D_FF // P      # the gate/up GEMM per rank
+    ring_paths0 = dict(rdma.ring_allgather_matmul_rdma.launches_by_path)
     for dt in (torch.bfloat16, torch.float32):
         x, w, ax, err = ring_case(P, n_r, D_MODEL, m_r, dt, False)
         gathered = rdma.ring_allgather_matmul_rdma(x, w, ax,
@@ -1075,13 +1137,18 @@ def main(argv=None) -> int:
         flops = 2 * P * (P * n_r) * D_MODEL * m_r
         byts = (x.numel() + w.numel() + P * P * n_r * m_r) * x.element_size()
         t_b, t_f = byts / H100_BYTES_PER_S, flops / H100_FLOPS[name_dt[dt]]
+        # the events mean over back-to-back calls holds each call's read of
+        # the error words (a host round trip); the profiler gives the
+        # kernel's own device time, the ms of record
+        events_ms = time_ms(torch, lambda: rdma.ring_allgather_matmul_rdma(
+            x, w, ax))
         rec = dict(
             name="ring_allgather_matmul_rdma", route="cuda",
             source="src/repro_torch/kernels/csrc/agmm_ring.cu",
             replaces="src/repro/kernels/collective_matmul_rdma.py:157",
             max_abs_err=err,
-            ms=time_ms(torch, lambda: rdma.ring_allgather_matmul_rdma(
-                x, w, ax)),
+            ms=device_ms(lambda: rdma.ring_allgather_matmul_rdma(
+                x, w, ax), "agmm_ring"),
             plain_ms=time_ms(torch,
                              lambda: rdma.ring_allgather_matmul_rdma_plain(
                                  x, w)),
@@ -1091,7 +1158,9 @@ def main(argv=None) -> int:
         default_ms = time_ms(torch, lambda: C.REGISTRY["allgather_matmul"][
             "default"].fn(x, ax, w=w))
         log(f"[3] ring_allgather_matmul_rdma p={P} [{n_r},{D_MODEL}]@"
-            f"[{P},{D_MODEL},{m_r}] {name_dt[dt]}: kernel {rec['ms']:.4f} ms "
+            f"[{P},{D_MODEL},{m_r}] {name_dt[dt]}: kernel device time "
+            f"{rec['ms']:.4f} ms (torch.profiler; events mean over "
+            f"back-to-back calls {events_ms:.4f} ms) "
             f"plain {rec['plain_ms']:.4f} ms torch.matmul(gathered) "
             f"{rec['library_ms']:.4f} ms bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}) = {flops / rec['ms'] / 1e9:.1f} TFLOP/s")
@@ -1099,14 +1168,21 @@ def main(argv=None) -> int:
             f"torch.matmul) {name_dt[dt]}: {default_ms:.4f} ms")
         if dt == torch.bfloat16:
             kernels["ring_allgather_matmul_rdma"] = rec
+            report["ring_events_ms"] = events_ms
     for p_, n, k, m, dt, shared in (
             (1, 37, 100, 50, torch.float16, True),
             (2, 5, 7, 9, torch.bfloat16, False),
             (3, 100, 33, 17, torch.float16, False),
             (5, 129, 72, 200, torch.float32, True),
             (5, 61, 3000, 1000, torch.float16, False),
+            (2, 61, 72, 200, torch.bfloat16, False),
+            (3, 129, 72, 200, torch.bfloat16, False),
+            (8, 129, 72, 200, torch.float16, True),
             (2, n_r, D_MODEL, m_r, torch.bfloat16, True)):
         ring_case(p_, n, k, m, dt, shared)
+    ring_paths = path_delta(rdma.ring_allgather_matmul_rdma, ring_paths0)
+    log(f"[3] ring_allgather_matmul_rdma launches by path: "
+        f"{json.dumps(ring_paths)}")
     blocks0 = rdma.ring_allgather_matmul_blocks.launches
     xs4 = randn(5, 37, 100, dtype=torch.bfloat16)
     ws4 = randn(100, 50, dtype=torch.bfloat16, scale=0.1)
@@ -1126,8 +1202,8 @@ def main(argv=None) -> int:
         source="src/repro_torch/kernels/csrc/agmm_ring.cu",
         replaces="src/repro/kernels/collective_matmul_rdma.py:232",
         max_abs_err=err,
-        ms=time_ms(torch, lambda: rdma.ring_allgather_matmul_blocks(
-            x4, w4, 0)),
+        ms=device_ms(lambda: rdma.ring_allgather_matmul_blocks(
+            x4, w4, 0), "agmm_ring"),
         plain_ms=time_ms(torch,
                          lambda: rdma.ring_allgather_matmul_blocks_plain(
                              x4, w4, 0)),
@@ -1138,8 +1214,11 @@ def main(argv=None) -> int:
     kernels["ring_allgather_matmul_blocks"]["launches"] = (
         rdma.ring_allgather_matmul_blocks.launches - blocks0)
     rec = kernels["ring_allgather_matmul_blocks"]
+    log(f"[3] ring_allgather_matmul_blocks launches by path: "
+        f"{json.dumps(rdma.ring_allgather_matmul_blocks.launches_by_path)}")
     log(f"[3] ring_allgather_matmul_blocks my=0 x_all[{P},{n_r},{D_MODEL}] "
-        f"@[{D_MODEL},{m_r}] bf16: max_abs_err {err:.3e} (tolerance "
+        f"@[{D_MODEL},{m_r}] bf16 (device time, torch.profiler): "
+        f"max_abs_err {err:.3e} (tolerance "
         f"{tol:.3e}) kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} "
         f"ms torch.matmul {rec['library_ms']:.4f} ms bound "
         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
@@ -1230,6 +1309,9 @@ def main(argv=None) -> int:
     log(f"[3] flash_attention checks in {time.perf_counter() - t0:.1f} s")
     kernels["flash_attention"] = flash["prefill"]
     report["flash_decode"] = flash["decode"]
+    report["flash_zamba2_prefill_ms"] = flash["zamba2_prefill_ms"]
+    log(f"[3] flash_attention launches by path: "
+        f"{json.dumps(fa.flash_attention.launches_by_path)}")
     t0 = time.perf_counter()
     scans = check_scans(torch, rw, ssd, randn, dev)
     log(f"[3] scan checks in {time.perf_counter() - t0:.1f} s")
@@ -1348,6 +1430,17 @@ def main(argv=None) -> int:
     for m in rrep.measurements:
         log(f"[8] measured {m.op} {m.nbytes}B {m.impl}: "
             f"{m.latency * 1e3:.4f} ms (nrep {m.nrep})")
+    gu_bytes = TOKENS // P * D_MODEL * 2      # the gate/up allgather-matmul
+    gu = {m.impl: m.latency * 1e3 for m in rrep.measurements
+          if m.op == "allgather_matmul" and m.nbytes == gu_bytes}
+    picked = [r.impl for st in rrep.phase_profiles.values() for prof in st
+              if prof.op == "allgather_matmul" for r in prof.ranges
+              if r.lo <= gu_bytes <= r.hi] or ["default"]
+    log(f"[8] gate/up allgather_matmul cell ({gu_bytes} B per rank, "
+        f"median ms): fused_ring {gu.get('fused_ring', float('nan')):.4f} "
+        f"vs default {gu.get('default', float('nan')):.4f}; tune_trace "
+        f"picked {'/'.join(picked)}")
+    report["gate_up_cell"] = {"median_ms": gu, "picked": picked}
     shutil.rmtree(out_dir / "trace_profiles", ignore_errors=True)
     rrep.save(out_dir / "trace_profiles")
     _, phases = profiles.load_stores(out_dir / "trace_profiles")
@@ -1431,6 +1524,12 @@ def main(argv=None) -> int:
 
     main_path = {k: c8b[k] - c0[k] for k in c8b}
     log(f"[main path] kernel launches: {json.dumps(main_path)}")
+    ring_paths = dict(rdma.ring_allgather_matmul_rdma.launches_by_path)
+    log(f"[main path] ring_allgather_matmul_rdma launches by path: "
+        f"{json.dumps(ring_paths)}")
+    if ring_paths["wgmma"] != main_path["ring_allgather_matmul_rdma"]:
+        raise RuntimeError(f"main path: ring launches off the wgmma path: "
+                           f"{ring_paths}")
 
     # -- 9. where one call's device time goes (after the main path's counts)
     for nm in ("default", "allgather_as_ring", "wire_q8"):
@@ -1451,7 +1550,7 @@ def main(argv=None) -> int:
                  flash_attention=fa.flash_attention,
                  rwkv6_scan=rw.rwkv6_scan, ssd_scan=ssd.ssd_scan)
     served = serve_phase(torch, dev, out_dir, every, "llama3.2-3b", "10",
-                         ("fa_bf16_kernel",))
+                         ("fa_wgmma_kernel", "fa_split_kernel"))
     report["serve"] = served
     kernels["flash_attention"]["launches"] = served["launches"][
         "flash_attention"]
@@ -1461,7 +1560,8 @@ def main(argv=None) -> int:
     report["ssm_serve"] = {}
     for arch, scan, needles in (
             ("rwkv6-3b", "rwkv6_scan", ("rwkv6_kernel",)),
-            ("zamba2-1.2b", "ssd_scan", ("ssd_kernel", "fa_bf16_kernel"))):
+            ("zamba2-1.2b", "ssd_scan", ("ssd_kernel", "fa_wgmma_kernel",
+                                         "fa_split_kernel"))):
         got = serve_phase(torch, dev, out_dir, every, arch, "11", needles)
         got["state_carry_rel_err"] = state_carry_check(torch, dev, every,
                                                        arch)

@@ -11,7 +11,20 @@ credits).  On the stacked axis all ranks share one card's memory, so the
 buffer in the same device memory, and the semaphores are counters there;
 the name is kept only to find the counterpart.  The CUDA source, with the
 bound it works against and the protocol step by step, is
-``csrc/agmm_ring.cu``.
+``csrc/agmm_ring.cu``.  It holds two kernels, and the launch takes one by
+the dtype and the alignment (``agmm_ring_path``), counted in
+``ring_allgather_matmul_rdma.launches_by_path`` (and the same on
+``ring_allgather_matmul_blocks``):
+
+* ``"wgmma"``: bf16/fp16 whose k and m are multiples of 8 and whose base
+  pointers are 16-byte aligned: warp-specialized CTAs on the wgmma/TMA
+  mainloop of ``csrc/hopper_gemm.cuh``, the ring's copies on warps of
+  their own;
+* ``"wmma"``: other bf16/fp16 shapes, WMMA tiles (``csrc/mm_tile.cuh``);
+* ``"f32"``: float32, FMA tiles.
+
+The wrapper reads the error words back after every ring launch (a host
+round trip), so that a timed-out flag wait raises where it happened.
 
 ``ring_allgather_matmul_blocks`` is the counterpart of the TPU kernel's
 interpret-mode tier: rank ``my``'s p-step schedule over the full chunk
@@ -138,6 +151,9 @@ def _lib() -> ctypes.CDLL:
         bpr = lib.agmm_ring_blocks_per_rank
         bpr.restype = ctypes.c_int
         bpr.argtypes = [ctypes.c_int] * 4
+        path = lib.agmm_ring_path
+        path.restype = ctypes.c_int
+        path.argtypes = [ctypes.c_int] * 3
     return lib
 
 
@@ -152,11 +168,12 @@ def blocks_per_rank(dtype: torch.dtype, p: int, n: int, m: int) -> int:
 
 
 _WAIT_KIND = {1: "credit", 2: "arrival"}
+PATHS = ("f32", "wmma", "wgmma")      # agmm_ring_path
 
 
-def _launch(x, w, out, gath, p, my, blocks_mode):
+def _launch(x, w, out, gath, p, my, blocks_mode) -> str:
     """Check the operands, launch, and raise on a launch error or on a
-    flag wait that timed out."""
+    flag wait that timed out.  Returns the path the launch took."""
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"agmm_ring: x on {x.device}, w on {w.device}")
     if x.dtype != w.dtype or x.dtype not in _DTYPE_CODE:
@@ -174,12 +191,16 @@ def _launch(x, w, out, gath, p, my, blocks_mode):
         slots = flags = None
     else:
         slots = torch.empty((p, 2, n, k), dtype=x.dtype, device=x.device)
-        flags = torch.zeros(2 * p + 3, dtype=torch.int32, device=x.device)
+        # the tile kernel's counters [2p], the error words [3], the wgmma
+        # kernel's per-step counters [2p^2]
+        flags = torch.zeros(2 * p + 3 + 2 * p * p, dtype=torch.int32,
+                            device=x.device)
         ptrs.append(slots.data_ptr())
     vec_ok = int(k % 8 == 0 and m % 8 == 0 and all(a % 16 == 0
                                                    for a in ptrs))
     swb = k * m if w.dim() == 3 else 0
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    path = PATHS[_lib().agmm_ring_path(_DTYPE_CODE[x.dtype], k, vec_ok)]
     rc = _lib().agmm_ring(
         _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(),
         None if gath is None else gath.data_ptr(),
@@ -189,12 +210,13 @@ def _launch(x, w, out, gath, p, my, blocks_mode):
     if rc != 0:
         raise RuntimeError(f"agmm_ring launch failed: CUDA error {rc}")
     if flags is not None:
-        kind, rank, step = flags[2 * p:].tolist()
+        kind, rank, step = flags[2 * p:2 * p + 3].tolist()
         if kind:
             raise RuntimeError(
                 f"agmm_ring: flag wait timed out ({_WAIT_KIND[kind]} wait "
                 f"of rank {rank} at step {step}, p={p}, x "
                 f"{tuple(x.shape)}, w {tuple(w.shape)})")
+    return path
 
 
 def ring_allgather_matmul_rdma(x: torch.Tensor, w: torch.Tensor,
@@ -225,12 +247,14 @@ def ring_allgather_matmul_rdma(x: torch.Tensor, w: torch.Tensor,
     gath = (torch.empty((p, p * n, k), dtype=x.dtype, device=x.device)
             if return_gathered else None)
     if out.numel() or (gath is not None and gath.numel()):
-        _launch(x, w, out, gath, p, 0, False)
+        path = _launch(x, w, out, gath, p, 0, False)
         ring_allgather_matmul_rdma.launches += 1
+        ring_allgather_matmul_rdma.launches_by_path[path] += 1
     return (out, gath) if return_gathered else out
 
 
 ring_allgather_matmul_rdma.launches = 0
+ring_allgather_matmul_rdma.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 def ring_allgather_matmul_blocks(x_all: torch.Tensor, w: torch.Tensor,
@@ -252,9 +276,11 @@ def ring_allgather_matmul_blocks(x_all: torch.Tensor, w: torch.Tensor,
                       device=x_all.device)
     gath = torch.empty((p * n, k), dtype=x_all.dtype, device=x_all.device)
     if out.numel() or gath.numel():
-        _launch(x_all, w, out, gath, p, my, True)
+        path = _launch(x_all, w, out, gath, p, my, True)
         ring_allgather_matmul_blocks.launches += 1
+        ring_allgather_matmul_blocks.launches_by_path[path] += 1
     return out, gath
 
 
 ring_allgather_matmul_blocks.launches = 0
+ring_allgather_matmul_blocks.launches_by_path = dict.fromkeys(PATHS, 0)

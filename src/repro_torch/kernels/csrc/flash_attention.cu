@@ -27,35 +27,55 @@
 // HK = 1, G = 3, dh = 128, causal) is 25.8 GFLOP of products over 25 MB,
 // far above the card's ~295 flop/byte ridge: bound by operations (989
 // TFLOP/s dense bf16).  Its decode (Sq = 1, G = 3) is ~6 flop per byte of
-// K/V: bound by the bytes of the cache it reads (3.35 TB/s).  What the
-// design does about it:
-//   * One CTA per (N, KV head, tile of 128 folded query rows).  The G query
-//     heads of a group are folded into the rows of a tile (row = i*G + g),
-//     so the group's K/V are read once: in decode, one tile holds all G
-//     heads of a token.
-//   * bf16: 8 warps, 16 rows each.  K/V blocks of 32 keys are staged
-//     into shared memory with cp.async, double-buffered so block b+1
-//     loads while block b computes; at dh = 128 a CTA holds 70 KB, so 3
-//     fit on an SM.  S = Q K^T and O += P V run on the tensor cores as
-//     mma.sync m16n8k16 (bf16 in, float32 accumulate), their operands
-//     read from shared memory by ldmatrix (.trans for V); S stays in
-//     registers, the row max and sum are reduced across the quad that
-//     shares a row, the softmax runs in base 2 (scores scaled by log2 e,
-//     exp2f), blocks that every row of a warp sees whole skip the mask,
-//     and P is re-packed from the S accumulator registers straight into
-//     the A operand of the PV product (the two layouts coincide), so
-//     scores never touch memory.
-//   * float32: full float32 FMA (no TF32): 4 warps of 4 rows, a lane per
-//     key for S, a lane per output column for O.
-// Not yet: wgmma/TMA, splitting the KV loop across CTAs for decode
-// (decode fills only N*HK CTAs).
-//
+// K/V: bound by the bytes of the cache it reads (3.35 TB/s).  The G query
+// heads of a KV head are folded into the rows of a tile (row = i*G + g),
+// so the group's K/V are read once.  Four kernels, one per call, chosen
+// before the launch by plan() (flash_attention_plan):
+//   * fa_wgmma_kernel, bf16 prefill (at least 64 folded rows, dh 64 or
+//     128, 16-byte strides): a CTA of 384 threads per 128 folded rows of
+//     one (n, KV head), one CTA per SM, the row tiles with the most keys
+//     first (causal tiles differ in work).  Thread 256 is the producer: it
+//     loads K/V blocks of 128 keys by TMA (4-D tensor maps encoded per
+//     call with the key extent set to kv_len, so nothing at or beyond
+//     kv_len is read: TMA zero-fills it) into two 128-byte-swizzled
+//     stages, K and V each with a full and an empty barrier, so the next
+//     block's K loads while this block's PV product runs.  Warpgroups 0
+//     and 1 (registers moved to them by setmaxnreg) hold 64 rows each:
+//     S = Q K^T on wgmma m64n128k16 (Q and K K-major in shared memory; Q
+//     stored there by 16-byte loads, since a tile of folded rows is not a
+//     TMA box when G does not divide 128), the online softmax in float32
+//     registers in base 2 (the row max and sum across the quad that
+//     shares a row; the mask only on blocks that cross the causal edge,
+//     the window or kv_len, the softcap test once per block: a branch per
+//     score cost as much as the products), then P rounded to bf16 in
+//     registers is the register A operand of O += P V on wgmma (V
+//     MN-major, the transpose-B bit; the accumulator's layout of two
+//     8-key groups is A's layout of one 16-key step).
+//   * fa_split_kernel, bf16 decode (at most 16 folded rows): the keys any
+//     query sees are cut into chunks of 128 and the chunks into splits,
+//     enough for two CTAs per SM over the (n, KV head) pairs (llama's 32
+//     pairs at kv_len 1056: 9 splits, 288 CTAs, where one CTA per pair
+//     filled 32 of 132 SMs).  A CTA's 4 warps take 32 keys of a chunk each
+//     on mma.sync m16n8k16 (3 rows would waste a 64-row wgmma, and decode
+//     is bound by bytes), merge their softmax states, and write a float32
+//     partial (o, m, l) to scratch; the last CTA of its pair to finish (an
+//     atomic ticket) merges the splits into the output and re-arms the
+//     ticket.  A call whose keys fit one split writes its output at once.
+//     One launch per call.
+//   * fa_bf16_kernel, other bf16 calls: 8 warps of 16 rows, K/V blocks of
+//     32 keys double-buffered by cp.async, mma.sync with ldmatrix
+//     operands (the same per-warp step as the split decode).
+//   * fa_f32_kernel, float32: full float32 FMA (no TF32), 4 warps of 4
+//     rows, a lane per key for S, a lane per output column for O.
+
 // Plain C interface, built with nvcc for sm_90a and loaded with ctypes.
 // The entry returns cudaGetLastError() after its launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -97,15 +117,33 @@ __device__ __forceinline__ void block_range(const Params& P, int bn,
   *hi = h;
 }
 
+// Branchless (bitwise, not short-circuit), so that a masked score is a
+// select and not a divergent branch.
 __device__ __forceinline__ bool visible(const Params& P, int j, int qpos) {
-  return j < P.kv_len && (!P.causal || j <= qpos) &&
-         (P.window <= 0 || j > qpos - P.window);
+  return (j < P.kv_len) & (!P.causal | (j <= qpos)) &
+         ((P.window <= 0) | (j > qpos - P.window));
 }
 
 __device__ __forceinline__ float cap(const Params& P, float s) {
   s *= P.scale;
   if (P.softcap > 0.f) s = P.softcap * tanhf(s / P.softcap);
   return s;
+}
+
+// Every score of a block to its base-2 logit, cap(s) * log2(e), in place.
+// The softcap test is taken once for the block: inside the loop it costs
+// a divergent branch per score (tanhf has branches of its own) even when
+// no cap is set.
+template <int N>
+__device__ __forceinline__ void logits(const Params& P, float* s) {
+  if (P.softcap > 0.f) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      s[i] = P.softcap * tanhf(s[i] * P.scale / P.softcap) * LOG2E;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) s[i] = s[i] * P.scale * LOG2E;
+  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -171,11 +209,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
       : "r"(a));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // c += a @ b for one 16x8x16 tile: a 16x16 row-major (4 registers of two
 // bf16), b 16x8 column-major (2 registers), c 16x8 float32.
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
@@ -191,12 +224,12 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
 // row r comes from src(r) (nullptr: a zero row), elements at or beyond
 // dh are zero.  16-byte cp.async chunks when vec_ok (dh, every stride and
 // the base pointers aligned to 8 elements), element loads otherwise.
-template <int DHP, int LDS, int ROWS, class Src>
+template <int DHP, int LDS, int ROWS, int THREADS = TC_THREADS, class Src>
 __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, Src src,
                                            const __nv_bfloat16* any,
                                            int dh, int vec_ok) {
   constexpr int CH = DHP / 8;
-  for (int c = threadIdx.x; c < ROWS * CH; c += TC_THREADS) {
+  for (int c = threadIdx.x; c < ROWS * CH; c += THREADS) {
     const int r = c / CH;
     const int d0 = (c % CH) * 8;
     const __nv_bfloat16* s = src(r);
@@ -209,6 +242,115 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, Src src,
       for (int e = 0; e < 8; ++e)
         d[e] = (s != nullptr && d0 + e < dh) ? s[d0 + e]
                                              : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// One warp's step over a block of 32 keys: S = Q K^T for its 16 query
+// rows (Qw, row pitch LDS) against the block's keys (Kt), then the online
+// softmax and O += P V (Vt).  The thread holds rows lane/4 (a) and +8
+// (b), with query positions qpos_a and qpos_b; `whole`: every key of the
+// block is visible to every row of the warp (no mask).  The row sums l
+// are per-thread partials (the quad's sum is taken at the end).
+template <int DHP, int LDS>
+__device__ __forceinline__ void warp_block(
+    const __nv_bfloat16* Qw, const __nv_bfloat16* Kt,
+    const __nv_bfloat16* Vt, const Params& P, int k_first, bool whole,
+    int qpos_a, int qpos_b, float& m_a, float& m_b, float& l_a, float& l_b,
+    float (&o)[DHP / 8][4]) {
+  constexpr int BN = 32;
+  const int lane = threadIdx.x % 32;
+  const int tig = lane & 3;
+  float s[BN / 8][4];
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  // S = Q K^T: A = Q rows (row-major), B = K^T (K rows are its columns);
+  // one ldmatrix.x4 gives the A tile, or the B tiles of two 8-key column
+  // blocks
+#pragma unroll
+  for (int ks = 0; ks < DHP / 16; ++ks) {
+    uint32_t a[4];
+    ldsm_x4(a, Qw + (lane & 15) * LDS + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int j = 0; j < BN / 8; j += 2) {
+      uint32_t kr[4];
+      ldsm_x4(kr, Kt + (j * 8 + (lane & 7) + (lane >> 4) * 8) * LDS +
+                      ks * 16 + ((lane >> 3) & 1) * 8);
+      const uint32_t b0[2] = {kr[0], kr[1]}, b1[2] = {kr[2], kr[3]};
+      mma_bf16(s[j], a, b0);
+      mma_bf16(s[j + 1], a, b1);
+    }
+  }
+  // scale, cap, mask (skipped for a whole block); the online softmax of
+  // rows a and b in base 2: the scores are scaled by log2(e), which leaves
+  // the softmax as it is
+  logits<BN / 2>(P, &s[0][0]);
+  if (!whole) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k_first + j * 8 + tig * 2 + e;
+        s[j][e] = visible(P, col, qpos_a) ? s[j][e] : NEG;
+        s[j][2 + e] = visible(P, col, qpos_b) ? s[j][2 + e] : NEG;
+      }
+    }
+  }
+  float mx_a = NEG, mx_b = NEG;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mx_a = fmaxf(mx_a, s[j][e]);
+      mx_b = fmaxf(mx_b, s[j][2 + e]);
+    }
+  }
+  const float mn_a = fmaxf(m_a, quad_max(mx_a));
+  const float mn_b = fmaxf(m_b, quad_max(mx_b));
+  const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
+  m_a = mn_a;
+  m_b = mn_b;
+  float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[j][e] = exp2f(s[j][e] - mn_a);
+      s[j][2 + e] = exp2f(s[j][2 + e] - mn_b);
+      sum_a += s[j][e];
+      sum_b += s[j][2 + e];
+    }
+  }
+  l_a = l_a * al_a + sum_a;
+  l_b = l_b * al_b + sum_b;
+#pragma unroll
+  for (int t = 0; t < DHP / 8; ++t) {
+    o[t][0] *= al_a;
+    o[t][1] *= al_a;
+    o[t][2] *= al_b;
+    o[t][3] *= al_b;
+  }
+  // O += P V: the S accumulators of key tiles 2kk and 2kk+1 are the A
+  // operand of one 16-key step; B = V rows kk*16.. read transposed, two
+  // 8-column output tiles per ldmatrix.x4.trans
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint32_t a[4] = {hopper::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                           hopper::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                           hopper::pack_bf16(s[2 * kk + 1][0],
+                                             s[2 * kk + 1][1]),
+                           hopper::pack_bf16(s[2 * kk + 1][2],
+                                             s[2 * kk + 1][3])};
+#pragma unroll
+    for (int t = 0; t < DHP / 8; t += 2) {
+      uint32_t vr[4];
+      ldsm_x4_t(vr, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
+                         t * 8 + (lane >> 4) * 8);
+      const uint32_t b0[2] = {vr[0], vr[1]}, b1[2] = {vr[2], vr[3]};
+      mma_bf16(o[t], a, b0);
+      mma_bf16(o[t + 1], a, b1);
     }
   }
 }
@@ -292,97 +434,14 @@ __global__ void __launch_bounds__(TC_THREADS) fa_bf16_kernel(Params P) {
     cp_async_commit();
     cp_async_wait<1>();          // block kb (and Q) have landed
     __syncthreads();
-    if (live) {
-      const T* Kt = Ks + buf * BN * LDS;
-      const T* Vt = Vs + buf * BN * LDS;
-      float s[BN / 8][4];
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-      // S = Q K^T: A = Q rows (row-major), B = K^T (K rows are its
-      // columns); one ldmatrix.x4 gives the A tile, or the B tiles of two
-      // 8-key column blocks
-#pragma unroll
-      for (int ks = 0; ks < DHP / 16; ++ks) {
-        uint32_t a[4];
-        ldsm_x4(a, Qs + (wrow + (lane & 15)) * LDS + ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int j = 0; j < BN / 8; j += 2) {
-          uint32_t kr[4];
-          ldsm_x4(kr, Kt + (j * 8 + (lane & 7) + (lane >> 4) * 8) * LDS +
-                          ks * 16 + ((lane >> 3) & 1) * 8);
-          const uint32_t b0[2] = {kr[0], kr[1]}, b1[2] = {kr[2], kr[3]};
-          mma_bf16(s[j], a, b0);
-          mma_bf16(s[j + 1], a, b1);
-        }
-      }
-      // scale, cap, mask (skipped for a block every row of the warp sees
-      // whole); the online softmax of rows a and b in base 2: the scores
-      // are scaled by log2(e), which leaves the softmax as it is
-      const int k_first = kb * BN, k_last = kb * BN + BN - 1;
-      const bool whole = k_last < P.kv_len && (!P.causal || k_last <= wq_min) &&
-                         (P.window <= 0 || k_first > wq_max - P.window);
-      float mx_a = NEG, mx_b = NEG;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = k_first + j * 8 + tig * 2 + e;
-          s[j][e] = (whole || visible(P, col, qpos_a))
-                        ? cap(P, s[j][e]) * LOG2E : NEG;
-          s[j][2 + e] = (whole || visible(P, col, qpos_b))
-                            ? cap(P, s[j][2 + e]) * LOG2E : NEG;
-          mx_a = fmaxf(mx_a, s[j][e]);
-          mx_b = fmaxf(mx_b, s[j][2 + e]);
-        }
-      }
-      const float mn_a = fmaxf(m_a, quad_max(mx_a));
-      const float mn_b = fmaxf(m_b, quad_max(mx_b));
-      const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
-      m_a = mn_a;
-      m_b = mn_b;
-      float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          s[j][e] = exp2f(s[j][e] - mn_a);
-          s[j][2 + e] = exp2f(s[j][2 + e] - mn_b);
-          sum_a += s[j][e];
-          sum_b += s[j][2 + e];
-        }
-      }
-      // per-thread partial row sums; the quad's sum is taken at the end
-      l_a = l_a * al_a + sum_a;
-      l_b = l_b * al_b + sum_b;
-#pragma unroll
-      for (int t = 0; t < DHP / 8; ++t) {
-        o[t][0] *= al_a;
-        o[t][1] *= al_a;
-        o[t][2] *= al_b;
-        o[t][3] *= al_b;
-      }
-      // O += P V: the S accumulators of key tiles 2kk and 2kk+1 are the A
-      // operand of one 16-key step; B = V rows kk*16.. read transposed, two
-      // 8-column output tiles per ldmatrix.x4.trans
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int t = 0; t < DHP / 8; t += 2) {
-          uint32_t vr[4];
-          ldsm_x4_t(vr, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                 LDS + t * 8 + (lane >> 4) * 8);
-          const uint32_t b0[2] = {vr[0], vr[1]}, b1[2] = {vr[2], vr[3]};
-          mma_bf16(o[t], a, b0);
-          mma_bf16(o[t + 1], a, b1);
-        }
-      }
-    }
+    const int k_first = kb * BN, k_last = kb * BN + BN - 1;
+    const bool whole = k_last < P.kv_len &&
+                       (!P.causal || k_last <= wq_min) &&
+                       (P.window <= 0 || k_first > wq_max - P.window);
+    if (live)
+      warp_block<DHP, LDS>(Qs + wrow * LDS, Ks + buf * BN * LDS,
+                           Vs + buf * BN * LDS, P, k_first, whole, qpos_a,
+                           qpos_b, m_a, m_b, l_a, l_b, o);
     __syncthreads();             // buffer buf is free for block kb + 2
   }
   cp_async_wait<0>();
@@ -405,6 +464,441 @@ __global__ void __launch_bounds__(TC_THREADS) fa_bf16_kernel(Params P) {
         if (d < P.dh) orow[d] = __float2bfloat16(o[t][2 * half + e] * inv);
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 decode: the KV loop split across CTAs
+// ---------------------------------------------------------------------------
+
+constexpr int SPLIT_THREADS = 128;            // 4 warps
+constexpr int SPLIT_ROWS = 16;                // folded rows: one mma tile
+constexpr int SPLIT_KEYS = 32 * (SPLIT_THREADS / 32);  // 32 keys a warp
+
+template <int DHP>
+struct SplitShape {
+  static constexpr int LDS = DHP + 8;
+  static constexpr int KV = (SPLIT_ROWS + 2 * SPLIT_KEYS) * LDS * 2;
+  // the warps' partials (m, l and o of 16 rows each) reuse K and V
+  static constexpr int PART = 4 * SPLIT_ROWS * (DHP + 2) * 4;
+  static constexpr int SMEM = KV > PART ? KV : PART;
+};
+
+// Split `split` of (n, h) walks chunks [split*cps, (split+1)*cps) of
+// SPLIT_KEYS keys from key_lo (up to key_hi); each of its 4 warps takes 32
+// keys of a chunk with its own softmax state.  The warps' states merge
+// into the CTA's partial (o unnormalized, m and l in base 2), written to
+// part[(n*HK + h)*splits + split]; the last CTA of (n, h) to finish (its
+// ticket) merges the splits' partials into the output and re-arms the
+// ticket for the next launch.  With one split the merged state is the
+// output.
+template <int DHP>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+    fa_split_kernel(Params P, float* part, int* tickets, int splits, int cps,
+                    int key_lo, int key_hi) {
+  using T = __nv_bfloat16;
+  constexpr int LDS = SplitShape<DHP>::LDS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ks = Qs + SPLIT_ROWS * LDS;
+  T* Vs = Ks + SPLIT_KEYS * LDS;
+  __shared__ int last;
+
+  const int split = blockIdx.x, h = blockIdx.y, n = blockIdx.z;
+  const int rows = P.sq * P.g;                 // <= SPLIT_ROWS
+  const T* qb = static_cast<const T*>(P.q) + n * P.q_sn + h * P.q_sh;
+  const T* kb0 = static_cast<const T*>(P.k) + n * P.k_sn + h * P.k_sh;
+  const T* vb0 = static_cast<const T*>(P.v) + n * P.v_sn + h * P.v_sh;
+  const T* any = static_cast<const T*>(P.q);
+  stage_rows<DHP, LDS, SPLIT_ROWS, SPLIT_THREADS>(
+      Qs,
+      [&](int r) -> const T* {
+        return r < rows ? qb + (r / P.g) * P.q_ss + (r % P.g) * P.q_sg
+                        : nullptr;
+      },
+      any, P.dh, P.vec_ok);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int qpos_a = P.q0 + gid / P.g;
+  const int qpos_b = P.q0 + (gid + 8) / P.g;
+  float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;
+  float o[DHP / 8][4];
+#pragma unroll
+  for (int t = 0; t < DHP / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
+
+  const int nchunks = (key_hi - key_lo + SPLIT_KEYS - 1) / SPLIT_KEYS;
+  const int c_end = min((split + 1) * cps, nchunks);
+  for (int ci = split * cps; ci < c_end; ++ci) {
+    const int k0 = key_lo + ci * SPLIT_KEYS;
+    stage_rows<DHP, LDS, SPLIT_KEYS, SPLIT_THREADS>(
+        Ks,
+        [&](int r) -> const T* {
+          return k0 + r < key_hi ? kb0 + (k0 + r) * P.k_ss : nullptr;
+        },
+        any, P.dh, P.vec_ok);
+    stage_rows<DHP, LDS, SPLIT_KEYS, SPLIT_THREADS>(
+        Vs,
+        [&](int r) -> const T* {
+          return k0 + r < key_hi ? vb0 + (k0 + r) * P.v_ss : nullptr;
+        },
+        any, P.dh, P.vec_ok);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    const int kw = k0 + warp * 32;
+    if (kw < key_hi)
+      warp_block<DHP, LDS>(Qs, Ks + warp * 32 * LDS, Vs + warp * 32 * LDS, P,
+                           kw, false, qpos_a, qpos_b, m_a, m_b, l_a, l_b, o);
+    __syncthreads();             // K and V are free for the next chunk
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the warps' states -> shared memory: m, l, o per row of 16
+  float* wm = reinterpret_cast<float*>(smem_raw) +
+              warp * SPLIT_ROWS * (DHP + 2);
+  float* wl = wm + SPLIT_ROWS;
+  float* wo = wl + SPLIT_ROWS;
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  if (tig == 0) {
+    wm[gid] = m_a;
+    wm[gid + 8] = m_b;
+    wl[gid] = l_a;
+    wl[gid + 8] = l_b;
+  }
+#pragma unroll
+  for (int t = 0; t < DHP / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      wo[gid * DHP + t * 8 + tig * 2 + e] = o[t][e];
+      wo[(gid + 8) * DHP + t * 8 + tig * 2 + e] = o[t][2 + e];
+    }
+  __syncthreads();
+
+  // the CTA's partial: the warps merged by their maxima; with one split it
+  // is the output, written at once (no partial, no ticket)
+  const long long group = (long long)n * P.hk + h;
+  float* pg = part + group * splits * SPLIT_ROWS * (DHP + 2);
+  T* ob = static_cast<T*>(P.o) + n * P.o_sn + h * P.o_sh;
+  auto at = [&](int w) {
+    return reinterpret_cast<const float*>(smem_raw) +
+           w * SPLIT_ROWS * (DHP + 2);
+  };
+  for (int i = threadIdx.x; i < rows * DHP; i += SPLIT_THREADS) {
+    const int r = i / DHP, d = i % DHP;
+    float M = NEG;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) M = fmaxf(M, at(w)[r]);
+    float L = 0.f, O = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float f = exp2f(at(w)[r] - M);
+      L += at(w)[SPLIT_ROWS + r] * f;
+      O += at(w)[2 * SPLIT_ROWS + r * DHP + d] * f;
+    }
+    if (splits == 1) {
+      if (d < P.dh)
+        ob[(r / P.g) * P.o_ss + (r % P.g) * P.o_sg + d] =
+            __float2bfloat16(O / fmaxf(L, 1e-30f));
+      continue;
+    }
+    float* ps = pg + (long long)split * SPLIT_ROWS * (DHP + 2);
+    ps[2 * SPLIT_ROWS + r * DHP + d] = O;
+    if (d == 0) {
+      ps[r] = M;
+      ps[SPLIT_ROWS + r] = L;
+    }
+  }
+  if (splits == 1) return;
+  __threadfence();               // the partial is visible before the ticket
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(tickets + group, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // the last CTA of (n, h): every split merged into the output
+  for (int i = threadIdx.x; i < rows * DHP; i += SPLIT_THREADS) {
+    const int r = i / DHP, d = i % DHP;
+    if (d >= P.dh) continue;
+    float M = NEG;
+    for (int sp = 0; sp < splits; ++sp)
+      M = fmaxf(M, __ldcg(pg + (long long)sp * SPLIT_ROWS * (DHP + 2) + r));
+    float L = 0.f, O = 0.f;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float* ps = pg + (long long)sp * SPLIT_ROWS * (DHP + 2);
+      const float f = exp2f(__ldcg(ps + r) - M);
+      L += __ldcg(ps + SPLIT_ROWS + r) * f;
+      O += __ldcg(ps + 2 * SPLIT_ROWS + r * DHP + d) * f;
+    }
+    ob[(r / P.g) * P.o_ss + (r % P.g) * P.o_sg + d] =
+        __float2bfloat16(O / fmaxf(L, 1e-30f));
+  }
+  if (threadIdx.x == 0) tickets[group] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 prefill: wgmma and TMA (dh 64 or 128)
+// ---------------------------------------------------------------------------
+
+template <int DH>
+struct WgShape {
+  static constexpr int BM = 128;              // folded rows of a CTA
+  static constexpr int BN = 128;              // keys of a K/V block
+  static constexpr int BOX = 128 * 128;       // 128 rows of 64 dims
+  static constexpr int Q_BYTES = BM * DH * 2;
+  static constexpr int KV_BYTES = BN * DH * 2;
+  static constexpr int STAGES = 2;
+  static constexpr int THREADS = 384;
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024 + 256;
+};
+
+// Where the key, head and batch coordinates go in a K/V tensor map, whose
+// outer dims are ordered by stride.
+struct KvOrder {
+  int key, head, batch;
+};
+
+// The map's coordinate of dim 1 + i (selects, not an indexed array: the
+// producer thread runs on the registers setmaxnreg leaves it).
+__device__ __forceinline__ int kv_coord(const KvOrder& ord, int i, int j,
+                                        int h, int n) {
+  return ord.key == i ? j : ord.head == i ? h : n;
+}
+
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DH == 64)
+    hopper::wgmma_rs_n64_bf16<1>(o, a, db, 1);
+  else
+    hopper::wgmma_rs_n128_bf16<1>(o, a, db, 1);
+}
+
+// A CTA: 128 folded query rows (row = i*G + g) of one (n, KV head), the
+// heaviest row tiles first; warpgroups 0-1 hold 64 rows each, thread 256
+// is the TMA producer of 128-key K/V blocks (2 stages).
+template <int DH>
+__global__ void __launch_bounds__(WgShape<DH>::THREADS, 1)
+    fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, Params P,
+                    KvOrder ok, KvOrder ov) {
+  using T = __nv_bfloat16;
+  using S = WgShape<DH>;
+  constexpr int BOXES = DH / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = hopper::smem_u32(smem_raw);
+  unsigned char* Qs = smem_raw + (((base + 1023u) & ~1023u) - base);
+  unsigned char* Ks = Qs + S::Q_BYTES;
+  unsigned char* Vs = Ks + S::STAGES * S::KV_BYTES;
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(Vs + S::STAGES * S::KV_BYTES);
+  uint64_t* full_v = full_k + S::STAGES;
+  uint64_t* empty_k = full_v + S::STAGES;   // K read by S = Q K^T
+  uint64_t* empty_v = empty_k + S::STAGES;  // V read by O += P V
+
+  const int rows = P.sq * P.g;
+  const int tiles = (rows + S::BM - 1) / S::BM;
+  const int groups = P.n * P.hk;
+  const int nh = blockIdx.x % groups;
+  const int n = nh / P.hk, h = nh % P.hk;
+  const int row0 = (tiles - 1 - blockIdx.x / groups) * S::BM;
+  const int row_end = min(row0 + S::BM, rows);
+  int kb_lo, kb_hi;
+  block_range(P, S::BN, P.q0 + row0 / P.g, P.q0 + (row_end - 1) / P.g,
+              &kb_lo, &kb_hi);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::STAGES; ++i) {
+      hopper::mbar_init(&full_k[i], 1);
+      hopper::mbar_init(&full_v[i], 1);
+      hopper::mbar_init(&empty_k[i], 8);    // the consumer warps
+      hopper::mbar_init(&empty_v[i], 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- the producer: K and V blocks by TMA --------------------------------
+    hopper::reg_dealloc<40>();
+    if (threadIdx.x != 256) return;
+    hopper::PipeState st;
+    for (int kb = kb_lo; kb < kb_hi; ++kb) {
+      hopper::mbar_wait(&empty_k[st.stage], st.phase ^ 1u);
+      hopper::mbar_expect_tx(&full_k[st.stage], S::KV_BYTES);
+      const int j = kb * S::BN;
+      for (int b = 0; b < BOXES; ++b)
+        hopper::tma_load_4d(Ks + st.stage * S::KV_BYTES + b * S::BOX, &tm_k,
+                            &full_k[st.stage], b * 64, kv_coord(ok, 0, j, h, n),
+                            kv_coord(ok, 1, j, h, n), kv_coord(ok, 2, j, h, n));
+      hopper::mbar_wait(&empty_v[st.stage], st.phase ^ 1u);
+      hopper::mbar_expect_tx(&full_v[st.stage], S::KV_BYTES);
+      for (int b = 0; b < BOXES; ++b)
+        hopper::tma_load_4d(Vs + st.stage * S::KV_BYTES + b * S::BOX, &tm_v,
+                            &full_v[st.stage], b * 64, kv_coord(ov, 0, j, h, n),
+                            kv_coord(ov, 1, j, h, n), kv_coord(ov, 2, j, h, n));
+      st.advance(S::STAGES);
+    }
+    return;
+  }
+
+  // ---- the consumers --------------------------------------------------------
+  hopper::reg_alloc<232>();
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, gid = lane >> 2, tig = lane & 3;
+  // Q: 16-byte loads into the 128-byte swizzle (a tile of folded rows is
+  // not a TMA box when G does not divide 128), then a barrier of the two
+  // consumer warpgroups
+  const T* qb = static_cast<const T*>(P.q) + n * P.q_sn + h * P.q_sh;
+  for (int c = threadIdx.x; c < S::BM * DH / 8; c += 256) {
+    const int r = c / (DH / 8), d0 = (c % (DH / 8)) * 8, R = row0 + r;
+    int4 v = make_int4(0, 0, 0, 0);
+    if (R < rows)
+      v = __ldg(reinterpret_cast<const int4*>(
+          qb + (R / P.g) * P.q_ss + (R % P.g) * P.q_sg + d0));
+    *reinterpret_cast<int4*>(Qs + (d0 / 64) * S::BOX + r * 128 +
+                             ((((d0 % 64) / 8) ^ (r % 8)) * 16)) = v;
+  }
+  hopper::fence_proxy_async_shared();    // generic stores -> wgmma reads
+  hopper::named_bar_sync(1, 256);
+
+  const int wrow = wg * 64 + warp * 16;          // the warp's first row
+  const int qpos_a = P.q0 + (row0 + wrow + gid) / P.g;
+  const int qpos_b = P.q0 + (row0 + wrow + gid + 8) / P.g;
+  const int wq_min = P.q0 + (row0 + wg * 64) / P.g;
+  const int wq_max = P.q0 + (row0 + wg * 64 + 63) / P.g;
+  // the keys [lo, hi) that rows a and b see (visible(), as two bounds)
+  const int lo_a = P.window > 0 ? max(0, qpos_a - P.window + 1) : 0;
+  const int lo_b = P.window > 0 ? max(0, qpos_b - P.window + 1) : 0;
+  const int hi_a = P.causal ? min(P.kv_len, qpos_a + 1) : P.kv_len;
+  const int hi_b = P.causal ? min(P.kv_len, qpos_b + 1) : P.kv_len;
+  float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;
+  float o[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  const uint64_t dq = hopper::desc_sw128(Qs + wg * 64 * 128, 16, 1024);
+
+  hopper::PipeState st;
+  for (int kb = kb_lo; kb < kb_hi; ++kb) {
+    // S = Q K^T (both K-major): 64 rows x 128 keys per warpgroup
+    float s[64];
+    hopper::mbar_wait(&full_k[st.stage], st.phase);
+    const uint64_t dk = hopper::desc_sw128(Ks + st.stage * S::KV_BYTES, 16,
+                                           1024);
+    hopper::fence_operands(s);
+    hopper::wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks) {
+      const uint64_t off = (ks / 4) * (S::BOX >> 4) + (ks % 4) * 2;
+      hopper::wgmma_ss_n128_bf16<0>(s, dq + off, dk + off, ks > 0);
+    }
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::fence_operands(s);
+    if (lane == 0) hopper::mbar_arrive(&empty_k[st.stage]);
+
+    // the online softmax in base 2 (the mask only where the block crosses
+    // the causal edge, the window or kv_len for some row of the warpgroup)
+    const int k_first = kb * S::BN, k_last = k_first + S::BN - 1;
+    const bool whole = k_last < P.kv_len &&
+                       (!P.causal || k_last <= wq_min) &&
+                       (P.window <= 0 || k_first > wq_max - P.window);
+    logits<64>(P, s);
+    if (!whole) {   // a real branch, taken where the block crosses an edge
+      // score (j, e) is key k_first + 2 tig + 8j + e: two compares of a
+      // constant with the row's bounds shifted by k_first + 2 tig (the
+      // visible() test per score ran the consumers out of registers)
+      const int base = k_first + 2 * tig;
+      const int la = lo_a - base, ha = hi_a - base;
+      const int lb = lo_b - base, hb = hi_b - base;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + e;
+          s[4 * j + e] = (c >= la) & (c < ha) ? s[4 * j + e] : NEG;
+          s[4 * j + 2 + e] = (c >= lb) & (c < hb) ? s[4 * j + 2 + e] : NEG;
+        }
+      }
+    }
+    float mx_a = NEG, mx_b = NEG;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mx_a = fmaxf(mx_a, s[4 * j + e]);
+        mx_b = fmaxf(mx_b, s[4 * j + 2 + e]);
+      }
+    }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a));
+    const float mn_b = fmaxf(m_b, quad_max(mx_b));
+    const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[4 * j + e] = exp2f(s[4 * j + e] - mn_a);
+        s[4 * j + 2 + e] = exp2f(s[4 * j + 2 + e] - mn_b);
+        sum_a += s[4 * j + e];
+        sum_b += s[4 * j + 2 + e];
+      }
+    }
+    l_a = l_a * al_a + sum_a;
+    l_b = l_b * al_b + sum_b;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      o[4 * j] *= al_a;
+      o[4 * j + 1] *= al_a;
+      o[4 * j + 2] *= al_b;
+      o[4 * j + 3] *= al_b;
+    }
+
+    // O += P V: P (bf16) from the S registers is the register A operand of
+    // each 16-key step (the accumulator's layout of key groups 2kk and
+    // 2kk+1 is A's); V [keys, dh] is MN-major (transpose-B)
+    hopper::mbar_wait(&full_v[st.stage], st.phase);
+    const uint64_t dv = hopper::desc_sw128(Vs + st.stage * S::KV_BYTES,
+                                           S::BOX, 1024);
+    uint32_t pa[S::BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < S::BN / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[kk][i] =
+            hopper::pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+    hopper::fence_operands(o);
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < S::BN / 16; ++kk)
+      wgmma_pv<DH>(o, pa[kk], dv + kk * (16 * 128 >> 4));
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::fence_operands(o);
+    if (lane == 0) hopper::mbar_arrive(&empty_v[st.stage]);
+    st.advance(S::STAGES);
+  }
+
+  const float inv_a = 1.f / fmaxf(quad_sum(l_a), 1e-30f);
+  const float inv_b = 1.f / fmaxf(quad_sum(l_b), 1e-30f);
+  T* ob = static_cast<T*>(P.o) + n * P.o_sn + h * P.o_sh;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int R = row0 + wrow + gid + 8 * half;
+    if (R >= rows) continue;
+    T* orow = ob + (R / P.g) * P.o_ss + (R % P.g) * P.o_sg;
+    const float inv = half ? inv_b : inv_a;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + tig * 2) =
+          __floats2bfloat162_rn(o[4 * j + 2 * half] * inv,
+                                o[4 * j + 2 * half + 1] * inv);
   }
 }
 
@@ -542,11 +1036,145 @@ void launch_f32(const Params& P, cudaStream_t s) {
   fa_f32_kernel<DHP><<<grid, F_THREADS, bytes, s>>>(P);
 }
 
+
+// How a call runs: the kernel, and for the split decode its chunks.
+enum Path { PATH_F32 = 0, PATH_MMA_SYNC = 1, PATH_WGMMA = 2, PATH_SPLIT = 3 };
+
+struct Plan {
+  int path = PATH_MMA_SYNC;
+  int dhp = 0;                 // the head dim the kernel is built for
+  int splits = 0, cps = 0;     // split decode: CTAs per (n, h), chunks each
+  int key_lo = 0, key_hi = 0;  // split decode: the keys some query sees
+  long long scratch = 0;       // split decode: floats of partials
+};
+
+inline int padded_dh(int dh) {
+  return dh <= 16 ? 16 : dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128
+                                                                    : 256;
+}
+
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
+// float32 -> fa_f32_kernel; bf16 with at most 16 folded rows (decode) ->
+// fa_split_kernel, with enough splits of the KV range for two CTAs per
+// SM; bf16 prefill at dh 64 or 128 whose strides TMA can use (vec_ok) and
+// with at least 64 folded rows -> fa_wgmma_kernel; other bf16 ->
+// fa_bf16_kernel (mma.sync).
+inline Plan plan(int dtype, int n, int sq, int hk, int g, int dh, int q0,
+                 int kv_len, int causal, int window, int vec_ok) {
+  Plan pl;
+  pl.dhp = padded_dh(dh);
+  const int rows = sq * g;
+  if (dtype == 0) {
+    pl.path = PATH_F32;
+  } else if (rows <= SPLIT_ROWS) {
+    pl.path = PATH_SPLIT;
+    const int qmax = q0 + sq - 1;
+    int hi = kv_len;
+    if (causal) hi = qmax < 0 ? 0 : min(hi, qmax + 1);
+    int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    lo = min(lo, hi);
+    const int chunks = (hi - lo + SPLIT_KEYS - 1) / SPLIT_KEYS;
+    const int groups = n * hk;
+    int splits = (2 * sm_count() + groups - 1) / groups;
+    splits = max(1, min(splits, chunks));
+    pl.cps = max(1, (chunks + splits - 1) / splits);
+    pl.splits = max(1, (chunks + pl.cps - 1) / pl.cps);
+    pl.key_lo = lo;
+    pl.key_hi = hi;
+    pl.scratch = (long long)groups * pl.splits * SPLIT_ROWS * (pl.dhp + 2);
+  } else if (vec_ok && (dh == 64 || dh == 128) && rows >= 64 &&
+             kv_len > 0) {
+    pl.path = PATH_WGMMA;
+  }
+  return pl;
+}
+
+template <int DHP>
+int launch_split(const Params& P, const Plan& pl, float* part, int* tickets,
+                 cudaStream_t s) {
+  constexpr int bytes = SplitShape<DHP>::SMEM;
+  static bool configured = false;
+  if (!configured) {
+    set_smem(fa_split_kernel<DHP>, bytes);
+    configured = true;
+  }
+  const dim3 grid(pl.splits, P.hk, P.n);
+  fa_split_kernel<DHP><<<grid, SPLIT_THREADS, bytes, s>>>(
+      P, part, tickets, pl.splits, pl.cps, pl.key_lo, pl.key_hi);
+  return 0;
+}
+
+// The tensor map of k or v [N, kv_len, HK, dh] (strides in elements), its
+// outer dims ordered by stride; `ord` says where each coordinate goes.
+inline int kv_map(CUtensorMap* map, const void* base, const Params& P,
+                  long long sn, long long ss, long long sh, KvOrder* ord) {
+  struct Dim {
+    long long stride;
+    uint64_t extent;
+    uint32_t box;
+    int which;   // 0 key, 1 head, 2 batch
+  } d[3] = {{ss, (uint64_t)P.kv_len, 128, 0},
+            {sh, (uint64_t)P.hk, 1, 1},
+            {sn, (uint64_t)P.n, 1, 2}};
+  for (int i = 0; i < 3; ++i)          // by stride (insertion sort)
+    for (int j = i; j > 0 && d[j].stride < d[j - 1].stride; --j) {
+      const Dim t = d[j];
+      d[j] = d[j - 1];
+      d[j - 1] = t;
+    }
+  uint64_t dims[4] = {(uint64_t)P.dh, 0, 0, 0}, strides[3];
+  uint32_t box[4] = {64, 0, 0, 0};
+  for (int i = 0; i < 3; ++i) {
+    dims[1 + i] = d[i].extent;
+    strides[i] = (uint64_t)d[i].stride * 2;
+    box[1 + i] = d[i].box;
+    (d[i].which == 0 ? ord->key : d[i].which == 1 ? ord->head : ord->batch) =
+        i;
+  }
+  return hopper_host::encode_16bit(map, base, 4, dims, strides, box, true);
+}
+
+template <int DH>
+int launch_wgmma(const Params& P, cudaStream_t s) {
+  constexpr int bytes = WgShape<DH>::SMEM;
+  static bool configured = false;
+  if (!configured) {
+    set_smem(fa_wgmma_kernel<DH>, bytes);
+    configured = true;
+  }
+  CUtensorMap tk, tv;
+  KvOrder ok, ov;
+  int rc;
+  if ((rc = kv_map(&tk, P.k, P, P.k_sn, P.k_ss, P.k_sh, &ok)) ||
+      (rc = kv_map(&tv, P.v, P, P.v_sn, P.v_ss, P.v_sh, &ov)))
+    return rc;
+  const long long ctas = (long long)((P.sq * P.g + WgShape<DH>::BM - 1) /
+                                     WgShape<DH>::BM) * P.n * P.hk;
+  if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  fa_wgmma_kernel<DH><<<static_cast<unsigned>(ctas), WgShape<DH>::THREADS,
+                        bytes, s>>>(tk, tv, P, ok, ov);
+  return 0;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the head
 // dim of every operand is contiguous.  dh <= 256.  vec_ok: dh and every
 // q/k/v stride are multiples of 8 and the q/k/v pointers 16-byte aligned.
+// The split decode (flash_attention_plan says when) takes `scratch`,
+// float32 of the size the plan gives, and `tickets`, an int32 per (n, KV
+// head) that is zero before the launch and zero again after it.
 extern "C" int flash_attention(
     int dtype, const void* q, const void* k, const void* v, void* o, int n,
     int sq, int skv, int hk, int g, int dh, long long q_sn, long long q_ss,
@@ -554,28 +1182,54 @@ extern "C" int flash_attention(
     long long k_sh, long long v_sn, long long v_ss, long long v_sh,
     long long o_sn, long long o_ss, long long o_sh, long long o_sg,
     int causal, int window, float softcap, int q0, int kv_len, int vec_ok,
-    void* stream) {
+    void* scratch, void* tickets, void* stream) {
   const float scale = 1.0f / sqrtf(static_cast<float>(dh));
   Params P{q,    k,    v,    o,    n,    sq,   skv,    hk,     g,
            dh,   q_sn, q_ss, q_sh, q_sg, k_sn, k_ss,   k_sh,   v_sn,
            v_ss, v_sh, o_sn, o_ss, o_sh, o_sg, causal, window, softcap,
            scale, q0,  kv_len, vec_ok};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (dh <= 16) launch_bf16<16>(P, s);
-    else if (dh <= 32) launch_bf16<32>(P, s);
-    else if (dh <= 64) launch_bf16<64>(P, s);
-    else if (dh <= 128) launch_bf16<128>(P, s);
-    else if (dh <= 256) launch_bf16<256>(P, s);
-    else return static_cast<int>(cudaErrorInvalidValue);
-  } else if (dtype == 0) {
-    if (dh <= 32) launch_f32<32>(P, s);
-    else if (dh <= 64) launch_f32<64>(P, s);
-    else if (dh <= 128) launch_f32<128>(P, s);
-    else if (dh <= 256) launch_f32<256>(P, s);
-    else return static_cast<int>(cudaErrorInvalidValue);
-  } else {
+  if (dh > 256 || dh < 1 || dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Plan pl = plan(dtype, n, sq, hk, g, dh, q0, kv_len, causal, window,
+                       vec_ok);
+  int rc = 0;
+  if (pl.path == PATH_F32) {
+    if (pl.dhp <= 32) launch_f32<32>(P, s);
+    else if (pl.dhp == 64) launch_f32<64>(P, s);
+    else if (pl.dhp == 128) launch_f32<128>(P, s);
+    else launch_f32<256>(P, s);
+  } else if (pl.path == PATH_SPLIT) {
+    if (scratch == nullptr || tickets == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    float* part = static_cast<float*>(scratch);
+    int* tk = static_cast<int*>(tickets);
+    if (pl.dhp == 16) rc = launch_split<16>(P, pl, part, tk, s);
+    else if (pl.dhp == 32) rc = launch_split<32>(P, pl, part, tk, s);
+    else if (pl.dhp == 64) rc = launch_split<64>(P, pl, part, tk, s);
+    else if (pl.dhp == 128) rc = launch_split<128>(P, pl, part, tk, s);
+    else rc = launch_split<256>(P, pl, part, tk, s);
+  } else if (pl.path == PATH_WGMMA) {
+    rc = dh == 64 ? launch_wgmma<64>(P, s) : launch_wgmma<128>(P, s);
+  } else {
+    if (pl.dhp == 16) launch_bf16<16>(P, s);
+    else if (pl.dhp == 32) launch_bf16<32>(P, s);
+    else if (pl.dhp == 64) launch_bf16<64>(P, s);
+    else if (pl.dhp == 128) launch_bf16<128>(P, s);
+    else launch_bf16<256>(P, s);
   }
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
+}
+
+// The path a call with these arguments takes (0 float32, 1 mma.sync, 2
+// wgmma, 3 split decode) and, in *scratch, the float32 scratch it needs.
+extern "C" int flash_attention_plan(int dtype, int n, int sq, int hk, int g,
+                                    int dh, int q0, int kv_len, int causal,
+                                    int window, int vec_ok,
+                                    long long* scratch) {
+  const Plan pl = plan(dtype, n, sq, hk, g, dh, q0, kv_len, causal, window,
+                       vec_ok);
+  *scratch = pl.scratch;
+  return pl.path;
 }

@@ -16,7 +16,21 @@ model's flash path (``models/attention.py``) and its layout:
 The TPU kernel's function is the case ``q0 = 0``, ``kv_len = Skv``;
 ``flash_attention_bhsd`` is that case in its layout ``[B, H, S, dh]``.
 The CUDA source, with the bound it works against, is
-``csrc/flash_attention.cu``; it takes bfloat16 and float32.
+``csrc/flash_attention.cu``; it takes bfloat16 and float32.  The source
+decides (``flash_attention_plan``) which of its kernels a call takes, from
+the dtype, the head dim, the number of folded query rows (``Sq·G``) and the
+alignment, before the launch; every call is one launch.
+``flash_attention.launches_by_path`` counts them by path:
+
+* ``"wgmma"``: bf16 prefill (at least 64 folded rows, dh 64 or 128, 16-byte
+  strides): warp-specialized CTAs of 128 folded rows, K/V blocks of 128
+  keys by TMA, both products on ``wgmma``;
+* ``"split_kv"``: bf16 decode (at most 16 folded rows): the KV range split
+  across CTAs, float32 partials in scratch that this wrapper allocates, the
+  last CTA of each (n, KV head) merging them (``_tickets`` keeps the
+  per-head counters, re-armed by the kernel);
+* ``"mma_sync"``: other bf16 calls, 32-key blocks on ``mma.sync``;
+* ``"f32"``: float32, full float32 FMA.
 
 ``flash_attention_plain`` is a PyTorch copy of the JAX package's
 ``models/attention.py:_flash_jnp`` with the same arguments: an online
@@ -38,6 +52,8 @@ NEG = -1e30
 CHUNK = 1024                       # _flash_jnp's KV chunk
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DH = 256
+PATHS = ("f32", "mma_sync", "wgmma", "split_kv")   # flash_attention_plan
+_TICKETS: dict = {}          # device -> int32 counters, zero between calls
 
 
 def _lib() -> ctypes.CDLL:
@@ -48,13 +64,29 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                        + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 14
                        + [ctypes.c_int] * 2 + [ctypes.c_float]
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
+        plan = lib.flash_attention_plan
+        plan.restype = ctypes.c_int
+        plan.argtypes = [ctypes.c_int] * 11 + [
+            ctypes.POINTER(ctypes.c_longlong)]
     return lib
 
 
 def build() -> None:
     """Compile (once) and load the CUDA library."""
     _lib()
+
+
+def _tickets(device: torch.device, count: int) -> torch.Tensor:
+    """The split decode's per-(n, KV head) counters on ``device``: zeroed
+    once, left at zero by every launch.  Two split launches on different
+    streams at once would share them; the port issues its launches on one
+    stream."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < count:
+        t = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
 
 
 def _check(q, k, v):
@@ -152,19 +184,32 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                + out.stride()[:4])
     vec_ok = int(dh % 8 == 0 and all(s % 8 == 0 for s in strides[:10])
                  and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    lib = _lib()
+    need = ctypes.c_longlong(0)
+    path = PATHS[lib.flash_attention_plan(
+        _DTYPE_CODE[q.dtype], n, sq, hk, g, dh, int(q0), kv_len,
+        int(bool(causal)), int(window), vec_ok, ctypes.byref(need))]
+    scratch = tickets = None
+    if path == "split_kv":
+        scratch = torch.empty(need.value, dtype=torch.float32,
+                              device=q.device)
+        tickets = _tickets(q.device, n * hk)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _lib().flash_attention(
+    rc = lib.flash_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), n, sq, skv, hk, g, dh, *strides, int(bool(causal)),
         int(window), float(softcap or 0.0), int(q0), kv_len,
-        vec_ok, stream)
+        vec_ok, None if scratch is None else scratch.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     flash_attention.launches += 1
+    flash_attention.launches_by_path[path] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 def tolerance(q, k, v, want: torch.Tensor, **kw) -> torch.Tensor:
@@ -173,8 +218,8 @@ def tolerance(q, k, v, want: torch.Tensor, **kw) -> torch.Tensor:
 
     float32: the JAX package's kernel test's 3e-5 (summation order).
     bfloat16: the two differ only where they round.  Each p is rounded to
-    bfloat16 after running maxima that differ (the kernel's 32-key blocks,
-    the plain version's chunks), so a p may land one bfloat16 step (at
+    bfloat16 after running maxima that differ (the kernel's key blocks and
+    splits, the plain version's chunks), so a p may land one bfloat16 step (at
     most 2^-7 of it) apart; over all keys that moves an output by at most
     2^-7 · A, A being the attention-weighted mean of |v| (the plain
     version on |v| in float32).  Each side then rounds its output once,

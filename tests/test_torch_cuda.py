@@ -448,7 +448,7 @@ def test_flash_kernel_at_the_serve_shapes(cuda, kv_len):
 @pytest.mark.parametrize("case,bad", [
     ((32, 1024, 1024, 1, 3, 128, True, 0, 0.0, 0, None), dict(q0=1)),
     ((32, 1024, 1024, 1, 3, 128, True, 0, 0.0, 0, None),
-     dict(window=1024 - 32)),
+     dict(window=1024 - 128)),
     ((32, 1, 2048, 1, 3, 128, True, 0, 0.0, 1024, 1025),
      dict(q0=1024, kv_len=1024)),
     ((32, 1, 2048, 1, 3, 128, True, 0, 0.0, 1055, 1056),
@@ -456,7 +456,7 @@ def test_flash_kernel_at_the_serve_shapes(cuda, kv_len):
 def test_flash_limit_rejects_planted_faults_at_the_serve_shapes(cuda, case,
                                                                 bad):
     """The kernel run with a fault's arguments (the causal edge one key
-    late, the first 32-key block dropped for the last rows, the last
+    late, the first 128-key block dropped for the last rows, the last
     filled slot left out, one unfilled slot read) fails the limit that
     holds it to the plain version."""
     from repro_torch.kernels import flash_attention as FA
@@ -494,6 +494,210 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         FA.flash_attention(big, kb, kb)
     with pytest.raises(ValueError, match="q on"):
         FA.flash_attention(q.cpu(), k, v)
+
+
+# ---------------------------------------------------------------------------
+# the Hopper paths: the ring on wgmma/TMA, flash's wgmma prefill and its
+# split-KV decode; each test asserts the path its calls took
+# ---------------------------------------------------------------------------
+
+
+def _paths(fn) -> dict:
+    return dict(fn.launches_by_path)
+
+
+def _took(fn, before: dict) -> dict:
+    return {k: v - before[k] for k, v in fn.launches_by_path.items()
+            if v != before[k]}
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("p,n,k,m", [(2, 61, 72, 200), (3, 129, 72, 200),
+                                     (5, 61, 128, 200), (8, 129, 72, 136),
+                                     (6, 1, 8, 8), (4, 128, 1000, 256)])
+@pytest.mark.parametrize("shared_w", [False, True])
+def test_agmm_ring_wgmma_path_matches_plain(cuda, dtype, p, n, k, m,
+                                            shared_w):
+    """Ragged n (61, 129), m (200, not a multiple of the 128-wide tile)
+    and k (72, not a multiple of the 64-deep stage): TMA zero-fills and
+    the epilogue masks."""
+    x, w = _agmm_operands(cuda, p, n, k, m, dtype, shared_w, p * n + k + m)
+    axis = StackedAxis(p, cuda)
+    before = _paths(rdma.ring_allgather_matmul_rdma)
+    out, gath = rdma.ring_allgather_matmul_rdma(x, w, axis,
+                                                return_gathered=True)
+    torch.cuda.synchronize()
+    assert _took(rdma.ring_allgather_matmul_rdma, before) == {"wgmma": 1}
+    want, want_g = rdma.ring_allgather_matmul_rdma_plain(
+        x, w, return_gathered=True)
+    assert torch.equal(gath, want_g)
+    assert _mm_err_ok(out, want)
+
+
+@needs_cuda
+def test_agmm_ring_wgmma_repeats_are_bit_equal(cuda):
+    """The gate/up shape (p = 8, x [512, 3072] per rank, w [8, 3072,
+    2048]) 50 times in a row: a stale slot row (a missing proxy fence
+    between the copy warps' stores and the TMA reads) would show as a run
+    that differs."""
+    p, n, k, m = 8, 512, 3072, 2048
+    x, w = _agmm_operands(cuda, p, n, k, m, torch.bfloat16, False, 11)
+    axis = StackedAxis(p, cuda)
+    first, gath = rdma.ring_allgather_matmul_rdma(x, w, axis,
+                                                  return_gathered=True)
+    want, want_g = rdma.ring_allgather_matmul_rdma_plain(
+        x, w, return_gathered=True)
+    assert torch.equal(gath, want_g)
+    assert _mm_err_ok(first, want)
+    before = _paths(rdma.ring_allgather_matmul_rdma)
+    for _ in range(49):
+        out, again = rdma.ring_allgather_matmul_rdma(x, w, axis,
+                                                     return_gathered=True)
+        assert torch.equal(out, first) and torch.equal(again, gath)
+    assert _took(rdma.ring_allgather_matmul_rdma, before) == {"wgmma": 49}
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_agmm_blocks_wgmma_path_for_every_rank(cuda, dtype):
+    p, n, k, m = 5, 61, 72, 200
+    x, w = _agmm_operands(cuda, p, n, k, m, dtype, True, 13)
+    for my in range(p):
+        before = _paths(rdma.ring_allgather_matmul_blocks)
+        out, gath = rdma.ring_allgather_matmul_blocks(x, w, my)
+        torch.cuda.synchronize()
+        assert _took(rdma.ring_allgather_matmul_blocks, before) == {
+            "wgmma": 1}
+        want, want_g = rdma.ring_allgather_matmul_blocks_plain(x, w, my)
+        assert torch.equal(gath, want_g)
+        assert _mm_err_ok(out, want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype,k,m,offset,path", [
+    (torch.float32, 72, 200, 0, "f32"),
+    (torch.bfloat16, 33, 200, 0, "wmma"),      # k % 8 != 0
+    (torch.float16, 72, 17, 0, "wmma"),        # m % 8 != 0
+    (torch.bfloat16, 72, 200, 1, "wmma")])     # x not 16-byte aligned
+def test_agmm_ring_takes_the_tile_kernel_where_tma_cannot(cuda, dtype, k,
+                                                          m, offset, path):
+    p, n = 4, 37
+    x, w = _agmm_operands(cuda, p, n, k, m, dtype, False, 17)
+    if offset:
+        buf = torch.empty(x.numel() + offset, dtype=dtype, device=cuda)
+        buf[offset:].copy_(x.flatten())
+        x = buf[offset:].view(p, n, k)
+    before = _paths(rdma.ring_allgather_matmul_rdma)
+    out, gath = rdma.ring_allgather_matmul_rdma(x, w, StackedAxis(p, cuda),
+                                                return_gathered=True)
+    torch.cuda.synchronize()
+    assert _took(rdma.ring_allgather_matmul_rdma, before) == {path: 1}
+    want, want_g = rdma.ring_allgather_matmul_rdma_plain(
+        x, w, return_gathered=True)
+    assert torch.equal(gath, want_g)
+    assert _mm_err_ok(out, want)
+
+
+WGMMA_CASES = [
+    # (N, Sq, Skv, HK, G, dh, causal, window, softcap, q0, kv_len)
+    (2, 256, 256, 1, 3, 128, True, 0, 0.0, 0, None),      # G = 3 folded
+    (2, 200, 200, 2, 1, 64, True, 0, 0.0, 0, None),       # dh 64, ragged
+    (2, 192, 192, 1, 2, 128, True, 50, 0.0, 0, None),     # window
+    (1, 160, 160, 2, 2, 64, True, 0, 30.0, 0, None),      # softcap
+    (2, 96, 300, 1, 3, 128, True, 0, 0.0, 204, 300),      # a later chunk
+    (2, 64, 256, 2, 1, 128, False, 0, 0.0, 0, 200),       # kv_len in a block
+    (3, 77, 77, 1, 4, 64, False, 0, 0.0, 0, None),        # full attention
+]
+
+
+@needs_cuda
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_flash_wgmma_prefill_matches_plain(cuda, case):
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _flash_inputs(cuda, case, torch.bfloat16)
+    kw = dict(zip(("causal", "window", "softcap", "q0", "kv_len"),
+                  case[6:]))
+    if case[8]:                    # scores large enough for the cap to bite
+        q, k = q * 4, k * 4
+    before = _paths(FA.flash_attention)
+    got = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _took(FA.flash_attention, before) == {"wgmma": 1}
+    assert bool(torch.isfinite(got.float()).all())
+    assert _within_limit(FA, got, q, k, v, **kw)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_wgmma_reads_no_key_beyond_kv_len(cuda, dh):
+    """A prefill chunk whose kv_len (200) ends inside the second 128-key
+    block: NaNs beyond it change nothing."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _flash_inputs(cuda, (2, 128, 512, 1, 1, dh), torch.bfloat16)
+    kw = dict(q0=72, kv_len=200)
+    before = _paths(FA.flash_attention)
+    want = FA.flash_attention(q, k, v, **kw)
+    assert _within_limit(FA, want, q, k, v, **kw)
+    k[:, 200:] = float("nan")
+    v[:, 200:] = float("nan")
+    got = FA.flash_attention(q, k, v, **kw)
+    assert _took(FA.flash_attention, before) == {"wgmma": 2}
+    assert torch.equal(got, want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("kv_len", [1, 100, 1025, 2048])
+@pytest.mark.parametrize("hk,g,dh", [(1, 3, 128), (4, 1, 64)])
+def test_flash_split_decode_matches_plain(cuda, kv_len, hk, g, dh):
+    """One decode token per row against a 2048-slot cache (llama's and
+    zamba2's heads per rank): the KV range split across CTAs, the last CTA
+    of each head merging; slots beyond kv_len hold NaNs."""
+    from repro_torch.kernels import flash_attention as FA
+    case = (32, 1, 2048, hk, g, dh, True, 0, 0.0, kv_len - 1, kv_len)
+    q, k, v = _flash_inputs(cuda, case, torch.bfloat16)
+    k[:, kv_len:] = float("nan")
+    v[:, kv_len:] = float("nan")
+    kw = dict(q0=kv_len - 1, kv_len=kv_len)
+    before = _paths(FA.flash_attention)
+    got = FA.flash_attention(q, k, v, **kw)
+    again = FA.flash_attention(q, k, v, **kw)    # the tickets re-armed
+    torch.cuda.synchronize()
+    assert _took(FA.flash_attention, before) == {"split_kv": 2}
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got.float()).all())
+    k[:, kv_len:] = 0
+    v[:, kv_len:] = 0
+    assert _within_limit(FA, got, q, k, v, **kw)
+
+
+@needs_cuda
+@pytest.mark.parametrize("case,dtype,strided,path", [
+    ((2, 64, 64, 1, 2, 128, True, 0, 0.0, 0, None), torch.float32, False,
+     "f32"),
+    ((2, 33, 33, 1, 3, 40, True, 0, 0.0, 0, None), torch.bfloat16, False,
+     "mma_sync"),                              # dh 40
+    ((2, 20, 20, 1, 2, 128, True, 0, 0.0, 0, None), torch.bfloat16, False,
+     "mma_sync"),                              # 40 folded rows
+    ((2, 64, 64, 1, 2, 128, True, 0, 0.0, 0, None), torch.bfloat16, True,
+     "mma_sync"),                              # a K stride TMA cannot use
+    ((2, 3, 128, 2, 2, 64, True, 0, 0.0, 90, 93), torch.bfloat16, False,
+     "split_kv")])                             # 6 folded rows
+def test_flash_paths_by_dtype_shape_and_alignment(cuda, case, dtype, strided,
+                                                  path):
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _flash_inputs(cuda, case, dtype)
+    if strided:    # rows of 132 elements: a stride not a multiple of 8
+        wide = torch.zeros(*k.shape[:3], 132, dtype=dtype, device=cuda)
+        wide[..., :128] = k
+        k = wide[..., :128]
+    kw = dict(zip(("causal", "window", "softcap", "q0", "kv_len"),
+                  case[6:]))
+    before = _paths(FA.flash_attention)
+    got = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _took(FA.flash_attention, before) == {path: 1}
+    assert _within_limit(FA, got, q, k, v, **kw)
 
 
 def _smoke_serve_setup(cuda, tp=2):

@@ -375,6 +375,83 @@ def test_lm_forward_matches(impl, dtype, tp):
 
 
 # ---------------------------------------------------------------------------
+# the dense archs besides llama3.2-3b: gemma2-9b (attention softcap, local
+# and global layers), gemma3-1b (qk-norm, one KV head: replicated at
+# tp >= 2) and llama3-8b, float32, randomized leaves
+# ---------------------------------------------------------------------------
+
+DENSE_ARCHS = ["gemma2-9b", "gemma3-1b", "llama3-8b"]
+
+
+def dense_smoke(arch, impl, **kw):
+    return dataclasses.replace(rconfigs.get_config(arch).smoke(),
+                               dtype="float32", attn_impl=impl, **kw)
+
+
+@pytest.mark.parametrize("impl", ["ref", "flash"])
+@pytest.mark.parametrize("tp", TPS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_arch_prefill_then_decode_matches(arch, tp, impl):
+    """window 6, below the prompt: a prefill of 11 tokens, then 5 decode
+    steps in a 20-slot cache, each step's logits against the reference
+    and against the port's own forward at that position (1e-4 max-norm
+    relative: summation order only)."""
+    rcfg = dense_smoke(arch, impl, window=6)
+    tcfg = port_cfg(rcfg)
+    tree = randomized(ref_params(rcfg), 5)
+    rp = ref_shard(tree, rcfg, tp)
+    tp_, axis = port_params(tree, rcfg, tp)
+    n_pre, n_dec, slots = 11, 5, 20
+    toks = np.random.default_rng(13).integers(0, rcfg.vocab_size,
+                                              (B, n_pre + n_dec))
+    jt = jnp.asarray(toks, jnp.int32)
+
+    def ref_steps(p):
+        c = rlm.init_caches(rcfg, B, slots)
+        lg, c = rlm.prefill(p, rcfg, {"tokens": jt[:, :n_pre]}, c)
+        out = [lg]
+        for i in range(n_pre, n_pre + n_dec):
+            lg, c = rlm.decode_step(p, rcfg, jt[:, i:i + 1], c, i)
+            out.append(lg)
+        return out
+    want = rvmap(ref_steps, rp)
+    tt = torch.as_tensor(toks)
+    with taxes.bind(model=axis):
+        caches = tlm.init_caches(tcfg, B, slots)
+        lg, caches = tlm.prefill(tp_, tcfg, {"tokens": tt[:, :n_pre]},
+                                 caches)
+        got = [lg]
+        for i in range(n_pre, n_pre + n_dec):
+            lg, caches = tlm.decode_step(tp_, tcfg, tt[:, i:i + 1], caches,
+                                         i)
+            got.append(lg)
+        full, _, _ = tlm.forward(tp_, tcfg, {"tokens": tt})
+    for g, w in zip(got, want):
+        assert rel(tnp(g), w) <= RTOL["float32"]
+    for i in range(n_dec):
+        assert rel(tnp(got[1 + i][:, :, 0]),
+                   tnp(full[:, :, n_pre + i])) <= RTOL["float32"]
+
+
+@pytest.mark.parametrize("impl", ["ref", "flash"])
+@pytest.mark.parametrize("tp", TPS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_arch_forward_matches(arch, tp, impl):
+    """The whole forward at the smoke config's own window."""
+    rcfg = dense_smoke(arch, impl)
+    tree = randomized(ref_params(rcfg), 6)
+    rp = ref_shard(tree, rcfg, tp)
+    tp_, axis = port_params(tree, rcfg, tp)
+    toks = np.random.default_rng(14).integers(0, rcfg.vocab_size, (B, S))
+    want, _, _ = rvmap(lambda p: rlm.forward(
+        p, rcfg, {"tokens": jnp.asarray(toks, jnp.int32)}), rp)
+    with taxes.bind(model=axis):
+        got, _, _ = tlm.forward(tp_, port_cfg(rcfg),
+                                {"tokens": torch.as_tensor(toks)})
+    assert rel(tnp(got), want) <= RTOL["float32"]
+
+
+# ---------------------------------------------------------------------------
 # dist.ops, forward, with the axis each op runs over bound
 # ---------------------------------------------------------------------------
 
