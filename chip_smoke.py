@@ -13,9 +13,14 @@ Phases (each raises on failure; nothing is caught):
    for guideline_pack, quant_pack and dequant_unpack, all started
    together;
 3. each kernel against its plain PyTorch version at the slice's shapes and
-   at ragged shapes: max error, tolerance, kernel ms, plain ms, the bound,
-   and the one PyTorch call that computes the same function, where there
-   is one; the ring's block tier (kernel 4) for every rank; the wire
+   at ragged shapes: max error, tolerance, the kernel's device time
+   (``torch.profiler``, the ms of record) beside the events mean over
+   back-to-back calls, plain ms, the bound, and the device time of the one
+   PyTorch call that computes the same function, where there is one;
+   ``block_matmul`` at the main path's four ring-step shapes (MLP-down,
+   attn-out, the K/V accumulate at 4096 and 512 rows) and ragged ones,
+   with the path each call took (``wgmma``, ``wmma``, ``f32``); the
+   ring's block tier (kernel 4) for every rank; the wire
    kernels' q bytes, scales and dequantized values bit for bit, also at
    the replay's width-1 allgather payload and the K/V weight block;
    flash attention at the serve path's prefill and decode shapes, the TPU
@@ -35,7 +40,8 @@ Phases (each raises on failure; nothing is caught):
    (with the strong decay) and ragged lengths, held to their elementwise
    limits, with planted faults (the inter-chunk state carry dropped, the
    bonus u left out, the mask's diagonal dropped, the ragged last row left
-   out) that must fail them;
+   out) that must fail them; ``rwkv6_scan``'s prefill on its ``chunked``
+   path, its decode on its ``decode`` path, also in place;
 4. ``selfcheck`` of every impl (59) at p = 8 and p = 6, with the wire
    tolerance gate's demotions;
 5. fit an ``h100-stacked`` Topo from ``sweep_axis`` (alpha, beta, gamma),
@@ -73,13 +79,17 @@ Phases (each raises on failure; nothing is caught):
 
 Kernel launch counts are zeroed just before phase 6 and read after each of
 phases 6-8; every kernel of the main path must have launched in the tune,
-replay and dispatch phases, and every launch of the ring on the main path
-must take its ``wgmma`` path.  The ring's block tier is not on the main
+replay and dispatch phases, every launch of the ring on the main path
+must take its ``wgmma`` path, and so must every ``block_matmul`` launch
+that TMA can address (the tuner's NREP probes scale a matmul_accumulate
+cell down to a contraction of 1 row, which keeps ``wmma``; the log lists
+those launches by depth).  The ring's block tier is not on the main
 path: its launches are those of phase 3.  They are zeroed again just
 before each serve path (phases 10 and 11) and read after each serve:
 each model kernel must launch once per block of its kind and forward:
 flash attention 28 x 33 times a llama3.2-3b serve and 6 x 33 times a
-zamba2-1.2b serve, ``rwkv6_scan`` 32 x 33 times a rwkv6-3b serve,
+zamba2-1.2b serve, ``rwkv6_scan`` 32 x 33 times a rwkv6-3b serve (32
+``chunked`` prefills, 32 x 32 ``decode`` steps),
 ``ssd_scan`` 38 x 33 times a zamba2-1.2b serve, and no other; flash's
 prefill launches (one per attention block) must take its ``wgmma`` path
 and its decode launches its ``split_kv`` path.  The p ranks are stacked on
@@ -487,7 +497,9 @@ def check_scans(torch, rw, ssd, randn, dev) -> dict:
     serve path's prefill and decode (S = 1 from the prefill's non-zero
     final state), the TPU kernels' test cases (with the strong decay), a
     ragged length, and four planted faults that the limit must reject.
-    Returns the kernels-line records (serve prefill)."""
+    Returns the kernels-line records (serve prefill) with the kernels'
+    device times (torch.profiler), the events means beside them."""
+    from repro_torch.kernels.variants import device_ms
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
 
     def uni(*shape, lo=0.0, hi=1.0):
@@ -526,35 +538,54 @@ def check_scans(torch, rw, ssd, randn, dev) -> dict:
                 randn(nu, h, hd, dtype=torch.float32, scale=0.5), with_s0)
 
     ins = rwkv_in(SERVE_PROMPT)
+    p0 = dict(rw.rwkv6_scan.launches_by_path)
     err, (_, s_fin) = held("rwkv6_scan serve prefill", rw.rwkv6_scan,
                            rw.rwkv6_scan_plain, rw.tolerance, ins)
+    p1 = dict(rw.rwkv6_scan.launches_by_path)
     dec = rwkv_in(1, with_s0=s_fin)
     held("rwkv6_scan serve decode (S = 1, s0 = the prefill's state)",
          rw.rwkv6_scan, rw.rwkv6_scan_plain, rw.tolerance, dec)
+    took = {label: [k for k in b if b[k] != a[k]] for label, a, b in (
+        ("prefill", p0, p1),
+        ("decode", p1, dict(rw.rwkv6_scan.launches_by_path)))}
+    log(f"[3] rwkv6_scan paths: {json.dumps(took)}")
+    if took != {"prefill": ["chunked"], "decode": ["decode"]}:
+        raise RuntimeError(f"rwkv6_scan took the paths {took}")
+    # the decode step in place, as the cache takes it: the same numbers
+    cache = s_fin.clone()
+    y_in, _ = rw.rwkv6_scan(*dec[:5], cache, out_state=cache)
+    y_out, s_out = rw.rwkv6_scan(*dec)
+    if not (torch.equal(y_in, y_out) and torch.equal(cache, s_out)):
+        raise RuntimeError("rwkv6_scan decode in place differs")
     flops, byts = rwkv_work(n, SERVE_PROMPT, h, hd, 2, False)
     t_b, t_f = byts / H100_BYTES_PER_S, flops / H100_FLOPS["float32"]
     recs["rwkv6_scan"] = dict(
         name="rwkv6_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:81", max_abs_err=err,
-        ms=time_ms(torch, lambda: rw.rwkv6_scan(*ins)),
+        ms=device_ms(lambda: rw.rwkv6_scan(*ins), "rwkv6_chunk"),
         plain_ms=time_ms(torch, lambda: rw.rwkv6_scan_plain(*ins), iters=3),
         bound_ms=max(t_b, t_f) * 1e3,
-        bound_by="bytes" if t_b > t_f else "operations", library_ms=None)
+        bound_by="bytes" if t_b > t_f else "operations", library_ms=None,
+        events_ms=time_ms(torch, lambda: rw.rwkv6_scan(*ins)))
     d_ops, d_byts = rwkv_work(n, 1, h, hd, 2, True)
-    d_ms = time_ms(torch, lambda: rw.rwkv6_scan(*dec))
+    d_ms = device_ms(lambda: rw.rwkv6_scan(*dec), "rwkv6_decode")
+    d_ev = time_ms(torch, lambda: rw.rwkv6_scan(*dec))
     d_bound = max(d_byts / H100_BYTES_PER_S,
                   d_ops / H100_FLOPS["float32"]) * 1e3
     rec = recs["rwkv6_scan"]
     log(f"[3] rwkv6_scan serve prefill r[{n},{SERVE_PROMPT},{h},{hd}] bf16: "
-        f"kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms bound "
+        f"kernel device time {rec['ms']:.4f} ms (events mean "
+        f"{rec['events_ms']:.4f} ms) plain {rec['plain_ms']:.4f} ms bound "
         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {flops / 1e9:.2f} "
         f"GFLOP, {byts / 1e6:.2f} MB) = {flops / rec['ms'] / 1e9:.1f} "
         f"TFLOP/s, {byts / rec['ms'] / 1e6:.1f} GB/s; library none (no "
         f"one-call equivalent)")
-    log(f"[3] rwkv6_scan serve decode r[{n},1,{h},{hd}]: kernel {d_ms:.4f} ms "
-        f"bound {d_bound:.4f} ms ({d_byts / 1e6:.2f} MB)")
-    recs["rwkv6_decode"] = {"ms": d_ms, "bound_ms": d_bound}
+    log(f"[3] rwkv6_scan serve decode r[{n},1,{h},{hd}] path decode: kernel "
+        f"device time {d_ms:.4f} ms (events mean {d_ev:.4f} ms) bound "
+        f"{d_bound:.4f} ms ({d_byts / 1e6:.2f} MB); in place bit-equal")
+    recs["rwkv6_decode"] = {"ms": d_ms, "events_ms": d_ev,
+                            "bound_ms": d_bound, "path": "decode"}
     # the TPU kernel's cases (tests/test_kernels.py:78-108), its layout
     for bh, s_, d_, decay in ((2, 64, 16, None), (1, 128, 32, None),
                               (3, 96, 64, None), (1, 32, 8, None),
@@ -621,25 +652,29 @@ def check_scans(torch, rw, ssd, randn, dev) -> dict:
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_mamba2.py:73", max_abs_err=err,
-        ms=time_ms(torch, lambda: ssd.ssd_scan(*ins)),
+        ms=device_ms(lambda: ssd.ssd_scan(*ins), "ssd_kernel"),
         plain_ms=time_ms(torch, lambda: ssd.ssd_scan_plain(*ins), iters=3),
         bound_ms=max(t_b, t_f) * 1e3,
-        bound_by="bytes" if t_b > t_f else "operations", library_ms=None)
+        bound_by="bytes" if t_b > t_f else "operations", library_ms=None,
+        events_ms=time_ms(torch, lambda: ssd.ssd_scan(*ins)))
     d_ops, d_byts = ssd_work(n, 1, h2, p_, ns, 2, True)
-    d_ms = time_ms(torch, lambda: ssd.ssd_scan(*dec))
+    d_ms = device_ms(lambda: ssd.ssd_scan(*dec), "ssd_kernel")
+    d_ev = time_ms(torch, lambda: ssd.ssd_scan(*dec))
     d_bound = max(d_byts / H100_BYTES_PER_S,
                   d_ops / H100_FLOPS["float32"]) * 1e3
     rec = recs["ssd_scan"]
     log(f"[3] ssd_scan serve prefill x[{n},{SERVE_PROMPT},{h2},{p_}] B,C "
-        f"[{n},{SERVE_PROMPT},{ns}] bf16: kernel {rec['ms']:.4f} ms plain "
+        f"[{n},{SERVE_PROMPT},{ns}] bf16: kernel device time {rec['ms']:.4f} "
+        f"ms (events mean {rec['events_ms']:.4f} ms) plain "
         f"{rec['plain_ms']:.4f} ms bound {rec['bound_ms']:.4f} ms "
         f"({rec['bound_by']}: {flops / 1e9:.2f} GFLOP, {byts / 1e6:.2f} MB)"
         f" = {flops / rec['ms'] / 1e9:.1f} TFLOP/s, "
         f"{byts / rec['ms'] / 1e6:.1f} GB/s; library none (no one-call "
         f"equivalent)")
-    log(f"[3] ssd_scan serve decode x[{n},1,{h2},{p_}]: kernel {d_ms:.4f} ms "
-        f"bound {d_bound:.4f} ms ({d_byts / 1e6:.2f} MB)")
-    recs["ssd_decode"] = {"ms": d_ms, "bound_ms": d_bound}
+    log(f"[3] ssd_scan serve decode x[{n},1,{h2},{p_}]: kernel device time "
+        f"{d_ms:.4f} ms (events mean {d_ev:.4f} ms) bound {d_bound:.4f} ms "
+        f"({d_byts / 1e6:.2f} MB)")
+    recs["ssd_decode"] = {"ms": d_ms, "events_ms": d_ev, "bound_ms": d_bound}
     # the TPU kernel's cases (tests/test_kernels.py:116-140), its layout
     for bh, s_, pp, nn in ((2, 64, 32, 16), (1, 128, 64, 64),
                            (4, 96, 16, 8)):
@@ -748,11 +783,12 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
 
     zero_counts(wrappers)               # the serve path starts here
     fa_fn = wrappers["flash_attention"]
+    rw_fn = wrappers["rwkv6_scan"]
     c0 = counts(wrappers)
-    f0 = dict(fa_fn.launches_by_path)
+    f0, r0 = dict(fa_fn.launches_by_path), dict(rw_fn.launches_by_path)
     first = sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, n_tokens)
     c1 = counts(wrappers)
-    f1 = dict(fa_fn.launches_by_path)
+    f1, r1 = dict(fa_fn.launches_by_path), dict(rw_fn.launches_by_path)
     rec = trace.Trace.from_context(first.ctx)
     rec.save(out_dir / f"serve_trace_{cfg.name}.jsonl")
     for ln in rec.summary().splitlines():
@@ -772,11 +808,11 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     log(f"[{tag}] per-phase profiles saved to {prof_dir} and reloaded: "
         f"{ {ph: len(st) for ph, st in phases.items()} }")
     c2 = counts(wrappers)
-    f2 = dict(fa_fn.launches_by_path)
+    f2, r2 = dict(fa_fn.launches_by_path), dict(rw_fn.launches_by_path)
     second = sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, n_tokens,
                       phase_profiles=phases)
     c3 = counts(wrappers)
-    f3 = dict(fa_fn.launches_by_path)
+    f3, r3 = dict(fa_fn.launches_by_path), dict(rw_fn.launches_by_path)
     peak = torch.cuda.max_memory_allocated(dev)
     for label, a, b in (("default serve", c0, c1), ("tune_trace", c1, c2),
                         ("re-serve", c2, c3)):
@@ -800,6 +836,18 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
         if got_paths != want_paths:
             raise RuntimeError(f"{cfg.name} {label}: flash paths "
                                f"{got_paths}, not {want_paths}")
+    # rwkv6_scan: each rwkv block's prefill on the chunked kernel, its
+    # decode steps (S = 1) on the decode kernel
+    n_rwkv = per_serve["rwkv6_scan"] // n_tokens
+    want_rw = {"chunked": n_rwkv, "decode": n_rwkv * (n_tokens - 1)}
+    for label, a, b in (("default serve", r0, r1), ("re-serve", r2, r3)):
+        got_paths = {k: b[k] - a[k] for k in b}
+        if n_rwkv:
+            log(f"[{tag} {label}] rwkv6_scan launches by path: "
+                f"{json.dumps(got_paths)}")
+        if got_paths != want_rw:
+            raise RuntimeError(f"{cfg.name} {label}: rwkv6_scan paths "
+                               f"{got_paths}, not {want_rw}")
     check = sv.check_serves(first, second, SERVE_RTOL)
     log(f"[{tag}] re-served logits vs the default serve: {check['steps']} "
         f"steps, max-norm relative error {check['max_rel_err']:.4e} "
@@ -840,6 +888,7 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     return {"launches": launches, "shares": shares, "check": check,
             "peak_bytes": peak, "per_serve": per_serve,
             "flash_paths": {k: f3[k] - f0[k] for k in f3},
+            "rwkv6_paths": {k: r3[k] - r0[k] for k in r3},
             "serves": {label: {"prefill_ms": r.prefill_s * 1e3,
                                "decode_ms_per_token":
                                    r.decode_s_per_token * 1e3,
@@ -944,7 +993,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import quant
     from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.kernels import ssd_mamba2 as ssd
-    from repro_torch.kernels.variants import device_ms
+    from repro_torch.kernels.variants import call_device_ms, device_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False     # plain f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
@@ -989,8 +1038,10 @@ def main(argv=None) -> int:
     for lib in ("block_matmul", "agmm_ring", "flash_attention",
                 "rwkv6_scan", "ssd_scan"):
         for ln in _build.build_log(lib).splitlines():
-            if "registers" in ln or "spill" in ln or "smem" in ln:
-                log(f"[2] ptxas {lib}: {ln.strip()}")
+            if "Function properties for" in ln:
+                log(f"[2] ptxas {lib}: {ln.split('for ', 1)[1][:100]}")
+            elif "registers" in ln or "spill" in ln or "smem" in ln:
+                log(f"[2] ptxas {lib}:   {ln.strip()}")
     for dt in (torch.bfloat16, torch.float32):
         log(f"[2] agmm_ring blocks per rank at p={P}, n={TOKENS // P}, "
             f"m={2 * D_FF // P}, {dt}: "
@@ -1018,14 +1069,16 @@ def main(argv=None) -> int:
         source="src/repro_torch/kernels/pack.py",
         replaces="src/repro/kernels/pack.py:29",
         max_abs_err=err,
-        ms=time_ms(torch, lambda: pack.guideline_pack(xs, idx, P)),
+        ms=device_ms(lambda: pack.guideline_pack(xs, idx, P), "_pack_kernel"),
         plain_ms=time_ms(torch, lambda: pack.guideline_pack_plain(xs, idx,
                                                                    P)),
         bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None)
+        library_ms=None,
+        events_ms=time_ms(torch, lambda: pack.guideline_pack(xs, idx, P)))
     log(f"[3] guideline_pack x{list(xs.shape)} bf16 p={P}: max_abs_err "
-        f"{err} (tolerance 0: a copy) kernel "
-        f"{kernels['guideline_pack']['ms']:.4f} ms plain "
+        f"{err} (tolerance 0: a copy) kernel device time "
+        f"{kernels['guideline_pack']['ms']:.4f} ms (events mean "
+        f"{kernels['guideline_pack']['events_ms']:.4f} ms) plain "
         f"{kernels['guideline_pack']['plain_ms']:.4f} ms bound "
         f"{kernels['guideline_pack']['bound_ms']:.4f} ms")
     for shape, dt, p_, ids in (((3, 37, 11), torch.float32, 5, [4, 0, 2]),
@@ -1054,46 +1107,74 @@ def main(argv=None) -> int:
         x = randn(B, m, k, dtype=dt)
         w = randn(*(() if shared_w else (B,)), k, n, dtype=dt,
                   scale=k ** -0.5)
-        err, tol = mm_err(f"block_matmul {B}x{m}x{k}x{n} {dt}",
-                          cmm.block_matmul(x, w), cmm.block_matmul_plain(x, w))
-        return x, w, err, tol
+        before = dict(cmm.block_matmul.launches_by_path)
+        got = cmm.block_matmul(x, w)
+        path = "/".join(k_ for k_, n_ in path_delta(
+            cmm.block_matmul, before).items() if n_)
+        err, tol = mm_err(f"block_matmul {B}x{m}x{k}x{n} {dt}", got,
+                          cmm.block_matmul_plain(x, w))
+        return x, w, err, tol, path
 
-    # the MLP-down ring step: all 8 ranks' [512, 1024] @ [1024, 3072]
+    # the main path's ring steps, all 8 ranks in one launch: MLP-down and
+    # attn-out (matmul-reducescatter), the K/V accumulate at 4096 and 512
+    # rows; the kernel's device time (torch.profiler) is the ms of record,
+    # the events mean over back-to-back calls (with the wrapper's host
+    # time) beside it, torch.matmul's device time the library's
     name_dt = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
-    for label, (m, k) in (("mlp-down", (TOKENS // P, D_FF // P)),
-                          ("attn-out", (TOKENS // P, HEADS * HEAD_DIM // P))):
+    needle = {"wgmma": "bm_wgmma", "wmma": "mm_tc", "f32": "mm_f32"}
+    report["block_matmul"] = {}
+    for label, (m, k, n) in (
+            ("mlp-down", (TOKENS // P, D_FF // P, D_MODEL)),
+            ("attn-out", (TOKENS // P, HEADS * HEAD_DIM // P, D_MODEL)),
+            ("K/V accumulate", (TOKENS, D_MODEL // P, KV)),
+            ("K/V accumulate 512 rows", (TOKENS // P, D_MODEL // P, KV))):
         for dt in (torch.bfloat16, torch.float32):
-            x, w, err, tol = mm_case(P, m, k, D_MODEL, dt)
-            flops = 2 * P * m * k * D_MODEL
-            byts = (x.numel() + w.numel() + P * m * D_MODEL) * x.element_size()
+            if dt == torch.float32 and label.startswith("K/V"):
+                continue
+            x, w, err, tol, path = mm_case(P, m, k, n, dt)
+            if dt == torch.bfloat16 and path != "wgmma":
+                raise RuntimeError(f"block_matmul {label} bf16 took {path}")
+            flops = 2 * P * m * k * n
+            byts = (x.numel() + w.numel() + P * m * n) * x.element_size()
             t_b, t_f = byts / H100_BYTES_PER_S, flops / H100_FLOPS[name_dt[dt]]
             rec = dict(
                 name="block_matmul", route="cuda",
                 source="src/repro_torch/kernels/csrc/block_matmul.cu",
                 replaces="src/repro/kernels/collective_matmul.py:124",
                 max_abs_err=err,
-                ms=time_ms(torch, lambda: cmm.block_matmul(x, w)),
+                ms=device_ms(lambda: cmm.block_matmul(x, w), needle[path]),
                 plain_ms=time_ms(torch, lambda: cmm.block_matmul_plain(x, w)),
                 bound_ms=max(t_b, t_f) * 1e3,
                 bound_by="bytes" if t_b > t_f else "operations",
-                library_ms=time_ms(torch, lambda: torch.matmul(x, w)))
-            log(f"[3] block_matmul {label} [{P},{m},{k}]@[{P},{k},{D_MODEL}]"
-                f" {name_dt[dt]}: max_abs_err {err:.3e} (tolerance "
-                f"{tol:.3e}) kernel {rec['ms']:.4f} ms plain "
-                f"{rec['plain_ms']:.4f} ms torch.matmul "
+                library_ms=call_device_ms(lambda: torch.matmul(x, w)),
+                events_ms=time_ms(torch, lambda: cmm.block_matmul(x, w)),
+                path=path)
+            tile = (f", tile 128x{cmm.block_matmul_tile_n(P, m, n)}"
+                    if path == "wgmma" else "")
+            log(f"[3] block_matmul {label} [{P},{m},{k}]@[{P},{k},{n}] "
+                f"{name_dt[dt]} path {path}{tile}: max_abs_err {err:.3e} "
+                f"(tolerance {tol:.3e}) kernel device time {rec['ms']:.4f} "
+                f"ms (events mean {rec['events_ms']:.4f} ms) plain "
+                f"{rec['plain_ms']:.4f} ms torch.matmul device time "
                 f"{rec['library_ms']:.4f} ms bound {rec['bound_ms']:.4f} ms "
                 f"({rec['bound_by']}) = "
                 f"{flops / rec['ms'] / 1e9:.1f} TFLOP/s")
+            report["block_matmul"][f"{label} {name_dt[dt]}"] = rec
             if label == "mlp-down" and dt == torch.bfloat16:
                 kernels["block_matmul"] = rec
     for B, m, k, n, dt, shared in ((2, 100, 33, 17, torch.bfloat16, False),
                                    (3, 5, 256, 130, torch.float32, True),
                                    (1, 129, 72, 200, torch.float16, False),
+                                   (2, 100, 72, 200, torch.bfloat16, False),
+                                   (3, 130, 72, 136, torch.bfloat16, True),
                                    (8, 512, 1000, 3000, torch.bfloat16,
                                     True)):
-        _, _, err, tol = mm_case(B, m, k, n, dt, shared)
+        _, _, err, tol, path = mm_case(B, m, k, n, dt, shared)
         log(f"[3] block_matmul ragged [{B},{m},{k}]@[{k},{n}] {dt} "
-            f"shared_w={shared}: max_abs_err {err:.3e} (tolerance {tol:.3e})")
+            f"shared_w={shared} path {path}: max_abs_err {err:.3e} "
+            f"(tolerance {tol:.3e})")
+    log(f"[3] block_matmul launches by path: "
+        f"{json.dumps(cmm.block_matmul.launches_by_path)}")
 
     # the all-gather-matmul ring (kernel 3) and its block tier (kernel 4):
     # the gathered rows must be bit-equal, the product within mm_err's rule
@@ -1252,32 +1333,41 @@ def main(argv=None) -> int:
         for wd in quant.WIRE_DTYPES:
             q, s, q_err, deq_err = wire_case(xw, wd, xw.dtype)
             q_bytes = xw.numel() * (xw.element_size() + 1) + s.numel() * 4
-            q_ms = time_ms(torch, lambda: quant.quant_pack(xw, wd))
+            q_ev = time_ms(torch, lambda: quant.quant_pack(xw, wd))
+            q_ms = device_ms(lambda: quant.quant_pack(xw, wd),
+                             "_quant_kernel")
             q_plain = time_ms(torch, lambda: quant.quant_pack_plain(xw, wd))
-            d_ms = time_ms(torch, lambda: quant.dequant_unpack(q, s,
+            d_ev = time_ms(torch, lambda: quant.dequant_unpack(q, s,
                                                                xw.dtype))
+            d_ms = device_ms(lambda: quant.dequant_unpack(q, s, xw.dtype),
+                             "_dequant_kernel")
             d_plain = time_ms(torch, lambda: quant.dequant_unpack_plain(
                 q, s, xw.dtype))
             bound = q_bytes / H100_BYTES_PER_S * 1e3
             log(f"[3] quant_pack {label} x{list(xw.shape)} {xw.dtype} -> "
-                f"{wd}: kernel {q_ms:.4f} ms plain {q_plain:.4f} ms bound "
+                f"{wd}: kernel device time {q_ms:.4f} ms (events mean "
+                f"{q_ev:.4f} ms) plain {q_plain:.4f} ms bound "
                 f"{bound:.4f} ms (bytes) = "
                 f"{q_bytes / q_ms / 1e6:.1f} GB/s; dequant_unpack kernel "
-                f"{d_ms:.4f} ms plain {d_plain:.4f} ms bound {bound:.4f} ms")
+                f"device time {d_ms:.4f} ms (events mean {d_ev:.4f} ms) "
+                f"plain {d_plain:.4f} ms bound {bound:.4f} ms")
             if label == "allgather payload" and wd == "int8":
                 wire_rec["quant_pack"] = dict(
                     name="quant_pack", route="triton",
                     source="src/repro_torch/kernels/quant.py",
                     replaces="src/repro/kernels/quant.py:156",
                     max_abs_err=q_err, ms=q_ms, plain_ms=q_plain,
-                    bound_ms=bound, bound_by="bytes", library_ms=None)
+                    bound_ms=bound, bound_by="bytes", library_ms=None,
+                    events_ms=q_ev)
                 wire_rec["dequant_unpack"] = dict(
                     name="dequant_unpack", route="triton",
                     source="src/repro_torch/kernels/quant.py",
                     replaces="src/repro/kernels/quant.py:188",
                     max_abs_err=deq_err, ms=d_ms, plain_ms=d_plain,
-                    bound_ms=bound, bound_by="bytes", library_ms=None)
-                quant_bw = q_bytes / (q_ms * 1e-3)
+                    bound_ms=bound, bound_by="bytes", library_ms=None,
+                    events_ms=d_ev)
+                # the cost model prices a whole call, host time included
+                quant_bw = q_bytes / (q_ev * 1e-3)
     kernels.update(wire_rec)
     # the other shapes the main path gives them: the flat-op replay's
     # width-1 allgather payload (3 MiB bf16 per rank) and the accumulate
@@ -1349,6 +1439,18 @@ def main(argv=None) -> int:
 
     # ======== the main path: tune -> record -> replay -> dispatch ========
     wrappers = main_path_kernels(pack, cmm, rdma, quant)
+    # every block_matmul launch's path and depth: a launch off the wgmma
+    # path must be one that TMA cannot address (k % 8 != 0: the tuner's
+    # NREP probes scale a matmul_accumulate cell down to k_loc = 1, ...)
+    bm_calls: dict = {}
+    path_of = cmm.block_matmul_path
+
+    def recorded_path(dtype, k, vec_ok):
+        path = path_of(dtype, k, vec_ok)
+        key = (path, str(dtype).replace("torch.", ""), k, bool(vec_ok))
+        bm_calls[key] = bm_calls.get(key, 0) + 1
+        return path
+    cmm.block_matmul_path = recorded_path
     zero_counts(wrappers)
     c0 = counts(wrappers)
 
@@ -1530,6 +1632,32 @@ def main(argv=None) -> int:
     if ring_paths["wgmma"] != main_path["ring_allgather_matmul_rdma"]:
         raise RuntimeError(f"main path: ring launches off the wgmma path: "
                            f"{ring_paths}")
+    cmm.block_matmul_path = path_of
+    bm_paths = dict(cmm.block_matmul.launches_by_path)
+    off = {f"{d} k={k} vec_ok={v}": n_ for (pth, d, k, v), n_ in
+           sorted(bm_calls.items()) if pth != "wgmma"}
+    log(f"[main path] block_matmul launches by path: "
+        f"{json.dumps(bm_paths)}; off the wgmma path, by dtype and depth: "
+        f"{json.dumps(off)}")
+    if sum(bm_calls.values()) != main_path["block_matmul"] or any(
+            pth != "wgmma" and (d == "float32" or (k % 8 == 0 and v))
+            for (pth, d, k, v) in bm_calls):
+        raise RuntimeError(f"main path: block_matmul launches off the wgmma "
+                           f"path that TMA could address: {off}")
+    report["main_path_paths"] = {"ring_allgather_matmul_rdma": ring_paths,
+                                 "block_matmul": bm_paths}
+    # the tuning cells the fused rings lose: fused_ring against default
+    # at attn-out and MLP-down (4096 rows) and the K/V accumulate (both
+    # row counts), phase 6's medians
+    for op, kk, rows in (("matmul_reducescatter", HEADS * HEAD_DIM // P,
+                          TOKENS), ("matmul_reducescatter", D_FF // P, TOKENS),
+                         ("matmul_accumulate", D_MODEL, TOKENS),
+                         ("matmul_accumulate", D_MODEL, TOKENS // 8)):
+        cell = {m.impl: m.latency * 1e3 for m in grep.measurements
+                if m.op == op and m.cell.mm_k == kk and m.cell.mm_m == rows}
+        log(f"[main path] {op} cell k={kk} rows={rows} (median ms): "
+            f"fused_ring {cell.get('fused_ring', float('nan')):.4f} vs "
+            f"default {cell.get('default', float('nan')):.4f}")
 
     # -- 9. where one call's device time goes (after the main path's counts)
     for nm in ("default", "allgather_as_ring", "wire_q8"):
@@ -1559,7 +1687,8 @@ def main(argv=None) -> int:
     # -- 11. the serve paths of the SSM family ------------------------------
     report["ssm_serve"] = {}
     for arch, scan, needles in (
-            ("rwkv6-3b", "rwkv6_scan", ("rwkv6_kernel",)),
+            ("rwkv6-3b", "rwkv6_scan", ("rwkv6_chunk_kernel",
+                                        "rwkv6_decode_kernel")),
             ("zamba2-1.2b", "ssd_scan", ("ssd_kernel", "fa_wgmma_kernel",
                                          "fa_split_kernel"))):
         got = serve_phase(torch, dev, out_dir, every, arch, "11", needles)

@@ -8,6 +8,11 @@ float32 accumulator, output dtype ``promote_types(x, w)``.  Its CUDA
 source, with the bound it works against, is ``csrc/block_matmul.cu``.
 It takes an optional leading batch dim, so one launch covers every
 stacked rank of a ring step (a 2-D ``w`` is shared by the whole batch).
+The C source decides which of its kernels a call takes
+(``block_matmul_path``): ``wgmma`` (the persistent wgmma/TMA kernel) for
+bf16/fp16 with k and n multiples of 8 and 16-byte aligned operands, else
+``wmma`` (the tile loops of ``mm_tile.cuh``), ``f32`` for float32;
+``block_matmul.launches_by_path`` counts them.
 
 ``ring_allgather_matmul`` is the JAX package's tier-1 ring: chunk s+1 is
 shifted one rank on while chunk s is multiplied.  It is the CPU path of
@@ -48,12 +53,32 @@ def _lib() -> ctypes.CDLL:
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        lib.block_matmul_path.restype = ctypes.c_int
+        lib.block_matmul_path.argtypes = [ctypes.c_int] * 3
+        lib.block_matmul_tile_n.restype = ctypes.c_int
+        lib.block_matmul_tile_n.argtypes = [ctypes.c_int] * 3
     return lib
 
 
 def build() -> None:
     """Compile (once) and load the CUDA library."""
     _lib()
+
+
+PATHS = ("f32", "wmma", "wgmma")      # block_matmul_path
+
+
+def block_matmul_path(dtype: torch.dtype, k: int, vec_ok: bool) -> str:
+    """The kernel a launch of this dtype, depth and alignment takes (the
+    C source's ``block_matmul_path``)."""
+    return PATHS[_lib().block_matmul_path(_DTYPE_CODE[dtype], k,
+                                          int(vec_ok))]
+
+
+def block_matmul_tile_n(batch: int, m: int, n: int) -> int:
+    """The tile width (128 or 256) of a ``wgmma`` launch at this shape on
+    the current card (for logs)."""
+    return _lib().block_matmul_tile_n(batch, m, n)
 
 
 def block_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -98,16 +123,19 @@ def block_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     vec_ok = int(k % 8 == 0 and n % 8 == 0 and x.data_ptr() % 16 == 0
                  and w.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    path = block_matmul_path(x.dtype, k, vec_ok)
     rc = _lib().block_matmul(_DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
                              out.data_ptr(), batch, m, n, k, m * k, swb,
                              vec_ok, stream)
     if rc != 0:
         raise RuntimeError(f"block_matmul launch failed: CUDA error {rc}")
     block_matmul.launches += 1
+    block_matmul.launches_by_path[path] += 1
     return out
 
 
 block_matmul.launches = 0
+block_matmul.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 def _local_mm(x: torch.Tensor, w: torch.Tensor, mm: str) -> torch.Tensor:

@@ -1,10 +1,10 @@
 // One output tile of x @ w with a float32 accumulator, computed by one
-// 256-thread block: the tile loops of every block_matmul.cu launch and of
-// agmm_ring.cu's agmm_ring_kernel, which takes the ring's float32 launches
-// and the 16-bit ones that TMA cannot address (k or m not a multiple of
-// 8, a base pointer not 16-byte aligned).  The ring's other launches run
-// on the wgmma/TMA mainloop of hopper_gemm.cuh; block_matmul is the next
-// to move there.
+// 256-thread block: what TMA and wgmma cannot take.  It serves the
+// float32 launches and the 16-bit ones that TMA cannot address (k or the
+// output width not a multiple of 8, a base pointer not 16-byte aligned)
+// of block_matmul.cu (mm_tc_kernel, mm_f32_kernel) and of agmm_ring.cu
+// (agmm_ring_kernel).  Every other 16-bit launch of both runs on the
+// wgmma/TMA mainloop of hopper_gemm.cuh.
 //
 //   * bf16/fp16 (tc_tile): a BM x BN = 128x128 output tile, 32-deep K
 //     tiles in a 3-stage cp.async pipeline in shared memory (16-byte

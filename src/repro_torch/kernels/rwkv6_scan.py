@@ -20,10 +20,12 @@ masked).  The TPU kernel's function is ``s0 = None``;
 ``rwkv6_scan_bhsd`` is that case in its layout ``[BH, S, hd]``.  r, k, v
 may be bfloat16 (the kernel converts them exactly); w, u and the state
 are float32.  ``out_state=`` names a tensor that receives ``s_fin``; it
-may be ``s0`` itself (the kernel reads a state before it writes it: one
-CTA owns one (n, h)), which is how the model updates its cache in place.
-The CUDA source, with the bound it works against, is
-``csrc/rwkv6_scan.cu``.
+may be ``s0`` itself (the kernel reads a state before it writes it: each
+column of a state belongs to one CTA), which is how the model updates its
+cache in place.  The CUDA source, with the bound it works against, is
+``csrc/rwkv6_scan.cu``; it decides which of its kernels a call takes
+(``rwkv6_scan_path``): ``decode`` at S = 1, else ``chunked``, counted in
+``rwkv6_scan.launches_by_path``.
 
 ``rwkv6_scan_plain`` is the TPU kernel's chunked algorithm in PyTorch
 (log-decay cumsum per chunk, pairwise differences clamped at <= 0, the
@@ -52,13 +54,34 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                        + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 14
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_void_p])
+        lib.rwkv6_scan_path.restype = ctypes.c_int
+        lib.rwkv6_scan_path.argtypes = [ctypes.c_int]
     return lib
 
 
 def build() -> None:
     """Compile (once) and load the CUDA library."""
     _lib()
+
+
+PATHS = ("chunked", "decode")          # rwkv6_scan_path
+
+
+def rwkv6_scan_path(s: int) -> str:
+    """The kernel a call of ``s`` rows takes (the C source's
+    ``rwkv6_scan_path``)."""
+    return PATHS[_lib().rwkv6_scan_path(s)]
+
+
+def _quads_ok(r, k, v, w) -> bool:
+    """Whether the kernel may load r, k, v and w four channels at a time:
+    hd % 4 == 0, every stride a multiple of 4, base pointers aligned to
+    four elements."""
+    return r.shape[-1] % 4 == 0 and all(
+        all(st % 4 == 0 for st in t.stride()[:3])
+        and t.data_ptr() % (4 * t.element_size()) == 0
+        for t in (r, k, v, w))
 
 
 def _check(r, k, v, w, u, s0, out_state):
@@ -152,19 +175,22 @@ def rwkv6_scan(r, k, v, w, u, s0=None, *, out_state=None):
     if n * h == 0:
         return y, s_out
     stream = torch.cuda.current_stream(dev).cuda_stream
+    path = rwkv6_scan_path(s)
     rc = _lib().rwkv6_scan(
         _DTYPE_CODE[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
         w.data_ptr(), u.data_ptr(), None if s0 is None else s0.data_ptr(),
         y.data_ptr(), s_out.data_ptr(), n, s, h, hd, u.shape[0],
         *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *w.stride()[:3],
-        *u.stride()[:2], stream)
+        *u.stride()[:2], int(_quads_ok(r, k, v, w)), stream)
     if rc != 0:
         raise RuntimeError(f"rwkv6_scan launch failed: CUDA error {rc}")
     rwkv6_scan.launches += 1
+    rwkv6_scan.launches_by_path[path] += 1
     return y, s_out
 
 
 rwkv6_scan.launches = 0
+rwkv6_scan.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 def tolerance(r, k, v, w, u, s0=None):

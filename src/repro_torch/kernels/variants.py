@@ -1,6 +1,7 @@
 """Ablations of the hand-written CUDA kernels, timed on the card.
 
-    python -m repro_torch.kernels.variants [ring] [flash] [--only NAME ...]
+    python -m repro_torch.kernels.variants [ring] [flash] [matmul] [rwkv]
+        [--only NAME ...]
 
 Each variant is a copy of ``csrc/`` with a few source edits (a stage
 count, a tile width, one part of the loop taken out or put back), built
@@ -22,12 +23,18 @@ import torch
 
 from repro_torch.core._axis import StackedAxis
 from repro_torch.kernels import _build
+from repro_torch.kernels import collective_matmul as cmm
 from repro_torch.kernels import collective_matmul_rdma as rdma
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rwkv6_scan as rw
 
 _GEMM = "hopper_gemm.cuh"
 _RING = "agmm_ring.cu"
 _FA = "flash_attention.cu"
+_BM = "block_matmul.cu"
+_RW = "rwkv6_scan.cu"
+_MODULES = {"agmm_ring": rdma, "flash_attention": fa, "block_matmul": cmm,
+            "rwkv6_scan": rw}
 
 RING = {
     "base": [],
@@ -78,6 +85,88 @@ FLASH = {
 }
 
 
+_TILE_N = (_BM, "return 2 * wide > sms ? 256 : 128;", "return {};")
+MATMUL = {
+    "base": [],
+    "128-wide tiles": [(_TILE_N[0], _TILE_N[1], _TILE_N[2].format(128))],
+    "256-wide tiles": [(_TILE_N[0], _TILE_N[1], _TILE_N[2].format(256))],
+    "one CTA per tile": [
+        (_BM, "const int grid = tiles < sms ? static_cast<int>(tiles) : sms;",
+         "const int grid = static_cast<int>(tiles);")],
+    "2 stages": [(_BM, "constexpr int WGMMA_STAGES = 3;",
+                  "constexpr int WGMMA_STAGES = 2;")],
+    "register epilogue": [(_BM, "constexpr bool TMA_EPILOGUE = true;",
+                           "constexpr bool TMA_EPILOGUE = false;")],
+}
+
+
+def _rwkv_cta(cluster: int, threads: int, per_sm: int):
+    base = {"CLUSTER": 2, "CTA_THREADS": 256, "MIN_CTAS_PER_SM": 3}
+    want = {"CLUSTER": cluster, "CTA_THREADS": threads,
+            "MIN_CTAS_PER_SM": per_sm}
+    return [(_RW, f"constexpr int {k} = {base[k]};",
+             f"constexpr int {k} = {want[k]};")
+            for k in base if want[k] != base[k]]
+
+
+def _rwkv_cut(anchor: str, cut: str):
+    return [(_RW, anchor, cut)]
+
+
+RWKV = {
+    "base": [],
+    "cluster 4 x 128 threads": _rwkv_cta(4, 128, 5),
+    "cluster 2 x 128 threads": _rwkv_cta(2, 128, 4),
+    "one CTA of 512 threads": _rwkv_cta(1, 512, 1),
+    "no prefetch": [(_RW, "constexpr bool PREFETCH = true;",
+                     "constexpr bool PREFETCH = false;")],
+    "hd not a template constant": _rwkv_cut(
+        "  if (p.hd == 64) return", "  if (false) return"),
+    "no decode path": [(_RW, "int path(int s) { return s == 1 ? 1 : 0; }",
+                        "int path(int s) { return s < 0 ? 1 : 0; }")],
+    "no pair products": _rwkv_cut(
+        "for (int cq = part; cq < hd4; cq += SPLIT) {",
+        "for (int cq = part; cq < 0; cq += SPLIT) {"),
+    "no exp in the pairs": _rwkv_cut("expf(fminf(", "(fminf("),
+    "no r, k decay": _rwkv_cut("for (int i = tid; i < L * hd4; i += NT) {",
+                               "for (int i = tid; i < 0; i += NT) {"),
+    "no log": _rwkv_cut("  return logf(fmaxf(w, 1e-38f));", "  return w;"),
+    "no cumsum scan": _rwkv_cut("  for (int o = 1; o < 32; o <<= 1) {",
+                                "  for (int o = 32; o < 32; o <<= 1) {"),
+    "no r, k, v, w loads": [
+        (_RW, "      if (cq < hd4 && lane < lc) {", "      if (false) {"),
+        (_RW, "      if (i < L * cq4 && t < lc && 4 * jq < ncol)",
+         "      if (false)")],
+    "no y products": _rwkv_cut(
+        "for (int i = tid; i < 2 * (L / 4) * cq4; i += HALF) {",
+        "for (int i = tid; i < 0; i += HALF) {"),
+    "no state update": _rwkv_cut(
+        "for (int i = tid - HALF; i < hd4 * cq4; i += HALF) {",
+        "for (int i = tid - HALF; i < 0; i += HALF) {"),
+}
+
+
+def call_device_ms(fn, iters: int = 20, tries: int = 3) -> float:
+    """Mean device time per call of ``fn`` over ``iters`` calls: every
+    kernel it launches, from ``torch.profiler`` (for a library call whose
+    kernels' names are not known)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        if total:
+            return total / 1e3 / iters
+    raise RuntimeError(f"the profiler recorded no kernel in {tries} "
+                       f"sessions of {iters} calls")
+
+
 def device_ms(fn, needle: str, iters: int = 20, tries: int = 3) -> float:
     """Mean device time per launch of the kernels whose name contains
     ``needle`` over ``iters`` calls of ``fn``, from ``torch.profiler``.
@@ -108,7 +197,7 @@ def device_ms(fn, needle: str, iters: int = 20, tries: int = 3) -> float:
 def _variant_lib(lib: str, name: str, edits):
     """Build ``lib`` from a copy of csrc/ with ``edits`` applied and load
     it; returns a stand-in for the wrapper module's ``_lib``."""
-    mod = rdma if lib == "agmm_ring" else fa
+    mod = _MODULES[lib]
     slug = "".join(c if c.isalnum() else "_" for c in f"{lib}_{name}")
     d = _build.build_dir().parent / "variants" / slug
     shutil.rmtree(d, ignore_errors=True)
@@ -127,9 +216,13 @@ def _variant_lib(lib: str, name: str, edits):
     finally:
         _build.CSRC = csrc
         _build._LIBS.pop(lib, None)      # the next plain call builds csrc/
+    fn = ""
     for ln in _build.build_log(lib).splitlines():
-        if "C75" in ln:
-            print(f"  ptxas: {ln.strip()[:160]}")
+        if "Function properties for" in ln:
+            fn = ln.split("for ", 1)[1]
+        if "C75" in ln or ("spill stores" in ln
+                           and " 0 bytes spill stores" not in ln):
+            print(f"  ptxas: {fn[:90]}: {ln.strip()[:120]}")
     return lambda: built
 
 
@@ -198,25 +291,88 @@ def flash(only, gen) -> None:
             fa._lib = keep
 
 
+def matmul(only, gen) -> None:
+    dev = torch.device("cuda")
+    shapes = (  # (label, (B, m, k, n)): chip_smoke.py's main-path steps
+        ("mlp-down", (8, 512, 1024, 3072)), ("attn-out", (8, 512, 384, 3072)),
+        ("K/V accumulate", (8, 4096, 384, 1024)),
+        ("K/V accumulate, 512 rows", (8, 512, 384, 1024)))
+    ins = {label: (torch.randn(b, m, k, generator=gen, device=dev).bfloat16(),
+                   (torch.randn(b, k, n, generator=gen, device=dev)
+                    * k ** -0.5).bfloat16())
+           for label, (b, m, k, n) in shapes}
+    for name, edits in MATMUL.items():
+        if only and name not in only:
+            continue
+        lib = _variant_lib("block_matmul", name, edits)
+        keep, cmm._lib = cmm._lib, lib
+        try:
+            for label, (b, m, k, n) in shapes:
+                x, w = ins[label]
+                got = cmm.block_matmul(x, w)
+                want = cmm.block_matmul_plain(x, w).float()
+                ok = float((got.float() - want).abs().max()) <= 2.0 ** -7 * \
+                    max(1.0, float(want.abs().max()))
+                ms = device_ms(lambda: cmm.block_matmul(x, w), "bm_wgmma")
+                print(f"matmul {name}: {label} [{b},{m},{k}]@[{b},{k},{n}] "
+                      f"bf16 {ms:.4f} ms = {2 * b * m * k * n / ms / 1e9:.1f}"
+                      f" TFLOP/s, within the limit: {ok}", flush=True)
+        finally:
+            cmm._lib = keep
+
+
+def rwkv(only, gen) -> None:
+    dev = torch.device("cuda")
+    n, h, hd = 32, 5, 64                  # the rwkv6-3b serve at TP 8
+
+    def ins(s, s0=None):
+        return (*(torch.randn(n, s, h, hd, generator=gen,
+                              device=dev).bfloat16() for _ in range(3)),
+                torch.exp(-torch.exp(0.5 * torch.randn(
+                    n, s, h, hd, generator=gen, device=dev))),
+                0.5 * torch.randn(8, h, hd, generator=gen, device=dev), s0)
+    pre = ins(1024)
+    dec = ins(1, rw.rwkv6_scan_plain(*pre)[1])
+    for name, edits in RWKV.items():
+        if only and name not in only:
+            continue
+        lib = _variant_lib("rwkv6_scan", name, edits)
+        keep, rw._lib = rw._lib, lib
+        try:
+            for label, a in (("prefill S 1024", pre), ("decode S 1", dec)):
+                (y, sf), (yp, sp) = rw.rwkv6_scan(*a), rw.rwkv6_scan_plain(*a)
+                yl, sl = rw.tolerance(*a)
+                ok = bool(((y - yp).abs() <= yl).all()
+                          and ((sf - sp).abs() <= sl).all())
+                ms = device_ms(lambda: rw.rwkv6_scan(*a), "rwkv6_")
+                print(f"rwkv {name}: {label} r[{n},{a[0].shape[1]},{h},{hd}] "
+                      f"bf16 {ms:.4f} ms, within the limit: {ok}",
+                      flush=True)
+        finally:
+            rw._lib = keep
+
+
+KERNELS = {"ring": ring, "flash": flash, "matmul": matmul, "rwkv": rwkv}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("kernels", nargs="*", default=["ring", "flash"],
-                    help="ring and/or flash (default: both)")
+    ap.add_argument("kernels", nargs="*", default=list(KERNELS),
+                    help=f"any of {', '.join(KERNELS)} (default: all)")
     ap.add_argument("--only", nargs="*", default=[],
                     help="variant names to run (default: all)")
     args = ap.parse_args(argv)
-    if set(args.kernels) - {"ring", "flash"}:
-        ap.error(f"kernels are ring and flash, not {args.kernels}")
+    if set(args.kernels) - set(KERNELS):
+        ap.error(f"kernels are {', '.join(KERNELS)}, not {args.kernels}")
     if not torch.cuda.is_available():
         raise SystemExit("variants: needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     gen = torch.Generator(device="cuda").manual_seed(20170701)
-    if "ring" in args.kernels:
-        ring(set(args.only), gen)
-    if "flash" in args.kernels:
-        flash(set(args.only), gen)
+    for name, run in KERNELS.items():
+        if name in args.kernels:
+            run(set(args.only), gen)
     return 0
 
 

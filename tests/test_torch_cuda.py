@@ -1056,3 +1056,195 @@ def test_ssm_serve_on_card_launches_the_kernels_and_matches_the_cpu(
         on_card.prefill_s, on_card.decode_s, on_card.ctx)
     report = tserve.check_serves(on_cpu, card_cpu, 1e-3)
     assert report["steps"] >= 1
+
+
+# the persistent wgmma/TMA block matmul and the redesigned RWKV6 scan:
+# each test asserts the path its calls took
+# ---------------------------------------------------------------------------
+
+# (B, m, k, n): MLP-down, attn-out and the K/V accumulate ring steps of the
+# main path at p = 8, and the 512-row K/V cell
+BM_MAIN_SHAPES = [(8, 512, 1024, 3072), (8, 512, 384, 3072),
+                  (8, 4096, 384, 1024), (8, 512, 384, 1024)]
+
+
+def _bm_operands(cuda, B, m, k, n, dtype, shared_w, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(B, m, k, generator=g).to(dtype).to(cuda)
+    w = (torch.randn(*(() if shared_w else (B,)), k, n, generator=g)
+         * k ** -0.5).to(dtype).to(cuda)
+    return x, w
+
+
+def _bm_check(x, w, path="wgmma"):
+    before = _paths(cmm.block_matmul)
+    got = cmm.block_matmul(x, w)
+    torch.cuda.synchronize()
+    assert _took(cmm.block_matmul, before) == {path: 1}
+    assert got.shape == x.shape[:-1] + (w.shape[-1],)
+    assert _mm_err_ok(got, cmm.block_matmul_plain(x, w))
+    return got
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,m,k,n", BM_MAIN_SHAPES)
+def test_block_matmul_wgmma_at_the_main_path_shapes(cuda, dtype, B, m, k, n):
+    x, w = _bm_operands(cuda, B, m, k, n, dtype, False, m + k + n)
+    _bm_check(x, w)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,m,k,n,shared_w", [
+    (2, 100, 72, 200, False),      # ragged m, n, k (k not a 64-multiple)
+    (3, 129, 136, 264, False),
+    (1, 1, 8, 8, False),
+    (5, 61, 1000, 256, False),
+    (3, 130, 72, 136, True),       # shared w, ragged k: no batch bleeds
+    (3, 77, 200, 520, True)])
+def test_block_matmul_wgmma_ragged_within_vec_ok(cuda, dtype, B, m, k, n,
+                                                 shared_w):
+    x, w = _bm_operands(cuda, B, m, k, n, dtype, shared_w, B * m + k + n)
+    _bm_check(x, w)
+
+
+@needs_cuda
+def test_block_matmul_ragged_k_reads_nothing_of_the_next_batch(cuda):
+    """Per-batch w [3, 72, 136] whose K rows beyond 72 would be the next
+    batch's: poison every batch but one and the one batch's output must
+    not move."""
+    x, w = _bm_operands(cuda, 3, 130, 72, 136, torch.bfloat16, False, 5)
+    want = _bm_check(x, w)[1]
+    x2, w2 = x.clone(), w.clone()
+    x2[0], x2[2] = float("nan"), float("nan")
+    w2[0], w2[2] = float("nan"), float("nan")
+    assert torch.equal(cmm.block_matmul(x2, w2)[1], want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("case", ["128 below", "128 at", "256 below",
+                                  "256 at", "256 above", "256 many"])
+def test_block_matmul_wgmma_tile_counts_around_the_sm_count(cuda, case):
+    """A persistent CTA walks tiles i, i + grid, ...: the producer and the
+    consumers must agree at tile counts just below, at and just above
+    the SM count, and at many times it (a disagreement hangs, then
+    traps), for both tile widths.  x has ``rt`` row tiles (the last one
+    ragged) and w 256 columns: two 128-wide or one 256-wide tile each."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    width, rt = {"128 below": (128, sms // 2 - 1), "128 at": (128, sms // 2),
+                 "256 below": (256, sms - 1), "256 at": (256, sms),
+                 "256 above": (256, sms + 1), "256 many": (256, 9 * sms)}[case]
+    x, w = _bm_operands(cuda, 1, 128 * rt - 5, 192, 256, torch.bfloat16,
+                        False, rt)
+    assert cmm.block_matmul_tile_n(1, 128 * rt - 5, 256) == width
+    _bm_check(x, w)
+
+
+@needs_cuda
+def test_block_matmul_tile_width_follows_the_tile_count(cuda):
+    """128-wide tiles only where all of them fit in one wave."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for B, m, n in ((8, 512, 3072), (8, 512, 1024), (8, 4096, 1024),
+                    (1, 512, 3072), (1, 128, 256)):
+        wide = B * (-(-m // 128)) * (-(-n // 256))
+        assert cmm.block_matmul_tile_n(B, m, n) == (
+            256 if 2 * wide > sms else 128)
+
+
+@needs_cuda
+def test_block_matmul_wgmma_repeats_are_bit_equal(cuda):
+    x, w = _bm_operands(cuda, 8, 512, 1024, 3072, torch.bfloat16, False, 23)
+    first = _bm_check(x, w)
+    before = _paths(cmm.block_matmul)
+    for _ in range(49):
+        assert torch.equal(cmm.block_matmul(x, w), first)
+    assert _took(cmm.block_matmul, before) == {"wgmma": 49}
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype,k,n,offset,path", [
+    (torch.float32, 72, 200, 0, "f32"),
+    (torch.bfloat16, 33, 200, 0, "wmma"),      # k % 8 != 0
+    (torch.float16, 72, 17, 0, "wmma"),        # n % 8 != 0
+    (torch.bfloat16, 72, 200, 1, "wmma")])     # x not 16-byte aligned
+def test_block_matmul_keeps_the_tile_kernel_where_tma_cannot(cuda, dtype, k,
+                                                             n, offset,
+                                                             path):
+    x, w = _bm_operands(cuda, 3, 37, k, n, dtype, False, 29)
+    if offset:
+        buf = torch.empty(x.numel() + offset, dtype=dtype, device=cuda)
+        buf[offset:].copy_(x.flatten())
+        x = buf[offset:].view(x.shape)
+    _bm_check(x, w, path)
+
+
+@needs_cuda
+@pytest.mark.parametrize("s", [1, 2, 31, 32, 33, 1024])
+def test_rwkv6_kernel_at_the_serve_shape_for_every_length(cuda, s):
+    """N = 32 rows (p = 8 x 4 requests), 5 heads of 64, from a non-zero
+    state; S = 1 takes the decode kernel."""
+    from repro_torch.kernels import rwkv6_scan as RW
+    ins = _rwkv_in(cuda, (32, s, 5, 64, 8, True), torch.bfloat16, seed=s)
+    before = _paths(RW.rwkv6_scan)
+    y, sf = RW.rwkv6_scan(*ins)
+    torch.cuda.synchronize()
+    assert _took(RW.rwkv6_scan, before) == {
+        "decode" if s == 1 else "chunked": 1}
+    want, s_want = RW.rwkv6_scan_plain(*ins)
+    y_lim, s_lim = RW.tolerance(*ins)
+    assert _share(y, want, y_lim) <= 1.0 and _share(sf, s_want, s_lim) <= 1.0
+
+
+@needs_cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 75])
+def test_rwkv6_kernel_head_dims(cuda, hd, s):
+    from repro_torch.kernels import rwkv6_scan as RW
+    ins = _rwkv_in(cuda, (6, s, 3, hd, 2, True), torch.bfloat16, seed=hd)
+    y, sf = RW.rwkv6_scan(*ins)
+    want, s_want = RW.rwkv6_scan_plain(*ins)
+    y_lim, s_lim = RW.tolerance(*ins)
+    assert _share(y, want, y_lim) <= 1.0 and _share(sf, s_want, s_lim) <= 1.0
+
+
+@needs_cuda
+def test_rwkv6_decode_in_place_carries_the_prefill(cuda):
+    """The serve's carry: a prefill writes its state into the cache
+    (out_state = s0), decode steps at S = 1 update it in place; each step
+    equals the out-of-place call and the plain version within the
+    limit."""
+    from repro_torch.kernels import rwkv6_scan as RW
+    r, k, v, w, u, s0 = _rwkv_in(cuda, (32, 70, 5, 64, 8, True),
+                                 torch.bfloat16, seed=3)
+    cache = s0.clone()
+    RW.rwkv6_scan(r, k, v, w, u, cache, out_state=cache)
+    for step in range(3):
+        ins = _rwkv_in(cuda, (32, 1, 5, 64, 8, False), torch.bfloat16,
+                       seed=10 + step)[:5]
+        y_out, s_out = RW.rwkv6_scan(*ins, cache)
+        want, s_want = RW.rwkv6_scan_plain(*ins, cache)
+        y_lim, s_lim = RW.tolerance(*ins, cache)
+        before = _paths(RW.rwkv6_scan)
+        y_in, st = RW.rwkv6_scan(*ins, cache, out_state=cache)
+        assert _took(RW.rwkv6_scan, before) == {"decode": 1}
+        assert st is cache
+        assert torch.equal(y_in, y_out) and torch.equal(cache, s_out)
+        assert _share(y_in, want, y_lim) <= 1.0
+        assert _share(cache, s_want, s_lim) <= 1.0
+
+
+@needs_cuda
+def test_rwkv6_strided_unaligned_inputs_take_scalar_loads(cuda):
+    """Views whose strides are not multiples of four channels (hd 40 in
+    rows of 43) load element by element and agree with contiguous
+    copies."""
+    from repro_torch.kernels import rwkv6_scan as RW
+    g = torch.Generator(device="cpu").manual_seed(41)
+    buf = torch.randn(4, 50, 2, 43, generator=g).to(cuda)
+    r, k, v = (buf[..., i:i + 40] for i in range(3))
+    w = torch.rand(4, 50, 2, 40, generator=g).to(cuda) * 0.5 + 0.45
+    u = torch.randn(2, 2, 40, generator=g).to(cuda)
+    got = RW.rwkv6_scan(r, k, v, w, u)
+    want = RW.rwkv6_scan(*(t.contiguous() for t in (r, k, v)), w, u)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -186,3 +186,37 @@ def test_local_mm_auto_takes_torch_matmul_on_the_cpu():
         torch.matmul(x, w).float().numpy())
     with pytest.raises(ValueError, match="unknown mm"):
         cmm._local_mm(x, w, "pallas")
+
+
+def test_block_matmul_on_the_cpu_counts_no_kernel_path():
+    """CPU tensors take the plain version: neither the launch count nor
+    a path count moves (the C source picks the path only on the card)."""
+    before = (cmm.block_matmul.launches, dict(cmm.block_matmul.launches_by_path))
+    x = torch.randn(3, 5, 8, dtype=torch.bfloat16)
+    w = torch.randn(8, 16, dtype=torch.bfloat16)
+    np.testing.assert_array_equal(
+        cmm.block_matmul(x, w).float().numpy(),
+        cmm.block_matmul_plain(x, w).float().numpy())
+    assert (cmm.block_matmul.launches,
+            dict(cmm.block_matmul.launches_by_path)) == before
+    assert set(cmm.block_matmul.launches_by_path) == {"f32", "wmma", "wgmma"}
+
+
+def _variant_edits():
+    from repro_torch.kernels import variants
+    return [(table, name, edit) for table, variants_ in (
+        ("ring", variants.RING), ("flash", variants.FLASH),
+        ("matmul", variants.MATMUL), ("rwkv", variants.RWKV))
+        for name, edits in variants_.items() for edit in edits]
+
+
+@pytest.mark.parametrize("table,name,edit", _variant_edits(),
+                         ids=lambda v: v if isinstance(v, str) else "")
+def test_every_kernel_ablation_edit_matches_its_source(table, name, edit):
+    """``kernels/variants.py`` edits copies of ``csrc/`` by exact text: an
+    edit whose anchor the source no longer holds would stop the ablation
+    run on the card."""
+    from repro_torch.kernels import _build
+    fname, old, new = edit
+    text = (_build.CSRC / fname).read_text()
+    assert text.count(old) >= 1 and old != new

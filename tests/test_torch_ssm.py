@@ -448,3 +448,51 @@ def test_ssm_block_matches_the_reference(arch, tp, kw, dtype):
     for key, w in want[3].items():
         assert rel(tnp(st2[key]), w) <= (RTOL[dtype] if key != "s"
                                           else max(RTOL[dtype], 1e-4)), key
+
+
+@pytest.mark.parametrize("hd,offset,row,want", [
+    (64, 0, 64, True), (40, 0, 40, True), (42, 0, 42, False),
+    (64, 1, 64, False),        # base pointer one element off
+    (40, 0, 43, False)])       # rows of 43: strides not multiples of 4
+def test_rwkv6_quad_loads_need_aligned_rows(hd, offset, row, want):
+    """The wrapper lets the kernel load four channels at a time only
+    where every row of r, k, v, w starts on a four-element boundary."""
+    buf = torch.zeros(2 * 3 * 2 * row + offset + 8, dtype=torch.bfloat16)
+    r = buf[offset:offset + 2 * 3 * 2 * row].view(2, 3, 2, row)[..., :hd]
+    w = torch.zeros(2, 3, 2, hd)
+    assert RW._quads_ok(r, r, r, w) is want
+
+
+def test_rwkv6_decode_form_matches_the_chunked_plain_version():
+    """The decode kernel's one pass, y = r (S + diag(u) k^T v) and S <- w S
+    + k^T v (w as exp(log(max(w, 1e-38)))), in float64 against the
+    plain version at S = 1: within the kernel's limit, also at the
+    clamped decay w = 0."""
+    g = torch.Generator().manual_seed(7)
+    n, h, hd = 4, 3, 16
+    r, k, v = (torch.randn(n, 1, h, hd, generator=g) for _ in range(3))
+    w = torch.rand(n, 1, h, hd, generator=g)
+    w[0, 0, 0, :4] = 0.0
+    u = torch.randn(2, h, hd, generator=g)
+    s0 = torch.randn(n, h, hd, hd, generator=g)
+    want, s_want = RW.rwkv6_scan_plain(r, k, v, w, u, s0)
+    y_lim, s_lim = RW.tolerance(r, k, v, w, u, s0)
+    rr, kk, vv = (t[:, 0].double() for t in (r, k, v))
+    uu = u.double().repeat_interleave(2, 0)
+    dd = torch.exp(torch.log(torch.clamp(w[:, 0].double(), min=1e-38)))
+    kv = kk[..., :, None] * vv[..., None, :]
+    y = (rr[..., :, None] * (s0.double() + uu[..., :, None] * kv)).sum(-2)
+    st = dd[..., :, None] * s0.double() + kv
+    assert bool(((y - want[:, 0].double()).abs() <= y_lim[:, 0]).all())
+    assert bool(((st - s_want.double()).abs() <= s_lim).all())
+
+
+def test_rwkv6_cpu_call_counts_no_kernel_path():
+    g = torch.Generator().manual_seed(8)
+    ins = [torch.randn(2, 5, 1, 8, generator=g) for _ in range(3)]
+    ins += [torch.rand(2, 5, 1, 8, generator=g), torch.randn(1, 1, 8)]
+    before = (RW.rwkv6_scan.launches, dict(RW.rwkv6_scan.launches_by_path))
+    RW.rwkv6_scan(*ins)
+    assert (RW.rwkv6_scan.launches,
+            dict(RW.rwkv6_scan.launches_by_path)) == before
+    assert set(RW.rwkv6_scan.launches_by_path) == {"chunked", "decode"}
