@@ -40,8 +40,10 @@ Phases (each raises on failure; nothing is caught):
    (with the strong decay) and ragged lengths, held to their elementwise
    limits, with planted faults (the inter-chunk state carry dropped, the
    bonus u left out, the mask's diagonal dropped, the ragged last row left
-   out) that must fail them; ``rwkv6_scan``'s prefill on its ``chunked``
-   path, its decode on its ``decode`` path, also in place;
+   out) that must fail them; each scan's prefill on its ``chunked`` path,
+   its decode on its ``decode`` path (also in place), and ``ssd_scan`` at
+   the TPU kernel's shapes on its ``general`` path, each call's path
+   printed;
 4. ``selfcheck`` of every impl (59) at p = 8 and p = 6, with the wire
    tolerance gate's demotions;
 5. fit an ``h100-stacked`` Topo from ``sweep_axis`` (alpha, beta, gamma),
@@ -90,7 +92,8 @@ each model kernel must launch once per block of its kind and forward:
 flash attention 28 x 33 times a llama3.2-3b serve and 6 x 33 times a
 zamba2-1.2b serve, ``rwkv6_scan`` 32 x 33 times a rwkv6-3b serve (32
 ``chunked`` prefills, 32 x 32 ``decode`` steps),
-``ssd_scan`` 38 x 33 times a zamba2-1.2b serve, and no other; flash's
+``ssd_scan`` 38 x 33 times a zamba2-1.2b serve (38 ``chunked``, 38 x 32
+``decode``, none ``general``), and no other; flash's
 prefill launches (one per attention block) must take its ``wgmma`` path
 and its decode launches its ``split_kv`` path.  The p ranks are stacked on
 ONE card: a ring hop is a device-memory copy, so the times measure on-chip
@@ -471,22 +474,36 @@ def rwkv_work(n, s, h, hd, itemsize, with_s0):
     return ops, byts
 
 
-def ssd_work(n, s, h, p_, ns, itemsize, with_s0):
-    """(operations, bytes) of one ssd_scan call: per chunk of Lc rows and
-    (n, h), 2·Ns per pair s <= t (C·B) plus its exp, 2·P per pair (M·xb),
-    2·Ns·P per row twice (the inter-chunk term, the state update).  Bytes:
-    x, B and C in their type (B and C once per row, shared by the heads),
-    dt and y in float32, and s0 / s_fin."""
-    ops = 0
+def ssd_work(n, s, h, p_, ns, itemsize, with_s0, cb_per_head=False):
+    """(C·Bᵀ operations, the other operations, bytes) of one ssd_scan
+    call: per chunk of Lc rows, 2·Ns per pair s <= t (C·Bᵀ) once per row n
+    (B and C are shared by its heads; ``cb_per_head``: once per (n, h),
+    the count of PRs 15-17), and per (n, h) one exp per pair, 2·P per pair
+    (M·xb) and 2·Ns·P per row twice (the inter-chunk term, the state
+    update), float32.  Bytes: x, B and C in their type (B and C once per
+    row), dt and y in float32, and s0 / s_fin."""
+    cb = ops = 0
     for c0 in range(0, s, SSD_CHUNK):
         lc = min(SSD_CHUNK, s - c0)
         pairs = lc * (lc + 1) // 2
-        ops += (2 * ns + 1) * pairs + 2 * p_ * pairs + 4 * ns * p_ * lc
-    ops *= n * h
+        cb += 2 * ns * pairs * (h if cb_per_head else 1)
+        ops += h * (pairs + 2 * p_ * pairs + 4 * ns * p_ * lc)
     byts = (n * s * (h * p_ * itemsize + 2 * ns * itemsize + h * 4
                      + h * p_ * 4)
             + n * h * ns * p_ * 4 * (2 if with_s0 else 1))
-    return ops, byts
+    return n * cb, n * ops, byts
+
+
+def ssd_bound(work, bc_dtype):
+    """(bound_ms, bound_by) of ``ssd_work``: the largest of the bytes over
+    the memory rate, C·Bᵀ over the peak rate of B's and C's type (products
+    of two bf16 are exact in float32, so the kernel forms them on the
+    tensor cores) and the rest over the float32 rate."""
+    cb, ops, byts = work
+    t_b = byts / H100_BYTES_PER_S
+    t_f = max(cb / H100_FLOPS[str(bc_dtype).removeprefix("torch.")],
+              ops / H100_FLOPS["float32"])
+    return max(t_b, t_f) * 1e3, "bytes" if t_b > t_f else "operations"
 
 
 def check_scans(torch, rw, ssd, randn, dev) -> dict:
@@ -506,17 +523,21 @@ def check_scans(torch, rw, ssd, randn, dev) -> dict:
         return torch.rand(*shape, generator=g, device=dev) * (
             hi - lo) + lo
 
-    def held(label, fn, plain, lim, ins, quiet=False):
+    def held(label, fn, plain, lim, ins, quiet=False, path=None):
+        before = dict(fn.launches_by_path)
         (y, sf), (yp, sp), (yl, sl) = fn(*ins), plain(*ins), lim(*ins)
+        took = [k for k, v in path_delta(fn, before).items() if v]
         share = max(float(((y - yp).abs() / yl).max()),
                     float(((sf - sp).abs() / sl).max()))
         err = max(float((y - yp).abs().max()), float((sf - sp).abs().max()))
         if not share <= 1.0 or not bool(torch.isfinite(y).all()):
             raise RuntimeError(f"{label}: error {err} is {share:.3f} of the "
                                "limit")
+        if path is not None and took != [path]:
+            raise RuntimeError(f"{label}: took the paths {took}, not {path}")
         if not quiet:
-            log(f"[3] {label}: max_abs_err {err:.3e} ({share:.4f} of the "
-                "limit)")
+            log(f"[3] {label}: path {'/'.join(took)}, max_abs_err {err:.3e} "
+                f"({share:.4f} of the limit)")
         return err, (y, sf)
 
     def planted(label, want, lim, bad):
@@ -642,39 +663,50 @@ def check_scans(torch, rw, ssd, randn, dev) -> dict:
 
     ins = ssd_in(SERVE_PROMPT)
     err, (_, s_fin) = held("ssd_scan serve prefill", ssd.ssd_scan,
-                           ssd.ssd_scan_plain, ssd.tolerance, ins)
+                           ssd.ssd_scan_plain, ssd.tolerance, ins,
+                           path="chunked")
     dec = ssd_in(1, with_s0=s_fin)
     held("ssd_scan serve decode (S = 1, s0 = the prefill's state)",
-         ssd.ssd_scan, ssd.ssd_scan_plain, ssd.tolerance, dec)
-    flops, byts = ssd_work(n, SERVE_PROMPT, h2, p_, ns, 2, False)
-    t_b, t_f = byts / H100_BYTES_PER_S, flops / H100_FLOPS["float32"]
+         ssd.ssd_scan, ssd.ssd_scan_plain, ssd.tolerance, dec, path="decode")
+    cache = s_fin.clone()
+    y_in, _ = ssd.ssd_scan(*dec[:5], cache, out_state=cache)
+    y_out, s_out = ssd.ssd_scan(*dec)
+    if not (torch.equal(y_in, y_out) and torch.equal(cache, s_out)):
+        raise RuntimeError("ssd_scan decode in place differs")
+    work = ssd_work(n, SERVE_PROMPT, h2, p_, ns, 2, False)
+    cb_flops, flops, byts = work
+    bound_ms, bound_by = ssd_bound(work, ins[3].dtype)
+    old_flops = sum(ssd_work(n, SERVE_PROMPT, h2, p_, ns, 2, False,
+                             cb_per_head=True)[:2])
     recs["ssd_scan"] = dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_mamba2.py:73", max_abs_err=err,
-        ms=device_ms(lambda: ssd.ssd_scan(*ins), "ssd_kernel"),
+        ms=device_ms(lambda: ssd.ssd_scan(*ins), "ssd_chunk"),
         plain_ms=time_ms(torch, lambda: ssd.ssd_scan_plain(*ins), iters=3),
-        bound_ms=max(t_b, t_f) * 1e3,
-        bound_by="bytes" if t_b > t_f else "operations", library_ms=None,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         events_ms=time_ms(torch, lambda: ssd.ssd_scan(*ins)))
-    d_ops, d_byts = ssd_work(n, 1, h2, p_, ns, 2, True)
-    d_ms = device_ms(lambda: ssd.ssd_scan(*dec), "ssd_kernel")
+    d_work = ssd_work(n, 1, h2, p_, ns, 2, True)
+    d_ms = device_ms(lambda: ssd.ssd_scan(*dec), "ssd_decode")
     d_ev = time_ms(torch, lambda: ssd.ssd_scan(*dec))
-    d_bound = max(d_byts / H100_BYTES_PER_S,
-                  d_ops / H100_FLOPS["float32"]) * 1e3
+    d_bound = ssd_bound(d_work, dec[3].dtype)[0]
     rec = recs["ssd_scan"]
     log(f"[3] ssd_scan serve prefill x[{n},{SERVE_PROMPT},{h2},{p_}] B,C "
         f"[{n},{SERVE_PROMPT},{ns}] bf16: kernel device time {rec['ms']:.4f} "
         f"ms (events mean {rec['events_ms']:.4f} ms) plain "
         f"{rec['plain_ms']:.4f} ms bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']}: {flops / 1e9:.2f} GFLOP, {byts / 1e6:.2f} MB)"
-        f" = {flops / rec['ms'] / 1e9:.1f} TFLOP/s, "
-        f"{byts / rec['ms'] / 1e6:.1f} GB/s; library none (no one-call "
-        f"equivalent)")
-    log(f"[3] ssd_scan serve decode x[{n},1,{h2},{p_}]: kernel device time "
-        f"{d_ms:.4f} ms (events mean {d_ev:.4f} ms) bound {d_bound:.4f} ms "
-        f"({d_byts / 1e6:.2f} MB)")
-    recs["ssd_decode"] = {"ms": d_ms, "events_ms": d_ev, "bound_ms": d_bound}
+        f"({rec['bound_by']}: C·Bᵀ {cb_flops / 1e9:.2f} GFLOP at the bf16 "
+        f"rate, {flops / 1e9:.2f} GFLOP float32, {byts / 1e6:.2f} MB) = "
+        f"{(cb_flops + flops) / rec['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{byts / rec['ms'] / 1e6:.1f} GB/s; with C·Bᵀ counted per head, "
+        f"all at the float32 rate (PRs 15-17) {old_flops / 1e9:.2f} GFLOP, "
+        f"bound {old_flops / H100_FLOPS['float32'] * 1e3:.4f} ms; library "
+        f"none (no one-call equivalent)")
+    log(f"[3] ssd_scan serve decode x[{n},1,{h2},{p_}] path decode: kernel "
+        f"device time {d_ms:.4f} ms (events mean {d_ev:.4f} ms) bound "
+        f"{d_bound:.4f} ms ({d_work[2] / 1e6:.2f} MB); in place bit-equal")
+    recs["ssd_decode"] = {"ms": d_ms, "events_ms": d_ev, "bound_ms": d_bound,
+                          "path": "decode"}
     # the TPU kernel's cases (tests/test_kernels.py:116-140), its layout
     for bh, s_, pp, nn in ((2, 64, 32, 16), (1, 128, 64, 64),
                            (4, 96, 16, 8)):
@@ -684,7 +716,8 @@ def check_scans(torch, rw, ssd, randn, dev) -> dict:
         B, C = (randn(bh, s_, nn, dtype=torch.float32) for _ in range(2))
         held(f"ssd_scan TPU-test case BH{bh} S{s_} P{pp} N{nn}",
              ssd.ssd_scan, ssd.ssd_scan_plain, ssd.tolerance,
-             ssd.to_model_layout(x, dtt, a, B, C) + (None,))
+             ssd.to_model_layout(x, dtt, a, B, C) + (None,),
+             path="chunked" if pp == nn == 64 else "general")
         y, _ = ssd.ssd_scan_bhsd(x, dtt, a, B, C)
         yo, _ = ssd.ssd_ref(x, dtt, a, B, C)
         if not float((y - yo).abs().max()) <= 3e-4:
@@ -693,13 +726,14 @@ def check_scans(torch, rw, ssd, randn, dev) -> dict:
     s_r = SERVE_PROMPT - 24
     ins_r = ssd_in(s_r, with_s0=s_fin)
     _, (y_r, _) = held(f"ssd_scan ragged S {s_r} from s0", ssd.ssd_scan,
-                       ssd.ssd_scan_plain, ssd.tolerance, ins_r)
+                       ssd.ssd_scan_plain, ssd.tolerance, ins_r,
+                       path="chunked")
     bc = randn(3, 130, 80, dtype=torch.float32)
     held("ssd_scan ragged S 130 float32 P 24 N 40", ssd.ssd_scan,
          ssd.ssd_scan_plain, ssd.tolerance,
          (randn(3, 130, 2, 24, dtype=torch.float32),
           uni(3, 130, 2, lo=0.05, hi=0.85), uni(1, 2, lo=0.3, hi=2.3),
-          bc[..., :40], bc[..., 40:], None))
+          bc[..., :40], bc[..., 40:], None), path="general")
     want = ssd.ssd_scan_plain(*ins_r)[0]
     lim = ssd.tolerance(*ins_r)[0]
     x_, dt_, a_, B_, C_, s0_ = ins_r
@@ -782,13 +816,14 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     torch.cuda.reset_peak_memory_stats(dev)
 
     zero_counts(wrappers)               # the serve path starts here
-    fa_fn = wrappers["flash_attention"]
-    rw_fn = wrappers["rwkv6_scan"]
-    c0 = counts(wrappers)
-    f0, r0 = dict(fa_fn.launches_by_path), dict(rw_fn.launches_by_path)
+    by_path = {k: wrappers[k] for k in ("flash_attention", "rwkv6_scan",
+                                        "ssd_scan")}
+
+    def paths():
+        return {k: dict(f.launches_by_path) for k, f in by_path.items()}
+    c0, p0 = counts(wrappers), paths()
     first = sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, n_tokens)
-    c1 = counts(wrappers)
-    f1, r1 = dict(fa_fn.launches_by_path), dict(rw_fn.launches_by_path)
+    c1, p1 = counts(wrappers), paths()
     rec = trace.Trace.from_context(first.ctx)
     rec.save(out_dir / f"serve_trace_{cfg.name}.jsonl")
     for ln in rec.summary().splitlines():
@@ -807,12 +842,10 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     _, phases = profiles.resolve_stores(prof_dir)
     log(f"[{tag}] per-phase profiles saved to {prof_dir} and reloaded: "
         f"{ {ph: len(st) for ph, st in phases.items()} }")
-    c2 = counts(wrappers)
-    f2, r2 = dict(fa_fn.launches_by_path), dict(rw_fn.launches_by_path)
+    c2, p2 = counts(wrappers), paths()
     second = sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, n_tokens,
                       phase_profiles=phases)
-    c3 = counts(wrappers)
-    f3, r3 = dict(fa_fn.launches_by_path), dict(rw_fn.launches_by_path)
+    c3, p3 = counts(wrappers), paths()
     peak = torch.cuda.max_memory_allocated(dev)
     for label, a, b in (("default serve", c0, c1), ("tune_trace", c1, c2),
                         ("re-serve", c2, c3)):
@@ -825,29 +858,23 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
                 raise RuntimeError(f"{cfg.name} {label}: {k} launched "
                                    f"{b[k] - a[k]} times, not {want}")
     # flash: each attention block's prefill on the wgmma path, its decode
-    # steps on the split-KV path
-    n_attn = per_serve["flash_attention"] // n_tokens
-    want_paths = dict.fromkeys(fa_fn.launches_by_path, 0)
-    want_paths.update(wgmma=n_attn, split_kv=n_attn * (n_tokens - 1))
-    for label, a, b in (("default serve", f0, f1), ("re-serve", f2, f3)):
-        got_paths = {k: b[k] - a[k] for k in b}
-        log(f"[{tag} {label}] flash_attention launches by path: "
-            f"{json.dumps(got_paths)}")
-        if got_paths != want_paths:
-            raise RuntimeError(f"{cfg.name} {label}: flash paths "
-                               f"{got_paths}, not {want_paths}")
-    # rwkv6_scan: each rwkv block's prefill on the chunked kernel, its
-    # decode steps (S = 1) on the decode kernel
-    n_rwkv = per_serve["rwkv6_scan"] // n_tokens
-    want_rw = {"chunked": n_rwkv, "decode": n_rwkv * (n_tokens - 1)}
-    for label, a, b in (("default serve", r0, r1), ("re-serve", r2, r3)):
-        got_paths = {k: b[k] - a[k] for k in b}
-        if n_rwkv:
-            log(f"[{tag} {label}] rwkv6_scan launches by path: "
-                f"{json.dumps(got_paths)}")
-        if got_paths != want_rw:
-            raise RuntimeError(f"{cfg.name} {label}: rwkv6_scan paths "
-                               f"{got_paths}, not {want_rw}")
+    # steps on the split-KV path; each scan: each block's prefill on the
+    # chunked kernel, its decode steps (S = 1) on the decode kernel, and
+    # no other path
+    for name, prefill, decode in (("flash_attention", "wgmma", "split_kv"),
+                                  ("rwkv6_scan", "chunked", "decode"),
+                                  ("ssd_scan", "chunked", "decode")):
+        n_blk = per_serve[name] // n_tokens
+        want_paths = dict.fromkeys(by_path[name].launches_by_path, 0)
+        want_paths.update({prefill: n_blk, decode: n_blk * (n_tokens - 1)})
+        for label, a, b in (("default serve", p0, p1), ("re-serve", p2, p3)):
+            got_paths = {k: b[name][k] - a[name][k] for k in b[name]}
+            if n_blk:
+                log(f"[{tag} {label}] {name} launches by path: "
+                    f"{json.dumps(got_paths)}")
+            if got_paths != want_paths:
+                raise RuntimeError(f"{cfg.name} {label}: {name} paths "
+                                   f"{got_paths}, not {want_paths}")
     check = sv.check_serves(first, second, SERVE_RTOL)
     log(f"[{tag}] re-served logits vs the default serve: {check['steps']} "
         f"steps, max-norm relative error {check['max_rel_err']:.4e} "
@@ -887,8 +914,8 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
                                tag, needles)}
     return {"launches": launches, "shares": shares, "check": check,
             "peak_bytes": peak, "per_serve": per_serve,
-            "flash_paths": {k: f3[k] - f0[k] for k in f3},
-            "rwkv6_paths": {k: r3[k] - r0[k] for k in r3},
+            "paths": {name: {k: p3[name][k] - p0[name][k] for k in f}
+                      for name, f in p3.items()},
             "serves": {label: {"prefill_ms": r.prefill_s * 1e3,
                                "decode_ms_per_token":
                                    r.decode_s_per_token * 1e3,
@@ -920,7 +947,9 @@ def state_carry_check(torch, dev, wrappers: dict, arch: str) -> float:
     params = init_tree(lm.model_specs(cfg, P), gen, axis)
     toks = torch.as_tensor(np.random.default_rng(SEED + 2).integers(
         0, cfg.vocab_size, (2, CARRY_PROMPT)), device=dev)
-    before = counts(wrappers)
+    scan = "rwkv6_scan" if arch == "rwkv6-3b" else "ssd_scan"
+    before, p_before = counts(wrappers), dict(
+        wrappers[scan].launches_by_path)
     with bind(model=axis):
         full = lm.forward(params, cfg, {"tokens": toks})[0][:, :, -1]
         caches = lm.init_caches(cfg, 2, CARRY_PROMPT + 8)
@@ -932,15 +961,19 @@ def state_carry_check(torch, dev, wrappers: dict, arch: str) -> float:
     kinds = [k for g in lm.stack_plan(cfg) for k in g.unit * g.n_rep]
     rel = float((last[:, :, 0] - full).abs().max() / full.abs().max())
     launched = {k: after[k] - before[k] for k in after}
+    split = path_delta(wrappers[scan], p_before)
     log(f"[11] state carry {cfg.name} (2 layers {kinds}, float32, TP {P}): "
         f"prefill {CARRY_PROMPT - 1} + decode 1 vs forward over "
         f"{CARRY_PROMPT}: max-norm relative error {rel:.3e} (tolerance "
-        f"{CARRY_RTOL}); launches {json.dumps(launched)}")
-    scan = "rwkv6_scan" if arch == "rwkv6-3b" else "ssd_scan"
-    if launched[scan] != 3 * kinds.count(
-            "rwkv" if arch == "rwkv6-3b" else "mamba"):
+        f"{CARRY_RTOL}); launches {json.dumps(launched)}, {scan} by path "
+        f"{json.dumps(split)}")
+    n_blk = kinds.count("rwkv" if arch == "rwkv6-3b" else "mamba")
+    want = dict.fromkeys(split, 0)
+    want.update(chunked=2 * n_blk, decode=n_blk)   # forward, prefill; step
+    if launched[scan] != 3 * n_blk or split != want:
         raise RuntimeError(f"state carry {cfg.name}: {scan} launched "
-                           f"{launched[scan]} times")
+                           f"{launched[scan]} times, by path {split}, not "
+                           f"{want}")
     if not rel <= CARRY_RTOL or not bool(torch.isfinite(last).all()):
         raise RuntimeError(f"state carry {cfg.name}: error {rel} > "
                            f"{CARRY_RTOL}")
@@ -1689,7 +1722,9 @@ def main(argv=None) -> int:
     for arch, scan, needles in (
             ("rwkv6-3b", "rwkv6_scan", ("rwkv6_chunk_kernel",
                                         "rwkv6_decode_kernel")),
-            ("zamba2-1.2b", "ssd_scan", ("ssd_kernel", "fa_wgmma_kernel",
+            ("zamba2-1.2b", "ssd_scan", ("ssd_chunk_kernel",
+                                         "ssd_decode_kernel",
+                                         "fa_wgmma_kernel",
                                          "fa_split_kernel"))):
         got = serve_phase(torch, dev, out_dir, every, arch, "11", needles)
         got["state_carry_rel_err"] = state_carry_check(torch, dev, every,

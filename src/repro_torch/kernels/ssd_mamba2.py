@@ -20,7 +20,11 @@ output).  The extensions over the TPU kernel are those of
 masked), and ``out_state=`` that may be ``s0`` itself (the cache updated
 in place).  x, B and C may be bfloat16 (converted exactly in the kernel);
 dt, a and the state are float32.  The CUDA source, with its bound, is
-``csrc/ssd_scan.cu``.
+``csrc/ssd_scan.cu``; it decides which of its kernels a call takes
+(``ssd_scan_path``): at P = Ns = 64 (the model's) with rows aligned for
+16-byte loads (``_vec_ok``), ``decode`` at S = 1 and ``chunked`` else;
+any other P or Ns, or unaligned rows, ``general``.  The launches are
+counted in ``ssd_scan.launches_by_path``.
 
 ``ssd_scan_plain`` is the TPU kernel's chunked algorithm in PyTorch over
 chunks of ``CHUNK`` rows: ``C Bᵀ`` masked by the decay (the mask includes
@@ -49,13 +53,38 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
                        + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_void_p])
+        lib.ssd_scan_path.restype = ctypes.c_int
+        lib.ssd_scan_path.argtypes = [ctypes.c_int] * 4
     return lib
 
 
 def build() -> None:
     """Compile (once) and load the CUDA library."""
     _lib()
+
+
+PATHS = ("chunked", "decode", "general")       # ssd_scan_path
+
+
+def ssd_scan_path(s: int, p: int, ns: int, vec: bool) -> str:
+    """The kernel a call of ``s`` rows, head dim ``p``, state ``ns`` takes
+    (the C source's ``ssd_scan_path``); ``vec`` is ``_vec_ok``."""
+    return PATHS[_lib().ssd_scan_path(s, p, ns, int(vec))]
+
+
+def _vec_ok(x, B, C, s0=None, out_state=None) -> bool:
+    """Whether the kernel may load rows of x, B and C 16 bytes at a time:
+    every stride but the last a multiple of 16 bytes, and the base
+    pointers of x, B, C, s0 and out_state 16-byte aligned (P and Ns are
+    64 wherever it matters, so every row's 16-byte pieces are whole)."""
+    def aligned(t, dims):
+        per = 16 // t.element_size()
+        return (t.data_ptr() % 16 == 0
+                and all(st % per == 0 for st in t.stride()[:dims]))
+    return (aligned(x, 3) and aligned(B, 2) and aligned(C, 2)
+            and all(t is None or t.data_ptr() % 16 == 0
+                    for t in (s0, out_state)))
 
 
 def _check(x, dt, a, B, C, s0, out_state):
@@ -153,19 +182,24 @@ def ssd_scan(x, dt, a, B, C, s0=None, *, out_state=None):
     if n * h == 0:
         return y, s_out
     stream = torch.cuda.current_stream(dev).cuda_stream
+    vec = _vec_ok(x, B, C, s0, s_out)
+    path = ssd_scan_path(s, p, ns, vec)
     rc = _lib().ssd_scan(
         _DTYPE_CODE[x.dtype], _DTYPE_CODE[B.dtype], x.data_ptr(),
         dt.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(),
         None if s0 is None else s0.data_ptr(), y.data_ptr(),
         s_out.data_ptr(), n, s, h, p, ns, a.shape[0], *x.stride()[:3],
-        *dt.stride(), *a.stride(), *B.stride()[:2], *C.stride()[:2], stream)
+        *dt.stride(), *a.stride(), *B.stride()[:2], *C.stride()[:2],
+        int(vec), stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc}")
     ssd_scan.launches += 1
+    ssd_scan.launches_by_path[path] += 1
     return y, s_out
 
 
 ssd_scan.launches = 0
+ssd_scan.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 def tolerance(x, dt, a, B, C, s0=None):

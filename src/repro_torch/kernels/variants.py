@@ -1,7 +1,7 @@
 """Ablations of the hand-written CUDA kernels, timed on the card.
 
     python -m repro_torch.kernels.variants [ring] [flash] [matmul] [rwkv]
-        [--only NAME ...]
+        [ssd] [--only NAME ...]
 
 Each variant is a copy of ``csrc/`` with a few source edits (a stage
 count, a tile width, one part of the loop taken out or put back), built
@@ -27,14 +27,16 @@ from repro_torch.kernels import collective_matmul as cmm
 from repro_torch.kernels import collective_matmul_rdma as rdma
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rwkv6_scan as rw
+from repro_torch.kernels import ssd_mamba2 as sd
 
 _GEMM = "hopper_gemm.cuh"
 _RING = "agmm_ring.cu"
 _FA = "flash_attention.cu"
 _BM = "block_matmul.cu"
 _RW = "rwkv6_scan.cu"
+_SSD = "ssd_scan.cu"
 _MODULES = {"agmm_ring": rdma, "flash_attention": fa, "block_matmul": cmm,
-            "rwkv6_scan": rw}
+            "rwkv6_scan": rw, "ssd_scan": sd}
 
 RING = {
     "base": [],
@@ -143,6 +145,54 @@ RWKV = {
     "no state update": _rwkv_cut(
         "for (int i = tid - HALF; i < hd4 * cq4; i += HALF) {",
         "for (int i = tid - HALF; i < 0; i += HALF) {"),
+}
+
+
+def _ssd_cta(threads: int):
+    return [(_SSD, "constexpr int CTA_THREADS = 512;",
+             f"constexpr int CTA_THREADS = {threads};")]
+
+
+def _ssd_cut(anchor: str, cut: str):
+    return [(_SSD, anchor, cut)]
+
+
+SSD = {
+    "base": [],
+    "one CTA of 256 threads": _ssd_cta(256),
+    "no prefetch": [(_SSD, "constexpr bool PREFETCH = true;",
+                     "constexpr bool PREFETCH = false;")],
+    "no decode path": _ssd_cut("  return s == 1 ? 1 : 0;",
+                               "  return s < 0 ? 1 : 0;"),
+    "decode 64 columns a CTA": _ssd_cut(
+        "constexpr int DECODE_COLS = 32;", "constexpr int DECODE_COLS = 64;"),
+    "no x, B, C loads": [
+        (_SSD, "      if (i < L * xq && s < lc)\n", "      if (false)\n"),
+        (_SSD, "      if (v < bq && s < lc) {", "      if (false) {")],
+    "C B^T on FMAs, not mma.sync": [(_SSD, "PAIRS_MMA = true;",
+                                     "PAIRS_MMA = false;")],
+    # C B^T's products in one head of eight, the others decay zeros: what
+    # sharing them across a row's eight heads could save at most
+    "C B^T products in one head of 8": _ssd_cut(
+        "for (int q = 0; q < NS; q += 16) {",
+        "for (int q = 0; q < (h % 8 ? 0 : NS); q += 16) {"),
+    "no pairs": [
+        (_SSD, "for (int k = tid - HALF; k < TRI; k += HALF) {",
+         "for (int k = tid - HALF; k < 0; k += HALF) {"),
+        (_SSD, "k < TRI_MMA; k += HALF / 32) {", "k < 0; k += HALF / 32) {")],
+    "no exp in the pairs": [
+        (_SSD, "expf(fminf(at(ct, e)", "(fminf(at(ct, e)"),
+        (_SSD, "expf(fminf(cum[tt] - cum[ss], 0.f))",
+         "(fminf(cum[tt] - cum[ss], 0.f))")],
+    "no inter products": _ssd_cut("for (int q = k; q < NS; q += 4) {",
+                                  "for (int q = k; q < 0; q += 4) {"),
+    "no intra products": _ssd_cut("for (int s = k; s < tb + 4; s += 4) {",
+                                  "for (int s = k; s < 0; s += 4) {"),
+    "no state update": _ssd_cut(
+        "for (int i = tid; i < NQ * JQ; i += HALF) {",
+        "for (int i = tid; i < 0; i += HALF) {"),
+    "no cumsum scan": _ssd_cut("  for (int o = 1; o < 32; o <<= 1) {",
+                               "  for (int o = 32; o < 32; o <<= 1) {"),
 }
 
 
@@ -352,7 +402,43 @@ def rwkv(only, gen) -> None:
             rw._lib = keep
 
 
-KERNELS = {"ring": ring, "flash": flash, "matmul": matmul, "rwkv": rwkv}
+def ssd(only, gen) -> None:
+    dev = torch.device("cuda")
+    n, h, p, ns = 32, 8, 64, 64            # the zamba2-1.2b serve at TP 8
+
+    def ins(s, s0=None):
+        bc = torch.randn(n, s, 2 * ns, generator=gen, device=dev).bfloat16()
+        return (torch.randn(n, s, h, p, generator=gen, device=dev).bfloat16(),
+                torch.nn.functional.softplus(torch.randn(
+                    n, s, h, generator=gen, device=dev)),
+                torch.exp(0.5 * torch.randn(8, h, generator=gen, device=dev)),
+                bc[..., :ns], bc[..., ns:], s0)
+    pre = ins(1024)
+    dec = ins(1, sd.ssd_scan_plain(*pre)[1])
+    for name, edits in SSD.items():
+        if only and name not in only:
+            continue
+        lib = _variant_lib("ssd_scan", name, edits)
+        keep, sd._lib = sd._lib, lib
+        try:
+            for label, a in (("prefill S 1024", pre), ("decode S 1", dec)):
+                before = dict(sd.ssd_scan.launches_by_path)
+                (y, sf), (yp, sp) = sd.ssd_scan(*a), sd.ssd_scan_plain(*a)
+                path = [k for k, v in sd.ssd_scan.launches_by_path.items()
+                        if v != before[k]]
+                yl, sl = sd.tolerance(*a)
+                ok = bool(((y - yp).abs() <= yl).all()
+                          and ((sf - sp).abs() <= sl).all())
+                ms = device_ms(lambda: sd.ssd_scan(*a), "ssd_")
+                print(f"ssd {name}: {label} x[{n},{a[0].shape[1]},{h},{p}] "
+                      f"bf16 path {'/'.join(path)} {ms:.4f} ms, within the "
+                      f"limit: {ok}", flush=True)
+        finally:
+            sd._lib = keep
+
+
+KERNELS = {"ring": ring, "flash": flash, "matmul": matmul, "rwkv": rwkv,
+           "ssd": ssd}
 
 
 def main(argv=None) -> int:

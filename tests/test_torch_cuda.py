@@ -1248,3 +1248,147 @@ def test_rwkv6_strided_unaligned_inputs_take_scalar_loads(cuda):
     got = RW.rwkv6_scan(r, k, v, w, u)
     want = RW.rwkv6_scan(*(t.contiguous() for t in (r, k, v)), w, u)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# the redesigned SSD scan (register-tiled chunk kernel, decode kernel, and
+# the general kernel for other shapes): each test asserts the path its
+# calls took
+# ---------------------------------------------------------------------------
+
+
+def _ssd_check(SSD, ins, path):
+    before = _paths(SSD.ssd_scan)
+    y, sf = SSD.ssd_scan(*ins)
+    torch.cuda.synchronize()
+    assert _took(SSD.ssd_scan, before) == {path: 1}
+    want, s_want = SSD.ssd_scan_plain(*ins)
+    y_lim, s_lim = SSD.tolerance(*ins)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(sf).all())
+    assert _share(y, want, y_lim) <= 1.0 and _share(sf, s_want, s_lim) <= 1.0
+    return y, sf
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 2, 63, 64, 65, 1023, 1024])
+def test_ssd_kernel_at_the_serve_shape_for_every_length(cuda, dtype, s):
+    """N = 32 rows (p = 8 x 4 requests), 8 heads of 64, state 64, from a
+    non-zero state; S = 1 takes the decode kernel, longer the chunked
+    one."""
+    from repro_torch.kernels import ssd_mamba2 as SSD
+    ins = _ssd_in(cuda, (32, s, 8, 64, 64, 8, True), dtype, seed=s)
+    _ssd_check(SSD, ins, "decode" if s == 1 else "chunked")
+
+
+@needs_cuda
+def test_ssd_decode_in_place_carries_the_prefill(cuda):
+    """The serve's carry: a prefill writes its state into the cache
+    (out_state = s0), decode steps at S = 1 update it in place; each step
+    equals the out-of-place call and the plain version within the
+    limit."""
+    from repro_torch.kernels import ssd_mamba2 as SSD
+    x, dt, a, B, C, s0 = _ssd_in(cuda, (32, 70, 8, 64, 64, 8, True),
+                                 torch.bfloat16, seed=3)
+    cache = s0.clone()
+    before = _paths(SSD.ssd_scan)
+    SSD.ssd_scan(x, dt, a, B, C, cache, out_state=cache)
+    assert _took(SSD.ssd_scan, before) == {"chunked": 1}
+    for step in range(4):
+        ins = _ssd_in(cuda, (32, 1, 8, 64, 64, 8, False), torch.bfloat16,
+                      seed=10 + step)[:5]
+        y_out, s_out = SSD.ssd_scan(*ins, cache)
+        want, s_want = SSD.ssd_scan_plain(*ins, cache)
+        y_lim, s_lim = SSD.tolerance(*ins, cache)
+        before = _paths(SSD.ssd_scan)
+        y_in, st = SSD.ssd_scan(*ins, cache, out_state=cache)
+        assert _took(SSD.ssd_scan, before) == {"decode": 1}
+        assert st is cache
+        assert torch.equal(y_in, y_out) and torch.equal(cache, s_out)
+        assert _share(y_in, want, y_lim) <= 1.0
+        assert _share(cache, s_want, s_lim) <= 1.0
+
+
+@needs_cuda
+@pytest.mark.parametrize("s", [1, 130])
+@pytest.mark.parametrize("offset,row", [(1, 128), (0, 130), (0, 129)])
+def test_ssd_misaligned_bc_views_take_the_general_path(cuda, s, offset,
+                                                       row):
+    """B and C as views whose rows the 16-byte loads cannot take (a base
+    pointer one element off, row strides of 130 and 129 bf16) take the
+    general kernel, within the limit; the same values in aligned rows take
+    the new kernels."""
+    from repro_torch.kernels import ssd_mamba2 as SSD
+    x, dt, a, B, C, s0 = _ssd_in(cuda, (8, s, 8, 64, 64, 2, True),
+                                 torch.bfloat16, seed=row + offset)
+    buf = torch.empty(8 * s * row + offset + 128, dtype=torch.bfloat16,
+                      device=cuda)
+    bc = buf[offset:offset + 8 * s * row].view(8, s, row)
+    bc[..., :64], bc[..., 64:128] = B, C
+    Bm, Cm = bc[..., :64], bc[..., 64:128]
+    assert not SSD._vec_ok(x, Bm, Cm, s0)
+    _ssd_check(SSD, (x, dt, a, Bm, Cm, s0), "general")
+    _ssd_check(SSD, (x, dt, a, B, C, s0), "decode" if s == 1 else "chunked")
+
+
+@needs_cuda
+@pytest.mark.parametrize("h", [3, 5])
+@pytest.mark.parametrize("s", [1, 130])
+def test_ssd_kernel_head_counts(cuda, h, s):
+    """H not a multiple of a head group, a shared by groups of rows."""
+    from repro_torch.kernels import ssd_mamba2 as SSD
+    ins = _ssd_in(cuda, (6, s, h, 64, 64, 3, True), torch.bfloat16,
+                  seed=h + s)
+    _ssd_check(SSD, ins, "decode" if s == 1 else "chunked")
+
+
+@needs_cuda
+@pytest.mark.parametrize("n,h", [(33, 2), (66, 2), (131, 1), (133, 1),
+                                 (33, 8)])
+def test_ssd_kernel_cta_counts_around_the_sm_count(cuda, n, h):
+    """N x H chunk CTAs (one per (n, h)) from half the SM count to twice
+    it: every CTA scheduled, every result within the limit."""
+    from repro_torch.kernels import ssd_mamba2 as SSD
+    ins = _ssd_in(cuda, (n, 70, h, 64, 64, 1, True), torch.bfloat16,
+                  seed=n * h)
+    _ssd_check(SSD, ins, "chunked")
+
+
+@needs_cuda
+@pytest.mark.parametrize("bh,s,p,n", [(2, 64, 32, 16), (4, 96, 16, 8),
+                                      (3, 130, 24, 40)])
+def test_ssd_general_path_at_the_tpu_test_shapes(cuda, bh, s, p, n):
+    """The TPU kernel's test shapes (and the ragged P 24, Ns 40) take the
+    general kernel, within the limit and the oracle's 3e-4."""
+    from repro_torch.kernels import ssd_mamba2 as SSD
+    x, dt, a, B, C, _ = _ssd_in(cuda, (bh, s, 1, p, n, bh, False),
+                                torch.float32, seed=bh + s)
+    _ssd_check(SSD, (x, dt, a, B, C, None), "general")
+    ins = (x[:, :, 0], dt[:, :, 0], a[:, 0], B.contiguous(), C.contiguous())
+    y, sf = SSD.ssd_scan_bhsd(*ins)
+    yo, so = SSD.ssd_ref(*ins)
+    assert float((y - yo).abs().max()) <= 3e-4
+    assert float((sf - so).abs().max()) <= 3e-4
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 45, 64, 100])
+def test_ssd_kernels_read_nothing_beyond_s(cuda, dtype, s):
+    """x, dt, B and C are views of longer buffers whose tail beyond S is
+    NaN: neither new kernel reads a row past S."""
+    from repro_torch.kernels import ssd_mamba2 as SSD
+    full = list(_ssd_in(cuda, (4, 128, 3, 64, 64, 2, True), dtype,
+                        seed=s))
+    idx = [0, 1, 3, 4]                                   # x, dt, B, C
+    clean = [t[:, :s].contiguous() if i in idx else t
+             for i, t in enumerate(full)]
+    want = SSD.ssd_scan(*clean)
+    for i in idx:
+        full[i][:, s:] = float("nan")
+    before = _paths(SSD.ssd_scan)
+    got = SSD.ssd_scan(*[t[:, :s] if i in idx else t
+                         for i, t in enumerate(full)])
+    assert _took(SSD.ssd_scan, before) == {
+        "decode" if s == 1 else "chunked": 1}
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])

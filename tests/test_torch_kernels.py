@@ -206,7 +206,8 @@ def _variant_edits():
     from repro_torch.kernels import variants
     return [(table, name, edit) for table, variants_ in (
         ("ring", variants.RING), ("flash", variants.FLASH),
-        ("matmul", variants.MATMUL), ("rwkv", variants.RWKV))
+        ("matmul", variants.MATMUL), ("rwkv", variants.RWKV),
+        ("ssd", variants.SSD))
         for name, edits in variants_.items() for edit in edits]
 
 

@@ -496,3 +496,183 @@ def test_rwkv6_cpu_call_counts_no_kernel_path():
     assert (RW.rwkv6_scan.launches,
             dict(RW.rwkv6_scan.launches_by_path)) == before
     assert set(RW.rwkv6_scan.launches_by_path) == {"chunked", "decode"}
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan's kernels (csrc/ssd_scan.cu): their forms and partition in plain
+# PyTorch, the 16-byte load rule, the path counts
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,h,p,ns", [(4, 3, 16, 8), (4, 8, 64, 64)])
+@pytest.mark.parametrize("dt_scale", [0.01, 1.0, 300.0])
+def test_ssd_decode_form_matches_the_chunked_plain_version(dt_scale, n, h,
+                                                           p, ns):
+    """The decode kernel's one pass, S <- exp(-dt a) S + B^T (dt x) and y =
+    C S, in float64 against the plain version at S = 1 from a non-zero
+    state (also at P = Ns = 64, the decode kernel's shape): within the
+    kernel's limit, from a decay near 1 (dt_scale 0.01) to one so strong
+    that the float32 decay underflows to 0 (dt_scale 300: dt a >= 90)."""
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(n, 1, h, p, generator=g)
+    dt = (torch.rand(n, 1, h, generator=g) * 0.8 + 0.3) * dt_scale
+    a = torch.rand(2, h, generator=g) * 1.7 + 0.3
+    bc = torch.randn(n, 1, 2 * ns, generator=g)
+    B, C = bc[..., :ns], bc[..., ns:]
+    s0 = torch.randn(n, h, ns, p, generator=g)
+    want, s_want = SSD.ssd_scan_plain(x, dt, a, B, C, s0)
+    y_lim, s_lim = SSD.tolerance(x, dt, a, B, C, s0)
+    aa = a.repeat_interleave(2, 0)                         # [N, H]
+    d = torch.exp(-dt[:, 0] * aa).double()                 # float32's exp
+    assert bool((d == 0).any()) is (dt_scale > 1)
+    xb = x[:, 0].double() * dt[:, 0].double()[..., None]   # [N, H, P]
+    st = (d[..., None, None] * s0.double()
+          + B[:, 0].double()[:, None, :, None] * xb[:, :, None, :])
+    y = (C[:, 0].double()[:, None, :, None] * st).sum(-2)  # [N, H, P]
+    assert bool(((y - want[:, 0].double()).abs() <= y_lim[:, 0]).all())
+    assert bool(((st - s_want.double()).abs() <= s_lim).all())
+
+
+def test_ssd_cpu_call_counts_no_kernel_path():
+    x, dt, a, B, C, s0 = _model_ssd(9, 2, 5, 2, 8, 4, 1)
+    before = (SSD.ssd_scan.launches, dict(SSD.ssd_scan.launches_by_path))
+    SSD.ssd_scan(x, dt, a, B, C, s0, out_state=s0)
+    assert (SSD.ssd_scan.launches,
+            dict(SSD.ssd_scan.launches_by_path)) == before
+    assert tuple(SSD.ssd_scan.launches_by_path) == ("chunked", "decode",
+                                                    "general")
+    assert SSD.PATHS == ("chunked", "decode", "general")
+
+
+def _bc_views(dtype, row, offset, ns=64, n=2, s=3):
+    """B and C as views of one buffer of rows of ``row`` elements (the
+    model's conv output has rows of 2 Ns), ``offset`` elements in."""
+    buf = torch.zeros(n * s * row + offset + 2 * ns, dtype=dtype)
+    bc = buf[offset:offset + n * s * row].view(n, s, row)
+    return bc[..., :ns], bc[..., ns:2 * ns]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("row,offset,want", [
+    (128, 0, True),            # the model's: rows of 2 Ns, C 64 in
+    (136, 0, True),            # a wider row, still 16-byte strides
+    (128, 8, True),            # an offset of whole 16-byte pieces
+    (128, 1, False),           # base pointer one element off
+    (129, 0, False),           # odd row stride
+    (130, 0, False)])          # row stride not a multiple of 16 bytes
+def test_ssd_vec_loads_need_aligned_rows(dtype, row, offset, want):
+    B, C = _bc_views(dtype, row, offset)
+    x = torch.zeros(2, 3, 8, 64, dtype=dtype)
+    assert SSD._vec_ok(x, B, C) is want
+
+
+def test_ssd_vec_rule_covers_x_and_the_states():
+    B, C = _bc_views(torch.bfloat16, 128, 0)
+    x = torch.zeros(2, 3, 8, 64, dtype=torch.bfloat16)
+    assert SSD._vec_ok(x, B, C, torch.zeros(2, 8, 64, 64))
+    wide = torch.zeros(2, 3, 8, 68, dtype=torch.bfloat16)[..., 1:65]
+    assert not SSD._vec_ok(wide, B, C)                 # x one element off
+    odd = torch.zeros(2, 3, 8, 66, dtype=torch.bfloat16)[..., :64]
+    assert not SSD._vec_ok(odd, B, C)                  # head stride 66
+    flat = torch.zeros(2 * 8 * 64 * 64 + 1)
+    s0 = flat[1:].view(2, 8, 64, 64)                   # contiguous, 4 B off
+    assert not SSD._vec_ok(x, B, C, s0)
+    assert not SSD._vec_ok(x, B, C, None, s0)
+
+
+def _emulate_chunk_kernel(x, dt, a, B, C, s0=None):
+    """``csrc/ssd_scan.cu``'s ``ssd_chunk_kernel`` partition in plain
+    PyTorch, float32: per chunk of ``CHUNK`` rows the cumsum as the
+    kernel's scan (two rows a lane: a scan of the pair sums, then the even
+    row from the lane before), C Bᵀ from the row's B and C (the same for
+    every head of the row), each head's decay and dt folded into M, dt
+    exp(last - cum) folded into a copy of x for the state update, y's
+    inter term over q and its intra term over s each in four parts (q, s
+    mod 4), summed last."""
+    n, s, h, p = x.shape
+    ns, L = B.shape[-1], SSD.CHUNK
+    aa = a.float().repeat_interleave(n // a.shape[0], 0)     # [N, H]
+    st = (torch.zeros(n, h, ns, p) if s0 is None else s0.float().clone())
+    y = torch.empty(n, s, h, p)
+    tri = torch.ones(L, L, dtype=torch.bool).tril()
+    for c0 in range(0, s, L):
+        lc = min(L, s - c0)
+        d = torch.zeros(n, h, L)
+        d[..., :lc] = dt[:, c0:c0 + lc].float().transpose(1, 2)
+        xc = torch.zeros(n, h, L, p)
+        xc[:, :, :lc] = x[:, c0:c0 + lc].float().transpose(1, 2)
+        bc, cc = torch.zeros(n, L, ns), torch.zeros(n, L, ns)
+        bc[:, :lc], cc[:, :lc] = B[:, c0:c0 + lc].float(), \
+            C[:, c0:c0 + lc].float()
+        v = -d * aa[..., None]
+        v0, v1 = v[..., 0::2], v[..., 1::2]
+        incl = torch.cumsum(v0 + v1, -1)
+        excl = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1]],
+                         -1)
+        cum = torch.stack([excl + v0, incl], -1).flatten(-2)  # [N, H, L]
+        last = cum[..., lc - 1:lc]
+        w = d * torch.exp(last - cum)
+        cb = cc @ bc.transpose(1, 2)                    # [N, t, s]
+        m = (cb[:, None] * torch.exp(torch.clamp(
+            cum[..., :, None] - cum[..., None, :], max=0.0))
+            * d[..., None, :] * tri)                    # [N, H, t, s]
+        ecum = torch.exp(cum)[..., None]
+        parts = [ecum * (cc[:, None, :, k::4] @ st[:, :, k::4])
+                 + m[..., k::4] @ xc[:, :, k::4] for k in range(4)]
+        y[:, c0:c0 + lc] = ((parts[0] + parts[2]) + (parts[1] + parts[3]))[
+            :, :, :lc].transpose(1, 2)
+        st = (torch.exp(last)[..., None] * st
+              + bc.transpose(1, 2)[:, None] @ (xc * w[..., None]))
+    return y, st
+
+
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,s,h", [(2, 128, 3), (1, 64, 2), (1, 192, 8),
+                                   (3, 64, 1)])
+def test_ssd_kernel_partition_matches_the_tpu_kernel_and_oracle(bc_dtype, n,
+                                                                 s, h):
+    """The partition above at P = Ns = 64 (the chunked kernel's shapes),
+    heads sharing B and C (float32, whose C Bᵀ the kernel forms on FMAs,
+    or bfloat16, on mma.sync), against the TPU kernel in interpret mode
+    (its layout, B and C broadcast to every head, as its wrapper takes
+    them) and both oracles, at the reference test's 3e-4; and against the
+    plain version within ``ssd_mamba2.tolerance``."""
+    x, dt, a, B, C, _ = _model_ssd(100 + s + h, n, s, h, 64, 64, n)
+    B, C = B.to(bc_dtype), C.to(bc_dtype)
+    y, sf = _emulate_chunk_kernel(x, dt, a, B, C)
+    xt = x.permute(0, 2, 1, 3).reshape(n * h, s, 64)
+    dtt = dt.permute(0, 2, 1).reshape(n * h, s)
+    at_ = a.reshape(n * h)
+    bt, ct = (t.float().repeat_interleave(h, 0).contiguous() for t in (B, C))
+    ins = [tnp(t) for t in (xt, dtt, at_, bt, ct)]
+    y_p, s_p = pallas_ssd(*map(jnp.asarray, ins), interpret=True)
+    y_r, s_r = rref.ssd_ref(*map(jnp.asarray, ins))
+    y_o, s_o = SSD.ssd_ref(xt, dtt, at_, bt, ct)
+    got_y = tnp(y.permute(0, 2, 1, 3).reshape(n * h, s, 64))
+    got_s = tnp(sf.reshape(n * h, 64, 64))
+    for want_y, want_s in ((y_p, s_p), (y_r, s_r), (tnp(y_o), tnp(s_o))):
+        _close(got_y, want_y, SSD_TOL)
+        _close(got_s, want_s, SSD_TOL)
+    want, s_want = SSD.ssd_scan_plain(x, dt, a, B, C)
+    y_lim, s_lim = SSD.tolerance(x, dt, a, B, C)
+    assert float(((y - want).abs() / y_lim).max()) <= 1.0
+    assert float(((sf - s_want).abs() / s_lim).max()) <= 1.0
+
+
+@pytest.mark.parametrize("s", [1, 2, 63, 64, 65, 127, 128, 130])
+def test_ssd_kernel_partition_from_a_state_matches_the_oracle(s):
+    """Ragged lengths (which the TPU kernel refuses) from a non-zero
+    state, a shared by two rows: the partition against the oracle at
+    3e-4 and the plain version within the limit."""
+    x, dt, a, B, C, s0 = _model_ssd(200 + s, 4, s, 2, 64, 64, 2)
+    y, sf = _emulate_chunk_kernel(x, dt, a, B, C, s0)
+    aa = a.repeat_interleave(2, 0)
+    for hh in range(2):
+        yo, so = SSD.ssd_ref(x[:, :, hh], dt[:, :, hh], aa[:, hh], B, C,
+                             s0[:, hh])
+        _close(tnp(y[:, :, hh]), tnp(yo), SSD_TOL)
+        _close(tnp(sf[:, hh]), tnp(so), SSD_TOL)
+    want, s_want = SSD.ssd_scan_plain(x, dt, a, B, C, s0)
+    y_lim, s_lim = SSD.tolerance(x, dt, a, B, C, s0)
+    assert float(((y - want).abs() / y_lim).max()) <= 1.0
+    assert float(((sf - s_want).abs() / s_lim).max()) <= 1.0
