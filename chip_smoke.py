@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's tuning loop and its serving path on one CUDA
-card, end to end.
+"""Drive the PyTorch port's tuning loop, its serving path and its training
+path on one CUDA card, end to end.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -77,7 +77,26 @@ Phases (each raises on failure; nothing is caught):
    occurrence with its own KV cache), at full width with the same
    requests, each followed by a state-carry check: float32 weights, 2
    layers, prefill(S - 1) + decode(1) against the full forward at the
-   last position, through the kernels.
+   last position, through the kernels;
+12. train llama3.2-3b at full width, cut to ``TRAIN_LAYERS`` layers (bf16,
+   AdamW, ``attn_impl="ref"``, random weights from a seeded generator):
+   (a) FSDP over p = 8 stacked data ranks, 8 x 1024 tokens from
+   ``make_batch``, 2 warm-up and 5 timed steps (median step ms, tokens/s,
+   peak memory, each step's loss, the dispatches of a step per op and
+   phase) and one step under ``torch.profiler`` (device busy share);
+   (b) record one step's gradients, ``tune_trace`` its fwd and bwd
+   phases with the measured backend (the quantized wire held out: it is
+   approximate), save and reload the per-phase profiles and take the
+   same gradients under them; (c) the same gradients with
+   ``TRAIN_FORCE`` (``fused_ring`` on the three fused ops,
+   ``allgather_as_allreduce``): ``block_matmul``, the ring and
+   ``guideline_pack`` must launch and ``fused_ring`` must serve the bwd
+   phase; (b) and (c) must match the default gradients within
+   ``TRAIN_RTOL``; (e) save a checkpoint of (a)'s state, take the next
+   step, restore the checkpoint into a fresh trainer and take the same
+   step: the same loss; (d) TP over p = 8 stacked model ranks, 2 x 1024
+   tokens, 2 steps and a forced step (``allreduce_as_rsb_allgather``
+   besides) within ``TRAIN_RTOL``.
 
 Kernel launch counts are zeroed just before phase 6 and read after each of
 phases 6-8; every kernel of the main path must have launched in the tune,
@@ -95,8 +114,11 @@ zamba2-1.2b serve, ``rwkv6_scan`` 32 x 33 times a rwkv6-3b serve (32
 ``ssd_scan`` 38 x 33 times a zamba2-1.2b serve (38 ``chunked``, 38 x 32
 ``decode``, none ``general``), and no other; flash's
 prefill launches (one per attention block) must take its ``wgmma`` path
-and its decode launches its ``split_kv`` path.  The p ranks are stacked on
-ONE card: a ring hop is a device-memory copy, so the times measure on-chip
+and its decode launches its ``split_kv`` path.  They are zeroed again just before
+the train path (phase 12) and read after it: ``block_matmul``, the ring
+and ``guideline_pack`` must have launched in its forced step; each
+row of the kernels line carries its ``train_launches``.  The p ranks are
+stacked on ONE card: a ring hop is a device-memory copy, so the times measure on-chip
 data movement and launch overhead, not a link between GPUs.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -109,6 +131,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import pathlib
 import shutil
@@ -150,6 +173,31 @@ CARRY_PROMPT, CARRY_RTOL = 1000, 1e-3
 # 57 allreduces of a forward; the JAX package holds its own two attention
 # paths to 2e-2 (tests/test_models_smoke.py:101-104)
 SERVE_RTOL = 5e-2
+# the train path (phase 12): llama3.2-3b at full width, bf16, AdamW,
+# attn_impl "ref", cut in depth only (PERF.md section 4 reckons the memory:
+# the stacked axis keeps p = 8 gathered copies of every weight a layer saves
+# for its backward).  FSDP over p = 8 data ranks stacked: 8 x 1024 tokens,
+# one sequence a rank; 2 warm-up and 5 timed steps, one profiled step.  TP
+# over p = 8 model ranks: 2 x 1024 tokens (activations replicated p times),
+# 2 steps.
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_TP_BATCH = 8, 1024, 2
+TRAIN_WARMUP, TRAIN_STEPS, TRAIN_TP_STEPS = 2, 5, 2
+# a tuned or forced step's loss and each gradient leaf against the default
+# step's, max-norm relative: p roundings of 2**-7 (one bf16 step) for a ring
+# that adds p partial sums where the default rounds once (section 2)
+TRAIN_RTOL = P * 2 ** -7
+# the measured replay of a recorded cell holds its operand on the card
+# beside the trained state; a reduce-scatter's replay is p times its
+# recorded payload (a cell's bytes are the per-rank input, which the bench
+# takes as the per-chunk payload, as the JAX package does): the embedding
+# gradient's 788 MB a rank would need 50 GB.  Cells whose replayed operand
+# passes this cap are not tuned (logged) and keep the default.
+TRAIN_REPLAY_CAP = 8e9
+TRAIN_FORCE = {"allgather_matmul": "fused_ring",
+               "matmul_reducescatter": "fused_ring",
+               "matmul_accumulate": "fused_ring",
+               "allgather": "allgather_as_allreduce"}
 
 
 def log(*a):
@@ -980,6 +1028,355 @@ def state_carry_check(torch, dev, wrappers: dict, arch: str) -> float:
     return rel
 
 
+def grads_rel_err(torch, got, want) -> tuple[float, str]:
+    """Largest max-norm relative error over gradient leaves, and the path
+    of the leaf where it is; both trees are ``{path: tensor}``."""
+    worst, where = 0.0, ""
+    for k, w in want.items():
+        den = float(w.float().abs().max())
+        err = float((got[k].float() - w.float()).abs().max())
+        err = err / den if den else err
+        if err > worst:
+            worst, where = err, k
+    return worst, where
+
+
+def dispatch_counts(rec) -> dict:
+    """``{"op phase": n}`` of a dispatch record."""
+    out: dict = {}
+    for r in rec:
+        key = f"{r.cell.op} {r.phase}"
+        out[key] = out.get(key, 0) + 1
+    return dict(sorted(out.items()))
+
+
+def footer_by_phase(rec) -> dict:
+    """The ``#@pgmpi`` picks of a record, per phase (one line per
+    distinct (op, bytes, impl))."""
+    from repro_torch.core.profiles import OP_TO_MPI
+    out: dict = {}
+    for r in rec:
+        line = (f"#@pgmpi alg {OP_TO_MPI.get(r.cell.op, r.cell.op)} "
+                f"{r.cell.nbytes} {r.impl}")
+        lines = out.setdefault(r.phase, [])
+        if line not in lines:
+            lines.append(line)
+    return out
+
+
+def train_phase(torch, dev, wrappers: dict, tag: str = "12") -> dict:
+    """Train llama3.2-3b at full width (depth ``TRAIN_LAYERS``) on the
+    card: (a) FSDP over p = 8 stacked data ranks, timed; (b) record one
+    step's gradients, ``tune_trace`` its fwd and bwd phases (measured),
+    save and reload the per-phase profiles and take the same gradients
+    under them; (c) the same gradients under ``TRAIN_FORCE``, which must
+    launch ``block_matmul``, ``agmm_ring`` and ``guideline_pack`` with
+    ``fused_ring`` dispatches in the bwd phase; (e) a checkpoint of (a)'s
+    state restored into a fresh trainer takes the next step with the
+    same loss; (d) TP over p = 8 stacked model ranks, 2 steps and a forced
+    step.  Launch counts of every kernel in ``wrappers`` are zeroed just
+    before and read just after."""
+    import tempfile
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives as C
+    from repro_torch.core import profiles, trace, tuner
+    from repro_torch.data import make_batch
+    from repro_torch.dist import ops
+    from repro_torch.models.params import tree_nbytes, tree_paths
+    from repro_torch.optim import state_specs
+    from repro_torch.train import Trainer
+    from torch.profiler import ProfilerActivity, profile
+
+    def named(tree) -> dict:
+        return dict(tree_paths(tree))
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              n_layers=TRAIN_LAYERS, attn_impl="ref")
+    out: dict = {"layers": TRAIN_LAYERS, "full_layers": get_config(
+        "llama3.2-3b").n_layers}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(wrappers)                       # the train path starts here
+    c_start = counts(wrappers)
+    bm, ring = wrappers["block_matmul"], wrappers[
+        "ring_allgather_matmul_rdma"]
+    paths0 = (dict(bm.launches_by_path), dict(ring.launches_by_path))
+    copies0 = (ops._contig.copies, ops._contig.bytes)
+
+    # -- (a) FSDP, p = 8 data ranks ----------------------------------------
+    rec: list = []
+    tr = Trainer(cfg, mesh=(P, 1), device=dev, record=rec)
+    t0 = time.perf_counter()
+    params, opt = tr.init(SEED)
+    torch.cuda.synchronize()
+    nbytes = tree_nbytes(tr.specs)
+    obytes = tree_nbytes(state_specs(cfg.optimizer, tr.specs))
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} of {out['full_layers']} "
+        f"layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV heads x "
+        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied, "
+        f"{cfg.dtype}, {cfg.optimizer}, attn_impl {cfg.attn_impl}; FSDP {P} "
+        f"stacked; params {nbytes / 1e9:.3f} GB + optimizer state "
+        f"{obytes / 1e9:.3f} GB, drawn in {time.perf_counter() - t0:.1f} s")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_a = TRAIN_WARMUP + TRAIN_STEPS + 1
+    batches = [tr.put_batch(make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, i))
+               for i in range(n_a + 1)]
+    losses, times, step_rec = [], [], None
+    for i in range(n_a):
+        if i == n_a - 1:                         # the profiled step
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                params, opt, m = tr.step(params, opt, batches[i], i)
+                losses.append(float(m["loss"]))
+                wall = (time.perf_counter() - t0) * 1e3
+            rows = [e for e in prof.key_averages() if str(getattr(
+                e, "device_type", "")).endswith("CUDA")]
+            busy = sum(e.self_device_time_total for e in rows) / 1e3
+            out["profiled_step"] = {"wall_ms": wall, "device_busy_ms": busy,
+                                    "busy_share": busy / wall,
+                                    "kernels": sum(e.count for e in rows)}
+            log(f"[{tag}a] profiled step: wall {wall:.2f} ms, device busy "
+                f"{busy:.2f} ms in {out['profiled_step']['kernels']} "
+                f"kernels = {100 * busy / wall:.1f} % busy")
+            for e in sorted(rows, key=lambda e: -e.self_device_time_total
+                            )[:8]:
+                log(f"[{tag}a]   {e.self_device_time_total / 1e3:9.3f} ms "
+                    f"x{e.count:5d} {e.key[:90]}")
+            continue
+        torch.cuda.synchronize()
+        n0 = len(rec)
+        t0 = time.perf_counter()
+        params, opt, m = tr.step(params, opt, batches[i], i)
+        losses.append(float(m["loss"]))          # waits for the step
+        dt = time.perf_counter() - t0
+        if i >= TRAIN_WARMUP:
+            times.append(dt)
+        step_rec = rec[n0:]
+        log(f"[{tag}a] step {i}: loss {losses[-1]:.6f} grad_norm "
+            f"{float(m['grad_norm']):.4f} lr {float(m['lr']):.3e} "
+            f"{dt * 1e3:.2f} ms{' (warm-up)' if i < TRAIN_WARMUP else ''}")
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"train: non-finite loss {losses}")
+    med = sorted(times)[len(times) // 2]
+    peak = torch.cuda.max_memory_allocated(dev)
+    out["fsdp"] = {"step_ms": [t * 1e3 for t in times],
+                   "median_step_ms": med * 1e3, "tokens_per_s": tokens / med,
+                   "losses": losses, "peak_bytes": peak,
+                   "dispatches": dispatch_counts(step_rec)}
+    log(f"[{tag}a] FSDP p={P}: median step {med * 1e3:.2f} ms over "
+        f"{TRAIN_STEPS} steps ({tokens / med:.0f} tokens/s), peak device "
+        f"memory {peak / 1e9:.3f} GB, losses {losses}")
+    log(f"[{tag}a] dispatches of one step (op phase: n): "
+        f"{json.dumps(out['fsdp']['dispatches'])}")
+
+    # -- (b) record -> tune_trace -> the same step under the profiles -----
+    batch = batches[n_a]
+    rec_b: list = []
+    tr.record = rec_b
+    loss0, g0 = tr.grads(params, batch)
+    g0 = named(g0)
+    # the default step against itself: the embedding's backward (an
+    # index_add in bf16 on the card) adds its rows in no fixed order
+    tr.record = []
+    _, g_again = tr.grads(params, batch)
+    err_dd, leaf_dd = grads_rel_err(torch, named(g_again), g0)
+    del g_again
+    log(f"[{tag}b] default step vs itself: gradients max-norm relative "
+        f"{err_dd:.3e} ({leaf_dd})")
+    out["default_vs_default"] = {"grad_rel_err": err_dd, "leaf": leaf_dd}
+    rtrace = trace.Trace.from_record(rec_b)
+    for ln in rtrace.summary().splitlines():
+        log(f"[{tag}b] {ln}")
+    fits, held = [], []
+    for e in rtrace.entries:
+        per_chunk = e.op in ("reducescatter", "alltoall", "scatter")
+        replay = e.nbytes * P * (P if per_chunk else 1)
+        (fits if replay <= TRAIN_REPLAY_CAP else held).append(e)
+    for e in held:
+        log(f"[{tag}b] not replayed (operand over {TRAIN_REPLAY_CAP / 1e9:.0f}"
+            f" GB): {e.phase} {e.op} {e.nbytes} B x{e.count}")
+    rtrace = trace.Trace(fits)
+    before = C.demotions()
+    t0 = time.perf_counter()
+    try:
+        # the quantized wire is approximate: out of an exact-gradient step
+        for op, impls in C.REGISTRY.items():
+            for nm, impl in impls.items():
+                if impl.wire_dtype is not None:
+                    C.demote(op, nm, "training needs exact gradients")
+        rep = tuner.tune_trace(rtrace, tuner.MeasuredBackend(P, dev,
+                                                             max_nrep=10))
+    finally:
+        C.clear_demotions()
+        for (op, nm), why in before.items():
+            C.demote(op, nm, why)
+    log(f"[{tag}b] tune_trace in {time.perf_counter() - t0:.1f} s")
+    for ln in rep.summary().splitlines():
+        log(f"[{tag}b] {ln}")
+    with tempfile.TemporaryDirectory() as tmp:
+        rep.save(pathlib.Path(tmp) / "train_profiles")
+        _, phases = profiles.resolve_stores(pathlib.Path(tmp) /
+                                            "train_profiles")
+    log(f"[{tag}b] per-phase profiles saved and reloaded: "
+        f"{ {ph: len(st) for ph, st in phases.items()} }")
+    rec_t: list = []
+    tuned = Trainer(cfg, mesh=(P, 1), device=dev, phase_profiles=phases,
+                    record=rec_t)
+    loss1, g1 = tuned.grads(params, batch)
+    err_t, leaf_t = grads_rel_err(torch, named(g1), g0)
+    lerr_t = abs(float(loss1) - float(loss0)) / abs(float(loss0))
+    del g1
+    for ph, lines in footer_by_phase(rec_t).items():
+        for ln in lines:
+            log(f"[{tag}b] tuned {ph}: {ln}")
+    log(f"[{tag}b] tuned step vs default: loss {float(loss1):.6f} vs "
+        f"{float(loss0):.6f} (rel {lerr_t:.3e}), gradients max-norm "
+        f"relative {err_t:.3e} ({leaf_t}; tolerance {TRAIN_RTOL})")
+    if not (err_t <= TRAIN_RTOL and lerr_t <= TRAIN_RTOL):
+        raise RuntimeError(f"tuned training step differs: grads {err_t}, "
+                           f"loss {lerr_t}")
+    out["tuned"] = {"grad_rel_err": err_t, "leaf": leaf_t,
+                    "loss_rel_err": lerr_t,
+                    "picks": footer_by_phase(rec_t)}
+
+    # -- (c) one forced step through the kernels ---------------------------
+    rec_c: list = []
+    forced = Trainer(cfg, mesh=(P, 1), device=dev, force=TRAIN_FORCE,
+                     record=rec_c)
+    c0, bm0 = counts(wrappers), dict(bm.launches_by_path)
+    loss2, g2 = forced.grads(params, batch)
+    torch.cuda.synchronize()
+    c1 = counts(wrappers)
+    log(f"[{tag}c] forced step: block_matmul launches by path "
+        f"{json.dumps(path_delta(bm, bm0))}")
+    need = ("block_matmul", "ring_allgather_matmul_rdma", "guideline_pack")
+    require_launched(f"{tag}c forced step", {k: c0[k] for k in need},
+                     {k: c1[k] for k in need})
+    bwd_ring = sorted({r.cell.op for r in rec_c if r.phase == "bwd"
+                       and r.impl == "fused_ring"})
+    log(f"[{tag}c] fused_ring dispatches in the bwd phase: {bwd_ring}")
+    if not bwd_ring:
+        raise RuntimeError("forced step: no fused_ring dispatch in bwd")
+    for ph, lines in footer_by_phase(rec_c).items():
+        for ln in lines:
+            log(f"[{tag}c] forced {ph}: {ln}")
+    err_f, leaf_f = grads_rel_err(torch, named(g2), g0)
+    lerr_f = abs(float(loss2) - float(loss0)) / abs(float(loss0))
+    del g2, g0
+    log(f"[{tag}c] forced step vs default: loss {float(loss2):.6f} vs "
+        f"{float(loss0):.6f} (rel {lerr_f:.3e}), gradients max-norm "
+        f"relative {err_f:.3e} ({leaf_f}; tolerance {TRAIN_RTOL})")
+    if not (err_f <= TRAIN_RTOL and lerr_f <= TRAIN_RTOL):
+        raise RuntimeError(f"forced training step differs: grads {err_f}, "
+                           f"loss {lerr_f}")
+    out["peak_bytes_a_to_c"] = torch.cuda.max_memory_allocated(dev)
+    log(f"[{tag}c] peak device memory through (a)-(c): "
+        f"{out['peak_bytes_a_to_c'] / 1e9:.3f} GB")
+    out["forced"] = {"grad_rel_err": err_f, "leaf": leaf_f,
+                     "loss_rel_err": lerr_f,
+                     "dispatches": dispatch_counts(rec_c),
+                     "bwd_fused_ring": bwd_ring}
+
+    # -- (e) checkpoint after (a), restore into a fresh trainer ------------
+    k = n_a
+    ckdir = pathlib.Path(tempfile.mkdtemp(prefix="train_ckpt_"))
+    try:
+        t0 = time.perf_counter()
+        ck.save(ckdir, k, tr.to_global(params, opt))
+        t_save = time.perf_counter() - t0
+        params, opt, m = tr.step(params, opt, batch, k)
+        loss_a = float(m["loss"])
+        del params, opt, m, tr, tuned, forced
+        torch.cuda.empty_cache()
+        fresh = Trainer(cfg, mesh=(P, 1), device=dev)
+        t0 = time.perf_counter()
+        params, opt = fresh.from_global(ck.restore(ckdir, k,
+                                                   fresh.global_specs()))
+        t_restore = time.perf_counter() - t0
+        params, opt, m = fresh.step(params, opt, batch, k)
+        loss_b = float(m["loss"])
+        size = sum(f.stat().st_size for f in ckdir.rglob("*") if f.is_file())
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"[{tag}e] checkpoint of step {k}: {size / 1e9:.3f} GB saved in "
+        f"{t_save:.1f} s, restored in {t_restore:.1f} s; next step's loss "
+        f"{loss_b:.6f} restored vs {loss_a:.6f} never stopped")
+    if loss_a != loss_b:
+        raise RuntimeError(f"restored step's loss {loss_b} != {loss_a}")
+    out["ckpt"] = {"bytes": size, "save_s": t_save, "restore_s": t_restore,
+                   "loss": loss_b}
+    del params, opt, m, fresh
+    torch.cuda.empty_cache()
+
+    # -- (d) TP, p = 8 model ranks -----------------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec_d: list = []
+    trp = Trainer(cfg, mesh=(1, P), device=dev, record=rec_d)
+    params, opt = trp.init(SEED)
+    tp_losses, tp_times = [], []
+    for i in range(TRAIN_TP_STEPS):
+        b = trp.put_batch(make_batch(cfg, TRAIN_TP_BATCH, TRAIN_SEQ, i))
+        torch.cuda.synchronize()
+        n0 = len(rec_d)
+        t0 = time.perf_counter()
+        params, opt, m = trp.step(params, opt, b, i)
+        tp_losses.append(float(m["loss"]))
+        tp_times.append(time.perf_counter() - t0)
+        tp_rec = rec_d[n0:]
+    b = trp.put_batch(make_batch(cfg, TRAIN_TP_BATCH, TRAIN_SEQ,
+                                 TRAIN_TP_STEPS))
+    if not all(map(math.isfinite, tp_losses)):
+        raise RuntimeError(f"TP train: non-finite loss {tp_losses}")
+    loss0, g0 = trp.grads(params, b)
+    g0 = named(g0)
+    tp_force = dict(TRAIN_FORCE, allreduce="allreduce_as_rsb_allgather")
+    rec_df: list = []
+    trf = Trainer(cfg, mesh=(1, P), device=dev, force=tp_force, record=rec_df)
+    loss2, g2 = trf.grads(params, b)
+    err_d, leaf_d = grads_rel_err(torch, named(g2), g0)
+    lerr_d = abs(float(loss2) - float(loss0)) / abs(float(loss0))
+    forced_bwd = sorted({(r.cell.op, r.impl) for r in rec_df
+                         if r.phase == "bwd"})
+    peak_tp = torch.cuda.max_memory_allocated(dev)
+    log(f"[{tag}d] TP p={P}: {TRAIN_TP_BATCH} x {TRAIN_SEQ} tokens, steps "
+        f"{[f'{t * 1e3:.2f} ms' for t in tp_times]}, losses {tp_losses}, "
+        f"peak device memory {peak_tp / 1e9:.3f} GB")
+    log(f"[{tag}d] dispatches of one step (op phase: n): "
+        f"{json.dumps(dispatch_counts(tp_rec))}")
+    log(f"[{tag}d] forced step ({forced_bwd} in bwd) vs default: loss rel "
+        f"{lerr_d:.3e}, gradients max-norm relative {err_d:.3e} "
+        f"({leaf_d}; tolerance {TRAIN_RTOL})")
+    if ("allreduce", "allreduce_as_rsb_allgather") not in forced_bwd:
+        raise RuntimeError("TP forced step: the forced allreduce did not "
+                           "serve the bwd phase")
+    if not (err_d <= TRAIN_RTOL and lerr_d <= TRAIN_RTOL):
+        raise RuntimeError(f"TP forced step differs: grads {err_d}, loss "
+                           f"{lerr_d}")
+    out["tp"] = {"step_ms": [t * 1e3 for t in tp_times],
+                 "losses": tp_losses, "peak_bytes": peak_tp,
+                 "dispatches": dispatch_counts(tp_rec),
+                 "forced_grad_rel_err": err_d}
+    del params, opt, g0, g2, trp, trf
+    torch.cuda.empty_cache()
+
+    c_end = counts(wrappers)
+    out["launches"] = {k: c_end[k] - c_start[k] for k in c_end}
+    out["paths"] = {"block_matmul": path_delta(bm, paths0[0]),
+                    "ring_allgather_matmul_rdma": path_delta(ring, paths0[1])}
+    out["contig_copies"] = {"n": ops._contig.copies - copies0[0],
+                            "bytes": ops._contig.bytes - copies0[1]}
+    log(f"[train path] kernel launches: {json.dumps(out['launches'])}")
+    log(f"[train path] launches by path: {json.dumps(out['paths'])}; "
+        f"operands copied contiguous in dist.ops: "
+        f"{json.dumps(out['contig_copies'])}")
+    log(f"[{tag}] train phase in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def block(api, axis, torch, x, wv, wo, wgu, wd):
     """One llama3.2-3b sequence-parallel block on stacked ranks.
 
@@ -1732,13 +2129,18 @@ def main(argv=None) -> int:
         report["ssm_serve"][arch] = got
         kernels[scan]["launches"] = got["launches"][scan]
         kernels[scan]["main_path"] = True
+
+    # -- 12. the train path: llama3.2-3b, FSDP and TP ----------------------
+    report["train"] = train_phase(torch, dev, every)
+    for k, v in report["train"]["launches"].items():
+        kernels[k]["train_launches"] = v
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     (out_dir / "report.json").write_text(json.dumps(report, indent=1))
     log(f"[done] {report['seconds']:.1f} s")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "main_path")
+             "main_path", "train_launches")
     print(json.dumps({"kernels": [{k: kernels[n][k] for k in order}
                                   for n in ("guideline_pack", "block_matmul",
                                             "ring_allgather_matmul_rdma",

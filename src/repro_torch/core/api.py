@@ -75,6 +75,27 @@ def _ctx() -> TuneContext | None:
     return getattr(_TLS, "ctx", None)
 
 
+def current_context() -> TuneContext | None:
+    """The context opened by the innermost ``tuned`` of this thread."""
+    return _ctx()
+
+
+@contextlib.contextmanager
+def within(ctx: TuneContext | None):
+    """Dispatch the calls inside under ``ctx``, a context that ``tuned``
+    opened, possibly on another thread.  Autograd runs the backward of
+    CUDA tensors on a thread of its own, where this thread's context is
+    not active; ``dist.ops`` keeps each forward's context and issues its
+    backward collectives within it, so they are tuned and recorded as the
+    forward's are."""
+    prev = _ctx()
+    _TLS.ctx = ctx
+    try:
+        yield ctx
+    finally:
+        _TLS.ctx = prev
+
+
 def current_phase() -> str:
     """The active workload phase tag (see ``phase``); default ``"fwd"``."""
     return getattr(_TLS, "phase", DEFAULT_PHASE)

@@ -19,8 +19,17 @@ the port binds names to axis objects explicitly, per thread::
 
 ``has_axis``/``axis_size_or_1``/``axis_index`` answer from the innermost
 binding.  An unbound axis makes every ``dist.ops`` primitive over it
-degrade to its local meaning, as in the JAX package.  In this slice only
-``model`` is ever bound: ``data`` and ``pod`` need a second axis.
+degrade to its local meaning, as in the JAX package.
+
+The stacked dim 0 of every tensor is ONE axis, so the model code runs
+with one name bound: ``model`` (tensor parallelism: every rank sees the
+whole batch; the serve path and the trainer's TP layout) or ``data``
+(FSDP: every rank holds its ZeRO-3 shards and its own slice of the
+batch; the trainer's FSDP layout).  Binding both names at once is a
+lookup table only: the ops that need the two axes together
+(``matmul_reducescatter_2d``) raise ``NotImplementedError``, and so do
+the trainer and the train CLI when asked for both (ROADMAP.md, queue 1,
+item 3).  ``pod`` is never bound.
 """
 from __future__ import annotations
 

@@ -259,6 +259,12 @@ def attention(p: dict, cfg: ModelConfig, x, *, pos, kind: str = "causal",
         kv_start = start
 
     if cfg.attn_impl == "flash":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k_loc, v_loc)):
+            raise NotImplementedError(
+                "attn_impl='flash' has no backward (the Hopper kernel, like "
+                "its TPU original, is forward only); train with "
+                "attn_impl='ref'")
         if kv_valid is not None:
             # only the filled slots (a view): the replicated-kv branch
             # copies the heads it selects

@@ -77,21 +77,36 @@ def head_specs(d_model: int, vocab_padded: int, dtype: str):
                            dtype=dtype)}
 
 
+def rank_ids(ids: torch.Tensor) -> torch.Tensor:
+    """Token ids as a stacked tensor: ``[B, S]`` ids that every rank sees
+    become ``[1, B, S]`` (broadcast over the ranks); where the data axis
+    is bound each rank holds its own slice of the batch and the ids are
+    already ``[p, B/p, S]``."""
+    return ids if has_axis(AXES.data) else ids.unsqueeze(0)
+
+
+def _vocab_offsets(p: int, v_t: int, device) -> torch.Tensor:
+    """Each rank's first vocab id, ``axis_index(model) * V_t``: ``[p]``."""
+    if has_axis(AXES.model):
+        return axis_index(AXES.model) * v_t
+    return torch.zeros(p, dtype=torch.int64, device=device)
+
+
 def embed_lookup(params, tokens: torch.Tensor, *, scale: float | None = None):
-    """tokens: ``[B, S]`` global ids, the same on every rank; the table
-    ``[p, V_t, D]`` is vocab-sharded over the model axis.  Each rank looks
-    up the ids in its own vocab block (offset ``axis_index * V_t``), zeroes
-    the rest, and the partial embeddings are summed over the axis."""
+    """tokens: ``[B, S]`` global ids, the same on every rank (or each
+    rank's own ``[p, B/p, S]`` under the data axis, ``rank_ids``); the
+    table ``[p, V_t, D]`` is vocab-sharded over the model axis.  Each rank
+    looks up the ids in its own vocab block (offset ``axis_index * V_t``),
+    zeroes the rest, and the partial embeddings are summed over the
+    axis."""
     table = ops.fsdp_gather(params["table"], 1)        # [p, V_t, D]
     p, v_t, d = table.shape
-    if has_axis(AXES.model):
-        t_idx = axis_index(AXES.model)
-    else:
-        t_idx = torch.zeros(p, dtype=torch.int64, device=table.device)
-    local = tokens.unsqueeze(0) - (t_idx * v_t).view(p, *[1] * tokens.dim())
+    ids = rank_ids(tokens)
+    lead = [1] * (ids.dim() - 1)
+    local = ids - _vocab_offsets(p, v_t, table.device).view(p, *lead)
     ok = (local >= 0) & (local < v_t)
     rows = local.clamp(0, v_t - 1) + (torch.arange(
-        p, device=table.device) * v_t).view(p, *[1] * tokens.dim())
+        p, device=table.device) * v_t).view(p, *lead)
     emb = table.reshape(p * v_t, d).index_select(0, rows.reshape(-1))
     emb = emb.view(*local.shape, d).masked_fill(~ok[..., None], 0)
     emb = ops.tp_allreduce(emb)
@@ -113,3 +128,41 @@ def lm_logits(params, x, head_params=None, *, final_softcap=None):
     if final_softcap:
         logits = torch.tanh(logits / final_softcap) * final_softcap
     return logits
+
+
+def sharded_xent(logits, labels, mask=None):
+    """Cross-entropy with the vocab dim sharded over TP.
+
+    logits: ``[p, B, S, V_t]`` float32; labels: ``[B, S]`` global ids (or
+    per rank, ``rank_ids``); mask: like labels.  Returns each rank's mean
+    NLL over the unmasked tokens of its batch, ``[p]`` (the caller
+    averages over the data axis).  The max over the vocab shards is taken
+    over the stacked dim with no gradient, as the JAX package's
+    ``lax.pmax`` of a stopped value (undispatched there too); logsumexp
+    does not depend on it."""
+    p, v_t = logits.shape[0], logits.shape[-1]
+    with torch.no_grad():
+        m = logits.amax(-1)
+        if has_axis(AXES.model):
+            m = m.amax(0, keepdim=True).expand_as(m)
+    se = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+    se = ops.tp_allreduce(se)
+    logz = torch.log(se) + m
+    ids = rank_ids(labels)
+    local = ids - _vocab_offsets(p, v_t, logits.device).view(
+        p, *[1] * (ids.dim() - 1))
+    ok = (local >= 0) & (local < v_t)
+    tgt = torch.gather(logits, -1, local.clamp(0, v_t - 1)[..., None].to(
+        torch.int64))[..., 0]
+    tgt = torch.where(ok, tgt, torch.zeros((), dtype=tgt.dtype,
+                                           device=tgt.device))
+    tgt = ops.tp_allreduce(tgt)
+    nll = logz - tgt
+    dims = tuple(range(1, nll.dim()))
+    if mask is not None:
+        nll = nll * rank_ids(mask)
+        denom = torch.clamp(torch.sum(rank_ids(mask).expand_as(nll).float(),
+                                      dim=dims), min=1.0)
+    else:
+        denom = float(nll[0].numel())
+    return torch.sum(nll, dim=dims) / denom

@@ -8,11 +8,12 @@ shared, after every ``hybrid_period`` of them).  The other families raise
 ``NotImplementedError`` naming the kind: ``mla``, ``moe``, ``encdec`` and
 ``vlm`` come with later slices.
 
-Every function runs inside ``dist.axes.bind(model=axis)``: tensors carry
-the rank dim first (``[p, B, S, ...]``), tokens are ``[B, S]`` ids that
-every rank sees.  Layers run in a Python loop; a scanned group of the
-JAX package (``stack_plan``) is a list of per-layer parameter subtrees
-here (``models.params``).
+Every function runs inside ``dist.axes.bind(model=axis)`` (or, for
+training, ``bind(data=axis)``): tensors carry the rank dim first
+(``[p, B, S, ...]``); tokens are ``[B, S]`` ids that every rank sees, or
+under the data axis each rank's own ``[p, B/p, S]`` slice.  Layers run
+in a Python loop; a scanned group of the JAX package (``stack_plan``) is
+a list of per-layer parameter subtrees here (``models.params``).
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from repro_torch.models import ssm
 from repro_torch.models.attention import attention, attn_specs
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed_lookup, embed_specs, head_specs,
-                                       lm_logits, mlp, mlp_specs, rms_norm)
+                                       lm_logits, mlp, mlp_specs, rms_norm,
+                                       sharded_xent)
 from repro_torch.models.params import ParamSpec, torch_dtype, tree_map_specs
 
 
@@ -315,6 +317,17 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "train",
                        params.get("head") if not cfg.tie_embeddings else None,
                        final_softcap=cfg.final_softcap)
     return logits, new_caches, 0.0
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Next-token cross-entropy: ``(loss [p], {"nll", "aux"})``, each
+    rank's mean over its tokens (aux is 0: no ported block has an
+    auxiliary loss)."""
+    logits, _, aux = forward(params, cfg, batch, mode="train")
+    mask = batch.get("mask")
+    loss = sharded_xent(logits[:, :, :-1], batch["labels"][..., 1:],
+                        None if mask is None else mask[..., 1:])
+    return loss + 0.01 * aux, {"nll": loss, "aux": aux}
 
 
 def prefill(params, cfg: ModelConfig, batch, caches):

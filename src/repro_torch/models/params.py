@@ -4,8 +4,9 @@ Each leaf is a ``ParamSpec`` with a GLOBAL shape and per-dim axis
 assignment ("model" = TP, "data" = FSDP/ZeRO-3, None = replicated), as in
 the JAX package.  On the stacked axis a parameter is one tensor
 ``[p, *local_shape]``: rank r's shard at index r, where ``local_shape``
-divides every "model" dim by p.  "data" stays unbound in this slice, so
-its dims keep their full size.
+divides every dim assigned to the BOUND axis name by p (``name``:
+"model" for the serve path and the trainer's TP layout, "data" for its
+FSDP layout); dims assigned to the other name keep their full size.
 
 The JAX package groups repeated layers into ``lax.scan`` groups whose
 leaves carry a leading ``n_rep`` dim.  The port runs layers in a Python
@@ -16,6 +17,7 @@ package's stacked leaves into it).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -49,6 +51,13 @@ class ParamSpec:
         return tuple(out)
 
 
+def stacked(n: int, spec: ParamSpec) -> ParamSpec:
+    """Prepend a scan-stack dimension (replicated): the JAX package's
+    layout of a scanned group's leaf, which checkpoints keep."""
+    return ParamSpec((n,) + spec.shape, (None,) + spec.dims, spec.init,
+                     spec.scale, spec.dtype)
+
+
 def tree_map_specs(fn, tree: Tree):
     """Apply ``fn`` to every ``ParamSpec`` leaf of nested dicts and lists."""
     if isinstance(tree, ParamSpec):
@@ -60,51 +69,105 @@ def tree_map_specs(fn, tree: Tree):
     raise TypeError(f"not a spec tree node: {type(tree).__name__}")
 
 
+def tree_leaves(tree: Tree) -> list:
+    """The leaves of nested dicts and lists, in insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_paths(tree: Tree, prefix: tuple = ()):
+    """``(path, leaf)`` of nested dicts and lists, the path's keys (and
+    list indices) joined by "/" and dict keys in sorted order: the JAX
+    package's checkpoint keys."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_paths(tree[k], prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_paths(v, prefix + (str(i),))
+    else:
+        yield "/".join(prefix), tree
+
+
+def tree_unflatten(like: Tree, leaves) -> Tree:
+    """Rebuild ``like``'s structure from ``leaves`` (``tree_leaves``
+    order)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [build(v) for v in node]
+        return next(it)
+    return build(like)
+
+
+def tree_nbytes(tree: Tree) -> int:
+    """Bytes of a spec tree at its global shapes."""
+    return sum(math.prod(s.shape) * torch_dtype(s.dtype).itemsize
+               for s in tree_leaves(tree))
+
+
 def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def shard(full: torch.Tensor, spec: ParamSpec, axis: StackedAxis
-          ) -> torch.Tensor:
-    """A global leaf -> its stacked shards ``[p, *local_shape]``: every
-    "model" dim cut into p blocks in rank order; other dims replicated."""
+def shard(full: torch.Tensor, spec: ParamSpec, axis: StackedAxis,
+          name: str = "model") -> torch.Tensor:
+    """A global leaf -> its stacked shards ``[p, *local_shape]``: the dim
+    assigned to ``name`` cut into p blocks in rank order; a leaf with no
+    such dim replicated."""
     p = axis.size
     for i, d in enumerate(spec.dims):
-        if d == "model":
+        if d == name:
             s = full.shape[i]
             if s % p:
-                raise ValueError(f"dim {s} not divisible by model={p}")
+                raise ValueError(f"dim {s} not divisible by {name}={p}")
             return full.unflatten(i, (p, s // p)).movedim(i, 0).contiguous()
     return full.unsqueeze(0).expand((p,) + tuple(full.shape)).contiguous()
 
 
+def unshard(t: torch.Tensor, spec: ParamSpec, name: str = "model"
+            ) -> torch.Tensor:
+    """Stacked shards ``[p, *local_shape]`` -> the global leaf (the
+    inverse of ``shard``; a replicated leaf is rank 0's copy)."""
+    for i, d in enumerate(spec.dims):
+        if d == name:
+            return t.movedim(0, i).flatten(i, i + 1)
+    return t[0]
+
+
 def _init_leaf(spec: ParamSpec, generator: torch.Generator,
-               axis: StackedAxis) -> torch.Tensor:
+               axis: StackedAxis, name: str) -> torch.Tensor:
     dt = torch_dtype(spec.dtype)
-    if spec.init == "zeros":
-        return torch.zeros((axis.size,) + spec.local_shape(
-            {"model": axis.size}), dtype=dt, device=axis.device)
-    if spec.init == "ones":
-        return torch.ones((axis.size,) + spec.local_shape(
-            {"model": axis.size}), dtype=dt, device=axis.device)
+    if spec.init in ("zeros", "ones"):
+        fill = torch.zeros if spec.init == "zeros" else torch.ones
+        return fill((axis.size,) + spec.local_shape({name: axis.size}),
+                    dtype=dt, device=axis.device)
     if spec.init != "normal":
         raise ValueError(f"unknown init {spec.init!r}")
     fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
     std = spec.scale if spec.scale is not None else fan_in ** -0.5
     full = torch.randn(spec.shape, generator=generator, device=axis.device,
                        dtype=torch.float32).mul_(std).to(dt)
-    return shard(full, spec, axis)
+    return shard(full, spec, axis, name)
 
 
-def init_tree(tree: Tree, generator: torch.Generator, axis: StackedAxis):
+def init_tree(tree: Tree, generator: torch.Generator, axis: StackedAxis,
+              name: str = "model"):
     """Random stacked parameters for a spec tree, drawn from
     ``generator`` on the axis device with the JAX package's init kinds
     (``normal`` with ``scale`` or ``fan_in ** -0.5``, ``zeros``,
     ``ones``).  Each leaf is drawn at its global shape and cut into the
-    ranks' shards, so a replicated leaf is the same on every rank and the
-    model does not depend on p.  The generator must live on the axis
-    device."""
-    return tree_map_specs(lambda s: _init_leaf(s, generator, axis), tree)
+    ranks' shards along the dims assigned to ``name``, so a replicated
+    leaf is the same on every rank and the model does not depend on p.
+    The generator must live on the axis device."""
+    return tree_map_specs(lambda s: _init_leaf(s, generator, axis, name),
+                          tree)
 
 
 def to_torch(a) -> torch.Tensor:
@@ -115,29 +178,55 @@ def to_torch(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def from_reference(np_tree, specs: Tree, axis: StackedAxis):
-    """The JAX package's GLOBAL parameter tree (its ``init_tree`` outside
-    any mesh, each leaf mapped through ``np.asarray``) -> the port's
-    stacked tensors for ``specs`` (``lm.model_specs(cfg, axis.size)``).
+def from_reference(np_tree, specs: Tree, axis: StackedAxis,
+                   name: str = "model"):
+    """The JAX package's GLOBAL tree (its ``init_tree`` outside any mesh,
+    each leaf mapped through ``np.asarray``, or a checkpoint's arrays) ->
+    the port's stacked tensors for ``specs`` (``lm.model_specs(cfg,
+    tp)``).
 
     A list node of ``specs`` is a scanned group: its i-th layer takes
-    index i of the reference leaves' leading ``n_rep`` dim.  Every "model"
-    dim is cut into p shards; bfloat16 bits are carried exactly."""
+    index i of the reference leaves' leading ``n_rep`` dim.  Every dim
+    assigned to ``name`` is cut into p shards; bfloat16 bits are carried
+    exactly."""
     if isinstance(specs, ParamSpec):
-        full = to_torch(np_tree)
+        full = np_tree if isinstance(np_tree, torch.Tensor) else \
+            to_torch(np_tree)
         if tuple(full.shape) != tuple(specs.shape):
             raise ValueError(f"reference leaf {tuple(full.shape)} != spec "
                              f"{specs.shape}")
         return shard(full.to(torch_dtype(specs.dtype)).to(axis.device),
-                     specs, axis)
+                     specs, axis, name)
     if isinstance(specs, list):
-        return [from_reference(_take(np_tree, i), s, axis)
+        return [from_reference(_take(np_tree, i), s, axis, name)
                 for i, s in enumerate(specs)]
-    return {k: from_reference(np_tree[k], v, axis) for k, v in specs.items()}
+    return {k: from_reference(np_tree[k], v, axis, name)
+            for k, v in specs.items()}
+
+
+def to_reference(tree: Tree, specs: Tree, name: str = "model"):
+    """The inverse of ``from_reference``: stacked tensors -> the JAX
+    package's GLOBAL layout as CPU tensors, a list node (scanned group)
+    stacked along a new leading ``n_rep`` dim.  Each leaf is moved to the
+    host before its shards are joined."""
+    if isinstance(specs, ParamSpec):
+        return unshard(tree.detach().cpu(), specs, name).contiguous()
+    if isinstance(specs, list):
+        layers = [to_reference(t, s, name) for t, s in zip(tree, specs)]
+        return _stack(layers)
+    return {k: to_reference(tree[k], v, name) for k, v in specs.items()}
+
+
+def _stack(layers: list):
+    if isinstance(layers[0], dict):
+        return {k: _stack([d[k] for d in layers]) for k in layers[0]}
+    return torch.stack(layers)
 
 
 def _take(tree, i: int):
     """Index i of the leading dim of every leaf of a nested dict."""
     if isinstance(tree, dict):
         return {k: _take(v, i) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
     return np.asarray(tree)[i]

@@ -41,6 +41,15 @@ from repro_torch.models.params import ParamSpec
 # ===========================================================================
 
 
+
+def _forward_only(kernel: str, *ts: torch.Tensor) -> None:
+    """The scans have no backward (the Hopper kernels, like their TPU
+    originals, are forward only): refuse to train through one rather than
+    differentiate its plain version quietly."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(f"{kernel} has no backward; the SSM "
+                                  "blocks serve only")
+
 def rwkv_heads_padded(cfg: ModelConfig, tp: int) -> int:
     h = cfg.d_model // cfg.ssm.head_dim
     return -(-h // tp) * tp
@@ -121,6 +130,7 @@ def rwkv_block(p: dict, cfg: ModelConfig, x, *, state=None):
     w = torch.exp(-torch.exp(dec_raw))                # (0, 1), per channel
 
     s_state = state["s"].view(n, h_loc, hd, hd) if state else None
+    _forward_only("rwkv6_scan", r, k, v, w)
     y, _ = rwkv6_scan(r.reshape(n, s, h_loc, hd), k.reshape(n, s, h_loc, hd),
                       v.reshape(n, s, h_loc, hd), w.reshape(n, s, h_loc, hd),
                       p["u"].float().reshape(np_, h_loc, hd), s_state,
@@ -236,6 +246,7 @@ def mamba_block(p: dict, cfg: ModelConfig, x, *, state=None):
     xh = xin.reshape(n, s, h_loc, c.head_dim)
     s_state = state["s"].view(n, h_loc, n_st, c.head_dim) if state else None
     # B and C go in as views of the conv output, shared by a row's heads
+    _forward_only("ssd_scan", xh, dt, bc)
     y, _ = ssd_scan(xh, dt.reshape(n, s, h_loc), a,
                     bc[..., :n_st].reshape(n, s, n_st),
                     bc[..., n_st:].reshape(n, s, n_st), s_state,

@@ -1392,3 +1392,53 @@ def test_ssd_kernels_read_nothing_beyond_s(cuda, dtype, s):
         "decode" if s == 1 else "chunked": 1}
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# the backward through the fused rings (dist.ops' autograd Functions)
+# ---------------------------------------------------------------------------
+
+
+@needs_cuda
+@pytest.mark.parametrize("op", ["col_matmul_fsdp0", "row_matmul_fsdp1"])
+def test_forced_ring_gradients_match_the_default_on_the_card(cuda, op):
+    """One forward and backward of an FSDP matmul over p = 4 stacked data
+    ranks, bf16, with the fused rings forced against the defaults: the
+    backward's matmul_reducescatter runs ``block_matmul`` on the card
+    (its launch count rises during the backward, which autograd runs on
+    its own thread) and is recorded under ``bwd``.  Gradients within p
+    rounding steps (``p * 2**-7``) of their magnitude."""
+    from repro_torch.dist import axes, ops
+    p = 4
+    g = torch.Generator(device="cpu").manual_seed(19)
+    if op == "col_matmul_fsdp0":     # x [.., K=256], w [K/p, 128]
+        x = torch.randn(p, 2, 64, 256, generator=g)
+        w = torch.randn(p, 64, 128, generator=g) * 0.1
+        fn = lambda a, b: ops.col_matmul(a, b, fsdp_dim=0)     # noqa: E731
+    else:                            # x [.., K=128], w [K, M/p=64]
+        x = torch.randn(p, 2, 64, 128, generator=g)
+        w = torch.randn(p, 128, 64, generator=g) * 0.1
+        fn = lambda a, b: ops.row_matmul(a, b, fsdp_dim=1)     # noqa: E731
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    force = {"allgather_matmul": "fused_ring",
+             "matmul_reducescatter": "fused_ring",
+             "matmul_accumulate": "fused_ring"}
+    out = {}
+    for label, f in (("default", None), ("forced", force)):
+        xt = x.to(cuda).requires_grad_(True)
+        wt = w.to(cuda).requires_grad_(True)
+        with axes.bind(data=StackedAxis(p, cuda)), api.tuned(
+                force=f or {}) as ctx:
+            y = fn(xt, wt)
+            before = cmm.block_matmul.launches
+            (y.float() * 0.01).sum().backward()
+            torch.cuda.synchronize()
+            launched = cmm.block_matmul.launches - before
+        out[label] = (y.detach().float(), xt.grad.float(), wt.grad.float(),
+                      launched, [(r.cell.op, r.impl, r.phase)
+                                 for r in ctx.record])
+    assert out["default"][3] == 0 and out["forced"][3] > 0
+    assert ("matmul_reducescatter", "fused_ring", "bwd") in out["forced"][4]
+    for a, b in zip(out["forced"][:3], out["default"][:3]):
+        assert float((a - b).abs().max()) <= p * 2 ** -7 * float(
+            b.abs().max())
