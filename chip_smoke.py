@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's tuning loop, its serving path and its training
-path on one CUDA card, end to end.
+paths (one stacked axis, and a data x model mesh) on one CUDA card, end to
+end.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -34,7 +35,9 @@ Phases (each raises on failure; nothing is caught):
    flash's times both as the events mean over back-to-back calls (each
    ring call reads the error words back, a host round trip; a decode call
    is shorter than its host time) and as the kernel's device time from
-   ``torch.profiler``, which is their ``ms`` in the kernels line; the
+   ``torch.profiler``, which is their ``ms`` in the kernels line;
+   ``block_matmul`` also at the 2-D ring's chunk shapes of phase 13
+   (forward and transpose, at w_o and MLP-down, all on ``wgmma``); the
    two scans (``rwkv6_scan``, ``ssd_scan``) at the SSM serves' prefill
    and decode (S = 1 from a non-zero state), the TPU kernels' test cases
    (with the strong decay) and ragged lengths, held to their elementwise
@@ -44,8 +47,10 @@ Phases (each raises on failure; nothing is caught):
    its decode on its ``decode`` path (also in place), and ``ssd_scan`` at
    the TPU kernel's shapes on its ``general`` path, each call's path
    printed;
-4. ``selfcheck`` of every impl (59) at p = 8 and p = 6, with the wire
-   tolerance gate's demotions;
+4. ``selfcheck`` of every one-axis impl (59) at p = 8 and p = 6, with
+   the wire tolerance gate's demotions, and its two-axis run on a (2, 4)
+   stacked mesh: every one-axis impl on each axis, the ``MPIX_*`` impls
+   and both 2-D impls in both directions, all 64 impls;
 5. fit an ``h100-stacked`` Topo from ``sweep_axis`` (alpha, beta, gamma),
    with ``quant_bw`` from quant_pack's phase-3 rate;
 6. ``tune()`` with the measured backend at p = 8 over the flat ops, and the
@@ -60,7 +65,11 @@ Phases (each raises on failure; nothing is caught):
    ``fused_ring`` impls, ``wire_q8`` on the allgather and ``wire_fp8`` on
    the gate/up allgather-matmul once, so every kernel runs whatever the
    tuner picked; print ``fused_ring`` against ``default`` at the gate/up
-   cell and the impl ``tune_trace`` picked there;
+   cell and the impl ``tune_trace`` picked there; then, after the main
+   path's counts, the two-axis cells of phase 13 on the (2, 4) mesh, each
+   impl the median of NREP samples: the 2-D cells of w_o and MLP-down,
+   forward and transpose, ``fused_ring2d`` against ``default``, and one
+   hierarchical cell per op, ``MPIX_*`` against ``default``;
 9. ``torch.profiler`` over one call of the allgather and matmul_accumulate
    impls at the block's shapes: host time, and device time by kernel;
 10. serve llama3.2-3b at full width (28 layers, TP p = 8 stacked on the
@@ -96,7 +105,17 @@ Phases (each raises on failure; nothing is caught):
    step, restore the checkpoint into a fresh trainer and take the same
    step: the same loss; (d) TP over p = 8 stacked model ranks, 2 x 1024
    tokens, 2 steps and a forced step (``allreduce_as_rsb_allgather``
-   besides) within ``TRAIN_RTOL``.
+   besides) within ``TRAIN_RTOL``;
+13. train the same model on the (data 2, model 4) mesh stacked on the
+   card, 2 x 1024 tokens a data rank: (a) the default step (median of 5
+   after 2 warm-up, tokens/s, peak memory, device busy share, dispatches
+   by op and phase); (b) ``tune_trace`` of one step's fwd and bwd phases
+   (measured, every cell at its own world), the per-phase profiles saved,
+   reloaded and trained on; (c) a forced step (``MESH_FORCE``:
+   ``fused_ring2d`` both directions and the 1-D fused rings) and the
+   standalone 2-D pair at w_o, whose dx runs the ring; (b) and (c) within
+   ``TRAIN_RTOL`` of the default gradients; (d) a checkpoint of (a)'s
+   state restored into a fresh trainer gives the same loss bit for bit.
 
 Kernel launch counts are zeroed just before phase 6 and read after each of
 phases 6-8; every kernel of the main path must have launched in the tune,
@@ -117,9 +136,14 @@ prefill launches (one per attention block) must take its ``wgmma`` path
 and its decode launches its ``split_kv`` path.  They are zeroed again just before
 the train path (phase 12) and read after it: ``block_matmul``, the ring
 and ``guideline_pack`` must have launched in its forced step; each
-row of the kernels line carries its ``train_launches``.  The p ranks are
-stacked on ONE card: a ring hop is a device-memory copy, so the times measure on-chip
-data movement and launch overhead, not a link between GPUs.
+row of the kernels line carries its ``train_launches``.  They are zeroed
+again just before the mesh train path (phase 13) and read after it:
+``block_matmul`` (all ``wgmma``) and ``guideline_pack`` must have
+launched in its forced step, and ``block_matmul`` and the ring in the
+standalone 2-D pair; each row carries its ``mesh_train_launches``.  The
+ranks are stacked on ONE card: a ring hop is a device-memory copy, so
+the times measure on-chip data movement and launch overhead, not a link
+between GPUs, and both tiers of a two-axis mesh are the same memory.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
@@ -198,6 +222,17 @@ TRAIN_FORCE = {"allgather_matmul": "fused_ring",
                "matmul_reducescatter": "fused_ring",
                "matmul_accumulate": "fused_ring",
                "allgather": "allgather_as_allreduce"}
+# the data x model train path (phase 13): the (data 2, model 4) mesh
+# stacked on the card, 2 x 1024 tokens a data rank (4 x 1024 a step), the
+# same depth, dtype and optimizer as phase 12; the forced step adds the 2-D
+# ring (both directions) to TRAIN_FORCE.  The row-parallel sites (w_o, the
+# MLP's w_out) run matmul_reducescatter_2d: x [T, K] a lane, T = 2048,
+# against its weight block [K, D_MODEL / 2], K = 768 (w_o) or 2048
+MESH_D, MESH_Q = 2, 4
+MESH_BATCH = 4
+MESH_T = MESH_BATCH // MESH_D * TRAIN_SEQ
+MESH_FORCE = dict(TRAIN_FORCE, matmul_reducescatter_2d="fused_ring2d")
+MESH_SITES = {"w_o": HEADS * HEAD_DIM // MESH_Q, "mlp-down": D_FF // MESH_Q}
 
 
 def log(*a):
@@ -1064,6 +1099,135 @@ def footer_by_phase(rec) -> dict:
     return out
 
 
+def timed_steps(torch, tr, params, opt, batches, tag: str):
+    """``TRAIN_WARMUP`` warm-up and ``TRAIN_STEPS`` timed steps of ``tr``,
+    then one step under ``torch.profiler`` (device busy share, the top
+    kernels): ``(params, opt, losses, times, step_rec, profiled)``, with
+    ``step_rec`` the dispatches of the last timed step."""
+    from torch.profiler import ProfilerActivity, profile
+    losses, times, step_rec = [], [], None
+    n_a = TRAIN_WARMUP + TRAIN_STEPS + 1
+    for i in range(n_a - 1):
+        torch.cuda.synchronize()
+        n0 = len(tr.record)
+        t0 = time.perf_counter()
+        params, opt, m = tr.step(params, opt, batches[i], i)
+        losses.append(float(m["loss"]))          # waits for the step
+        dt = time.perf_counter() - t0
+        if i >= TRAIN_WARMUP:
+            times.append(dt)
+        step_rec = tr.record[n0:]
+        log(f"[{tag}a] step {i}: loss {losses[-1]:.6f} grad_norm "
+            f"{float(m['grad_norm']):.4f} lr {float(m['lr']):.3e} "
+            f"{dt * 1e3:.2f} ms{' (warm-up)' if i < TRAIN_WARMUP else ''}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, m = tr.step(params, opt, batches[n_a - 1], n_a - 1)
+        losses.append(float(m["loss"]))
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if str(getattr(
+        e, "device_type", "")).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    profiled = {"wall_ms": wall, "device_busy_ms": busy,
+                "busy_share": busy / wall,
+                "kernels": sum(e.count for e in rows)}
+    log(f"[{tag}a] profiled step: wall {wall:.2f} ms, device busy "
+        f"{busy:.2f} ms in {profiled['kernels']} kernels = "
+        f"{100 * busy / wall:.1f} % busy")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[{tag}a]   {e.self_device_time_total / 1e3:9.3f} ms "
+            f"x{e.count:5d} {e.key[:90]}")
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"[{tag}] non-finite loss {losses}")
+    return params, opt, losses, times, step_rec, profiled
+
+
+def retune_step(torch, tr, params, batch, backend, tag: str, **trainer_kw):
+    """(b) of the train phases: record one step's gradients (and take them
+    again: the default's own run-to-run difference), ``tune_trace`` the
+    trace's fwd and bwd phases on ``backend`` (cells whose replay passes
+    ``TRAIN_REPLAY_CAP`` held out, the quantized wire demoted: it is
+    approximate), save and reload the per-phase profiles, and take the
+    same gradients under them, within ``TRAIN_RTOL`` of the default's.
+    Returns ``(report, loss0, g0)`` with the default's loss and named
+    gradients."""
+    import tempfile
+    from repro_torch.core import collectives as C
+    from repro_torch.core import profiles, trace, tuner
+    from repro_torch.models.params import tree_paths
+    from repro_torch.train import Trainer
+
+    rec_b: list = []
+    tr.record = rec_b
+    loss0, g0 = tr.grads(params, batch)
+    g0 = dict(tree_paths(g0))
+    # the default step against itself: the embedding's backward (an
+    # index_add in bf16 on the card) adds its rows in no fixed order
+    tr.record = []
+    _, g_again = tr.grads(params, batch)
+    err_dd, leaf_dd = grads_rel_err(torch, dict(tree_paths(g_again)), g0)
+    del g_again
+    log(f"[{tag}b] default step vs itself: gradients max-norm relative "
+        f"{err_dd:.3e} ({leaf_dd})")
+    rtrace = trace.Trace.from_record(rec_b)
+    for ln in rtrace.summary().splitlines():
+        log(f"[{tag}b] {ln}")
+    fits, held = [], []
+    for e in rtrace.entries:
+        (fits if replay_bytes(e.cell) <= TRAIN_REPLAY_CAP else held).append(e)
+    for e in held:
+        log(f"[{tag}b] not replayed (operand over {TRAIN_REPLAY_CAP / 1e9:.0f}"
+            f" GB): {e.phase} {e.op} {e.nbytes} B x{e.count}")
+    before = C.demotions()
+    t0 = time.perf_counter()
+    try:
+        for op, impls in C.REGISTRY.items():
+            for nm, impl in impls.items():
+                if impl.wire_dtype is not None:
+                    C.demote(op, nm, "training needs exact gradients")
+        rep = tuner.tune_trace(trace.Trace(fits), backend)
+    finally:
+        C.clear_demotions()
+        for (op, nm), why in before.items():
+            C.demote(op, nm, why)
+    log(f"[{tag}b] tune_trace in {time.perf_counter() - t0:.1f} s")
+    for ln in rep.summary().splitlines():
+        log(f"[{tag}b] {ln}")
+    for m_ in rep.measurements:
+        if m_.op == "matmul_reducescatter_2d":
+            log(f"[{tag}b] measured {m_.op} {m_.cell.mm_role} p={m_.cell.p} "
+                f"p2={m_.cell.p2} k={m_.cell.mm_k} {m_.impl}: "
+                f"{m_.latency * 1e3:.4f} ms (nrep {m_.nrep})")
+    with tempfile.TemporaryDirectory() as tmp:
+        rep.save(pathlib.Path(tmp) / "profiles")
+        _, phases = profiles.resolve_stores(pathlib.Path(tmp) / "profiles")
+    log(f"[{tag}b] per-phase profiles saved and reloaded: "
+        f"{ {ph: len(st) for ph, st in phases.items()} }")
+    rec_t: list = []
+    tuned = Trainer(tr.cfg, phase_profiles=phases, record=rec_t,
+                    **trainer_kw)
+    loss1, g1 = tuned.grads(params, batch)
+    err_t, leaf_t = grads_rel_err(torch, dict(tree_paths(g1)), g0)
+    lerr_t = abs(float(loss1) - float(loss0)) / abs(float(loss0))
+    del g1
+    for ph, lines in footer_by_phase(rec_t).items():
+        for ln in lines:
+            log(f"[{tag}b] tuned {ph}: {ln}")
+    log(f"[{tag}b] tuned step vs default: loss {float(loss1):.6f} vs "
+        f"{float(loss0):.6f} (rel {lerr_t:.3e}), gradients max-norm "
+        f"relative {err_t:.3e} ({leaf_t}; tolerance {TRAIN_RTOL}; the "
+        f"default against itself {err_dd:.3e})")
+    if not (err_t <= TRAIN_RTOL and lerr_t <= TRAIN_RTOL):
+        raise RuntimeError(f"[{tag}] tuned training step differs: grads "
+                           f"{err_t}, loss {lerr_t}")
+    return ({"default_vs_default": {"grad_rel_err": err_dd,
+                                    "leaf": leaf_dd},
+             "tuned": {"grad_rel_err": err_t, "leaf": leaf_t,
+                       "loss_rel_err": lerr_t,
+                       "picks": footer_by_phase(rec_t)}}, loss0, g0)
+
+
 def train_phase(torch, dev, wrappers: dict, tag: str = "12") -> dict:
     """Train llama3.2-3b at full width (depth ``TRAIN_LAYERS``) on the
     card: (a) FSDP over p = 8 stacked data ranks, timed; (b) record one
@@ -1079,14 +1243,12 @@ def train_phase(torch, dev, wrappers: dict, tag: str = "12") -> dict:
     import tempfile
     from repro_torch.ckpt import checkpoint as ck
     from repro_torch.configs import get_config
-    from repro_torch.core import collectives as C
-    from repro_torch.core import profiles, trace, tuner
+    from repro_torch.core import tuner
     from repro_torch.data import make_batch
     from repro_torch.dist import ops
     from repro_torch.models.params import tree_nbytes, tree_paths
     from repro_torch.optim import state_specs
     from repro_torch.train import Trainer
-    from torch.profiler import ProfilerActivity, profile
 
     def named(tree) -> dict:
         return dict(tree_paths(tree))
@@ -1124,43 +1286,8 @@ def train_phase(torch, dev, wrappers: dict, tag: str = "12") -> dict:
     n_a = TRAIN_WARMUP + TRAIN_STEPS + 1
     batches = [tr.put_batch(make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, i))
                for i in range(n_a + 1)]
-    losses, times, step_rec = [], [], None
-    for i in range(n_a):
-        if i == n_a - 1:                         # the profiled step
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                params, opt, m = tr.step(params, opt, batches[i], i)
-                losses.append(float(m["loss"]))
-                wall = (time.perf_counter() - t0) * 1e3
-            rows = [e for e in prof.key_averages() if str(getattr(
-                e, "device_type", "")).endswith("CUDA")]
-            busy = sum(e.self_device_time_total for e in rows) / 1e3
-            out["profiled_step"] = {"wall_ms": wall, "device_busy_ms": busy,
-                                    "busy_share": busy / wall,
-                                    "kernels": sum(e.count for e in rows)}
-            log(f"[{tag}a] profiled step: wall {wall:.2f} ms, device busy "
-                f"{busy:.2f} ms in {out['profiled_step']['kernels']} "
-                f"kernels = {100 * busy / wall:.1f} % busy")
-            for e in sorted(rows, key=lambda e: -e.self_device_time_total
-                            )[:8]:
-                log(f"[{tag}a]   {e.self_device_time_total / 1e3:9.3f} ms "
-                    f"x{e.count:5d} {e.key[:90]}")
-            continue
-        torch.cuda.synchronize()
-        n0 = len(rec)
-        t0 = time.perf_counter()
-        params, opt, m = tr.step(params, opt, batches[i], i)
-        losses.append(float(m["loss"]))          # waits for the step
-        dt = time.perf_counter() - t0
-        if i >= TRAIN_WARMUP:
-            times.append(dt)
-        step_rec = rec[n0:]
-        log(f"[{tag}a] step {i}: loss {losses[-1]:.6f} grad_norm "
-            f"{float(m['grad_norm']):.4f} lr {float(m['lr']):.3e} "
-            f"{dt * 1e3:.2f} ms{' (warm-up)' if i < TRAIN_WARMUP else ''}")
-    if not all(map(math.isfinite, losses)):
-        raise RuntimeError(f"train: non-finite loss {losses}")
+    params, opt, losses, times, step_rec, out["profiled_step"] = \
+        timed_steps(torch, tr, params, opt, batches, tag)
     med = sorted(times)[len(times) // 2]
     peak = torch.cuda.max_memory_allocated(dev)
     out["fsdp"] = {"step_ms": [t * 1e3 for t in times],
@@ -1175,73 +1302,10 @@ def train_phase(torch, dev, wrappers: dict, tag: str = "12") -> dict:
 
     # -- (b) record -> tune_trace -> the same step under the profiles -----
     batch = batches[n_a]
-    rec_b: list = []
-    tr.record = rec_b
-    loss0, g0 = tr.grads(params, batch)
-    g0 = named(g0)
-    # the default step against itself: the embedding's backward (an
-    # index_add in bf16 on the card) adds its rows in no fixed order
-    tr.record = []
-    _, g_again = tr.grads(params, batch)
-    err_dd, leaf_dd = grads_rel_err(torch, named(g_again), g0)
-    del g_again
-    log(f"[{tag}b] default step vs itself: gradients max-norm relative "
-        f"{err_dd:.3e} ({leaf_dd})")
-    out["default_vs_default"] = {"grad_rel_err": err_dd, "leaf": leaf_dd}
-    rtrace = trace.Trace.from_record(rec_b)
-    for ln in rtrace.summary().splitlines():
-        log(f"[{tag}b] {ln}")
-    fits, held = [], []
-    for e in rtrace.entries:
-        per_chunk = e.op in ("reducescatter", "alltoall", "scatter")
-        replay = e.nbytes * P * (P if per_chunk else 1)
-        (fits if replay <= TRAIN_REPLAY_CAP else held).append(e)
-    for e in held:
-        log(f"[{tag}b] not replayed (operand over {TRAIN_REPLAY_CAP / 1e9:.0f}"
-            f" GB): {e.phase} {e.op} {e.nbytes} B x{e.count}")
-    rtrace = trace.Trace(fits)
-    before = C.demotions()
-    t0 = time.perf_counter()
-    try:
-        # the quantized wire is approximate: out of an exact-gradient step
-        for op, impls in C.REGISTRY.items():
-            for nm, impl in impls.items():
-                if impl.wire_dtype is not None:
-                    C.demote(op, nm, "training needs exact gradients")
-        rep = tuner.tune_trace(rtrace, tuner.MeasuredBackend(P, dev,
-                                                             max_nrep=10))
-    finally:
-        C.clear_demotions()
-        for (op, nm), why in before.items():
-            C.demote(op, nm, why)
-    log(f"[{tag}b] tune_trace in {time.perf_counter() - t0:.1f} s")
-    for ln in rep.summary().splitlines():
-        log(f"[{tag}b] {ln}")
-    with tempfile.TemporaryDirectory() as tmp:
-        rep.save(pathlib.Path(tmp) / "train_profiles")
-        _, phases = profiles.resolve_stores(pathlib.Path(tmp) /
-                                            "train_profiles")
-    log(f"[{tag}b] per-phase profiles saved and reloaded: "
-        f"{ {ph: len(st) for ph, st in phases.items()} }")
-    rec_t: list = []
-    tuned = Trainer(cfg, mesh=(P, 1), device=dev, phase_profiles=phases,
-                    record=rec_t)
-    loss1, g1 = tuned.grads(params, batch)
-    err_t, leaf_t = grads_rel_err(torch, named(g1), g0)
-    lerr_t = abs(float(loss1) - float(loss0)) / abs(float(loss0))
-    del g1
-    for ph, lines in footer_by_phase(rec_t).items():
-        for ln in lines:
-            log(f"[{tag}b] tuned {ph}: {ln}")
-    log(f"[{tag}b] tuned step vs default: loss {float(loss1):.6f} vs "
-        f"{float(loss0):.6f} (rel {lerr_t:.3e}), gradients max-norm "
-        f"relative {err_t:.3e} ({leaf_t}; tolerance {TRAIN_RTOL})")
-    if not (err_t <= TRAIN_RTOL and lerr_t <= TRAIN_RTOL):
-        raise RuntimeError(f"tuned training step differs: grads {err_t}, "
-                           f"loss {lerr_t}")
-    out["tuned"] = {"grad_rel_err": err_t, "leaf": leaf_t,
-                    "loss_rel_err": lerr_t,
-                    "picks": footer_by_phase(rec_t)}
+    backend = tuner.MeasuredBackend(P, dev, max_nrep=10)
+    got, loss0, g0 = retune_step(torch, tr, params, batch, backend, tag,
+                                 mesh=(P, 1), device=dev)
+    out.update(got)
 
     # -- (c) one forced step through the kernels ---------------------------
     rec_c: list = []
@@ -1290,7 +1354,7 @@ def train_phase(torch, dev, wrappers: dict, tag: str = "12") -> dict:
         t_save = time.perf_counter() - t0
         params, opt, m = tr.step(params, opt, batch, k)
         loss_a = float(m["loss"])
-        del params, opt, m, tr, tuned, forced
+        del params, opt, m, tr, forced
         torch.cuda.empty_cache()
         fresh = Trainer(cfg, mesh=(P, 1), device=dev)
         t0 = time.perf_counter()
@@ -1374,6 +1438,215 @@ def train_phase(torch, dev, wrappers: dict, tag: str = "12") -> dict:
         f"operands copied contiguous in dist.ops: "
         f"{json.dumps(out['contig_copies'])}")
     log(f"[{tag}] train phase in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def replay_bytes(cell) -> int:
+    """Bytes a measured replay of ``cell`` holds on the card: each operand
+    of ``measure.problem_shapes`` on every lane of its world."""
+    from repro_torch.core import measure
+    shapes = measure.problem_shapes(cell)
+    return (sum(math.prod(sh) for sh in shapes.values()) * cell.itemsize
+            * cell.world())
+
+
+def train_mesh_phase(torch, dev, wrappers: dict, tag: str = "13") -> dict:
+    """Train llama3.2-3b at full width (depth ``TRAIN_LAYERS``) on the
+    (data ``MESH_D``, model ``MESH_Q``) mesh stacked on the card: (a) the
+    default step, timed; (b) record one step's gradients, ``tune_trace``
+    its fwd and bwd phases (measured, each cell at its own world), save
+    and reload the per-phase profiles and take the same gradients under
+    them; (c) the same gradients under ``MESH_FORCE`` (``fused_ring2d`` in
+    both directions and the 1-D fused rings), which must launch
+    ``block_matmul`` on ``wgmma`` and ``guideline_pack``, and the
+    standalone 2-D pair (``dist.ops.matmul_reducescatter_2d``) at the w_o
+    site, whose dx launches the ring; (d) a checkpoint of (a)'s state
+    restored into a fresh trainer takes the next step with the same loss.
+    Launch counts of every kernel in ``wrappers`` are zeroed just before
+    and read just after."""
+    import tempfile
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.configs import get_config
+    from repro_torch.core import api, tuner
+    from repro_torch.data import make_batch
+    from repro_torch.dist import ops
+    from repro_torch.dist.axes import bind
+    from repro_torch.models.params import tree_nbytes, tree_paths
+    from repro_torch.optim import state_specs
+    from repro_torch.train import Trainer
+
+    def named(tree) -> dict:
+        return dict(tree_paths(tree))
+
+    t_phase = time.perf_counter()
+    mesh = (MESH_D, MESH_Q)
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              n_layers=TRAIN_LAYERS, attn_impl="ref")
+    out: dict = {"mesh": list(mesh), "layers": TRAIN_LAYERS}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(wrappers)                   # the mesh train path starts here
+    c_start = counts(wrappers)
+    bm, ring = wrappers["block_matmul"], wrappers[
+        "ring_allgather_matmul_rdma"]
+    paths0 = (dict(bm.launches_by_path), dict(ring.launches_by_path))
+
+    # -- (a) the default step ------------------------------------------------
+    rec: list = []
+    tr = Trainer(cfg, mesh=mesh, device=dev, record=rec)
+    params, opt = tr.init(SEED)
+    torch.cuda.synchronize()
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers at full width, "
+        f"{cfg.dtype}, {cfg.optimizer}, attn_impl {cfg.attn_impl}; mesh data "
+        f"{MESH_D} x model {MESH_Q} stacked ({MESH_D * MESH_Q} lanes); "
+        f"params {tree_nbytes(tr.specs) / 1e9:.3f} GB + optimizer state "
+        f"{tree_nbytes(state_specs(cfg.optimizer, tr.specs)) / 1e9:.3f} GB;"
+        f" {MESH_BATCH} x {TRAIN_SEQ} tokens a step")
+    tokens = MESH_BATCH * TRAIN_SEQ
+    n_a = TRAIN_WARMUP + TRAIN_STEPS + 1
+    batches = [tr.put_batch(make_batch(cfg, MESH_BATCH, TRAIN_SEQ, i))
+               for i in range(n_a + 1)]
+    params, opt, losses, times, step_rec, out["profiled_step"] = \
+        timed_steps(torch, tr, params, opt, batches, tag)
+    med = sorted(times)[len(times) // 2]
+    peak = torch.cuda.max_memory_allocated(dev)
+    out["default"] = {"step_ms": [t * 1e3 for t in times],
+                      "median_step_ms": med * 1e3,
+                      "tokens_per_s": tokens / med, "losses": losses,
+                      "peak_bytes": peak,
+                      "dispatches": dispatch_counts(step_rec)}
+    log(f"[{tag}a] mesh {MESH_D}x{MESH_Q}: median step {med * 1e3:.2f} ms "
+        f"over {TRAIN_STEPS} steps ({tokens / med:.0f} tokens/s), peak "
+        f"device memory {peak / 1e9:.3f} GB, losses {losses}")
+    log(f"[{tag}a] dispatches of one step (op phase: n): "
+        f"{json.dumps(out['default']['dispatches'])}")
+
+    # -- (b) record -> tune_trace -> the same step under the profiles -----
+    batch = batches[n_a]
+    backend = tuner.MeasuredBackend(None, dev, max_nrep=10)
+    got, loss0, g0 = retune_step(torch, tr, params, batch, backend, tag,
+                                 mesh=mesh, device=dev)
+    out.update(got)
+
+    # -- (c) the forced step through the kernels -----------------------------
+    rec_c: list = []
+    forced = Trainer(cfg, mesh=mesh, device=dev, force=MESH_FORCE,
+                     record=rec_c)
+    c0, bm0 = counts(wrappers), dict(bm.launches_by_path)
+    loss2, g2 = forced.grads(params, batch)
+    torch.cuda.synchronize()
+    c1 = counts(wrappers)
+    bm_paths = path_delta(bm, bm0)
+    log(f"[{tag}c] forced step: block_matmul launches by path "
+        f"{json.dumps(bm_paths)}; kernel launches "
+        f"{json.dumps({k: c1[k] - c0[k] for k in c1})}")
+    need = ("block_matmul", "guideline_pack")
+    require_launched(f"{tag}c forced step", {k: c0[k] for k in need},
+                     {k: c1[k] for k in need})
+    if bm_paths["wgmma"] != c1["block_matmul"] - c0["block_matmul"]:
+        raise RuntimeError(f"forced mesh step: block_matmul off wgmma "
+                           f"{bm_paths}")
+    ring2d = sorted({(r.cell.mm_role, r.phase) for r in rec_c
+                     if r.impl == "fused_ring2d"})
+    log(f"[{tag}c] fused_ring2d dispatches (role, phase): {ring2d}")
+    if ring2d != [("2d", "fwd"), ("2dT", "bwd")]:
+        raise RuntimeError(f"forced mesh step: fused_ring2d served {ring2d}")
+    for ph, lines in footer_by_phase(rec_c).items():
+        for ln in lines:
+            log(f"[{tag}c] forced {ph}: {ln}")
+    err_f, leaf_f = grads_rel_err(torch, named(g2), g0)
+    lerr_f = abs(float(loss2) - float(loss0)) / abs(float(loss0))
+    del g2
+    log(f"[{tag}c] forced step vs default: loss {float(loss2):.6f} vs "
+        f"{float(loss0):.6f} (rel {lerr_f:.3e}), gradients max-norm "
+        f"relative {err_f:.3e} ({leaf_f}; tolerance {TRAIN_RTOL})")
+    if not (err_f <= TRAIN_RTOL and lerr_f <= TRAIN_RTOL):
+        raise RuntimeError(f"forced mesh step differs: grads {err_f}, loss "
+                           f"{lerr_f}")
+    # the standalone 2-D pair at the w_o site: forward, and a backward
+    # whose dx is allgather_matmul over the model axis (the ring)
+    k_ = MESH_SITES["w_o"]
+    L = MESH_D * MESH_Q
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xs = torch.randn(L, MESH_T, k_, generator=gen, device=dev).to(
+        torch.bfloat16)
+    ws = (torch.randn(L, k_, D_MODEL // MESH_D, generator=gen, device=dev)
+          * (MESH_Q * k_) ** -0.5).to(torch.bfloat16)
+    cot = torch.randn(L, MESH_T // MESH_Q, D_MODEL, generator=gen,
+                      device=dev).to(torch.bfloat16)
+    pair = {}
+    for label, force in (("default", {}), ("forced", MESH_FORCE)):
+        x_ = xs.clone().requires_grad_(True)
+        w_ = ws.clone().requires_grad_(True)
+        c2 = counts(wrappers)
+        with bind(data=forced.axis["data"], model=forced.axis["model"]), \
+                api.tuned(force=force) as ctx:
+            y = ops.matmul_reducescatter_2d(x_, w_)
+            y.backward(cot)
+        torch.cuda.synchronize()
+        pair[label] = ({"y": y.detach(), "dx": x_.grad, "dw": w_.grad},
+                       {k: v - c2[k] for k, v in counts(wrappers).items()},
+                       sorted({(r.cell.op, r.impl, r.phase)
+                               for r in ctx.record}))
+    err_p, leaf_p = grads_rel_err(torch, pair["forced"][0], pair["default"][0])
+    log(f"[{tag}c] 2-D pair at w_o (x [{MESH_T},{k_}] a lane): forced "
+        f"{pair['forced'][2]} launches {json.dumps(pair['forced'][1])}; vs "
+        f"default max-norm relative {err_p:.3e} ({leaf_p}; tolerance "
+        f"{TRAIN_RTOL})")
+    pair_need = ("block_matmul", "ring_allgather_matmul_rdma")
+    require_launched(f"{tag}c 2-D pair", dict.fromkeys(pair_need, 0),
+                     {k: pair["forced"][1][k] for k in pair_need})
+    if not err_p <= TRAIN_RTOL:
+        raise RuntimeError(f"2-D pair differs from the default: {err_p}")
+    del pair, xs, ws, cot, x_, w_, y
+    out["forced"] = {"grad_rel_err": err_f, "leaf": leaf_f,
+                     "loss_rel_err": lerr_f, "block_matmul_paths": bm_paths,
+                     "fused_ring2d": ring2d,
+                     "dispatches": dispatch_counts(rec_c),
+                     "pair_rel_err": err_p}
+    out["peak_bytes_a_to_c"] = torch.cuda.max_memory_allocated(dev)
+    log(f"[{tag}c] peak device memory through (a)-(c): "
+        f"{out['peak_bytes_a_to_c'] / 1e9:.3f} GB")
+    del forced, g0
+
+    # -- (d) checkpoint after (a), restore into a fresh trainer ------------
+    k = n_a
+    ckdir = pathlib.Path(tempfile.mkdtemp(prefix="mesh_ckpt_"))
+    try:
+        t0 = time.perf_counter()
+        ck.save(ckdir, k, tr.to_global(params, opt))
+        t_save = time.perf_counter() - t0
+        params, opt, m = tr.step(params, opt, batch, k)
+        loss_a = float(m["loss"])
+        del params, opt, m, tr
+        torch.cuda.empty_cache()
+        fresh = Trainer(cfg, mesh=mesh, device=dev)
+        t0 = time.perf_counter()
+        params, opt = fresh.from_global(ck.restore(ckdir, k,
+                                                   fresh.global_specs()))
+        t_restore = time.perf_counter() - t0
+        params, opt, m = fresh.step(params, opt, batch, k)
+        loss_b = float(m["loss"])
+        size = sum(f.stat().st_size for f in ckdir.rglob("*") if f.is_file())
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"[{tag}d] checkpoint of step {k}: {size / 1e9:.3f} GB saved in "
+        f"{t_save:.1f} s, restored in {t_restore:.1f} s; next step's loss "
+        f"{loss_b!r} restored vs {loss_a!r} never stopped")
+    if loss_a != loss_b:
+        raise RuntimeError(f"restored mesh step's loss {loss_b} != {loss_a}")
+    out["ckpt"] = {"bytes": size, "save_s": t_save, "restore_s": t_restore,
+                   "loss": loss_b}
+    del params, opt, m, fresh
+    torch.cuda.empty_cache()
+
+    c_end = counts(wrappers)
+    out["launches"] = {k: c_end[k] - c_start[k] for k in c_end}
+    out["paths"] = {"block_matmul": path_delta(bm, paths0[0]),
+                    "ring_allgather_matmul_rdma": path_delta(ring, paths0[1])}
+    log(f"[mesh train path] kernel launches: {json.dumps(out['launches'])}")
+    log(f"[mesh train path] launches by path: {json.dumps(out['paths'])}")
+    log(f"[{tag}] mesh train phase in {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -1592,6 +1865,37 @@ def main(argv=None) -> int:
             report["block_matmul"][f"{label} {name_dt[dt]}"] = rec
             if label == "mlp-down" and dt == torch.bfloat16:
                 kernels["block_matmul"] = rec
+    # the 2-D ring's chunk products at the data x model step (phase 13),
+    # all 8 lanes of the (data 2, model 4) mesh in one launch: forward, x's
+    # row block [512, K] against the weight block [K, 1536]; transpose, the
+    # cotangent's column slice [1536, 512] against x's row block [512, K]
+    t_loc, m_loc = MESH_T // MESH_Q, D_MODEL // MESH_D
+    for site, k_ in MESH_SITES.items():
+        for label, (m, k, n) in ((f"2d {site} fwd", (t_loc, k_, m_loc)),
+                                 (f"2d {site} dw", (m_loc, t_loc, k_))):
+            x, w, err, tol, path = mm_case(MESH_D * MESH_Q, m, k, n,
+                                           torch.bfloat16)
+            if path != "wgmma":
+                raise RuntimeError(f"block_matmul {label} took {path}")
+            L = MESH_D * MESH_Q
+            flops = 2 * L * m * k * n
+            byts = (x.numel() + w.numel() + L * m * n) * x.element_size()
+            t_b, t_f = byts / H100_BYTES_PER_S, flops / H100_FLOPS["bfloat16"]
+            rec = dict(ms=device_ms(lambda: cmm.block_matmul(x, w),
+                                    needle[path]),
+                       plain_ms=time_ms(torch, lambda: cmm.block_matmul_plain(
+                           x, w)),
+                       bound_ms=max(t_b, t_f) * 1e3,
+                       library_ms=call_device_ms(lambda: torch.matmul(x, w)),
+                       max_abs_err=err, path=path)
+            report["block_matmul"][label] = rec
+            log(f"[3] block_matmul {label} [{L},{m},{k}]@[{L},{k},{n}] "
+                f"bfloat16 path {path}, tile 128x"
+                f"{cmm.block_matmul_tile_n(L, m, n)}: max_abs_err {err:.3e} "
+                f"(tolerance {tol:.3e}) kernel device time {rec['ms']:.4f} "
+                f"ms plain {rec['plain_ms']:.4f} ms torch.matmul device "
+                f"time {rec['library_ms']:.4f} ms bound {rec['bound_ms']:.4f}"
+                f" ms = {flops / rec['ms'] / 1e9:.1f} TFLOP/s")
     for B, m, k, n, dt, shared in ((2, 100, 33, 17, torch.bfloat16, False),
                                    (3, 5, 256, 130, torch.float32, True),
                                    (1, 129, 72, 200, torch.float16, False),
@@ -1848,6 +2152,15 @@ def main(argv=None) -> int:
             f"{rep['demoted'] or 'none'}")
         if rep["failures"]:
             raise RuntimeError(f"selfcheck p={p_} failed: {rep['failures']}")
+    rep = selfcheck.run_mesh((MESH_D, MESH_Q), dev)
+    n_impls = sum(len(v) for v in C.REGISTRY.values())
+    log(f"[4] selfcheck mesh {MESH_D}x{MESH_Q}: {json.dumps(rep)}")
+    log(f"[4] selfcheck mesh {MESH_D}x{MESH_Q}: {rep['total']} checks over "
+        f"{rep['impls']} of {n_impls} impls, demoted "
+        f"{rep['demoted'] or 'none'}")
+    if rep["failures"] or rep["impls"] != n_impls:
+        raise RuntimeError(f"selfcheck mesh failed: {rep['failures']}, "
+                           f"{rep['impls']} of {n_impls} impls")
 
     # -- 5. fit the h100-stacked Topo -------------------------------------------
     bench = measure.Bench(P, dev)
@@ -2089,6 +2402,39 @@ def main(argv=None) -> int:
             f"fused_ring {cell.get('fused_ring', float('nan')):.4f} vs "
             f"default {cell.get('default', float('nan')):.4f}")
 
+    # the two-axis cells of the data x model step (phase 13), measured on
+    # the (data 2, model 4) mesh of 8 stacked lanes, each impl the median
+    # of NREP samples: the 2-D cells of w_o and MLP-down, forward (p = data,
+    # p2 = model) and transpose (p = model, p2 = data), default against
+    # fused_ring2d; one hierarchical cell per op, MPIX_* against default
+    backend = tuner.MeasuredBackend(MESH_D * MESH_Q, dev, max_nrep=20)
+    t_loc, m_loc = MESH_T // MESH_Q, D_MODEL // MESH_D
+    cells2 = []
+    for site, k_ in MESH_SITES.items():
+        cells2.append((f"{site} 2d", OpCell(
+            "matmul_reducescatter_2d", MESH_D, k_ * m_loc * 2, "bfloat16",
+            k_, MESH_T, D_MODEL, "2d", MESH_Q), ("default", "fused_ring2d")))
+        cells2.append((f"{site} 2dT", OpCell(
+            "matmul_reducescatter_2d", MESH_Q, t_loc * D_MODEL * 2,
+            "bfloat16", MESH_T, D_MODEL, k_, "2dT", MESH_D),
+            ("default", "fused_ring2d")))
+    for op, nb in (("allreduce", 8 << 20), ("allgather", 1 << 20),
+                   ("reducescatter", 1 << 20)):
+        mpix = next(nm for nm, i in C.REGISTRY[op].items() if i.hier)
+        cells2.append((f"{op} hier", OpCell(op, MESH_D, nb, "bfloat16",
+                                            p2=MESH_Q), ("default", mpix)))
+    report["mesh_cells"] = {}
+    for label, cell, impls in cells2:
+        lat = {nm: backend.latency(cell, nm) * 1e3 for nm in impls}
+        nreps = {nm: backend.nrep_for(cell, nm) for nm in impls}
+        report["mesh_cells"][label] = {"cell": dataclasses.asdict(cell),
+                                       "median_ms": lat, "nrep": nreps}
+        log(f"[8] mesh {MESH_D}x{MESH_Q} cell {label} ({cell.nbytes} B per "
+            f"rank, median ms): " + ", ".join(
+                f"{nm} {lat[nm]:.4f} (nrep {nreps[nm]})" for nm in impls)
+            + f"; {impls[1]} / default = {lat[impls[1]] / lat['default']:.3f}")
+    del backend
+
     # -- 9. where one call's device time goes (after the main path's counts)
     for nm in ("default", "allgather_as_ring", "wire_q8"):
         profile_call(torch, f"allgather {nm} x{list(x.shape)}",
@@ -2134,13 +2480,18 @@ def main(argv=None) -> int:
     report["train"] = train_phase(torch, dev, every)
     for k, v in report["train"]["launches"].items():
         kernels[k]["train_launches"] = v
+
+    # -- 13. the data x model train path: llama3.2-3b on a (2, 4) mesh ------
+    report["mesh_train"] = train_mesh_phase(torch, dev, every)
+    for k, v in report["mesh_train"]["launches"].items():
+        kernels[k]["mesh_train_launches"] = v
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     (out_dir / "report.json").write_text(json.dumps(report, indent=1))
     log(f"[done] {report['seconds']:.1f} s")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "main_path", "train_launches")
+             "main_path", "train_launches", "mesh_train_launches")
     print(json.dumps({"kernels": [{k: kernels[n][k] for k in order}
                                   for n in ("guideline_pack", "block_matmul",
                                             "ring_allgather_matmul_rdma",

@@ -22,9 +22,16 @@ The context carries the scratch budget (the paper's
 it is not applied.  Every dispatch is recorded; ``format_footer()`` emits
 the paper's Listing-2 ``#@pgmpi alg <op> <bytes> <impl>`` trailer.
 
-Operands are stacked (``[p, ...]``, see ``core._axis``); cells carry the
-PER-RANK payload bytes, so records, traces and profiles are the same as
-the JAX package's for the same per-rank problem.
+Operands are stacked (``[L, ...]``, one lane per rank, see
+``core._axis``); cells carry the PER-RANK payload bytes, so records,
+traces and profiles are the same as the JAX package's for the same
+per-rank problem.  The two-axis entry points take a second axis object:
+``inner_axis=`` on allgather / allreduce / reducescatter (a hierarchical
+cell: ``p`` the outer axis, ``p2`` the inner one) and the ``rs_axis`` of
+``matmul_reducescatter_2d`` (``p`` the stream axis, ``p2`` the
+reduce-scatter axis).  A ``costmodel.MeshTopo`` installed with
+``set_mesh_topo`` (or ``tuned(mesh_topo=...)``) stamps each cell's tier
+token from the axes' names.
 """
 from __future__ import annotations
 
@@ -67,6 +74,9 @@ class TuneContext:
     record: list[DispatchRecord] = dataclasses.field(default_factory=list)
     chunk_bytes: int = 0
     phase_profiles: dict[str, ProfileStore] | None = None
+    # per-axis interconnect map (costmodel.MeshTopo): stamps each
+    # dispatched cell's tier token
+    mesh_topo: object | None = None
     # (cell, phase, PGTUNE_MODULE spec) -> impl named by steps 2-7
     choices: dict = dataclasses.field(default_factory=dict, repr=False)
 
@@ -78,6 +88,25 @@ def _ctx() -> TuneContext | None:
 def current_context() -> TuneContext | None:
     """The context opened by the innermost ``tuned`` of this thread."""
     return _ctx()
+
+
+_GLOBAL_MESH_TOPO = None
+
+
+def set_mesh_topo(topo) -> None:
+    """Install a process-wide ``costmodel.MeshTopo`` that says which
+    interconnect tier each named axis runs on; dispatch stamps every
+    cell's ``tier`` from it (a ``tuned(mesh_topo=...)`` context overrides
+    it).  ``None`` uninstalls."""
+    global _GLOBAL_MESH_TOPO
+    _GLOBAL_MESH_TOPO = topo
+
+
+def current_mesh_topo():
+    ctx = _ctx()
+    if ctx is not None and ctx.mesh_topo is not None:
+        return ctx.mesh_topo
+    return _GLOBAL_MESH_TOPO
 
 
 @contextlib.contextmanager
@@ -120,7 +149,8 @@ def tuned(profiles: ProfileStore | None = None,
           scratch_budget_bytes: int | None = None,
           chunk_bytes: int = 0,
           phase_profiles: dict[str, ProfileStore] | None = None,
-          record: list | None = None):
+          record: list | None = None,
+          mesh_topo=None):
     """Activate tuning for every collective of this module issued inside.
 
     ``force`` maps op name -> impl name (the CLI library's static
@@ -128,14 +158,16 @@ def tuned(profiles: ProfileStore | None = None,
     maps a phase tag to a store consulted before ``profiles`` (what
     ``tuner.tune_trace`` emits).  ``record`` lets the caller supply the
     list dispatches are appended to.  Without any of these, defaults are
-    used but calls are still recorded."""
+    used but calls are still recorded.  ``mesh_topo`` (a
+    ``costmodel.MeshTopo``) stamps the cells' tier tokens."""
     prev = _ctx()
     ctx = TuneContext(profiles=profiles, force=dict(force or {}),
                       scratch_budget_bytes=scratch_budget_bytes,
                       chunk_bytes=chunk_bytes,
                       phase_profiles=(dict(phase_profiles)
                                       if phase_profiles else None),
-                      record=record if record is not None else [])
+                      record=record if record is not None else [],
+                      mesh_topo=mesh_topo)
     _TLS.ctx = ctx
     try:
         yield ctx
@@ -171,16 +203,46 @@ def _env_force() -> tuple[str, dict[str, str]]:
     return _ENV_FORCE_CACHE
 
 
+def _tier(axis: StackedAxis, inner: StackedAxis | None = None) -> str:
+    mt = current_mesh_topo()
+    if mt is None:
+        return ""
+    return mt.tier_token(axis.name, None if inner is None else inner.name)
+
+
 def _make_cell(op: str, payload: torch.Tensor, axis: StackedAxis,
                kw) -> OpCell:
     """The dispatch-time tuning cell: per-rank payload bytes (stacked bytes
-    / p) plus, for fused ops, the per-rank GEMM read off the operands."""
+    / lanes) plus, for fused ops, the per-rank GEMM read off the
+    operands."""
     p = axis.size
-    nbytes = payload.numel() * payload.element_size() // p
+    nbytes = payload.numel() * payload.element_size() // axis.lanes
     dtype = dtype_name(payload.dtype)
     role = OP_MM_ROLE.get(op)
     if role is None:
-        return OpCell(op, p, nbytes, dtype)
+        inner = kw.get("inner_axis")
+        if inner is not None:
+            # hierarchical plain cell: p = outer (slow) axis, p2 = inner
+            return OpCell(op, p, nbytes, dtype, p2=inner.size,
+                          tier=_tier(axis, inner))
+        return OpCell(op, p, nbytes, dtype, tier=_tier(axis))
+    if role == "2d":
+        # p = the stream axis, p2 = the reduce-scatter axis; the dims are
+        # the PER-RANK GEMM.  The tier token is always (stream / rs); the
+        # cost model swaps them for the transpose schedule.
+        rs = kw["rs_axis"]
+        tier = _tier(axis, rs)
+        if kw.get("xpose"):  # payload g [T/p, M] streamed and contracted
+            mm_k, mm_m = p * payload.shape[1], payload.shape[-1]
+            mm_n = kw["x"].shape[-1]
+            return OpCell(op, p, nbytes, dtype, mm_k, mm_m, mm_n, "2dT",
+                          rs.size, tier)
+        # payload w [K, M/p], a column block streamed over the axis
+        mm_k, mm_m = payload.shape[1], kw["x"].shape[-2]
+        mm_n = p * payload.shape[-1]
+        return OpCell(op, p, nbytes, dtype, mm_k, mm_m, mm_n, "2d",
+                      rs.size, tier)
+    tier = _tier(axis)
     if role == "gather":     # payload x [n, K] per rank, rows gathered
         mm_k, mm_m = payload.shape[-1], p * payload.shape[1]
         mm_n = kw["w"].shape[-1]   # w [K, M]
@@ -192,19 +254,23 @@ def _make_cell(op: str, payload: torch.Tensor, axis: StackedAxis,
         mm_n = payload.shape[-1]
     else:
         raise KeyError(f"op {op!r} is not ported")
-    return OpCell(op, p, nbytes, dtype, mm_k, mm_m, mm_n, role)
+    return OpCell(op, p, nbytes, dtype, mm_k, mm_m, mm_n, role, tier=tier)
 
 
 def _admit(op: str, name: str, cell: OpCell, ctx: TuneContext | None) -> str:
-    """The pow2 guard, the demotion ledger and the scratch budget: an
-    inadmissible choice falls back to the default."""
+    """The pow2 guard, the world guard (a hierarchical impl needs a
+    two-axis cell, a flat one a flat cell), the demotion ledger and the
+    scratch budget: an inadmissible choice falls back to the default."""
     cand = C.REGISTRY[op].get(name)
     if cand is None:
         raise KeyError(f"unknown impl {name!r} for op {op!r}")
     if name == "default":
         return name
     p = cell.p
-    if cand.requires_pow2 and (p & (p - 1)) != 0:
+    if cand.requires_pow2 and ((p & (p - 1)) != 0
+                               or (cell.p2 & (cell.p2 - 1)) != 0):
+        return "default"
+    if cand.hier != cell.hier:
         return "default"
     if C.is_demoted(op, name):
         return "default"
@@ -261,6 +327,11 @@ def _dispatch(op: str, payload: torch.Tensor, axis: StackedAxis,
     if payload.device != axis.device:
         raise ValueError(f"{op}: operand on {payload.device}, axis on "
                          f"{axis.device}")
+    for other in (kw.get("inner_axis"), kw.get("rs_axis")):
+        if other is not None and (other.shape != axis.shape
+                                  or other.dim == axis.dim):
+            raise ValueError(f"{op}: {axis!r} and {other!r} are not two "
+                             "axes of one StackedMesh")
     ctx = _ctx()
     if ctx is not None and ctx.chunk_bytes and "chunk" not in kw:
         kw["chunk"] = max(1, ctx.chunk_bytes // payload.element_size())
@@ -272,16 +343,36 @@ def _dispatch(op: str, payload: torch.Tensor, axis: StackedAxis,
 # Every operand is stacked: dim 0 is the rank (see core._axis).
 
 
-def allgather(x, axis: StackedAxis, *, impl: str | None = None):
-    return _dispatch("allgather", x, axis, impl)
+def allgather(x, axis: StackedAxis, *,
+              inner_axis: StackedAxis | None = None,
+              impl: str | None = None):
+    """With ``inner_axis`` the gather runs over the joint ``(axis,
+    inner_axis)`` group in outer-major block order (``axis`` the OUTER,
+    slow tier) and the cell records ``p2`` and the tier token, which makes
+    the hierarchical ``MPIX_*`` mock-ups admissible."""
+    if inner_axis is None:
+        return _dispatch("allgather", x, axis, impl)
+    return _dispatch("allgather", x, axis, impl, inner_axis=inner_axis)
 
 
-def allreduce(x, axis: StackedAxis, *, impl: str | None = None, **kw):
+def allreduce(x, axis: StackedAxis, *,
+              inner_axis: StackedAxis | None = None,
+              impl: str | None = None, **kw):
+    """With ``inner_axis`` the sum runs over the joint group (see
+    ``allgather``)."""
+    if inner_axis is not None:
+        kw["inner_axis"] = inner_axis
     return _dispatch("allreduce", x, axis, impl, **kw)
 
 
-def reducescatter(x, axis: StackedAxis, *, impl: str | None = None):
-    return _dispatch("reducescatter", x, axis, impl)
+def reducescatter(x, axis: StackedAxis, *,
+                  inner_axis: StackedAxis | None = None,
+                  impl: str | None = None):
+    """With ``inner_axis`` the scatter runs over the joint group: rank
+    ``(i, j)`` receives joint-sum block ``i*q + j`` (outer-major)."""
+    if inner_axis is None:
+        return _dispatch("reducescatter", x, axis, impl)
+    return _dispatch("reducescatter", x, axis, impl, inner_axis=inner_axis)
 
 
 def alltoall(x, axis: StackedAxis, *, impl: str | None = None):
@@ -340,6 +431,37 @@ def matmul_accumulate(x, w, axis: StackedAxis, *, impl: str | None = None,
     ``all_gather(w)`` ``[p, K, M]``."""
     return _dispatch("matmul_accumulate", w, axis, impl, x=x,
                      return_gathered=return_gathered)
+
+
+def matmul_reducescatter_2d(x, w, rs_axis: StackedAxis,
+                            ag_axis: StackedAxis, *,
+                            impl: str | None = None,
+                            return_gathered: bool = False):
+    """``reduce_scatter(x @ all_gather(w, cols over ag_axis), rows over
+    rs_axis)``: the weight-stationary 2-D collective matmul over two axes
+    of one ``StackedMesh``.
+
+    ``w [L, K, M/d]`` (each lane's data-axis column block of a
+    row-parallel weight; its bytes are the dispatch key, since the OUTER
+    ring streams them), ``x [L, T, K]`` -> ``[L, T/q, M]`` summed over
+    ``rs_axis``.  The cell records ``p`` = the gather axis and ``p2`` =
+    the scatter axis.  ``return_gathered`` also returns the assembled
+    weight ``[L, K, M]`` (the paired backward reuses it for dx)."""
+    return _dispatch("matmul_reducescatter_2d", w, ag_axis, impl, x=x,
+                     rs_axis=rs_axis, return_gathered=return_gathered)
+
+
+def matmul_reducescatter_2d_t(g, x, rs_axis: StackedAxis,
+                              ag_axis: StackedAxis, *,
+                              impl: str | None = None):
+    """``reduce_scatter(all_gather(g, rows over ag_axis)ᵀ @ x, rows over
+    rs_axis)``: the TRANSPOSE 2-D schedule (the dw of the paired
+    backward).  ``g [L, T/q, M]`` (the cotangent's gather-axis row block,
+    the dispatch payload, contracted away), ``x [L, T, K]`` ->
+    ``[L, M/d, K]`` summed over ``rs_axis``.  It dispatches through the
+    same op as the forward; its cells record role ``2dT``."""
+    return _dispatch("matmul_reducescatter_2d", g, ag_axis, impl, x=x,
+                     rs_axis=rs_axis, xpose=True)
 
 
 def format_footer(ctx: TuneContext) -> str:

@@ -2,9 +2,12 @@
 
 The PGMPITuneLib mock-up catalog, written once against the rank-axis
 interface of ``core._axis``.  Every function takes a STACKED operand
-(``[p, ...]``: one leading lane per rank) and the axis, and returns the
-stacked result.  Per-rank conventions (payload ``n`` rows along the
-per-rank dim 0, i.e. dim 1 of the stacked tensor):
+(``[L, ...]``: one leading lane per rank of the mesh, ``L = axis.lanes``;
+``L = p`` on a one-axis ``StackedAxis``) and the axis, and returns the
+stacked result; on an axis of a ``StackedMesh`` every group of lanes that
+shares the other coordinates runs the collective on its own.  Per-rank
+conventions (payload ``n`` rows along the per-rank dim 0, i.e. dim 1 of
+the stacked tensor):
 
 =============== =============================== ===========================
 op              input (per rank)                output (per rank)
@@ -23,7 +26,15 @@ allgather_      x ``[n, K]``, w ``[K, M]``      ``[p*n, M]``:
 matmul                                          ``all_gather(x) @ w``
 matmul_         x ``[p*n, K]``, w ``[K, M]``    ``[n, M]``: reduce_scatter
 reducescatter                                   of ``x @ w``
+matmul_         w ``[K, M/d]`` streamed over    ``[T/q, M]``: reduce_scatter
+reducescatter_  the axis (d), x ``[T, K]``,     over ``rs_axis`` (q) of
+2d              ``rs_axis=``                    ``x @ all_gather(w, cols)``
 =============== =============================== ===========================
+
+The two-axis impls take a second axis object: the 2-D op its
+``rs_axis=``, the hierarchical ``MPIX_*`` impls (and the defaults of
+allgather / allreduce / reducescatter) an ``inner_axis=`` (the fast,
+intra tier; ``axis`` is the outer, slow one).
 
 "valid on root" means only the root's output is part of the contract;
 non-roots may receive the full result or zeros.  The irregular ("v")
@@ -87,10 +98,10 @@ def _blocks(x: torch.Tensor, n: int) -> torch.Tensor:
 
 def _block_index(axis: StackedAxis, start: torch.Tensor, nb: int,
                  count: int):
-    """Lane and block indices of ``count`` blocks from per-rank ``start``,
+    """Lane and block indices of ``count`` blocks from per-lane ``start``,
     clamped into range like ``lax.dynamic_slice``."""
     start = start.clamp(0, nb - count)
-    lane = axis.index()
+    lane = axis.lane_index()
     if count == 1:
         return lane, start
     return lane[:, None], start[:, None] + torch.arange(
@@ -125,9 +136,9 @@ def _one_hot_place(x: torch.Tensor, axis: StackedAxis) -> torch.Tensor:
     p = axis.size
     n = _n_rows(x)
     rest = tuple(x.shape[2:])
-    x3 = x.reshape(p, n, math.prod(rest)).contiguous()
+    x3 = x.reshape(x.shape[0], n, math.prod(rest)).contiguous()
     out = guideline_pack(x3, axis.index(torch.int32), p)
-    return out.view((p, p * n) + rest)
+    return out.view((x.shape[0], p * n) + rest)
 
 
 def _v_metadata(x: torch.Tensor, axis: StackedAxis) -> torch.Tensor:
@@ -162,16 +173,26 @@ def _is_pow2(p: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def allgather_default(x, axis: StackedAxis, **_):
+def allgather_default(x, axis: StackedAxis, *,
+                      inner_axis: StackedAxis | None = None, **_):
+    """Flat: one all-gather.  With ``inner_axis`` (a hierarchical cell):
+    gather the intra tier, then the inter tier, in outer-major block
+    order, as one gather over the joint group orders them."""
+    if inner_axis is not None:
+        x = inner_axis.all_gather(x)
     return axis.all_gather(x)
 
 
-def allreduce_default(x, axis: StackedAxis, **_):
-    return axis.psum(x)
+def allreduce_default(x, axis: StackedAxis, *,
+                      inner_axis: StackedAxis | None = None, **_):
+    y = axis.psum(x)
+    return y if inner_axis is None else inner_axis.psum(y)
 
 
-def reducescatter_default(x, axis: StackedAxis, **_):
-    return axis.psum_scatter(x)
+def reducescatter_default(x, axis: StackedAxis, *,
+                          inner_axis: StackedAxis | None = None, **_):
+    y = axis.psum_scatter(x)
+    return y if inner_axis is None else inner_axis.psum_scatter(y)
 
 
 def alltoall_default(x, axis: StackedAxis, **_):
@@ -607,6 +628,42 @@ def matmul_accumulate_fused_ring(w, axis: StackedAxis, *, x,
                                       return_gathered=return_gathered)
 
 
+def matmul_reducescatter_2d_default(w, axis: StackedAxis, *, x,
+                                    rs_axis: StackedAxis,
+                                    xpose: bool = False,
+                                    return_gathered: bool = False, **_):
+    """Unfused 2-D composition: gather the streamed operand over ``axis``
+    (the outer axis the dispatcher keys on), one dense matmul, then
+    reduce-scatter the output rows over ``rs_axis``.
+
+    ``xpose=False``: w ``[K, m_loc]`` gathered by columns ->
+    ``psum_scatter(x @ W)``.  ``xpose=True``: the payload is the cotangent
+    shard g ``[t_loc, M]``, gathered by rows and CONTRACTED ->
+    ``psum_scatter(Gᵀ @ x)``, the transpose schedule of the paired
+    backward."""
+    if xpose:
+        full = axis.all_gather(w)
+        return rs_axis.psum_scatter(torch.matmul(full.transpose(1, 2), x))
+    full = axis.all_gather(w.transpose(1, 2)).transpose(1, 2)
+    out = rs_axis.psum_scatter(torch.matmul(x, full))
+    return (out, full) if return_gathered else out
+
+
+def matmul_reducescatter_2d_fused_ring(w, axis: StackedAxis, *, x,
+                                       rs_axis: StackedAxis,
+                                       xpose: bool = False,
+                                       return_gathered: bool = False, **_):
+    """(⊕) nested 2-D ring: the weight (or cotangent) streams over
+    ``axis``, an inner matmul-reducescatter (or contract stream) runs over
+    ``rs_axis``, issue-before-consume on both (every chunk product is one
+    ``block_matmul`` launch on CUDA)."""
+    from repro_torch.kernels import collective_matmul as cmm
+    if xpose:
+        return cmm.ring_matmul_reducescatter_2d_t(w, x, rs_axis, axis)
+    return cmm.ring_matmul_reducescatter_2d(
+        x, w, rs_axis, axis, return_gathered=return_gathered)
+
+
 # ---------------------------------------------------------------------------
 # quantized-wire mock-ups (wire_q8 / wire_fp8): the ring schedules with the
 # travelling operand compressed to an 8-bit wire dtype plus per-block
@@ -627,7 +684,7 @@ def allgather_wire(x, axis: StackedAxis, *, wire_dtype: str = "int8", **_):
         return x
     n = _n_rows(x)
     idx = axis.index()
-    out = x.new_zeros((p, p * n) + tuple(x.shape[2:]))
+    out = x.new_zeros((x.shape[0], p * n) + tuple(x.shape[2:]))
     _put(out, axis, idx, x, n)
     q, sc = Q.quantize(x, wire_dtype)
     for s in range(1, p):
@@ -699,6 +756,48 @@ def matmul_accumulate_wire(w, axis: StackedAxis, *, x,
 
 
 # ---------------------------------------------------------------------------
+# hierarchical (two-tier) mock-ups, the MPIX_* family: ``axis`` is the
+# OUTER (inter-tier, slow) axis and ``inner_axis`` the INNER (intra-tier,
+# fast) one.  They decompose a joint-group collective into per-tier ring
+# stages (kernels/hierarchical.py) so that most bytes stay on the fast
+# tier.  ``Impl.hier`` gates them: a flat mock-up is never offered a
+# two-axis cell (it would reduce over one axis only), and a hierarchical
+# one never a flat cell.
+# ---------------------------------------------------------------------------
+
+
+def _need_inner(name: str, inner_axis) -> None:
+    if inner_axis is None:
+        raise ValueError(
+            f"{name} is a hierarchical mock-up: it needs inner_axis= "
+            "(the intra-tier axis) in addition to the outer axis")
+
+
+def allreduce_hier(x, axis: StackedAxis, *,
+                   inner_axis: StackedAxis | None = None, **_):
+    """(⊕ MPIX_rs_ar_ag) RS-intra -> AR-inter -> AG-intra."""
+    _need_inner("MPIX_rs_ar_ag", inner_axis)
+    from repro_torch.kernels import hierarchical as H
+    return H.hier_allreduce(x, axis, inner_axis)
+
+
+def allgather_hier(x, axis: StackedAxis, *,
+                   inner_axis: StackedAxis | None = None, **_):
+    """(⊕ MPIX_ag_ag) AG-intra -> AG-inter (outer-major block order)."""
+    _need_inner("MPIX_ag_ag", inner_axis)
+    from repro_torch.kernels import hierarchical as H
+    return H.hier_allgather(x, axis, inner_axis)
+
+
+def reducescatter_hier(x, axis: StackedAxis, *,
+                       inner_axis: StackedAxis | None = None, **_):
+    """(⊕ MPIX_rs_rs) RS-inter -> RS-intra (the MPIX_ag_ag dual)."""
+    _need_inner("MPIX_rs_rs", inner_axis)
+    from repro_torch.kernels import hierarchical as H
+    return H.hier_reduce_scatter(x, axis, inner_axis)
+
+
+# ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
 
@@ -718,6 +817,11 @@ class Impl:
     # None = the wire carries the compute dtype.  Non-None marks the impl
     # accuracy-conditional: selfcheck's tolerance gate may demote it.
     wire_dtype: str | None = None
+    # True for the two-axis (hierarchical) mock-ups: the impl REQUIRES
+    # ``inner_axis=`` and is admissible only on hierarchical cells
+    # (``OpCell.hier``); flat impls only on flat cells.  The default impl
+    # handles both.
+    hier: bool = False
 
     def __call__(self, x, axis, **kw):
         return self.fn(x, axis, **kw)
@@ -732,8 +836,9 @@ def _nb0(nbytes: int, p: int) -> int:  # no extra memory
 
 
 def _reg() -> dict[str, dict[str, Impl]]:
-    def mk(name, op, fn, gl, extra, pow2=False, desc="", wire=None):
-        return Impl(name, op, fn, gl, extra, pow2, desc, wire)
+    def mk(name, op, fn, gl, extra, pow2=False, desc="", wire=None,
+           hier=False):
+        return Impl(name, op, fn, gl, extra, pow2, desc, wire, hier)
 
     # the quantized-wire family: one impl per wire dtype, the dtype bound
     # with partial and recorded on the Impl for the cost model and the gate
@@ -759,6 +864,10 @@ def _reg() -> dict[str, dict[str, Impl]]:
            "EXT", lambda n, p: p * n),
         mk("allgather_as_doubling", "allgather", allgather_as_doubling,
            "EXT", lambda n, p: p * n, pow2=True),
+        mk("MPIX_ag_ag", "allgather", allgather_hier, "EXT",
+           lambda n, p: p * n, hier=True,
+           desc="hierarchical AG-intra -> AG-inter: node block assembled "
+                "on the fast tier, streamed across the slow tier once"),
         *mk_wire("allgather", allgather_wire,
                  lambda n, p: p * n + n // 2,
                  desc="ring with the chunk on the 8-bit wire "
@@ -782,6 +891,11 @@ def _reg() -> dict[str, dict[str, Impl]]:
            desc="chunked RS + AGv (Fig.7 winner)"),
         mk("allreduce_as_doubling", "allreduce", allreduce_as_doubling,
            "EXT", _nb0, pow2=True, desc="recursive doubling (latency-opt)"),
+        mk("MPIX_rs_ar_ag", "allreduce", allreduce_hier, "EXT",
+           lambda n, p: n + max(n // p, 1), hier=True,
+           desc="hierarchical RS-intra -> AR-inter -> AG-intra: full "
+                "buffer only moves on the fast tier; 1/q of it crosses "
+                "the slow tier"),
         *mk_wire("allreduce", allreduce_wire,
                  lambda n, p: (n + p) + (n + p) // p,
                  desc="padded wire RS + wire AG (GL6 shape, 8-bit wire)"),
@@ -842,6 +956,10 @@ def _reg() -> dict[str, dict[str, Impl]]:
            rsb_as_reduce_scatter_irr, "GL18", lambda n, p: p * _I),
         mk("rsb_as_allreduce", "reducescatter", rsb_as_allreduce,
            "GL19", lambda n, p: n),
+        mk("MPIX_rs_rs", "reducescatter", reducescatter_hier, "EXT",
+           lambda n, p: 2 * max(n // p, 1), hier=True,
+           desc="hierarchical RS-inter -> RS-intra (MPIX_ag_ag dual): "
+                "slow tier reduces node blocks, fast tier finishes"),
         *mk_wire("reducescatter", reducescatter_wire,
                  lambda n, p: 2 * max(n // p, 1),
                  desc="ring with the travelling accumulator requantized "
@@ -895,6 +1013,19 @@ def _reg() -> dict[str, dict[str, Impl]]:
                  lambda n, p: p * n + 2 * n + n // 2,
                  desc="fused ring, weight block on the 8-bit wire "
                       "(quantized once at origin)"),
+    ]}
+
+    r["matmul_reducescatter_2d"] = {i.name: i for i in [
+        mk("default", "matmul_reducescatter_2d",
+           matmul_reducescatter_2d_default, None,
+           lambda n, p: p * n,
+           desc="all-gather weight cols then dense matmul then "
+                "psum_scatter (unfused 2-D composition)"),
+        mk("fused_ring2d", "matmul_reducescatter_2d",
+           matmul_reducescatter_2d_fused_ring, "EXT",
+           lambda n, p: p * n + 2 * n,
+           desc="nested rings: outer weight stream over the gather axis, "
+                "inner matmul-reducescatter over the scatter axis"),
     ]}
 
     r["scatter"] = {i.name: i for i in [

@@ -16,6 +16,12 @@ et al. 2007, the paper's [3]):
 ``"naive"`` (tree-based defaults, the paper's JUQUEEN situation).
 ``hw_bcast`` models hardware broadcast acceleration.
 
+A ``MeshTopo`` maps each named mesh axis to its own ``Topo``; a cell's
+``tier`` token selects them, and the two-axis cells (the hierarchical
+``MPIX_*`` cells and the 2-D ``matmul_reducescatter_2d`` cells) price
+their outer and inner axes on separate fabrics.  An unreachable tier is
+derived from a fitted one with ``Topo.scaled`` and published ratios.
+
 The presets below (``V5E_ICI``, ``BGQ_LIKE``) are the JAX
 package's TPU v5e and BlueGene/Q constants, kept only as data for parity
 checks: nothing here defaults to them, and no number they give describes
@@ -62,13 +68,113 @@ class Topo:
     def beta(self) -> float:
         return 1.0 / self.link_bw
 
+    def scaled(self, *, name: str | None = None, alpha_mult: float = 1.0,
+               bw_mult: float = 1.0, gamma_mult: float = 1.0) -> "Topo":
+        """A derived tier: this fabric with its link parameters scaled
+        (how a slow tier that cannot be measured is anchored to a FITTED
+        base: published relative gaps applied to measured absolutes)."""
+        return dataclasses.replace(
+            self, name=name or f"{self.name}-scaled",
+            alpha=self.alpha * alpha_mult, link_bw=self.link_bw * bw_mult,
+            gamma=self.gamma * gamma_mult)
 
-# The JAX package's presets (TPU v5e ICI, a BlueGene/Q-like vendor
+
+# The JAX package's presets (TPU v5e ICI and DCN, a BlueGene/Q-like vendor
 # library): parity data only.
 V5E_ICI = Topo("v5e-ici", alpha=1.0e-6, link_bw=50e9, gamma=2.5e-12,
                quant_bw=819e9)
+V5E_DCN = Topo("v5e-dcn", alpha=10.0e-6, link_bw=12.5e9, gamma=2.5e-12,
+               quant_bw=819e9)
 BGQ_LIKE = Topo("bgq-like", alpha=2.0e-6, link_bw=2e9, gamma=4e-12,
                 default_pricing="naive", hw_bcast=True, quant_bw=819e9)
+
+#: the JAX package's published v5e DCN-vs-ICI link gaps (the RATIOS are
+#: what is assumed; ``fit_topo`` anchors the absolutes in measured sweeps)
+DCN_ALPHA_MULT = 10.0
+DCN_BW_MULT = 12.5e9 / 50e9
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshTopo:
+    """Per-axis fabric map of a hierarchical mesh: axis name -> ``Topo``.
+
+    ``latency_cell`` and ``sweep_cell`` take a ``MeshTopo`` wherever they
+    take a ``Topo`` and resolve each cell's ``tier`` token (``""``,
+    ``"<tier>"`` or ``"<outer>/<inner>"``) to the per-axis fabrics; a
+    plain ``Topo`` keeps the flat pricing."""
+    axes: tuple[tuple[str, Topo], ...]
+
+    @classmethod
+    def of(cls, **axes: Topo) -> "MeshTopo":
+        """``MeshTopo.of(data=slow, model=fast)``."""
+        return cls(tuple(axes.items()))
+
+    @classmethod
+    def fit(cls, axis_points: dict, *, base: Topo | None = None
+            ) -> "MeshTopo":
+        """Per-axis tiers FIT from measured sweeps: ``axis_points[name] =
+        (p, allgather_points, allreduce_points or None)`` with points as
+        ``(payload_bytes, seconds)`` (``measure.Bench.sweep_axis``)."""
+        return cls(tuple(
+            (name, fit_topo(p, ag, ar, name=name, base=base))
+            for name, (p, ag, ar) in axis_points.items()))
+
+    def topo(self, axis: str) -> Topo:
+        """The fabric of one mesh axis (KeyError for unknown axes)."""
+        for name, t in self.axes:
+            if name == axis:
+                return t
+        raise KeyError(f"MeshTopo has no axis {axis!r} "
+                       f"(axes: {[n for n, _ in self.axes]})")
+
+    def by_tier(self, token: str) -> Topo | None:
+        """A tier by its ``Topo.name`` token (None when unknown)."""
+        for _, t in self.axes:
+            if t.name == token:
+                return t
+        return None
+
+    @property
+    def flat(self) -> Topo:
+        """The tier untiered (``tier == ""``) cells price on: the fastest
+        axis (min beta), the flat model's assumption."""
+        return min((t for _, t in self.axes), key=lambda t: (t.beta, t.alpha))
+
+    @property
+    def slowest(self) -> Topo:
+        return max((t for _, t in self.axes), key=lambda t: (t.beta, t.alpha))
+
+    def tier_token(self, axis: str, inner_axis: str | None = None) -> str:
+        """The ``OpCell.tier`` token of a dispatch over ``axis`` (and, for
+        two-axis cells, ``inner_axis``).  Unknown axes give ``""`` (the
+        flat behaviour) rather than raising."""
+        try:
+            tok = self.topo(axis).name
+        except KeyError:
+            return ""
+        if inner_axis is None:
+            return tok
+        try:
+            return f"{tok}/{self.topo(inner_axis).name}"
+        except KeyError:
+            return ""
+
+    def resolve(self, tier: str) -> tuple[Topo, Topo]:
+        """``(outer, inner)`` fabrics of a tier token: ``""`` and unknown
+        tokens price flat; a single token prices both slots on it."""
+        if not tier:
+            return self.flat, self.flat
+        out_tok, _, in_tok = tier.partition("/")
+        t_out = self.by_tier(out_tok) or self.flat
+        t_in = (self.by_tier(in_tok) or self.flat) if in_tok else t_out
+        return t_out, t_in
+
+
+def _tiers_for(cell, topo) -> tuple[Topo, Topo]:
+    """``(outer, inner)`` fabrics for one cell under either topology."""
+    if isinstance(topo, MeshTopo):
+        return topo.resolve(getattr(cell, "tier", ""))
+    return topo, topo
 
 
 def _lstsq_line(points) -> tuple[float, float]:
@@ -187,6 +293,22 @@ def t_overlapped_ring(p, step_comm: float, mm_total: float, t: Topo):
     return chunk + (p - 1) * max(chunk, step_comm)
 
 
+def t_overlapped_ring2d(p_out: int, q_in: int, outer_step_comm: float,
+                        inner_step_comm: float, mm_total: float, t: Topo,
+                        t_inner: Topo | None = None):
+    """The nested overlap law of the 2-D ring:
+    ``max(outer_comm, per-step max(inner_comm, compute))``.  Each of the
+    ``p_out`` outer steps runs a whole inner ring (``t_overlapped_ring``
+    over ``q_in`` steps) on ``1/p_out`` of the compute; the outer
+    transfer hides behind it, the first outer block's inner ring is
+    exposed, and each outer step pays ``fused_step_overhead``.  ``t``
+    prices the outer stream, ``t_inner`` (default ``t``) the inner ring."""
+    ti = t if t_inner is None else t_inner
+    inner = t_overlapped_ring(q_in, inner_step_comm, mm_total / p_out, ti)
+    return inner + (p_out - 1) * max(
+        inner, outer_step_comm + t.fused_step_overhead)
+
+
 def t_meta(p, t: Topo):
     """The 2p·I count/displacement exchange of the 'v' emulations."""
     return t_ring_allgather(p, 8, t)
@@ -241,10 +363,13 @@ def _pad(B: float, p: int, chunk_bytes: int) -> float:
 
 
 def latency(op: str, impl: str, p: int, nbytes: int, topo: Topo,
-            *, chunk_bytes: int = 0) -> float:
+            *, chunk_bytes: int = 0, tier: str = "") -> float:
     """Modeled latency (seconds) of one ``impl`` of ``op`` on an axis of
     size ``p``.  Compositions are priced as the sum of the sub-impls they
-    actually run (see collectives.py)."""
+    actually run (see collectives.py).  A ``MeshTopo`` is resolved through
+    ``tier`` (one axis: the first slot of the token)."""
+    if isinstance(topo, MeshTopo):
+        topo = topo.resolve(tier)[0]
     if p <= 1:
         return 0.0
     B = float(max(nbytes, 1))
@@ -400,6 +525,21 @@ def latency(op: str, impl: str, p: int, nbytes: int, topo: Topo,
             lambda: t_overlapped_ring(
                 p, topo.alpha + B * topo.beta,
                 t_fused_matmul(p * B / 4.0, topo), topo),
+        # ---- matmul_reducescatter_2d (B = the streamed weight-block
+        # bytes over the OUTER axis).  Geometry-less: the inner axis is
+        # taken equal to the outer (a square mesh), the matmul touches
+        # p·B/4 gathered weight elements, the output is the gathered
+        # weight's size p·B and the inner ring's accumulator block is
+        # B/p.  Unfused = weight all-gather PLUS matmul PLUS output
+        # reduce-scatter; fused = the nested overlap law ----
+        ("matmul_reducescatter_2d", "default"):
+            lambda: (ag(B) + t_fused_matmul(p * B / 4.0, topo)
+                     + rs(p * B)),
+        ("matmul_reducescatter_2d", "fused_ring2d"):
+            lambda: t_overlapped_ring2d(
+                p, p, topo.alpha + B * topo.beta,
+                topo.alpha + (B / p) * (topo.beta + topo.gamma),
+                t_fused_matmul(p * B / 4.0, topo), topo),
         # ---- scatter (B = total buffer bytes, p chunks) ----
         ("scatter", "default"): lambda: dflt_scatter(B),
         ("scatter", "scatter_as_bcast"): lambda: dflt_bcast(B),
@@ -454,33 +594,120 @@ def latency(op: str, impl: str, p: int, nbytes: int, topo: Topo,
         })
     key = (op, impl)
     if key not in table:
+        if REGISTRY.get(op, {}).get(impl) is not None and \
+                REGISTRY[op][impl].hier:
+            # two-axis mock-ups are inadmissible on a one-axis problem
+            return math.inf
         raise KeyError(f"no cost model for {key}")
     if REGISTRY[op][impl].requires_pow2 and not _is_pow2(p):
         return math.inf
     return float(table[key]())
 
 
-def latency_cell(cell, impl: str, topo: Topo, *,
-                 chunk_bytes: int = 0) -> float:
+def latency_hier(cell, impl: str, t_out: Topo, t_in: Topo) -> float:
+    """Modeled latency of a HIERARCHICAL plain cell: ``cell.p`` outer
+    (inter-tier) ranks x ``cell.p2`` inner (intra-tier) ranks.
+
+    ``default`` is one collective over the joint ``p·p2`` group: a ring
+    through all ranks crosses the outer tier, and ring steps are
+    synchronous, so every step runs at the slowest link's rate.  The
+    ``MPIX_*`` mock-ups are the composed tier-aware schedules: most bytes
+    move on the fast intra tier, a ``1/p2`` share crosses the slow one.
+    Flat mock-ups are inadmissible here and price to ``inf``."""
+    p, q = cell.p, cell.p2
+    B = float(max(cell.nbytes, 1))
+    imp = REGISTRY[cell.op][impl]
+    if imp.requires_pow2 and not (_is_pow2(p) and _is_pow2(q)):
+        return math.inf
+    if p * q <= 1:
+        return 0.0
+    slow = t_out if (t_out.beta, t_out.alpha) >= (t_in.beta, t_in.alpha) \
+        else t_in
+    if impl == "default":
+        if cell.op == "allreduce":
+            return t_ring_allreduce(p * q, B, slow)
+        if cell.op == "allgather":
+            return t_ring_allgather(p * q, B, slow)
+        if cell.op == "reducescatter":
+            return t_ring_reduce_scatter(p * q, B, slow)
+    if cell.op == "allreduce" and impl == "MPIX_rs_ar_ag":
+        # RS-intra -> AR-inter -> AG-intra (B = buffer bytes)
+        return (t_ring_reduce_scatter(q, B, t_in)
+                + t_ring_allreduce(p, B / q, t_out)
+                + t_ring_allgather(q, B / q, t_in))
+    if cell.op == "allgather" and impl == "MPIX_ag_ag":
+        # AG-intra -> AG-inter (B = per-shard contribution; the inter
+        # stage moves the q·B intra-gathered block)
+        return (t_ring_allgather(q, B, t_in)
+                + t_ring_allgather(p, q * B, t_out))
+    if cell.op == "reducescatter" and impl == "MPIX_rs_rs":
+        # RS-inter -> RS-intra (B = total buffer, p·q chunks)
+        return (t_ring_reduce_scatter(p, B, t_out)
+                + t_ring_reduce_scatter(q, B / p, t_in))
+    return math.inf
+
+
+def _latency_2d(cell, impl: str, mm: float, t_out: Topo,
+                t_in: Topo) -> float:
+    """A 2-D cell: ``p`` = the stream (gather) axis on ``t_out``, ``p2`` =
+    the reduce-scatter axis on ``t_in``; the dims are the PER-RANK GEMM,
+    so ``mm`` is one rank's compute and the output product is
+    ``mm_m x mm_n``."""
+    p, q = cell.p, max(cell.p2, 1)
+    it = cell.itemsize
+    bt_out = float(cell.mm_m * cell.mm_n * it)
+    if impl == "default":
+        return (latency("allgather", "default", p, cell.nbytes, t_out)
+                + mm + t_ring_reduce_scatter(q, bt_out, t_in))
+    if cell.mm_role == "2dT":
+        # outer = the travelling accumulator over the rs axis (q steps,
+        # [mm_m/q, mm_n] blocks, t_in); inner = the cotangent column
+        # slice streamed over the gather axis (p steps, t_out)
+        acc_blk = bt_out / q
+        slice_blk = (float(cell.mm_k) / p) * (float(cell.mm_m) / q) * it
+        return t_overlapped_ring2d(
+            q, p, t_in.alpha + acc_blk * (t_in.beta + t_in.gamma),
+            t_out.alpha + slice_blk * t_out.beta, mm, t_in, t_out)
+    # "2d": outer = the weight column-block stream over the gather axis
+    # (p steps of B bytes, t_out); inner = the matmul-reducescatter ring
+    # over the rs axis (q steps, [mm_m/q, mm_n/p] blocks, t_in)
+    inner_blk = (float(cell.mm_m) / q) * (float(cell.mm_n) / p) * it
+    return t_overlapped_ring2d(
+        p, q, t_out.alpha + float(max(cell.nbytes, 1)) * t_out.beta,
+        t_in.alpha + inner_blk * (t_in.beta + t_in.gamma), mm, t_out, t_in)
+
+
+def latency_cell(cell, impl: str, topo, *, chunk_bytes: int = 0) -> float:
     """Modeled latency of one ``OpCell``.  Plain cells (and fused cells
     without recorded geometry) use the canonical ``latency`` table; a
     fused cell with a recorded GEMM is priced from its true flops
     ``2·K·M·N``: the allgather-matmul and matmul-accumulate rings' steps
     move the per-rank payload, the matmul-reducescatter ring's its true
     output blocks; a wire impl moves wire bytes and adds its quantize and
-    dequantize passes."""
+    dequantize passes.  ``topo`` is a ``Topo`` (every axis on it) or a
+    ``MeshTopo``, resolved through ``cell.tier``: the outer fabric prices
+    the ``p`` axis, the inner one the ``p2`` axis; hierarchical cells go
+    to ``latency_hier``, 2-D cells to the nested law."""
+    t_out, t_in = _tiers_for(cell, topo)
+    if cell.hier:
+        return latency_hier(cell, impl, t_out, t_in)
     if not cell.fused:
-        return latency(cell.op, impl, cell.p, cell.nbytes, topo,
+        return latency(cell.op, impl, cell.p, cell.nbytes, t_out,
                        chunk_bytes=chunk_bytes)
     p = cell.p
-    if p <= 1:
+    if p <= 1 and cell.p2 <= 1:
         return 0.0
     if cell.op not in FUSED_OPS:
         raise KeyError(f"no geometry cost model for {cell.op!r}")
     imp = REGISTRY[cell.op][impl]
+    if imp.hier:
+        return math.inf
     if imp.requires_pow2 and not _is_pow2(p):
         return math.inf
+    topo = t_out
     mm = 2.0 * cell.mm_k * cell.mm_m * cell.mm_n / topo.matmul_flops
+    if cell.op == "matmul_reducescatter_2d":
+        return _latency_2d(cell, impl, mm, t_out, t_in)
     if cell.op in ("allgather_matmul", "matmul_accumulate"):
         # the streamed operand is all-gathered over the axis; steps move
         # its bytes
@@ -518,13 +745,13 @@ def sweep(op: str, p: int, nbytes: int, topo: Topo, *,
             for name in impl_names(op)}
 
 
-def sweep_cell(cell, topo: Topo, *, chunk_bytes: int = 0) -> dict[str, float]:
+def sweep_cell(cell, topo, *, chunk_bytes: int = 0) -> dict[str, float]:
     """Latency of every registered impl for one ``OpCell``."""
     return {name: latency_cell(cell, name, topo, chunk_bytes=chunk_bytes)
             for name in impl_names(cell.op)}
 
 
-def best_impl_cell(cell, topo: Topo, *,
+def best_impl_cell(cell, topo, *,
                    chunk_bytes: int = 0) -> tuple[str, float]:
     """``(impl, latency)`` of the fastest modeled implementation."""
     sw = sweep_cell(cell, topo, chunk_bytes=chunk_bytes)

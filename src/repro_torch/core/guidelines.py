@@ -47,7 +47,12 @@ def _collect() -> list[Guideline]:
                 # unique ("fused_ring")
                 gl_id = (f"EXT:{name}" if "_as_" in name
                          else f"EXT:{op}.{name}")
-            if name.startswith("fused_ring"):
+            if impl.hier:
+                stmt = (f"{op}@(inter x intra)(n) <= {name}(n)  "
+                        "[per-tier decomposition must not lose to one flat "
+                        "collective over the joint group when a ring step "
+                        "crosses the slow tier]")
+            elif name.startswith("fused_ring"):
                 stmt = (f"{op}(n) <= {name}(n)  "
                         "[fused overlap must not lose to collective+matmul]")
             elif name.startswith("wire_"):

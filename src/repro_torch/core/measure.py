@@ -15,6 +15,12 @@ Replay is keyed on the full ``OpCell``: a fused collective-matmul cell is
 re-executed with the RECORDED GEMM — dtype and ``(mm_k, mm_m, mm_n)``
 exactly as the callsite issued them.  Fused cells without recorded
 geometry (v1 traces) cannot be replayed; the tuner note-skips them.
+
+A two-axis cell (hierarchical, or 2-D) replays on a ``StackedMesh`` of
+shape ``(p, p2)`` over the bench's lanes, the counterpart of the JAX
+package's ``_mesh2``: the payload streams over the outer axis and the
+impl gets the inner axis as ``inner_axis=`` or ``rs_axis=``, as at
+dispatch.  Its world ``p * p2`` must equal the bench's lane count.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ import time
 import torch
 
 from repro_torch.core import collectives as C
-from repro_torch.core._axis import StackedAxis
+from repro_torch.core._axis import StackedAxis, StackedMesh
 from repro_torch.core.cell import OpCell
 
 #: ops whose cells carry a fused-matmul geometry the replay must honor
@@ -45,6 +51,19 @@ def problem_shapes(cell: OpCell) -> dict[str, tuple[int, ...]]:
             raise ValueError(
                 f"cell {cell} has no recorded matmul geometry; a fused op "
                 "cannot be replayed without it (v1 trace?)")
+        if cell.op == "matmul_reducescatter_2d":
+            q = max(cell.p2, 1)
+            if cell.mm_role == "2dT":
+                # payload = the cotangent row block [mm_k/p, mm_m], its
+                # cols dividing the rs axis; x [p*t_loc, mm_n]
+                t_loc = max(1, cell.mm_k // p)
+                m_pad = max(q, (cell.mm_m // q) * q)
+                return {"x": (t_loc, m_pad), "w": (p * t_loc, cell.mm_n)}
+            # payload = the weight column block [mm_k, mm_n/p]; the
+            # stationary x's rows divide the rs axis
+            rows = max(q, (cell.mm_m // q) * q)
+            return {"x": (cell.mm_k, max(1, cell.mm_n // p)),
+                    "w": (rows, cell.mm_k)}
         if cell.op == "allgather_matmul":
             return {"x": (max(1, cell.mm_m // p), cell.mm_k),
                     "w": (cell.mm_k, cell.mm_n)}
@@ -91,11 +110,43 @@ class Bench:
         if run is not None:
             self._cases.move_to_end(key)
             return run
-        if cell.p != self.p:
-            raise ValueError(f"bench runs at p={self.p}, not {cell.p}")
         fn = C.REGISTRY[cell.op][impl].fn
         shapes = problem_shapes(cell)
         dt = getattr(torch, cell.dtype or "float32")
+        if cell.p2:
+            run = self._case2(cell, fn, shapes, dt)
+        else:
+            run = self._case1(cell, fn, shapes, dt)
+        self._cases[key] = run
+        while len(self._cases) > self.MAX_CASES:
+            self._cases.popitem(last=False)
+        return run
+
+    def _case2(self, cell: OpCell, fn, shapes, dt):
+        """A two-axis cell on a ``(p, p2)`` mesh of the bench's lanes."""
+        if cell.world() != self.p:
+            raise ValueError(f"bench runs {self.p} lanes, not the "
+                             f"{cell.p}x{cell.p2} mesh of {cell}")
+        mesh = StackedMesh((cell.p, cell.p2), ("bench", "bench2"),
+                           self.device)
+        outer, inner = mesh["bench"], mesh["bench2"]
+        x = torch.ones((self.p,) + shapes["x"], dtype=dt, device=self.device)
+        if cell.op == "matmul_reducescatter_2d":
+            stat = torch.ones((self.p,) + shapes["w"], dtype=dt,
+                              device=self.device)
+            xpose = cell.mm_role == "2dT"
+
+            def run():
+                return fn(x, outer, x=stat, rs_axis=inner, xpose=xpose)
+            return run
+
+        def run():
+            return fn(x, outer, inner_axis=inner)
+        return run
+
+    def _case1(self, cell: OpCell, fn, shapes, dt):
+        if cell.p != self.p:
+            raise ValueError(f"bench runs at p={self.p}, not {cell.p}")
         axis = self.axis
         x = torch.ones((self.p,) + shapes["x"], dtype=dt, device=self.device)
         if cell.op == "matmul_accumulate":
@@ -114,9 +165,6 @@ class Bench:
         else:
             def run():
                 return fn(x, axis)
-        self._cases[key] = run
-        while len(self._cases) > self.MAX_CASES:
-            self._cases.popitem(last=False)
         return run
 
     def barrier(self) -> None:

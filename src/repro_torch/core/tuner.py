@@ -106,16 +106,22 @@ class CostModelBackend:
 
 
 class MeasuredBackend:
-    """Device time on a stacked axis of ``p`` ranks; NREP via the paper's
-    estimator.  Replays each cell's RECORDED problem — for fused cells the
-    callsite's actual GEMM.  Fused cells without geometry (v1 traces) are
-    unmeasurable (``inf``), which the tuner note-skips."""
+    """Device time on ``p`` stacked lanes; NREP via the paper's estimator.
+    Replays each cell's RECORDED problem — for fused cells the callsite's
+    actual GEMM, for two-axis cells its ``p x p2`` mesh.  Fused cells
+    without geometry (v1 traces) are unmeasurable (``inf``), which the
+    tuner note-skips.  ``p=None`` replays every cell at its own world
+    (``OpCell.world()``): the ranks are stacked on one device, so no
+    device count ties the replay to one axis size."""
 
     name = "measured"
 
-    def __init__(self, p: int = 8, device=None, *, rse_1byte: float = 0.05,
-                 rse_large: float = 0.10, K: int = 5, max_nrep: int = 50):
-        self.bench = measure.Bench(p, device)
+    def __init__(self, p: int | None = 8, device=None, *,
+                 rse_1byte: float = 0.05, rse_large: float = 0.10,
+                 K: int = 5, max_nrep: int = 50):
+        self.p = p
+        self._device = device
+        self._benches: dict[int, measure.Bench] = {}
         self.rse_1byte = rse_1byte
         self.rse_large = rse_large
         self.K = K
@@ -124,10 +130,17 @@ class MeasuredBackend:
         self._nrep: dict[tuple, int] = {}
 
     @property
-    def supported_axis_size(self) -> int:
-        """Only cells at the bench's axis size can be replayed; the tuners
-        skip (and note) every other cell."""
-        return self.bench.p
+    def supported_axis_size(self) -> int | None:
+        """Only cells whose world is ``p`` can be replayed; the tuners skip
+        (and note) every other cell.  None: any world."""
+        return self.p
+
+    def _bench(self, cell: OpCell) -> measure.Bench:
+        """The bench of ``p`` lanes, or (``p=None``) of the cell's world."""
+        w = cell.world() if self.p is None else self.p
+        if w not in self._benches:
+            self._benches[w] = measure.Bench(w, self._device)
+        return self._benches[w]
 
     @staticmethod
     def _measurable(cell: OpCell) -> bool:
@@ -139,7 +152,7 @@ class MeasuredBackend:
         key = (cell.scaled_to(1), impl)
         if key not in self._one_byte:
             self._one_byte[key] = nrep.estimate_1byte(
-                self.bench.make_sampler(cell, impl),
+                self._bench(cell).make_sampler(cell, impl),
                 rse_threshold=self.rse_1byte, batch0=5, max_samples=60)
         return self._one_byte[key]
 
@@ -148,22 +161,23 @@ class MeasuredBackend:
             return 1
         key = (cell, impl)
         if key not in self._nrep:
-            n = nrep.estimate_nrep(self.bench.make_sampler(cell, impl),
+            n = nrep.estimate_nrep(self._bench(cell).make_sampler(cell,
+                                                                  impl),
                                    cell.nbytes, self._ob(cell, impl),
                                    rse_threshold=self.rse_large, K=self.K)
             self._nrep[key] = min(n, self.max_nrep)
         return self._nrep[key]
 
     def latency(self, cell: OpCell, impl: str) -> float:
-        if cell.world() != self.bench.p:
+        bench = self._bench(cell)
+        if cell.world() != bench.p:
             raise ValueError(
-                f"measured backend runs at p={self.bench.p}, not "
+                f"measured backend runs at p={bench.p}, not "
                 f"{cell.world()}")
         if not self._measurable(cell):
             return math.inf
         count = self.nrep_for(cell, impl)
-        return statistics.median(
-            self.bench.sample_latency(cell, impl, count))
+        return statistics.median(bench.sample_latency(cell, impl, count))
 
 
 def tune(ops: Sequence[str] | None = None,
@@ -264,7 +278,13 @@ def _measure_cell(cell: OpCell, backend,
     lats: dict[str, float] = {}
     p, nbytes = cell.p, cell.nbytes
     for impl_name, impl in REGISTRY[cell.op].items():
-        if impl.requires_pow2 and (p & (p - 1)) != 0:
+        if impl.requires_pow2 and ((p & (p - 1)) != 0
+                                   or (cell.p2 & (cell.p2 - 1)) != 0):
+            continue
+        # hierarchical impls fit only hierarchical cells and vice versa:
+        # the cost model prices a mismatch inf, the measured replay would
+        # fail on it
+        if impl_name != "default" and impl.hier != cell.hier:
             continue
         if impl_name != "default" and is_demoted(cell.op, impl_name):
             continue
@@ -355,7 +375,9 @@ def tune_trace(trace, backend=None, *, min_win: float = 0.10,
                 notes.append(f"{ph}: unknown op {op!r}; cell skipped")
                 continue
             if sup is not None and cell.world() != sup:
-                notes.append(f"{ph}: {op} {nbytes}B: p={p} != axis "
+                wd = (f"world={cell.world()} (p={p}, p2={cell.p2})"
+                      if cell.p2 else f"p={p}")
+                notes.append(f"{ph}: {op} {nbytes}B: {wd} != axis "
                              f"size {sup}; cell skipped")
                 continue
             if cell not in lat_cache:

@@ -21,15 +21,22 @@ the port binds names to axis objects explicitly, per thread::
 binding.  An unbound axis makes every ``dist.ops`` primitive over it
 degrade to its local meaning, as in the JAX package.
 
-The stacked dim 0 of every tensor is ONE axis, so the model code runs
-with one name bound: ``model`` (tensor parallelism: every rank sees the
-whole batch; the serve path and the trainer's TP layout) or ``data``
-(FSDP: every rank holds its ZeRO-3 shards and its own slice of the
-batch; the trainer's FSDP layout).  Binding both names at once is a
-lookup table only: the ops that need the two axes together
-(``matmul_reducescatter_2d``) raise ``NotImplementedError``, and so do
-the trainer and the train CLI when asked for both (ROADMAP.md, queue 1,
-item 3).  ``pod`` is never bound.
+Dim 0 of every tensor holds the stacked lanes.  One name bound
+(``model``: tensor parallelism, every rank sees the whole batch; or
+``data``: FSDP, every rank holds its ZeRO-3 shards and its own slice of
+the batch) is a one-axis ``StackedAxis``.  Both names bound are two views
+of one ``StackedMesh`` (``core._axis``): lane ``i*t + j`` is data rank i
+and model rank j, the order of the JAX package's nested ``vmap`` (outer
+``data``) and of its ``make_host_mesh((d, t), ("data", "model"))``::
+
+    mesh = StackedMesh((2, 4), ("data", "model"), "cuda")
+    with bind(data=mesh["data"], model=mesh["model"]):
+        ...
+
+Every collective over one name then runs within the groups of lanes that
+share the other name's coordinate, and the ops that need both axes at
+once (``matmul_reducescatter_2d``, ``row_matmul(fsdp_dim=1)``) take the
+two views.  ``pod`` is never bound.
 """
 from __future__ import annotations
 
@@ -65,7 +72,9 @@ def _bound() -> dict[str, StackedAxis]:
 @contextlib.contextmanager
 def bind(**axes: StackedAxis):
     """Bind axis names to axis objects for the calls inside (nested
-    bindings add to, and may shadow, the enclosing ones)."""
+    bindings add to, and may shadow, the enclosing ones).  The ops that
+    use two names at once need them to be views of one ``StackedMesh``
+    and check it (``core.api``)."""
     for name in axes:
         if name not in tuple(AXES):
             raise ValueError(f"unknown axis name {name!r}; known: "
@@ -101,6 +110,6 @@ def axis_size_or_1(axis_name: str | None) -> int:
 
 
 def axis_index(axis_name: str) -> torch.Tensor:
-    """Each rank's index along ``axis_name``: a ``[p]`` int64 tensor on the
-    axis device (the stacked counterpart of ``lax.axis_index``)."""
+    """Each lane's index along ``axis_name``: a ``[lanes]`` int64 tensor on
+    the axis device (the stacked counterpart of ``lax.axis_index``)."""
     return get_axis(axis_name).index()

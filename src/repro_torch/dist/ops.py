@@ -7,10 +7,11 @@ collective they issue, forward AND backward, goes through
 ``PGTUNE_MODULE`` spec redirects training and serving traffic to the
 guideline mock-ups, as PGMPITuneLib redirects ``MPI_*`` calls.
 
-Operands are stacked over the bound axis (``dist.axes``): a per-rank
-``[..., K]`` activation is a ``[p, ..., K]`` tensor and a per-rank weight
-``[K, M]`` is ``[p, K, M]``.  Local products are batched over the rank
-dim (``_mm``).
+Operands are stacked over the lanes of the bound axes (``dist.axes``): a
+per-rank ``[..., K]`` activation is a ``[L, ..., K]`` tensor and a
+per-rank weight ``[K, M]`` is ``[L, K, M]``, with L the number of ranks
+of the mesh (p for one bound axis, d*t for data and model together).
+Local products are batched over the lane dim (``_mm``).
 
 Each op that issues a collective is a ``torch.autograd.Function`` that
 mirrors the JAX package's custom-VJP pair (``repro/dist/ops.py``): the
@@ -52,6 +53,14 @@ fsdp_matmul          api.allgather_matmul       api.matmul_reducescatter (dw)
                      gathered, transposed)
 matmul_accumulate    api.matmul_accumulate      api.matmul_reducescatter (dw);
                      (data)                     dx reuses the gathered weight
+matmul_reduce-       api.matmul_reducescatter   api.allgather_matmul (dx,
+scatter_2d           _2d (weight gathered over  model) + api.matmul_reduce-
+                     data, rows scattered over  scatter_2d_t (dw, the axes
+                     model)                     swapped)
+row_matmul           api.matmul_reducescatter   identity (dx, a local product
+(fsdp_dim=1, both    _2d + api.allgather        against the gathered weight)
+axes bound)          (model)                    + api.matmul_reducescatter
+                                                _2d_t (dw)
 ===================  =========================  ==========================
 
 Every operand handed to a dispatched collective is made contiguous
@@ -61,9 +70,7 @@ strided cotangents.  The Hopper GEMMs behind ``fused_ring`` take only
 contiguous operands and do not copy for the caller.
 
 An op over an unbound axis degrades to identity or a local matmul, as in
-the JAX package.  Not ported yet: ``ep_alltoall`` (MoE) and the 2-D ops
-that need both axes bound at once (``matmul_reducescatter_2d``, and
-``row_matmul(fsdp_dim=1)`` over bound model and data axes).
+the JAX package.  Not ported yet: ``ep_alltoall`` (MoE).
 """
 from __future__ import annotations
 
@@ -407,6 +414,64 @@ def matmul_accumulate(x, w, axis: str = AXES.data):
 
 
 # ---------------------------------------------------------------------------
+# weight-stationary 2-D collective matmul (data gather x model scatter)
+# ---------------------------------------------------------------------------
+
+
+class _Mm2d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, rs, ag, keep):
+        # the outer ring materializes the column-gathered weight anyway;
+        # keep it so dx needs no second gather of w
+        ctx.tune = api.current_context()
+        ctx.rs, ctx.ag = rs, ag
+        if not keep:
+            return api.matmul_reducescatter_2d(x, w, rs, ag)
+        ys, wf = api.matmul_reducescatter_2d(x, w, rs, ag,
+                                             return_gathered=True)
+        ctx.save_for_backward(x, wf)
+        return ys
+
+    @staticmethod
+    def backward(ctx, g):
+        # ys = RS_q(x @ AG_d(w)): the cotangent arrives sharded over the rs
+        # axis.  dx = AG_q(g) @ Wᵀ, the 1-D gather-role fused op; dw is the
+        # 2-D TRANSPOSE schedule with the axes swapped: the rs-axis gather
+        # of g is contracted into the ag-axis reduce-scatter
+        x, wf = ctx.saved_tensors
+        g = _contig(g)
+        with _backward(ctx):
+            dx = api.allgather_matmul(g, _T(wf), ctx.rs)
+            dwt = api.matmul_reducescatter_2d_t(g, x, ctx.ag, ctx.rs)
+        return dx, dwt.transpose(1, 2), None, None, None
+
+
+def matmul_reducescatter_2d(x, w, rs_axis: str = AXES.model,
+                            ag_axis: str = AXES.data):
+    """``reduce_scatter(x @ all_gather(w, cols over ag_axis), rows over
+    rs_axis)``: x per-rank ``[T, K]``, w ``[K, M/d]`` (the data-axis FSDP
+    column block) -> ``[T/q, M]`` summed over ``rs_axis``.  Both
+    collectives fuse around one matmul (nested rings); fused-vs-unfused is
+    a dispatcher decision per 2-D cell.  The backward pairs
+    ``allgather_matmul`` for dx and the 2-D transpose schedule for dw.
+    A missing axis falls back to the matching 1-D op; rows must divide
+    the rs axis (``row_matmul(fsdp_dim=1)`` keeps the 1-D composition for
+    ragged rows)."""
+    if not has_axis(ag_axis):
+        return matmul_reducescatter(x, w, rs_axis)
+    if not has_axis(rs_axis):
+        return fsdp_matmul(x, w, ag_axis)
+    if x.shape[1] % axis_size(rs_axis):
+        raise ValueError(
+            f"matmul_reducescatter_2d: rows {x.shape[1]} must divide the "
+            f"rs axis size {axis_size(rs_axis)}; use the unfused "
+            "tp_allreduce(fsdp_matmul(...)) composition for ragged rows "
+            "(row_matmul(fsdp_dim=1) does this automatically)")
+    return _Mm2d.apply(_contig(x), _contig(w), get_axis(rs_axis),
+                       get_axis(ag_axis), _grad_on(x, w))
+
+
+# ---------------------------------------------------------------------------
 # Megatron matmuls
 # ---------------------------------------------------------------------------
 
@@ -477,6 +542,40 @@ class _RowMm(torch.autograd.Function):
         return dx, dw, None
 
 
+class _Row2dMm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, rs, ag, keep):
+        ctx.tune = api.current_context()
+        ctx.rs, ctx.ag = rs, ag
+        x2 = _contig(_flat2(x)[0])
+        if keep:
+            ys, wf = api.matmul_reducescatter_2d(x2, w, rs, ag,
+                                                 return_gathered=True)
+            ctx.save_for_backward(x, wf)
+        else:
+            ys = api.matmul_reducescatter_2d(x2, w, rs, ag)
+        return api.allgather(ys, rs).reshape(*x.shape[:-1], ys.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        # the reduced output is ONE logical replicated tensor (Megatron
+        # "g"): dx is a local product against the saved gathered weight.
+        # dw takes the rs-axis row block of g back and runs the 2-D
+        # TRANSPOSE schedule: the rs-axis gather contracted into the
+        # ag-axis FSDP grad reduce-scatter
+        x, wf = ctx.saved_tensors
+        g2, t = _flat2(g)
+        x2, _ = _flat2(x)
+        q = ctx.rs.size
+        gs = g2.reshape(g2.shape[0], q, t // q, g2.shape[-1])[
+            ctx.rs.lane_index(), ctx.rs.index()]
+        with _backward(ctx):
+            dwt = api.matmul_reducescatter_2d_t(gs, _contig(x2), ctx.ag,
+                                                ctx.rs)
+        dx = torch.matmul(g2, wf.transpose(1, 2)).reshape(x.shape)
+        return dx, dwt.transpose(1, 2), None, None, None
+
+
 def row_matmul(x, w, axis: str = AXES.model, *, fsdp_dim: int | None = None,
                fsdp_axis: str = AXES.data):
     """Row-parallel matmul: ``x`` sharded on the last dim, ``w`` on its
@@ -484,16 +583,17 @@ def row_matmul(x, w, axis: str = AXES.model, *, fsdp_dim: int | None = None,
     ``matmul_reducescatter`` + ``allgather`` when the rows divide p (one
     tuned ``allreduce`` otherwise); the backward needs no collective.
     ``fsdp_dim=1``: ``w`` is also FSDP-sharded on its output dim; with
-    both axes bound that is the 2-D op (not ported: it needs both axes at
-    once), otherwise the 1-D composition ``tp_allreduce(fsdp_matmul(...))``.
-    """
+    both axes bound and the rows dividing the model axis that is the 2-D
+    op (``matmul_reducescatter_2d``: the data-axis weight stream outside,
+    the model-axis reduce-scatter inside) followed by the model-axis
+    all-gather of the scattered rows, otherwise the 1-D composition
+    ``tp_allreduce(fsdp_matmul(...))``."""
     rows = math.prod(x.shape[1:-1])
     if fsdp_dim == 1:
         if (has_axis(axis) and has_axis(fsdp_axis)
                 and rows % axis_size(axis) == 0):
-            raise NotImplementedError(
-                "row_matmul(fsdp_dim=1) over bound model and data axes is "
-                "matmul_reducescatter_2d, which needs both axes at once")
+            return _Row2dMm.apply(x, _contig(w), get_axis(axis),
+                                  get_axis(fsdp_axis), _grad_on(x, w))
         return tp_allreduce(fsdp_matmul(x, w, fsdp_axis), axis)
     if fsdp_dim is not None:
         w = fsdp_gather(w, fsdp_dim, fsdp_axis)

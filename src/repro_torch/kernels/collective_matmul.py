@@ -27,7 +27,11 @@ device-memory copy, so the ring measures on-chip data movement and launch
 overhead, not a link.
 
 ``ring_matmul_accumulate`` streams the weight's K-blocks past a
-stationary x and adds the partial products; the ``*_wire`` rings are the
+stationary x and adds the partial products.
+``ring_matmul_reducescatter_2d`` and its transpose ``_2d_t`` are the
+``fused_ring2d`` mock-up of ``matmul_reducescatter_2d``: two rings over
+two axes of one ``StackedMesh``, nested, every chunk product one
+``block_matmul`` launch over all lanes.  The ``*_wire`` rings are the
 ``wire_q8`` / ``wire_fp8`` mock-ups, with the travelling operand on the
 8-bit wire of ``kernels/quant.py``.
 """
@@ -167,23 +171,23 @@ def ring_allgather_matmul(x: torch.Tensor, w: torch.Tensor,
     if p == 1:
         out = _local_mm(x, w, mm).to(out_dtype)
         return (out, x) if return_gathered else out
-    n = x.shape[1]
-    idx = axis.index()
-    out = torch.zeros((p, p, n, w.shape[-1]), dtype=out_dtype,
+    n, lanes = x.shape[1], x.shape[0]
+    idx, lane = axis.index(), axis.lane_index()
+    out = torch.zeros((lanes, p, n, w.shape[-1]), dtype=out_dtype,
                       device=x.device)
-    gath = (torch.zeros((p, p) + tuple(x.shape[1:]), dtype=x.dtype,
+    gath = (torch.zeros((lanes, p) + tuple(x.shape[1:]), dtype=x.dtype,
                         device=x.device) if return_gathered else None)
     cur = x
     for s in range(p):
         nxt = axis.pshift(cur, ring_perm(p, 1)) if s < p - 1 else None
         src = (idx - s) % p                # originating rank of `cur`
-        out[idx, src] = _local_mm(cur, w, mm).to(out_dtype)
+        out[lane, src] = _local_mm(cur, w, mm).to(out_dtype)
         if return_gathered:
-            gath[idx, src] = cur
+            gath[lane, src] = cur
         cur = nxt
-    out = out.view(p, p * n, -1)
+    out = out.view(lanes, p * n, -1)
     if return_gathered:
-        return out, gath.view((p, p * n) + tuple(x.shape[2:]))
+        return out, gath.view((lanes, p * n) + tuple(x.shape[2:]))
     return out
 
 
@@ -205,11 +209,11 @@ def ring_matmul_reducescatter(x: torch.Tensor, w: torch.Tensor,
     if rows % p:
         raise ValueError(f"rows {rows} not divisible by axis size {p}")
     n = rows // p
-    idx = axis.index()
-    lanes = x.reshape((p, p, n) + tuple(x.shape[2:]))
+    idx, lane = axis.index(), axis.lane_index()
+    blocks = x.reshape((x.shape[0], p, n) + tuple(x.shape[2:]))
     acc = None
     for s in range(p):
-        blk = lanes[idx, (idx + (p - 1 - s)) % p]
+        blk = blocks[lane, (idx + (p - 1 - s)) % p]
         contrib = _local_mm(blk, w, mm).to(out_dtype)
         acc = contrib if acc is None else acc + contrib
         if s < p - 1:
@@ -229,7 +233,7 @@ def _k_slices(x: torch.Tensor, p: int, k_loc: int) -> torch.Tensor:
 
 def _take_k(xk: torch.Tensor, lane: torch.Tensor,
             src: torch.Tensor) -> torch.Tensor:
-    """Per rank r, the contraction slice ``src[r]`` of its x: ``[p, T,
+    """Per lane l, the contraction slice ``src[l]`` of its x: ``[L, T,
     k_loc]``, contiguous (the block matmul's operand)."""
     if xk.shape[0] == 1:                 # one x shared by every rank
         return xk[0].index_select(1, src).transpose(0, 1).contiguous()
@@ -255,23 +259,129 @@ def ring_matmul_accumulate(x: torch.Tensor, w: torch.Tensor,
         out = _local_mm(x if x.dim() == 3 else x.unsqueeze(0), w,
                         mm).to(out_dtype)
         return (out, w) if return_gathered else out
-    k_loc = w.shape[1]
+    k_loc, lanes = w.shape[1], w.shape[0]
     xk = _k_slices(x, p, k_loc)
-    idx = axis.index()
-    gath = (w.new_zeros((p, p) + tuple(w.shape[1:]))
+    idx, lane = axis.index(), axis.lane_index()
+    gath = (w.new_zeros((lanes, p) + tuple(w.shape[1:]))
             if return_gathered else None)
     acc = None
     cur = w
     for s in range(p):
         nxt = axis.pshift(cur, ring_perm(p, 1)) if s < p - 1 else None
         src = (idx - s) % p                # originating rank of `cur`
-        contrib = _local_mm(_take_k(xk, idx, src), cur, mm).to(out_dtype)
+        contrib = _local_mm(_take_k(xk, lane, src), cur, mm).to(out_dtype)
         acc = contrib if acc is None else acc + contrib
         if return_gathered:
-            gath[idx, src] = cur
+            gath[lane, src] = cur
         cur = nxt
     if return_gathered:
-        return acc, gath.view((p, p * k_loc) + tuple(w.shape[2:]))
+        return acc, gath.view((lanes, p * k_loc) + tuple(w.shape[2:]))
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# the weight-stationary 2-D nested ring (data x model): two axis views of
+# one StackedMesh.  Every chunk product is one _local_mm over all lanes
+# (one block_matmul launch on CUDA); the per-lane slices are gathered into
+# contiguous tensors here, in the ring, since the kernel takes only
+# contiguous operands.
+# ---------------------------------------------------------------------------
+
+
+def ring_matmul_reducescatter_2d(x: torch.Tensor, w: torch.Tensor,
+                                 rs_axis: StackedAxis, ag_axis: StackedAxis,
+                                 *, return_gathered: bool = False,
+                                 mm: str = "auto"):
+    """``reduce_scatter(x @ all_gather(w, cols over ag_axis), rows over
+    rs_axis)`` as nested rings.
+
+    x: ``[L, T, K]`` (T divisible by ``q = rs_axis.size``), w: ``[L, K,
+    m_loc]`` (each lane's column block of the logical ``[K, d*m_loc]``
+    weight, gathered over ``d = ag_axis.size``) -> ``[L, T/q, d*m_loc]``
+    summed over ``rs_axis``, row block i landing on inner rank i.  The
+    OUTER ring streams weight column blocks over ``ag_axis`` (the shift
+    that brings block s+1 is issued before block s is consumed); each
+    outer step runs a whole inner ``ring_matmul_reducescatter`` over
+    ``rs_axis``, whose ``[T/q, m_loc]`` result fills the outer block's
+    columns.  With ``return_gathered`` also the assembled weight ``[L, K,
+    d*m_loc]`` (the outer ring holds every block anyway)."""
+    d = ag_axis.size
+    if d == 1:
+        out = ring_matmul_reducescatter(x, w, rs_axis, mm=mm)
+        return (out, w) if return_gathered else out
+    q = rs_axis.size
+    lanes, rows = x.shape[0], x.shape[1]
+    if rows % q:
+        raise ValueError(f"rows {rows} not divisible by rs axis size {q}")
+    out_dtype = torch.promote_types(x.dtype, w.dtype)
+    m_loc = w.shape[-1]
+    idx, lane = ag_axis.index(), ag_axis.lane_index()
+    out = torch.zeros((lanes, rows // q, d, m_loc), dtype=out_dtype,
+                      device=x.device)
+    gath = (w.new_zeros((lanes, d) + tuple(w.shape[1:]))
+            if return_gathered else None)
+    cur = w
+    for s in range(d):
+        nxt = ag_axis.pshift(cur, ring_perm(d, 1)) if s < d - 1 else None
+        src = (idx - s) % d                # originating rank of `cur`
+        out[lane, :, src] = ring_matmul_reducescatter(
+            x, cur, rs_axis, mm=mm).to(out_dtype)
+        if return_gathered:
+            gath[lane, src] = cur
+        cur = nxt
+    out = out.view(lanes, rows // q, d * m_loc)
+    if return_gathered:
+        full = gath.permute(0, 2, 1, 3).reshape(lanes, w.shape[1], d * m_loc)
+        return out, full
+    return out
+
+
+def ring_matmul_reducescatter_2d_t(g: torch.Tensor, x: torch.Tensor,
+                                   rs_axis: StackedAxis,
+                                   ag_axis: StackedAxis, *,
+                                   mm: str = "auto") -> torch.Tensor:
+    """``reduce_scatter(all_gather(g, rows over ag_axis)ᵀ @ x, rows over
+    rs_axis)``: the TRANSPOSE 2-D schedule (the dw of the paired
+    backward).
+
+    g: ``[L, t_loc, M]`` (each lane's row block of the logical ``[q*t_loc,
+    M]`` cotangent, gathered over ``q = ag_axis.size``), x: ``[L, q*t_loc,
+    K]`` -> ``[L, M/d, K]`` summed over ``rs_axis`` (``d =
+    rs_axis.size``).  The gathered dim is contracted away: the OUTER ring
+    is the travelling output accumulator over ``rs_axis``; in each outer
+    step the ``[t_loc, M/d]`` column slice of the cotangent it needs
+    streams around ``ag_axis`` (the inner ring), so the whole cotangent
+    crosses the gather axis once.  The slice is transposed once, where it
+    is cut, and travels as ``[M/d, t_loc]``, the kernel's operand."""
+    d, q = rs_axis.size, ag_axis.size
+    lanes, t_loc, cols = g.shape
+    if cols % d:
+        raise ValueError(f"cols {cols} not divisible by rs axis size {d}")
+    if x.shape[1] != q * t_loc:
+        raise ValueError(f"x {tuple(x.shape)} does not hold {q} row blocks "
+                         f"of {t_loc}")
+    m_loc = cols // d
+    out_dtype = torch.promote_types(g.dtype, x.dtype)
+    idx_rs, idx_ag = rs_axis.index(), ag_axis.index()
+    lane = rs_axis.lane_index()
+    gcols = g.reshape(lanes, t_loc, d, m_loc)
+    xrows = x.reshape((lanes, q, t_loc) + tuple(x.shape[2:]))
+    acc = None
+    for s in range(d):
+        # the travelling accumulator's block at this outer step (the
+        # block order of ring_matmul_reducescatter)
+        blk_id = (idx_rs + (d - 1 - s)) % d
+        cur = gcols[lane, :, blk_id].transpose(1, 2).contiguous()
+        contrib = None
+        for t in range(q):
+            nxt = ag_axis.pshift(cur, ring_perm(q, 1)) if t < q - 1 else None
+            src = (idx_ag - t) % q         # originating rank of `cur`
+            c = _local_mm(cur, xrows[lane, src], mm).to(out_dtype)
+            contrib = c if contrib is None else contrib + c
+            cur = nxt
+        acc = contrib if acc is None else acc + contrib
+        if s < d - 1:
+            acc = rs_axis.pshift(acc, ring_perm(d, 1))
     return acc
 
 
@@ -300,11 +410,11 @@ def ring_allgather_matmul_wire(x: torch.Tensor, w: torch.Tensor,
     if p == 1:
         out = _local_mm(x, w, mm).to(out_dtype)
         return (out, x) if return_gathered else out
-    n = x.shape[1]
-    idx = axis.index()
-    out = torch.zeros((p, p, n, w.shape[-1]), dtype=out_dtype,
+    n, lanes = x.shape[1], x.shape[0]
+    idx, lane = axis.index(), axis.lane_index()
+    out = torch.zeros((lanes, p, n, w.shape[-1]), dtype=out_dtype,
                       device=x.device)
-    gath = (x.new_zeros((p, p) + tuple(x.shape[1:]))
+    gath = (x.new_zeros((lanes, p) + tuple(x.shape[1:]))
             if return_gathered else None)
     q, sc = Q.quantize(x, wire_dtype)
     cur = x                                # resident chunk: never on the wire
@@ -312,15 +422,15 @@ def ring_allgather_matmul_wire(x: torch.Tensor, w: torch.Tensor,
         nxt = (Q.wire_shift(axis, q, sc, ring_perm(p, 1)) if s < p - 1
                else None)
         src = (idx - s) % p
-        out[idx, src] = _local_mm(cur, w, mm).to(out_dtype)
+        out[lane, src] = _local_mm(cur, w, mm).to(out_dtype)
         if return_gathered:
-            gath[idx, src] = cur
+            gath[lane, src] = cur
         if nxt is not None:
             q, sc = nxt
             cur = Q.dequantize(q, sc, x.dtype)
-    out = out.view(p, p * n, -1)
+    out = out.view(lanes, p * n, -1)
     if return_gathered:
-        return out, gath.view((p, p * n) + tuple(x.shape[2:]))
+        return out, gath.view((lanes, p * n) + tuple(x.shape[2:]))
     return out
 
 
@@ -339,11 +449,11 @@ def ring_matmul_reducescatter_wire(x: torch.Tensor, w: torch.Tensor,
     if rows % p:
         raise ValueError(f"rows {rows} not divisible by axis size {p}")
     n = rows // p
-    idx = axis.index()
-    lanes = x.reshape((p, p, n) + tuple(x.shape[2:]))
+    idx, lane = axis.index(), axis.lane_index()
+    blocks = x.reshape((x.shape[0], p, n) + tuple(x.shape[2:]))
     acc = None
     for s in range(p):
-        blk = lanes[idx, (idx + (p - 1 - s)) % p]
+        blk = blocks[lane, (idx + (p - 1 - s)) % p]
         contrib = _local_mm(blk, w, mm).to(torch.float32)
         acc = contrib if acc is None else acc + contrib
         if s < p - 1:
@@ -367,10 +477,10 @@ def ring_matmul_accumulate_wire(x: torch.Tensor, w: torch.Tensor,
         out = _local_mm(x if x.dim() == 3 else x.unsqueeze(0), w,
                         mm).to(out_dtype)
         return (out, w) if return_gathered else out
-    k_loc = w.shape[1]
+    k_loc, lanes = w.shape[1], w.shape[0]
     xk = _k_slices(x, p, k_loc)
-    idx = axis.index()
-    gath = (w.new_zeros((p, p) + tuple(w.shape[1:]))
+    idx, lane = axis.index(), axis.lane_index()
+    gath = (w.new_zeros((lanes, p) + tuple(w.shape[1:]))
             if return_gathered else None)
     q, sc = Q.quantize(w, wire_dtype)
     cur = w                                # resident block: never on the wire
@@ -379,15 +489,15 @@ def ring_matmul_accumulate_wire(x: torch.Tensor, w: torch.Tensor,
         nxt = (Q.wire_shift(axis, q, sc, ring_perm(p, 1)) if s < p - 1
                else None)
         src = (idx - s) % p
-        contrib = _local_mm(_take_k(xk, idx, src), cur, mm).to(
+        contrib = _local_mm(_take_k(xk, lane, src), cur, mm).to(
             torch.float32)
         acc = contrib if acc is None else acc + contrib
         if return_gathered:
-            gath[idx, src] = cur
+            gath[lane, src] = cur
         if nxt is not None:
             q, sc = nxt
             cur = Q.dequantize(q, sc, w.dtype)
     out = acc.to(out_dtype)
     if return_gathered:
-        return out, gath.view((p, p * k_loc) + tuple(w.shape[2:]))
+        return out, gath.view((lanes, p * k_loc) + tuple(w.shape[2:]))
     return out

@@ -227,8 +227,12 @@ def ring_allgather_matmul_rdma(x: torch.Tensor, w: torch.Tensor,
     x ``[p, n, K]`` stacked, w shared ``[K, M]`` or per-rank
     ``[p, K, M]`` -> ``[p, p*n, M]``, with ``return_gathered`` also
     ``all_gather(x)`` ``[p, p*n, K]``.  At p == 1 it is ``block_matmul``.
+    On an axis of a ``StackedMesh`` (``[L, ...]`` operands, L lanes in
+    groups of p) each group is one ring: one launch per group.
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     p = axis.size
+    if axis.lanes != p:
+        return _per_group(x, w, axis, return_gathered)
     if x.dim() != 3 or x.shape[0] != p:
         raise ValueError(f"x must be [p={p}, n, K], got {tuple(x.shape)}")
     if w.dim() not in (2, 3) or (w.dim() == 3 and w.shape[0] != p):
@@ -255,6 +259,34 @@ def ring_allgather_matmul_rdma(x: torch.Tensor, w: torch.Tensor,
 
 ring_allgather_matmul_rdma.launches = 0
 ring_allgather_matmul_rdma.launches_by_path = dict.fromkeys(PATHS, 0)
+
+
+def _per_group(x, w, axis: StackedAxis, return_gathered: bool):
+    """The ring on each group of lanes of a mesh axis, one launch each:
+    the kernel runs one ring over the p ranks it is given."""
+    ring = StackedAxis(axis.size, x.device)
+    lanes = x.shape[0]
+    if w.dim() == 3 and w.shape[0] != lanes:
+        raise ValueError(f"w must be [K, M] or [L={lanes}, K, M], got "
+                         f"{tuple(w.shape)}")
+    groups = axis.groups()
+    outs, gaths = [], []
+    for grp in groups:
+        wg = w.index_select(0, grp) if w.dim() == 3 else w
+        r = ring_allgather_matmul_rdma(x.index_select(0, grp), wg, ring,
+                                       return_gathered=return_gathered)
+        o, gg = r if return_gathered else (r, None)
+        outs.append(o)
+        gaths.append(gg)
+
+    def place(parts):
+        """The groups' results, each row back at its own lane."""
+        y = torch.cat(parts)
+        return torch.empty_like(y).index_copy_(0, groups.flatten(), y)
+
+    out = place(outs)
+    gath = place(gaths) if return_gathered else None
+    return (out, gath) if return_gathered else out
 
 
 def ring_allgather_matmul_blocks(x_all: torch.Tensor, w: torch.Tensor,

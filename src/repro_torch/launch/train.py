@@ -8,10 +8,12 @@ straggler watchdog and crash-resume, with the JAX package's flags
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
         --smoke --mesh 1x4 --steps 50 --profile-dir results/profiles
 
-``--mesh dxt`` stacks d data ranks (FSDP) or t model ranks (TP) on the
-device; both above 1 raises (the two axes at once are not ported), and
-so do the JAX package's production meshes ``16x16`` and ``2x16x16``.
-The device is the card unless ``--device cpu`` is given.
+``--mesh dxt`` stacks d data ranks (FSDP) and t model ranks (TP) on the
+device: one of them above 1 binds that axis alone, both above 1 the two
+axes of one stacked mesh (``--mesh 2x2`` on the CPU, ``--mesh 2x4`` on
+the card); a three-axis mesh (the JAX package's ``2x16x16`` with a pod
+axis) raises.  The device is the card unless ``--device cpu`` is
+given.
 """
 from __future__ import annotations
 
@@ -25,8 +27,8 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-sized)")
     ap.add_argument("--mesh", default="",
-                    help="'dxt': d data ranks or t model ranks stacked on "
-                         "the device; empty = a single rank")
+                    help="'dxt': d data ranks and t model ranks stacked "
+                         "on the device; empty = a single rank")
     ap.add_argument("--device", default=None,
                     help="torch device; default: the CUDA card")
     ap.add_argument("--steps", type=int, default=100)
@@ -63,8 +65,8 @@ def main(argv=None) -> int:
         dims = args.mesh.split("x")
         if len(dims) != 2:
             raise NotImplementedError(
-                f"--mesh {args.mesh}: only 'dxt' with one of d, t above 1 "
-                "is ported (one stacked axis)")
+                f"--mesh {args.mesh}: only 'dxt' (data x model) is ported; "
+                "the pod axis is not")
         mesh = (int(dims[0]), int(dims[1]))
 
     # precedence: --profile-dir > $PGTUNE_PROFILE_DIR > none

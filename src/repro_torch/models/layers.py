@@ -8,7 +8,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist import ops
-from repro_torch.dist.axes import AXES, axis_index, has_axis
+from repro_torch.dist.axes import AXES, axis_index, get_axis, has_axis
 from repro_torch.models.params import ParamSpec
 
 
@@ -137,14 +137,14 @@ def sharded_xent(logits, labels, mask=None):
     per rank, ``rank_ids``); mask: like labels.  Returns each rank's mean
     NLL over the unmasked tokens of its batch, ``[p]`` (the caller
     averages over the data axis).  The max over the vocab shards is taken
-    over the stacked dim with no gradient, as the JAX package's
-    ``lax.pmax`` of a stopped value (undispatched there too); logsumexp
-    does not depend on it."""
+    over the model axis with no gradient (``StackedAxis.pmax``), as the
+    JAX package's ``lax.pmax`` of a stopped value (undispatched there
+    too); logsumexp does not depend on it."""
     p, v_t = logits.shape[0], logits.shape[-1]
     with torch.no_grad():
         m = logits.amax(-1)
         if has_axis(AXES.model):
-            m = m.amax(0, keepdim=True).expand_as(m)
+            m = get_axis(AXES.model).pmax(m)
     se = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
     se = ops.tp_allreduce(se)
     logz = torch.log(se) + m

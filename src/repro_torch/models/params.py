@@ -6,7 +6,11 @@ the JAX package.  On the stacked axis a parameter is one tensor
 ``[p, *local_shape]``: rank r's shard at index r, where ``local_shape``
 divides every dim assigned to the BOUND axis name by p (``name``:
 "model" for the serve path and the trainer's TP layout, "data" for its
-FSDP layout); dims assigned to the other name keep their full size.
+FSDP layout); dims assigned to the other name keep their full size.  On
+a ``StackedMesh`` (data and model together) the leaf is ``[d*t,
+*local_shape]``: lane ``i*t + j`` holds data shard i of model shard j,
+each dim cut by the size of the name it is assigned to, and a leaf with
+no dim for one of the names is the same on every rank of that name.
 
 The JAX package groups repeated layers into ``lax.scan`` groups whose
 leaves carry a leading ``n_rep`` dim.  The port runs layers in a Python
@@ -23,7 +27,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core._axis import StackedAxis
+from repro_torch.core._axis import StackedMesh
 
 Tree = Any      # nested dicts and lists of ParamSpec (or tensors)
 
@@ -116,37 +120,61 @@ def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def shard(full: torch.Tensor, spec: ParamSpec, axis: StackedAxis,
+def layout(axis, name: str = "model") -> list[tuple[str, int]]:
+    """``(name, size)`` of each stacked axis, outer first: every name of a
+    ``StackedMesh``, or the one ``name`` of a ``StackedAxis``."""
+    if isinstance(axis, StackedMesh):
+        return list(zip(axis.names, axis.shape))
+    return [(name, axis.size)]
+
+
+def shard(full: torch.Tensor, spec: ParamSpec, axis,
           name: str = "model") -> torch.Tensor:
-    """A global leaf -> its stacked shards ``[p, *local_shape]``: the dim
-    assigned to ``name`` cut into p blocks in rank order; a leaf with no
-    such dim replicated."""
-    p = axis.size
-    for i, d in enumerate(spec.dims):
-        if d == name:
-            s = full.shape[i]
-            if s % p:
-                raise ValueError(f"dim {s} not divisible by {name}={p}")
-            return full.unflatten(i, (p, s // p)).movedim(i, 0).contiguous()
-    return full.unsqueeze(0).expand((p,) + tuple(full.shape)).contiguous()
+    """A global leaf -> its stacked shards ``[L, *local_shape]``: the dim
+    assigned to ``name`` (to each name of a ``StackedMesh`` ``axis``) cut
+    into blocks in rank order; over a name the leaf has no dim for it is
+    replicated."""
+    lay = layout(axis, name)
+    cur = full
+    for k, (nm, size) in enumerate(lay):
+        if nm in spec.dims:
+            i = spec.dims.index(nm) + k
+            s = cur.shape[i]
+            if s % size:
+                raise ValueError(f"dim {s} not divisible by {nm}={size}")
+            cur = cur.unflatten(i, (size, s // size)).movedim(i, k)
+        else:
+            cur = cur.unsqueeze(k).expand(
+                tuple(cur.shape[:k]) + (size,) + tuple(cur.shape[k:]))
+    lanes = math.prod(size for _, size in lay)
+    return cur.reshape((lanes,) + tuple(cur.shape[len(lay):])).contiguous()
 
 
-def unshard(t: torch.Tensor, spec: ParamSpec, name: str = "model"
-            ) -> torch.Tensor:
-    """Stacked shards ``[p, *local_shape]`` -> the global leaf (the
-    inverse of ``shard``; a replicated leaf is rank 0's copy)."""
-    for i, d in enumerate(spec.dims):
-        if d == name:
-            return t.movedim(0, i).flatten(i, i + 1)
-    return t[0]
+def unshard(t: torch.Tensor, spec: ParamSpec, axis,
+            name: str = "model") -> torch.Tensor:
+    """Stacked shards ``[L, *local_shape]`` -> the global leaf (the
+    inverse of ``shard``, with the same ``axis`` and ``name``; a leaf
+    replicated over a name is that name's rank 0 copy)."""
+    lay = layout(axis, name)
+    cur = t.reshape(tuple(size for _, size in lay) + tuple(t.shape[1:]))
+    for k in reversed(range(len(lay))):
+        nm = lay[k][0]
+        if nm in spec.dims:
+            j = spec.dims.index(nm)
+            cur = cur.movedim(k, k + j).flatten(k + j, k + j + 1)
+        else:
+            cur = cur.select(k, 0)
+    return cur
 
 
 def _init_leaf(spec: ParamSpec, generator: torch.Generator,
-               axis: StackedAxis, name: str) -> torch.Tensor:
+               axis, name: str) -> torch.Tensor:
     dt = torch_dtype(spec.dtype)
     if spec.init in ("zeros", "ones"):
         fill = torch.zeros if spec.init == "zeros" else torch.ones
-        return fill((axis.size,) + spec.local_shape({name: axis.size}),
+        lay = layout(axis, name)
+        return fill((math.prod(s for _, s in lay),)
+                    + spec.local_shape(dict(lay)),
                     dtype=dt, device=axis.device)
     if spec.init != "normal":
         raise ValueError(f"unknown init {spec.init!r}")
@@ -157,14 +185,15 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
     return shard(full, spec, axis, name)
 
 
-def init_tree(tree: Tree, generator: torch.Generator, axis: StackedAxis,
+def init_tree(tree: Tree, generator: torch.Generator, axis,
               name: str = "model"):
     """Random stacked parameters for a spec tree, drawn from
     ``generator`` on the axis device with the JAX package's init kinds
     (``normal`` with ``scale`` or ``fan_in ** -0.5``, ``zeros``,
     ``ones``).  Each leaf is drawn at its global shape and cut into the
-    ranks' shards along the dims assigned to ``name``, so a replicated
-    leaf is the same on every rank and the model does not depend on p.
+    ranks' shards along the dims assigned to ``name`` (to each name of a
+    ``StackedMesh``), so a replicated leaf is the same on every rank and
+    the model does not depend on the layout.
     The generator must live on the axis device."""
     return tree_map_specs(lambda s: _init_leaf(s, generator, axis, name),
                           tree)
@@ -178,7 +207,7 @@ def to_torch(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def from_reference(np_tree, specs: Tree, axis: StackedAxis,
+def from_reference(np_tree, specs: Tree, axis,
                    name: str = "model"):
     """The JAX package's GLOBAL tree (its ``init_tree`` outside any mesh,
     each leaf mapped through ``np.asarray``, or a checkpoint's arrays) ->
@@ -187,8 +216,9 @@ def from_reference(np_tree, specs: Tree, axis: StackedAxis,
 
     A list node of ``specs`` is a scanned group: its i-th layer takes
     index i of the reference leaves' leading ``n_rep`` dim.  Every dim
-    assigned to ``name`` is cut into p shards; bfloat16 bits are carried
-    exactly."""
+    assigned to ``name`` is cut into p shards (on a ``StackedMesh``
+    ``axis``, every dim assigned to one of its names); bfloat16 bits are
+    carried exactly."""
     if isinstance(specs, ParamSpec):
         full = np_tree if isinstance(np_tree, torch.Tensor) else \
             to_torch(np_tree)
@@ -204,17 +234,20 @@ def from_reference(np_tree, specs: Tree, axis: StackedAxis,
             for k, v in specs.items()}
 
 
-def to_reference(tree: Tree, specs: Tree, name: str = "model"):
-    """The inverse of ``from_reference``: stacked tensors -> the JAX
-    package's GLOBAL layout as CPU tensors, a list node (scanned group)
-    stacked along a new leading ``n_rep`` dim.  Each leaf is moved to the
-    host before its shards are joined."""
+def to_reference(tree: Tree, specs: Tree, axis, name: str = "model"):
+    """The inverse of ``from_reference``, with the same ``axis`` and
+    ``name``: stacked tensors -> the JAX package's GLOBAL layout as CPU
+    tensors, a list node (scanned group) stacked along a new leading
+    ``n_rep`` dim.  Each leaf is moved to the host before its shards are
+    joined."""
     if isinstance(specs, ParamSpec):
-        return unshard(tree.detach().cpu(), specs, name).contiguous()
+        return unshard(tree.detach().cpu(), specs, axis, name).contiguous()
     if isinstance(specs, list):
-        layers = [to_reference(t, s, name) for t, s in zip(tree, specs)]
+        layers = [to_reference(t, s, axis, name)
+                  for t, s in zip(tree, specs)]
         return _stack(layers)
-    return {k: to_reference(tree[k], v, name) for k, v in specs.items()}
+    return {k: to_reference(tree[k], v, axis, name)
+            for k, v in specs.items()}
 
 
 def _stack(layers: list):

@@ -20,12 +20,16 @@ small all-reduces in the forward phase; the grad norm counts a leaf that
 is replicated over the model axis once per rank, as the JAX package does.
 
 The JAX package wraps the step in ``shard_map`` over a mesh; the port
-binds ONE stacked axis (``dist.axes``): ``data`` for FSDP (each rank
-holds its ZeRO-3 shards and its slice of the batch) or ``model`` for
-tensor parallelism (every rank sees the whole batch).  Its
-``opt_state_pspecs`` is sharding metadata for ``shard_map`` and has no
-counterpart here: optimizer states are stacked like their parameters
-(``optim.state_specs`` gives their global layout for checkpoints).
+stacks the mesh's ranks on one device (``dist.axes``): ``data`` alone for
+FSDP (each rank holds its ZeRO-3 shards and its slice of the batch),
+``model`` alone for tensor parallelism (every rank sees the whole
+batch), or both, two views of one ``StackedMesh`` of ``d*t`` lanes (data
+rank i's batch slice on its t model ranks, every leaf cut over both of
+its names; the row-parallel ``fsdp_dim=1`` sites then run
+``matmul_reducescatter_2d``).  Its ``opt_state_pspecs`` is sharding
+metadata for ``shard_map`` and has no counterpart here: optimizer states
+are stacked like their parameters (``optim.state_specs`` gives their
+global layout for checkpoints).
 """
 from __future__ import annotations
 
@@ -37,14 +41,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import api
-from repro_torch.core._axis import StackedAxis
+from repro_torch.core._axis import StackedAxis, StackedMesh
 from repro_torch.dist.axes import (AXES, axis_size_or_1, bind, get_axis,
                                    has_axis)
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import (ParamSpec, from_reference, init_tree,
-                                       stacked, to_reference, tree_leaves,
-                                       tree_unflatten)
+                                       layout, stacked, to_reference,
+                                       tree_leaves, tree_unflatten)
 from repro_torch.optim import get_optimizer, lr_schedule, state_specs
 
 
@@ -120,13 +124,14 @@ def _micro(batch: dict, i: int, n_micro: int) -> dict:
     return {k: cut(v) for k, v in batch.items()}
 
 
-def make_step_fns(cfg: ModelConfig, axis: StackedAxis, name: str | None, *,
+def make_step_fns(cfg: ModelConfig, axis, name: str | None, *,
                   n_micro: int = 1, compress: str = "none",
                   base_lr: float = 3e-4, warmup: int = 100,
                   total_steps: int = 10_000):
     """Returns ``(init_fn, grad_fn, train_fn)`` on stacked values; the
     last two run inside ``bind(**{name: axis})`` (no binding when
-    ``name`` is None, a single rank).
+    ``name`` is None, a single rank), or, for a ``StackedMesh`` ``axis``,
+    inside the binding of each of its names to its view.
 
     init_fn(seed)                    -> (params, opt_state)
     grad_fn(params, batch)           -> (loss [p], finalized grads)
@@ -135,7 +140,7 @@ def make_step_fns(cfg: ModelConfig, axis: StackedAxis, name: str | None, *,
     ``train_fn`` updates ``params`` and ``opt`` in place (see
     ``optim.optimizers``)."""
     opt_init, opt_update = get_optimizer(cfg.optimizer)
-    tp = axis.size if name == AXES.model else 1
+    tp = dict(layout(axis, name)).get(AXES.model, 1)
     specs = lm.model_specs(cfg, tp)
 
     def init_fn(seed: int):
@@ -193,9 +198,11 @@ def make_step_fns(cfg: ModelConfig, axis: StackedAxis, name: str | None, *,
 @dataclasses.dataclass
 class Trainer:
     """The host side of the training loop: ``mesh=(d, t)`` stacks d data
-    ranks (FSDP) or t model ranks (TP) on ``device`` (the card unless the
-    caller asks for the CPU); (1, 1) binds no axis.  Both > 1 needs the
-    two axes at once and raises."""
+    ranks (FSDP) and t model ranks (TP) on ``device`` (the card unless the
+    caller asks for the CPU).  One of them above 1 binds that axis alone
+    (``axis`` a ``StackedAxis``); both above 1 bind the two views of a
+    ``StackedMesh`` of ``d*t`` lanes (``axis`` the mesh, ``name`` None);
+    (1, 1) binds no axis."""
     cfg: ModelConfig
     mesh: tuple[int, int] = (1, 1)       # (data, model)
     device: Any = None
@@ -210,12 +217,17 @@ class Trainer:
 
     def __post_init__(self):
         d, t = self.mesh
+        if d < 1 or t < 1:
+            raise ValueError(f"mesh {d}x{t}: both sizes must be >= 1")
         if d > 1 and t > 1:
-            raise NotImplementedError(
-                f"mesh {d}x{t}: data and model axes at once need both "
-                "stacked axes together (ROADMAP.md, queue 1, item 3)")
-        self.name = AXES.data if d > 1 else (AXES.model if t > 1 else None)
-        self.axis = StackedAxis(max(d, t), self.device)
+            self.name = None
+            self.axis = StackedMesh((d, t), (AXES.data, AXES.model),
+                                    self.device)
+        else:
+            self.name = (AXES.data if d > 1
+                         else (AXES.model if t > 1 else None))
+            self.axis = StackedAxis(max(d, t), self.device,
+                                    name=self.name or "")
         self.specs = lm.model_specs(self.cfg, t)
         self._init, self._grad, self._train = make_step_fns(
             self.cfg, self.axis, self.name, n_micro=self.n_micro,
@@ -223,6 +235,8 @@ class Trainer:
             warmup=self.warmup)
 
     def _bound(self):
+        if isinstance(self.axis, StackedMesh):
+            return bind(**{n: self.axis[n] for n in self.axis.names})
         if self.name is None:
             return contextlib.nullcontext()
         return bind(**{self.name: self.axis})
@@ -256,15 +270,20 @@ class Trainer:
 
     def put_batch(self, batch: dict) -> dict:
         """A global numpy batch -> tensors on the device; under the data
-        axis each rank's contiguous slice of the rows, ``[p, B/p, ...]``."""
+        axis each rank's contiguous slice of the rows, ``[p, B/p, ...]``
+        (on a mesh ``[d*t, B/d, ...]``: data rank i's slice on each of its
+        t model ranks)."""
+        d, t_ = self.mesh
         out = {}
         for k, v in batch.items():
             t = torch.as_tensor(np.asarray(v), device=self.axis.device)
-            if self.name == AXES.data:
-                if t.shape[0] % self.axis.size:
+            if d > 1:
+                if t.shape[0] % d:
                     raise ValueError(f"batch {t.shape[0]} does not split "
-                                     f"over {self.axis.size} data ranks")
-                t = t.reshape(self.axis.size, -1, *t.shape[1:])
+                                     f"over {d} data ranks")
+                t = t.reshape(d, 1, -1, *t.shape[1:])
+                t = t.expand(d, t_, *t.shape[2:]).reshape(
+                    d * t_, *t.shape[2:])
             out[k] = t
         return out
 
@@ -280,10 +299,10 @@ class Trainer:
         """``{"params", "opt"}`` as CPU tensors in the global layout."""
         name = self.name or AXES.model
         osp = state_specs(self.cfg.optimizer, self.specs)
-        opt = {k: to_reference(opt_state[k], s, name)
+        opt = {k: to_reference(opt_state[k], s, self.axis, name)
                for k, s in osp.items()}
         opt["count"] = opt_state["count"].detach().cpu().clone()
-        return {"params": to_reference(params, self.specs, name),
+        return {"params": to_reference(params, self.specs, self.axis, name),
                 "opt": opt}
 
     def from_global(self, tree: dict):

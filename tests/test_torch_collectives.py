@@ -33,12 +33,16 @@ JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
 
 
 def _cases(ps):
-    """Every exact ported impl at each p; the quantized-wire impls round
-    their payload, so ``test_torch_wire.py`` holds them to the reference
-    with their own tolerances."""
+    """Every exact one-axis ported impl at each p; the quantized-wire impls
+    round their payload, so ``test_torch_wire.py`` holds them to the
+    reference with their own tolerances, and the two-axis impls (the
+    hierarchical ``MPIX_*`` and the 2-D op) need a mesh: their parity is in
+    ``test_torch_hierarchy.py`` and ``test_torch_rs2d.py``."""
     out = []
     for op, nm in ported_impls():
-        if TC.REGISTRY[op][nm].wire_dtype is not None:
+        impl = TC.REGISTRY[op][nm]
+        if (impl.wire_dtype is not None or impl.hier
+                or op == "matmul_reducescatter_2d"):
             continue
         for p in ps:
             if TC.REGISTRY[op][nm].requires_pow2 and p & (p - 1):

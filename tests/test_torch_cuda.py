@@ -1442,3 +1442,117 @@ def test_forced_ring_gradients_match_the_default_on_the_card(cuda, op):
     for a, b in zip(out["forced"][:3], out["default"][:3]):
         assert float((a - b).abs().max()) <= p * 2 ** -7 * float(
             b.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the 2-D ring (fused_ring2d) on a (data 2, model 4) stacked mesh, at the
+# data x model training step's row-parallel sites of llama3.2-3b: w_o (x
+# [2048, 768] a lane against w [768, 1536]) and MLP-down (x [2048, 2048]
+# against w [2048, 1536]); every chunk product is one block_matmul launch
+# ---------------------------------------------------------------------------
+
+RING2D_SITES = {"w_o": 768, "mlp-down": 2048}
+D2, Q2, T2, M2 = 2, 4, 2048, 3072
+
+
+def _mesh24(cuda):
+    from repro_torch.core._axis import StackedMesh
+    return StackedMesh((D2, Q2), ("data", "model"), cuda)
+
+
+def _ring2d_tol(want: torch.Tensor, parts: int) -> float:
+    """bf16: the ring adds ``parts`` partial products in bf16 where the
+    default composition rounds once, one rounding step (2**-8) each, plus
+    the output's own step."""
+    return (parts + 1) * 2.0 ** -8 * max(1.0, float(want.float().abs().max()))
+
+
+@needs_cuda
+@pytest.mark.parametrize("site", list(RING2D_SITES))
+def test_fused_ring2d_matches_default_and_the_cpu_on_the_card(cuda, site):
+    from repro_torch.core import collectives as C
+    from repro_torch.core._axis import StackedMesh
+    k = RING2D_SITES[site]
+    m = _mesh24(cuda)
+    g = torch.Generator(device="cpu").manual_seed(k)
+    x = torch.randn(D2 * Q2, T2, k, generator=g).to(torch.bfloat16)
+    w = (torch.randn(D2 * Q2, k, M2 // D2, generator=g)
+         * (Q2 * k) ** -0.5).to(torch.bfloat16)
+    fns = C.REGISTRY["matmul_reducescatter_2d"]
+    before = dict(cmm.block_matmul.launches_by_path)
+    got = fns["fused_ring2d"].fn(w.to(cuda), m["data"], x=x.to(cuda),
+                                 rs_axis=m["model"])
+    torch.cuda.synchronize()
+    launched = {p: n - before[p] for p, n in
+                cmm.block_matmul.launches_by_path.items()}
+    assert launched == {"f32": 0, "wmma": 0, "wgmma": D2 * Q2}
+    want = fns["default"].fn(w.to(cuda), m["data"], x=x.to(cuda),
+                             rs_axis=m["model"])
+    assert got.shape == want.shape == (D2 * Q2, T2 // Q2, M2)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _ring2d_tol(want, Q2), err
+    # the port's CPU result, in float32
+    mc = StackedMesh((D2, Q2), ("data", "model"), "cpu")
+    cpu = fns["fused_ring2d"].fn(w.float(), mc["data"], x=x.float(),
+                                 rs_axis=mc["model"])
+    err = float((got.float().cpu() - cpu).abs().max())
+    assert err <= _ring2d_tol(cpu, Q2), err
+
+
+@needs_cuda
+@pytest.mark.parametrize("site", list(RING2D_SITES))
+def test_fused_ring2d_transpose_matches_default_and_the_cpu_on_the_card(
+        cuda, site):
+    """The dw schedule of the site: the cotangent's model-axis row block
+    g [512, 3072] streamed over model (the gather axis), the accumulator
+    over data (the scatter axis) -> [1536, K]."""
+    from repro_torch.core import collectives as C
+    from repro_torch.core._axis import StackedMesh
+    k = RING2D_SITES[site]
+    m = _mesh24(cuda)
+    g = torch.Generator(device="cpu").manual_seed(k + 1)
+    gs = torch.randn(D2 * Q2, T2 // Q2, M2, generator=g).to(torch.bfloat16)
+    x = torch.randn(D2 * Q2, T2, k, generator=g).to(torch.bfloat16)
+    fns = C.REGISTRY["matmul_reducescatter_2d"]
+    before = dict(cmm.block_matmul.launches_by_path)
+    got = fns["fused_ring2d"].fn(gs.to(cuda), m["model"], x=x.to(cuda),
+                                 rs_axis=m["data"], xpose=True)
+    torch.cuda.synchronize()
+    launched = {p: n - before[p] for p, n in
+                cmm.block_matmul.launches_by_path.items()}
+    assert launched == {"f32": 0, "wmma": 0, "wgmma": D2 * Q2}
+    want = fns["default"].fn(gs.to(cuda), m["model"], x=x.to(cuda),
+                             rs_axis=m["data"], xpose=True)
+    assert got.shape == want.shape == (D2 * Q2, M2 // D2, k)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _ring2d_tol(want, D2 * Q2), err
+    mc = StackedMesh((D2, Q2), ("data", "model"), "cpu")
+    cpu = fns["fused_ring2d"].fn(gs.float(), mc["model"], x=x.float(),
+                                 rs_axis=mc["data"], xpose=True)
+    err = float((got.float().cpu() - cpu).abs().max())
+    assert err <= _ring2d_tol(cpu, D2 * Q2), err
+
+
+@needs_cuda
+@pytest.mark.parametrize("shape", [
+    (8, 512, 768, 1536), (8, 512, 2048, 1536),       # forward chunks
+    (8, 1536, 512, 768), (8, 1536, 512, 2048)])      # transpose chunks
+def test_block_matmul_at_the_ring2d_chunks_takes_wgmma(cuda, shape):
+    B, mm, k, n = shape
+    g = torch.Generator(device="cpu").manual_seed(mm + k + n)
+    x = torch.randn(B, mm, k, generator=g).to(torch.bfloat16).to(cuda)
+    w = (torch.randn(B, k, n, generator=g) * k ** -0.5).to(
+        torch.bfloat16).to(cuda)
+    before = dict(cmm.block_matmul.launches_by_path)
+    got = cmm.block_matmul(x, w)
+    torch.cuda.synchronize()
+    assert cmm.block_matmul.launches_by_path["wgmma"] == before["wgmma"] + 1
+    want = cmm.block_matmul_plain(x, w)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
+
+
+@needs_cuda
+def test_selfcheck_two_axis_run_on_card(cuda):
+    rep = selfcheck.run_mesh((2, 4), cuda)
+    assert rep["failures"] == [] and rep["impls"] == 64

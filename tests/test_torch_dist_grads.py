@@ -225,8 +225,11 @@ def test_transposed_operands_reach_the_collective_contiguous_and_counted():
 
 
 def test_two_dim_ops_still_raise_naming_both_axes():
+    """The 2-D op runs over two views of one ``StackedMesh``
+    (``test_torch_rs2d.py``); two unrelated one-axis axes bound to the
+    names are refused, naming both axes."""
     with taxes.bind(model=StackedAxis(2, "cpu"), data=StackedAxis(2, "cpu")):
-        with pytest.raises(NotImplementedError, match="both axes"):
+        with pytest.raises(ValueError, match="two axes of one StackedMesh"):
             tops.row_matmul(torch.zeros(2, 4, 8), torch.zeros(2, 8, 3),
                             fsdp_dim=1)
 

@@ -84,25 +84,28 @@ def test_reference_registry_counts():
 
 
 def test_port_carries_every_flat_impl_and_the_fused_gather_and_scatter_ops():
-    """The slices so far: every reference impl with no second axis on the
-    ten flat ops, ``allgather_matmul``, ``matmul_reducescatter`` and
-    ``matmul_accumulate``, the quantized-wire impls included."""
+    """Every reference impl on the ten flat ops and the four fused ones,
+    the quantized-wire, the hierarchical ``MPIX_*`` and the 2-D impls
+    included: all 64, in the reference's order."""
     assert TC.FUSED_OPS == ("allgather_matmul", "matmul_reducescatter",
-                            "matmul_accumulate")
+                            "matmul_accumulate", "matmul_reducescatter_2d")
     assert not set(TC.FLAT_OPS) & set(TC.FUSED_OPS)
-    want = {(op, nm) for op, impls in RC.REGISTRY.items()
-            for nm, impl in impls.items()
-            if not impl.hier
-            and (op in TC.FLAT_OPS or op in TC.FUSED_OPS)}
-    assert set(ported_impls()) == want
-    assert len(want) == 59
+    assert list(TC.REGISTRY) == list(RC.REGISTRY)
+    want = {(op, nm) for op, impls in RC.REGISTRY.items() for nm in impls}
+    assert ported_impls() == [(op, nm) for op, impls in RC.REGISTRY.items()
+                              for nm in impls]
+    assert len(want) == 64
+    assert {(op, nm) for op, nm in want
+            if TC.REGISTRY[op][nm].hier} == {
+        ("allgather", "MPIX_ag_ag"), ("allreduce", "MPIX_rs_ar_ag"),
+        ("reducescatter", "MPIX_rs_rs")}
     assert sum(RC.REGISTRY[op][nm].wire_dtype is not None
                for op, nm in want) == 12
     for op, nm in want:
         r, t = RC.REGISTRY[op][nm], TC.REGISTRY[op][nm]
-        assert (t.guideline, t.requires_pow2, t.wire_dtype) == (
-            r.guideline, r.requires_pow2, r.wire_dtype)
-        if t.wire_dtype is not None:
+        assert (t.guideline, t.requires_pow2, t.wire_dtype, t.hier) == (
+            r.guideline, r.requires_pow2, r.wire_dtype, r.hier)
+        if t.wire_dtype is not None or t.hier:
             assert t.desc == r.desc
         for nbytes, p in ((1, 2), (4096, 8), (10 ** 6, 6)):
             assert t.extra_bytes(nbytes, p) == r.extra_bytes(nbytes, p)

@@ -41,7 +41,7 @@ from repro.train import Trainer as RTrainer
 from repro.train import trainer as rtrainer
 from repro_torch.ckpt import AsyncCheckpointer
 from repro_torch.ckpt import checkpoint as tck
-from repro_torch.core._axis import StackedAxis
+from repro_torch.core._axis import StackedAxis, StackedMesh
 from repro_torch.data import batch_specs, make_batch
 from repro_torch.dist import axes as taxes
 from repro_torch.ft import StepWatchdog
@@ -382,9 +382,13 @@ def test_loss_decreases():
 
 
 def test_trainer_refuses_both_axes_and_training_through_flash():
+    """Both axes above 1 now build the data x model mesh; what is refused
+    is a mesh with an empty axis, and training through flash."""
     cfg = port_cfg(smoke("float32"))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        Trainer(cfg, mesh=(2, 2), device="cpu")
+    assert isinstance(Trainer(cfg, mesh=(2, 2), device="cpu").axis,
+                      StackedMesh)
+    with pytest.raises(ValueError, match=">= 1"):
+        Trainer(cfg, mesh=(2, 0), device="cpu")
     tr = Trainer(dataclasses.replace(cfg, attn_impl="flash"), mesh=(1, 2),
                  device="cpu")
     params, opt = tr.init(0)
@@ -440,8 +444,8 @@ def test_ckpt_roundtrip(tmp_path, mesh):
     for a, b in zip(tree_leaves(params), tree_leaves(p2)):
         assert a.dtype == b.dtype and a.shape == b.shape
     other = _bf16_trainer((2, 1) if mesh != (2, 1) else (1, 2))
-    p3, _ = other.from_global(back)        # another layout, same model
-    for path, t, r in pairs(_np_tree(other.to_global(p3, o2)["params"]),
+    p3, o3 = other.from_global(back)       # another layout, same model
+    for path, t, r in pairs(_np_tree(other.to_global(p3, o3)["params"]),
                             _np_tree(g["params"])):
         np.testing.assert_array_equal(t, r)
 
@@ -560,9 +564,9 @@ def test_train_cli_runs_then_resumes(tmp_path, monkeypatch):
     assert "resumed from step 3" in out and "done: 2 steps" in out
     assert "step     3" in out and "step     2" not in out
     assert tck.manifest(ck, 5)["step"] == 5
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tlaunch.main(base[:2] + ["--smoke", "--mesh", "2x2", "--steps", "1",
-                                 "--ckpt-dir", str(tmp_path / "x")])
+    out = _cli(base[:2] + ["--smoke", "--mesh", "2x2", "--steps", "1",
+                           "--seq", "16", "--ckpt-dir", str(tmp_path / "x")])
+    assert "done: 1 steps" in out and tck.latest_step(tmp_path / "x") == 1
     with pytest.raises(NotImplementedError, match="dxt"):
         tlaunch.main(["--device", "cpu", "--smoke", "--mesh", "2x16x16",
                       "--steps", "1", "--ckpt-dir", str(tmp_path / "y")])
@@ -613,3 +617,190 @@ def test_record_tune_trace_retrain_and_the_cli_reads_the_profiles(
                 "1", "--seq", "16", "--ckpt-dir", str(tmp_path / "ck"),
                 "--profile-dir", str(tmp_path / "prof")])
     assert "phases=['bwd', 'fwd']" in out
+
+
+# ---------------------------------------------------------------------------
+# data x model: the Trainer on a (2, 2) StackedMesh against the reference's
+# train_fn under nested vmap (outer "data", inner "model")
+# ---------------------------------------------------------------------------
+
+MESH2 = (2, 2)
+
+
+def ref_cut2(tree, rspecs, d, t):
+    """The reference's global tree cut for the nested vmap: leaf ``[d, t,
+    *local]``, block i of its "data" dim and block j of its "model" dim at
+    ``[i, j]`` (numpy slicing, independent of the port's ``shard``)."""
+    def cut(a, s):
+        a = np.asarray(a)
+        out = np.empty((d, t) + tuple(
+            n // (d if dd == "data" else t if dd == "model" else 1)
+            for n, dd in zip(a.shape, s.dims)), a.dtype)
+        for i in range(d):
+            for j in range(t):
+                sl = []
+                for n, dd in zip(a.shape, s.dims):
+                    k, b = ((d, i) if dd == "data" else
+                            (t, j) if dd == "model" else (1, 0))
+                    sl.append(slice(b * n // k, (b + 1) * n // k))
+                out[i, j] = a[tuple(sl)]
+        return jnp.asarray(out)
+    return jax.tree.map(cut, tree, rspecs,
+                        is_leaf=lambda x: isinstance(x, RSpec))
+
+
+def ref_join2(stacked, rspecs):
+    """The inverse of ``ref_cut2`` (a leaf replicated over a name is that
+    name's rank 0 copy)."""
+    def join(a, s):
+        a = np.asarray(a)
+        rows = []
+        for i in range(a.shape[0]):
+            blocks = list(a[i])
+            row = (np.concatenate(blocks, axis=s.dims.index("model"))
+                   if "model" in s.dims else blocks[0])
+            rows.append(row)
+        return (np.concatenate(rows, axis=s.dims.index("data"))
+                if "data" in s.dims else rows[0])
+    return jax.tree.map(join, stacked, rspecs,
+                        is_leaf=lambda x: isinstance(x, RSpec))
+
+
+def _ref_trajectory2(rcfg, tree, n_steps):
+    d, t = MESH2
+    _, rtrain = rtrainer.make_step_fns(rcfg, base_lr=LR, warmup=WARM)
+    rspecs = rlm.model_specs(rcfg, tp=t)
+    params = ref_cut2(tree, rspecs, d, t)
+    opt = jax.vmap(jax.vmap(ropt.get_optimizer(rcfg.optimizer)[0]))(params)
+    fn = jax.jit(jax.vmap(jax.vmap(rtrain, in_axes=(0, 0, 0, None),
+                                   axis_name="model"),
+                          in_axes=(0, 0, 0, None), axis_name="data"))
+    out, rec = [], []
+    for i in range(n_steps):
+        b = {k: jnp.asarray(np.broadcast_to(
+            v.reshape(d, 1, -1, *v.shape[1:]),
+            (d, t, v.shape[0] // d) + v.shape[1:]))
+            for k, v in rmake_batch(rcfg, B, S, i).items()}
+        with rapi.tuned(record=rec):
+            params, opt, m = fn(params, opt, b, jnp.int32(i))
+        out.append(jax.tree.map(np.asarray, (m, params, opt)))
+    return out, rec, rspecs
+
+
+@pytest.fixture(scope="module")
+def trajectory2():
+    rcfg = smoke("float32", scan_layers=False)
+    tree = randomized(ref_params(rcfg), 6)
+    ref, rrec, rspecs = _ref_trajectory2(rcfg, tree, 3)
+    tr = Trainer(port_cfg(rcfg), mesh=MESH2, device="cpu", base_lr=LR,
+                 warmup=WARM, record=[])
+    _, opt = tr.init(0)
+    params = from_reference(tree, tr.specs, tr.axis)
+    got = []
+    for i in range(3):
+        n_rec = len(tr.record)
+        params, opt, m = tr.step(params, opt,
+                                 tr.put_batch(make_batch(tr.cfg, B, S, i)), i)
+        got.append(({k: float(v) for k, v in m.items()},
+                    _np_tree(tr.to_global(params, opt)),
+                    tr.record[n_rec:]))
+    return ref, rrec, got, rspecs, tr
+
+
+@pytest.mark.parametrize("n_steps", [1, 3])
+def test_data_x_model_steps_match_the_reference(trajectory2, n_steps):
+    ref, _, got, rspecs, _ = trajectory2
+    for i in range(n_steps):
+        (rm, rp, ro), (tm, tstate, _) = ref[i], got[i]
+        assert tm["loss"] == pytest.approx(float(rm["loss"][0, 0]), rel=1e-5)
+        assert tm["grad_norm"] == pytest.approx(
+            float(rm["grad_norm"][0, 0]), rel=1e-5)
+        for path, t, r in pairs(tstate["params"], ref_join2(rp, rspecs)):
+            close(t, r)
+        for k in ("m", "v"):
+            for path, t, r in pairs(tstate["opt"][k],
+                                    ref_join2(ro[k], rspecs)):
+                close(t, r)
+        assert int(tstate["opt"]["count"]) == i + 1
+
+
+def test_data_x_model_step_records_equal_the_reference_trace(trajectory2):
+    """One port step dispatches what the reference's one trace recorded,
+    the 2-D cells of the row-parallel sites (``2d`` forward, ``2dT``
+    backward) included."""
+    import collections
+    _, rrec, got, _, _ = trajectory2
+
+    def key(rec):
+        return collections.Counter((dataclasses.astuple(r.cell), r.impl,
+                                    r.phase) for r in rec)
+    assert key(got[0][2]) == key(rrec)
+    roles = {(r.cell.op, r.cell.mm_role, r.phase) for r in got[0][2]}
+    assert ("matmul_reducescatter_2d", "2d", "fwd") in roles
+    assert ("matmul_reducescatter_2d", "2dT", "bwd") in roles
+    cell = next(r.cell for r in got[0][2] if r.cell.mm_role == "2d")
+    assert (cell.p, cell.p2) == MESH2
+
+
+def test_data_x_model_forced_fused_ring2d_matches_default(trajectory2):
+    """The forced 2-D ring (both directions) and the 1-D fused rings give
+    the default step's gradients."""
+    _, _, _, _, tr = trajectory2
+    cfg = tr.cfg
+    tree = tr.to_global(*tr.init(1))
+    batch = make_batch(cfg, B, S, 0)
+    out = []
+    for force in ({}, {"matmul_reducescatter_2d": "fused_ring2d",
+                       "allgather_matmul": "fused_ring",
+                       "matmul_reducescatter": "fused_ring",
+                       "matmul_accumulate": "fused_ring"}):
+        t2 = Trainer(cfg, mesh=MESH2, device="cpu", force=force, record=[])
+        params, _ = t2.from_global(tree)
+        loss, grads = t2.grads(params, t2.put_batch(batch))
+        out.append((float(loss), [tnp(g) for g in tree_leaves(grads)],
+                    {(r.cell.op, r.impl) for r in t2.record}))
+    (l0, g0, _), (l1, g1, rec1) = out
+    assert l1 == pytest.approx(l0, rel=1e-5)
+    for a, b in zip(g0, g1):
+        close(b, a, rtol=1e-5, atol=1e-7)
+    assert ("matmul_reducescatter_2d", "fused_ring2d") in rec1
+
+
+def test_data_x_model_checkpoint_both_directions(tmp_path):
+    """A checkpoint of the port's 2-D state restores in the reference, and
+    one of the reference's nested-vmap 2-D state restores in the port's
+    (2, 2) trainer, bit for bit in the global layout; both train on."""
+    tr = _bf16_trainer(MESH2)
+    params, opt = _stepped(tr)
+    g = tr.to_global(params, opt)
+    tck.save(tmp_path / "port", 2, g)
+    rcfg = smoke("bfloat16")
+    rp, ro = RTrainer(rcfg, mesh=None).init(0)
+    like = jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype),
+                        {"params": rp, "opt": ro})
+    back = rck.restore(tmp_path / "port", 2, like)
+    for path, t, r in pairs(_np_tree(g), jax.tree.map(
+            lambda a: np.asarray(a, np.float32), back)):
+        np.testing.assert_array_equal(t, r)
+    # the reference's 2-D state (nested vmap, float32) -> its global
+    # checkpoint -> the port's mesh trainer
+    rcfg32 = smoke("float32", scan_layers=False)
+    ref, _, rspecs = _ref_trajectory2(rcfg32, randomized(ref_params(rcfg32),
+                                                         7), 2)
+    _, rp2, ro2 = ref[1]
+    rck.save(tmp_path / "ref", 2, {
+        "params": ref_join2(rp2, rspecs),
+        "opt": {"m": ref_join2(ro2["m"], rspecs),
+                "v": ref_join2(ro2["v"], rspecs),
+                "count": ro2["count"][0, 0]}})
+    tr2 = Trainer(port_cfg(rcfg32), mesh=MESH2, device="cpu", base_lr=LR,
+                  warmup=WARM)
+    params, opt = tr2.from_global(tck.restore(tmp_path / "ref", 2,
+                                              tr2.global_specs()))
+    assert int(opt["count"]) == 2
+    for path, t, r in pairs(_np_tree(tr2.to_global(params, opt)["params"]),
+                            ref_join2(rp2, rspecs)):
+        np.testing.assert_array_equal(t, r)
+    params, opt, m = tr2.step(params, opt,
+                              tr2.put_batch(make_batch(tr2.cfg, B, S, 2)), 2)
+    assert np.isfinite(float(m["loss"]))
