@@ -92,6 +92,31 @@ def _vocab_offsets(p: int, v_t: int, device) -> torch.Tensor:
     return torch.zeros(p, dtype=torch.int64, device=device)
 
 
+class _TakeRows(torch.autograd.Function):
+    """``table.index_select(0, rows)`` whose backward sums the gradients of
+    repeated rows in float32 (or wider) before casting them to the table's
+    dtype.  ``index_select``'s own backward adds them in the table's dtype
+    with atomics, so a bf16 table's gradient for a frequent token (hundreds
+    of rows under Zipf ids) changes by several percent from run to run."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, rows: torch.Tensor):
+        ctx.save_for_backward(rows)
+        ctx.n_rows = table.shape[0]
+        return table.index_select(0, rows)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (rows,) = ctx.saved_tensors
+        uniq, inv = torch.unique(rows, return_inverse=True)
+        wide = torch.promote_types(g.dtype, torch.float32)
+        acc = torch.zeros(uniq.numel(), g.shape[-1], dtype=wide,
+                          device=g.device).index_add_(0, inv, g.to(wide))
+        dt = g.new_zeros(ctx.n_rows, g.shape[-1])
+        dt[uniq] = acc.to(g.dtype)
+        return dt, None
+
+
 def embed_lookup(params, tokens: torch.Tensor, *, scale: float | None = None):
     """tokens: ``[B, S]`` global ids, the same on every rank (or each
     rank's own ``[p, B/p, S]`` under the data axis, ``rank_ids``); the
@@ -107,7 +132,7 @@ def embed_lookup(params, tokens: torch.Tensor, *, scale: float | None = None):
     ok = (local >= 0) & (local < v_t)
     rows = local.clamp(0, v_t - 1) + (torch.arange(
         p, device=table.device) * v_t).view(p, *lead)
-    emb = table.reshape(p * v_t, d).index_select(0, rows.reshape(-1))
+    emb = _TakeRows.apply(table.reshape(p * v_t, d), rows.reshape(-1))
     emb = emb.view(*local.shape, d).masked_fill(~ok[..., None], 0)
     emb = ops.tp_allreduce(emb)
     if scale is not None:

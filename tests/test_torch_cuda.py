@@ -26,6 +26,7 @@ from repro_torch.core._axis import StackedAxis
 from repro_torch.kernels import collective_matmul as cmm
 from repro_torch.kernels import collective_matmul_rdma as rdma
 from repro_torch.kernels.pack import guideline_pack, guideline_pack_plain
+from repro_torch.models.layers import _TakeRows
 
 SHAPES = [(128, 128, 128), (192, 64, 96), (100, 33, 17), (5, 256, 128),
           (512, 1024, 3072)]
@@ -1556,3 +1557,22 @@ def test_block_matmul_at_the_ring2d_chunks_takes_wgmma(cuda, shape):
 def test_selfcheck_two_axis_run_on_card(cuda):
     rep = selfcheck.run_mesh((2, 4), cuda)
     assert rep["failures"] == [] and rep["impls"] == 64
+
+
+@needs_cuda
+def test_embedding_backward_is_float32_exact_on_the_card(cuda):
+    """The bf16 table's gradient under Zipf ids (a row repeated thousands
+    of times) is within one bf16 unit in the last place of the exact sum,
+    twice over: the rows are summed in float32 before one rounding."""
+    rng = np.random.default_rng(11)
+    n, d, v = 16384, 256, 1024
+    rows = torch.as_tensor(rng.zipf(1.3, n) % v).to(cuda)
+    g = torch.as_tensor(rng.normal(size=(n, d))).to(torch.bfloat16).to(cuda)
+    want = torch.zeros(v, d, dtype=torch.float64, device=cuda).index_add_(
+        0, rows, g.double())
+    ulp = torch.finfo(torch.bfloat16).eps * want.abs()
+    for _ in range(2):
+        table = torch.zeros(v, d, dtype=torch.bfloat16, device=cuda,
+                            requires_grad=True)
+        _TakeRows.apply(table, rows).backward(g)
+        assert bool(((table.grad.double() - want).abs() <= ulp).all())

@@ -264,6 +264,32 @@ def test_mlp_embed_and_logits_match(dtype, tp):
         assert rel(tnp(got), want) <= RTOL[dtype]
 
 
+def test_embedding_backward_sums_repeated_rows_in_float32():
+    """Zipf ids repeat a few rows hundreds of times.  A bfloat16 table's
+    gradient is each row's sum taken in float32 and rounded once, so it is
+    within one unit in the last place of the exact sum; a float32 table's
+    is ``index_select``'s own backward."""
+    rng = np.random.default_rng(11)
+    n, d, v = 2048, 16, 64
+    rows = torch.as_tensor(rng.zipf(1.3, n) % v)
+    assert int(torch.bincount(rows).max()) > 500
+    g = torch.as_tensor(rng.normal(size=(n, d))).to(torch.bfloat16)
+    want = torch.zeros(v, d, dtype=torch.float64).index_add_(
+        0, rows, g.double())
+    grads = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        table = torch.zeros(v, d, dtype=dtype, requires_grad=True)
+        tlayers._TakeRows.apply(table, rows).backward(g.to(dtype))
+        assert table.grad.dtype == dtype
+        grads[dtype] = table.grad
+    ulp = torch.finfo(torch.bfloat16).eps * want.abs()
+    assert bool(((grads[torch.bfloat16].double() - want).abs()
+                 <= ulp).all())
+    table = torch.zeros(v, d, requires_grad=True)
+    table.index_select(0, rows).backward(g.float())
+    torch.testing.assert_close(grads[torch.float32], table.grad)
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
