@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's tuning loop, its serving path and its training
-paths (one stacked axis, and a data x model mesh) on one CUDA card, end to
-end.
+paths (one stacked axis, a data x model mesh, a pod x data x model mesh,
+and training through the model kernels) on one CUDA card, end to end.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -55,12 +55,15 @@ Phases (each raises on failure; nothing is caught):
    with ``quant_bw`` from quant_pack's phase-3 rate;
 6. ``tune()`` with the measured backend at p = 8 over the flat ops, and the
    fused ops at llama3.2-3b's GEMM widths (``matmul_accumulate`` at its
-   K/V projection); save and reload the profiles;
+   K/V projection); save and reload the profiles; then the tuning CLI
+   (``examples/torch_tune_collectives.py``, ``--backend measured
+   --axis-size 8``) writes its Listing-1 profiles, timed;
 7. record one llama3.2-3b sequence-parallel block (d_model 3072, d_ff
    8192, 4096 tokens, p = 8 ranks stacked on the card) under the tuned
    profiles as a Trace;
 8. replay it with ``tune_trace`` (measured backend), run the block again
-   under the new profiles, check it against the default impls, print the
+   under the new profiles and under the CLI's reloaded profiles, check
+   both against the default impls, print the
    ``#@pgmpi`` footer, and force ``allgather_as_allreduce``, the three
    ``fused_ring`` impls, ``wire_q8`` on the allgather and ``wire_fp8`` on
    the gate/up allgather-matmul once, so every kernel runs whatever the
@@ -115,7 +118,23 @@ Phases (each raises on failure; nothing is caught):
    ``fused_ring2d`` both directions and the 1-D fused rings) and the
    standalone 2-D pair at w_o, whose dx runs the ring; (b) and (c) within
    ``TRAIN_RTOL`` of the default gradients; (d) a checkpoint of (a)'s
-   state restored into a fresh trainer gives the same loss bit for bit.
+   state restored into a fresh trainer gives the same loss bit for bit;
+   (e) one step on the (2, 2, 2) pod x data x model mesh with each cell
+   stamped with its axis's tier, whose footer lists the cross-pod
+   all-reduces (one per leaf in bwd);
+14. train through the kernels' autograd Functions: each Function at the
+   training shapes against autograd through its plain version (output
+   within the kernel's ``tolerance``, input gradients within that limit
+   max-norm relative); (a) llama3.2-3b with ``attn_impl="flash"`` in
+   phase 12's FSDP layout, timed beside phase 12's ``ref`` step, its loss
+   and gradients within ``TRAIN_RTOL`` of the ``ref`` step's from the same
+   weights and batch; (b) rwkv6-3b (8 of 32 layers) and (c) zamba2-1.2b
+   (12 of 38 layers: two hybrid periods, so the shared flash block trains
+   twice) at full width, TP over 4 stacked model ranks, 2 x 1024 tokens,
+   timed in bf16, then their float32 loss and gradients within
+   ``TRAIN_RTOL`` of the same step taken through the plain versions under
+   autograd, each leaf also allowed its floor (how far the plain step's
+   leaf moves when each scan's output moves by ``FLOOR_EPS`` relative).
 
 Kernel launch counts are zeroed just before phase 6 and read after each of
 phases 6-8; every kernel of the main path must have launched in the tune,
@@ -140,7 +159,12 @@ row of the kernels line carries its ``train_launches``.  They are zeroed
 again just before the mesh train path (phase 13) and read after it:
 ``block_matmul`` (all ``wgmma``) and ``guideline_pack`` must have
 launched in its forced step, and ``block_matmul`` and the ring in the
-standalone 2-D pair; each row carries its ``mesh_train_launches``.  The
+standalone 2-D pair; each row carries its ``mesh_train_launches``.  They
+are zeroed again just before phase 14's path (after its per-Function
+checks) and read after it: flash attention on ``wgmma``, ``rwkv6_scan``
+and ``ssd_scan`` on ``chunked`` must launch inside the timed steps and
+inside each checked step; each row carries its
+``kernel_train_launches``.  The
 ranks are stacked on ONE card: a ring hop is a device-memory copy, so
 the times measure on-chip data movement and launch overhead, not a link
 between GPUs, and both tiers of a two-axis mesh are the same memory.
@@ -153,7 +177,9 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -233,10 +259,23 @@ MESH_BATCH = 4
 MESH_T = MESH_BATCH // MESH_D * TRAIN_SEQ
 MESH_FORCE = dict(TRAIN_FORCE, matmul_reducescatter_2d="fused_ring2d")
 MESH_SITES = {"w_o": HEADS * HEAD_DIM // MESH_Q, "mlp-down": D_FF // MESH_Q}
+# the pod step of phase 13: the JAX package's three-axis mesh, pod x data x
+# model, 8 lanes, parameters replicated over pod
+POD_MESH = (2, 2, 2)
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def _example(name: str):
+    """The module of ``examples/<name>.py`` (a script, not a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def nvidia_smi(fields: str) -> str:
@@ -1099,11 +1138,12 @@ def footer_by_phase(rec) -> dict:
     return out
 
 
-def timed_steps(torch, tr, params, opt, batches, tag: str):
+def timed_steps(torch, tr, params, opt, batches, tag: str, sub: str = "a"):
     """``TRAIN_WARMUP`` warm-up and ``TRAIN_STEPS`` timed steps of ``tr``,
     then one step under ``torch.profiler`` (device busy share, the top
     kernels): ``(params, opt, losses, times, step_rec, profiled)``, with
-    ``step_rec`` the dispatches of the last timed step."""
+    ``step_rec`` the dispatches of the last timed step; logged as
+    ``[{tag}{sub}]``."""
     from torch.profiler import ProfilerActivity, profile
     losses, times, step_rec = [], [], None
     n_a = TRAIN_WARMUP + TRAIN_STEPS + 1
@@ -1117,7 +1157,7 @@ def timed_steps(torch, tr, params, opt, batches, tag: str):
         if i >= TRAIN_WARMUP:
             times.append(dt)
         step_rec = tr.record[n0:]
-        log(f"[{tag}a] step {i}: loss {losses[-1]:.6f} grad_norm "
+        log(f"[{tag}{sub}] step {i}: loss {losses[-1]:.6f} grad_norm "
             f"{float(m['grad_norm']):.4f} lr {float(m['lr']):.3e} "
             f"{dt * 1e3:.2f} ms{' (warm-up)' if i < TRAIN_WARMUP else ''}")
     with profile(activities=[ProfilerActivity.CPU,
@@ -1132,11 +1172,11 @@ def timed_steps(torch, tr, params, opt, batches, tag: str):
     profiled = {"wall_ms": wall, "device_busy_ms": busy,
                 "busy_share": busy / wall,
                 "kernels": sum(e.count for e in rows)}
-    log(f"[{tag}a] profiled step: wall {wall:.2f} ms, device busy "
+    log(f"[{tag}{sub}] profiled step: wall {wall:.2f} ms, device busy "
         f"{busy:.2f} ms in {profiled['kernels']} kernels = "
         f"{100 * busy / wall:.1f} % busy")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[{tag}a]   {e.self_device_time_total / 1e3:9.3f} ms "
+        log(f"[{tag}{sub}]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"x{e.count:5d} {e.key[:90]}")
     if not all(map(math.isfinite, losses)):
         raise RuntimeError(f"[{tag}] non-finite loss {losses}")
@@ -1639,6 +1679,7 @@ def train_mesh_phase(torch, dev, wrappers: dict, tag: str = "13") -> dict:
                    "loss": loss_b}
     del params, opt, m, fresh
     torch.cuda.empty_cache()
+    out["pod"] = pod_step(torch, dev, cfg, tag)
 
     c_end = counts(wrappers)
     out["launches"] = {k: c_end[k] - c_start[k] for k in c_end}
@@ -1648,6 +1689,433 @@ def train_mesh_phase(torch, dev, wrappers: dict, tag: str = "13") -> dict:
     log(f"[mesh train path] launches by path: {json.dumps(out['paths'])}")
     log(f"[{tag}] mesh train phase in {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# the train-through-the-kernels path (phase 14): (a) llama3.2-3b with
+# attn_impl "flash" in phase 12's layout (FSDP p = 8, 8 x 1024 tokens);
+# (b) rwkv6-3b and (c) zamba2-1.2b at full width, TP over SSM_TP stacked
+# model ranks, 2 x 1024 tokens.  zamba2's 12 layers are two hybrid periods
+# (6 Mamba2 blocks, then the shared attention block), so the shared
+# block trains twice.
+SSM_TRAIN_LAYERS = {"rwkv6-3b": 8, "zamba2-1.2b": 12}
+SSM_TP, SSM_BATCH = 4, 2
+# (b) and (c) hold each gradient leaf of the float32 step through the
+# kernels to the plain step's within TRAIN_RTOL plus the leaf's floor: how
+# far the plain step's leaf moves when each scan's output moves by up to
+# FLOOR_EPS relative (16 float32 units in the last place, a scan that sums
+# in another order).  On these models at random init some leaves' gradients
+# are sums with cancellation that move by O(1) from that alone
+# (scripts/torch_grad_noise.py), a property of the model, not of a kernel.
+FLOOR_EPS = 2.0 ** -20
+
+
+class _PlainFlash:
+    """The check's own plain step: attention through
+    ``flash_attention_plain`` under autograd (no kernel)."""
+
+    @staticmethod
+    def apply(q, k, v, causal, window, softcap, q0, kv_len):
+        from repro_torch.kernels import flash_attention as fa
+        return fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, softcap=softcap,
+                                        q0=q0, kv_len=kv_len)
+
+
+class _PlainRWKV:
+    perturb = None      # a torch.Generator: see _perturbed
+
+    @staticmethod
+    def apply(r, k, v, logw, u):
+        from repro_torch.kernels import rwkv6_scan as rw
+        return _perturbed(rw.rwkv6_scan_plain_log(r, k, v, logw, u)[0],
+                          _PlainRWKV.perturb)
+
+
+class _PlainSSD:
+    perturb = None
+
+    @staticmethod
+    def apply(x, dt, a, B, C):
+        from repro_torch.kernels import ssd_mamba2 as ssd
+        return _perturbed(ssd.ssd_scan_plain(x, dt, a, B, C)[0],
+                          _PlainSSD.perturb)
+
+
+def _perturbed(y, gen):
+    """``y`` times ``1 + FLOOR_EPS * U(-1, 1)`` when ``gen`` is set: a
+    float32 scan that sums in another order (16 units in the last place)."""
+    if gen is None:
+        return y
+    import torch
+    return y * (1 + FLOOR_EPS * (torch.rand(
+        y.shape, generator=gen, device=y.device) * 2 - 1))
+
+
+class plain_recurrences:
+    """Within: the model's three autograd Functions replaced by autograd
+    straight through the plain versions (``_PlainFlash``, ``_PlainRWKV``,
+    ``_PlainSSD``), the independent step a training step through the
+    kernels is held to; with ``perturb`` (a generator) each scan's output
+    moves by up to ``FLOOR_EPS`` relative, the floor of that
+    comparison."""
+
+    def __init__(self, perturb=None):
+        self.perturb = perturb
+
+    def __enter__(self):
+        from repro_torch.models import attention, ssm
+        self.saved = (attention.FlashAttention, ssm.RWKV6Scan, ssm.SSDScan)
+        attention.FlashAttention = _PlainFlash
+        ssm.RWKV6Scan, ssm.SSDScan = _PlainRWKV, _PlainSSD
+        _PlainRWKV.perturb = _PlainSSD.perturb = self.perturb
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention, ssm
+        attention.FlashAttention, ssm.RWKV6Scan, ssm.SSDScan = self.saved
+        _PlainRWKV.perturb = _PlainSSD.perturb = None
+
+
+def function_checks(torch, dev, fa, rw, ssd, tag: str) -> dict:
+    """Each autograd Function at the training shapes of phase 14 against
+    autograd straight through its plain version, from the same inputs and
+    cotangent: the output held to the kernel's elementwise ``tolerance``,
+    each input gradient to the same limit taken max-norm relative (the
+    largest limit over the largest plain output); the backward
+    differentiates the plain version in both, so the gradients differ by
+    summation order only.  These launches are not the path's."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+
+    def rnd(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(
+            dtype)
+
+    def held(label, fn, plain, ins, lim_of):
+        ins = [t.requires_grad_(True) for t in ins]
+        y = fn(*ins)
+        gy = rnd(*y.shape)
+        got = torch.autograd.grad(y, ins, gy)
+        xs = [t.detach().clone().requires_grad_(True) for t in ins]
+        yp = plain(*xs)
+        want = torch.autograd.grad(yp, xs, gy)
+        lim = lim_of([t.detach() for t in ins], yp.detach())
+        share = float(((y.detach() - yp.detach()).abs() / lim).max())
+        rel_lim = float(lim.max()) / max(float(yp.detach().abs().max()),
+                                         1e-30)
+        errs = [float((a.float() - b.float()).abs().max())
+                / max(float(b.float().abs().max()), 1e-30)
+                for a, b in zip(got, want)]
+        log(f"[{tag}] {label}: output {share:.4f} of its limit; input "
+            f"gradients max-norm relative {['%.2e' % e for e in errs]} "
+            f"(limit {rel_lim:.2e})")
+        if not (share <= 1.0 and all(e <= rel_lim for e in errs)
+                and all(bool(torch.isfinite(a).all()) for a in got)):
+            raise RuntimeError(f"{label}: the Function differs from autograd "
+                               f"through its plain version")
+        return {"output_share": share, "grad_rel_err": errs,
+                "grad_limit": rel_lim}
+
+    out = {}
+    for label, (n, hk, gq, dh) in (
+            ("llama3.2-3b flash", (P, 8, 3, HEAD_DIM)),
+            ("zamba2-1.2b shared flash", (SSM_TP * SSM_BATCH,
+                                          ZAMBA_ATTN_HEADS // SSM_TP, 1,
+                                          64))):
+        q = rnd(n, TRAIN_SEQ, hk, gq, dh, dtype=torch.bfloat16)
+        k, v = (rnd(n, TRAIN_SEQ, hk, dh, dtype=torch.bfloat16)
+                for _ in range(2))
+        args = (True, 0, 0.0, 0, None)
+        out[label] = held(
+            label, lambda *t: fa.FlashAttention.apply(*t, *args),
+            lambda *t: fa.flash_attention_plain(*t),
+            [q, k, v], lambda ins, want: fa.tolerance(*ins, want))
+    n, h = SSM_TP * SSM_BATCH, RWKV_HEADS // SSM_TP
+    r, k, v = (rnd(n, TRAIN_SEQ, h, 64, dtype=torch.bfloat16, scale=0.5)
+               for _ in range(3))
+    logw = -torch.exp(rnd(n, TRAIN_SEQ, h, 64, scale=0.5))
+    u = rnd(SSM_TP, h, 64, scale=0.5)
+    out["rwkv6-3b rwkv6_scan"] = held(
+        "rwkv6-3b rwkv6_scan", rw.RWKV6Scan.apply,
+        lambda *t: rw.rwkv6_scan_plain_log(*t)[0], [r, k, v, logw, u],
+        lambda ins, want: rw.tolerance(*ins[:3], torch.exp(ins[3]),
+                                       ins[4])[0])
+    h = ZAMBA_HEADS // SSM_TP
+    x = rnd(n, TRAIN_SEQ, h, 64, dtype=torch.bfloat16)
+    bc = rnd(n, TRAIN_SEQ, 128, dtype=torch.bfloat16)
+    dt = torch.nn.functional.softplus(rnd(n, TRAIN_SEQ, h))
+    a = torch.exp(rnd(SSM_TP, h, scale=0.5))
+    out["zamba2-1.2b ssd_scan"] = held(
+        "zamba2-1.2b ssd_scan",
+        lambda x_, dt_, a_, bc_: ssd.SSDScan.apply(x_, dt_, a_, bc_[..., :64],
+                                                   bc_[..., 64:]),
+        lambda x_, dt_, a_, bc_: ssd.ssd_scan_plain(
+            x_, dt_, a_, bc_[..., :64], bc_[..., 64:])[0],
+        [x, dt, a, bc],
+        lambda ins, want: ssd.tolerance(*ins[:3], ins[3][..., :64],
+                                        ins[3][..., 64:])[0])
+    return out
+
+
+def train_kernels_phase(torch, dev, wrappers: dict, ref12: dict,
+                        tag: str = "14") -> dict:
+    """Train through the kernels' autograd Functions on the card: each
+    Function at the training shapes against autograd through its plain
+    version (``function_checks``, before the counts are zeroed); then (a)
+    llama3.2-3b with ``attn_impl="flash"`` in phase 12's FSDP layout,
+    timed beside phase 12's ``ref`` step (``ref12``), its loss and
+    gradients within ``TRAIN_RTOL`` of the ``ref`` step's from the same
+    weights and batch; (b) rwkv6-3b and (c) zamba2-1.2b at full width,
+    TP over ``SSM_TP`` stacked ranks, timed in bf16, their float32 loss
+    and gradients within ``TRAIN_RTOL`` (each leaf plus its floor, see
+    ``FLOOR_EPS``) of the same step taken through the plain versions
+    under autograd (``plain_recurrences``).  Flash's ``wgmma``
+    launches and the scans' ``chunked`` launches are counted inside the
+    steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.kernels import ssd_mamba2 as ssd
+    from repro_torch.models.params import (tree_leaves, tree_nbytes,
+                                           tree_paths, tree_unflatten)
+    from repro_torch.optim import state_specs
+    from repro_torch.train import Trainer
+
+    def named(tree) -> dict:
+        return dict(tree_paths(tree))
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out: dict = {"functions": function_checks(torch, dev, fa, rw, ssd, tag)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(wrappers)              # the path starts here
+    c_start = counts(wrappers)
+    kernel_of = {"llama3.2-3b": {"flash_attention": "wgmma"},
+                 "rwkv6-3b": {"rwkv6_scan": "chunked"},
+                 "zamba2-1.2b": {"ssd_scan": "chunked",
+                                 "flash_attention": "wgmma"}}
+    n_a = TRAIN_WARMUP + TRAIN_STEPS + 1
+
+    def launched(label, need, fn):
+        """``fn()``, requiring each kernel of ``need`` (name -> path) to
+        launch on that path inside it; returns ``(fn(), launches by
+        path)``."""
+        before = {k: dict(wrappers[k].launches_by_path) for k in need}
+        c0 = counts(wrappers)
+        got = fn()
+        torch.cuda.synchronize()
+        took = {k: path_delta(wrappers[k], before[k]) for k in need}
+        require_launched(f"{tag}{label}", {k: c0[k] for k in need},
+                         {k: counts(wrappers)[k] for k in need})
+        for k, path in need.items():
+            if took[k][path] <= 0:
+                raise RuntimeError(f"{label}: {k} off its {path} path "
+                                   f"{took[k]}")
+        return got, took
+
+    def compare(label, tr, other, params, batch, need):
+        """The loss and every gradient leaf of ``tr`` against ``other``
+        (a trainer, or None: ``tr`` under ``plain_recurrences``), with
+        each kernel of ``need`` launched on its path inside ``tr``'s
+        step.  The first step's gradients wait on the host."""
+        (loss0, g0), took = launched(f"{label} step", need,
+                                     lambda: tr.grads(params, batch))
+        g0 = {k: v.cpu() for k, v in named(g0).items()}
+        c1 = counts(wrappers)
+        floor = {}
+        if other is None:
+            with plain_recurrences():
+                loss1, g1 = tr.grads(params, batch)
+            g1 = named(g1)
+            # the floor: the plain step with each scan's output moved by
+            # up to FLOOR_EPS relative, against the plain step
+            gen = torch.Generator(device=dev).manual_seed(SEED + 141)
+            with plain_recurrences(perturb=gen):
+                _, g2 = tr.grads(params, batch)
+            for k, w in named(g2).items():
+                floor[k] = grads_rel_err(torch, {k: w}, {k: g1[k]})[0]
+            del g2
+            if counts(wrappers) != c1:
+                raise RuntimeError("the plain step launched a kernel")
+        else:
+            loss1, g1 = other.grads(params, batch)
+            g1 = named(g1)
+        errs = {}
+        for k, w in g1.items():
+            errs[k] = grads_rel_err(torch, {k: g0[k].to(w.device)},
+                                    {k: w})[0]
+        del g0, g1
+        over = {k: e - floor.get(k, 0.0) for k, e in errs.items()}
+        leaf = max(over, key=over.get)
+        err = errs[leaf]
+        lerr = abs(float(loss0) - float(loss1)) / abs(float(loss1))
+        worst = sorted(errs, key=errs.get, reverse=True)[:5]
+        log(f"[{tag}{label}] the five leaves farthest apart (max-norm "
+            f"relative): {', '.join(f'{k} {errs[k]:.3e}' for k in worst)}")
+        if floor:
+            top = sorted(floor, key=floor.get, reverse=True)[:5]
+            log(f"[{tag}{label}] the floor, the plain step with each scan's "
+                f"output moved by up to {FLOOR_EPS:.1e} relative: " + ", ".join(
+                    f"{k} {floor[k]:.3e}" for k in top))
+        log(f"[{tag}{label}] step through the kernels vs "
+            f"{'ref attention' if other is not None else 'the plain versions'}"
+            f" ({tr.cfg.dtype}): loss {float(loss0):.6f} vs {float(loss1):.6f}"
+            f" (rel {lerr:.3e}), gradients max-norm relative {err:.3e} at "
+            f"{leaf} (tolerance {TRAIN_RTOL} plus that leaf's floor "
+            f"{floor.get(leaf, 0.0):.3e}); launches by path in the step "
+            f"{json.dumps(took)}")
+        if not (over[leaf] <= TRAIN_RTOL and lerr <= TRAIN_RTOL):
+            raise RuntimeError(f"{label}: the step through the kernels "
+                               f"differs: grads {err} at {leaf}, loss "
+                               f"{lerr}")
+        return {"dtype": tr.cfg.dtype, "grad_rel_err": err, "leaf": leaf,
+                "floor": floor.get(leaf, 0.0), "max_floor": max(
+                    floor.values(), default=0.0), "loss_rel_err": lerr,
+                "launches_by_path": took}
+
+    def timed(label, tr, params, opt, cfg, batch_rows):
+        torch.cuda.synchronize()
+        batches = [tr.put_batch(make_batch(cfg, batch_rows, TRAIN_SEQ, i))
+                   for i in range(n_a + 1)]
+        (params, opt, losses, times, step_rec, prof), took = launched(
+            f"{label} timed steps", kernel_of[cfg.name], lambda: timed_steps(
+                torch, tr, params, opt, batches, tag, label))
+        med = sorted(times)[len(times) // 2]
+        peak = torch.cuda.max_memory_allocated(dev)
+        tokens = batch_rows * TRAIN_SEQ
+        got = {"step_ms": [t * 1e3 for t in times],
+               "median_step_ms": med * 1e3, "tokens_per_s": tokens / med,
+               "losses": losses, "peak_bytes": peak, "profiled_step": prof,
+               "dispatches": dispatch_counts(step_rec),
+               "timed_launches_by_path": took}
+        log(f"[{tag}{label}] {cfg.name}: median step {med * 1e3:.2f} ms over "
+            f"{TRAIN_STEPS} steps ({tokens / med:.0f} tokens/s), peak device "
+            f"memory {peak / 1e9:.3f} GB, losses {losses}; launches by path "
+            f"in the {n_a} steps {json.dumps(took)}")
+        return params, opt, batches[n_a], got
+
+    # -- (a) llama3.2-3b through flash, phase 12's FSDP layout ---------------
+    base = dataclasses.replace(get_config("llama3.2-3b"),
+                               n_layers=TRAIN_LAYERS)
+    cfg = dataclasses.replace(base, attn_impl="flash")
+    tr = Trainer(cfg, mesh=(P, 1), device=dev, record=[])
+    params, opt = tr.init(SEED)
+    log(f"[{tag}a] {cfg.name}: {cfg.n_layers} layers at full width, "
+        f"attn_impl flash, FSDP {P} stacked, {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens a step")
+    params, opt, batch, got = timed("a", tr, params, opt, cfg, TRAIN_BATCH)
+    ref_a = ref12["fsdp"]
+    log(f"[{tag}a] flash vs ref (phase 12, this run): median step "
+        f"{got['median_step_ms']:.2f} vs {ref_a['median_step_ms']:.2f} ms "
+        f"({got['tokens_per_s']:.0f} vs {ref_a['tokens_per_s']:.0f} "
+        f"tokens/s), peak device memory {got['peak_bytes'] / 1e9:.3f} vs "
+        f"{ref_a['peak_bytes'] / 1e9:.3f} GB")
+    del opt
+    torch.cuda.empty_cache()
+    ref_tr = Trainer(dataclasses.replace(base, attn_impl="ref"), mesh=(P, 1),
+                     device=dev)
+    got.update(compare("a", tr, ref_tr, params, batch, kernel_of[cfg.name]))
+    out["llama3.2-3b"] = got
+    del tr, ref_tr, params, batch
+    torch.cuda.empty_cache()
+
+    # -- (b), (c): the SSM family, TP over SSM_TP stacked ranks ----------------
+    for label, arch in (("b", "rwkv6-3b"), ("c", "zamba2-1.2b")):
+        torch.cuda.reset_peak_memory_stats(dev)
+        cfg = dataclasses.replace(get_config(arch), attn_impl="flash",
+                                  n_layers=SSM_TRAIN_LAYERS[arch])
+        tr = Trainer(cfg, mesh=(1, SSM_TP), device=dev, record=[])
+        params, opt = tr.init(SEED)
+        log(f"[{tag}{label}] {arch}: {cfg.n_layers} of "
+            f"{get_config(arch).n_layers} layers at full width (d_model "
+            f"{cfg.d_model}, vocab {cfg.vocab_size}, attn_impl flash), "
+            f"{cfg.dtype}, "
+            f"{cfg.optimizer}, TP {SSM_TP} stacked; params "
+            f"{tree_nbytes(tr.specs) / 1e9:.3f} GB + optimizer state "
+            f"{tree_nbytes(state_specs(cfg.optimizer, tr.specs)) / 1e9:.3f}"
+            f" GB; {SSM_BATCH} x {TRAIN_SEQ} tokens a step")
+        params, opt, batch, got = timed(label, tr, params, opt, cfg,
+                                        SSM_BATCH)
+        del opt, tr
+        # the gradient check in float32: in bf16 a leaf's gradient (a sum
+        # with cancellation, d_skip or w_dt) moves by O(1) when the
+        # recurrence's output moves by 1e-6 (scripts/torch_grad_noise.py),
+        # so kernel and plain would differ by bf16 noise, not by kernel
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        tr32 = Trainer(cfg32, mesh=(1, SSM_TP), device=dev)
+        params = tree_unflatten(params,
+                                [t.float() for t in tree_leaves(params)])
+        torch.cuda.empty_cache()
+        got.update(compare(label, tr32, None, params, batch, {
+            k: "f32" if k == "flash_attention" else path
+            for k, path in kernel_of[arch].items()}))
+        out[arch] = got
+        del tr32, params, batch
+        torch.cuda.empty_cache()
+
+    c_end = counts(wrappers)
+    out["launches"] = {k: c_end[k] - c_start[k] for k in c_end}
+    out["paths"] = {k: dict(wrappers[k].launches_by_path)
+                    for k in ("flash_attention", "rwkv6_scan", "ssd_scan")}
+    log(f"[kernel train path] kernel launches: {json.dumps(out['launches'])}")
+    log(f"[kernel train path] launches by path: {json.dumps(out['paths'])}")
+    for k in ("flash_attention", "rwkv6_scan", "ssd_scan"):
+        if out["launches"][k] <= 0:
+            raise RuntimeError(f"phase {tag}: {k} never launched")
+    log(f"[{tag}] kernel train phase in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def pod_step(torch, dev, cfg, tag: str) -> dict:
+    """(e) of phase 13: one step of ``cfg`` on the ``POD_MESH`` pod x data
+    x model mesh stacked on the card, ``MESH_BATCH`` x ``TRAIN_SEQ``
+    tokens (one sequence a data-parallel rank).  Dispatch stamps each cell
+    with its axis's tier (``api.set_mesh_topo``: the pod axis on a tier of
+    its own), so the footer shows the cross-pod all-reduces: every leaf's
+    gradient in the bwd phase."""
+    from repro_torch.core import api, costmodel
+    from repro_torch.data import make_batch
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import Trainer
+
+    stacked = costmodel.Topo("stacked", alpha=0.0, link_bw=1.0, gamma=0.0)
+    tiers = costmodel.MeshTopo.of(pod=stacked.scaled(name="pod"),
+                                  data=stacked, model=stacked)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec: list = []
+    tr = Trainer(cfg, mesh=POD_MESH, device=dev, record=rec)
+    params, opt = tr.init(SEED)
+    batch = tr.put_batch(make_batch(cfg, MESH_BATCH, TRAIN_SEQ, 0))
+    api.set_mesh_topo(tiers)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = tr.step(params, opt, batch, 0)
+        loss = float(m["loss"])
+        dt = time.perf_counter() - t0
+    finally:
+        api.set_mesh_topo(None)
+    peak = torch.cuda.max_memory_allocated(dev)
+    pod = [r for r in rec if r.cell.tier == "pod"]
+    by_phase = {ph: sum(r.phase == ph for r in pod) for ph in ("fwd", "bwd")}
+    n_leaves = len(tree_leaves(tr.specs))
+    log(f"[{tag}e] pod x data x model {POD_MESH} ({math.prod(POD_MESH)} "
+        f"lanes): one step {dt * 1e3:.2f} ms (the first, no warm-up), "
+        f"loss {loss:.6f}, peak device memory {peak / 1e9:.3f} GB; "
+        f"dispatches over pod {json.dumps(dispatch_counts(pod))}")
+    for ph, lines in footer_by_phase(pod).items():
+        for ln in lines:
+            log(f"[{tag}e] pod {ph}: {ln}")
+    if not math.isfinite(loss) or by_phase["bwd"] < n_leaves or not all(
+            r.cell.op == "allreduce" for r in pod):
+        raise RuntimeError(f"pod step: {by_phase} pod dispatches for "
+                           f"{n_leaves} leaves, loss {loss}")
+    del tr, params, opt, m, batch
+    torch.cuda.empty_cache()
+    return {"mesh": list(POD_MESH), "step_ms": dt * 1e3, "loss": loss,
+            "peak_bytes": peak, "pod_dispatches": by_phase,
+            "leaves": n_leaves}
 
 
 def block(api, axis, torch, x, wv, wo, wgu, wd):
@@ -2240,6 +2708,32 @@ def main(argv=None) -> int:
             p.to_text() for p in store):
         raise RuntimeError("profiles did not survive save/load")
     log(f"[6] {len(store)} profiles saved to {prof_dir} and reloaded")
+    # the tuning CLI (examples/torch_tune_collectives.py, the PGMPITuneCLI
+    # workflow) with the measured backend on the card at p = P; its
+    # Listing-1 profiles are reloaded and dispatched under in phase 8
+    cli_dir = out_dir / "cli_profiles"
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    cli = _example("torch_tune_collectives")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--backend", "measured", "--axis-size", str(P),
+                       "--device", str(dev), "--out", str(cli_dir)])
+    t_cli = time.perf_counter() - t0
+    (out_dir / "cli_tune.txt").write_text(buf.getvalue())
+    cli_lines = buf.getvalue().splitlines()
+    cli_store = profiles.ProfileStore.load(cli_dir)
+    log(f"[6] tuning CLI --backend measured --axis-size {P}: rc {rc} in "
+        f"{t_cli:.1f} s; {cli_lines[0]}; "
+        f"{sum(ln.startswith('  ') for ln in cli_lines)} violation lines "
+        f"({out_dir / 'cli_tune.txt'}); {cli_lines[-1]}")
+    for ln in cli_lines[1:4]:
+        log(f"[6] CLI {ln}")
+    if rc != 0 or f"wrote {len(cli_store)} profiles" not in cli_lines[-1]:
+        raise RuntimeError(f"tuning CLI: rc {rc}, {cli_lines[-1]}, "
+                           f"{len(cli_store)} profiles reloaded")
+    report["cli"] = {"seconds": t_cli, "profiles": len(cli_store),
+                     "summary": cli_lines[:4]}
     c6 = counts(wrappers)
     require_launched("6 tune", c0, c6)
     del backend
@@ -2298,6 +2792,10 @@ def main(argv=None) -> int:
                           "allgather_matmul": "default",
                           "matmul_reducescatter": "default"}):
         ref = block(api, axis, torch, *ws)
+    with api.tuned(profiles=cli_store) as ctx_cli:      # the CLI's picks
+        out_cli = block(api, axis, torch, *ws)
+    for ln in api.format_footer(ctx_cli).splitlines():
+        log(f"[8] under the CLI's profiles: {ln}")
     # matmul_accumulate at the K/V projection: every rank holds its own
     # 4096-token sequence and one K-block [384, 1024] of the weight
     xa = randn(P, TOKENS, D_MODEL)
@@ -2351,6 +2849,7 @@ def main(argv=None) -> int:
     for label, got, want, t in (
             ("recorded block", out7, ref, tol),
             ("tuned block", out8, ref, tol),
+            ("block under the CLI's profiles", out_cli, ref, tol),
             ("allgather_as_allreduce", ag_forced, h, 0.0),
             ("matmul_reducescatter fused_ring", mm_forced, mm_default,
              mm_tol),
@@ -2485,13 +2984,20 @@ def main(argv=None) -> int:
     report["mesh_train"] = train_mesh_phase(torch, dev, every)
     for k, v in report["mesh_train"]["launches"].items():
         kernels[k]["mesh_train_launches"] = v
+
+    # -- 14. train through the kernels: flash, rwkv6_scan, ssd_scan ----------
+    report["kernel_train"] = train_kernels_phase(torch, dev, every,
+                                                 report["train"])
+    for k, v in report["kernel_train"]["launches"].items():
+        kernels[k]["kernel_train_launches"] = v
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     (out_dir / "report.json").write_text(json.dumps(report, indent=1))
     log(f"[done] {report['seconds']:.1f} s")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "main_path", "train_launches", "mesh_train_launches")
+             "main_path", "train_launches", "mesh_train_launches",
+             "kernel_train_launches")
     print(json.dumps({"kernels": [{k: kernels[n][k] for k in order}
                                   for n in ("guideline_pack", "block_matmul",
                                             "ring_allgather_matmul_rdma",

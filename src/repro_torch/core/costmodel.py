@@ -88,6 +88,9 @@ V5E_DCN = Topo("v5e-dcn", alpha=10.0e-6, link_bw=12.5e9, gamma=2.5e-12,
 BGQ_LIKE = Topo("bgq-like", alpha=2.0e-6, link_bw=2e9, gamma=4e-12,
                 default_pricing="naive", hw_bcast=True, quant_bw=819e9)
 
+#: the presets by name, as the JAX package's tuning CLI takes them
+PRESETS = {t.name: t for t in (V5E_ICI, V5E_DCN, BGQ_LIKE)}
+
 #: the JAX package's published v5e DCN-vs-ICI link gaps (the RATIOS are
 #: what is assumed; ``fit_topo`` anchors the absolutes in measured sweeps)
 DCN_ALPHA_MULT = 10.0

@@ -34,9 +34,15 @@ alignment, before the launch; every call is one launch.
 
 ``flash_attention_plain`` is a PyTorch copy of the JAX package's
 ``models/attention.py:_flash_jnp`` with the same arguments: an online
-softmax over KV chunks of ``CHUNK`` keys, float32 scores and accumulator,
-p rounded to v's dtype before the PV product.  CPU tensors take it; on
-the card it only checks the kernel, within ``tolerance``.  ``flash_attention_ref`` is the oracle of
+softmax over KV chunks of ``CHUNK`` keys, float32 scores and accumulator
+(float64 for float64 inputs), p rounded to v's dtype before the PV
+product.  CPU tensors take it; on the card it checks the kernel, within
+``tolerance``, and is what training differentiates: ``FlashAttention`` is
+the ``torch.autograd.Function`` whose forward is ``flash_attention`` (the
+kernel on CUDA tensors) and whose backward recomputes the attention
+through ``flash_attention_plain`` under autograd, the counterpart of
+``jax.vjp`` of ``_flash_jnp``.  It saves only q, k and v.
+``flash_attention_ref`` is the oracle of
 ``repro/kernels/ref.py:flash_attention_ref`` (Pallas layout).
 """
 from __future__ import annotations
@@ -47,6 +53,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._recompute import grads_through
 
 NEG = -1e30
 CHUNK = 1024                       # _flash_jnp's KV chunk
@@ -119,15 +126,15 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         c //= 2
     scale = 1.0 / math.sqrt(dh)
     qpos = q0 + torch.arange(sq, device=q.device)
-    qf = q.float()
-    m = torch.full((n, hk, g, sq), NEG, dtype=torch.float32, device=q.device)
-    l = torch.zeros((n, hk, g, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((n, hk, g, sq, dh), dtype=torch.float32,
-                      device=q.device)
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(ct)
+    m = torch.full((n, hk, g, sq), NEG, dtype=ct, device=q.device)
+    l = torch.zeros((n, hk, g, sq), dtype=ct, device=q.device)
+    acc = torch.zeros((n, hk, g, sq, dh), dtype=ct, device=q.device)
     for c0 in range(0, skv, c):
         kb, vb = k[:, c0:c0 + c], v[:, c0:c0 + c]
         kpos = torch.arange(c0, c0 + kb.shape[1], device=q.device)
-        s = torch.einsum("nqhgd,nchd->nhgqc", qf, kb.float()) * scale
+        s = torch.einsum("nqhgd,nchd->nhgqc", qf, kb.to(ct)) * scale
         if softcap:
             s = torch.tanh(s / softcap) * softcap
         mask = (kpos < kv_len)[None, :].expand(sq, -1)
@@ -141,7 +148,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         p = torch.exp(s - m_new[..., None])
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + torch.einsum(
-            "nhgqc,nchd->nhgqd", p.to(v.dtype).float(), vb.float())
+            "nhgqc,nchd->nhgqd", p.to(v.dtype).to(ct), vb.to(ct))
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
@@ -210,6 +217,28 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 flash_attention.launches = 0
 flash_attention.launches_by_path = dict.fromkeys(PATHS, 0)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` under autograd:
+    ``FlashAttention.apply(q, k, v, causal, window, softcap, q0,
+    kv_len)``.  The forward is ``flash_attention`` (the kernel on CUDA
+    tensors, the plain version on CPU ones) and saves q, k and v only; the
+    backward recomputes the attention through ``flash_attention_plain``
+    under autograd and returns its gradients for q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q0, kv_len):
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap, q0=q0,
+                      kv_len=kv_len)
+        ctx.save_for_backward(q, k, v)
+        return flash_attention(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = grads_through(flash_attention_plain, ctx.saved_tensors,
+                              ctx.needs_input_grad[:3], g, **ctx.kw)
+        return (*grads, None, None, None, None, None)
 
 
 def tolerance(q, k, v, want: torch.Tensor, **kw) -> torch.Tensor:

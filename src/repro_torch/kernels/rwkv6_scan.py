@@ -29,9 +29,13 @@ cache in place.  The CUDA source, with the bound it works against, is
 
 ``rwkv6_scan_plain`` is the TPU kernel's chunked algorithm in PyTorch
 (log-decay cumsum per chunk, pairwise differences clamped at <= 0, the
-bonus on the diagonal, the state update), over chunks of ``CHUNK`` rows.
-CPU tensors take it; on the card it only checks the kernel, within
-``tolerance``.  ``rwkv6_ref`` is the oracle of
+bonus on the diagonal, the state update), over chunks of ``CHUNK`` rows;
+``rwkv6_scan_plain_log`` is the same on ``log w``.  CPU tensors take it;
+on the card it checks the kernel, within ``tolerance``, and is what
+training differentiates: ``RWKV6Scan`` is the ``torch.autograd.Function``
+whose forward is ``rwkv6_scan`` and whose backward recomputes the scan
+through ``rwkv6_scan_plain_log`` under autograd, the counterpart of
+``jax.vjp`` of the JAX package's ``models/ssm.py:_wkv_scan``.  ``rwkv6_ref`` is the oracle of
 ``repro/kernels/ref.py:rwkv6_ref`` (sequential, TPU layout).
 """
 from __future__ import annotations
@@ -41,6 +45,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._recompute import grads_through
 
 CHUNK = 32                     # the kernel's chunk, as the TPU kernel's
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -108,20 +113,33 @@ def _check(r, k, v, w, u, s0, out_state):
 
 def rwkv6_scan_plain(r, k, v, w, u, s0=None, *, chunk: int = CHUNK):
     """The plain PyTorch version: the TPU kernel's chunked algorithm over
-    chunks of ``chunk`` rows (the last one ragged), float32 inside."""
+    chunks of ``chunk`` rows (the last one ragged), float32 inside
+    (float64 for float64 inputs)."""
     _check(r, k, v, w, u, s0, None)
+    wf = w.to(torch.promote_types(w.dtype, torch.float32))
+    return rwkv6_scan_plain_log(r, k, v, torch.log(torch.clamp(wf, min=1e-38)),
+                                u, s0, chunk=chunk)
+
+
+def rwkv6_scan_plain_log(r, k, v, logw, u, s0=None, *, chunk: int = CHUNK):
+    """``rwkv6_scan_plain`` on the log of the decay, ``logw = log w <=
+    0``: what training differentiates.  Its backward never divides by w
+    (the chunked algorithm works on log-decay cumsums), so it stays
+    finite where w underflows to 0, as the JAX package's ``_wkv_scan``,
+    which multiplies by w, does."""
+    _check(r, k, v, logw, u, s0, None)
     n, s, h, hd = r.shape
     dev = r.device
-    uu = u.float().repeat_interleave(n // u.shape[0], 0)[:, :, None]
-    st = (torch.zeros(n, h, hd, hd, dtype=torch.float32, device=dev)
-          if s0 is None else s0.float())
-    y = torch.empty(n, s, h, hd, dtype=torch.float32, device=dev)
+    ct = torch.promote_types(r.dtype, torch.float32)
+    uu = u.to(ct).repeat_interleave(n // u.shape[0], 0)[:, :, None]
+    st = (torch.zeros(n, h, hd, hd, dtype=ct, device=dev)
+          if s0 is None else s0.to(ct))
+    y = torch.empty(n, s, h, hd, dtype=ct, device=dev)
     for c0 in range(0, s, chunk):
-        rc, kc, vc, wc = (t[:, c0:c0 + chunk].float().transpose(1, 2)
-                          for t in (r, k, v, w))            # [N, H, Lc, hd]
+        rc, kc, vc, lwc = (t[:, c0:c0 + chunk].to(ct).transpose(1, 2)
+                           for t in (r, k, v, logw))        # [N, H, Lc, hd]
         lc = rc.shape[2]
-        logw = torch.log(torch.clamp(wc, min=1e-38))
-        cum = torch.cumsum(logw, dim=2)
+        cum = torch.cumsum(lwc, dim=2)
         cum_prev = torch.cat([torch.zeros_like(cum[:, :, :1]),
                               cum[:, :, :-1]], dim=2)       # exclusive
         strict = torch.ones(lc, lc, dtype=torch.bool, device=dev).tril(-1)
@@ -191,6 +209,30 @@ def rwkv6_scan(r, k, v, w, u, s0=None, *, out_state=None):
 
 rwkv6_scan.launches = 0
 rwkv6_scan.launches_by_path = dict.fromkeys(PATHS, 0)
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """``rwkv6_scan`` from a zero state under autograd, on the log of the
+    decay: ``RWKV6Scan.apply(r, k, v, logw, u) -> y``, gradients for r,
+    k, v, logw and u.  The forward is the kernel on CUDA tensors
+    (``rwkv6_scan`` with ``w = exp(logw)``) and ``rwkv6_scan_plain_log``
+    on CPU ones, and saves its five inputs; the backward recomputes ``y``
+    through ``rwkv6_scan_plain_log`` under autograd.  Taking log w, not
+    w, keeps 1/w out of the backward (the model's decay ``exp(-exp(.))``
+    underflows in float32)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u):
+        ctx.save_for_backward(r, k, v, logw, u)
+        if all(t.device.type == "cpu" for t in (r, k, v, logw, u)):
+            return rwkv6_scan_plain_log(r, k, v, logw, u)[0]
+        return rwkv6_scan(r, k, v, torch.exp(logw), u)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(grads_through(
+            lambda *ins: rwkv6_scan_plain_log(*ins)[0], ctx.saved_tensors,
+            ctx.needs_input_grad, g))
 
 
 def tolerance(r, k, v, w, u, s0=None):

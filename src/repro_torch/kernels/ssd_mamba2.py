@@ -29,8 +29,12 @@ counted in ``ssd_scan.launches_by_path``.
 ``ssd_scan_plain`` is the TPU kernel's chunked algorithm in PyTorch over
 chunks of ``CHUNK`` rows: ``C Bᵀ`` masked by the decay (the mask includes
 the diagonal), the inter-chunk term ``(C ⊙ e^{cum}) S`` and the state
-update.  CPU tensors take it; on the card it only checks the kernel,
-within ``tolerance``.  ``ssd_ref`` is the oracle of
+update.  CPU tensors take it; on the card it checks the kernel, within
+``tolerance``, and is what training differentiates: ``SSDScan`` is the
+``torch.autograd.Function`` whose forward is ``ssd_scan`` and whose
+backward recomputes the scan through ``ssd_scan_plain`` under autograd,
+the counterpart of ``jax.vjp`` of the JAX package's
+``models/ssm.py:_ssd_chunked``.  ``ssd_ref`` is the oracle of
 ``repro/kernels/ref.py:ssd_ref`` (sequential, TPU layout).
 """
 from __future__ import annotations
@@ -40,6 +44,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._recompute import grads_through
 
 CHUNK = 64                     # the kernel's chunk, as the TPU kernel's
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -114,19 +119,24 @@ def _check(x, dt, a, B, C, s0, out_state):
 
 def ssd_scan_plain(x, dt, a, B, C, s0=None, *, chunk: int = CHUNK):
     """The plain PyTorch version: the TPU kernel's chunked algorithm over
-    chunks of ``chunk`` rows (the last one ragged), float32 inside."""
+    chunks of ``chunk`` rows (the last one ragged), float32 inside
+    (float64 for float64 inputs).  Its decay mask clamps the exponent at
+    0 before the exponential, so its gradient stays finite where the JAX
+    package's ``jnp.where(tri, exp(diff), 0)`` may overflow above the
+    diagonal."""
     _check(x, dt, a, B, C, s0, None)
     n, s, h, p = x.shape
     dev = x.device
-    aa = a.float().repeat_interleave(n // a.shape[0], 0)    # [N, H]
-    st = (torch.zeros(n, h, B.shape[-1], p, dtype=torch.float32, device=dev)
-          if s0 is None else s0.float())
-    y = torch.empty(n, s, h, p, dtype=torch.float32, device=dev)
+    ct = torch.promote_types(x.dtype, torch.float32)
+    aa = a.to(ct).repeat_interleave(n // a.shape[0], 0)     # [N, H]
+    st = (torch.zeros(n, h, B.shape[-1], p, dtype=ct, device=dev)
+          if s0 is None else s0.to(ct))
+    y = torch.empty(n, s, h, p, dtype=ct, device=dev)
     for c0 in range(0, s, chunk):
-        xc = x[:, c0:c0 + chunk].float().transpose(1, 2)   # [N, H, Lc, P]
-        dtc = dt[:, c0:c0 + chunk].float().transpose(1, 2)  # [N, H, Lc]
-        bc = B[:, c0:c0 + chunk].float()                   # [N, Lc, Ns]
-        cc = C[:, c0:c0 + chunk].float()
+        xc = x[:, c0:c0 + chunk].to(ct).transpose(1, 2)    # [N, H, Lc, P]
+        dtc = dt[:, c0:c0 + chunk].to(ct).transpose(1, 2)  # [N, H, Lc]
+        bc = B[:, c0:c0 + chunk].to(ct)                    # [N, Lc, Ns]
+        cc = C[:, c0:c0 + chunk].to(ct)
         lc = xc.shape[2]
         cum = torch.cumsum(-dtc * aa[:, :, None], dim=2)
         xb = xc * dtc[..., None]
@@ -200,6 +210,25 @@ def ssd_scan(x, dt, a, B, C, s0=None, *, out_state=None):
 
 ssd_scan.launches = 0
 ssd_scan.launches_by_path = dict.fromkeys(PATHS, 0)
+
+
+class SSDScan(torch.autograd.Function):
+    """``ssd_scan`` from a zero state under autograd: ``SSDScan.apply(x,
+    dt, a, B, C) -> y``, gradients for all five (B and C may be views of
+    one tensor).  The forward is ``ssd_scan`` (the kernel on CUDA tensors,
+    the plain version on CPU ones) and saves its inputs; the backward
+    recomputes ``y`` through ``ssd_scan_plain`` under autograd."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, B, C):
+        ctx.save_for_backward(x, dt, a, B, C)
+        return ssd_scan(x, dt, a, B, C)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(grads_through(
+            lambda *ins: ssd_scan_plain(*ins)[0], ctx.saved_tensors,
+            ctx.needs_input_grad, g))
 
 
 def tolerance(x, dt, a, B, C, s0=None):

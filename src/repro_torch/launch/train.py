@@ -11,9 +11,12 @@ straggler watchdog and crash-resume, with the JAX package's flags
 ``--mesh dxt`` stacks d data ranks (FSDP) and t model ranks (TP) on the
 device: one of them above 1 binds that axis alone, both above 1 the two
 axes of one stacked mesh (``--mesh 2x2`` on the CPU, ``--mesh 2x4`` on
-the card); a three-axis mesh (the JAX package's ``2x16x16`` with a pod
-axis) raises.  The device is the card unless ``--device cpu`` is
-given.
+the card).  ``--mesh pxdxt`` adds the JAX package's pod axis (its
+``2x16x16``): p pods of pure data parallelism, parameters replicated
+over them and every gradient all-reduced across them (``--compress bf16``
+sends that all-reduce in bf16); all three axes are bound, sizes of 1
+included (``--mesh 2x1x2`` on the CPU).  The device is the card unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ def main(argv=None) -> int:
                     help="reduced config (CPU-sized)")
     ap.add_argument("--mesh", default="",
                     help="'dxt': d data ranks and t model ranks stacked "
-                         "on the device; empty = a single rank")
+                         "on the device, or 'pxdxt' with p pods; empty = "
+                         "a single rank")
     ap.add_argument("--device", default=None,
                     help="torch device; default: the CUDA card")
     ap.add_argument("--steps", type=int, default=100)
@@ -62,12 +66,9 @@ def main(argv=None) -> int:
 
     mesh = (1, 1)
     if args.mesh:
-        dims = args.mesh.split("x")
-        if len(dims) != 2:
-            raise NotImplementedError(
-                f"--mesh {args.mesh}: only 'dxt' (data x model) is ported; "
-                "the pod axis is not")
-        mesh = (int(dims[0]), int(dims[1]))
+        mesh = tuple(int(n) for n in args.mesh.split("x"))
+        if len(mesh) not in (2, 3):
+            raise ValueError(f"--mesh {args.mesh}: 'dxt' or 'pxdxt'")
 
     # precedence: --profile-dir > $PGTUNE_PROFILE_DIR > none
     profiles, phase_stores = resolve_stores(args.profile_dir or None)

@@ -14,8 +14,11 @@ PLACE (the JAX package returns updated copies, which its jit aliases onto
 the donated buffers).
 
 ``attn_impl="flash"`` goes through ``kernels.flash_attention`` (the Hopper
-kernel on CUDA tensors; there is no fallback), ``"ref"`` through the
-dense ``_sdpa``.  MLA, cross-attention and sequence-sharded decode come
+kernel on CUDA tensors; there is no fallback), and where a gradient is
+needed through its autograd Function ``FlashAttention`` (the same
+kernel forward, a backward through the plain version, as the JAX package
+differentiates ``_flash_jnp``); ``"ref"`` goes through the dense
+``_sdpa``.  MLA, cross-attention and sequence-sharded decode come
 with later slices.
 """
 from __future__ import annotations
@@ -27,9 +30,9 @@ import torch
 
 from repro_torch.dist import ops
 from repro_torch.dist.axes import AXES, axis_index, axis_size_or_1
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import rms_norm, rope
+from repro_torch.models.layers import needs_grad, rms_norm, rope
 from repro_torch.models.params import ParamSpec
 
 NEG = -1e30
@@ -259,12 +262,6 @@ def attention(p: dict, cfg: ModelConfig, x, *, pos, kind: str = "causal",
         kv_start = start
 
     if cfg.attn_impl == "flash":
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k_loc, v_loc)):
-            raise NotImplementedError(
-                "attn_impl='flash' has no backward (the Hopper kernel, like "
-                "its TPU original, is forward only); train with "
-                "attn_impl='ref'")
         if kv_valid is not None:
             # only the filled slots (a view): the replicated-kv branch
             # copies the heads it selects
@@ -277,10 +274,14 @@ def attention(p: dict, cfg: ModelConfig, x, *, pos, kind: str = "causal",
         causal, window = _flash_args(kind, cfg.window)
         # positions relative to the first key passed: the masks depend on
         # differences only
-        o = flash_attention(qg, k_sel.flatten(0, 1), v_sel.flatten(0, 1),
-                            causal=causal, window=window,
-                            softcap=cfg.attn_softcap or 0.0,
-                            q0=pos0 - kv_start)
+        kf, vf = k_sel.flatten(0, 1), v_sel.flatten(0, 1)
+        softcap = cfg.attn_softcap or 0.0
+        if needs_grad(qg, kf, vf):
+            o = FlashAttention.apply(qg, kf, vf, causal, window, softcap,
+                                     pos0 - kv_start, None)
+        else:
+            o = flash_attention(qg, kf, vf, causal=causal, window=window,
+                                softcap=softcap, q0=pos0 - kv_start)
         o = o.reshape(*lead, hq_loc * hd)
     else:
         if kv_sharded:

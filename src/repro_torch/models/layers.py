@@ -18,6 +18,12 @@ def _per_rank(t: torch.Tensor, ndim: int) -> torch.Tensor:
     return t.reshape(t.shape[0], *([1] * (ndim - t.dim())), *t.shape[1:])
 
 
+def needs_grad(*ts: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``ts``: the kernels' autograd
+    Functions are taken then, the bare kernels otherwise (serving)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     """RMS norm over the last dim with a ``1 + scale`` gain, in float32
     inside; ``scale`` is stacked, ``[p, D]`` or ``[p, h, D]`` (per head)."""

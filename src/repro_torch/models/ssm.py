@@ -14,7 +14,11 @@ kernels: ``kernels.rwkv6_scan`` in place of the JAX package's
 ``lax.scan`` (``_wkv_scan``), ``kernels.ssd_mamba2.ssd_scan`` in place of
 its jnp ``_ssd_chunked``, each called once per block with the p ranks'
 rows folded into its N = p·B rows; on CPU tensors they run their plain
-versions, on CUDA tensors the Hopper kernels.
+versions, on CUDA tensors the Hopper kernels.  Where a gradient is needed
+(training), each goes through its autograd Function (``RWKV6Scan``,
+``SSDScan``): the same kernel forward, a backward through the plain
+version.  ``RWKV6Scan`` takes the log of the decay, ``-exp(dec_raw)``, so
+the backward never divides by a decay that underflowed to 0.
 
 Decode carries O(1) state per block: the last token (rwkv) or the conv
 tail (mamba), and S.  The state S is updated IN PLACE in the cache (the
@@ -29,10 +33,10 @@ import torch.nn.functional as F
 
 from repro_torch.dist import ops
 from repro_torch.dist.axes import AXES, axis_size_or_1
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan
-from repro_torch.kernels.ssd_mamba2 import ssd_scan
+from repro_torch.kernels.rwkv6_scan import RWKV6Scan, rwkv6_scan
+from repro_torch.kernels.ssd_mamba2 import SSDScan, ssd_scan
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _per_rank, rms_norm
+from repro_torch.models.layers import _per_rank, needs_grad, rms_norm
 from repro_torch.models.params import ParamSpec
 
 
@@ -41,14 +45,14 @@ from repro_torch.models.params import ParamSpec
 # ===========================================================================
 
 
+def _stateless(block: str, state) -> None:
+    """Training runs from a zero state: the cache's state is updated in
+    place, which autograd cannot differentiate."""
+    if state:
+        raise ValueError(f"{block}: a gradient through a cached state (the "
+                         "in-place decode update) is not supported; train "
+                         "without a cache")
 
-def _forward_only(kernel: str, *ts: torch.Tensor) -> None:
-    """The scans have no backward (the Hopper kernels, like their TPU
-    originals, are forward only): refuse to train through one rather than
-    differentiate its plain version quietly."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(f"{kernel} has no backward; the SSM "
-                                  "blocks serve only")
 
 def rwkv_heads_padded(cfg: ModelConfig, tp: int) -> int:
     h = cfg.d_model // cfg.ssm.head_dim
@@ -127,14 +131,17 @@ def rwkv_block(p: dict, cfg: ModelConfig, x, *, state=None):
     low = torch.tanh(ops.matmul_accumulate(xw, ops.tp_psum_grad(p["wA"])))
     dec_raw = _per_rank(p["w0"].float(), x.dim()) + ops.col_matmul(
         low, p["wB"]).float()
-    w = torch.exp(-torch.exp(dec_raw))                # (0, 1), per channel
+    logw = -torch.exp(dec_raw)        # log of the decay w in (0, 1)
 
-    s_state = state["s"].view(n, h_loc, hd, hd) if state else None
-    _forward_only("rwkv6_scan", r, k, v, w)
-    y, _ = rwkv6_scan(r.reshape(n, s, h_loc, hd), k.reshape(n, s, h_loc, hd),
-                      v.reshape(n, s, h_loc, hd), w.reshape(n, s, h_loc, hd),
-                      p["u"].float().reshape(np_, h_loc, hd), s_state,
-                      out_state=s_state)
+    rkv = [t.reshape(n, s, h_loc, hd) for t in (r, k, v, logw)]
+    u = p["u"].float().reshape(np_, h_loc, hd)
+    if needs_grad(*rkv, u):
+        _stateless("rwkv_block", state)
+        y = RWKV6Scan.apply(*rkv, u)
+    else:
+        s_state = state["s"].view(n, h_loc, hd, hd) if state else None
+        y, _ = rwkv6_scan(*rkv[:3], torch.exp(rkv[3]), u, s_state,
+                          out_state=s_state)
     # per-head group norm (RWKV GroupNorm(n_heads)) -- invariant under TP
     yh = rms_norm(y.to(x.dtype).reshape(np_, b, s, h_loc, hd),
                   p["ln_x"].reshape(np_, h_loc, hd), cfg.norm_eps)
@@ -244,13 +251,16 @@ def mamba_block(p: dict, cfg: ModelConfig, x, *, state=None):
     dt = F.softplus(dt_raw.float() + _per_rank(p["dt_bias"], x.dim()))
     a = torch.exp(p["a_log"].float())                 # per-head decay rate
     xh = xin.reshape(n, s, h_loc, c.head_dim)
-    s_state = state["s"].view(n, h_loc, n_st, c.head_dim) if state else None
     # B and C go in as views of the conv output, shared by a row's heads
-    _forward_only("ssd_scan", xh, dt, bc)
-    y, _ = ssd_scan(xh, dt.reshape(n, s, h_loc), a,
-                    bc[..., :n_st].reshape(n, s, n_st),
-                    bc[..., n_st:].reshape(n, s, n_st), s_state,
-                    out_state=s_state)
+    ins = (xh, dt.reshape(n, s, h_loc), a, bc[..., :n_st].reshape(n, s, n_st),
+           bc[..., n_st:].reshape(n, s, n_st))
+    if needs_grad(*ins):
+        _stateless("mamba_block", state)
+        y = SSDScan.apply(*ins)
+    else:
+        s_state = (state["s"].view(n, h_loc, n_st, c.head_dim) if state
+                   else None)
+        y, _ = ssd_scan(*ins, s_state, out_state=s_state)
     d_skip = p["d_skip"].float().repeat_interleave(b, 0)     # [n, h_loc]
     y = y + xh.float() * d_skip[:, None, :, None]
     yh = rms_norm(y.to(x.dtype).reshape(np_, b, s, h_loc, c.head_dim),

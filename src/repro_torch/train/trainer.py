@@ -8,9 +8,10 @@ as in the JAX package's ``repro/train/trainer.py``:
 2. FSDP: per-layer all-gather fwd / reduce-scatter bwd (the
    ``torch.autograd.Function``s of ``dist/ops.py``); grads of
    "data"-sharded leaves arrive summed over the data axis;
-3. replicated-leaf grads averaged over "data" with a tunable all-reduce
-   (and the cross-pod all-reduce of the JAX package, optionally in bf16;
-   the port never binds "pod");
+3. replicated-leaf grads averaged over "data" with a tunable all-reduce,
+   then every leaf's cross-pod all-reduce over "pod" (optionally in
+   bf16): with (2) this is the JAX package's hierarchical RS -> AR -> AG
+   schedule;
 4. the optimizer update (sharded states), in place.
 
 The grad sync of (2)-(3) is backward-phase traffic: it runs under
@@ -26,7 +27,10 @@ FSDP (each rank holds its ZeRO-3 shards and its slice of the batch),
 batch), or both, two views of one ``StackedMesh`` of ``d*t`` lanes (data
 rank i's batch slice on its t model ranks, every leaf cut over both of
 its names; the row-parallel ``fsdp_dim=1`` sites then run
-``matmul_reducescatter_2d``).  Its ``opt_state_pspecs`` is sharding
+``matmul_reducescatter_2d``), or the JAX package's three-axis mesh
+``("pod", "data", "model")``: three views of one ``StackedMesh``, the
+batch cut over pod x data, parameters replicated over ``pod`` (pure data
+parallelism between pods).  Its ``opt_state_pspecs`` is sharding
 metadata for ``shard_map`` and has no counterpart here: optimizer states
 are stacked like their parameters (``optim.state_specs`` gives their
 global layout for checkpoints).
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -83,7 +88,7 @@ def finalize_grads(grads, spec_tree, *, compress: str = "none"):
                 g = api.allreduce(g.to(torch.bfloat16),
                                   get_axis(AXES.pod)).float()
             else:
-                g = api.allreduce(g, get_axis(AXES.pod))
+                g = api.allreduce(g.contiguous(), get_axis(AXES.pod))
         return _div(g, d * pod if not fsdp else pod)
 
     return _map_with_specs(fin, grads, spec_tree)
@@ -202,9 +207,11 @@ class Trainer:
     caller asks for the CPU).  One of them above 1 binds that axis alone
     (``axis`` a ``StackedAxis``); both above 1 bind the two views of a
     ``StackedMesh`` of ``d*t`` lanes (``axis`` the mesh, ``name`` None);
-    (1, 1) binds no axis."""
+    (1, 1) binds no axis.  ``mesh=(pod, d, t)`` always binds the three
+    views of a ``StackedMesh`` of ``pod*d*t`` lanes, sizes of 1
+    included, as the JAX package's mesh with a pod axis does."""
     cfg: ModelConfig
-    mesh: tuple[int, int] = (1, 1)       # (data, model)
+    mesh: tuple[int, ...] = (1, 1)       # (data, model) or (pod, d, t)
     device: Any = None
     n_micro: int = 1
     compress: str = "none"
@@ -216,13 +223,16 @@ class Trainer:
     record: list | None = None           # shared dispatch-record sink
 
     def __post_init__(self):
-        d, t = self.mesh
-        if d < 1 or t < 1:
-            raise ValueError(f"mesh {d}x{t}: both sizes must be >= 1")
-        if d > 1 and t > 1:
+        self.mesh = tuple(int(n) for n in self.mesh)
+        if len(self.mesh) not in (2, 3) or min(self.mesh) < 1:
+            raise ValueError(f"mesh {self.mesh}: (data, model) or (pod, "
+                             "data, model), every size >= 1")
+        d, t = self.mesh[-2:]
+        if len(self.mesh) == 3 or (d > 1 and t > 1):
             self.name = None
-            self.axis = StackedMesh((d, t), (AXES.data, AXES.model),
-                                    self.device)
+            self.axis = StackedMesh(
+                self.mesh, (AXES.pod, AXES.data, AXES.model)[-len(self.mesh):],
+                self.device)
         else:
             self.name = (AXES.data if d > 1
                          else (AXES.model if t > 1 else None))
@@ -272,12 +282,13 @@ class Trainer:
         """A global numpy batch -> tensors on the device; under the data
         axis each rank's contiguous slice of the rows, ``[p, B/p, ...]``
         (on a mesh ``[d*t, B/d, ...]``: data rank i's slice on each of its
-        t model ranks)."""
-        d, t_ = self.mesh
+        t model ranks; with a pod axis ``[pod*d*t, B/(pod*d), ...]``, pod
+        rank i's data rank j taking slice ``i*d + j``)."""
+        d, t_ = math.prod(self.mesh[:-1]), self.mesh[-1]
         out = {}
         for k, v in batch.items():
             t = torch.as_tensor(np.asarray(v), device=self.axis.device)
-            if d > 1:
+            if d > 1 or len(self.mesh) == 3:
                 if t.shape[0] % d:
                     raise ValueError(f"batch {t.shape[0]} does not split "
                                      f"over {d} data ranks")

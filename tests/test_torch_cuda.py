@@ -1576,3 +1576,145 @@ def test_embedding_backward_is_float32_exact_on_the_card(cuda):
                             requires_grad=True)
         _TakeRows.apply(table, rows).backward(g)
         assert bool(((table.grad.double() - want).abs() <= ulp).all())
+
+
+# ---------------------------------------------------------------------------
+# training through the kernels: the autograd Functions (forward on the
+# kernel, backward through the plain version under autograd)
+# ---------------------------------------------------------------------------
+
+
+def _grads_close(got, want, rtol=1e-5):
+    """Each gradient within ``rtol`` of its max-norm: both sides
+    differentiate the same plain version on the card, with the same
+    cotangent."""
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= rtol * float(b.float().abs().max()) + 1e-30
+
+
+def _plain_autograd(fn, ins, g):
+    xs = [t.detach().clone().requires_grad_(True) for t in ins]
+    return torch.autograd.grad(fn(*xs), xs, g)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype,case,path", [
+    (torch.bfloat16, (2, 128, 128, 2, 2, 128, True, 0, 0.0, 0, None),
+     "wgmma"),
+    (torch.bfloat16, (2, 40, 40, 1, 3, 32, True, 16, 0.0, 0, None),
+     "mma_sync"),
+    (torch.float32, (2, 33, 33, 2, 2, 16, True, 0, 20.0, 0, None), "f32")])
+def test_flash_function_launches_the_kernel_and_grads_match(cuda, dtype,
+                                                             case, path):
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = (t.requires_grad_(True) for t in _flash_inputs(cuda, case,
+                                                              dtype))
+    args = case[6:]
+    kw = dict(zip(("causal", "window", "softcap", "q0", "kv_len"), args))
+    before = _paths(FA.flash_attention)
+    y = FA.FlashAttention.apply(q, k, v, *args)
+    torch.cuda.synchronize()
+    assert _took(FA.flash_attention, before) == {path: 1}
+    assert _within_limit(FA, y.detach(), q.detach(), k.detach(), v.detach(),
+                         **kw)
+    g = torch.randn_like(y)
+    got = torch.autograd.grad(y, (q, k, v), g)
+    want = _plain_autograd(lambda *t: FA.flash_attention_plain(*t, **kw),
+                           (q, k, v), g)
+    _grads_close(got, want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_function_launches_the_kernel_and_grads_match(cuda, dtype):
+    from repro_torch.kernels import rwkv6_scan as RW
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    n, s, h, hd = 4, 100, 2, 64
+    r, k, v = ((torch.randn(n, s, h, hd, generator=gen) * 0.5).to(dtype)
+               .to(cuda).requires_grad_(True) for _ in range(3))
+    dec = torch.randn(n, s, h, hd, generator=gen) * 0.5
+    dec[..., ::2] += 5.0                  # decays that underflow to 0
+    logw = (-torch.exp(dec)).to(cuda).requires_grad_(True)
+    u = (torch.randn(2, h, hd, generator=gen) * 0.5).to(cuda)
+    u.requires_grad_(True)
+    before = dict(RW.rwkv6_scan.launches_by_path)
+    y = RW.RWKV6Scan.apply(r, k, v, logw, u)
+    torch.cuda.synchronize()
+    assert RW.rwkv6_scan.launches_by_path["chunked"] == before["chunked"] + 1
+    ins = [t.detach() for t in (r, k, v, logw, u)]
+    want_y, _ = RW.rwkv6_scan_plain_log(*ins)
+    y_lim, _ = RW.tolerance(*ins[:3], torch.exp(ins[3]), ins[4])
+    assert bool(((y.detach() - want_y).abs() <= y_lim).all())
+    g = torch.randn_like(y)
+    got = torch.autograd.grad(y, (r, k, v, logw, u), g)
+    want = _plain_autograd(lambda *t: RW.rwkv6_scan_plain_log(*t)[0],
+                           (r, k, v, logw, u), g)
+    _grads_close(got, want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_function_launches_the_kernel_and_grads_match(cuda, dtype):
+    from repro_torch.kernels import ssd_mamba2 as SSD
+    gen = torch.Generator(device="cpu").manual_seed(22)
+    n, s, h, p, ns = 4, 130, 2, 64, 64
+    x = torch.randn(n, s, h, p, generator=gen).to(dtype).to(cuda)
+    bc = torch.randn(n, s, 2 * ns, generator=gen).to(dtype).to(cuda)
+    dt = torch.nn.functional.softplus(torch.randn(n, s, h, generator=gen))
+    a = torch.exp(torch.randn(2, h, generator=gen) * 0.5)
+    x, bc, dt, a = (t.to(cuda).requires_grad_(True) for t in (x, bc, dt, a))
+    before = dict(SSD.ssd_scan.launches_by_path)
+    y = SSD.SSDScan.apply(x, dt, a, bc[..., :ns], bc[..., ns:])
+    torch.cuda.synchronize()
+    assert SSD.ssd_scan.launches_by_path["chunked"] == before["chunked"] + 1
+    ins = [t.detach() for t in (x, dt, a)] + [bc.detach()[..., :ns],
+                                              bc.detach()[..., ns:]]
+    want_y, _ = SSD.ssd_scan_plain(*ins)
+    y_lim, _ = SSD.tolerance(*ins)
+    assert bool(((y.detach() - want_y).abs() <= y_lim).all())
+    g = torch.randn_like(y)
+    got = torch.autograd.grad(y, (x, dt, a, bc), g)
+
+    def plain(x_, dt_, a_, bc_):
+        return SSD.ssd_scan_plain(x_, dt_, a_, bc_[..., :ns],
+                                  bc_[..., ns:])[0]
+    _grads_close(got, _plain_autograd(plain, (x, dt, a, bc), g))
+
+
+@needs_cuda
+@pytest.mark.parametrize("arch,kernel", [
+    ("llama3.2-3b", "flash_attention"), ("rwkv6-3b", "rwkv6_scan"),
+    ("zamba2-1.2b", "ssd_scan")])
+def test_training_step_goes_through_the_kernels(cuda, arch, kernel):
+    """A float32 smoke model's gradients on the card (TP 2 stacked): the
+    kernel launches inside the step, and the gradients match the same
+    step on the CPU (plain versions), max-norm relative 1e-3 a leaf
+    (summation order over 4 layers)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv6_scan as RW
+    from repro_torch.kernels import ssd_mamba2 as SSD
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.train import Trainer
+    wrapper = {"flash_attention": FA.flash_attention,
+               "rwkv6_scan": RW.rwkv6_scan, "ssd_scan": SSD.ssd_scan}[kernel]
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32",
+                              attn_impl="flash")
+    batch = make_batch(cfg, 2, 64, 0)
+    card = Trainer(cfg, mesh=(1, 2), device=cuda)
+    params, _ = card.init(0)
+    before = wrapper.launches
+    l0, g0 = card.grads(params, card.put_batch(batch))
+    torch.cuda.synchronize()
+    assert wrapper.launches > before
+    host = Trainer(cfg, mesh=(1, 2), device="cpu")
+    l1, g1 = host.grads(tree_unflatten(params, [
+        t.cpu() for t in tree_leaves(params)]), host.put_batch(batch))
+    assert float(l0) == pytest.approx(float(l1), rel=1e-4)
+    for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
+        err = float((a.float().cpu() - b.float()).abs().max())
+        assert err <= 1e-3 * float(b.float().abs().max()) + 1e-12

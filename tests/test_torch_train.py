@@ -382,18 +382,27 @@ def test_loss_decreases():
 
 
 def test_trainer_refuses_both_axes_and_training_through_flash():
-    """Both axes above 1 now build the data x model mesh; what is refused
-    is a mesh with an empty axis, and training through flash."""
+    """Both axes above 1 build the data x model mesh, and training through
+    flash takes its autograd Function: what is refused is a mesh with an
+    empty axis.  The flash step equals the ``ref`` step from the same
+    weights (the two attention paths differ in summation order only)."""
     cfg = port_cfg(smoke("float32"))
     assert isinstance(Trainer(cfg, mesh=(2, 2), device="cpu").axis,
                       StackedMesh)
     with pytest.raises(ValueError, match=">= 1"):
         Trainer(cfg, mesh=(2, 0), device="cpu")
-    tr = Trainer(dataclasses.replace(cfg, attn_impl="flash"), mesh=(1, 2),
-                 device="cpu")
-    params, opt = tr.init(0)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        tr.step(params, opt, tr.put_batch(make_batch(cfg, 2, 8, 0)), 0)
+    with pytest.raises(ValueError, match=">= 1"):
+        Trainer(cfg, mesh=(2, 1, 0), device="cpu")
+    out = []
+    for impl in ("flash", "ref"):
+        tr = Trainer(dataclasses.replace(cfg, attn_impl=impl), mesh=(1, 2),
+                     device="cpu")
+        params, opt = tr.init(0)
+        params, opt, m = tr.step(params, opt,
+                                 tr.put_batch(make_batch(cfg, 2, 8, 0)), 0)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    assert np.isfinite(out[0]).all()
+    assert out[0] == pytest.approx(out[1], rel=1e-5)
 
 
 def test_trainer_without_a_device_refuses_the_cpu_fallback():
@@ -567,9 +576,12 @@ def test_train_cli_runs_then_resumes(tmp_path, monkeypatch):
     out = _cli(base[:2] + ["--smoke", "--mesh", "2x2", "--steps", "1",
                            "--seq", "16", "--ckpt-dir", str(tmp_path / "x")])
     assert "done: 1 steps" in out and tck.latest_step(tmp_path / "x") == 1
-    with pytest.raises(NotImplementedError, match="dxt"):
-        tlaunch.main(["--device", "cpu", "--smoke", "--mesh", "2x16x16",
-                      "--steps", "1", "--ckpt-dir", str(tmp_path / "y")])
+    out = _cli(base[:2] + ["--smoke", "--mesh", "2x1x2", "--steps", "1",
+                           "--seq", "16", "--ckpt-dir", str(tmp_path / "y")])
+    assert "done: 1 steps" in out and tck.latest_step(tmp_path / "y") == 1
+    with pytest.raises(ValueError, match="pxdxt"):
+        tlaunch.main(["--device", "cpu", "--smoke", "--mesh", "2x2x2x2",
+                      "--steps", "1", "--ckpt-dir", str(tmp_path / "z")])
 
 
 def test_record_tune_trace_retrain_and_the_cli_reads_the_profiles(
