@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's tuning loop, its serving path and its training
-paths (one stacked axis, a data x model mesh, a pod x data x model mesh,
-and training through the model kernels) on one CUDA card, end to end.
+"""Drive the PyTorch port's tuning loop, its serving paths (dense, SSM and
+Mixture-of-Experts) and its training paths (one stacked axis, a data x
+model mesh, a pod x data x model mesh, and training through the model
+kernels) on one CUDA card, end to end.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -30,7 +31,9 @@ Phases (each raises on failure; nothing is caught):
    faults (the causal edge or the filled length off by one, the first
    128-key block dropped) that its elementwise limit must reject, and at
    zamba2's shared-attention shape (dh 64, 4 heads and 4 KV heads per
-   rank); each kernel's path counts (the ring's ``wgmma``/``wmma``/``f32``,
+   rank) and phi3.5-moe's (dh 128, 4 q heads over 1 KV head per rank:
+   its prefill on ``wgmma``, every decode step's length on ``split_kv``);
+   each kernel's path counts (the ring's ``wgmma``/``wmma``/``f32``,
    flash's ``wgmma``/``split_kv``/``mma_sync``/``f32``); the ring's and
    flash's times both as the events mean over back-to-back calls (each
    ring call reads the error words back, a host round trip; a decode call
@@ -131,10 +134,35 @@ Phases (each raises on failure; nothing is caught):
    weights and batch; (b) rwkv6-3b (8 of 32 layers) and (c) zamba2-1.2b
    (12 of 38 layers: two hybrid periods, so the shared flash block trains
    twice) at full width, TP over 4 stacked model ranks, 2 x 1024 tokens,
-   timed in bf16, then their float32 loss and gradients within
-   ``TRAIN_RTOL`` of the same step taken through the plain versions under
-   autograd, each leaf also allowed its floor (how far the plain step's
-   leaf moves when each scan's output moves by ``FLOOR_EPS`` relative).
+   timed in bf16, then in float32 each kernel call's output within its
+   tolerance of its plain version at the model's inputs, and the loss and
+   gradients within ``TRAIN_RTOL`` of the same step taken through the
+   plain versions under autograd with each call's value pinned to the
+   kernel's (the unpinned plain step read beside it);
+15. serve phi3.5-moe-42b-a6.6b at full width, cut to ``MOE_LAYERS`` = 16
+   of 32 layers (16 experts of d_ff 6400, top-2, capacity factor 1.25;
+   TP p = 8 stacked: 2 experts a rank, both all-to-alls of every MoE block
+   dispatched; flash; phase 10's requests): (a) the default serve,
+   recording, with rank 0's routes probed (``RouteProbe``); ``tune_trace``
+   of its trace with the measured backend, the alltoall cells' default
+   and mock-up times printed, the per-phase profiles saved and reloaded;
+   (b) the tuned re-serve, probed, and its ``#@pgmpi`` footer with the
+   alltoall picks: every route that changed between the two serves must
+   have been a near-tie in the default serve, and the logits of every
+   request that no changed route reached are held to ``SERVE_RTOL``
+   (``route_changes``, ``check_held``); (c) the default serve again,
+   unprobed (its times are the ones of record): logits bit-equal to
+   (a)'s; (d) the serve with alltoall forced to ``alltoall_as_ppermute``:
+   logits bit-equal to (a)'s; (e) the router readings: prefill-only
+   serves, probed, with allreduce forced to each of ``MOE_REORDERS``
+   (other rounding orders move the router, so near-ties among the routes
+   may flip), each held like (b), to each of ``MOE_LOSSY`` (read only),
+   and to a planted wrong allreduce, whose move the bound
+   ``ROUTE_MOVE_BOUND`` must reject; choices dropped over capacity per layer at prefill, peak
+   memory, ``torch.profiler`` over one prefill and one decode step; then
+   ``moe_block`` in float32 at the prefill shape on the card against the
+   same call on the CPU, on tokens that drop choices (the same expert
+   ids and kept choices, outputs within ``MOE_CHECK_RTOL``).
 
 Kernel launch counts are zeroed just before phase 6 and read after each of
 phases 6-8; every kernel of the main path must have launched in the tune,
@@ -164,7 +192,11 @@ are zeroed again just before phase 14's path (after its per-Function
 checks) and read after it: flash attention on ``wgmma``, ``rwkv6_scan``
 and ``ssd_scan`` on ``chunked`` must launch inside the timed steps and
 inside each checked step; each row carries its
-``kernel_train_launches``.  The
+``kernel_train_launches``.  They are zeroed again just before the MoE
+serve path (phase 15) and read around each of its four serves: flash
+attention must launch 16 x 33 times a serve, 16 on ``wgmma`` (the
+prefill) and 16 x 32 on ``split_kv``; each row carries its
+``moe_serve_launches``.  The
 ranks are stacked on ONE card: a ring hop is a device-memory copy, so
 the times measure on-chip data movement and launch overhead, not a link
 between GPUs, and both tiers of a two-axis mesh are the same memory.
@@ -573,8 +605,41 @@ def check_flash(torch, fa, randn) -> dict:
             f"q{list(q1z.shape)} k{list(kcz.shape)} kv_len {kv_len} path "
             f"{last_path[0]}: max_abs_err {err:.3e} ({share:.3f} of the "
             f"limit) kernel device time {zd_ms:.4f} ms")
+    # phi3.5-moe-42b-a6.6b's attention at TP 8 (the MoE serve, phase 15):
+    # 4 q heads over 1 KV head of 128 per rank (G = 4), its prefill on the
+    # wgmma path and every decode step's kv_len on split_kv
+    from repro_torch.configs import get_config
+    mc = get_config(MOE_ARCH)
+    hk_m, g_m = mc.n_kv_heads // P, mc.n_heads // mc.n_kv_heads
+
+    def on_path(label, want):
+        if last_path[0] != want:
+            raise RuntimeError(f"flash_attention {label}: path "
+                               f"{last_path[0]}, not {want}")
+
+    qm, km, vm = (randn(n_fold, SERVE_PROMPT, hk_m, *d)
+                  for d in ((g_m, mc.hd), (mc.hd,), (mc.hd,)))
+    err, share = check("phi3.5 prefill", qm, km, vm)
+    on_path("phi3.5 prefill", "wgmma")
+    moe_ms = device_ms(lambda: fa.flash_attention(qm, km, vm), "fa_")
+    log(f"[3] flash_attention phi3.5-moe prefill q{list(qm.shape)} "
+        f"k{list(km.shape)} bf16 causal path {last_path[0]}: max_abs_err "
+        f"{err:.3e} ({share:.3f} of the limit) kernel device time "
+        f"{moe_ms:.4f} ms")
+    q1m = randn(n_fold, 1, hk_m, g_m, mc.hd)
+    kcm, vcm = (randn(n_fold, SERVE_SLOTS, hk_m, mc.hd) for _ in range(2))
+    worst = (0.0, 0.0)
+    for kv_len in range(SERVE_PROMPT + 1, SERVE_PROMPT + SERVE_DECODE + 1):
+        label = f"phi3.5 decode kv_len {kv_len}"
+        worst = tuple(map(max, worst, check(label, q1m, kcm, vcm,
+                                            q0=kv_len - 1, kv_len=kv_len)))
+        on_path(label, "split_kv")
+    log(f"[3] flash_attention phi3.5-moe decode q{list(q1m.shape)} "
+        f"k{list(kcm.shape)} bf16, kv_len {SERVE_PROMPT + 1}..."
+        f"{SERVE_PROMPT + SERVE_DECODE} path {last_path[0]}: max_abs_err "
+        f"{worst[0]:.3e} ({worst[1]:.3f} of the limit)")
     return {"prefill": prefill, "decode": decode, "zamba2_prefill_ms":
-            zamba_ms}
+            zamba_ms, "moe_prefill_ms": moe_ms}
 
 
 def rwkv_work(n, s, h, hd, itemsize, with_s0):
@@ -1699,14 +1764,19 @@ def train_mesh_phase(torch, dev, wrappers: dict, tag: str = "13") -> dict:
 # block trains twice.
 SSM_TRAIN_LAYERS = {"rwkv6-3b": 8, "zamba2-1.2b": 12}
 SSM_TP, SSM_BATCH = 4, 2
-# (b) and (c) hold each gradient leaf of the float32 step through the
-# kernels to the plain step's within TRAIN_RTOL plus the leaf's floor: how
-# far the plain step's leaf moves when each scan's output moves by up to
-# FLOOR_EPS relative (16 float32 units in the last place, a scan that sums
-# in another order).  On these models at random init some leaves' gradients
-# are sums with cancellation that move by O(1) from that alone
-# (scripts/torch_grad_noise.py), a property of the model, not of a kernel.
-FLOOR_EPS = 2.0 ** -20
+# (b) and (c) hold the float32 step through the kernels to the plain
+# versions in two parts.  Each kernel call's output is held to its plain
+# version at the model's own inputs, elementwise within the kernel's
+# ``tolerance`` (``kernel_outputs``).  The loss and each gradient leaf are
+# held within TRAIN_RTOL to the step taken through the plain versions under
+# autograd with each call's value pinned to the kernel's output
+# (``plain_recurrences(pins=...)``), so the two steps see the same values
+# and differ only where the Functions' wiring or backward would.  The
+# unpinned plain step is read beside it, not held: on these models at
+# random init some leaves' gradients are sums with cancellation that move
+# by up to O(1) when the scans' outputs move by 2^-20 relative
+# (scripts/torch_grad_noise.py), a property of the model and the batch,
+# not of a kernel.
 
 
 class _PlainFlash:
@@ -1716,64 +1786,133 @@ class _PlainFlash:
     @staticmethod
     def apply(q, k, v, causal, window, softcap, q0, kv_len):
         from repro_torch.kernels import flash_attention as fa
-        return fa.flash_attention_plain(q, k, v, causal=causal,
-                                        window=window, softcap=softcap,
-                                        q0=q0, kv_len=kv_len)
+        return _pinned(fa.flash_attention_plain(
+            q, k, v, causal=causal, window=window, softcap=softcap, q0=q0,
+            kv_len=kv_len))
 
 
 class _PlainRWKV:
-    perturb = None      # a torch.Generator: see _perturbed
-
     @staticmethod
     def apply(r, k, v, logw, u):
         from repro_torch.kernels import rwkv6_scan as rw
-        return _perturbed(rw.rwkv6_scan_plain_log(r, k, v, logw, u)[0],
-                          _PlainRWKV.perturb)
+        return _pinned(rw.rwkv6_scan_plain_log(r, k, v, logw, u)[0])
 
 
 class _PlainSSD:
-    perturb = None
-
     @staticmethod
     def apply(x, dt, a, B, C):
         from repro_torch.kernels import ssd_mamba2 as ssd
-        return _perturbed(ssd.ssd_scan_plain(x, dt, a, B, C)[0],
-                          _PlainSSD.perturb)
+        return _pinned(ssd.ssd_scan_plain(x, dt, a, B, C)[0])
 
 
-def _perturbed(y, gen):
-    """``y`` times ``1 + FLOOR_EPS * U(-1, 1)`` when ``gen`` is set: a
-    float32 scan that sums in another order (16 units in the last place)."""
-    if gen is None:
+def _pinned(y):
+    """``y`` with the next pinned value (``plain_recurrences.pins``), its
+    gradient ``y``'s: ``y - y.detach()`` is exactly 0."""
+    pins = plain_recurrences.pins
+    if pins is None:
         return y
-    import torch
-    return y * (1 + FLOOR_EPS * (torch.rand(
-        y.shape, generator=gen, device=y.device) * 2 - 1))
+    if not pins:
+        raise RuntimeError("the plain step made more calls than the step "
+                           "through the kernels")
+    want = pins.pop(0)
+    if want.shape != y.shape or want.dtype != y.dtype:
+        raise RuntimeError(f"pinned value {tuple(want.shape)} {want.dtype} "
+                           f"for a plain output {tuple(y.shape)} {y.dtype}")
+    return y - y.detach() + want
 
 
 class plain_recurrences:
     """Within: the model's three autograd Functions replaced by autograd
     straight through the plain versions (``_PlainFlash``, ``_PlainRWKV``,
     ``_PlainSSD``), the independent step a training step through the
-    kernels is held to; with ``perturb`` (a generator) each scan's output
-    moves by up to ``FLOOR_EPS`` relative, the floor of that
-    comparison."""
+    kernels is held to; with ``pins`` (the outputs ``kernel_outputs``
+    recorded, consumed in call order) each call's value is the pinned
+    one and its gradient the plain version's."""
+    pins = None
 
-    def __init__(self, perturb=None):
-        self.perturb = perturb
+    def __init__(self, pins=None):
+        self.given = pins
 
     def __enter__(self):
         from repro_torch.models import attention, ssm
         self.saved = (attention.FlashAttention, ssm.RWKV6Scan, ssm.SSDScan)
         attention.FlashAttention = _PlainFlash
         ssm.RWKV6Scan, ssm.SSDScan = _PlainRWKV, _PlainSSD
-        _PlainRWKV.perturb = _PlainSSD.perturb = self.perturb
+        plain_recurrences.pins = (None if self.given is None
+                                  else list(self.given))
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import attention, ssm
         attention.FlashAttention, ssm.RWKV6Scan, ssm.SSDScan = self.saved
-        _PlainRWKV.perturb = _PlainSSD.perturb = None
+        self.left = plain_recurrences.pins
+        plain_recurrences.pins = None
+
+
+class kernel_outputs:
+    """Within: the model's three autograd Functions as they are (the
+    kernels on the card), each call's output recorded in call order
+    (``outputs``) and held to its plain version at the same inputs: the
+    largest ``|kernel - plain| / tolerance`` of each call in ``shares``,
+    as ``(name, share)``."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import rwkv6_scan as rw
+        from repro_torch.kernels import ssd_mamba2 as ssd
+        from repro_torch.models import attention, ssm
+        self.saved = (attention.FlashAttention, ssm.RWKV6Scan, ssm.SSDScan)
+        self.outputs, self.shares = [], []
+        flash, rwkv, scan = self.saved
+        held = self._held
+
+        class Flash:
+            @staticmethod
+            def apply(q, k, v, causal, window, softcap, q0, kv_len):
+                kw = dict(causal=causal, window=window, softcap=softcap,
+                          q0=q0, kv_len=kv_len)
+                return held("flash_attention", flash.apply(
+                    q, k, v, causal, window, softcap, q0, kv_len), (q, k, v),
+                    lambda *t: fa.flash_attention_plain(*t, **kw),
+                    lambda ins, want: fa.tolerance(*ins, want, **kw))
+
+        class RWKV:
+            @staticmethod
+            def apply(r, k, v, logw, u):
+                return held(
+                    "rwkv6_scan", rwkv.apply(r, k, v, logw, u),
+                    (r, k, v, logw, u),
+                    lambda *t: rw.rwkv6_scan_plain_log(*t)[0],
+                    lambda ins, want: rw.tolerance(
+                        *ins[:3], torch.exp(ins[3]), ins[4])[0])
+
+        class SSD:
+            @staticmethod
+            def apply(x, dt, a, B, C):
+                return held("ssd_scan", scan.apply(x, dt, a, B, C),
+                            (x, dt, a, B, C),
+                            lambda *t: ssd.ssd_scan_plain(*t)[0],
+                            lambda ins, want: ssd.tolerance(*ins)[0])
+
+        attention.FlashAttention = Flash
+        ssm.RWKV6Scan, ssm.SSDScan = RWKV, SSD
+        return self
+
+    def _held(self, name, y, ins, plain, lim_of):
+        import torch
+        with torch.no_grad():
+            ins = [t.detach() for t in ins]
+            want = plain(*ins)
+            lim = lim_of(ins, want)
+            self.shares.append((name, float(
+                ((y.detach().float() - want.float()).abs() / lim).max())))
+        self.outputs.append(y.detach().clone())
+        return y
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention, ssm
+        attention.FlashAttention, ssm.RWKV6Scan, ssm.SSDScan = self.saved
 
 
 def function_checks(torch, dev, fa, rw, ssd, tag: str) -> dict:
@@ -1865,10 +2004,12 @@ def train_kernels_phase(torch, dev, wrappers: dict, ref12: dict,
     timed beside phase 12's ``ref`` step (``ref12``), its loss and
     gradients within ``TRAIN_RTOL`` of the ``ref`` step's from the same
     weights and batch; (b) rwkv6-3b and (c) zamba2-1.2b at full width,
-    TP over ``SSM_TP`` stacked ranks, timed in bf16, their float32 loss
-    and gradients within ``TRAIN_RTOL`` (each leaf plus its floor, see
-    ``FLOOR_EPS``) of the same step taken through the plain versions
-    under autograd (``plain_recurrences``).  Flash's ``wgmma``
+    TP over ``SSM_TP`` stacked ranks, timed in bf16, then in float32
+    each kernel call's output held to its plain version
+    (``kernel_outputs``) and the loss and gradients within
+    ``TRAIN_RTOL`` of the same step taken through the plain versions
+    under autograd, pinned to the kernels' outputs
+    (``plain_recurrences``).  Flash's ``wgmma``
     launches and the scans' ``chunked`` launches are counted inside the
     steps."""
     from repro_torch.configs import get_config
@@ -1916,63 +2057,72 @@ def train_kernels_phase(torch, dev, wrappers: dict, ref12: dict,
 
     def compare(label, tr, other, params, batch, need):
         """The loss and every gradient leaf of ``tr`` against ``other``
-        (a trainer, or None: ``tr`` under ``plain_recurrences``), with
-        each kernel of ``need`` launched on its path inside ``tr``'s
-        step.  The first step's gradients wait on the host."""
-        (loss0, g0), took = launched(f"{label} step", need,
-                                     lambda: tr.grads(params, batch))
+        (a trainer, or None: ``tr`` under ``plain_recurrences`` pinned to
+        the kernels' outputs, each of which is held to its plain version
+        at the same inputs), with each kernel of ``need`` launched on its
+        path inside ``tr``'s step.  The first step's gradients wait on
+        the host."""
+        rec = kernel_outputs() if other is None else contextlib.nullcontext()
+        with rec:
+            (loss0, g0), took = launched(f"{label} step", need,
+                                         lambda: tr.grads(params, batch))
         g0 = {k: v.cpu() for k, v in named(g0).items()}
         c1 = counts(wrappers)
-        floor = {}
+        got = {}
         if other is None:
-            with plain_recurrences():
+            name, share = max(rec.shares, key=lambda t: t[1])
+            log(f"[{tag}{label}] each kernel call's output against its "
+                f"plain version at the model's inputs: {len(rec.shares)} "
+                f"calls, the largest {share:.4f} of its tolerance "
+                f"({name})")
+            if not share <= 1.0:
+                raise RuntimeError(f"{label}: {name} in the step differs "
+                                   f"from its plain version: {share:.4f} "
+                                   f"of its tolerance")
+            with plain_recurrences(pins=rec.outputs) as pl:
                 loss1, g1 = tr.grads(params, batch)
-            g1 = named(g1)
-            # the floor: the plain step with each scan's output moved by
-            # up to FLOOR_EPS relative, against the plain step
-            gen = torch.Generator(device=dev).manual_seed(SEED + 141)
-            with plain_recurrences(perturb=gen):
+            if pl.left:
+                raise RuntimeError(f"{label}: the plain step made "
+                                   f"{len(rec.outputs) - len(pl.left)} of "
+                                   f"the {len(rec.outputs)} calls")
+            with plain_recurrences():
                 _, g2 = tr.grads(params, batch)
-            for k, w in named(g2).items():
-                floor[k] = grads_rel_err(torch, {k: w}, {k: g1[k]})[0]
+            un, un_leaf = grads_rel_err(torch, g0, {
+                k: w.cpu() for k, w in named(g2).items()})
             del g2
+            log(f"[{tag}{label}] read, not held: the unpinned plain step's "
+                f"gradients max-norm relative {un:.3e} from the kernels' at "
+                f"{un_leaf}")
             if counts(wrappers) != c1:
                 raise RuntimeError("the plain step launched a kernel")
+            got = {"output_share": share, "output_share_of": name,
+                   "unpinned_grad_rel_err": un, "unpinned_leaf": un_leaf}
         else:
             loss1, g1 = other.grads(params, batch)
-            g1 = named(g1)
+        g1 = named(g1)
         errs = {}
         for k, w in g1.items():
             errs[k] = grads_rel_err(torch, {k: g0[k].to(w.device)},
                                     {k: w})[0]
         del g0, g1
-        over = {k: e - floor.get(k, 0.0) for k, e in errs.items()}
-        leaf = max(over, key=over.get)
+        leaf = max(errs, key=errs.get)
         err = errs[leaf]
         lerr = abs(float(loss0) - float(loss1)) / abs(float(loss1))
         worst = sorted(errs, key=errs.get, reverse=True)[:5]
         log(f"[{tag}{label}] the five leaves farthest apart (max-norm "
             f"relative): {', '.join(f'{k} {errs[k]:.3e}' for k in worst)}")
-        if floor:
-            top = sorted(floor, key=floor.get, reverse=True)[:5]
-            log(f"[{tag}{label}] the floor, the plain step with each scan's "
-                f"output moved by up to {FLOOR_EPS:.1e} relative: " + ", ".join(
-                    f"{k} {floor[k]:.3e}" for k in top))
         log(f"[{tag}{label}] step through the kernels vs "
-            f"{'ref attention' if other is not None else 'the plain versions'}"
+            f"{'ref attention' if other is not None else 'the plain versions pinned to the kernels outputs'}"
             f" ({tr.cfg.dtype}): loss {float(loss0):.6f} vs {float(loss1):.6f}"
             f" (rel {lerr:.3e}), gradients max-norm relative {err:.3e} at "
-            f"{leaf} (tolerance {TRAIN_RTOL} plus that leaf's floor "
-            f"{floor.get(leaf, 0.0):.3e}); launches by path in the step "
+            f"{leaf} (tolerance {TRAIN_RTOL}); launches by path in the step "
             f"{json.dumps(took)}")
-        if not (over[leaf] <= TRAIN_RTOL and lerr <= TRAIN_RTOL):
+        if not (err <= TRAIN_RTOL and lerr <= TRAIN_RTOL):
             raise RuntimeError(f"{label}: the step through the kernels "
                                f"differs: grads {err} at {leaf}, loss "
                                f"{lerr}")
         return {"dtype": tr.cfg.dtype, "grad_rel_err": err, "leaf": leaf,
-                "floor": floor.get(leaf, 0.0), "max_floor": max(
-                    floor.values(), default=0.0), "loss_rel_err": lerr,
-                "launches_by_path": took}
+                "loss_rel_err": lerr, "launches_by_path": took, **got}
 
     def timed(label, tr, params, opt, cfg, batch_rows):
         torch.cuda.synchronize()
@@ -2116,6 +2266,598 @@ def pod_step(torch, dev, cfg, tag: str) -> dict:
     return {"mesh": list(POD_MESH), "step_ms": dt * 1e3, "loss": loss,
             "peak_bytes": peak, "pod_dispatches": by_phase,
             "leaves": n_leaves}
+
+
+# ---------------------------------------------------------------------------
+# the MoE serve (phase 15)
+# ---------------------------------------------------------------------------
+
+# phi3.5-moe-42b-a6.6b (src/repro/configs/phi3_5_moe.py) at full width:
+# d_model 4096, 32 heads and 8 KV heads of 128, 16 experts of d_ff 6400,
+# top-2, capacity factor 1.25, vocab 32064, untied head; cut in depth only,
+# to 16 of its 32 layers.  One layer is 1.30 B parameters (the experts
+# 16 x 3 x 4096 x 6400 = 1.258 B, attention 41.9 M), 2.60 GB in bf16: all
+# 32 would be 83.2 GB, more than the card holds; 16 are 41.6 GB, plus
+# 0.53 GB of embedding and head.  TP P stacked: 2 experts, 4 q heads and
+# 1 KV head per rank; the requests of phase 10.
+MOE_ARCH, MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 16
+# the forced serve: alltoall on a mock-up whatever the tuner picked
+MOE_FORCE = "alltoall:alg=alltoall_as_ppermute"
+# the router readings: prefill-only serves with the allreduce forced to
+# each mock-up that adds the p bf16 partial sums in another order
+# (MOE_REORDERS: recursive doubling rounds at each of its log2(p) rounds
+# where the default rounds once), so the residual stream and the float32
+# router probabilities move a little and near-ties among the routes may
+# flip; to each quantized wire (MOE_LOSSY, accuracy-conditional: read,
+# not held); and to the planted wrong allreduce MOE_PLANTED (each rank's
+# own partial sum left out), which the bound must refuse
+MOE_REORDERS = ("allreduce_as_reduce_bcast", "allreduce_as_tree_reduce_bcast",
+                "allreduce_as_rsb_allgather", "allreduce_as_rs_allgatherv",
+                "allreduce_as_doubling")
+MOE_LOSSY = ("wire_q8", "wire_fp8")
+MOE_PLANTED = "planted_own_partial_left_out"
+# the largest move of a router probability between two serves that
+# ``route_changes`` takes for a change of rounding order, not a fault.
+# Readings at layer 0 of the prefill (router_readings, NVIDIA H100 80GB
+# HBM3, 700.00 W): allreduce_as_doubling 3.257e-03; wire_fp8 6.998e-02
+# and wire_q8 2.005e-01; the planted fault 4.286e-01.  The bound sits
+# ~10x above the reordering and ~2x below the nearest of the others.
+ROUTE_MOVE_BOUND = 2.0 ** -5
+# moe_block on the card against the same call on the CPU, float32, one
+# layer's weights at the serve's prefill shape: float32 products of K =
+# 4096 and 6400 in another order differ by ~1e-6 of the output's
+# max-norm; a choice dropped or sent to another expert moves its row by
+# O(1)
+MOE_CHECK_RTOL = 1e-4
+
+
+class RouteProbe:
+    """Records rank 0's routing of every ``moe_block`` call while active:
+    the router probabilities ``[T, E]``, the expert ids ``[T, k]`` and the
+    keep decision ``[T*k]`` (on the device), and whether every lane chose
+    the same ids.  It wraps ``models.moe._route`` and ``_keep``, which
+    ``moe_block`` looks up at call time."""
+
+    def __init__(self, moe):
+        self.moe = moe
+        self.real = (moe._route, moe._keep)
+        self.calls: list[dict] = []
+
+    def __enter__(self):
+        real_route, real_keep = self.real
+
+        def route(p, cfg, xt):
+            probs, gates, ids = real_route(p, cfg, xt)
+            self.calls.append({"probs": probs[0], "ids": ids[0],
+                               "lanes_agree": (ids == ids[:1]).all()})
+            return probs, gates, ids
+
+        def keep(cfg, flat_e, t):
+            out = real_keep(cfg, flat_e, t)
+            self.calls[-1]["keep"] = out[1][0]
+            return out
+        self.moe._route, self.moe._keep = route, keep
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route, self.moe._keep = self.real
+
+    def host(self) -> list[dict]:
+        return [{k: (v.cpu() if k != "lanes_agree" else bool(v))
+                 for k, v in c.items()} for c in self.calls]
+
+
+def route_changes(torch, a: list, b: list, n_layers: int, batch: int,
+                  prompt: int, k: int, rtol: float) -> dict:
+    """Compare two serves' routes, call by call (``n_layers`` prefill calls
+    over ``batch * prompt`` tokens, then ``n_layers`` per decode step, one
+    token a request).  A route is the set of a (layer, token)'s k experts
+    and which of its choices were kept.  For each request, the first call
+    where any of its routes changed.  In each call, the perturbation is
+    the largest move of a router probability between the two serves over
+    the routes of requests not changed before; it must stay below
+    ``rtol``, and every route that changed there must have been a
+    near-tie in ``a``: the gap between its k-th and (k+1)-th router
+    probability at most twice the perturbation.  A kept set that changed
+    with no route change of its own must follow a changed route earlier
+    in the same call (the capacity order).  Routes after a request's first
+    change see other inputs and are not held.  Returns ``{"changed":
+    [...], "first": {request: (call, step)}, "held_steps": [...],
+    "max_move": x, "differ": n}`` (``differ``: the routes whose experts
+    differ over all calls, downstream ones included); raises on a
+    breach."""
+    first: dict[int, tuple[int, int]] = {}
+    changed, max_move, differ = [], 0.0, 0
+    for ci, (ca, cb) in enumerate(zip(a, b)):
+        step = 0 if ci < n_layers else 1 + (ci - n_layers) // n_layers
+        layer = ci % n_layers
+        rows = batch * prompt if step == 0 else batch
+        req = (torch.arange(rows) // prompt if step == 0
+               else torch.arange(rows))
+        ids_a = torch.sort(ca["ids"], -1).values
+        ids_b = torch.sort(cb["ids"], -1).values
+        moved = (ids_a != ids_b).any(-1)                            # [T]
+        kept = (ca["keep"] != cb["keep"]).view(rows, k).any(-1)    # [T]
+        differ += int(moved.sum())
+        live = torch.tensor([int(r) not in first for r in req])
+        move = float((ca["probs"] - cb["probs"]).abs().amax(-1)[live].max()
+                     ) if bool(live.any()) else 0.0
+        max_move = max(max_move, move)
+        if move > rtol:
+            raise RuntimeError(f"call {ci} (layer {layer}, step {step}): the "
+                               f"router moved by {move:.3e} > {rtol}")
+        new = (moved | kept) & live
+        if not bool(new.any()):
+            continue
+        top = torch.topk(ca["probs"], k + 1, dim=-1).values
+        gap = top[:, k - 1] - top[:, k]
+        for t in new.nonzero().flatten().tolist():
+            r = int(req[t])
+            if bool(moved[t]):
+                entry = {"call": ci, "layer": layer, "step": step,
+                         "token": t, "request": r,
+                         "ids": [ids_a[t].tolist(), ids_b[t].tolist()],
+                         "gap": float(gap[t]), "bound": 2 * move}
+                changed.append(entry)
+                if not entry["gap"] <= 2 * move:
+                    raise RuntimeError(f"route changed where it was no "
+                                       f"near-tie: {entry}")
+            elif not bool(moved[:t].any()):
+                raise RuntimeError(f"call {ci}: the kept set of token {t} "
+                                   "changed with no route change before it")
+        for r in set(req[new].tolist()):
+            first[int(r)] = (ci, step)
+    n_steps = 1 + (len(a) - n_layers) // n_layers
+    held_steps = [first[r][1] if r in first else n_steps
+                  for r in range(batch)]
+    return {"changed": changed, "first": first, "held_steps": held_steps,
+            "max_move": max_move, "differ": differ}
+
+
+def check_held(sv, torch, ref, got, held_steps: list, rtol: float) -> dict:
+    """``launch.serve.check_serves`` request by request, over the steps
+    whose logits no changed route reached (a route changed at step s
+    reaches the logits of step s on: the prefill's position for s = 0)."""
+    out = {}
+    for r, h in enumerate(held_steps):
+        if not h:
+            out[r] = None
+            continue
+        sub = [sv.ServeResult(x.tokens[r:r + 1, :h],
+                              [lg[r:r + 1] for lg in x.logits[:h]], 0.0, 0.0,
+                              None) for x in (ref, got)]
+        out[r] = sv.check_serves(*sub, rtol)
+    return out
+
+
+@contextlib.contextmanager
+def forced_env(spec: str):
+    """``PGTUNE_MODULE=spec`` for the calls inside (the dispatcher's
+    environment force, which every ``api.tuned`` context honours)."""
+    old = os.environ.get("PGTUNE_MODULE")
+    os.environ["PGTUNE_MODULE"] = spec
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PGTUNE_MODULE")
+        else:
+            os.environ["PGTUNE_MODULE"] = old
+
+
+def hold_routes(torch, sv, cfg, tag: str, label: str, ref, ref_routes,
+                got, got_routes) -> dict:
+    """``route_changes`` between the default serve ``ref`` and ``got``
+    (both probed), printed, then ``check_held`` on the logits no changed
+    route reached; returns the summary."""
+    n_tokens = len(ref.logits)
+    for name, calls in (("default", ref_routes), (label, got_routes)):
+        if len(calls) != cfg.n_layers * n_tokens:
+            raise RuntimeError(f"{cfg.name} {name}: {len(calls)} routed "
+                               f"calls, not {cfg.n_layers * n_tokens}")
+        # an allreduce impl may leave the ranks' copies of the residual a
+        # rounding apart; each rank then routes its own copy, as in the
+        # JAX package, and the check reads rank 0's routes
+        apart = sum(not c["lanes_agree"] for c in calls)
+        log(f"[{tag}] {name} serve: ranks routed apart in {apart} of "
+            f"{len(calls)} calls")
+    rc = route_changes(torch, ref_routes, got_routes, cfg.n_layers,
+                       SERVE_BATCH, SERVE_PROMPT, cfg.moe.top_k,
+                       ROUTE_MOVE_BOUND)
+    n_routes = cfg.n_layers * SERVE_BATCH * (SERVE_PROMPT + n_tokens - 1)
+    by_step = {}
+    for e in rc["changed"]:
+        by_step[e["step"]] = by_step.get(e["step"], 0) + 1
+    log(f"[{tag}] routes (layer, token) that changed between the default "
+        f"and the {label} serve: {len(rc['changed'])} of {n_routes} (by "
+        f"step, 0 = prefill: {by_step}); first change per request (call, "
+        f"step): {rc['first']}; the router moved by at most "
+        f"{rc['max_move']:.3e} on the routes of requests not changed "
+        f"before (bound {ROUTE_MOVE_BOUND})")
+    log(f"[{tag}] routes whose experts differ in all, downstream of the "
+        f"first changes too: {rc['differ']} of {n_routes}")
+    for e in rc["changed"][:12]:
+        log(f"[{tag}]   changed: layer {e['layer']} step {e['step']} request "
+            f"{e['request']} token {e['token']} experts {e['ids'][0]} -> "
+            f"{e['ids'][1]}, gap {e['gap']:.3e} <= {e['bound']:.3e}")
+    held = check_held(sv, torch, ref, got, rc["held_steps"], SERVE_RTOL)
+    drift = {}
+    for r, h in enumerate(rc["held_steps"]):
+        if h == n_tokens:
+            continue
+        # not held: what the changed routes did to the request's logits,
+        # step by step until its greedy tokens part
+        errs, parted = [], None
+        for i, (la, lb) in enumerate(zip(ref.logits, got.logits)):
+            la, lb = la[r].float(), lb[r].float()
+            errs.append(float((la - lb).abs().max() / la.abs().max()))
+            if not bool(torch.equal(ref.tokens[r, i], got.tokens[r, i])):
+                parted = i
+                break
+        drift[str(r)] = {"max_rel_err": max(errs), "tokens_parted_at": parted}
+        log(f"[{tag}] {label}, request {r} (not held): logits max-norm "
+            f"relative error {max(errs):.4e} over steps 0..{len(errs) - 1}, "
+            f"greedy tokens parted at step {parted}")
+    for r, res in held.items():
+        log(f"[{tag}] {label}, request {r}: logits held over "
+            f"{rc['held_steps'][r]} of {n_tokens} steps"
+            + ("" if res is None else
+               f", max-norm relative error {res['max_rel_err']:.4e} "
+               f"(tolerance {SERVE_RTOL}), tokens diverged at "
+               f"{res['diverged_at']}"))
+    return {"changed": len(rc["changed"]), "changed_by_step": by_step,
+            "max_move": rc["max_move"], "first": {str(r): v for r, v in
+                                                  rc["first"].items()},
+            "held_steps": rc["held_steps"], "differ": rc["differ"],
+            "held": {str(r): v for r, v in held.items()}, "drift": drift,
+            "gaps": [e["gap"] for e in rc["changed"]]}
+
+
+def router_readings(torch, sv, moe, cfg, axis, params, prompts, ref,
+                    ref_routes, tag: str) -> dict:
+    """Prefill-only serves, probed, with the allreduce forced to each of
+    ``MOE_REORDERS``, ``MOE_LOSSY`` and the planted ``MOE_PLANTED``: the
+    move of the router probabilities at layer 0 (the first ``moe_block``
+    call, whose input differs from the default serve ``ref``'s by one
+    allreduce, the attention's) for each.  Each reordering serve is held
+    by ``hold_routes`` against ``ref``'s prefill; the lossy ones are only
+    read; the planted one must read above ``ROUTE_MOVE_BOUND``, and
+    ``route_changes`` must refuse it."""
+    from repro_torch.core import collectives as C
+
+    n = cfg.n_layers
+    real = C.REGISTRY["allreduce"]["default"]
+    C.REGISTRY["allreduce"][MOE_PLANTED] = dataclasses.replace(
+        real, name=MOE_PLANTED, guideline="EXT",
+        fn=lambda x, ax, **kw: real.fn(x, ax, **kw) - x)
+    read = {}
+    try:
+        for impl in MOE_REORDERS + MOE_LOSSY + (MOE_PLANTED,):
+            with forced_env(f"allreduce:alg={impl}"), RouteProbe(
+                    moe) as probe:
+                res = sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, 1)
+            got = {r.impl for r in res.ctx.record if r.cell.op == "allreduce"}
+            if got != {impl}:
+                raise RuntimeError(f"{cfg.name} allreduce {impl}: ran {got}")
+            calls = probe.host()
+            move = float((ref_routes[0]["probs"] - calls[0]["probs"]).abs()
+                         .max())
+            log(f"[{tag}] router reading, allreduce {impl}: the router "
+                f"probabilities moved by {move:.3e} at layer 0 of the "
+                f"prefill (bound {ROUTE_MOVE_BOUND:.3e})")
+            read[impl] = (res, calls, move)
+    finally:
+        del C.REGISTRY["allreduce"][MOE_PLANTED]
+    _, calls, move = read.pop(MOE_PLANTED)
+    if not move > ROUTE_MOVE_BOUND:
+        raise RuntimeError(f"the router move bound passes the planted "
+                           f"wrong allreduce ({move:.3e})")
+    try:
+        route_changes(torch, ref_routes[:n], calls, n, SERVE_BATCH,
+                      SERVE_PROMPT, cfg.moe.top_k, ROUTE_MOVE_BOUND)
+    except RuntimeError as e:
+        if "router moved" not in str(e):
+            raise
+    else:
+        raise RuntimeError("route_changes passes the planted wrong allreduce")
+    out = {MOE_PLANTED: {"move_layer0": move}}
+    out.update({impl: {"move_layer0": read.pop(impl)[2]}
+                for impl in MOE_LOSSY})
+    pre = sv.ServeResult(ref.tokens[:, :1], ref.logits[:1], ref.prefill_s,
+                         0.0, ref.ctx)
+    for impl, (res, calls, move) in read.items():
+        out[impl] = hold_routes(torch, sv, cfg, tag, f"{impl} prefill", pre,
+                                ref_routes[:n], res, calls)
+        out[impl]["move_layer0"] = move
+    return out
+
+
+def moe_block_check(torch, dev, cfg, card: str, tag: str) -> dict:
+    """``moe_block`` at the serve's prefill shape on the card against the
+    same call on the CPU, from the same float32 weights (one layer drawn
+    on the card): the same expert ids and kept choices first, then the
+    outputs within ``MOE_CHECK_RTOL`` of their max-norm and the aux.  The
+    tokens share one random offset, as a residual stream's do, so the
+    router favours some experts and choices are dropped over capacity
+    (the drop bin of the dispatch is written); it fails if none is."""
+    from repro_torch.core._axis import StackedAxis
+    from repro_torch.dist.axes import bind
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_tree
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    params = init_tree(moe.moe_specs(c32), gen, StackedAxis(P, dev))
+    x1 = torch.randn(1, SERVE_BATCH, SERVE_PROMPT, cfg.d_model,
+                     generator=gen, device=dev) + 0.5 * torch.randn(
+                         cfg.d_model, generator=gen, device=dev)
+    out = []
+    for where in (dev, torch.device("cpu")):
+        axis = StackedAxis(P, where)
+        p = {k: v.to(where) for k, v in params.items()}
+        x = x1.to(where).expand(P, *x1.shape[1:])
+        t0 = time.perf_counter()
+        with bind(model=axis), RouteProbe(moe) as probe:
+            y, aux = moe.moe_block(p, c32, x)
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        out.append((probe.host()[0], y.cpu(), aux.cpu(),
+                    time.perf_counter() - t0))
+        del p, x, y
+    (pa, ya, aa, ta), (pb, yb, ab, tb) = out
+    same = torch.equal(pa["ids"], pb["ids"])
+    err = float((ya - yb).abs().max() / yb.abs().max())
+    aux_err = float((aa - ab).abs().max() / ab.abs().max())
+    log(f"[{tag}] moe_block float32 at [{P}, {SERVE_BATCH}, {SERVE_PROMPT}, "
+        f"{cfg.d_model}] (TP {P}, {cfg.moe.n_experts} experts, capacity "
+        f"{moe._capacity(SERVE_BATCH * SERVE_PROMPT, cfg)}): {card} "
+        f"{ta:.2f} s, CPU {tb:.2f} s; expert ids equal: {same}; kept "
+        f"choices {int(pa['keep'].sum())} of {pa['keep'].numel()}; output "
+        f"max-norm relative error {err:.3e} (tolerance {MOE_CHECK_RTOL}), "
+        f"aux {aa[0].item():.6f} vs {ab[0].item():.6f}")
+    if bool(pa["keep"].all()):
+        raise RuntimeError("moe_block check: no choice was dropped")
+    if not same or not torch.equal(pa["keep"], pb["keep"]):
+        bad = (pa["ids"] != pb["ids"]).any(-1).nonzero().flatten()[:8]
+        raise RuntimeError(f"moe_block: expert ids differ between the card "
+                           f"and the CPU at tokens {bad.tolist()}")
+    if not (err <= MOE_CHECK_RTOL and aux_err <= MOE_CHECK_RTOL):
+        raise RuntimeError(f"moe_block: card vs CPU {err:.3e}, aux "
+                           f"{aux_err:.3e} > {MOE_CHECK_RTOL}")
+    del params
+    return {"max_rel_err": err, "aux_rel_err": aux_err, "card_s": ta,
+            "cpu_s": tb}
+
+
+def moe_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
+                    card: str, tag: str = "15") -> dict:
+    """Serve phi3.5-moe-42b-a6.6b (``MOE_LAYERS`` layers, full width) on
+    the card: (a) the default serve, recording, with rank 0's routes
+    probed; ``tune_trace`` of the trace (measured; the alltoall cells
+    among them), the per-phase profiles saved and reloaded; (b) the tuned
+    re-serve, probed: every changed route a near-tie, the logits of every
+    request no changed route reached within ``SERVE_RTOL``; (c) the
+    default serve again, unprobed (the times of record): logits bit-equal
+    to (a)'s; (d) the serve with ``MOE_FORCE``: logits bit-equal to (a)'s;
+    Flash must launch once per layer and forward in each serve (``wgmma``
+    at prefill, ``split_kv`` at decode).  (e) ``router_readings``, then
+    ``torch.profiler`` over one prefill and one decode step, and
+    ``moe_block_check``.  The times,
+    rates and memory sizes it prints name ``card`` (``nvidia-smi``'s name
+    and power limit)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import api, profiles, trace, tuner
+    from repro_torch.core._axis import StackedAxis
+    from repro_torch.dist.axes import bind
+    from repro_torch.launch import serve as sv
+    from repro_torch.models import lm, moe
+    from repro_torch.models.params import init_tree, tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), attn_impl="flash",
+                              n_layers=MOE_LAYERS)
+    m = cfg.moe
+    axis = StackedAxis(P, dev)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_tree(lm.model_specs(cfg, P), gen, axis)
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(params))
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} of 32 layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV heads x "
+        f"{cfg.hd}, {m.n_experts} experts of d_ff {m.d_ff_expert}, top-"
+        f"{m.top_k}, capacity factor {m.capacity_factor}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}, attn_impl {cfg.attn_impl}; TP {P} "
+        f"stacked ({m.n_experts // P} experts, {cfg.n_heads // P} q heads "
+        f"per rank); weights {w_bytes / 1e9:.3f} GB "
+        f"({cfg.param_count() / 1e9:.3f} B params) drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cap = {"prefill": moe._capacity(SERVE_BATCH * SERVE_PROMPT, cfg),
+           "decode": moe._capacity(SERVE_BATCH, cfg)}
+    log(f"[{tag}] capacity per expert: {cap}; dispatch buffer "
+        f"[{m.n_experts * cap['prefill'] + 1}, {cfg.d_model}] a lane at "
+        f"prefill; router: ops.matmul_accumulate over the unbound data axis, "
+        f"a plain float32 torch.matmul [{P}, {SERVE_BATCH * SERVE_PROMPT}, "
+        f"{cfg.d_model}] @ [{P}, {cfg.d_model}, {m.n_experts}] (nothing "
+        f"dispatched, no block_matmul)")
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
+    n_tokens = 1 + SERVE_DECODE
+    per_serve = per_serve_launches(lm, cfg, n_tokens)
+    sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, 2)   # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa = wrappers["flash_attention"]
+
+    zero_counts(wrappers)               # the MoE serve path starts here
+    c0 = counts(wrappers)
+
+    def one(label, **kw):
+        before, p_before = counts(wrappers), dict(fa.launches_by_path)
+        res = sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, n_tokens,
+                       **kw)
+        after = counts(wrappers)
+        got = {k: after[k] - before[k] for k in after}
+        paths = path_delta(fa, p_before)
+        log(f"[{tag} {label}] kernel launches: {json.dumps(got)}; "
+            f"flash_attention by path {json.dumps(paths)}")
+        for kname, want in per_serve.items():
+            if got[kname] != want:
+                raise RuntimeError(f"{cfg.name} {label}: {kname} launched "
+                                   f"{got[kname]} times, not {want}")
+        want_paths = dict.fromkeys(paths, 0)
+        want_paths.update(wgmma=cfg.n_layers,
+                          split_kv=cfg.n_layers * (n_tokens - 1))
+        if paths != want_paths:
+            raise RuntimeError(f"{cfg.name} {label}: flash paths {paths}, "
+                               f"not {want_paths}")
+        return res
+
+    with RouteProbe(moe) as probe_a:
+        first = one("default serve")
+    serve_peak = torch.cuda.max_memory_allocated(dev)
+    rec = trace.Trace.from_context(first.ctx)
+    rec.save(out_dir / f"serve_trace_{cfg.name}.jsonl")
+    for ln in rec.summary().splitlines():
+        log(f"[{tag}] {ln}")
+    a2a = [r for r in first.ctx.record if r.cell.op == "alltoall"]
+    a2a_bytes = {ph: max(r.cell.nbytes for r in a2a if r.phase == ph)
+                 for ph in ("prefill", "decode")}
+    log(f"[{tag}] alltoall dispatches of the default serve: {len(a2a)} "
+        f"(bytes a rank: {a2a_bytes})")
+    want_a2a = 2 * cfg.n_layers * n_tokens
+    if len(a2a) != want_a2a or any(r.cell.op == "matmul_accumulate"
+                                   for r in first.ctx.record):
+        raise RuntimeError(f"{cfg.name}: {len(a2a)} alltoall dispatches, not "
+                           f"{want_a2a}, or the router dispatched")
+    t0 = time.perf_counter()
+    rep = tuner.tune_trace(rec, tuner.MeasuredBackend(P, dev, max_nrep=20))
+    log(f"[{tag}] tune_trace in {time.perf_counter() - t0:.1f} s")
+    a2a_cells = {}
+    for mm in rep.measurements:
+        log(f"[{tag}] measured {mm.op} {mm.nbytes}B {mm.impl}: "
+            f"{mm.latency * 1e3:.4f} ms (nrep {mm.nrep})")
+        if mm.op == "alltoall":
+            a2a_cells.setdefault(mm.nbytes, {})[mm.impl] = mm.latency * 1e3
+    for nb, lat in sorted(a2a_cells.items()):
+        log(f"[{tag}] alltoall cell {nb} B a rank (ms, replayed at {P} x "
+            f"its bytes; {card}): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in lat.items()) + "; mock-up / default "
+            + ", ".join(f"{k} {v / lat['default']:.3f}" for k, v in
+                        lat.items() if k != "default"))
+    if not a2a_cells:
+        raise RuntimeError(f"{cfg.name}: tune_trace measured no alltoall cell")
+    for ln in rep.summary().splitlines():
+        log(f"[{tag}] {ln}")
+    prof_dir = out_dir / f"serve_profiles_{cfg.name}"
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    rep.save(prof_dir)
+    _, phases = profiles.resolve_stores(prof_dir)
+    log(f"[{tag}] per-phase profiles saved to {prof_dir} and reloaded: "
+        f"{ {ph: len(st) for ph, st in phases.items()} }")
+    with RouteProbe(moe) as probe_b:
+        second = one("tuned re-serve", phase_profiles=phases)
+    footer = api.format_footer(second.ctx)
+    for ln in footer.splitlines():
+        log(f"[{tag}] {ln}")
+    if "MPI_Alltoall" not in footer:
+        raise RuntimeError(f"{cfg.name}: no alltoall in the tuned footer")
+    picks = sorted({(r.cell.op, r.phase, r.impl) for r in second.ctx.record})
+    log(f"[{tag}] tuned picks (op, phase, impl): {picks}")
+
+    # (b) routes, then the logits they did not reach
+    ra = probe_a.host()
+    routes = {"tuned": hold_routes(torch, sv, cfg, tag, "tuned", first, ra,
+                                   second, probe_b.host())}
+
+    # (c) the default serve again, unprobed: bit for bit
+    third = one("default serve again")
+    same = all(torch.equal(a, b) for a, b in zip(first.logits,
+                                                   third.logits))
+    log(f"[{tag}] default serve repeated: logits bit-equal {same}, tokens "
+        f"equal {torch.equal(first.tokens, third.tokens)}")
+    if not same or not torch.equal(first.tokens, third.tokens):
+        raise RuntimeError(f"{cfg.name}: the default serve does not repeat")
+
+    # (d) alltoall forced to a mock-up
+    with forced_env(MOE_FORCE):
+        forced = one("forced serve")
+    f_impls = {r.impl for r in forced.ctx.record if r.cell.op == "alltoall"}
+    f_same = all(torch.equal(a, b) for a, b in zip(first.logits,
+                                                     forced.logits))
+    log(f"[{tag}] forced serve ({MOE_FORCE}): alltoall impls {f_impls}, "
+        f"logits bit-equal to the default serve's {f_same}")
+    if f_impls != {"alltoall_as_ppermute"} or not f_same:
+        raise RuntimeError(f"{cfg.name}: forced serve {f_impls}, bit-equal "
+                           f"{f_same}")
+
+    peak = torch.cuda.max_memory_allocated(dev)
+    c1 = counts(wrappers)
+    launches = {k: c1[k] - c0[k] for k in c1}
+    log(f"[moe serve path {cfg.name}] kernel launches: "
+        f"{json.dumps(launches)}")
+
+    # (e) the router readings (after the path's counts)
+    routes.update(router_readings(torch, sv, moe, cfg, axis, params,
+                                  prompts, first, ra, tag))
+
+    # drops at prefill, per layer, from the default serve's routes
+    drops = [int((~c["keep"]).sum()) for c in ra[:cfg.n_layers]]
+    both = [int((~c["keep"].view(-1, m.top_k)).all(-1).sum())
+            for c in ra[:cfg.n_layers]]
+    log(f"[{tag}] choices dropped over capacity {cap['prefill']} at prefill, "
+        f"per layer (of {SERVE_BATCH * SERVE_PROMPT * m.top_k}): {drops}; "
+        f"tokens with both choices dropped: {both}")
+    serves = {}
+    for label, res in (("default", first), ("tuned", second),
+                       ("default again", third), ("forced", forced)):
+        toks = res.tokens.cpu()
+        if tuple(toks.shape) != (SERVE_BATCH, n_tokens) or not bool(
+                all(torch.isfinite(lg).all() for lg in res.logits)):
+            raise RuntimeError(f"{cfg.name} {label} serve: bad output")
+        log(f"[{tag}] {cfg.name} {label} serve ({card}): prefill "
+            f"{res.prefill_s * 1e3:.2f} ms "
+            f"({SERVE_BATCH * SERVE_PROMPT / res.prefill_s:.0f} tokens/s), "
+            f"decode {res.decode_s_per_token * 1e3:.3f} ms/token "
+            f"({SERVE_BATCH / res.decode_s_per_token:.1f} tokens/s over "
+            f"{SERVE_BATCH} requests), {SERVE_BATCH * n_tokens} tokens in "
+            f"{(res.prefill_s + res.decode_s) * 1e3:.1f} ms")
+        serves[label] = {"prefill_ms": res.prefill_s * 1e3,
+                         "decode_ms_per_token": res.decode_s_per_token * 1e3,
+                         "tokens": toks.tolist()}
+    log(f"[{tag}] default tokens, request 0: {first.tokens[0].tolist()}")
+    log(f"[{tag}] {cfg.name} peak device memory ({card}): the default "
+        f"serve {serve_peak / 1e9:.3f} GB, with tune_trace's replay "
+        f"{peak / 1e9:.3f} GB")
+
+    # where a step's device time goes (after the path's counts)
+    with bind(model=axis):
+        caches = lm.init_caches(cfg, SERVE_BATCH, SERVE_SLOTS)
+    pf, dc = sv.build_prefill(cfg, axis), sv.build_decode(cfg, axis)
+    tok = prompts[:, :1]
+    needles = ("fa_wgmma_kernel", "fa_split_kernel", "nvjet", "gemm",
+               "index", "scan")
+    shares = {
+        "prefill": profile_call(torch, f"{cfg.name} one prefill", lambda: pf(
+            params, {"tokens": prompts}, caches), tag, needles),
+        "decode": profile_call(torch, f"{cfg.name} one decode step",
+                               lambda: dc(params, tok, caches, SERVE_PROMPT),
+                               tag, needles)}
+    del params, caches, first, second, third, forced
+    torch.cuda.empty_cache()
+    block = moe_block_check(torch, dev, cfg, card, tag)
+    log(f"[{tag}] MoE serve phase in {time.perf_counter() - t_phase:.1f} s "
+        f"({card})")
+    return {"launches": launches, "per_serve": per_serve,
+            "peak_bytes": peak, "serve_peak_bytes": serve_peak,
+            "weights_bytes": w_bytes, "capacity": cap,
+            "drops_prefill": drops, "both_dropped_prefill": both,
+            "alltoall_ms": {str(k): v for k, v in a2a_cells.items()},
+            "picks": picks, "routes": routes,
+            "shares": shares, "serves": serves, "moe_block": block}
 
 
 def block(api, axis, torch, x, wv, wo, wgu, wd):
@@ -2602,6 +3344,7 @@ def main(argv=None) -> int:
     kernels["flash_attention"] = flash["prefill"]
     report["flash_decode"] = flash["decode"]
     report["flash_zamba2_prefill_ms"] = flash["zamba2_prefill_ms"]
+    report["flash_moe_prefill_ms"] = flash["moe_prefill_ms"]
     log(f"[3] flash_attention launches by path: "
         f"{json.dumps(fa.flash_attention.launches_by_path)}")
     t0 = time.perf_counter()
@@ -2990,6 +3733,11 @@ def main(argv=None) -> int:
                                                  report["train"])
     for k, v in report["kernel_train"]["launches"].items():
         kernels[k]["kernel_train_launches"] = v
+
+    # -- 15. the MoE serve: phi3.5-moe-42b-a6.6b, 16 of 32 layers ----------
+    report["moe_serve"] = moe_serve_phase(torch, dev, out_dir, every, card)
+    for k, v in report["moe_serve"]["launches"].items():
+        kernels[k]["moe_serve_launches"] = v
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     (out_dir / "report.json").write_text(json.dumps(report, indent=1))
@@ -2997,7 +3745,7 @@ def main(argv=None) -> int:
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "main_path", "train_launches", "mesh_train_launches",
-             "kernel_train_launches")
+             "kernel_train_launches", "moe_serve_launches")
     print(json.dumps({"kernels": [{k: kernels[n][k] for k in order}
                                   for n in ("guideline_pack", "block_matmul",
                                             "ring_allgather_matmul_rdma",

@@ -61,6 +61,8 @@ row_matmul           api.matmul_reducescatter   identity (dx, a local product
 (fsdp_dim=1, both    _2d + api.allgather        against the gathered weight)
 axes bound)          (model)                    + api.matmul_reducescatter
                                                 _2d_t (dw)
+ep_alltoall          api.alltoall (model)       api.alltoall (its own
+                                                transpose)
 ===================  =========================  ==========================
 
 Every operand handed to a dispatched collective is made contiguous
@@ -70,7 +72,7 @@ strided cotangents.  The Hopper GEMMs behind ``fused_ring`` take only
 contiguous operands and do not copy for the caller.
 
 An op over an unbound axis degrades to identity or a local matmul, as in
-the JAX package.  Not ported yet: ``ep_alltoall`` (MoE).
+the JAX package.
 """
 from __future__ import annotations
 
@@ -258,6 +260,35 @@ def tp_psum_grad(x, axis: str = AXES.model):
     if not has_axis(axis):
         return x
     return _PsumGrad.apply(x, get_axis(axis))
+
+
+# ---------------------------------------------------------------------------
+# alltoall (expert parallelism)
+# ---------------------------------------------------------------------------
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.tune = api.current_context()
+        ctx.ax = ax
+        return api.alltoall(_contig(x), ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        # y_r[j] = x_j[r] is its own transpose: the cotangent goes back
+        # through the same (tuned) alltoall
+        with _backward(ctx):
+            return api.alltoall(_contig(g), ctx.ax), None
+
+
+def ep_alltoall(x, axis: str = AXES.model):
+    """Expert dispatch/combine shuffle: per-rank rows ``[p*n, ...]``
+    exchanged so that rank r receives block r of every peer.  Self-inverse;
+    the backward is the same (tuned) alltoall."""
+    if not has_axis(axis):
+        return x
+    return _AllToAll.apply(x, get_axis(axis))
 
 
 # ---------------------------------------------------------------------------

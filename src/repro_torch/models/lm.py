@@ -2,11 +2,12 @@
 
 The port's counterpart of the JAX package's ``models/lm.py`` for the
 decoder-only LMs: dense (llama / gemma style: ``attn`` and ``attn_local``
-blocks with a gated MLP), SSM (rwkv6: ``rwkv`` blocks) and hybrid
-(zamba2: ``mamba`` blocks with one ``shared_attn`` block, its weights
-shared, after every ``hybrid_period`` of them).  The other families raise
-``NotImplementedError`` naming the kind: ``mla``, ``moe``, ``encdec`` and
-``vlm`` come with later slices.
+blocks with a gated MLP), MoE (phi3.5: the MLP is ``models.moe``'s
+expert-parallel block, whose load-balance loss the forward returns), SSM
+(rwkv6: ``rwkv`` blocks) and hybrid (zamba2: ``mamba`` blocks with one
+``shared_attn`` block, its weights shared, after every ``hybrid_period``
+of them).  The other families raise ``NotImplementedError`` naming the
+kind: ``mla``, ``encdec`` and ``vlm`` come with later slices.
 
 Every function runs inside ``dist.axes.bind(model=axis)`` (or, for
 training, ``bind(data=axis)``): tensors carry the rank dim first
@@ -27,6 +28,7 @@ from repro_torch.dist.axes import AXES, get_axis
 from repro_torch.models import ssm
 from repro_torch.models.attention import attention, attn_specs
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import moe_block, moe_specs
 from repro_torch.models.layers import (embed_lookup, embed_specs, head_specs,
                                        lm_logits, mlp, mlp_specs, rms_norm,
                                        sharded_xent)
@@ -48,7 +50,7 @@ class Group:
 def _unsupported(cfg: ModelConfig) -> list[str]:
     kinds = [k for k in cfg.pattern()
              if k not in ("attn", "attn_local", "rwkv", "mamba")]
-    for name in ("mla", "moe", "encdec", "vlm"):
+    for name in ("mla", "encdec", "vlm"):
         if getattr(cfg, name) is not None:
             kinds.append(name)
     return sorted(set(kinds))
@@ -104,7 +106,8 @@ def _block_specs(kind: str, cfg: ModelConfig, tp: int) -> dict:
         "attn": attn_specs(cfg, tp),
         "ln2": ParamSpec((cfg.d_model,), (None,), init="zeros",
                          dtype="float32"),
-        "ffn": mlp_specs(cfg.d_model, cfg.d_ff, cfg.dtype),
+        "ffn": (moe_specs(cfg) if cfg.moe is not None
+                else mlp_specs(cfg.d_model, cfg.d_ff, cfg.dtype)),
     }
 
 
@@ -240,12 +243,17 @@ def _run_attn_block(p, cfg: ModelConfig, x, *, kind, pos, mode, cache):
     x = x + a.y
     new_cache = {"self": a.cache} if a.cache is not None else None
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp(p["ffn"], h2), new_cache
+    if cfg.moe is not None:
+        y, aux = moe_block(p["ffn"], cfg, h2)
+    else:
+        y, aux = mlp(p["ffn"], h2), 0.0
+    return x + y, new_cache, aux
 
 
 def _run_block(kind, p, cfg: ModelConfig, x, *, pos, mode, cache, shared_p,
                resid0):
-    """One block of any ported kind; returns ``(x, new_cache)``."""
+    """One block of any ported kind; returns ``(x, new_cache, aux)``
+    (aux: the MoE load-balance loss ``[L]``, else 0.0)."""
     if kind in ("attn", "attn_local"):
         return _run_attn_block(p, cfg, x, kind=kind, pos=pos, mode=mode,
                                cache=cache)
@@ -253,19 +261,22 @@ def _run_block(kind, p, cfg: ModelConfig, x, *, pos, mode, cache, shared_p,
         # zamba2: the shared block on concat(x, resid0), projected in
         h = ops.matmul_accumulate(torch.cat([x, resid0], dim=-1),
                                   shared_p["proj_in"])
-        y, c = _run_attn_block(shared_p, _shared_cfg(cfg), h, kind="attn",
-                               pos=pos, mode=mode, cache=cache)
-        return x + y, c
+        y, c, aux = _run_attn_block(shared_p, _shared_cfg(cfg), h,
+                                    kind="attn", pos=pos, mode=mode,
+                                    cache=cache)
+        return x + y, c, aux
     if kind == "rwkv":
-        return ssm.rwkv_block(p, cfg, x, state=cache)
+        return (*ssm.rwkv_block(p, cfg, x, state=cache), 0.0)
     if kind == "mamba":
-        return ssm.mamba_block(p, cfg, x, state=cache)
+        return (*ssm.mamba_block(p, cfg, x, state=cache), 0.0)
     raise ValueError(kind)
 
 
 def _run_stack(params, cfg: ModelConfig, x, *, pos, mode, caches):
-    """Every layer in order; returns ``(x, new_caches)``.  ``resid0``, the
-    embedding output, feeds every ``shared_attn`` block."""
+    """Every layer in order; returns ``(x, new_caches, aux)``, aux summed
+    over the layers.  ``resid0``, the embedding output, feeds every
+    ``shared_attn`` block."""
+    aux_total = 0.0
     new_caches: dict[str, Any] = {"stack": {}}
     resid0 = x
     shared_p = params.get("shared_attn")
@@ -280,15 +291,16 @@ def _run_stack(params, cfg: ModelConfig, x, *, pos, mode, caches):
             ncs = {}
             for i, kind in enumerate(g.unit):
                 key = f"b{i}_{kind}"
-                x, nc = _run_block(
+                x, nc, aux = _run_block(
                     kind, lp.get(key), cfg, x, pos=pos, mode=mode,
                     cache=None if lc is None else lc[key],
                     shared_p=shared_p, resid0=resid0)
+                aux_total = aux_total + aux
                 if nc is not None:
                     ncs[key] = nc
             out.append(ncs)
         new_caches["stack"][g.name] = out if g.n_rep > 1 else out[0]
-    return x, (new_caches if caches is not None else None)
+    return x, (new_caches if caches is not None else None), aux_total
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch, *, pos0: int = 0):
@@ -307,22 +319,22 @@ def _embed_inputs(params, cfg: ModelConfig, batch, *, pos0: int = 0):
 
 def forward(params, cfg: ModelConfig, batch, *, mode: str = "train",
             caches=None, pos0: int = 0):
-    """Full forward.  Returns ``(logits [p, B, S, V_t], new_caches, aux)``
-    (aux is 0: no ported block has an auxiliary loss)."""
+    """Full forward.  Returns ``(logits [p, B, S, V_t], new_caches, aux)``:
+    aux is the MoE load-balance loss summed over the layers, ``[p]``, and
+    0.0 for a model with no MoE block."""
     x, pos = _embed_inputs(params, cfg, batch, pos0=pos0)
-    x, new_caches = _run_stack(params, cfg, x, pos=pos, mode=mode,
+    x, new_caches, aux = _run_stack(params, cfg, x, pos=pos, mode=mode,
                                caches=caches)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(params["embed"], x,
                        params.get("head") if not cfg.tie_embeddings else None,
                        final_softcap=cfg.final_softcap)
-    return logits, new_caches, 0.0
+    return logits, new_caches, aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
-    """Next-token cross-entropy: ``(loss [p], {"nll", "aux"})``, each
-    rank's mean over its tokens (aux is 0: no ported block has an
-    auxiliary loss)."""
+    """Next-token cross-entropy plus 0.01 of the MoE load-balance loss:
+    ``(loss [p], {"nll", "aux"})``, each rank's mean over its tokens."""
     logits, _, aux = forward(params, cfg, batch, mode="train")
     mask = batch.get("mask")
     loss = sharded_xent(logits[:, :, :-1], batch["labels"][..., 1:],

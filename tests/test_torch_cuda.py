@@ -1718,3 +1718,93 @@ def test_training_step_goes_through_the_kernels(cuda, arch, kernel):
     for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
         err = float((a.float().cpu() - b.float()).abs().max())
         assert err <= 1e-3 * float(b.float().abs().max()) + 1e-12
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts: models.moe and dist.ops.ep_alltoall on the card
+# ---------------------------------------------------------------------------
+
+
+def _moe_setup(dtype, tp=4, cf=0.75):
+    """A phi3.5-shaped MoE block at small widths (d_model 256, 8 experts
+    of 128, top-2; a capacity factor that drops choices), weights drawn on
+    the CPU from a seed and stacked for ``StackedAxis(tp)``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_tree
+
+    base = get_config("phi3.5-moe-42b-a6.6b")
+    cfg = dataclasses.replace(
+        base, d_model=256, dtype=dtype,
+        moe=dataclasses.replace(base.moe, n_experts=8, d_ff_expert=128,
+                                capacity_factor=cf))
+    cpu = StackedAxis(tp, "cpu")
+    gen = torch.Generator(device="cpu").manual_seed(22)
+    params = init_tree(moe.moe_specs(cfg), gen, cpu)
+    with torch.no_grad():
+        params["router"].mul_(8.0)           # decisive routes
+    x = torch.randn(1, 4, 64, cfg.d_model, generator=gen).to(
+        getattr(torch, dtype)).expand(tp, 4, 64, cfg.d_model)
+    return cfg, params, x
+
+
+def _moe_run(cfg, params, x, axis):
+    from repro_torch.dist.axes import bind
+    from repro_torch.models import moe
+    with bind(model=axis):
+        xt = x.reshape(x.shape[0], -1, x.shape[-1])
+        _, _, ids = moe._route(params, cfg, xt)
+        y, aux = moe.moe_block(params, cfg, x)
+    return ids, y, aux
+
+
+@needs_cuda
+def test_moe_block_on_the_card_matches_the_cpu(cuda):
+    """float32, the same weights: the same expert ids, then outputs within
+    1e-5 of their max-norm (summation order only) and the same aux."""
+    cfg, params, x = _moe_setup("float32")
+    ids_c, y_c, aux_c = _moe_run(cfg, params, x, StackedAxis(4, "cpu"))
+    on = {k: v.to(cuda) for k, v in params.items()}
+    ids_g, y_g, aux_g = _moe_run(cfg, on, x.to(cuda), StackedAxis(4, cuda))
+    assert torch.equal(ids_g.cpu(), ids_c)
+    err = (y_g.cpu() - y_c).abs().max() / y_c.abs().max()
+    assert float(err) <= 1e-5, float(err)
+    torch.testing.assert_close(aux_g.cpu(), aux_c, rtol=1e-5, atol=0)
+
+
+@needs_cuda
+def test_moe_block_default_calls_are_bit_equal_on_the_card(cuda):
+    """The dispatch scatter writes each kept row once (only the cut-off
+    drop bin repeats), so two calls agree bit for bit."""
+    cfg, params, x = _moe_setup("bfloat16")
+    on = {k: v.to(cuda) for k, v in params.items()}
+    axis = StackedAxis(4, cuda)
+    a = _moe_run(cfg, on, x.to(cuda), axis)[1]
+    b = _moe_run(cfg, on, x.to(cuda), axis)[1]
+    assert torch.equal(a, b)
+
+
+@needs_cuda
+@pytest.mark.parametrize("impl", ["default", "alltoall_as_alltoallv",
+                                  "alltoall_as_ppermute"])
+def test_ep_alltoall_forced_impls_equal_the_default_on_the_card(cuda, impl):
+    from repro_torch.dist import ops
+    from repro_torch.dist.axes import bind
+    g = torch.Generator(device="cpu").manual_seed(3)
+    x = torch.randn(8, 8 * 80, 512, generator=g).to(torch.bfloat16).to(cuda)
+    axis = StackedAxis(8, cuda)
+    with bind(model=axis):
+        want = ops.ep_alltoall(x)
+        with api.tuned(force={"alltoall": impl}) as ctx:
+            got = ops.ep_alltoall(x)
+    assert [r.impl for r in ctx.record] == [impl]
+    assert torch.equal(got, want)
+    # and the whole block under the forced impl
+    cfg, params, xm = _moe_setup("bfloat16")
+    on = {k: v.to(cuda) for k, v in params.items()}
+    ax4 = StackedAxis(4, cuda)
+    base = _moe_run(cfg, on, xm.to(cuda), ax4)[1]
+    with api.tuned(force={"alltoall": impl}):
+        forced = _moe_run(cfg, on, xm.to(cuda), ax4)[1]
+    assert torch.equal(forced, base)

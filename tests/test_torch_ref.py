@@ -1,17 +1,10 @@
 """Harness of the parity tests between the PyTorch port (``repro_torch``)
 and the JAX reference (``repro``), plus tests of the harness itself.
 
-The reference does not import on jax 0.9: ``repro/_compat.py`` tests
-membership on ``batching.primitive_batchers``, a ``PrimitiveBatchersProxy``
-that defines no ``__contains__``.  The shim below gives the proxy the
-membership test (against the table it fronts) BEFORE the first ``import
-repro``.  jax 0.9 also dropped ``jax.experimental.pallas.load``, which the
-reference's interpret-mode ring tier (``ring_allgather_matmul_blocks``)
-calls; the second shim gives it back as plain ref indexing, only where it
-is missing.  Both are applied when this module is imported, so under
-pytest they take effect at the same point of collection in every worker;
-the other ``test_torch_*`` files import their helpers from here.  The
-reference itself is not edited.
+On jax 0.9 the reference imports only after two shims, which the root
+``conftest.py`` applies just before ``repro._compat`` first loads (the
+hook of ``src/sitecustomize.py``); the reference itself is not edited.
+The other ``test_torch_*`` files import their helpers from here.
 
 Helpers:
 
@@ -33,15 +26,6 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
-from jax._src.interpreters import batching as _batching  # noqa: E402
-from jax.experimental import pallas as _pl  # noqa: E402
-
-_PROXY = getattr(_batching, "PrimitiveBatchersProxy", None)
-if _PROXY is not None and "__contains__" not in vars(_PROXY):
-    _PROXY.__contains__ = (
-        lambda self, k: k in _batching.fancy_primitive_batchers)
-if not hasattr(_pl, "load"):
-    _pl.load = lambda ref, idx, **kw: ref[idx]
 
 import repro.core.collectives as RC  # noqa: E402
 from repro_torch.core import collectives as TC  # noqa: E402
