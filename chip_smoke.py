@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's tuning loop, its serving paths (dense, SSM and
-Mixture-of-Experts) and its training paths (one stacked axis, a data x
-model mesh, a pod x data x model mesh, and training through the model
-kernels) on one CUDA card, end to end.
+"""Drive the PyTorch port's tuning loop, its serving paths (dense, SSM,
+Mixture-of-Experts and multi-head latent attention) and its training
+paths (one stacked axis, a data x model mesh, a pod x data x model mesh,
+and training through the model kernels) on one CUDA card, end to end.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -32,7 +32,12 @@ Phases (each raises on failure; nothing is caught):
    128-key block dropped) that its elementwise limit must reject, and at
    zamba2's shared-attention shape (dh 64, 4 heads and 4 KV heads per
    rank) and phi3.5-moe's (dh 128, 4 q heads over 1 KV head per rank:
-   its prefill on ``wgmma``, every decode step's length on ``split_kv``);
+   its prefill on ``wgmma``, every decode step's length on ``split_kv``)
+   and, on its ``"mla"`` path, deepseek-v3's at TP 8 (q ``[32, S, 1, 16,
+   576]``, the latent keys ``[32, S, 1, 576]``, v their first 512
+   columns as a view, scale ``1 / sqrt(192)``): the prefill and every
+   decode kv_len 1025-1056, v also as its own tensor, two planted faults,
+   times, bound, SDPA (E = 576, Ev = 512) and the kernels SDPA ran;
    each kernel's path counts (the ring's ``wgmma``/``wmma``/``f32``,
    flash's ``wgmma``/``split_kv``/``mma_sync``/``f32``); the ring's and
    flash's times both as the events mean over back-to-back calls (each
@@ -162,7 +167,19 @@ Phases (each raises on failure; nothing is caught):
    memory, ``torch.profiler`` over one prefill and one decode step; then
    ``moe_block`` in float32 at the prefill shape on the card against the
    same call on the CPU, on tokens that drop choices (the same expert
-   ids and kept choices, outputs within ``MOE_CHECK_RTOL``).
+   ids and kept choices, outputs within ``MOE_CHECK_RTOL``);
+16. serve deepseek-v3-671b at full width, cut to ``MLA_LAYERS`` = 2 of 61
+   layers (MLA attention, 256 experts of d_ff 2048, top-8, 1 shared; TP
+   p = 8 stacked: 16 q heads and 32 experts a rank; absorbed attention
+   through flash's ``"mla"`` path; phase 10's requests): (a) the default
+   serve, recording, routes probed; ``tune_trace`` (measured; cells whose
+   replay passes ``MLA_REPLAY_CAP`` held out, logged), the profiles saved
+   and reloaded; (b) the tuned re-serve, held as phase 15's (b); (c) the
+   default serve again, bit-equal to (a); (d) the naive serve
+   (``attn_impl="ref"``) of the same weights, held to (a) as (b) is, and
+   again with every route pinned to (a)'s (``PinnedRoutes``): every
+   request's logits within ``SERVE_RTOL``; peak memory of each step;
+   ``torch.profiler`` over one prefill and one decode step.
 
 Kernel launch counts are zeroed just before phase 6 and read after each of
 phases 6-8; every kernel of the main path must have launched in the tune,
@@ -196,7 +213,13 @@ inside each checked step; each row carries its
 serve path (phase 15) and read around each of its four serves: flash
 attention must launch 16 x 33 times a serve, 16 on ``wgmma`` (the
 prefill) and 16 x 32 on ``split_kv``; each row carries its
-``moe_serve_launches``.  The
+``moe_serve_launches``.  They are zeroed again just before the MLA
+serve path (phase 16) and read after its third serve: flash attention
+must launch 2 x 33 times an absorbed serve, all on ``"mla"``; each row
+carries its ``mla_serve_launches``, and the kernels line lists the
+``"mla"`` path as ``flash_attention_mla`` (phase 3's prefill numbers),
+with its launches in phases 12-16 read from flash's counts by path.
+The
 ranks are stacked on ONE card: a ring hop is a device-memory copy, so
 the times measure on-chip data movement and launch overhead, not a link
 between GPUs, and both tiers of a two-axis mesh are the same memory.
@@ -211,6 +234,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -400,10 +424,13 @@ def profile_call(torch, label: str, fn, tag: str = "9",
     return shares
 
 
-def flash_work(n, sq, hk, g, dh, q0, kv_len, causal, window, itemsize):
-    """(operations, bytes) that one flash-attention call's data needs: 4·dh
-    per visible (query, key) pair (QK^T and PV), and q, out and the keys
-    and values some query sees, each moved once."""
+def flash_work(n, sq, hk, g, dh, q0, kv_len, causal, window, itemsize,
+               dv=None, v_in_k=False):
+    """(operations, bytes) that one flash-attention call's data needs:
+    2·(dh + dv) per visible (query, key) pair (QK^T and PV), and q, out
+    and the keys and values some query sees, each moved once (values that
+    are k's first dv columns, ``v_in_k``, are the keys' bytes)."""
+    dv = dh if dv is None else dv
     pairs, lo_all, hi_all = 0, kv_len, 0
     for i in range(sq):
         qpos = q0 + i
@@ -413,8 +440,9 @@ def flash_work(n, sq, hk, g, dh, q0, kv_len, causal, window, itemsize):
             pairs += hi - lo
             lo_all, hi_all = min(lo_all, lo), max(hi_all, hi)
     keys = max(0, hi_all - lo_all)
-    flops = 4 * dh * pairs * n * hk * g
-    byts = (2 * n * sq * hk * g * dh + 2 * n * keys * hk * dh) * itemsize
+    flops = 2 * (dh + dv) * pairs * n * hk * g
+    byts = (n * sq * hk * g * (dh + dv)
+            + n * keys * hk * (dh + (0 if v_in_k else dv))) * itemsize
     return flops, byts
 
 
@@ -445,7 +473,8 @@ def check_flash(torch, fa, randn) -> dict:
                                             before).items() if n_]
         last_path[0] = took[0] if len(took) == 1 else str(took)
         err, share = held(got, q, k, v, **kw)
-        if tuple(got.shape) != tuple(q.shape) or not share <= 1.0 or not bool(
+        if tuple(got.shape) != tuple(q.shape[:4]) + (v.shape[-1],) or not \
+                share <= 1.0 or not bool(
                 torch.isfinite(got.float()).all()):
             raise RuntimeError(f"flash_attention {label}: error {err} is "
                                f"{share:.3f} of the limit")
@@ -467,7 +496,8 @@ def check_flash(torch, fa, randn) -> dict:
         flops, byts = flash_work(n, sq, hk, g, dh, kw.get("q0", 0),
                                  kw.get("kv_len") or k.shape[1],
                                  kw.get("causal", True), kw.get("window", 0),
-                                 q.element_size())
+                                 q.element_size(), v.shape[-1],
+                                 v.data_ptr() == k.data_ptr())
         t_b, t_f = byts / H100_BYTES_PER_S, flops / H100_FLOPS[
             name_dt[q.dtype]]
         # the kernel's device time (torch.profiler) is the ms of record;
@@ -638,8 +668,144 @@ def check_flash(torch, fa, randn) -> dict:
         f"k{list(kcm.shape)} bf16, kv_len {SERVE_PROMPT + 1}..."
         f"{SERVE_PROMPT + SERVE_DECODE} path {last_path[0]}: max_abs_err "
         f"{worst[0]:.3e} ({worst[1]:.3f} of the limit)")
+    mla = check_flash_mla(torch, fa, randn, timed, check, planted, on_path,
+                          last_path)
     return {"prefill": prefill, "decode": decode, "zamba2_prefill_ms":
-            zamba_ms, "moe_prefill_ms": moe_ms}
+            zamba_ms, "moe_prefill_ms": moe_ms, "mla": mla}
+
+
+def sdpa_backend(torch, fn) -> str:
+    """The names of the device kernels one call of ``fn`` (a
+    ``scaled_dot_product_attention`` call) ran, which name the backend it
+    took."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted((e for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                  key=lambda e: -e.self_device_time_total)
+    return "; ".join(e.key[:60] for e in rows[:3])
+
+
+def sdpa_fastest(torch, label: str, calls: dict):
+    """The fastest of ``calls`` (name -> ``(backend, fn)``, each fn one
+    ``scaled_dot_product_attention`` call; backend an ``SDPBackend`` the
+    call is held to, or None for the dispatcher's own pick).  Logs each
+    call's events time and the kernels it ran, or why it was refused."""
+    from torch.nn.attention import sdpa_kernel
+
+    def held_to(backend, fn):
+        if backend is None:
+            return fn
+
+        def run():
+            with sdpa_kernel(backend):
+                return fn()
+        return run
+
+    best = None
+    for name, (backend, fn) in calls.items():
+        run = held_to(backend, fn)
+        try:
+            run()
+        except RuntimeError as e:
+            log(f"[3] scaled_dot_product_attention at the {label} ({name}) "
+                f"refused: {str(e).splitlines()[0][:200]}")
+            continue
+        ms = time_ms(torch, run)
+        log(f"[3] scaled_dot_product_attention at the {label} ({name}): "
+            f"{ms:.4f} ms, ran {sdpa_backend(torch, run)}")
+        if best is None or ms < best[0]:
+            best = (ms, name, run)
+    if best is None:
+        raise RuntimeError(f"no scaled_dot_product_attention call ran at "
+                           f"the {label}")
+    log(f"[3] library call of record at the {label}: {best[1]}")
+    return best[2]
+
+
+def check_flash_mla(torch, fa, randn, timed, check, planted, on_path,
+                    last_path) -> dict:
+    """Phase 3 for the ``"mla"`` path: deepseek-v3-671b's absorbed
+    attention at TP 8 (phase 16's shapes: q ``[32, S, 1, 16, 576]``, the
+    latent keys ``[32, S, 1, 576]``, v their first 512 columns as a view,
+    scale ``1 / sqrt(192)``) against the plain version at the prefill
+    shape and at every decode kv_len, with v its own tensor too; times,
+    bound and ``scaled_dot_product_attention`` (E = 576, Ev = 512) at the
+    prefill and the first and last decode kv_len: the faster of the
+    grouped call (one KV head, ``enable_gqa``) and the call on k and v
+    expanded to the 16 q heads (stride-0 views) held to the
+    memory-efficient backend."""
+    from torch.nn.attention import SDPBackend
+    from repro_torch.configs import get_config
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    efficient = SDPBackend.EFFICIENT_ATTENTION
+    m = get_config(MLA_ARCH).mla
+    dqk, dv = m.kv_lora_rank + m.rope_head_dim, m.kv_lora_rank
+    scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    n_fold, g = P * SERVE_BATCH, get_config(MLA_ARCH).n_heads // P
+    q = randn(n_fold, SERVE_PROMPT, 1, g, dqk)
+    k = randn(n_fold, SERVE_PROMPT, 1, dqk)
+    v = k[..., :dv]
+    qb = q.permute(0, 2, 3, 1, 4).reshape(n_fold, g, SERVE_PROMPT, dqk)
+    kb = k.transpose(1, 2).contiguous()
+    kx = kb.expand(-1, g, -1, -1)
+    lib = sdpa_fastest(torch, "MLA prefill shape", {
+        "one KV head, enable_gqa": (None, lambda: sdpa(
+            qb, kb, kb[..., :dv], is_causal=True, enable_gqa=True,
+            scale=scale)),
+        "k, v expanded to the q heads, memory-efficient": (
+            efficient, lambda: sdpa(qb, kx, kx[..., :dv], is_causal=True,
+                                    scale=scale))})
+    prefill = timed("mla prefill", q, k, v, lib, causal=True, scale=scale)
+    on_path("mla prefill", "mla")
+    err, share = check("mla prefill, v its own tensor", q, k,
+                       k[..., :dv].contiguous(), scale=scale)
+    on_path("mla prefill, v its own tensor", "mla")
+    log(f"[3] flash_attention mla prefill, v its own tensor: max_abs_err "
+        f"{err:.3e} ({share:.3f} of the limit)")
+    q1 = randn(n_fold, 1, 1, g, dqk)
+    kc = randn(n_fold, SERVE_SLOTS, 1, dqk)
+    vc = kc[..., :dv]
+    worst = (0.0, 0.0)
+    for kv_len in range(SERVE_PROMPT + 1, SERVE_PROMPT + SERVE_DECODE + 1):
+        label = f"mla decode kv_len {kv_len}"
+        worst = tuple(map(max, worst, check(
+            label, q1, kc, vc, q0=kv_len - 1, kv_len=kv_len, scale=scale)))
+        on_path(label, "mla")
+    err, share = check("mla decode, v its own tensor", q1, kc,
+                       vc.contiguous(), q0=SERVE_PROMPT,
+                       kv_len=SERVE_PROMPT + 1, scale=scale)
+    log(f"[3] flash_attention mla decode q{list(q1.shape)} k{list(kc.shape)} "
+        f"bf16, kv_len {SERVE_PROMPT + 1}...{SERVE_PROMPT + SERVE_DECODE} "
+        f"path {last_path[0]}: max_abs_err {worst[0]:.3e} ({worst[1]:.3f} "
+        f"of the limit); v its own tensor: {err:.3e} ({share:.3f})")
+    # the limit sees the dense scale (1 / sqrt(576)) and the last slot
+    planted("mla: the dense paths' scale", q, k, v, dict(causal=True),
+            causal=True, scale=scale)
+    planted("mla: last filled slot left out", q1, kc, vc,
+            dict(q0=SERVE_PROMPT, kv_len=SERVE_PROMPT, scale=scale),
+            q0=SERVE_PROMPT, kv_len=SERVE_PROMPT + 1, scale=scale)
+    decode = {}
+    for kv_len in (SERVE_PROMPT + 1, SERVE_PROMPT + SERVE_DECODE):
+        q1b = q1.reshape(n_fold, g, 1, dqk)
+        kcb = kc[:, :kv_len].transpose(1, 2)
+        kcx = kcb.expand(-1, g, -1, -1)
+        lib = sdpa_fastest(torch, f"MLA decode shape, kv_len {kv_len}", {
+            "one KV head, enable_gqa": (
+                None, lambda kcb=kcb: sdpa(q1b, kcb, kcb[..., :dv],
+                                           enable_gqa=True, scale=scale)),
+            "k, v expanded to the q heads, memory-efficient": (
+                efficient, lambda kcx=kcx: sdpa(q1b, kcx, kcx[..., :dv],
+                                                scale=scale))})
+        decode[kv_len] = timed(f"mla decode kv_len {kv_len}", q1, kc, vc,
+                               lib, q0=kv_len - 1, kv_len=kv_len,
+                               scale=scale)
+        on_path(f"mla decode kv_len {kv_len}", "mla")
+    return {"prefill": prefill, "decode": decode}
 
 
 def rwkv_work(n, s, h, hd, itemsize, with_s0):
@@ -939,6 +1105,31 @@ def check_scans(torch, rw, ssd, randn, dev) -> dict:
     return recs
 
 
+def step_profiles(torch, cfg, axis, params, prompts, tag: str,
+                  needles: tuple) -> dict:
+    """``profile_call`` over one prefill of ``prompts`` and one decode step
+    at position ``SERVE_PROMPT``; the decode step reads the caches that
+    prefill returned (their filled length with them), so its attention
+    spans the prompt."""
+    from repro_torch.dist.axes import bind
+    from repro_torch.launch import serve as sv
+    from repro_torch.models import lm
+    with bind(model=axis):
+        caches = lm.init_caches(cfg, SERVE_BATCH, SERVE_SLOTS)
+    pf, dc = sv.build_prefill(cfg, axis), sv.build_decode(cfg, axis)
+    filled = []
+
+    def prefill():
+        filled[:] = [pf(params, {"tokens": prompts}, caches)[1]]
+    tok = prompts[:, :1]
+    return {
+        "prefill": profile_call(torch, f"{cfg.name} one prefill", prefill,
+                                tag, needles),
+        "decode": profile_call(torch, f"{cfg.name} one decode step",
+                               lambda: dc(params, tok, filled[0],
+                                          SERVE_PROMPT), tag, needles)}
+
+
 def per_serve_launches(lm, cfg, n_tokens: int) -> dict:
     """The launches one serve must make of each model kernel: one per
     block of its kind and forward (the prefill and n_tokens - 1 decode
@@ -962,7 +1153,6 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     from repro_torch.configs import get_config
     from repro_torch.core import api, profiles, trace, tuner
     from repro_torch.core._axis import StackedAxis
-    from repro_torch.dist.axes import bind
     from repro_torch.launch import serve as sv
     from repro_torch.models import lm
     from repro_torch.models.params import init_tree
@@ -971,8 +1161,11 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
     axis = StackedAxis(P, dev)
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = init_tree(lm.model_specs(cfg, P), gen, axis)
+
+    def draw():
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return init_tree(lm.model_specs(cfg, P), gen, axis)
+    params = draw()
     torch.cuda.synchronize()
     leaves = []
 
@@ -1089,16 +1282,7 @@ def serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
         f"{time.perf_counter() - t_phase:.1f} s")
 
     # where a step's device time goes (after the serve path's counts)
-    with bind(model=axis):
-        caches = lm.init_caches(cfg, SERVE_BATCH, SERVE_SLOTS)
-    pf, dc = sv.build_prefill(cfg, axis), sv.build_decode(cfg, axis)
-    tok = prompts[:, :1]
-    shares = {
-        "prefill": profile_call(torch, f"{cfg.name} one prefill", lambda: pf(
-            params, {"tokens": prompts}, caches), tag, needles),
-        "decode": profile_call(torch, f"{cfg.name} one decode step",
-                               lambda: dc(params, tok, caches, SERVE_PROMPT),
-                               tag, needles)}
+    shares = step_profiles(torch, cfg, axis, params, prompts, tag, needles)
     return {"launches": launches, "shares": shares, "check": check,
             "peak_bytes": peak, "per_serve": per_serve,
             "paths": {name: {k: p3[name][k] - p0[name][k] for k in f}
@@ -1369,7 +1553,8 @@ def train_phase(torch, dev, wrappers: dict, tag: str = "12") -> dict:
     c_start = counts(wrappers)
     bm, ring = wrappers["block_matmul"], wrappers[
         "ring_allgather_matmul_rdma"]
-    paths0 = (dict(bm.launches_by_path), dict(ring.launches_by_path))
+    paths0 = (dict(bm.launches_by_path), dict(ring.launches_by_path),
+              dict(wrappers["flash_attention"].launches_by_path))
     copies0 = (ops._contig.copies, ops._contig.bytes)
 
     # -- (a) FSDP, p = 8 data ranks ----------------------------------------
@@ -1535,7 +1720,9 @@ def train_phase(torch, dev, wrappers: dict, tag: str = "12") -> dict:
     c_end = counts(wrappers)
     out["launches"] = {k: c_end[k] - c_start[k] for k in c_end}
     out["paths"] = {"block_matmul": path_delta(bm, paths0[0]),
-                    "ring_allgather_matmul_rdma": path_delta(ring, paths0[1])}
+                    "ring_allgather_matmul_rdma": path_delta(ring, paths0[1]),
+                    "flash_attention": path_delta(
+                        wrappers["flash_attention"], paths0[2])}
     out["contig_copies"] = {"n": ops._contig.copies - copies0[0],
                             "bytes": ops._contig.bytes - copies0[1]}
     log(f"[train path] kernel launches: {json.dumps(out['launches'])}")
@@ -1594,7 +1781,8 @@ def train_mesh_phase(torch, dev, wrappers: dict, tag: str = "13") -> dict:
     c_start = counts(wrappers)
     bm, ring = wrappers["block_matmul"], wrappers[
         "ring_allgather_matmul_rdma"]
-    paths0 = (dict(bm.launches_by_path), dict(ring.launches_by_path))
+    paths0 = (dict(bm.launches_by_path), dict(ring.launches_by_path),
+              dict(wrappers["flash_attention"].launches_by_path))
 
     # -- (a) the default step ------------------------------------------------
     rec: list = []
@@ -1749,7 +1937,9 @@ def train_mesh_phase(torch, dev, wrappers: dict, tag: str = "13") -> dict:
     c_end = counts(wrappers)
     out["launches"] = {k: c_end[k] - c_start[k] for k in c_end}
     out["paths"] = {"block_matmul": path_delta(bm, paths0[0]),
-                    "ring_allgather_matmul_rdma": path_delta(ring, paths0[1])}
+                    "ring_allgather_matmul_rdma": path_delta(ring, paths0[1]),
+                    "flash_attention": path_delta(
+                        wrappers["flash_attention"], paths0[2])}
     log(f"[mesh train path] kernel launches: {json.dumps(out['launches'])}")
     log(f"[mesh train path] launches by path: {json.dumps(out['paths'])}")
     log(f"[{tag}] mesh train phase in {time.perf_counter() - t_phase:.1f} s")
@@ -1784,11 +1974,11 @@ class _PlainFlash:
     ``flash_attention_plain`` under autograd (no kernel)."""
 
     @staticmethod
-    def apply(q, k, v, causal, window, softcap, q0, kv_len):
+    def apply(q, k, v, causal, window, softcap, q0, kv_len, scale):
         from repro_torch.kernels import flash_attention as fa
         return _pinned(fa.flash_attention_plain(
             q, k, v, causal=causal, window=window, softcap=softcap, q0=q0,
-            kv_len=kv_len))
+            kv_len=kv_len, scale=scale))
 
 
 class _PlainRWKV:
@@ -1869,11 +2059,12 @@ class kernel_outputs:
 
         class Flash:
             @staticmethod
-            def apply(q, k, v, causal, window, softcap, q0, kv_len):
+            def apply(q, k, v, causal, window, softcap, q0, kv_len, scale):
                 kw = dict(causal=causal, window=window, softcap=softcap,
-                          q0=q0, kv_len=kv_len)
+                          q0=q0, kv_len=kv_len, scale=scale)
                 return held("flash_attention", flash.apply(
-                    q, k, v, causal, window, softcap, q0, kv_len), (q, k, v),
+                    q, k, v, causal, window, softcap, q0, kv_len, scale),
+                    (q, k, v),
                     lambda *t: fa.flash_attention_plain(*t, **kw),
                     lambda ins, want: fa.tolerance(*ins, want, **kw))
 
@@ -1963,7 +2154,7 @@ def function_checks(torch, dev, fa, rw, ssd, tag: str) -> dict:
         q = rnd(n, TRAIN_SEQ, hk, gq, dh, dtype=torch.bfloat16)
         k, v = (rnd(n, TRAIN_SEQ, hk, dh, dtype=torch.bfloat16)
                 for _ in range(2))
-        args = (True, 0, 0.0, 0, None)
+        args = (True, 0, 0.0, 0, None, None)
         out[label] = held(
             label, lambda *t: fa.FlashAttention.apply(*t, *args),
             lambda *t: fa.flash_attention_plain(*t),
@@ -2032,6 +2223,8 @@ def train_kernels_phase(torch, dev, wrappers: dict, ref12: dict,
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts(wrappers)              # the path starts here
     c_start = counts(wrappers)
+    paths0 = {k: dict(wrappers[k].launches_by_path)
+              for k in ("flash_attention", "rwkv6_scan", "ssd_scan")}
     kernel_of = {"llama3.2-3b": {"flash_attention": "wgmma"},
                  "rwkv6-3b": {"rwkv6_scan": "chunked"},
                  "zamba2-1.2b": {"ssd_scan": "chunked",
@@ -2206,8 +2399,7 @@ def train_kernels_phase(torch, dev, wrappers: dict, ref12: dict,
 
     c_end = counts(wrappers)
     out["launches"] = {k: c_end[k] - c_start[k] for k in c_end}
-    out["paths"] = {k: dict(wrappers[k].launches_by_path)
-                    for k in ("flash_attention", "rwkv6_scan", "ssd_scan")}
+    out["paths"] = {k: path_delta(wrappers[k], v) for k, v in paths0.items()}
     log(f"[kernel train path] kernel launches: {json.dumps(out['launches'])}")
     log(f"[kernel train path] launches by path: {json.dumps(out['paths'])}")
     for k in ("flash_attention", "rwkv6_scan", "ssd_scan"):
@@ -2347,8 +2539,40 @@ class RouteProbe:
                  for k, v in c.items()} for c in self.calls]
 
 
+class PinnedRoutes:
+    """While active, every ``moe_block`` call routes its tokens to the
+    experts that a recorded serve chose (``RouteProbe.host()``: rank 0's,
+    which every lane of that serve shared), in that serve's order, so the
+    two serves keep and drop the same choices; the gate values are the
+    current router's probabilities at those experts, renormalised as
+    ``models.moe._route`` does."""
+
+    def __init__(self, torch, moe, calls: list):
+        self.torch, self.moe, self.calls = torch, moe, calls
+        self.real = moe._route
+        self.n = 0
+
+    def __enter__(self):
+        torch, real = self.torch, self.real
+
+        def route(p, cfg, xt):
+            probs, _, ids = real(p, cfg, xt)
+            want = self.calls[self.n]["ids"].to(ids.device).expand_as(ids)
+            self.n += 1
+            gates = torch.gather(probs, -1, want)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                        min=1e-9)
+            return probs, gates, want
+        self.moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.real
+
+
 def route_changes(torch, a: list, b: list, n_layers: int, batch: int,
-                  prompt: int, k: int, rtol: float) -> dict:
+                  prompt: int, k: int, rtol: float,
+                  parted: dict | None = None) -> dict:
     """Compare two serves' routes, call by call (``n_layers`` prefill calls
     over ``batch * prompt`` tokens, then ``n_layers`` per decode step, one
     token a request).  A route is the set of a (layer, token)'s k experts
@@ -2361,7 +2585,10 @@ def route_changes(torch, a: list, b: list, n_layers: int, batch: int,
     probability at most twice the perturbation.  A kept set that changed
     with no route change of its own must follow a changed route earlier
     in the same call (the capacity order).  Routes after a request's first
-    change see other inputs and are not held.  Returns ``{"changed":
+    change see other inputs and are not held, nor are those after the
+    step at which a request's greedy tokens parted (``parted``: request
+    -> the step whose token differs; the next step decodes another
+    token).  Returns ``{"changed":
     [...], "first": {request: (call, step)}, "held_steps": [...],
     "max_move": x, "differ": n}`` (``differ``: the routes whose experts
     differ over all calls, downstream ones included); raises on a
@@ -2379,7 +2606,9 @@ def route_changes(torch, a: list, b: list, n_layers: int, batch: int,
         moved = (ids_a != ids_b).any(-1)                            # [T]
         kept = (ca["keep"] != cb["keep"]).view(rows, k).any(-1)    # [T]
         differ += int(moved.sum())
-        live = torch.tensor([int(r) not in first for r in req])
+        live = torch.tensor([int(r) not in first
+                             and step <= (parted or {}).get(int(r), step)
+                             for r in req])
         move = float((ca["probs"] - cb["probs"]).abs().amax(-1)[live].max()
                      ) if bool(live.any()) else 0.0
         max_move = max(max_move, move)
@@ -2408,7 +2637,8 @@ def route_changes(torch, a: list, b: list, n_layers: int, batch: int,
         for r in set(req[new].tolist()):
             first[int(r)] = (ci, step)
     n_steps = 1 + (len(a) - n_layers) // n_layers
-    held_steps = [first[r][1] if r in first else n_steps
+    held_steps = [min(first[r][1] if r in first else n_steps,
+                      (parted or {}).get(r, n_steps) + 1)
                   for r in range(batch)]
     return {"changed": changed, "first": first, "held_steps": held_steps,
             "max_move": max_move, "differ": differ}
@@ -2461,9 +2691,18 @@ def hold_routes(torch, sv, cfg, tag: str, label: str, ref, ref_routes,
         apart = sum(not c["lanes_agree"] for c in calls)
         log(f"[{tag}] {name} serve: ranks routed apart in {apart} of "
             f"{len(calls)} calls")
+    # a request whose greedy tokens parted decodes another token after
+    # that step: its later routes are not comparable
+    n_steps = min(ref.tokens.shape[1], got.tokens.shape[1])
+    diff = (ref.tokens[:, :n_steps] != got.tokens[:, :n_steps]).cpu()
+    parted = {r: int(diff[r].nonzero()[0]) for r in range(diff.shape[0])
+              if bool(diff[r].any())}
+    if parted:
+        log(f"[{tag}] {label}: greedy tokens parted (request: step) "
+            f"{parted}; routes after that step are not held")
     rc = route_changes(torch, ref_routes, got_routes, cfg.n_layers,
                        SERVE_BATCH, SERVE_PROMPT, cfg.moe.top_k,
-                       ROUTE_MOVE_BOUND)
+                       ROUTE_MOVE_BOUND, parted)
     n_routes = cfg.n_layers * SERVE_BATCH * (SERVE_PROMPT + n_tokens - 1)
     by_step = {}
     for e in rc["changed"]:
@@ -2649,7 +2888,6 @@ def moe_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     from repro_torch.configs import get_config
     from repro_torch.core import api, profiles, trace, tuner
     from repro_torch.core._axis import StackedAxis
-    from repro_torch.dist.axes import bind
     from repro_torch.launch import serve as sv
     from repro_torch.models import lm, moe
     from repro_torch.models.params import init_tree, tree_leaves
@@ -2661,8 +2899,11 @@ def moe_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     axis = StackedAxis(P, dev)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = init_tree(lm.model_specs(cfg, P), gen, axis)
+
+    def draw():
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return init_tree(lm.model_specs(cfg, P), gen, axis)
+    params = draw()
     torch.cuda.synchronize()
     w_bytes = sum(t.numel() * t.element_size()
                   for t in tree_leaves(params))
@@ -2693,7 +2934,7 @@ def moe_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     fa = wrappers["flash_attention"]
 
     zero_counts(wrappers)               # the MoE serve path starts here
-    c0 = counts(wrappers)
+    c0, fa0 = counts(wrappers), dict(fa.launches_by_path)
 
     def one(label, **kw):
         before, p_before = counts(wrappers), dict(fa.launches_by_path)
@@ -2797,8 +3038,10 @@ def moe_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     peak = torch.cuda.max_memory_allocated(dev)
     c1 = counts(wrappers)
     launches = {k: c1[k] - c0[k] for k in c1}
+    fa_paths = path_delta(fa, fa0)
     log(f"[moe serve path {cfg.name}] kernel launches: "
-        f"{json.dumps(launches)}")
+        f"{json.dumps(launches)}; flash_attention by path "
+        f"{json.dumps(fa_paths)}")
 
     # (e) the router readings (after the path's counts)
     routes.update(router_readings(torch, sv, moe, cfg, axis, params,
@@ -2834,30 +3077,309 @@ def moe_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
         f"{peak / 1e9:.3f} GB")
 
     # where a step's device time goes (after the path's counts)
-    with bind(model=axis):
-        caches = lm.init_caches(cfg, SERVE_BATCH, SERVE_SLOTS)
-    pf, dc = sv.build_prefill(cfg, axis), sv.build_decode(cfg, axis)
-    tok = prompts[:, :1]
-    needles = ("fa_wgmma_kernel", "fa_split_kernel", "nvjet", "gemm",
-               "index", "scan")
-    shares = {
-        "prefill": profile_call(torch, f"{cfg.name} one prefill", lambda: pf(
-            params, {"tokens": prompts}, caches), tag, needles),
-        "decode": profile_call(torch, f"{cfg.name} one decode step",
-                               lambda: dc(params, tok, caches, SERVE_PROMPT),
-                               tag, needles)}
-    del params, caches, first, second, third, forced
+    shares = step_profiles(torch, cfg, axis, params, prompts, tag, (
+        "fa_wgmma_kernel", "fa_split_kernel", "nvjet", "gemm", "index",
+        "scan"))
+    del params, first, second, third, forced
     torch.cuda.empty_cache()
     block = moe_block_check(torch, dev, cfg, card, tag)
     log(f"[{tag}] MoE serve phase in {time.perf_counter() - t_phase:.1f} s "
         f"({card})")
-    return {"launches": launches, "per_serve": per_serve,
-            "peak_bytes": peak, "serve_peak_bytes": serve_peak,
+    return {"launches": launches, "flash_paths": fa_paths,
+            "per_serve": per_serve, "peak_bytes": peak,
+            "serve_peak_bytes": serve_peak,
             "weights_bytes": w_bytes, "capacity": cap,
             "drops_prefill": drops, "both_dropped_prefill": both,
             "alltoall_ms": {str(k): v for k, v in a2a_cells.items()},
             "picks": picks, "routes": routes,
             "shares": shares, "serves": serves, "moe_block": block}
+
+
+# ---------------------------------------------------------------------------
+# the MLA serve (phase 16)
+# ---------------------------------------------------------------------------
+
+# deepseek-v3-671b (src/repro/configs/deepseek_v3.py, the public DeepSeek-V3
+# config) at full width: d_model 7168, 128 heads, MLA (q_lora 1536, kv_lora
+# 512, rope 64, nope 128, v 128), 256 routed experts of d_ff 2048, top-8, 1
+# shared expert, vocab 129280, untied head; cut in depth only, to 2 of its
+# 61 layers.  One layer is 23.01 GB of bf16 (the experts 22.55 GB, attention
+# 0.37 GB, the shared expert 0.09 GB), the embedding and head 3.71 GB: 49.7
+# GB in all; three layers would leave no room to serve.  TP P stacked: 16
+# q heads and 32 experts a rank; absorbed attention ("flash"); the requests
+# of phase 10.
+MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 2
+# tune_trace replays a cell at the per-rank bytes it recorded, an alltoall
+# at P times them (the JAX package's convention, ROADMAP queue 3): the
+# prefill's dispatch alltoall, 587 MB a rank, takes a 37.6 GB operand
+# (2.35e9 bf16 rows a rank) and its 37.6 GB output.  Phase 16 frees the
+# 49.7 GB of weights and tries the whole trace; where it stops (the int32
+# counts of alltoall_as_alltoallv, the JAX package's too, cannot describe
+# 2.35e9 rows), the cells whose replayed operand passes this cap keep the
+# default (logged) and the rest are tuned.  Every other cell of the serve
+# is under 1 GB.
+MLA_REPLAY_CAP = 8e9
+
+
+def mla_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
+                    card: str, tag: str = "16") -> dict:
+    """Serve deepseek-v3-671b (``MLA_LAYERS`` layers, full width, TP ``P``)
+    on the card through the ``"mla"`` path: (a) the default serve,
+    recording, with rank 0's routes probed; ``tune_trace`` of its trace
+    (measured) with the weights freed, then drawn again from the seed
+    (cells over ``MLA_REPLAY_CAP`` held out only if the whole trace runs
+    the card out of memory), the per-phase profiles saved and reloaded;
+    (b) the tuned re-serve, probed: every
+    changed route a near-tie, the logits no changed route reached within
+    ``SERVE_RTOL``; (c) the default serve again: logits bit-equal to
+    (a)'s; (d) the naive serve (``attn_impl="ref"``) of the same weights,
+    probed, held to (a) as (b) is, then with every route pinned to (a)'s,
+    every request's logits within ``SERVE_RTOL`` (the JAX package's
+    absorbed-vs-naive check, ``tests/test_attn_variants.py:45-55``, at
+    full width).  Flash
+    must launch once per layer and forward on its ``"mla"`` path in each
+    absorbed serve.  (e) ``torch.profiler`` over one prefill and one
+    decode step.  Times, rates and memory sizes name ``card``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import profiles, trace, tuner
+    from repro_torch.core._axis import StackedAxis
+    from repro_torch.launch import serve as sv
+    from repro_torch.models import lm, moe
+    from repro_torch.models.params import init_tree, tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MLA_ARCH), attn_impl="flash",
+                              n_layers=MLA_LAYERS)
+    m, ml = cfg.moe, cfg.mla
+    axis = StackedAxis(P, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+
+    def draw():
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return init_tree(lm.model_specs(cfg, P), gen, axis)
+    params = draw()
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(params))
+    peaks = {"draw": torch.cuda.max_memory_allocated(dev)}
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} of 61 layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, MLA q_lora {ml.q_lora_rank} "
+        f"kv_lora {ml.kv_lora_rank} rope {ml.rope_head_dim} nope "
+        f"{ml.nope_head_dim} v {ml.v_head_dim}, {m.n_experts} experts of "
+        f"d_ff {m.d_ff_expert} top-{m.top_k} + {m.n_shared} shared, "
+        f"capacity factor {m.capacity_factor}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}, attn_impl {cfg.attn_impl}; TP {P} stacked "
+        f"({cfg.n_heads // P} q heads, {m.n_experts // P} experts a rank); "
+        f"weights {w_bytes / 1e9:.3f} GB drawn in "
+        f"{time.perf_counter() - t0:.1f} s, peak {peaks['draw'] / 1e9:.3f} "
+        f"GB ({card})")
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
+    n_tokens = 1 + SERVE_DECODE
+    per_serve = per_serve_launches(lm, cfg, n_tokens)
+    sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, 2)   # warm-up
+    fa = wrappers["flash_attention"]
+
+    zero_counts(wrappers)               # the MLA serve path starts here
+    c0 = counts(wrappers)
+
+    def one(label, c=cfg, **kw):
+        torch.cuda.reset_peak_memory_stats(dev)
+        before, p_before = counts(wrappers), dict(fa.launches_by_path)
+        res = sv.serve(c, axis, params, prompts, SERVE_SLOTS, n_tokens, **kw)
+        peaks[label] = torch.cuda.max_memory_allocated(dev)
+        after = counts(wrappers)
+        got = {k: after[k] - before[k] for k in after}
+        paths = path_delta(fa, p_before)
+        log(f"[{tag} {label}] kernel launches: {json.dumps(got)}; "
+            f"flash_attention by path {json.dumps(paths)}; peak "
+            f"{peaks[label] / 1e9:.3f} GB")
+        want = dict.fromkeys(got, 0)
+        want_paths = dict.fromkeys(paths, 0)
+        if c.attn_impl == "flash":
+            want.update(per_serve)
+            want_paths["mla"] = per_serve["flash_attention"]
+        for kname in per_serve:
+            if got[kname] != want[kname]:
+                raise RuntimeError(f"{c.name} {label}: {kname} launched "
+                                   f"{got[kname]} times, not {want[kname]}")
+        if paths != want_paths:
+            raise RuntimeError(f"{c.name} {label}: flash paths {paths}, "
+                               f"not {want_paths}")
+        return res
+
+    with RouteProbe(moe) as probe_a:
+        first = one("default serve")
+    rec = trace.Trace.from_context(first.ctx)
+    rec.save(out_dir / f"serve_trace_{cfg.name}.jsonl")
+    for ln in rec.summary().splitlines():
+        log(f"[{tag}] {ln}")
+    # the weights make way for the replays and are drawn again after
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    log(f"[{tag}] weights freed for tune_trace: "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated, "
+        f"{torch.cuda.mem_get_info(dev)[0] / 1e9:.3f} GB free ({card})")
+    biggest = max(rec.entries, key=lambda e: replay_bytes(e.cell))
+    log(f"[{tag}] largest replay: {biggest.phase} {biggest.op} "
+        f"{biggest.nbytes} B a rank, operand "
+        f"{replay_bytes(biggest.cell) / 1e9:.1f} GB")
+    t0 = time.perf_counter()
+    held, rep = [], None
+    try:
+        rep = tuner.tune_trace(rec, tuner.MeasuredBackend(P, dev,
+                                                          max_nrep=20))
+    except RuntimeError as e:  # an int32 count overflow, out of memory
+        why = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    peaks["tune_trace, every cell"] = torch.cuda.max_memory_allocated(dev)
+    if rep is None:
+        # the failed replay's tensors go with its frames
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[{tag}] tune_trace of every cell stopped after "
+            f"{time.perf_counter() - t0:.1f} s, peak "
+            f"{peaks['tune_trace, every cell'] / 1e9:.3f} GB ({card}): "
+            f"{why}")
+        fits = []
+        for e in rec.entries:
+            (fits if replay_bytes(e.cell) <= MLA_REPLAY_CAP
+             else held).append(e)
+        for e in held:
+            log(f"[{tag}] not tuned (operand "
+                f"{replay_bytes(e.cell) / 1e9:.1f} GB over "
+                f"{MLA_REPLAY_CAP / 1e9:.0f} GB): {e.phase} {e.op} "
+                f"{e.nbytes} B x{e.count}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        rep = tuner.tune_trace(trace.Trace(fits),
+                               tuner.MeasuredBackend(P, dev, max_nrep=20))
+        peaks["tune_trace, capped"] = torch.cuda.max_memory_allocated(dev)
+    log(f"[{tag}] tune_trace of {len(rec.entries) - len(held)} of "
+        f"{len(rec.entries)} cells in {time.perf_counter() - t0:.1f} s, "
+        f"peak {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB "
+        f"({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = draw()
+    torch.cuda.synchronize()
+    peaks["redraw"] = torch.cuda.max_memory_allocated(dev)
+    log(f"[{tag}] weights drawn again from seed {SEED} in "
+        f"{time.perf_counter() - t0:.1f} s, peak {peaks['redraw'] / 1e9:.3f} "
+        f"GB (the default serve's repeat, (c), shows them equal)")
+    a2a_cells = {}
+    for mm in rep.measurements:
+        if mm.op == "alltoall":
+            a2a_cells.setdefault(mm.nbytes, {})[mm.impl] = mm.latency * 1e3
+    for nb, lat in sorted(a2a_cells.items()):
+        log(f"[{tag}] alltoall cell {nb} B a rank (ms, replayed at {P} x "
+            f"its bytes; {card}): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in lat.items()))
+    for ln in rep.summary().splitlines():
+        log(f"[{tag}] {ln}")
+    prof_dir = out_dir / f"serve_profiles_{cfg.name}"
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    rep.save(prof_dir)
+    _, phases = profiles.resolve_stores(prof_dir)
+    log(f"[{tag}] per-phase profiles saved to {prof_dir} and reloaded: "
+        f"{ {ph: len(st) for ph, st in phases.items()} }")
+    with RouteProbe(moe) as probe_b:
+        second = one("tuned re-serve", phase_profiles=phases)
+    picks = sorted({(r.cell.op, r.phase, r.impl) for r in second.ctx.record})
+    log(f"[{tag}] tuned picks (op, phase, impl): {picks}")
+    ra = probe_a.host()
+    routes = {"tuned": hold_routes(torch, sv, cfg, tag, "tuned", first, ra,
+                                   second, probe_b.host())}
+
+    third = one("default serve again")
+    same = all(torch.equal(a, b) for a, b in zip(first.logits,
+                                                   third.logits))
+    log(f"[{tag}] default serve repeated: logits bit-equal {same}, tokens "
+        f"equal {torch.equal(first.tokens, third.tokens)}")
+    if not same or not torch.equal(first.tokens, third.tokens):
+        raise RuntimeError(f"{cfg.name}: the default serve does not repeat")
+    c1 = counts(wrappers)
+    launches = {k: c1[k] - c0[k] for k in c1}
+    mla_launches = per_serve["flash_attention"] * 3
+    if fa.launches_by_path["mla"] != mla_launches:
+        raise RuntimeError(f"{cfg.name}: {fa.launches_by_path['mla']} mla "
+                           f"launches on the path, not {mla_launches}")
+    log(f"[mla serve path {cfg.name}] kernel launches: "
+        f"{json.dumps(launches)}; flash_attention on mla "
+        f"{fa.launches_by_path['mla']}")
+
+    # (d) absorbed against naive, the same weights (after the path's
+    # counts): routed by its own router, whose near-ties flip (held as
+    # (b)), then with every route pinned to (a)'s, where only the
+    # attention's rounding tells the two apart: every request's logits
+    # within SERVE_RTOL
+    naive_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    with RouteProbe(moe) as probe_n:
+        naive = one("naive serve", c=naive_cfg)
+    routes["naive"] = hold_routes(torch, sv, cfg, tag, "naive", first, ra,
+                                  naive, probe_n.host())
+    if any(c["lanes_agree"] is not True for c in ra):
+        raise RuntimeError(f"{cfg.name}: the default serve's lanes routed "
+                           "apart; its routes cannot be pinned")
+    with PinnedRoutes(torch, moe, ra) as pin:
+        pinned = one("naive serve, routes pinned", c=naive_cfg)
+    if pin.n != len(ra):
+        raise RuntimeError(f"{cfg.name}: {pin.n} routed calls pinned, not "
+                           f"{len(ra)}")
+    pinned_rep = check_held(sv, torch, first, pinned,
+                            [n_tokens] * SERVE_BATCH, SERVE_RTOL)
+    for r, res in pinned_rep.items():
+        log(f"[{tag}] naive serve with the default serve's routes pinned, "
+            f"request {r}: logits within {res['max_rel_err']:.4e} "
+            f"(max-norm relative, tolerance {SERVE_RTOL}) over "
+            f"{res['steps']} steps, greedy tokens parted at "
+            f"{res['diverged_at']}")
+    routes["naive_pinned"] = {str(r): v for r, v in pinned_rep.items()}
+
+    serves = {}
+    for label, res in (("default", first), ("tuned", second),
+                       ("default again", third), ("naive", naive),
+                       ("naive pinned", pinned)):
+        toks = res.tokens.cpu()
+        if tuple(toks.shape) != (SERVE_BATCH, n_tokens) or not bool(
+                all(torch.isfinite(lg).all() for lg in res.logits)):
+            raise RuntimeError(f"{cfg.name} {label} serve: bad output")
+        log(f"[{tag}] {cfg.name} {label} serve ({card}): prefill "
+            f"{res.prefill_s * 1e3:.2f} ms "
+            f"({SERVE_BATCH * SERVE_PROMPT / res.prefill_s:.0f} tokens/s), "
+            f"decode {res.decode_s_per_token * 1e3:.3f} ms/token "
+            f"({SERVE_BATCH / res.decode_s_per_token:.1f} tokens/s over "
+            f"{SERVE_BATCH} requests), {SERVE_BATCH * n_tokens} tokens in "
+            f"{(res.prefill_s + res.decode_s) * 1e3:.1f} ms")
+        serves[label] = {"prefill_ms": res.prefill_s * 1e3,
+                         "decode_ms_per_token": res.decode_s_per_token * 1e3,
+                         "tokens": toks.tolist()}
+    log(f"[{tag}] default tokens, request 0: {first.tokens[0].tolist()}")
+    log(f"[{tag}] {cfg.name} weights {w_bytes / 1e9:.3f} GB; peak device "
+        f"memory by step ({card}): " + ", ".join(
+            f"{k} {v / 1e9:.3f} GB" for k, v in peaks.items()))
+
+    # (e) where a step's device time goes
+    shares = step_profiles(torch, cfg, axis, params, prompts, tag, (
+        "fa_mla_kernel", "nvjet", "gemm", "index", "elementwise"))
+    del params, first, second, third, naive, pinned
+    torch.cuda.empty_cache()
+    log(f"[{tag}] MLA serve phase in {time.perf_counter() - t_phase:.1f} s "
+        f"({card})")
+    return {"launches": launches, "mla_launches": mla_launches,
+            "per_serve": per_serve, "peaks": peaks,
+            "weights_bytes": w_bytes, "held_out": [
+                (e.phase, e.op, e.nbytes) for e in held],
+            "alltoall_ms": {str(k): v for k, v in a2a_cells.items()},
+            "picks": picks, "routes": routes, "shares": shares,
+            "serves": serves}
 
 
 def block(api, axis, torch, x, wv, wo, wgu, wd):
@@ -3342,7 +3864,10 @@ def main(argv=None) -> int:
     flash = check_flash(torch, fa, randn)
     log(f"[3] flash_attention checks in {time.perf_counter() - t0:.1f} s")
     kernels["flash_attention"] = flash["prefill"]
+    kernels["flash_attention_mla"] = dict(
+        flash["mla"]["prefill"], name="flash_attention_mla", main_path=True)
     report["flash_decode"] = flash["decode"]
+    report["flash_mla_decode"] = flash["mla"]["decode"]
     report["flash_zamba2_prefill_ms"] = flash["zamba2_prefill_ms"]
     report["flash_moe_prefill_ms"] = flash["moe_prefill_ms"]
     log(f"[3] flash_attention launches by path: "
@@ -3738,6 +4263,23 @@ def main(argv=None) -> int:
     report["moe_serve"] = moe_serve_phase(torch, dev, out_dir, every, card)
     for k, v in report["moe_serve"]["launches"].items():
         kernels[k]["moe_serve_launches"] = v
+    # the "mla" path's launches in each path's run (phases 12-15 read
+    # flash's counts by path around their runs)
+    mla_row = kernels["flash_attention_mla"]
+    for key, field in (("train", "train_launches"),
+                       ("mesh_train", "mesh_train_launches"),
+                       ("kernel_train", "kernel_train_launches")):
+        mla_row[field] = report[key]["paths"]["flash_attention"]["mla"]
+    mla_row["moe_serve_launches"] = report["moe_serve"]["flash_paths"]["mla"]
+
+    # -- 16. the MLA serve: deepseek-v3-671b, 2 of 61 layers ---------------
+    report["mla_serve"] = mla_serve_phase(torch, dev, out_dir, every, card)
+    for k, v in report["mla_serve"]["launches"].items():
+        kernels[k]["mla_serve_launches"] = v
+    kernels["flash_attention_mla"]["launches"] = report["mla_serve"][
+        "mla_launches"]
+    kernels["flash_attention_mla"]["mla_serve_launches"] = report[
+        "mla_serve"]["mla_launches"]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     (out_dir / "report.json").write_text(json.dumps(report, indent=1))
@@ -3745,14 +4287,16 @@ def main(argv=None) -> int:
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "main_path", "train_launches", "mesh_train_launches",
-             "kernel_train_launches", "moe_serve_launches")
-    print(json.dumps({"kernels": [{k: kernels[n][k] for k in order}
+             "kernel_train_launches", "moe_serve_launches",
+             "mla_serve_launches")
+    print(json.dumps({"kernels": [{k: kernels[n].get(k) for k in order}
                                   for n in ("guideline_pack", "block_matmul",
                                             "ring_allgather_matmul_rdma",
                                             "ring_allgather_matmul_blocks",
                                             "quant_pack", "dequant_unpack",
-                                            "flash_attention", "rwkv6_scan",
-                                            "ssd_scan")]}))
+                                            "flash_attention",
+                                            "flash_attention_mla",
+                                            "rwkv6_scan", "ssd_scan")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

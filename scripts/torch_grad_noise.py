@@ -48,10 +48,11 @@ def plain_fns(eps: float, gen: torch.Generator | None):
 
     class Flash:
         @staticmethod
-        def apply(q, k, v, causal, window, softcap, q0, kv_len):
+        def apply(q, k, v, causal, window, softcap, q0, kv_len, scale):
             return fa.flash_attention_plain(q, k, v, causal=causal,
                                             window=window, softcap=softcap,
-                                            q0=q0, kv_len=kv_len)
+                                            q0=q0, kv_len=kv_len,
+                                            scale=scale)
 
     class RWKV:
         @staticmethod

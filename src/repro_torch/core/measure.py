@@ -86,13 +86,15 @@ class Bench:
     """Replays tuning cells on a stacked axis of ``p`` ranks.
 
     Built operands are kept for the ``MAX_CASES`` most recent cells, so the
-    NREP estimator's repeated sampling reuses them."""
+    NREP estimator's repeated sampling reuses them; the impls of one cell
+    share one set of operands (they only read them)."""
 
     MAX_CASES = 8
 
     def __init__(self, p: int = 8, device=None):
         self.axis = StackedAxis(p, device)
         self._cases: collections.OrderedDict = collections.OrderedDict()
+        self._operands: collections.OrderedDict = collections.OrderedDict()
         self._bar = torch.ones((p, 1), device=self.axis.device)
 
     @property
@@ -111,18 +113,40 @@ class Bench:
             self._cases.move_to_end(key)
             return run
         fn = C.REGISTRY[cell.op][impl].fn
-        shapes = problem_shapes(cell)
-        dt = getattr(torch, cell.dtype or "float32")
         if cell.p2:
-            run = self._case2(cell, fn, shapes, dt)
+            run = self._case2(cell, fn)
         else:
-            run = self._case1(cell, fn, shapes, dt)
+            run = self._case1(cell, fn)
         self._cases[key] = run
         while len(self._cases) > self.MAX_CASES:
             self._cases.popitem(last=False)
         return run
 
-    def _case2(self, cell: OpCell, fn, shapes, dt):
+    def _inputs(self, cell: OpCell) -> dict:
+        """The cell's operands, built once for all its impls: ``x`` the
+        payload on every lane; ``w`` the second operand, on every lane for
+        ``matmul_accumulate`` and the 2-D op (the stationary x), else
+        one."""
+        got = self._operands.get(cell)
+        if got is not None:
+            self._operands.move_to_end(cell)
+            return got
+        shapes = problem_shapes(cell)
+        dt = getattr(torch, cell.dtype or "float32")
+        got = {"x": torch.ones((self.p,) + shapes["x"], dtype=dt,
+                               device=self.device)}
+        if "w" in shapes:
+            lanes = (cell.op in ("matmul_accumulate",
+                                 "matmul_reducescatter_2d"))
+            got["w"] = torch.ones(((self.p,) if lanes else ())
+                                  + shapes["w"], dtype=dt,
+                                  device=self.device)
+        self._operands[cell] = got
+        while len(self._operands) > self.MAX_CASES:
+            self._operands.popitem(last=False)
+        return got
+
+    def _case2(self, cell: OpCell, fn):
         """A two-axis cell on a ``(p, p2)`` mesh of the bench's lanes."""
         if cell.world() != self.p:
             raise ValueError(f"bench runs {self.p} lanes, not the "
@@ -130,10 +154,10 @@ class Bench:
         mesh = StackedMesh((cell.p, cell.p2), ("bench", "bench2"),
                            self.device)
         outer, inner = mesh["bench"], mesh["bench2"]
-        x = torch.ones((self.p,) + shapes["x"], dtype=dt, device=self.device)
+        ins = self._inputs(cell)
+        x = ins["x"]
         if cell.op == "matmul_reducescatter_2d":
-            stat = torch.ones((self.p,) + shapes["w"], dtype=dt,
-                              device=self.device)
+            stat = ins["w"]
             xpose = cell.mm_role == "2dT"
 
             def run():
@@ -144,21 +168,21 @@ class Bench:
             return fn(x, outer, inner_axis=inner)
         return run
 
-    def _case1(self, cell: OpCell, fn, shapes, dt):
+    def _case1(self, cell: OpCell, fn):
         if cell.p != self.p:
             raise ValueError(f"bench runs at p={self.p}, not {cell.p}")
         axis = self.axis
-        x = torch.ones((self.p,) + shapes["x"], dtype=dt, device=self.device)
+        ins = self._inputs(cell)
+        x = ins["x"]
         if cell.op == "matmul_accumulate":
             # the payload is the weight block; every rank holds its own
             # stationary x [mm_m, mm_k]
-            stat = torch.ones((self.p,) + shapes["w"], dtype=dt,
-                              device=self.device)
+            stat = ins["w"]
 
             def run():
                 return fn(x, axis, x=stat)
         elif cell.op in MATMUL_OPS:
-            w = torch.ones(shapes["w"], dtype=dt, device=self.device)
+            w = ins["w"]
 
             def run():
                 return fn(x, axis, w=w)

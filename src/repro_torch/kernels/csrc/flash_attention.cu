@@ -5,16 +5,19 @@
 // (_kernel), and computes the function of the model's flash path
 // (repro/models/attention.py:_flash_jnp) on the model's own layout:
 //
-//   q [N, Sq, HK, G, dh], k and v [N, Skv, HK, dh], out like q,
+//   q [N, Sq, HK, G, dh], k [N, Skv, HK, dh], v [N, Skv, HK, dv], out
+//   [N, Sq, HK, G, dv] (dv <= dh; dv < dh only for MLA),
 //
 // with strides for every dim but the last (which must be contiguous), so
 // the Pallas layout [B, H, S, dh] and a sliced cache are passed as views.
 // Query i has position q0 + i, key j position j; key j is seen by query i
 // when j < kv_len, (causal) j <= q0 + i and (window > 0) j > q0 + i -
-// window.  Scores are q.k / sqrt(dh), then softcap * tanh(s / softcap) when
-// softcap > 0.  The TPU kernel's function is q0 = 0, kv_len = Skv. Scores
-// and the accumulator are float32, p is rounded to the input type before the
-// PV product (as _flash_jnp does), masked scores are the finite NEG = -1e30
+// window.  Scores are q.k * scale (the caller's, 1 / sqrt(dh) unless it
+// says otherwise: MLA's absorbed path takes 1 / sqrt(nope + rope)), then
+// softcap * tanh(s / softcap) when softcap > 0.  The TPU kernel's function
+// is q0 = 0, kv_len = Skv.  Scores and the accumulator are float32, p is
+// rounded to the input type before the PV product (as _flash_jnp does),
+// masked scores are the finite NEG = -1e30
 // (a row whose first blocks are all masked sums exp(0) terms that the first
 // unmasked block's alpha = exp(NEG - m) wipes out; with -inf that would be
 // exp(-inf + inf) = NaN), and the output is acc / max(l, 1e-30).  KV blocks
@@ -29,7 +32,7 @@
 // TFLOP/s dense bf16).  Its decode (Sq = 1, G = 3) is ~6 flop per byte of
 // K/V: bound by the bytes of the cache it reads (3.35 TB/s).  The G query
 // heads of a KV head are folded into the rows of a tile (row = i*G + g),
-// so the group's K/V are read once.  Four kernels, one per call, chosen
+// so the group's K/V are read once.  Five kernels, one per call, chosen
 // before the launch by plan() (flash_attention_plan):
 //   * fa_wgmma_kernel, bf16 prefill (at least 64 folded rows, dh 64 or
 //     128, 16-byte strides): a CTA of 384 threads per 128 folded rows of
@@ -65,8 +68,25 @@
 //   * fa_bf16_kernel, other bf16 calls: 8 warps of 16 rows, K/V blocks of
 //     32 keys double-buffered by cp.async, mma.sync with ldmatrix
 //     operands (the same per-warp step as the split decode).
+//   * fa_mla_kernel, bf16 with dv != dh or dh > 256: DeepSeek's absorbed
+//     multi-head latent attention, q and k 576 wide (the 512-wide latent
+//     and the 64-wide rope part), v the latent's 512 columns, 16 q heads
+//     over one KV head at TP 8.  Its prefill (N = 32, Sq = Skv = 1024,
+//     G = 16, causal) is 585 GFLOP over 76 MB: bound by operations; its
+//     decode (Sq = 1, kv_len ~1056) reads 38.9 MB of latent cache for
+//     1.2 GFLOP: bound by bytes.  A 16 x 512 float32 accumulator is the
+//     whole register file of a warp, so the output's columns are split
+//     across the CTA's 8 warps (64 each) while S = Q K^T is split by
+//     rows and key slices, and P and each row's rescale factor pass
+//     through shared memory between the two.  Q stays in shared memory
+//     (576-wide rows); when v is a view of k (the model's absorbed path)
+//     V is read from the K stage, so K blocks are double-buffered and the
+//     latent is read once.  Prefill: 64 folded rows a CTA, 32-key blocks;
+//     decode: 16 rows, 64-key blocks split across CTAs, one per SM, merged
+//     by the last CTA of each (n, KV head) as in fa_split_kernel.
 //   * fa_f32_kernel, float32: full float32 FMA (no TF32), 4 warps of 4
-//     rows, a lane per key for S, a lane per output column for O.
+//     rows, a lane per key for S, a lane per output column for O (dh up to
+//     576).
 
 // Plain C interface, built with nvcc for sm_90a and loaded with ctypes.
 // The entry returns cudaGetLastError() after its launch.
@@ -91,7 +111,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  int n, sq, skv, hk, g, dh;
+  int n, sq, skv, hk, g, dh, dv;   // dv: v's and out's width (<= dh)
   long long q_sn, q_ss, q_sh, q_sg;
   long long k_sn, k_ss, k_sh;
   long long v_sn, v_ss, v_sh;
@@ -99,22 +119,31 @@ struct Params {
   int causal, window;
   float softcap, scale;
   int q0, kv_len, vec_ok;
+  int v_in_k;   // v is k's first dv columns (same base and strides)
 };
 
 // The KV blocks [lo, hi) of width bn that are unmasked for some row of
-// the tile whose query positions are [qmin, qmax].
-__device__ __forceinline__ void block_range(const Params& P, int bn,
-                                            int qmin, int qmax, int* lo,
-                                            int* hi) {
-  int h = (P.kv_len + bn - 1) / bn;
-  if (P.causal) h = qmax < 0 ? 0 : min(h, qmax / bn + 1);
+// the tile whose query positions are [qmin, qmax] (the host's plan counts
+// the MLA decode's blocks with it too).
+__host__ __device__ __forceinline__ void blocks_seen(int kv_len, int causal,
+                                                     int window, int bn,
+                                                     int qmin, int qmax,
+                                                     int* lo, int* hi) {
+  int h = (kv_len + bn - 1) / bn;
+  if (causal) h = qmax < 0 ? 0 : (h < qmax / bn + 1 ? h : qmax / bn + 1);
   int l = 0;
-  if (P.window > 0) {
-    const int first = qmin - P.window + 1;   // first key the tile can see
+  if (window > 0) {
+    const int first = qmin - window + 1;   // first key the tile can see
     if (first > 0) l = first / bn;
   }
   *lo = l;
   *hi = h;
+}
+
+__device__ __forceinline__ void block_range(const Params& P, int bn,
+                                            int qmin, int qmax, int* lo,
+                                            int* hi) {
+  blocks_seen(P.kv_len, P.causal, P.window, bn, qmin, qmax, lo, hi);
 }
 
 // Branchless (bitwise, not short-circuit), so that a masked score is a
@@ -903,6 +932,384 @@ __global__ void __launch_bounds__(WgShape<DH>::THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 MLA: keys up to 576 wide, values up to 512 wide
+// ---------------------------------------------------------------------------
+
+constexpr int MLA_DQ = 576;              // q and k width the kernel takes
+constexpr int MLA_DV = 512;              // v and out width
+constexpr int MLA_LDS = MLA_DQ + 8;      // smem pitch of Q, K and V rows
+constexpr int MLA_THREADS = 256;         // 8 warps
+constexpr int MLA_COLS = MLA_DV / 8;     // output columns of a warp: 64
+constexpr int MLA_MAX_SPLITS = 8;        // decode: CTAs per (n, KV head)
+
+// RG row groups of 16 folded rows, blocks of BN keys.  S = Q K^T: warp w
+// takes row group w % RG and the w / RG-th slice of KW keys of the block;
+// O += P V: warp w takes output columns [64 w, 64 w + 64) of every row.
+template <int RG, int BN>
+struct MlaShape {
+  static constexpr int BM = 16 * RG;             // folded rows of a CTA
+  static constexpr int KEYS = BN;                // keys of a block
+  static constexpr int NKS = 8 / RG;             // key slices of a block
+  static constexpr int KW = BN / NKS;            // keys of a slice
+  static constexpr int NT = KW / 8;              // its 8-key mma tiles
+  static constexpr int LDP = BN + 8;             // P's smem pitch
+  static constexpr int Q_ELEMS = BM * MLA_LDS;
+  static constexpr int KV_ELEMS = 2 * BN * MLA_LDS;  // 2 K stages, or K, V
+  static constexpr int SMEM =
+      (Q_ELEMS + KV_ELEMS + BM * LDP) * 2 + (NKS + 1) * BM * 4;
+  static constexpr int PART = BM * (MLA_DV + 2);  // a split's m, l and o
+  static_assert(NT >= 1 && KW % 8 == 0 && BN % 16 == 0, "MLA block shape");
+  static_assert(NKS * BM >= BM * MLA_MAX_SPLITS || RG > 1,
+                "the decode merge's weights fit in red");
+};
+
+// Prefill: 64 folded rows, 32-key blocks (155 KB of shared memory).
+// Decode (at most 16 folded rows): 16 rows, 64-key blocks (171 KB), the
+// blocks split across CTAs like fa_split_kernel's chunks.
+using MlaPrefill = MlaShape<4, 32>;
+using MlaDecode = MlaShape<1, 64>;
+
+// A CTA: BM folded rows of one (n, KV head) against blocks [lo + split *
+// cps, ...) of its visible blocks.  Q stays in shared memory; K blocks are
+// double-buffered by cp.async when v is a view of k (V is then read from
+// the K stage: v_in_k), else one K and one V stage.  Per block: S on
+// mma.sync by slices, the row maxima of the slices met in shared memory,
+// P (bf16) and each row's alpha through shared memory to the PV warps,
+// whose 16 x 64 accumulators per row group (128 registers at RG = 4) hold
+// the output.  The partial (m, l, o) of a split goes to scratch and the
+// last CTA of (n, h) merges them; with one split the CTA writes out.
+template <int RG, int BN>
+__global__ void __launch_bounds__(MLA_THREADS, 1)
+    fa_mla_kernel(Params P, float* part, int* tickets, int splits, int cps) {
+  using T = __nv_bfloat16;
+  using S = MlaShape<RG, BN>;
+  constexpr int BM = S::BM, LDS = MLA_LDS, LDP = S::LDP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* KVs = Qs + S::Q_ELEMS;
+  T* Ps = KVs + S::KV_ELEMS;
+  float* red = reinterpret_cast<float*>(Ps + BM * LDP);   // [NKS][BM]
+  float* row_s = red + S::NKS * BM;                      // alpha, then m
+  __shared__ int last;
+
+  const int split = blockIdx.x % splits, h = blockIdx.y, n = blockIdx.z;
+  const int rows = P.sq * P.g;
+  const int tiles = (rows + BM - 1) / BM;
+  const int row0 = (tiles - 1 - static_cast<int>(blockIdx.x) / splits) * BM;
+  const int row_end = min(row0 + BM, rows);
+  const int q_min = P.q0 + row0 / P.g, q_max = P.q0 + (row_end - 1) / P.g;
+  int kb_lo, kb_hi;
+  block_range(P, BN, q_min, q_max, &kb_lo, &kb_hi);
+  const int b_lo = kb_lo + split * cps;
+  const int b_hi = min(kb_hi, b_lo + cps);
+
+  const T* qb = static_cast<const T*>(P.q) + n * P.q_sn + h * P.q_sh;
+  const T* kb0 = static_cast<const T*>(P.k) + n * P.k_sn + h * P.k_sh;
+  const T* vb0 = static_cast<const T*>(P.v) + n * P.v_sn + h * P.v_sh;
+  const T* any = static_cast<const T*>(P.q);
+  const bool v_in_k = P.v_in_k != 0;
+  const int nbuf = v_in_k ? 2 : 1;
+  auto k_stage = [&](int buf) { return KVs + buf * BN * LDS; };
+  auto v_stage = [&](int buf) {
+    return v_in_k ? k_stage(buf) : KVs + BN * LDS;
+  };
+
+  stage_rows<MLA_DQ, LDS, BM, MLA_THREADS>(
+      Qs,
+      [&](int r) -> const T* {
+        const int R = row0 + r;
+        if (R >= rows) return nullptr;
+        return qb + (R / P.g) * P.q_ss + (R % P.g) * P.q_sg;
+      },
+      any, P.dh, P.vec_ok);
+  auto stage = [&](int buf, int kb) {
+    stage_rows<MLA_DQ, LDS, BN, MLA_THREADS>(
+        k_stage(buf),
+        [&](int r) -> const T* {
+          const int j = kb * BN + r;
+          return j < P.kv_len ? kb0 + j * P.k_ss : nullptr;
+        },
+        any, P.dh, P.vec_ok);
+    if (!v_in_k)
+      stage_rows<MLA_DV, LDS, BN, MLA_THREADS>(
+          v_stage(buf),
+          [&](int r) -> const T* {
+            const int j = kb * BN + r;
+            return j < P.kv_len ? vb0 + j * P.v_ss : nullptr;
+          },
+          any, P.dv, P.vec_ok);
+  };
+  if (b_lo < b_hi) stage(0, b_lo);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int rg = warp % RG, ks = warp / RG;
+  const int ra = rg * 16 + gid, rb = ra + 8;       // this thread's S rows
+  const int qpos_a = P.q0 + (row0 + ra) / P.g;
+  const int qpos_b = P.q0 + (row0 + rb) / P.g;
+  const int c0 = warp * MLA_COLS;                  // its output columns
+  const bool pv_live = c0 < P.dv;
+  const int nk32 = (P.dh + 31) / 32;               // 32-wide steps of dh
+  float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;
+  float o[RG][MLA_COLS / 8][4];
+#pragma unroll
+  for (int r = 0; r < RG; ++r)
+#pragma unroll
+    for (int t = 0; t < MLA_COLS / 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[r][t][e] = 0.f;
+
+  for (int kb = b_lo, it = 0; kb < b_hi; ++kb, ++it) {
+    const int buf = nbuf == 2 ? (it & 1) : 0;
+    if (nbuf == 2 && kb + 1 < b_hi) stage(buf ^ 1, kb + 1);
+    cp_async_commit();
+    if (nbuf == 2)
+      cp_async_wait<1>();        // block kb (and Q) have landed
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+
+    // S = Q K^T: rows ra, rb against the slice's keys, 32 dims a step (one
+    // ldmatrix.x4 of K gives a key tile's B operands of both 16-dim steps)
+    float s[S::NT][4];
+#pragma unroll
+    for (int t = 0; t < S::NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+    const T* Qw = Qs + rg * 16 * LDS + (lane & 15) * LDS + (lane >> 4) * 8;
+    const T* Kw = k_stage(buf) + (ks * S::KW + (lane & 7)) * LDS +
+                  (lane >> 3) * 8;
+#pragma unroll 2
+    for (int k32 = 0; k32 < nk32; ++k32) {
+      uint32_t a0[4], a1[4];
+      ldsm_x4(a0, Qw + k32 * 32);
+      ldsm_x4(a1, Qw + k32 * 32 + 16);
+#pragma unroll
+      for (int t = 0; t < S::NT; ++t) {
+        uint32_t kr[4];
+        ldsm_x4(kr, Kw + t * 8 * LDS + k32 * 32);
+        const uint32_t b0[2] = {kr[0], kr[1]}, b1[2] = {kr[2], kr[3]};
+        mma_bf16(s[t], a0, b0);
+        mma_bf16(s[t], a1, b1);
+      }
+    }
+    logits<S::NT * 4>(P, &s[0][0]);
+    const int k_first = kb * BN, k_last = k_first + BN - 1;
+    const bool whole = k_last < P.kv_len && (!P.causal || k_last <= q_min) &&
+                       (P.window <= 0 || k_first > q_max - P.window);
+    if (!whole) {
+#pragma unroll
+      for (int t = 0; t < S::NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k_first + ks * S::KW + t * 8 + tig * 2 + e;
+          s[t][e] = visible(P, col, qpos_a) ? s[t][e] : NEG;
+          s[t][2 + e] = visible(P, col, qpos_b) ? s[t][2 + e] : NEG;
+        }
+    }
+    // the block's row maxima: the slices meet in shared memory
+    float mx_a = NEG, mx_b = NEG;
+#pragma unroll
+    for (int t = 0; t < S::NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mx_a = fmaxf(mx_a, s[t][e]);
+        mx_b = fmaxf(mx_b, s[t][2 + e]);
+      }
+    mx_a = quad_max(mx_a);
+    mx_b = quad_max(mx_b);
+    if (tig == 0) {
+      red[ks * BM + ra] = mx_a;
+      red[ks * BM + rb] = mx_b;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < S::NKS; ++j) {
+      mx_a = fmaxf(mx_a, red[j * BM + ra]);
+      mx_b = fmaxf(mx_b, red[j * BM + rb]);
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+    T* Pw = Ps + ks * S::KW + tig * 2;
+#pragma unroll
+    for (int t = 0; t < S::NT; ++t) {
+      const float p0 = exp2f(s[t][0] - mn_a), p1 = exp2f(s[t][1] - mn_a);
+      const float p2 = exp2f(s[t][2] - mn_b), p3 = exp2f(s[t][3] - mn_b);
+      sum_a += p0 + p1;
+      sum_b += p2 + p3;
+      *reinterpret_cast<__nv_bfloat162*>(Pw + ra * LDP + t * 8) =
+          __floats2bfloat162_rn(p0, p1);
+      *reinterpret_cast<__nv_bfloat162*>(Pw + rb * LDP + t * 8) =
+          __floats2bfloat162_rn(p2, p3);
+    }
+    // l: a partial per slice (every slice scales by the same alpha), the
+    // slices summed at the end
+    l_a = l_a * al_a + sum_a;
+    l_b = l_b * al_b + sum_b;
+    if (ks == 0 && tig == 0) {
+      row_s[ra] = al_a;
+      row_s[rb] = al_b;
+    }
+    __syncthreads();
+
+    // O += P V for the warp's 64 columns of every row group
+    if (pv_live) {
+#pragma unroll
+      for (int r = 0; r < RG; ++r) {
+        const float a_lo = row_s[r * 16 + gid], a_hi = row_s[r * 16 + gid + 8];
+#pragma unroll
+        for (int t = 0; t < MLA_COLS / 8; ++t) {
+          o[r][t][0] *= a_lo;
+          o[r][t][1] *= a_lo;
+          o[r][t][2] *= a_hi;
+          o[r][t][3] *= a_hi;
+        }
+      }
+      const T* Vw = v_stage(buf) +
+                    ((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + c0 +
+                    (lane >> 4) * 8;
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        uint32_t a[RG][4];
+#pragma unroll
+        for (int r = 0; r < RG; ++r)
+          ldsm_x4(a[r], Ps + (r * 16 + (lane & 15)) * LDP + kk * 16 +
+                            (lane >> 4) * 8);
+#pragma unroll
+        for (int t = 0; t < MLA_COLS / 8; t += 2) {
+          uint32_t vr[4];
+          ldsm_x4_t(vr, Vw + kk * 16 * LDS + t * 8);
+          const uint32_t b0[2] = {vr[0], vr[1]}, b1[2] = {vr[2], vr[3]};
+#pragma unroll
+          for (int r = 0; r < RG; ++r) {
+            mma_bf16(o[r][t], a[r], b0);
+            mma_bf16(o[r][t + 1], a[r], b1);
+          }
+        }
+      }
+    }
+    __syncthreads();             // the stage, P and alpha are free
+    if (nbuf == 1 && kb + 1 < b_hi) stage(0, kb + 1);
+  }
+  cp_async_wait<0>();
+
+  // each row's l summed over the slices, and its m (the slices agree)
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  if (tig == 0) {
+    red[ks * BM + ra] = l_a;
+    red[ks * BM + rb] = l_b;
+    if (ks == 0) {
+      row_s[ra] = m_a;
+      row_s[rb] = m_b;
+    }
+  }
+  __syncthreads();
+  auto row_l = [&](int row) {
+    float L = 0.f;
+#pragma unroll
+    for (int j = 0; j < S::NKS; ++j) L += red[j * BM + row];
+    return L;
+  };
+  const long long group = (long long)n * P.hk + h;
+  T* ob = static_cast<T*>(P.o) + n * P.o_sn + h * P.o_sh;
+  if (splits == 1) {
+    if (!pv_live) return;
+#pragma unroll
+    for (int r = 0; r < RG; ++r)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r * 16 + gid + 8 * half, R = row0 + row;
+        if (R >= rows) continue;
+        const float inv = 1.f / fmaxf(row_l(row), 1e-30f);
+        T* orow = ob + (R / P.g) * P.o_ss + (R % P.g) * P.o_sg;
+#pragma unroll
+        for (int t = 0; t < MLA_COLS / 8; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int d = c0 + t * 8 + tig * 2 + e;
+            if (d < P.dv)
+              orow[d] = __float2bfloat16(o[r][t][2 * half + e] * inv);
+          }
+      }
+    return;
+  }
+
+  // a split's partial: m, l, then o unnormalized, [BM][MLA_DV]
+  float* pg = part + group * splits * S::PART;
+  float* ps = pg + (long long)split * S::PART;
+  if (threadIdx.x < BM) {
+    ps[threadIdx.x] = row_s[threadIdx.x];
+    ps[BM + threadIdx.x] = row_l(threadIdx.x);
+  }
+  if (pv_live) {
+#pragma unroll
+    for (int r = 0; r < RG; ++r)
+#pragma unroll
+      for (int t = 0; t < MLA_COLS / 8; ++t) {
+        const int d = c0 + t * 8 + tig * 2;
+        float* po = ps + 2 * BM + (r * 16 + gid) * MLA_DV + d;
+        *reinterpret_cast<float2*>(po) = make_float2(o[r][t][0], o[r][t][1]);
+        *reinterpret_cast<float2*>(po + 8 * MLA_DV) =
+            make_float2(o[r][t][2], o[r][t][3]);
+      }
+  }
+  __threadfence();               // the partial is visible before the ticket
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(tickets + group, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // the last CTA of (n, h): each row's weight of every split, exp2(m -
+  // M) / L, into shared memory (red is free), then the output four
+  // columns a thread, the splits' partials read as float4 (a thread per
+  // element, taking the row's maximum again for each, spent the launch
+  // on chains of dependent L2 reads)
+  float* wts = red;                       // [BM][MLA_MAX_SPLITS]
+  if (static_cast<int>(threadIdx.x) < rows) {
+    const int r = threadIdx.x;
+    float M = NEG;
+    for (int sp = 0; sp < splits; ++sp)
+      M = fmaxf(M, __ldcg(pg + (long long)sp * S::PART + r));
+    float L = 0.f;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float* q = pg + (long long)sp * S::PART;
+      const float f = exp2f(__ldcg(q + r) - M);
+      wts[r * MLA_MAX_SPLITS + sp] = f;
+      L += __ldcg(q + BM + r) * f;
+    }
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+    for (int sp = 0; sp < splits; ++sp) wts[r * MLA_MAX_SPLITS + sp] *= inv;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * (MLA_DV / 4); i += MLA_THREADS) {
+    const int r = i / (MLA_DV / 4), d = (i % (MLA_DV / 4)) * 4;
+    if (d >= P.dv) continue;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int sp = 0; sp < splits; ++sp) {
+      const float w = wts[r * MLA_MAX_SPLITS + sp];
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(
+          pg + (long long)sp * S::PART + 2 * BM + r * MLA_DV + d));
+      acc[0] += w * v.x;
+      acc[1] += w * v.y;
+      acc[2] += w * v.z;
+      acc[3] += w * v.w;
+    }
+    T* orow = ob + (r / P.g) * P.o_ss + (r % P.g) * P.o_sg;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (d + e < P.dv) orow[d + e] = __float2bfloat16(acc[e]);
+  }
+  if (threadIdx.x == 0) tickets[group] = 0;
+}
+
+// ---------------------------------------------------------------------------
 // float32: FMA
 // ---------------------------------------------------------------------------
 
@@ -955,9 +1362,9 @@ __global__ void __launch_bounds__(F_THREADS) fa_f32_kernel(Params P) {
     __syncthreads();             // the previous block is consumed
     for (int c = threadIdx.x; c < FBN * DHP; c += F_THREADS) {
       const int r = c / DHP, d = c % DHP, j = kb * FBN + r;
-      const bool in = j < P.kv_len && d < P.dh;
-      Ks[r * LDK + d] = in ? kb0[j * P.k_ss + d] : 0.f;
-      Vs[c] = in ? vb0[j * P.v_ss + d] : 0.f;
+      const bool in = j < P.kv_len;
+      Ks[r * LDK + d] = in && d < P.dh ? kb0[j * P.k_ss + d] : 0.f;
+      Vs[c] = in && d < P.dv ? vb0[j * P.v_ss + d] : 0.f;
     }
     __syncthreads();
     const int j = kb * FBN + lane;
@@ -1000,7 +1407,7 @@ __global__ void __launch_bounds__(F_THREADS) fa_f32_kernel(Params P) {
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int d = lane + 32 * c;
-      if (d < P.dh) orow[d] = o[rr][c] * inv;
+      if (d < P.dv) orow[d] = o[rr][c] * inv;
     }
   }
 }
@@ -1038,7 +1445,13 @@ void launch_f32(const Params& P, cudaStream_t s) {
 
 
 // How a call runs: the kernel, and for the split decode its chunks.
-enum Path { PATH_F32 = 0, PATH_MMA_SYNC = 1, PATH_WGMMA = 2, PATH_SPLIT = 3 };
+enum Path {
+  PATH_F32 = 0,
+  PATH_MMA_SYNC = 1,
+  PATH_WGMMA = 2,
+  PATH_SPLIT = 3,
+  PATH_MLA = 4
+};
 
 struct Plan {
   int path = PATH_MMA_SYNC;
@@ -1046,11 +1459,16 @@ struct Plan {
   int splits = 0, cps = 0;     // split decode: CTAs per (n, h), chunks each
   int key_lo = 0, key_hi = 0;  // split decode: the keys some query sees
   long long scratch = 0;       // split decode: floats of partials
+  bool mla_decode = false;     // MLA: MlaDecode (split), else MlaPrefill
 };
 
 inline int padded_dh(int dh) {
-  return dh <= 16 ? 16 : dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128
-                                                                    : 256;
+  return dh <= 16    ? 16
+         : dh <= 32  ? 32
+         : dh <= 64  ? 64
+         : dh <= 128 ? 128
+         : dh <= 256 ? 256
+                     : MLA_DQ;
 }
 
 inline int sm_count() {
@@ -1065,18 +1483,40 @@ inline int sm_count() {
   return sms;
 }
 
-// float32 -> fa_f32_kernel; bf16 with at most 16 folded rows (decode) ->
-// fa_split_kernel, with enough splits of the KV range for two CTAs per
-// SM; bf16 prefill at dh 64 or 128 whose strides TMA can use (vec_ok) and
-// with at least 64 folded rows -> fa_wgmma_kernel; other bf16 ->
-// fa_bf16_kernel (mma.sync).
-inline Plan plan(int dtype, int n, int sq, int hk, int g, int dh, int q0,
-                 int kv_len, int causal, int window, int vec_ok) {
+// float32 -> fa_f32_kernel; bf16 with v narrower than k or dh above 256
+// (MLA) -> fa_mla_kernel, its decode shape (at most 16 folded rows) with
+// the visible blocks split across CTAs for one CTA per SM; other bf16
+// with at most 16 folded rows (decode) -> fa_split_kernel, with enough
+// splits of the KV range for two CTAs per SM; bf16 prefill at dh 64 or
+// 128 whose strides TMA can use (vec_ok) and with at least 64 folded rows
+// -> fa_wgmma_kernel; other bf16 -> fa_bf16_kernel (mma.sync).
+inline Plan plan(int dtype, int n, int sq, int hk, int g, int dh, int dv,
+                 int q0, int kv_len, int causal, int window, int vec_ok) {
   Plan pl;
   pl.dhp = padded_dh(dh);
   const int rows = sq * g;
   if (dtype == 0) {
     pl.path = PATH_F32;
+  } else if (dv != dh || dh > 256) {
+    pl.path = PATH_MLA;
+    pl.splits = 1;
+    pl.cps = 1 << 30;
+    if (rows <= MlaDecode::BM) {
+      pl.mla_decode = true;
+      int lo, hi;
+      blocks_seen(kv_len, causal, window, MlaDecode::KEYS, q0, q0 + sq - 1,
+                  &lo, &hi);
+      const int blocks = hi > lo ? hi - lo : 0;
+      const int groups = n * hk;
+      int splits = min(sm_count() / groups, MLA_MAX_SPLITS);
+      splits = max(1, min(splits, blocks));
+      pl.cps = max(1, (blocks + splits - 1) / splits);
+      pl.splits = max(1, (blocks + pl.cps - 1) / pl.cps);
+      if (pl.splits > 1)
+        pl.scratch = (long long)groups * pl.splits * MlaDecode::PART;
+      else
+        pl.cps = 1 << 30;
+    }
   } else if (rows <= SPLIT_ROWS) {
     pl.path = PATH_SPLIT;
     const int qmax = q0 + sq - 1;
@@ -1098,6 +1538,24 @@ inline Plan plan(int dtype, int n, int sq, int hk, int g, int dh, int q0,
     pl.path = PATH_WGMMA;
   }
   return pl;
+}
+
+template <class Shape, int RG, int BN>
+int launch_mla(const Params& P, const Plan& pl, float* part, int* tickets,
+               cudaStream_t s) {
+  constexpr int bytes = Shape::SMEM;
+  static bool configured = false;
+  if (!configured) {
+    set_smem(fa_mla_kernel<RG, BN>, bytes);
+    configured = true;
+  }
+  const long long x = (long long)((P.sq * P.g + Shape::BM - 1) / Shape::BM) *
+                      pl.splits;
+  if (x > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(x), P.hk, P.n);
+  fa_mla_kernel<RG, BN><<<grid, MLA_THREADS, bytes, s>>>(P, part, tickets,
+                                                         pl.splits, pl.cps);
+  return 0;
 }
 
 template <int DHP>
@@ -1170,35 +1628,78 @@ int launch_wgmma(const Params& P, cudaStream_t s) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the head
-// dim of every operand is contiguous.  dh <= 256.  vec_ok: dh and every
-// q/k/v stride are multiples of 8 and the q/k/v pointers 16-byte aligned.
-// The split decode (flash_attention_plan says when) takes `scratch`,
+// dim of every operand is contiguous.  q and k are dh wide, v and out dv
+// wide (dv <= dh); dh <= 256, or in bfloat16 with dv != dh and in float32
+// dh <= 576 (bfloat16 dv <= 512).  scale multiplies q.k (the callers' 1 /
+// sqrt(dh) unless they say otherwise).  vec_ok: dh, dv and every q/k/v
+// stride are multiples of 8 and the q/k/v pointers 16-byte aligned.
+// v_in_k: v is a view of k's first dv columns (same pointer and strides).
+// The split decodes (flash_attention_plan says when) take `scratch`,
 // float32 of the size the plan gives, and `tickets`, an int32 per (n, KV
 // head) that is zero before the launch and zero again after it.
 extern "C" int flash_attention(
     int dtype, const void* q, const void* k, const void* v, void* o, int n,
-    int sq, int skv, int hk, int g, int dh, long long q_sn, long long q_ss,
-    long long q_sh, long long q_sg, long long k_sn, long long k_ss,
-    long long k_sh, long long v_sn, long long v_ss, long long v_sh,
-    long long o_sn, long long o_ss, long long o_sh, long long o_sg,
-    int causal, int window, float softcap, int q0, int kv_len, int vec_ok,
-    void* scratch, void* tickets, void* stream) {
-  const float scale = 1.0f / sqrtf(static_cast<float>(dh));
-  Params P{q,    k,    v,    o,    n,    sq,   skv,    hk,     g,
-           dh,   q_sn, q_ss, q_sh, q_sg, k_sn, k_ss,   k_sh,   v_sn,
-           v_ss, v_sh, o_sn, o_ss, o_sh, o_sg, causal, window, softcap,
-           scale, q0,  kv_len, vec_ok};
+    int sq, int skv, int hk, int g, int dh, int dv, long long q_sn,
+    long long q_ss, long long q_sh, long long q_sg, long long k_sn,
+    long long k_ss, long long k_sh, long long v_sn, long long v_ss,
+    long long v_sh, long long o_sn, long long o_ss, long long o_sh,
+    long long o_sg, int causal, int window, float softcap, float scale,
+    int q0, int kv_len, int vec_ok, int v_in_k, void* scratch,
+    void* tickets, void* stream) {
+  Params P;
+  P.q = q;
+  P.k = k;
+  P.v = v;
+  P.o = o;
+  P.n = n;
+  P.sq = sq;
+  P.skv = skv;
+  P.hk = hk;
+  P.g = g;
+  P.dh = dh;
+  P.dv = dv;
+  P.q_sn = q_sn;
+  P.q_ss = q_ss;
+  P.q_sh = q_sh;
+  P.q_sg = q_sg;
+  P.k_sn = k_sn;
+  P.k_ss = k_ss;
+  P.k_sh = k_sh;
+  P.v_sn = v_sn;
+  P.v_ss = v_ss;
+  P.v_sh = v_sh;
+  P.o_sn = o_sn;
+  P.o_ss = o_ss;
+  P.o_sh = o_sh;
+  P.o_sg = o_sg;
+  P.causal = causal;
+  P.window = window;
+  P.softcap = softcap;
+  P.scale = scale;
+  P.q0 = q0;
+  P.kv_len = kv_len;
+  P.vec_ok = vec_ok;
+  P.v_in_k = v_in_k;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dh > 256 || dh < 1 || dtype < 0 || dtype > 1)
+  if (dh < 1 || dv < 1 || dv > dh || dtype < 0 || dtype > 1 ||
+      dh > MLA_DQ || (dtype == 1 && (dv > MLA_DV || (dh > 256 && dv == dh))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Plan pl = plan(dtype, n, sq, hk, g, dh, q0, kv_len, causal, window,
-                       vec_ok);
+  const Plan pl = plan(dtype, n, sq, hk, g, dh, dv, q0, kv_len, causal,
+                       window, vec_ok);
   int rc = 0;
   if (pl.path == PATH_F32) {
     if (pl.dhp <= 32) launch_f32<32>(P, s);
     else if (pl.dhp == 64) launch_f32<64>(P, s);
     else if (pl.dhp == 128) launch_f32<128>(P, s);
-    else launch_f32<256>(P, s);
+    else if (pl.dhp == 256) launch_f32<256>(P, s);
+    else launch_f32<MLA_DQ>(P, s);
+  } else if (pl.path == PATH_MLA) {
+    float* part = static_cast<float*>(scratch);
+    int* tk = static_cast<int*>(tickets);
+    if (pl.splits > 1 && (part == nullptr || tk == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    rc = pl.mla_decode ? launch_mla<MlaDecode, 1, 64>(P, pl, part, tk, s)
+                       : launch_mla<MlaPrefill, 4, 32>(P, pl, part, tk, s);
   } else if (pl.path == PATH_SPLIT) {
     if (scratch == nullptr || tickets == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1223,13 +1724,14 @@ extern "C" int flash_attention(
 }
 
 // The path a call with these arguments takes (0 float32, 1 mma.sync, 2
-// wgmma, 3 split decode) and, in *scratch, the float32 scratch it needs.
+// wgmma, 3 split decode, 4 MLA) and, in *scratch, the float32 scratch it
+// needs.
 extern "C" int flash_attention_plan(int dtype, int n, int sq, int hk, int g,
-                                    int dh, int q0, int kv_len, int causal,
-                                    int window, int vec_ok,
+                                    int dh, int dv, int q0, int kv_len,
+                                    int causal, int window, int vec_ok,
                                     long long* scratch) {
-  const Plan pl = plan(dtype, n, sq, hk, g, dh, q0, kv_len, causal, window,
-                       vec_ok);
+  const Plan pl = plan(dtype, n, sq, hk, g, dh, dv, q0, kv_len, causal,
+                       window, vec_ok);
   *scratch = pl.scratch;
   return pl.path;
 }

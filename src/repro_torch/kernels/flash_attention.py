@@ -4,14 +4,17 @@
 ``repro/kernels/flash_attention.py:flash_attention``, written for the
 model's flash path (``models/attention.py``) and its layout:
 
-* ``q [N, Sq, HK, G, dh]``, ``k, v [N, Skv, HK, dh]``, out like ``q`` in
+* ``q [N, Sq, HK, G, dh]``, ``k [N, Skv, HK, dh]``, ``v [N, Skv, HK,
+  dv]`` with ``dv <= dh`` (``dv < dh`` for MLA's absorbed path, where v
+  may be a view of k's first dv columns), out ``[N, Sq, HK, G, dv]`` in
   q's dtype (the model folds its p stacked ranks into N = p·B, so one
   launch covers every rank of a layer, and groups the G query heads of a
   KV head, so no KV head is repeated);
 * query i has position ``q0 + i``; key j is seen when ``j < kv_len``,
   (``causal``) ``j <= q0 + i`` and (``window > 0``) ``j > q0 + i -
-  window``; scores are ``q·k / sqrt(dh)``, then ``softcap · tanh(s /
-  softcap)`` when ``softcap > 0``.
+  window``; scores are ``q·k · scale`` (``scale=None``: ``1 /
+  sqrt(dh)``), then ``softcap · tanh(s / softcap)`` when ``softcap >
+  0``.
 
 The TPU kernel's function is the case ``q0 = 0``, ``kv_len = Skv``;
 ``flash_attention_bhsd`` is that case in its layout ``[B, H, S, dh]``.
@@ -30,7 +33,12 @@ alignment, before the launch; every call is one launch.
   last CTA of each (n, KV head) merging them (``_tickets`` keeps the
   per-head counters, re-armed by the kernel);
 * ``"mma_sync"``: other bf16 calls, 32-key blocks on ``mma.sync``;
-* ``"f32"``: float32, full float32 FMA.
+* ``"mla"``: bf16 with ``dv != dh`` or ``dh > 256`` (MLA: dh up to 576, dv
+  up to 512): 8 warps a CTA splitting the output's columns, S and P
+  through shared memory, the value rows read from the key stage when v is
+  a view of k; at most 16 folded rows (decode) the visible blocks split
+  across CTAs with float32 partials in scratch, as ``split_kv`` does;
+* ``"f32"``: float32, full float32 FMA (dh up to 576).
 
 ``flash_attention_plain`` is a PyTorch copy of the JAX package's
 ``models/attention.py:_flash_jnp`` with the same arguments: an online
@@ -58,8 +66,10 @@ from repro_torch.kernels._recompute import grads_through
 NEG = -1e30
 CHUNK = 1024                       # _flash_jnp's KV chunk
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_DH = 256
-PATHS = ("f32", "mma_sync", "wgmma", "split_kv")   # flash_attention_plan
+MAX_DH = 256                  # the dense bf16 paths
+MLA_DH, MLA_DV = 576, 512     # the "mla" path's widest q/k and v
+PATHS = ("f32", "mma_sync", "wgmma", "split_kv",
+         "mla")                                    # flash_attention_plan
 _TICKETS: dict = {}          # device -> int32 counters, zero between calls
 
 
@@ -69,12 +79,12 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 14
-                       + [ctypes.c_int] * 2 + [ctypes.c_float]
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 14
+                       + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
         plan = lib.flash_attention_plan
         plan.restype = ctypes.c_int
-        plan.argtypes = [ctypes.c_int] * 11 + [
+        plan.argtypes = [ctypes.c_int] * 12 + [
             ctypes.POINTER(ctypes.c_longlong)]
     return lib
 
@@ -98,12 +108,14 @@ def _tickets(device: torch.device, count: int) -> torch.Tensor:
 
 def _check(q, k, v):
     if q.dim() != 5 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"flash_attention takes q [N, Sq, HK, G, dh] and "
-                         f"k, v [N, Skv, HK, dh], got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+        raise ValueError(f"flash_attention takes q [N, Sq, HK, G, dh], "
+                         f"k [N, Skv, HK, dh] and v [N, Skv, HK, dv], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     n, _, hk, _, dh = q.shape
-    if (tuple(k.shape) != tuple(v.shape) or k.shape[0] != n
-            or k.shape[2] != hk or k.shape[3] != dh):
+    if (tuple(k.shape[:3]) != tuple(v.shape[:3]) or k.shape[0] != n
+            or k.shape[2] != hk or k.shape[3] != dh
+            or not 1 <= v.shape[3] <= dh):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
     if not (q.dtype == k.dtype == v.dtype):
@@ -113,24 +125,26 @@ def _check(q, k, v):
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           softcap: float = 0.0, q0: int = 0,
-                          kv_len: int | None = None) -> torch.Tensor:
+                          kv_len: int | None = None,
+                          scale: float | None = None) -> torch.Tensor:
     """The plain PyTorch version (``_flash_jnp``'s schedule): online
     softmax over KV chunks of ``CHUNK`` keys (halved until it divides
     Skv)."""
     _check(q, k, v)
     n, sq, hk, g, dh = q.shape
+    dv = v.shape[-1]
     skv = k.shape[1]
     kv_len = skv if kv_len is None else kv_len
     c = min(CHUNK, skv)
     while c > 1 and skv % c:
         c //= 2
-    scale = 1.0 / math.sqrt(dh)
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
     qpos = q0 + torch.arange(sq, device=q.device)
     ct = torch.promote_types(q.dtype, torch.float32)
     qf = q.to(ct)
     m = torch.full((n, hk, g, sq), NEG, dtype=ct, device=q.device)
     l = torch.zeros((n, hk, g, sq), dtype=ct, device=q.device)
-    acc = torch.zeros((n, hk, g, sq, dh), dtype=ct, device=q.device)
+    acc = torch.zeros((n, hk, g, sq, dv), dtype=ct, device=q.device)
     for c0 in range(0, skv, c):
         kb, vb = k[:, c0:c0 + c], v[:, c0:c0 + c]
         kpos = torch.arange(c0, c0 + kb.shape[1], device=q.device)
@@ -156,10 +170,12 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, q0: int = 0,
-                    kv_len: int | None = None) -> torch.Tensor:
+                    kv_len: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
     """Attention on the model's layout (see the module docstring).  CPU
     tensors take the plain version; CUDA tensors launch the kernel (the
-    head dim must be contiguous; other dims may be strided views)."""
+    head dim must be contiguous; other dims may be strided views, and v
+    may be a view of k's first dv columns)."""
     _check(q, k, v)
     skv = k.shape[1]
     kv_len = skv if kv_len is None else int(kv_len)
@@ -169,7 +185,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap, q0=q0, kv_len=kv_len)
+                                     softcap=softcap, q0=q0, kv_len=kv_len,
+                                     scale=scale)
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
         raise ValueError(f"flash_attention: q on {q.device}, k on "
@@ -178,35 +195,46 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention takes float32/bfloat16, got "
                          f"{q.dtype}")
     n, sq, hk, g, dh = q.shape
-    if dh > MAX_DH:
-        raise ValueError(f"flash_attention: head dim {dh} > {MAX_DH}")
+    dv = v.shape[-1]
+    if q.dtype == torch.float32 or (dv == dh and dh <= MAX_DH):
+        if dh > MLA_DH:
+            raise ValueError(f"flash_attention: head dim {dh} > {MLA_DH}")
+    elif dh > MLA_DH or dv > MLA_DV or dv == dh:
+        raise ValueError(f"flash_attention: head dim {dh} (v {dv}) past "
+                         f"the dense paths' {MAX_DH} and the mla path's "
+                         f"{MLA_DH} (v {MLA_DV}, narrower than k)")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention needs a contiguous head dim")
     if hk > 65535 or n > 65535:
         raise ValueError(f"flash_attention: grid ({hk}, {n}) too large")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty(q.shape[:4] + (dv,), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     strides = (q.stride()[:4] + k.stride()[:3] + v.stride()[:3]
                + out.stride()[:4])
-    vec_ok = int(dh % 8 == 0 and all(s % 8 == 0 for s in strides[:10])
+    vec_ok = int(dh % 8 == 0 and dv % 8 == 0
+                 and all(s % 8 == 0 for s in strides[:10])
                  and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    v_in_k = int(v.data_ptr() == k.data_ptr()
+                 and v.stride()[:3] == k.stride()[:3])
     lib = _lib()
     need = ctypes.c_longlong(0)
     path = PATHS[lib.flash_attention_plan(
-        _DTYPE_CODE[q.dtype], n, sq, hk, g, dh, int(q0), kv_len,
+        _DTYPE_CODE[q.dtype], n, sq, hk, g, dh, dv, int(q0), kv_len,
         int(bool(causal)), int(window), vec_ok, ctypes.byref(need))]
     scratch = tickets = None
-    if path == "split_kv":
+    if need.value:
         scratch = torch.empty(need.value, dtype=torch.float32,
                               device=q.device)
         tickets = _tickets(q.device, n * hk)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), n, sq, skv, hk, g, dh, *strides, int(bool(causal)),
-        int(window), float(softcap or 0.0), int(q0), kv_len,
-        vec_ok, None if scratch is None else scratch.data_ptr(),
+        out.data_ptr(), n, sq, skv, hk, g, dh, dv, *strides,
+        int(bool(causal)), int(window), float(softcap or 0.0),
+        1.0 / math.sqrt(dh) if scale is None else float(scale), int(q0),
+        kv_len, vec_ok, v_in_k,
+        None if scratch is None else scratch.data_ptr(),
         None if tickets is None else tickets.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
@@ -221,16 +249,17 @@ flash_attention.launches_by_path = dict.fromkeys(PATHS, 0)
 
 class FlashAttention(torch.autograd.Function):
     """``flash_attention`` under autograd:
-    ``FlashAttention.apply(q, k, v, causal, window, softcap, q0,
-    kv_len)``.  The forward is ``flash_attention`` (the kernel on CUDA
-    tensors, the plain version on CPU ones) and saves q, k and v only; the
-    backward recomputes the attention through ``flash_attention_plain``
-    under autograd and returns its gradients for q, k and v."""
+    ``FlashAttention.apply(q, k, v, causal, window, softcap, q0, kv_len,
+    scale)`` (scale None: ``1 / sqrt(dh)``).  The forward is
+    ``flash_attention`` (the kernel on CUDA tensors, the plain version on
+    CPU ones) and saves q, k and v only; the backward recomputes the attention through ``flash_attention_plain``
+    under autograd and returns its gradients for q, k and v (v may be a
+    view of k: autograd sums the two into k's base)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, q0, kv_len):
+    def forward(ctx, q, k, v, causal, window, softcap, q0, kv_len, scale):
         ctx.kw = dict(causal=causal, window=window, softcap=softcap, q0=q0,
-                      kv_len=kv_len)
+                      kv_len=kv_len, scale=scale)
         ctx.save_for_backward(q, k, v)
         return flash_attention(q, k, v, **ctx.kw)
 
@@ -238,7 +267,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         grads = grads_through(flash_attention_plain, ctx.saved_tensors,
                               ctx.needs_input_grad[:3], g, **ctx.kw)
-        return (*grads, None, None, None, None, None)
+        return (*grads, *(None,) * 6)
 
 
 def tolerance(q, k, v, want: torch.Tensor, **kw) -> torch.Tensor:
@@ -246,6 +275,7 @@ def tolerance(q, k, v, want: torch.Tensor, **kw) -> torch.Tensor:
     being ``flash_attention_plain(q, k, v, **kw)``.
 
     float32: the JAX package's kernel test's 3e-5 (summation order).
+    With ``dv < dh`` (MLA) the same rules hold over the dv output columns.
     bfloat16: the two differ only where they round.  Each p is rounded to
     bfloat16 after running maxima that differ (the kernel's key blocks and
     splits, the plain version's chunks), so a p may land one bfloat16 step (at
@@ -285,14 +315,18 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        softcap: float = 0.0) -> torch.Tensor:
+                        softcap: float = 0.0,
+                        scale: float | None = None) -> torch.Tensor:
     """The oracle (``repro/kernels/ref.py:flash_attention_ref``): dense
-    float32 softmax attention, Pallas layout, GQA by repeating KV heads."""
+    float32 softmax attention, Pallas layout, GQA by repeating KV heads;
+    with MLA's arguments too (``scale``, None for ``1 / sqrt(dh)``, and v
+    narrower than k)."""
     b, hq, sq, dh = q.shape
     g = hq // k.shape[1]
     kk = torch.repeat_interleave(k, g, dim=1).float()
     vv = torch.repeat_interleave(v, g, dim=1).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) / math.sqrt(dh)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * (
+        1.0 / math.sqrt(dh) if scale is None else scale)
     if softcap:
         s = torch.tanh(s / softcap) * softcap
     qpos = torch.arange(sq, device=q.device)[:, None]

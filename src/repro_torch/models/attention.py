@@ -1,4 +1,5 @@
-"""Attention: dense GQA with sliding windows and softcap, and its caches.
+"""Attention: dense GQA with sliding windows and softcap, DeepSeek's
+multi-head latent attention (MLA), and their caches.
 
 Head sharding contract (TP degree ``t``), as in the JAX package:
 
@@ -18,8 +19,25 @@ kernel on CUDA tensors; there is no fallback), and where a gradient is
 needed through its autograd Function ``FlashAttention`` (the same
 kernel forward, a backward through the plain version, as the JAX package
 differentiates ``_flash_jnp``); ``"ref"`` goes through the dense
-``_sdpa``.  MLA, cross-attention and sequence-sharded decode come
-with later slices.
+``_sdpa``.
+
+MLA (``_attention_mla``, the JAX package's ``models/attention.py:463``):
+the query through a low-rank ``w_dq`` / ``w_uq`` pair, keys and values
+from one latent ``c_kv`` (``kv_lora_rank`` wide, shared by every head)
+plus one rope key (``rope_head_dim``) shared by every head.  Its cache is
+that latent and rope key, ``{"c_kv": [p, B, S_max, kvr], "k_rope": [p,
+B, S_max, dr], "len": int}``, replicated over the model axis; the port
+allocates the two as column views of one ``[p, B, S_max, kvr + dr]``
+buffer (``models.lm.init_caches``), so the absorbed path reads the
+latent keys in place.  ``attn_impl="flash"`` is the ABSORBED form:
+``w_uk`` folded into the query (``q_eff``, kvr wide) and ``w_uv`` into the
+output, so attention runs over the latent itself, one KV head with the
+rank's heads as its group, q and k ``kvr + dr`` = 576 wide and v the
+latent's 512 columns (a view of k), through ``kernels.flash_attention``'s
+``"mla"`` path with scale ``1 / sqrt(nope + rope)``.  ``"ref"`` is the
+NAIVE form: the latent up-projected per use by ``w_ukv`` and the dense
+``_sdpa``.  Cross-attention and sequence-sharded decode come with later
+slices.
 """
 from __future__ import annotations
 
@@ -44,11 +62,27 @@ NEG = -1e30
 
 
 def attn_specs(cfg: ModelConfig, tp: int) -> dict:
-    if cfg.mla is not None:
-        raise NotImplementedError("attention block kind 'mla' is not ported "
-                                  "yet (a later slice)")
     d, hd, dt = cfg.d_model, cfg.hd, cfg.dtype
     hq = cfg.heads_padded(tp)
+    if cfg.mla is not None:
+        m = cfg.mla
+        qk_hd = m.nope_head_dim + m.rope_head_dim
+        return {
+            "w_dq": ParamSpec((d, m.q_lora_rank), ("data", None), dtype=dt),
+            "q_norm": ParamSpec((m.q_lora_rank,), (None,), init="zeros",
+                                dtype="float32"),
+            "w_uq": ParamSpec((m.q_lora_rank, hq * qk_hd), ("data", "model"),
+                              dtype=dt),
+            "w_dkv": ParamSpec((d, m.kv_lora_rank + m.rope_head_dim),
+                               ("data", None), dtype=dt),
+            "kv_norm": ParamSpec((m.kv_lora_rank,), (None,), init="zeros",
+                                 dtype="float32"),
+            "w_ukv": ParamSpec(
+                (m.kv_lora_rank, hq * (m.nope_head_dim + m.v_head_dim)),
+                ("data", "model"), dtype=dt),
+            "w_o": ParamSpec((hq * m.v_head_dim, d), ("model", "data"),
+                             dtype=dt),
+        }
     kv_sharded = cfg.n_kv_heads % tp == 0
     kv_dim = ("model" if kv_sharded else None)
     n_kv = cfg.n_kv_heads
@@ -205,8 +239,8 @@ def attention(p: dict, cfg: ModelConfig, x, *, pos, kind: str = "causal",
     "len": int}``.
     """
     if cfg.mla is not None:
-        raise NotImplementedError("attention block kind 'mla' is not ported "
-                                  "yet (a later slice)")
+        return _attention_mla(p, cfg, x, pos=pos, kind=kind, cache=cache,
+                              mode=mode)
     tp = axis_size_or_1(AXES.model)
     hq = cfg.heads_padded(tp)
     hq_loc = hq // tp
@@ -278,7 +312,7 @@ def attention(p: dict, cfg: ModelConfig, x, *, pos, kind: str = "causal",
         softcap = cfg.attn_softcap or 0.0
         if needs_grad(qg, kf, vf):
             o = FlashAttention.apply(qg, kf, vf, causal, window, softcap,
-                                     pos0 - kv_start, None)
+                                     pos0 - kv_start, None, None)
         else:
             o = flash_attention(qg, kf, vf, causal=causal, window=window,
                                 softcap=softcap, q0=pos0 - kv_start)
@@ -304,3 +338,112 @@ def _cache_write(buf, kv, t: int):
     """Write a ``[p, B, s, ...]`` update at slot ``t`` of ``buf``, in
     place."""
     buf[:, :, t:t + kv.shape[2]] = kv.to(buf.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def latent_keys(c_kv: torch.Tensor, k_rope: torch.Tensor) -> torch.Tensor:
+    """The one ``[..., kvr + dr]`` buffer, ``concat(c_kv, k_rope)``, whose
+    adjacent column blocks an MLA cache's ``c_kv`` and ``k_rope`` are
+    (``models.lm.init_caches`` makes them so), as a view.  Raises for
+    two tensors that are not."""
+    kvr = c_kv.shape[-1]
+    if not (k_rope.dtype == c_kv.dtype
+            and k_rope.shape[:-1] == c_kv.shape[:-1]
+            and k_rope.stride() == c_kv.stride() and c_kv.stride(-1) == 1
+            and k_rope.data_ptr() == c_kv.data_ptr()
+            + kvr * c_kv.element_size()):
+        raise ValueError("an MLA cache's c_kv and k_rope must be adjacent "
+                         "column blocks of one buffer "
+                         "(models.lm.init_caches)")
+    return c_kv.as_strided((*c_kv.shape[:-1], kvr + k_rope.shape[-1]),
+                           c_kv.stride())
+
+
+def _attention_mla(p: dict, cfg: ModelConfig, x, *, pos, kind: str,
+                   cache: dict | None, mode: str) -> AttnOut:
+    """MLA with the JAX package's collectives: ``matmul_accumulate`` for
+    ``w_dq`` and (over ``tp_psum_grad``) ``w_dkv``, ``col_matmul(fsdp_dim=
+    0)`` for ``w_uq`` (and the naive path's ``w_ukv``), ``fsdp_gather`` of
+    ``w_ukv`` on the absorbed path, ``row_matmul(fsdp_dim=1)`` for
+    ``w_o``.  x ``[p, B, S, D]``, pos ``[1, S]``; cache ``{"c_kv",
+    "k_rope", "len"}`` written in place (prefill, decode)."""
+    m = cfg.mla
+    tp = axis_size_or_1(AXES.model)
+    hq_loc = cfg.heads_padded(tp) // tp
+    qk_hd = m.nope_head_dim + m.rope_head_dim
+    kvr, dn, dvh = m.kv_lora_rank, m.nope_head_dim, m.v_head_dim
+    scale = 1.0 / math.sqrt(qk_hd)
+    lead = x.shape[:-1]                                  # (p, B, S)
+
+    c_q = rms_norm(ops.matmul_accumulate(x, p["w_dq"]), p["q_norm"],
+                   cfg.norm_eps)
+    q = ops.col_matmul(c_q, p["w_uq"], fsdp_dim=0).reshape(*lead, hq_loc,
+                                                           qk_hd)
+    q_nope, q_rope = q[..., :dn], rope(q[..., dn:], pos, cfg.rope_theta)
+    ckv_kr = ops.matmul_accumulate(x, ops.tp_psum_grad(p["w_dkv"]))
+    c_kv = rms_norm(ckv_kr[..., :kvr], p["kv_norm"], cfg.norm_eps)
+    k_rope = rope(ckv_kr[..., None, kvr:], pos, cfg.rope_theta)
+    # the new rows' latent and rope key, [p, B, S, kvr + dr]: the keys of
+    # the absorbed path, and what the cache's one buffer stores
+    lat = torch.cat([c_kv, k_rope[..., 0, :].to(c_kv.dtype)], dim=-1)
+
+    s_new = x.shape[2]
+    pos0, kv_valid, new_cache = 0, None, None
+    kv_pos = pos
+    if mode in ("prefill", "decode"):
+        t = cache["len"] if mode == "decode" else 0
+        buf = latent_keys(cache["c_kv"], cache["k_rope"])
+        _cache_write(buf, lat, t)
+        new_cache = {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"],
+                     "len": t + s_new}
+        if mode == "decode":
+            lat = buf                        # every slot, read in place
+            c_kv, k_rope = buf[..., :kvr], buf[..., None, kvr:]
+            kv_pos = torch.arange(buf.shape[2], device=x.device)[None]
+            pos0, kv_valid = t, t + s_new
+    elif mode != "train":
+        raise ValueError(mode)
+
+    if cfg.attn_impl == "flash":
+        # ABSORBED: w_uk folded into the query and w_uv into the output, so
+        # the latent itself is the one KV head of every local q head
+        w_ukv = ops.fsdp_gather(p["w_ukv"], 0).reshape(
+            lead[0], kvr, hq_loc, dn + dvh)
+        w_uk, w_uv = w_ukv[..., :dn], w_ukv[..., dn:]
+        q_eff = torch.einsum("pbshd,pkhd->pbshk", q_nope, w_uk)
+        qf = torch.cat([q_eff, q_rope.to(q_eff.dtype)], dim=-1)
+        nb = lead[0] * lead[1]
+        qg = qf.reshape(nb, s_new, 1, hq_loc, kvr + m.rope_head_dim)
+        # the filled slots only (decode: of the cache's buffer)
+        kf = lat[:, :, :pos0 + s_new].flatten(0, 1)[:, :, None, :]
+        vf = kf[..., :kvr]                 # the latent: a view of the keys
+        causal, window = _flash_args(kind, cfg.window)
+        softcap = cfg.attn_softcap or 0.0
+        if needs_grad(qg, kf):
+            o_lat = FlashAttention.apply(qg, kf, vf, causal, window, softcap,
+                                         pos0, None, scale)
+        else:
+            o_lat = flash_attention(qg, kf, vf, causal=causal, window=window,
+                                    softcap=softcap, q0=pos0, scale=scale)
+        o_lat = o_lat.reshape(*lead, hq_loc, kvr)
+        o = torch.einsum("pbshk,pkhd->pbshd", o_lat, w_uv)
+        o = o.reshape(*lead, hq_loc * dvh)
+    else:
+        # NAIVE: the latent up-projected for the local heads per use
+        kv = ops.col_matmul(c_kv.to(x.dtype), p["w_ukv"], fsdp_dim=0)
+        kv = kv.reshape(*c_kv.shape[:-1], hq_loc, dn + dvh)
+        k_nope, v = kv[..., :dn], kv[..., dn:]
+        k = torch.cat([k_nope, k_rope.to(k_nope.dtype).expand(
+            *k_nope.shape[:-1], m.rope_head_dim)], dim=-1)
+        qf = torch.cat([q_nope, q_rope], dim=-1)
+        mask = make_mask(pos, kv_pos, kind=kind, window=cfg.window,
+                         kv_len_valid=kv_valid)
+        o = _sdpa(qf.flatten(0, 1), k.flatten(0, 1), v.flatten(0, 1), mask,
+                  softcap=cfg.attn_softcap, scale=scale)
+        o = o.reshape(*lead, hq_loc * dvh)
+    y = ops.row_matmul(o, p["w_o"], fsdp_dim=1)
+    return AttnOut(y=y, cache=new_cache)

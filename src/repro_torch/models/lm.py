@@ -3,11 +3,12 @@
 The port's counterpart of the JAX package's ``models/lm.py`` for the
 decoder-only LMs: dense (llama / gemma style: ``attn`` and ``attn_local``
 blocks with a gated MLP), MoE (phi3.5: the MLP is ``models.moe``'s
-expert-parallel block, whose load-balance loss the forward returns), SSM
-(rwkv6: ``rwkv`` blocks) and hybrid (zamba2: ``mamba`` blocks with one
-``shared_attn`` block, its weights shared, after every ``hybrid_period``
-of them).  The other families raise ``NotImplementedError`` naming the
-kind: ``mla``, ``encdec`` and ``vlm`` come with later slices.
+expert-parallel block, whose load-balance loss the forward returns; and
+deepseek-v3, whose attention is MLA), SSM (rwkv6: ``rwkv`` blocks) and
+hybrid (zamba2: ``mamba`` blocks with one ``shared_attn`` block, its
+weights shared, after every ``hybrid_period`` of them).  The other
+families raise ``NotImplementedError`` naming the kind: ``encdec`` and
+``vlm`` come with later slices.
 
 Every function runs inside ``dist.axes.bind(model=axis)`` (or, for
 training, ``bind(data=axis)``): tensors carry the rank dim first
@@ -32,7 +33,7 @@ from repro_torch.models.moe import moe_block, moe_specs
 from repro_torch.models.layers import (embed_lookup, embed_specs, head_specs,
                                        lm_logits, mlp, mlp_specs, rms_norm,
                                        sharded_xent)
-from repro_torch.models.params import ParamSpec, torch_dtype, tree_map_specs
+from repro_torch.models.params import ParamSpec, torch_dtype
 
 
 # ---------------------------------------------------------------------------
@@ -50,7 +51,7 @@ class Group:
 def _unsupported(cfg: ModelConfig) -> list[str]:
     kinds = [k for k in cfg.pattern()
              if k not in ("attn", "attn_local", "rwkv", "mamba")]
-    for name in ("mla", "encdec", "vlm"):
+    for name in ("encdec", "vlm"):
         if getattr(cfg, name) is not None:
             kinds.append(name)
     return sorted(set(kinds))
@@ -156,13 +157,23 @@ def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
 def cache_specs(cfg: ModelConfig, batch: int, s_max: int, tp: int) -> dict:
     """``ParamSpec`` tree of the KV and SSM caches (global shapes +
     shardings): a KV cache per attention block and per ``shared_attn``
-    occurrence, the token-shift / conv tails and the float32 state S per
-    SSM block."""
+    occurrence (MLA: the latent ``c_kv`` and the rope key ``k_rope``,
+    replicated over the model axis), the token-shift / conv tails and the
+    float32 state S per SSM block.  The JAX package's ``"len"`` leaf is a
+    host int that ``init_caches`` adds."""
     hd = cfg.hd
     kv_dim = "model" if cfg.n_kv_heads % tp == 0 else None
     n_kv = cfg.n_kv_heads
 
     def attn_cache():
+        if cfg.mla is not None:
+            m = cfg.mla
+            return {"self": {
+                "c_kv": ParamSpec((batch, s_max, m.kv_lora_rank),
+                                  ("data", None, None), dtype=cfg.dtype),
+                "k_rope": ParamSpec((batch, s_max, m.rope_head_dim),
+                                    ("data", None, None), dtype=cfg.dtype),
+            }}
         return {"self": {
             "k": ParamSpec((batch, s_max, n_kv, hd),
                            ("data", None, kv_dim, None), dtype=cfg.dtype),
@@ -208,7 +219,10 @@ def cache_specs(cfg: ModelConfig, batch: int, s_max: int, tp: int) -> dict:
 def init_caches(cfg: ModelConfig, batch_size: int, s_max: int):
     """Zero caches for the bound model axis: ``[p, B, S_max, KVloc, hd]``
     per attention block, each with ``"len": 0``, and ``[p, *local]`` SSM
-    states."""
+    states.  An MLA cache's ``c_kv`` and ``k_rope`` are the column blocks
+    of one ``[p, B, S_max, kvr + dr]`` buffer, so the absorbed path reads
+    its keys, ``concat(c_kv, k_rope)``, as a view
+    (``attention.latent_keys``)."""
     axis = get_axis(AXES.model)
     specs = cache_specs(cfg, batch_size, s_max, axis.size)
 
@@ -216,18 +230,22 @@ def init_caches(cfg: ModelConfig, batch_size: int, s_max: int):
         return torch.zeros((axis.size,) + s.local_shape({"model": axis.size}),
                            dtype=torch_dtype(s.dtype), device=axis.device)
 
-    tree = tree_map_specs(mk, specs)
+    def node(sp):
+        if isinstance(sp, ParamSpec):
+            return mk(sp)
+        if isinstance(sp, list):
+            return [node(n) for n in sp]
+        if "c_kv" in sp:
+            c, r = sp["c_kv"], sp["k_rope"]
+            buf = mk(dataclasses.replace(
+                c, shape=c.shape[:-1] + (c.shape[-1] + r.shape[-1],)))
+            kvr = c.shape[-1]
+            return {"c_kv": buf[..., :kvr], "k_rope": buf[..., kvr:],
+                    "len": 0}
+        out = {k: node(v) for k, v in sp.items()}
+        return {**out, "len": 0} if "k" in sp else out
 
-    def add_len(node):
-        if isinstance(node, torch.Tensor):
-            return node
-        if isinstance(node, list):
-            return [add_len(n) for n in node]
-        if "k" in node:
-            return {**node, "len": 0}
-        return {k: add_len(v) for k, v in node.items()}
-
-    return add_len(tree)
+    return node(specs)
 
 
 # ---------------------------------------------------------------------------

@@ -167,6 +167,13 @@ def unshard(t: torch.Tensor, spec: ParamSpec, axis,
     return cur
 
 
+# ``normal`` leaves above SLAB_ABOVE_BYTES of float32 are drawn in slabs of
+# about SLAB_BYTES (a different stream of numbers than one whole draw; the
+# smaller leaves keep the whole draw)
+SLAB_ABOVE_BYTES = 4_000_000_000
+SLAB_BYTES = 1_000_000_000
+
+
 def _init_leaf(spec: ParamSpec, generator: torch.Generator,
                axis, name: str) -> torch.Tensor:
     dt = torch_dtype(spec.dtype)
@@ -180,8 +187,21 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
         raise ValueError(f"unknown init {spec.init!r}")
     fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
     std = spec.scale if spec.scale is not None else fan_in ** -0.5
-    full = torch.randn(spec.shape, generator=generator, device=axis.device,
-                       dtype=torch.float32).mul_(std).to(dt)
+    if 4 * math.prod(spec.shape) <= SLAB_ABOVE_BYTES:
+        full = torch.randn(spec.shape, generator=generator,
+                           device=axis.device,
+                           dtype=torch.float32).mul_(std).to(dt)
+        return shard(full, spec, axis, name)
+    # a float32 draw of the whole leaf would need 4 bytes an element beside
+    # it (15 GB for one of deepseek-v3's expert leaves): draw it in slabs of
+    # about SLAB_BYTES along dim 0
+    full = torch.empty(spec.shape, dtype=dt, device=axis.device)
+    rows = max(1, SLAB_BYTES // (4 * math.prod(spec.shape[1:])))
+    for i in range(0, spec.shape[0], rows):
+        n = min(rows, spec.shape[0] - i)
+        full[i:i + n] = torch.randn(
+            (n,) + spec.shape[1:], generator=generator, device=axis.device,
+            dtype=torch.float32).mul_(std).to(dt)
     return shard(full, spec, axis, name)
 
 
@@ -190,7 +210,8 @@ def init_tree(tree: Tree, generator: torch.Generator, axis,
     """Random stacked parameters for a spec tree, drawn from
     ``generator`` on the axis device with the JAX package's init kinds
     (``normal`` with ``scale`` or ``fan_in ** -0.5``, ``zeros``,
-    ``ones``).  Each leaf is drawn at its global shape and cut into the
+    ``ones``).  Each leaf is drawn at its global shape (one above 4 GB
+    of float32 slab by slab along dim 0) and cut into the
     ranks' shards along the dims assigned to ``name`` (to each name of a
     ``StackedMesh``), so a replicated leaf is the same on every rank and
     the model does not depend on the layout.

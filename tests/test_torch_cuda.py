@@ -701,6 +701,165 @@ def test_flash_paths_by_dtype_shape_and_alignment(cuda, case, dtype, strided,
     assert _within_limit(FA, got, q, k, v, **kw)
 
 
+# MLA's absorbed attention: q and k kvr + rope wide, v the latent's kvr
+# columns (a view of k in the model), one KV head, the rank's q heads as
+# the group, scale 1 / sqrt(nope + rope)
+MLA_SCALE = 1.0 / 192 ** 0.5
+MLA_CASES = [
+    # (N, Sq, Skv, G, dqk, dv, causal, window, softcap, q0, kv_len)
+    (32, 1024, 1024, 16, 576, 512, True, 0, 0.0, 0, None),  # serve prefill
+    (32, 1, 2048, 16, 576, 512, True, 0, 0.0, 1024, 1025),  # serve decode
+    (32, 1, 2048, 16, 576, 512, True, 0, 0.0, 1055, 1056),
+    (4, 1, 2048, 16, 576, 512, True, 0, 0.0, 776, 777),     # ragged decode
+    (2, 1, 64, 16, 576, 512, True, 0, 0.0, 0, 1),           # one key
+    (2, 100, 100, 16, 576, 512, True, 0, 0.0, 0, None),     # ragged prefill
+    (2, 3, 300, 16, 576, 512, True, 0, 0.0, 200, 203),      # 3-token step
+    (2, 70, 70, 4, 576, 512, True, 40, 20.0, 0, None),      # window, cap
+    (3, 33, 33, 4, 24, 16, True, 0, 0.0, 0, None),          # smoke widths
+    (3, 1, 40, 4, 24, 16, True, 0, 0.0, 30, 31),            # smoke decode
+]
+
+
+def _mla_inputs(cuda, case, view, dtype=torch.bfloat16):
+    n, sq, skv, g, dqk, dv = case[:6]
+    gen = torch.Generator(device="cpu").manual_seed(sum(case[:6]))
+    q = torch.randn(n, sq, 1, g, dqk, generator=gen).to(dtype).to(cuda)
+    k = torch.randn(n, skv, 1, dqk, generator=gen).to(dtype).to(cuda)
+    v = k[..., :dv] if view else torch.randn(
+        n, skv, 1, dv, generator=gen).to(dtype).to(cuda)
+    return q, k, v
+
+
+@needs_cuda
+@pytest.mark.parametrize("view", [True, False])
+@pytest.mark.parametrize("case", MLA_CASES)
+def test_flash_mla_path_matches_plain(cuda, case, view):
+    """The "mla" path at the serve shapes of deepseek-v3 at TP 8 and at
+    ragged ones, with v a view of k (the model's) and its own tensor."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _mla_inputs(cuda, case, view)
+    kw = dict(zip(("causal", "window", "softcap", "q0", "kv_len"),
+                  case[6:]), scale=MLA_SCALE)
+    before = _paths(FA.flash_attention)
+    got = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _took(FA.flash_attention, before) == {"mla": 1}
+    assert tuple(got.shape) == tuple(q.shape[:4]) + (case[5],)
+    assert bool(torch.isfinite(got.float()).all())
+    assert _within_limit(FA, got, q, k, v, **kw)
+
+
+@needs_cuda
+def test_flash_mla_limit_rejects_planted_faults(cuda):
+    """The limit holding the "mla" path sees the scale of the dense paths
+    (1 / sqrt(576)), the last filled slot left out, and the causal edge
+    one key late."""
+    from repro_torch.kernels import flash_attention as FA
+    for case, bad in (
+            (MLA_CASES[0], dict(scale=None)),
+            (MLA_CASES[1], dict(q0=1023, kv_len=1024, scale=MLA_SCALE)),
+            (MLA_CASES[5], dict(q0=1, scale=MLA_SCALE))):
+        q, k, v = _mla_inputs(cuda, case, True)
+        kw = dict(zip(("causal", "window", "softcap", "q0", "kv_len"),
+                      case[6:]), scale=MLA_SCALE)
+        assert not _within_limit(FA, FA.flash_attention(q, k, v, **bad), q,
+                                 k, v, **kw)
+
+
+@needs_cuda
+def test_flash_mla_decode_reads_no_slot_beyond_kv_len(cuda):
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _mla_inputs(cuda, MLA_CASES[2], True)
+    kw = dict(q0=1055, kv_len=1056, scale=MLA_SCALE)
+    want = FA.flash_attention(q, k, v, **kw)
+    k[:, 1056:] = float("nan")
+    got = FA.flash_attention(q, k, v, **kw)
+    again = FA.flash_attention(q, k, v, **kw)    # the tickets re-armed
+    assert torch.equal(got, want) and torch.equal(again, want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("case", [MLA_CASES[5], MLA_CASES[8]])
+def test_flash_mla_widths_in_float32_take_the_f32_path(cuda, case):
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _mla_inputs(cuda, case, True, torch.float32)
+    kw = dict(zip(("causal", "window", "softcap", "q0", "kv_len"),
+                  case[6:]), scale=MLA_SCALE)
+    before = _paths(FA.flash_attention)
+    got = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _took(FA.flash_attention, before) == {"f32": 1}
+    assert _within_limit(FA, got, q, k, v, **kw)
+
+
+@needs_cuda
+@pytest.mark.parametrize("case,dtype,path", [
+    ((2, 256, 256, 1, 3, 128, True, 0, 0.0, 0, None), torch.bfloat16,
+     "wgmma"),
+    ((8, 1, 256, 1, 3, 128, True, 0, 0.0, 200, 201), torch.bfloat16,
+     "split_kv"),
+    ((2, 33, 33, 1, 3, 40, True, 0, 0.0, 0, None), torch.bfloat16,
+     "mma_sync"),
+    ((2, 64, 64, 1, 2, 128, True, 0, 0.0, 0, None), torch.float32, "f32")])
+def test_flash_dense_paths_take_scale_none_unchanged(cuda, case, dtype,
+                                                      path):
+    """scale=None is 1 / sqrt(dh) on every dense path (bit for bit), and an
+    explicit scale is the one applied."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _flash_inputs(cuda, case, dtype)
+    kw = dict(zip(("causal", "window", "softcap", "q0", "kv_len"),
+                  case[6:]))
+    before = _paths(FA.flash_attention)
+    dflt = FA.flash_attention(q, k, v, **kw)
+    same = FA.flash_attention(q, k, v, scale=case[5] ** -0.5, **kw)
+    other = FA.flash_attention(q, k, v, scale=0.3, **kw)
+    torch.cuda.synchronize()
+    assert _took(FA.flash_attention, before) == {path: 3}
+    assert torch.equal(dflt, same)
+    assert _within_limit(FA, other, q, k, v, scale=0.3, **kw)
+    assert not torch.equal(other, dflt)
+
+
+@needs_cuda
+def test_flash_mla_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _mla_inputs(cuda, MLA_CASES[8], True)
+    with pytest.raises(ValueError, match="do not match"):
+        FA.flash_attention(q, k[..., :16], k)          # v wider than k
+    wide = torch.zeros(1, 2, 1, 1, 584, dtype=torch.bfloat16, device=cuda)
+    kw_ = torch.zeros(1, 2, 1, 584, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention(wide, kw_, kw_[..., :512])
+    kw_ = torch.zeros(1, 2, 1, 576, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention(wide[..., :576], kw_, kw_)  # 576 both: no path
+
+
+@needs_cuda
+@pytest.mark.parametrize("view", [True, False])
+def test_flash_function_at_mla_widths_launches_mla_and_grads_match(
+        cuda, view):
+    from repro_torch.kernels import flash_attention as FA
+    case = (2, 40, 40, 4, 576, 512, True, 0, 0.0, 0, None)
+    q, k, v = _mla_inputs(cuda, case, False)
+    q, k = q.requires_grad_(True), k.requires_grad_(True)
+    v = k[..., :512] if view else v.requires_grad_(True)
+    before = _paths(FA.flash_attention)
+    y = FA.FlashAttention.apply(q, k, v, True, 0, 0.0, 0, None, MLA_SCALE)
+    torch.cuda.synchronize()
+    assert _took(FA.flash_attention, before) == {"mla": 1}
+    kw = dict(scale=MLA_SCALE)
+    assert _within_limit(FA, y.detach(), q.detach(), k.detach(), v.detach(),
+                         **kw)
+    g = torch.randn_like(y)
+    ins = (q, k) if view else (q, k, v)
+    got = torch.autograd.grad(y, ins, g)
+    qs = [t.detach().clone().requires_grad_(True) for t in ins]
+    out = FA.flash_attention_plain(qs[0], qs[1], qs[1][..., :512] if view
+                                   else qs[2], **kw)
+    _grads_close(got, torch.autograd.grad(out, qs, g))
+
+
 def _smoke_serve_setup(cuda, tp=2):
     import dataclasses
     from repro_torch.configs import get_config
@@ -1614,7 +1773,7 @@ def test_flash_function_launches_the_kernel_and_grads_match(cuda, dtype,
     args = case[6:]
     kw = dict(zip(("causal", "window", "softcap", "q0", "kv_len"), args))
     before = _paths(FA.flash_attention)
-    y = FA.FlashAttention.apply(q, k, v, *args)
+    y = FA.FlashAttention.apply(q, k, v, *args, None)
     torch.cuda.synchronize()
     assert _took(FA.flash_attention, before) == {path: 1}
     assert _within_limit(FA, y.detach(), q.detach(), k.detach(), v.detach(),

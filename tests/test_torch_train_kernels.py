@@ -112,7 +112,7 @@ def test_flash_function_gradients_match_flash_jnp(monkeypatch, case):
         window=window, softcap=softcap or None, chunk=chunk), q, k, v)
     want = vjp(jnp.asarray(gy))
     ins = _leaves(q, k, v)
-    args = (causal, window, softcap, q0, None)
+    args = (causal, window, softcap, q0, None, None)
     y = FA.FlashAttention.apply(*ins, *args)
     got = torch.autograd.grad(y, ins, torch.tensor(gy))
     _close(_np(y), out)
@@ -202,7 +202,8 @@ def test_flash_function_gradcheck_float64(monkeypatch):
     for args in ((True, 0, 0.0, 4, None), (True, 3, 2.0, 4, 9),
                  (False, 0, 0.0, 0, None)):
         assert torch.autograd.gradcheck(
-            lambda *t: FA.FlashAttention.apply(*t, *args), (q, k, v))
+            lambda *t: FA.FlashAttention.apply(*t, *args, None),
+            (q, k, v))
 
 
 def test_rwkv6_function_gradcheck_float64():
@@ -225,12 +226,12 @@ def test_functions_save_only_their_inputs_and_skip_unneeded_grads():
     forward), and returns None for an input that needs no gradient."""
     q, k, v = _leaves(*_normals(4, [(1, 8, 1, 2, 4), (1, 8, 1, 4),
                                     (1, 8, 1, 4)]))
-    y = FA.FlashAttention.apply(q, k, v, True, 0, 0.0, 0, None)
+    y = FA.FlashAttention.apply(q, k, v, True, 0, 0.0, 0, None, None)
     saved = y.grad_fn.saved_tensors
     assert len(saved) == 3 and all(
         s.data_ptr() == t.data_ptr() for s, t in zip(saved, (q, k, v)))
     v.requires_grad_(False)
-    y = FA.FlashAttention.apply(q, k, v, True, 0, 0.0, 0, None)
+    y = FA.FlashAttention.apply(q, k, v, True, 0, 0.0, 0, None, None)
     y.sum().backward()
     assert v.grad is None and q.grad is not None
     r, kk, vv, dec, u = _leaves(*_normals(5, [(1, 5, 1, 4)] * 4

@@ -457,6 +457,28 @@ def test_bench_samples_sweeps_and_fits_on_the_cpu():
         bench.case(tcell.OpCell("allgather", 8, 4), "default")
 
 
+@pytest.mark.parametrize("op", ["alltoall", "allreduce", "allgather"])
+def test_bench_impls_of_one_cell_share_its_operands(op):
+    """Every impl of a cell replays on one set of operands, which none of
+    them writes; the operands of the ``MAX_CASES`` latest cells are
+    kept."""
+    bench = tmeasure.Bench(4, "cpu")
+    cell = tcell.OpCell(op, 4, 64)
+    impls = sorted(nm for nm, im in tmeasure.C.REGISTRY[op].items()
+                   if not im.hier)
+    outs = [bench.case(cell, nm)() for nm in impls]
+    assert len(impls) > 1 and len(bench._operands) == 1
+    x = bench._inputs(cell)["x"]
+    assert x.shape == (4,) + tmeasure.problem_shapes(cell)["x"]
+    assert torch.equal(x, torch.ones_like(x))
+    for nm, out in zip(impls, outs):
+        assert torch.equal(out, outs[0]), nm
+    for n in range(1, tmeasure.Bench.MAX_CASES + 2):
+        bench.case(tcell.OpCell(op, 4, 64 * (n + 1)), "default")
+    assert len(bench._operands) == tmeasure.Bench.MAX_CASES
+    assert cell not in bench._operands
+
+
 def test_measured_backend_tunes_and_skips_what_it_cannot_replay():
     be = ttuner.MeasuredBackend(4, "cpu", max_nrep=5)
     rep = ttuner.tune(["reducescatter", "matmul_reducescatter"],
