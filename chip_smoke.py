@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's tuning loop, its serving paths (dense, SSM,
-Mixture-of-Experts and multi-head latent attention) and its training
-paths (one stacked axis, a data x model mesh, a pod x data x model mesh,
-and training through the model kernels) on one CUDA card, end to end.
+Mixture-of-Experts, multi-head latent attention, a data x model mesh,
+sequence-sharded long-context decode and the prefix-LM VLM) and its
+training paths (one stacked axis, a data x model mesh, a pod x data x
+model mesh, and training through the model kernels) on one CUDA card,
+end to end.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -37,7 +39,12 @@ Phases (each raises on failure; nothing is caught):
    576]``, the latent keys ``[32, S, 1, 576]``, v their first 512
    columns as a view, scale ``1 / sqrt(192)``): the prefill and every
    decode kv_len 1025-1056, v also as its own tensor, two planted faults,
-   times, bound, SDPA (E = 576, Ev = 512) and the kernels SDPA ran;
+   times, bound, SDPA (E = 576, Ev = 512) and the kernels SDPA ran; and
+   at head dim 256 (phases 17-18): gemma3-1b's prefill per lane on
+   ``mma_sync`` (global and windowed), paligemma-3b's prefix split (the
+   prefix rows non-causal, the text rows from q0 = 256), gemma3-1b's
+   decode at kv_len 1056 on ``split_kv``, each timed beside its bound and
+   SDPA, and the prefix edge one key late, which the limit must reject;
    each kernel's path counts (the ring's ``wgmma``/``wmma``/``f32``,
    flash's ``wgmma``/``split_kv``/``mma_sync``/``f32``); the ring's and
    flash's times both as the events mean over back-to-back calls (each
@@ -179,7 +186,28 @@ Phases (each raises on failure; nothing is caught):
    (``attn_impl="ref"``) of the same weights, held to (a) as (b) is, and
    again with every route pinned to (a)'s (``PinnedRoutes``): every
    request's logits within ``SERVE_RTOL``; peak memory of each step;
-   ``torch.profiler`` over one prefill and one decode step.
+   ``torch.profiler`` over one prefill and one decode step;
+17. gemma3-1b at full width and depth (26 layers, head dim 256): (a) on
+   the (data 2, model 4) mesh, phase 10's requests split over data and
+   the weights FSDP-sharded over it: the default serve recording,
+   ``tune_trace`` (the quantized wire held out), the tuned re-serve, and
+   the same requests over model only (TP 4), each within ``SERVE_RTOL``;
+   (b) the ``long_500k`` cell: a prompt of ``LONG_PROMPT`` tokens
+   prefilled on one model lane (flash on ``mma_sync``), its 524 288-slot
+   cache laid out as 8 sequence shards on (data 8, model 1), 32
+   sequence-sharded decode steps (the combine's allreduces over data
+   dispatched; every data lane's logits bit-equal), 32 unsharded steps
+   from a clone of the cache as the yardstick, ``tune_trace`` (the 8-lane
+   allreduce cells with their winner and ``default`` time) and the tuned
+   sharded decode, each within ``SERVE_RTOL``; prefill seconds, decode ms
+   a token each way, peak memory;
+18. paligemma-3b at full width and depth (18 layers, TP 8 stacked): 4
+   requests of 256 seeded stub patches + 1024 text tokens; the flash
+   serve (two flash launches a layer at prefill: the prefix rows and the
+   text rows), ``tune_trace`` and the tuned re-serve, and the ``ref``
+   serve of the same weights, each within ``SERVE_RTOL``.
+
+Each phase's seconds are logged as it ends (``[phase n]``).
 
 Kernel launch counts are zeroed just before phase 6 and read after each of
 phases 6-8; every kernel of the main path must have launched in the tune,
@@ -219,6 +247,16 @@ must launch 2 x 33 times an absorbed serve, all on ``"mla"``; each row
 carries its ``mla_serve_launches``, and the kernels line lists the
 ``"mla"`` path as ``flash_attention_mla`` (phase 3's prefill numbers),
 with its launches in phases 12-16 read from flash's counts by path.
+They are zeroed again just before phase 17's path and read around each
+of its runs: 26 ``mma_sync`` and 26 x 32 ``split_kv`` launches a mesh or
+TP 4 serve, 26 ``mma_sync`` at the long prefill, none in a
+sequence-sharded decode (its partials are plain PyTorch, as the JAX
+package's), 26 x 32 ``split_kv`` in the unsharded one; and just before
+phase 18's: 2 x 18 ``mma_sync`` and 18 x 32 ``split_kv`` a flash serve.
+Each row carries its ``long_context_launches`` and
+``vlm_serve_launches``; the kernels line lists flash at head dim 256 as
+``flash_attention_d256`` (phase 3's gemma3-1b prefill numbers, its
+launches by path in phases 17-18).
 The
 ranks are stacked on ONE card: a ring hop is a device-memory copy, so
 the times measure on-chip data movement and launch overhead, not a link
@@ -374,11 +412,26 @@ def zero_counts(wrappers: dict) -> None:
         f.launches = 0
         if hasattr(f, "launches_by_path"):
             f.launches_by_path = dict.fromkeys(f.launches_by_path, 0)
+        if hasattr(f, "launches_by_dh"):
+            f.launches_by_dh = {}
 
 
 def path_delta(fn, before: dict) -> dict:
     """The launches of ``fn`` by path since the snapshot ``before``."""
     return {k: v - before.get(k, 0) for k, v in fn.launches_by_path.items()}
+
+
+def dh_counts(fa) -> dict:
+    """A snapshot of flash's launches by head dim, then path."""
+    return {dh: dict(paths) for dh, paths in fa.launches_by_dh.items()}
+
+
+def dh_delta(fa, before: dict, dh: int = 256) -> dict:
+    """Flash's launches at head dim ``dh`` by path since ``before``
+    (paths with none left out)."""
+    now, was = fa.launches_by_dh.get(dh, {}), before.get(dh, {})
+    got = {k: v - was.get(k, 0) for k, v in now.items()}
+    return {k: v for k, v in got.items() if v}
 
 
 def require_launched(phase: str, before: dict, after: dict) -> dict:
@@ -670,8 +723,9 @@ def check_flash(torch, fa, randn) -> dict:
         f"{worst[0]:.3e} ({worst[1]:.3f} of the limit)")
     mla = check_flash_mla(torch, fa, randn, timed, check, planted, on_path,
                           last_path)
+    d256 = check_flash_d256(torch, fa, randn, timed, check, on_path)
     return {"prefill": prefill, "decode": decode, "zamba2_prefill_ms":
-            zamba_ms, "moe_prefill_ms": moe_ms, "mla": mla}
+            zamba_ms, "moe_prefill_ms": moe_ms, "mla": mla, "d256": d256}
 
 
 def sdpa_backend(torch, fn) -> str:
@@ -806,6 +860,93 @@ def check_flash_mla(torch, fa, randn, timed, check, planted, on_path,
                                scale=scale)
         on_path(f"mla decode kv_len {kv_len}", "mla")
     return {"prefill": prefill, "decode": decode}
+
+
+def check_flash_d256(torch, fa, randn, timed, check, on_path) -> dict:
+    """Phase 3 at head dim 256 (phases 17-18's shapes, all on
+    ``mma_sync`` at prefill): gemma3-1b's prefill per lane on the (data 2,
+    model 4) mesh (q ``[16, 1024, 1, 1, 256]``, global and its local
+    layers' 512-key window); paligemma-3b's prefix split at TP 8, the
+    prefix rows ``[32, 256, 1, 1, 256]`` non-causal over the prefix keys
+    and the text rows ``[32, 1024, 1, 1, 256]`` causal from q0 = 256 over
+    all 1280 keys; gemma3-1b's decode at kv_len 1056 in a 2048-slot cache
+    (``split_kv``); each held to its plain version, timed beside its
+    bound and ``scaled_dot_product_attention`` (whose flash backend takes
+    dh 256); and the prefix edge one key late, which the limit must
+    reject."""
+    from torch.nn.attention.bias import causal_lower_right
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dh = get_config(LONG_ARCH).hd
+    n_g = SERVE_BATCH * LONG_MESH[1]    # (data 2 x model 4) lanes x 2 each
+    n_v = SERVE_BATCH * VLM_TP
+    npf = get_config(VLM_ARCH).vlm.n_patches
+    out = {}
+
+    def bhsd(t):                      # [N, S, 1, 1, dh] / [N, S, 1, dh]
+        return t.reshape(t.shape[0], t.shape[1], 1, dh).transpose(1, 2)
+
+    q = randn(n_g, SERVE_PROMPT, 1, 1, dh)
+    k, v = (randn(n_g, SERVE_PROMPT, 1, dh) for _ in range(2))
+    qb, kb, vb = bhsd(q), bhsd(k), bhsd(v)
+    out["gemma prefill"] = timed(
+        "gemma3-1b prefill dh 256", q, k, v,
+        lambda: sdpa(qb, kb, vb, is_causal=True), causal=True)
+    on_path("gemma3-1b prefill dh 256", "mma_sync")
+    w = get_config(LONG_ARCH).window
+    err, share = check("gemma3-1b local prefill", q, k, v, window=w)
+    on_path("gemma3-1b local prefill", "mma_sync")
+    log(f"[3] flash_attention gemma3-1b local-layer prefill window {w}: "
+        f"max_abs_err {err:.3e} ({share:.3f} of the limit)")
+    # paligemma-3b at TP 8: its prefix rows and its text rows
+    qp = randn(n_v, npf + SERVE_PROMPT, 1, 1, dh)
+    kp, vp = (randn(n_v, npf + SERVE_PROMPT, 1, dh) for _ in range(2))
+    qpb, kpb, vpb = bhsd(qp), bhsd(kp), bhsd(vp)
+    pq, pk, pv = qp[:, :npf], kp[:, :npf], vp[:, :npf]
+    out["prefix rows"] = timed(
+        "paligemma prefix rows", pq, pk, pv,
+        lambda: sdpa(qpb[:, :, :npf], kpb[:, :, :npf], vpb[:, :, :npf]),
+        causal=False)
+    on_path("paligemma prefix rows", "mma_sync")
+    tq = qp[:, npf:]
+    # the text rows' mask is causal aligned to the last key (query i sees
+    # keys <= i + npf): SDPA's lower-right causal bias
+    text_bias = causal_lower_right(SERVE_PROMPT, npf + SERVE_PROMPT)
+    out["text rows"] = timed(
+        "paligemma text rows", tq, kp, vp,
+        lambda: sdpa(qpb[:, :, npf:], kpb, vpb, attn_mask=text_bias),
+        causal=True, q0=npf)
+    on_path("paligemma text rows", "mma_sync")
+    # the split as the model runs it (two launches) against the plain
+    # version of each half; then the prefix edge one key late
+    before = fa.flash_attention.launches
+    got = A._flash_prefix(qp, kp, vp, n_prefix=npf, softcap=0.0, q0=0)
+    if fa.flash_attention.launches != before + 2:
+        raise RuntimeError("the prefix split did not launch twice")
+    pre = fa.flash_attention_plain(pq, pk, pv, causal=False)
+    lim = fa.tolerance(pq, pk, pv, pre, causal=False)
+    share = float(((got[:, :npf].float() - pre.float()).abs() / lim).max())
+    bad = A._flash_prefix(qp, kp, vp, n_prefix=npf + 1, softcap=0.0, q0=0)
+    bad_share = float(((bad[:, :npf].float() - pre.float()).abs()
+                       / lim).max())
+    log(f"[3] flash_attention prefix split (two launches) q{list(qp.shape)}"
+        f": prefix rows {share:.3f} of the limit; planted fault, the prefix "
+        f"edge one key late: {bad_share:.2f} of the limit")
+    if not share <= 1.0 or not bad_share > 1.0:
+        raise RuntimeError("flash_attention prefix split: the limit fails "
+                           "the split or passes the planted prefix edge")
+    # gemma3-1b's decode at kv_len 1056, 2048 slots, one q head a lane
+    q1 = randn(n_g, 1, 1, 1, dh)
+    kc, vc = (randn(n_g, SERVE_SLOTS, 1, dh) for _ in range(2))
+    kv_len = SERVE_PROMPT + SERVE_DECODE
+    q1b, kcb, vcb = (bhsd(q1), bhsd(kc[:, :kv_len]).contiguous(),
+                     bhsd(vc[:, :kv_len]).contiguous())
+    out["decode"] = timed(
+        f"gemma3-1b decode dh 256 kv_len {kv_len}", q1, kc, vc,
+        lambda: sdpa(q1b, kcb, vcb), q0=kv_len - 1, kv_len=kv_len)
+    on_path("gemma3-1b decode dh 256", "split_kv")
+    return out
 
 
 def rwkv_work(n, s, h, hd, itemsize, with_s0):
@@ -1442,8 +1583,7 @@ def retune_step(torch, tr, params, batch, backend, tag: str, **trainer_kw):
     Returns ``(report, loss0, g0)`` with the default's loss and named
     gradients."""
     import tempfile
-    from repro_torch.core import collectives as C
-    from repro_torch.core import profiles, trace, tuner
+    from repro_torch.core import collectives as C, profiles, trace, tuner
     from repro_torch.models.params import tree_paths
     from repro_torch.train import Trainer
 
@@ -1468,18 +1608,9 @@ def retune_step(torch, tr, params, batch, backend, tag: str, **trainer_kw):
     for e in held:
         log(f"[{tag}b] not replayed (operand over {TRAIN_REPLAY_CAP / 1e9:.0f}"
             f" GB): {e.phase} {e.op} {e.nbytes} B x{e.count}")
-    before = C.demotions()
     t0 = time.perf_counter()
-    try:
-        for op, impls in C.REGISTRY.items():
-            for nm, impl in impls.items():
-                if impl.wire_dtype is not None:
-                    C.demote(op, nm, "training needs exact gradients")
+    with C.wire_held_out("training needs exact gradients"):
         rep = tuner.tune_trace(trace.Trace(fits), backend)
-    finally:
-        C.clear_demotions()
-        for (op, nm), why in before.items():
-            C.demote(op, nm, why)
     log(f"[{tag}b] tune_trace in {time.perf_counter() - t0:.1f} s")
     for ln in rep.summary().splitlines():
         log(f"[{tag}b] {ln}")
@@ -1554,7 +1685,8 @@ def train_phase(torch, dev, wrappers: dict, tag: str = "12") -> dict:
     bm, ring = wrappers["block_matmul"], wrappers[
         "ring_allgather_matmul_rdma"]
     paths0 = (dict(bm.launches_by_path), dict(ring.launches_by_path),
-              dict(wrappers["flash_attention"].launches_by_path))
+              dict(wrappers["flash_attention"].launches_by_path),
+              dh_counts(wrappers["flash_attention"]))
     copies0 = (ops._contig.copies, ops._contig.bytes)
 
     # -- (a) FSDP, p = 8 data ranks ----------------------------------------
@@ -1723,6 +1855,7 @@ def train_phase(torch, dev, wrappers: dict, tag: str = "12") -> dict:
                     "ring_allgather_matmul_rdma": path_delta(ring, paths0[1]),
                     "flash_attention": path_delta(
                         wrappers["flash_attention"], paths0[2])}
+    out["d256_paths"] = dh_delta(wrappers["flash_attention"], paths0[3])
     out["contig_copies"] = {"n": ops._contig.copies - copies0[0],
                             "bytes": ops._contig.bytes - copies0[1]}
     log(f"[train path] kernel launches: {json.dumps(out['launches'])}")
@@ -1782,7 +1915,8 @@ def train_mesh_phase(torch, dev, wrappers: dict, tag: str = "13") -> dict:
     bm, ring = wrappers["block_matmul"], wrappers[
         "ring_allgather_matmul_rdma"]
     paths0 = (dict(bm.launches_by_path), dict(ring.launches_by_path),
-              dict(wrappers["flash_attention"].launches_by_path))
+              dict(wrappers["flash_attention"].launches_by_path),
+              dh_counts(wrappers["flash_attention"]))
 
     # -- (a) the default step ------------------------------------------------
     rec: list = []
@@ -1940,6 +2074,7 @@ def train_mesh_phase(torch, dev, wrappers: dict, tag: str = "13") -> dict:
                     "ring_allgather_matmul_rdma": path_delta(ring, paths0[1]),
                     "flash_attention": path_delta(
                         wrappers["flash_attention"], paths0[2])}
+    out["d256_paths"] = dh_delta(wrappers["flash_attention"], paths0[3])
     log(f"[mesh train path] kernel launches: {json.dumps(out['launches'])}")
     log(f"[mesh train path] launches by path: {json.dumps(out['paths'])}")
     log(f"[{tag}] mesh train phase in {time.perf_counter() - t_phase:.1f} s")
@@ -2225,6 +2360,7 @@ def train_kernels_phase(torch, dev, wrappers: dict, ref12: dict,
     c_start = counts(wrappers)
     paths0 = {k: dict(wrappers[k].launches_by_path)
               for k in ("flash_attention", "rwkv6_scan", "ssd_scan")}
+    dh0 = dh_counts(wrappers["flash_attention"])
     kernel_of = {"llama3.2-3b": {"flash_attention": "wgmma"},
                  "rwkv6-3b": {"rwkv6_scan": "chunked"},
                  "zamba2-1.2b": {"ssd_scan": "chunked",
@@ -2400,6 +2536,7 @@ def train_kernels_phase(torch, dev, wrappers: dict, ref12: dict,
     c_end = counts(wrappers)
     out["launches"] = {k: c_end[k] - c_start[k] for k in c_end}
     out["paths"] = {k: path_delta(wrappers[k], v) for k, v in paths0.items()}
+    out["d256_paths"] = dh_delta(wrappers["flash_attention"], dh0)
     log(f"[kernel train path] kernel launches: {json.dumps(out['launches'])}")
     log(f"[kernel train path] launches by path: {json.dumps(out['paths'])}")
     for k in ("flash_attention", "rwkv6_scan", "ssd_scan"):
@@ -2934,7 +3071,7 @@ def moe_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     fa = wrappers["flash_attention"]
 
     zero_counts(wrappers)               # the MoE serve path starts here
-    c0, fa0 = counts(wrappers), dict(fa.launches_by_path)
+    c0, fa0, dh0 = counts(wrappers), dict(fa.launches_by_path), dh_counts(fa)
 
     def one(label, **kw):
         before, p_before = counts(wrappers), dict(fa.launches_by_path)
@@ -3038,10 +3175,10 @@ def moe_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     peak = torch.cuda.max_memory_allocated(dev)
     c1 = counts(wrappers)
     launches = {k: c1[k] - c0[k] for k in c1}
-    fa_paths = path_delta(fa, fa0)
+    fa_paths, d256 = path_delta(fa, fa0), dh_delta(fa, dh0)
     log(f"[moe serve path {cfg.name}] kernel launches: "
         f"{json.dumps(launches)}; flash_attention by path "
-        f"{json.dumps(fa_paths)}")
+        f"{json.dumps(fa_paths)}; at head dim 256 {json.dumps(d256)}")
 
     # (e) the router readings (after the path's counts)
     routes.update(router_readings(torch, sv, moe, cfg, axis, params,
@@ -3086,7 +3223,7 @@ def moe_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     log(f"[{tag}] MoE serve phase in {time.perf_counter() - t_phase:.1f} s "
         f"({card})")
     return {"launches": launches, "flash_paths": fa_paths,
-            "per_serve": per_serve, "peak_bytes": peak,
+            "d256_paths": d256, "per_serve": per_serve, "peak_bytes": peak,
             "serve_peak_bytes": serve_peak,
             "weights_bytes": w_bytes, "capacity": cap,
             "drops_prefill": drops, "both_dropped_prefill": both,
@@ -3185,7 +3322,7 @@ def mla_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     fa = wrappers["flash_attention"]
 
     zero_counts(wrappers)               # the MLA serve path starts here
-    c0 = counts(wrappers)
+    c0, dh0 = counts(wrappers), dh_counts(fa)
 
     def one(label, c=cfg, **kw):
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3311,9 +3448,10 @@ def mla_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     if fa.launches_by_path["mla"] != mla_launches:
         raise RuntimeError(f"{cfg.name}: {fa.launches_by_path['mla']} mla "
                            f"launches on the path, not {mla_launches}")
+    d256 = dh_delta(fa, dh0)
     log(f"[mla serve path {cfg.name}] kernel launches: "
         f"{json.dumps(launches)}; flash_attention on mla "
-        f"{fa.launches_by_path['mla']}")
+        f"{fa.launches_by_path['mla']}; at head dim 256 {json.dumps(d256)}")
 
     # (d) absorbed against naive, the same weights (after the path's
     # counts): routed by its own router, whose near-ties flip (held as
@@ -3374,12 +3512,403 @@ def mla_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     log(f"[{tag}] MLA serve phase in {time.perf_counter() - t_phase:.1f} s "
         f"({card})")
     return {"launches": launches, "mla_launches": mla_launches,
+            "d256_paths": d256,
             "per_serve": per_serve, "peaks": peaks,
             "weights_bytes": w_bytes, "held_out": [
                 (e.phase, e.op, e.nbytes) for e in held],
             "alltoall_ms": {str(k): v for k, v in a2a_cells.items()},
             "picks": picks, "routes": routes, "shares": shares,
             "serves": serves}
+
+
+# ---------------------------------------------------------------------------
+# the long-context serve (phase 17) and the VLM serve (phase 18)
+# ---------------------------------------------------------------------------
+
+# gemma3-1b (src/repro/configs/gemma3_1b.py: 26 layers, 5 local (window
+# 512) to 1 global, d_model 1152, 4 q heads over 1 KV head of 256, d_ff
+# 6912, vocab 262144) at full width and depth.  (a) on the (data 2, model
+# 4) mesh: phase 10's 4 x 1024 requests split over data, the weights
+# FSDP-sharded over data; held to the same requests over model only (TP 4).
+# (b) the long_500k cell (src/repro/launch/shapes.py:52): one request, a
+# 524 288-slot cache as 8 sequence shards on (data 8, model 1), a prompt of
+# 524 288 - 32 tokens prefilled on one model lane.  The caches: 26 layers x
+# 2 x 524 288 x 256 x 2 B = 13.96 GB, and its clone for the unsharded
+# decode that the sharded one is held to
+LONG_ARCH = "gemma3-1b"
+LONG_MESH = (2, 4)
+LONG_SLOTS, LONG_SHARDS = 524_288, 8
+LONG_PROMPT = LONG_SLOTS - SERVE_DECODE
+# paligemma-3b (src/repro/configs/paligemma_3b.py: 18 gemma layers, d_model
+# 2048, 8 q heads over 1 KV head of 256, d_ff 16384, vocab 257216, 256
+# stub SigLIP patches of 1152 before the text) at full width and depth, TP
+# 8 stacked; 4 requests of 256 seeded patches + 1024 text tokens
+VLM_ARCH, VLM_TP = "paligemma-3b", 8
+
+
+def _tune(torch, rec, dev, tag: str, label: str, out_dir, held=True):
+    """``tune_trace`` of ``rec`` (measured, every cell at its own world;
+    with ``held`` the quantized wire held out: a weight gathered over
+    data on it changes the model), the per-phase profiles saved under
+    ``out_dir`` and reloaded: ``(report, phase stores)``."""
+    import contextlib
+    from repro_torch.core import collectives as C, profiles, tuner
+    t0 = time.perf_counter()
+    with (C.wire_held_out("FSDP weights on the quantized wire") if held
+          else contextlib.nullcontext()):
+        rep = tuner.tune_trace(rec, tuner.MeasuredBackend(None, dev,
+                                                          max_nrep=20))
+    log(f"[{tag}] {label} tune_trace in {time.perf_counter() - t0:.1f} s")
+    for ln in rep.summary().splitlines():
+        log(f"[{tag}] {ln}")
+    prof_dir = out_dir / f"profiles_{tag}_{label.replace(' ', '_')}"
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    rep.save(prof_dir)
+    _, phases = profiles.resolve_stores(prof_dir)
+    return rep, phases
+
+
+def _serve_line(tag, label, res, n_req, prompt_tokens, card):
+    if res.prefill_s:
+        pf = (f"prefill {res.prefill_s * 1e3:.2f} ms "
+              f"({n_req * prompt_tokens / res.prefill_s:.0f} tokens/s), ")
+    else:
+        pf = ""
+    log(f"[{tag}] {label}: {pf}decode {res.decode_s_per_token * 1e3:.3f} "
+        f"ms/token ({n_req / res.decode_s_per_token:.1f} tokens/s over "
+        f"{n_req} requests) ({card})")
+
+
+def long_context_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
+                       card: str, tag: str = "17") -> dict:
+    """gemma3-1b at full width and depth.  (a) Serve phase 10's requests
+    on the (data 2, model 4) mesh (batch over data, weights FSDP over
+    data): the default serve recording, ``tune_trace`` (the quantized wire
+    held out), the tuned re-serve within ``SERVE_RTOL`` of it, and the
+    default serve held to the same requests over model only (TP 4).
+    (b) ``long_500k``: prefill a ``LONG_PROMPT``-token prompt on one
+    model lane (flash on ``mma_sync``), lay its 524 288-slot cache out as
+    8 sequence shards on (data 8, model 1), decode 32 steps over the
+    shards (the combine's two allreduces over data dispatched), every
+    data lane's logits bit-equal under the defaults; 32 unsharded decode
+    steps from a clone of the cache (flash ``split_kv``) as the
+    yardstick, within ``SERVE_RTOL``; ``tune_trace`` of the sharded
+    decode's trace, the 8-lane allreduce cells with their winner and
+    ``default`` time, the tuned decode within ``SERVE_RTOL``.  Flash
+    launches are read by path around each run.  Times and memory name
+    ``card``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import api, trace
+    from repro_torch.core._axis import StackedAxis, StackedMesh
+    from repro_torch.dist.axes import bind
+    from repro_torch.launch import serve as sv
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_tree
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LONG_ARCH), attn_impl="flash")
+    fa = wrappers["flash_attention"]
+    n_tokens = 1 + SERVE_DECODE
+    n_attn = per_serve_launches(lm, cfg, 1)["flash_attention"]
+    out: dict = {"paths": {}, "d256_paths": {}}
+
+    def draw(tp, axis):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return init_tree(lm.model_specs(cfg, tp), gen, axis)
+
+    def flash_run(label, fn, want):
+        """Run ``fn``; flash's launches by path in it must be ``want``,
+        all of them at head dim 256."""
+        torch.cuda.reset_peak_memory_stats(dev)
+        before, dh0 = dict(fa.launches_by_path), dh_counts(fa)
+        res = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in path_delta(fa, before).items() if v}
+        d256 = dh_delta(fa, dh0)
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"[{tag} {label}] flash_attention launches by path "
+            f"{json.dumps(got)}, at head dim 256 {json.dumps(d256)}; peak "
+            f"{peak / 1e9:.3f} GB ({card})")
+        if got != want or d256 != want:
+            raise RuntimeError(f"{cfg.name} {label}: flash paths {got} (at "
+                               f"head dim 256 {d256}), not {want}")
+        for k, v in got.items():
+            out["paths"][k] = out["paths"].get(k, 0) + v
+            out["d256_paths"][k] = out["d256_paths"].get(k, 0) + d256[k]
+        return res, peak
+
+    # -- (a) the (data 2, model 4) mesh -------------------------------------
+    d, t = LONG_MESH
+    mesh = StackedMesh((d, t), ("data", "model"), dev)
+    params = draw(t, mesh)
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
+    log(f"[{tag}a] {cfg.name}: {cfg.n_layers} layers (5 local of window "
+        f"{cfg.window} : 1 global), d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads / {cfg.n_kv_heads} KV head x {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}; mesh data {d} x model {t}, "
+        f"{SERVE_BATCH} x {SERVE_PROMPT} prompt tokens, {SERVE_SLOTS} slots")
+    sv.serve(cfg, mesh, params, prompts, SERVE_SLOTS, 2)      # warm-up
+    zero_counts(wrappers)          # the long-context serve path starts here
+    c0 = counts(wrappers)
+    per_serve = {"mma_sync": n_attn, "split_kv": n_attn * SERVE_DECODE}
+    first, peak_a = flash_run("a default serve", lambda: sv.serve(
+        cfg, mesh, params, prompts, SERVE_SLOTS, n_tokens), per_serve)
+    rec = trace.Trace.from_context(first.ctx)
+    rec.save(out_dir / f"serve_trace_{cfg.name}_mesh.jsonl")
+    for ln in rec.summary().splitlines():
+        log(f"[{tag}a] {ln}")
+    _, phases = _tune(torch, rec, dev, f"{tag}a", "mesh", out_dir)
+    second, _ = flash_run("a tuned serve", lambda: sv.serve(
+        cfg, mesh, params, prompts, SERVE_SLOTS, n_tokens,
+        phase_profiles=phases), per_serve)
+    for ln in api.format_footer(second.ctx).splitlines():
+        log(f"[{tag}a] {ln}")
+    del params
+    tp_axis = StackedAxis(t, dev)
+    params_tp = draw(t, tp_axis)
+    tp4, _ = flash_run("a TP 4 serve", lambda: sv.serve(
+        cfg, tp_axis, params_tp, prompts, SERVE_SLOTS, n_tokens), per_serve)
+    del params_tp
+    checks = {"mesh vs TP 4": sv.check_serves(tp4, first, SERVE_RTOL),
+              "tuned vs default": sv.check_serves(first, second, SERVE_RTOL)}
+    for label, c in checks.items():
+        log(f"[{tag}a] {label}: {c['steps']} steps, max-norm relative error "
+            f"{c['max_rel_err']:.4e} (tolerance {SERVE_RTOL}), tokens "
+            f"diverged at {c['diverged_at']}")
+    for label, res in (("mesh default", first), ("mesh tuned", second),
+                       ("TP 4", tp4)):
+        _serve_line(f"{tag}a", label, res, SERVE_BATCH, SERVE_PROMPT, card)
+    out["mesh"] = {"checks": checks, "peak_bytes": peak_a, "serves": {
+        label: {"prefill_ms": r.prefill_s * 1e3,
+                "decode_ms_per_token": r.decode_s_per_token * 1e3}
+        for label, r in (("default", first), ("tuned", second),
+                         ("tp4", tp4))}}
+    del first, second, tp4
+    torch.cuda.empty_cache()
+
+    # -- (b) long_500k: 8 sequence shards on (data 8, model 1) --------------
+    cell = SHAPES["long_500k"]
+    one = StackedAxis(1, dev)
+    mesh8 = StackedMesh((LONG_SHARDS, 1), ("data", "model"), dev)
+    params1, params8 = draw(1, one), draw(1, mesh8)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (1, LONG_PROMPT)), device=dev)
+    with bind(model=one):
+        caches = lm.init_caches(cfg, 1, LONG_SLOTS)
+    torch.cuda.synchronize()
+    cache_bytes = 2 * sum(
+        c["self"]["k"].numel() * 2 for g in caches["stack"].values()
+        for c in (g if isinstance(g, list) else [g]) for c in c.values())
+    log(f"[{tag}b] long_500k: cache {LONG_SLOTS} slots x {cfg.n_layers} "
+        f"layers, {cache_bytes / 1e9:.3f} GB; prompt {LONG_PROMPT} tokens; "
+        f"{LONG_SHARDS} shards of {LONG_SLOTS // LONG_SHARDS} slots, the "
+        f"last filled slot {LONG_PROMPT - 1} in shard "
+        f"{(LONG_PROMPT - 1) // (LONG_SLOTS // LONG_SHARDS)} ({card})")
+    prefill = sv.build_prefill(cfg, one)
+    t0 = time.perf_counter()
+    (logits, caches), peak_pf = flash_run(
+        "b prefill", lambda: prefill(params1, {"tokens": prompt}, caches),
+        {"mma_sync": n_attn})
+    prefill_s = time.perf_counter() - t0
+    lg0 = sv.full_vocab(logits)
+    if not bool(torch.isfinite(lg0).all()):
+        raise RuntimeError("long_500k prefill: logits not finite")
+    log(f"[{tag}b] prefill of {LONG_PROMPT} tokens on one lane: "
+        f"{prefill_s:.2f} s ({LONG_PROMPT / prefill_s:.0f} tokens/s), peak "
+        f"{peak_pf / 1e9:.3f} GB ({card})")
+    clone = sv.clone_caches(caches)
+    shards = sv.seq_shards(caches, LONG_SHARDS)
+    sharded, peak_b = flash_run("b sharded decode", lambda: sv.decode_from(
+        cfg, mesh8, params8, shards, lg0, LONG_PROMPT, n_tokens, cell=cell),
+        {})
+    spread = max(sharded.lane_spread)
+    log(f"[{tag}b] data lanes' logits: largest difference from data rank "
+        f"0's over {len(sharded.lane_spread)} steps {spread} (must be 0)")
+    if spread != 0.0:
+        raise RuntimeError("long_500k: the data lanes' logits differ")
+    flat, _ = flash_run("b unsharded decode", lambda: sv.decode_from(
+        cfg, one, params1, clone, lg0, LONG_PROMPT, n_tokens),
+        {"split_kv": n_attn * SERVE_DECODE})
+    del clone
+    rec = trace.Trace.from_context(sharded.ctx)
+    rec.save(out_dir / f"serve_trace_{cfg.name}_long_500k.jsonl")
+    for ln in rec.summary().splitlines():
+        log(f"[{tag}b] {ln}")
+    # the combine's two sums over data, once each a layer and token: the
+    # numerator [1, 1, H, dh] in bf16 and the denominator [1, H, 1] in f32
+    want_ar = dict.fromkeys((cfg.n_heads * cfg.hd * 2, cfg.n_heads * 4),
+                            cfg.n_layers * SERVE_DECODE)
+    got_ar = {c.nbytes: n for c, n in rec.cells().items()
+              if c.op == "allreduce" and c.p == LONG_SHARDS}
+    log(f"[{tag}b] recorded allreduce cells over data {LONG_SHARDS} "
+        f"(bytes: calls) {json.dumps(got_ar)}, want {json.dumps(want_ar)}")
+    if got_ar != want_ar:
+        raise RuntimeError(f"long_500k: recorded allreduce cells over data "
+                           f"{got_ar}, not {want_ar}")
+    rep, phases = _tune(torch, rec, dev, f"{tag}b", "long 500k", out_dir)
+    cells = {}
+    for m_ in rep.measurements:
+        if m_.op == "allreduce" and m_.cell.p == LONG_SHARDS:
+            cells.setdefault(m_.nbytes, {})[m_.impl] = m_.latency * 1e3
+    if set(cells) != set(want_ar) or any("default" not in lat
+                                         for lat in cells.values()):
+        raise RuntimeError(f"long_500k: tune_trace measured allreduce cells "
+                           f"{ {nb: sorted(lat) for nb, lat in cells.items()} }"
+                           f", not {sorted(want_ar)} each with default")
+    for nb, lat in sorted(cells.items()):
+        win = min(lat, key=lat.get)
+        log(f"[{tag}b] allreduce over data {LONG_SHARDS} at {nb} B: winner "
+            f"{win} {lat[win]:.4f} ms, default {lat['default']:.4f} ms "
+            f"({len(lat)} impls measured; {card})")
+    tuned, _ = flash_run("b tuned sharded decode", lambda: sv.decode_from(
+        cfg, mesh8, params8, shards, lg0, LONG_PROMPT, n_tokens, cell=cell,
+        phase_profiles=phases), {})
+    footer = api.format_footer(tuned.ctx).splitlines()
+    for ln in footer:
+        log(f"[{tag}b] {ln}")
+    tuned_ar: dict = {}
+    for op, p_, nb, impl, *_ in tuned.ctx.record:
+        if op == "allreduce" and p_ == LONG_SHARDS:
+            tuned_ar.setdefault(nb, {}).setdefault(impl, 0)
+            tuned_ar[nb][impl] += 1
+    if {nb: sum(n.values()) for nb, n in tuned_ar.items()} != want_ar or any(
+            f"#@pgmpi alg MPI_Allreduce {nb} {impl}" not in footer
+            for nb, n in tuned_ar.items() for impl in n):
+        raise RuntimeError(f"long_500k: the tuned decode's allreduce calls "
+                           f"over data {tuned_ar} and footer lines do not "
+                           f"show the cells {sorted(want_ar)}")
+    checks = {"sharded vs unsharded": sv.check_serves(flat, sharded,
+                                                      SERVE_RTOL),
+              "tuned vs default": sv.check_serves(sharded, tuned,
+                                                  SERVE_RTOL)}
+    for label, c in checks.items():
+        log(f"[{tag}b] {label}: {c['steps']} steps, max-norm relative error "
+            f"{c['max_rel_err']:.4e} (tolerance {SERVE_RTOL}), tokens "
+            f"diverged at {c['diverged_at']}")
+    for label, res in (("sharded default", sharded), ("sharded tuned", tuned),
+                       ("unsharded", flat)):
+        _serve_line(f"{tag}b", label, res, 1, LONG_PROMPT, card)
+    launches = {k: v - c0[k] for k, v in counts(wrappers).items()}
+    log(f"[long-context path {cfg.name}] kernel launches: "
+        f"{json.dumps(launches)}")
+    out["long_500k"] = {
+        "prefill_s": prefill_s, "peak_prefill_bytes": peak_pf,
+        "peak_decode_bytes": peak_b, "cache_bytes": cache_bytes,
+        "checks": checks, "allreduce_cells_ms": cells,
+        "decode_ms_per_token": {
+            "sharded": sharded.decode_s_per_token * 1e3,
+            "tuned": tuned.decode_s_per_token * 1e3,
+            "unsharded": flat.decode_s_per_token * 1e3}}
+    out["launches"] = launches
+    del params1, params8, caches, shards, logits
+    torch.cuda.empty_cache()
+    log(f"[{tag}] long-context phase in {time.perf_counter() - t_phase:.1f} "
+        f"s")
+    return out
+
+
+def vlm_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
+                    card: str, tag: str = "18") -> dict:
+    """paligemma-3b at full width and depth, TP ``VLM_TP`` stacked: 4
+    requests of 256 seeded stub patches + 1024 text tokens, 1 + 32 tokens,
+    2048 slots.  (a) the flash serve recording (two flash launches a layer
+    at prefill, the prefix rows and the text rows, both ``mma_sync``;
+    ``split_kv`` at decode); ``tune_trace`` and the tuned re-serve within
+    ``SERVE_RTOL``; (b) the ``ref`` serve (the dense mask) of the same
+    weights, the flash serve held to it within ``SERVE_RTOL``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import api, trace
+    from repro_torch.core._axis import StackedAxis
+    from repro_torch.launch import serve as sv
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_tree, tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(VLM_ARCH), attn_impl="flash")
+    axis = StackedAxis(VLM_TP, dev)
+    fa = wrappers["flash_attention"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_tree(lm.model_specs(cfg, VLM_TP), gen, axis)
+    w_bytes = sum(t_.numel() * t_.element_size()
+                  for t_ in tree_leaves(params))
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
+    npf = cfg.vlm.n_patches
+    patches = torch.as_tensor(rng.standard_normal(
+        (SERVE_BATCH, npf, cfg.vlm.patch_dim), dtype=np.float32),
+        device=dev)
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV head x {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {npf} patches of "
+        f"{cfg.vlm.patch_dim}; TP {VLM_TP} stacked; weights "
+        f"{w_bytes / 1e9:.3f} GB ({card})")
+    n_tokens = 1 + SERVE_DECODE
+    sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, 2, patches=patches)
+    zero_counts(wrappers)               # the VLM serve path starts here
+    c0 = counts(wrappers)
+    paths: dict = {}
+    d256_paths: dict = {}
+    want = {"mma_sync": 2 * cfg.n_layers,
+            "split_kv": cfg.n_layers * SERVE_DECODE}
+
+    def one(label, c, **kw):
+        torch.cuda.reset_peak_memory_stats(dev)
+        before, dh0 = dict(fa.launches_by_path), dh_counts(fa)
+        res = sv.serve(c, axis, params, prompts, SERVE_SLOTS, n_tokens,
+                       patches=patches, **kw)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in path_delta(fa, before).items() if v}
+        d256 = dh_delta(fa, dh0)
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"[{tag} {label}] flash_attention launches by path "
+            f"{json.dumps(got)}, at head dim 256 {json.dumps(d256)}; peak "
+            f"{peak / 1e9:.3f} GB ({card})")
+        if c.attn_impl == "flash" and (got != want or d256 != want):
+            raise RuntimeError(f"{cfg.name} {label}: flash paths {got} (at "
+                               f"head dim 256 {d256}), not {want}")
+        for k, v in got.items():
+            paths[k] = paths.get(k, 0) + v
+        for k, v in d256.items():
+            d256_paths[k] = d256_paths.get(k, 0) + v
+        _serve_line(tag, label, res, SERVE_BATCH, npf + SERVE_PROMPT, card)
+        return res, peak
+
+    first, peak = one("flash serve", cfg)
+    rec = trace.Trace.from_context(first.ctx)
+    rec.save(out_dir / f"serve_trace_{cfg.name}.jsonl")
+    for ln in rec.summary().splitlines():
+        log(f"[{tag}] {ln}")
+    _, phases = _tune(torch, rec, dev, tag, "vlm", out_dir, held=False)
+    second, _ = one("tuned flash serve", cfg, phase_profiles=phases)
+    for ln in api.format_footer(second.ctx).splitlines():
+        log(f"[{tag}] {ln}")
+    ref, _ = one("ref serve", dataclasses.replace(cfg, attn_impl="ref"))
+    checks = {"flash vs ref": sv.check_serves(ref, first, SERVE_RTOL),
+              "tuned vs default": sv.check_serves(first, second, SERVE_RTOL)}
+    for label, c in checks.items():
+        log(f"[{tag}] {label}: {c['steps']} steps, max-norm relative error "
+            f"{c['max_rel_err']:.4e} (tolerance {SERVE_RTOL}), tokens "
+            f"diverged at {c['diverged_at']}")
+    launches = {k: v - c0[k] for k, v in counts(wrappers).items()}
+    log(f"[VLM serve path {cfg.name}] kernel launches: "
+        f"{json.dumps(launches)}")
+    out = {"launches": launches, "paths": paths, "d256_paths": d256_paths,
+           "checks": checks,
+           "peak_bytes": peak, "weights_bytes": w_bytes, "serves": {
+               label: {"prefill_ms": r.prefill_s * 1e3,
+                       "decode_ms_per_token": r.decode_s_per_token * 1e3}
+               for label, r in (("flash", first), ("tuned", second),
+                                ("ref", ref))}}
+    del params
+    torch.cuda.empty_cache()
+    log(f"[{tag}] VLM serve phase in {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def block(api, axis, torch, x, wv, wo, wgu, wd):
@@ -3436,8 +3965,20 @@ def main(argv=None) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
-    report: dict = {}
+    report: dict = {"phase_seconds": {}}
+    clock = {"phase": None, "t": t_start}
 
+    def phase(n: str) -> None:
+        """Close the running phase (its seconds logged and kept) and open
+        phase ``n`` (None: the end)."""
+        now = time.perf_counter()
+        if clock["phase"] is not None:
+            sec = now - clock["t"]
+            report["phase_seconds"][clock["phase"]] = sec
+            log(f"[phase {clock['phase']}] {sec:.1f} s")
+        clock.update(phase=n, t=now)
+
+    phase("1")
     # -- 1. the card ---------------------------------------------------------
     card = nvidia_smi("name,power.limit")
     log(card)                       # exactly as nvidia-smi prints it
@@ -3446,6 +3987,7 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     report["card"] = card
 
+    phase("2")
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     errs: list[BaseException] = []
@@ -3482,6 +4024,7 @@ def main(argv=None) -> int:
             f"m={2 * D_FF // P}, {dt}: "
             f"{rdma.blocks_per_rank(dt, P, TOKENS // P, 2 * D_FF // P)}")
 
+    phase("3")
     # -- 3. kernels against their plain versions -----------------------------
     g = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -3866,6 +4409,10 @@ def main(argv=None) -> int:
     kernels["flash_attention"] = flash["prefill"]
     kernels["flash_attention_mla"] = dict(
         flash["mla"]["prefill"], name="flash_attention_mla", main_path=True)
+    kernels["flash_attention_d256"] = dict(
+        flash["d256"]["gemma prefill"], name="flash_attention_d256",
+        main_path=True)
+    report["flash_d256"] = flash["d256"]
     report["flash_decode"] = flash["decode"]
     report["flash_mla_decode"] = flash["mla"]["decode"]
     report["flash_zamba2_prefill_ms"] = flash["zamba2_prefill_ms"]
@@ -3880,6 +4427,7 @@ def main(argv=None) -> int:
     report["scan_decode"] = {"rwkv6_scan": scans["rwkv6_decode"],
                              "ssd_scan": scans["ssd_decode"]}
 
+    phase("4")
     # -- 4. selfcheck ----------------------------------------------------------
     for p_ in (P, 6):
         rep = selfcheck.run(p_, dev)
@@ -3898,6 +4446,7 @@ def main(argv=None) -> int:
         raise RuntimeError(f"selfcheck mesh failed: {rep['failures']}, "
                            f"{rep['impls']} of {n_impls} impls")
 
+    phase("5")
     # -- 5. fit the h100-stacked Topo -------------------------------------------
     bench = measure.Bench(P, dev)
     sw_sizes = (1 << 10, 1 << 14, 1 << 18, 1 << 20, 1 << 22)
@@ -3933,6 +4482,7 @@ def main(argv=None) -> int:
     zero_counts(wrappers)
     c0 = counts(wrappers)
 
+    phase("6")
     # -- 6. tune ---------------------------------------------------------------
     t0 = time.perf_counter()
     backend = tuner.MeasuredBackend(P, dev, max_nrep=20)
@@ -4006,6 +4556,7 @@ def main(argv=None) -> int:
     require_launched("6 tune", c0, c6)
     del backend
 
+    phase("7")
     # -- 7. record the block ---------------------------------------------------
     axis = StackedAxis(P, dev)
     x = randn(P, TOKENS // P, D_MODEL)
@@ -4028,6 +4579,7 @@ def main(argv=None) -> int:
     log(f"[7 record] kernel launches: "
         f"{json.dumps({k: c7[k] - c6[k] for k in c7})}")
 
+    phase("8")
     # -- 8. replay, then dispatch under the new profiles -----------------------
     t0 = time.perf_counter()
     rrep = tuner.tune_trace(rec, tuner.MeasuredBackend(P, dev, max_nrep=20))
@@ -4202,6 +4754,7 @@ def main(argv=None) -> int:
             + f"; {impls[1]} / default = {lat[impls[1]] / lat['default']:.3f}")
     del backend
 
+    phase("9")
     # -- 9. where one call's device time goes (after the main path's counts)
     for nm in ("default", "allgather_as_ring", "wire_q8"):
         profile_call(torch, f"allgather {nm} x{list(x.shape)}",
@@ -4215,6 +4768,7 @@ def main(argv=None) -> int:
         kernels[k]["main_path"] = True
     kernels["ring_allgather_matmul_blocks"]["main_path"] = False
 
+    phase("10")
     # -- 10. the serve path: llama3.2-3b ----------------------------------
     every = dict(wrappers,
                  ring_allgather_matmul_blocks=rdma.ring_allgather_matmul_blocks,
@@ -4227,6 +4781,7 @@ def main(argv=None) -> int:
         "flash_attention"]
     kernels["flash_attention"]["main_path"] = True
 
+    phase("11")
     # -- 11. the serve paths of the SSM family ------------------------------
     report["ssm_serve"] = {}
     for arch, scan, needles in (
@@ -4243,22 +4798,26 @@ def main(argv=None) -> int:
         kernels[scan]["launches"] = got["launches"][scan]
         kernels[scan]["main_path"] = True
 
+    phase("12")
     # -- 12. the train path: llama3.2-3b, FSDP and TP ----------------------
     report["train"] = train_phase(torch, dev, every)
     for k, v in report["train"]["launches"].items():
         kernels[k]["train_launches"] = v
 
+    phase("13")
     # -- 13. the data x model train path: llama3.2-3b on a (2, 4) mesh ------
     report["mesh_train"] = train_mesh_phase(torch, dev, every)
     for k, v in report["mesh_train"]["launches"].items():
         kernels[k]["mesh_train_launches"] = v
 
+    phase("14")
     # -- 14. train through the kernels: flash, rwkv6_scan, ssd_scan ----------
     report["kernel_train"] = train_kernels_phase(torch, dev, every,
                                                  report["train"])
     for k, v in report["kernel_train"]["launches"].items():
         kernels[k]["kernel_train_launches"] = v
 
+    phase("15")
     # -- 15. the MoE serve: phi3.5-moe-42b-a6.6b, 16 of 32 layers ----------
     report["moe_serve"] = moe_serve_phase(torch, dev, out_dir, every, card)
     for k, v in report["moe_serve"]["launches"].items():
@@ -4272,6 +4831,7 @@ def main(argv=None) -> int:
         mla_row[field] = report[key]["paths"]["flash_attention"]["mla"]
     mla_row["moe_serve_launches"] = report["moe_serve"]["flash_paths"]["mla"]
 
+    phase("16")
     # -- 16. the MLA serve: deepseek-v3-671b, 2 of 61 layers ---------------
     report["mla_serve"] = mla_serve_phase(torch, dev, out_dir, every, card)
     for k, v in report["mla_serve"]["launches"].items():
@@ -4280,6 +4840,39 @@ def main(argv=None) -> int:
         "mla_launches"]
     kernels["flash_attention_mla"]["mla_serve_launches"] = report[
         "mla_serve"]["mla_launches"]
+
+    phase("17")
+    # -- 17. gemma3-1b: the data x model serve and long_500k ----------------
+    report["long_context"] = long_context_phase(torch, dev, out_dir, every,
+                                                card)
+    for k, v in report["long_context"]["launches"].items():
+        kernels[k]["long_context_launches"] = v
+
+    phase("18")
+    # -- 18. paligemma-3b: the prefix-LM VLM serve --------------------------
+    report["vlm_serve"] = vlm_serve_phase(torch, dev, out_dir, every, card)
+    for k, v in report["vlm_serve"]["launches"].items():
+        kernels[k]["vlm_serve_launches"] = v
+    # the "mla" path's launches in phases 17-18 (flash's counts by path);
+    # flash at head dim 256: phase 3's gemma3-1b prefill numbers, and its
+    # launches at that head dim by path in each path's run (phases 12-18
+    # read flash's counts by head dim around their runs)
+    mla_row["long_context_launches"] = report["long_context"]["paths"].get(
+        "mla", 0)
+    mla_row["vlm_serve_launches"] = report["vlm_serve"]["paths"].get("mla",
+                                                                     0)
+    d256 = kernels["flash_attention_d256"]
+    for key, field in (("train", "train_launches"),
+                       ("mesh_train", "mesh_train_launches"),
+                       ("kernel_train", "kernel_train_launches"),
+                       ("moe_serve", "moe_serve_launches"),
+                       ("mla_serve", "mla_serve_launches"),
+                       ("long_context", "long_context_launches"),
+                       ("vlm_serve", "vlm_serve_launches")):
+        d256[field] = report[key]["d256_paths"]
+    d256["launches"] = sum(report["long_context"]["d256_paths"].values()) + \
+        sum(report["vlm_serve"]["d256_paths"].values())
+    phase(None)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     (out_dir / "report.json").write_text(json.dumps(report, indent=1))
@@ -4288,7 +4881,8 @@ def main(argv=None) -> int:
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "main_path", "train_launches", "mesh_train_launches",
              "kernel_train_launches", "moe_serve_launches",
-             "mla_serve_launches")
+             "mla_serve_launches", "long_context_launches",
+             "vlm_serve_launches")
     print(json.dumps({"kernels": [{k: kernels[n].get(k) for k in order}
                                   for n in ("guideline_pack", "block_matmul",
                                             "ring_allgather_matmul_rdma",
@@ -4296,6 +4890,7 @@ def main(argv=None) -> int:
                                             "quant_pack", "dequant_unpack",
                                             "flash_attention",
                                             "flash_attention_mla",
+                                            "flash_attention_d256",
                                             "rwkv6_scan", "ssd_scan")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

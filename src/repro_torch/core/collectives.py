@@ -48,6 +48,7 @@ points.  This rules out recursive re-tuning.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from functools import partial
@@ -1081,6 +1082,25 @@ def demotions() -> dict[tuple[str, str], str]:
 
 def clear_demotions() -> None:
     _DEMOTED.clear()
+
+
+@contextlib.contextmanager
+def wire_held_out(reason: str):
+    """Hold the quantized-wire impls out of the admissible set inside (a
+    weight gathered over ``data`` on an 8-bit wire changes the model
+    itself, not only the rounding of a sum); the demotions made before
+    are restored after."""
+    before = demotions()
+    try:
+        for op, impls in REGISTRY.items():
+            for nm, impl in impls.items():
+                if impl.wire_dtype is not None:
+                    demote(op, nm, reason)
+        yield
+    finally:
+        clear_demotions()
+        for (op, nm), why in before.items():
+            demote(op, nm, why)
 
 
 def impl_names(op: str) -> list[str]:

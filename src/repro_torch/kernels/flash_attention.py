@@ -23,7 +23,8 @@ The CUDA source, with the bound it works against, is
 decides (``flash_attention_plan``) which of its kernels a call takes, from
 the dtype, the head dim, the number of folded query rows (``Sq·G``) and the
 alignment, before the launch; every call is one launch.
-``flash_attention.launches_by_path`` counts them by path:
+``flash_attention.launches_by_path`` counts them by path, and
+``flash_attention.launches_by_dh`` by head dim, then path:
 
 * ``"wgmma"``: bf16 prefill (at least 64 folded rows, dh 64 or 128, 16-byte
   strides): warp-specialized CTAs of 128 folded rows, K/V blocks of 128
@@ -240,11 +241,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     flash_attention.launches += 1
     flash_attention.launches_by_path[path] += 1
+    flash_attention.launches_by_dh.setdefault(
+        dh, dict.fromkeys(PATHS, 0))[path] += 1
     return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_path = dict.fromkeys(PATHS, 0)
+flash_attention.launches_by_dh = {}
 
 
 class FlashAttention(torch.autograd.Function):

@@ -10,15 +10,29 @@ given none, the stores of ``$PGTUNE_PROFILE_DIR`` (``resolve_stores``).
 
 ``serve`` is the counterpart of ``examples/serve_decode.py``: prefill a
 batch of prompts, greedy-decode with tensor parallelism over a stacked
-``model`` axis, tokens kept on the device; the CLI closes the paper's
-offline -> online loop on the recorded traffic::
+``model`` axis, tokens kept on the device.  On a (data, model)
+``StackedMesh`` the batch is cut over ``data`` (the JAX package's
+``_dp``) and the weights are FSDP-sharded over it, gathered by the ops
+as in training.  The ``long_500k`` cell (``launch.shapes``) decodes over
+a sequence-sharded cache instead: the prompt is prefilled unsharded on
+the model axis, its cache laid out as ``d`` sequence shards
+(``seq_shards``), and ``decode_from`` decodes with the token replicated
+over ``data``, the logits read from data rank 0.  The CLI closes the
+paper's offline -> online loop on the recorded traffic::
 
     python -m repro_torch.launch.serve --device cpu --arch llama3.2-3b
+    python -m repro_torch.launch.serve --device cpu --arch gemma3-1b \
+        --mesh 2x2
+    python -m repro_torch.launch.serve --device cpu --arch gemma3-1b \
+        --mesh 4x1 --shape long_500k
 
-(also ``--arch rwkv6-3b`` and ``--arch zamba2-1.2b``; the smoke-size
-config: default serve, recording; ``tune_trace`` with the
-measured backend; serve again under the per-phase profiles; the tokens
-and logits must agree).  Without ``--device cpu`` it runs on the card.
+(also ``--arch rwkv6-3b``, ``zamba2-1.2b``, ``paligemma-3b`` (stub image
+patches before the prompt); the smoke-size config: default serve,
+recording; ``tune_trace`` with the measured backend; serve again under
+the per-phase profiles; the tokens and logits must agree; at ``--shape
+long_500k`` the sharded decode is also held to an unsharded one from the
+same prefill, and the prompt is cut to the smoke size).  Without
+``--device cpu`` it runs on the card.
 The fleet mode of the JAX package (``store_ref=``, ``plan=``) and its
 builders' own tuning arguments (``profiles=``, ``force=``,
 ``phase_profiles=``, ``profile_dir=``) are not ported: no caller here
@@ -30,15 +44,17 @@ import argparse
 import contextlib
 import dataclasses
 import pathlib
+import shutil
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.core import api
-from repro_torch.core._axis import StackedAxis
+from repro_torch.core._axis import StackedAxis, StackedMesh
 from repro_torch.core.profiles import resolve_stores
 from repro_torch.dist.axes import bind
+from repro_torch.launch.shapes import SHAPES, ShapeCell
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 
@@ -62,24 +78,102 @@ def _serving_ctx(tag, record):
         yield
 
 
-def build_prefill(cfg: ModelConfig, axis: StackedAxis, *, record=None):
-    """``step(params, batch, caches) -> (last-token logits [p, B, 1, V_t],
-    caches)`` on ``axis``, tagged ``prefill``.  (The JAX package's
-    builders also take a shape cell for their mesh specs; the stacked
-    axis needs none, and sequence-sharded decode is not ported.)"""
+def _axes_of(axis) -> dict:
+    """The names to bind for ``axis``: a ``StackedAxis`` is the model
+    axis; a ``StackedMesh`` binds each of its names (data and model)."""
+    if isinstance(axis, StackedMesh):
+        return {n: axis[n] for n in axis.names}
+    return {"model": axis}
+
+
+def _data_size(axis) -> int:
+    return axis["data"].size if isinstance(axis, StackedMesh) else 1
+
+
+def _model_axis(axis) -> StackedAxis:
+    return axis["model"] if isinstance(axis, StackedMesh) else axis
+
+
+def lane_batch(x: torch.Tensor, axis) -> torch.Tensor:
+    """A global ``[B, ...]`` batch as the lanes see it: unchanged on a
+    model axis (every rank sees it); on a mesh each lane's data rank's
+    slice, ``[L, B/d, ...]`` (lane ``i*t + j`` holds slice i)."""
+    if not isinstance(axis, StackedMesh):
+        return x
+    d, t = axis["data"].size, axis["model"].size
+    if x.shape[0] % d:
+        raise ValueError(f"batch {x.shape[0]} does not split over data {d}")
+    xs = x.reshape(d, x.shape[0] // d, *x.shape[1:])
+    return xs.unsqueeze(1).expand(d, t, *xs.shape[1:]).reshape(
+        d * t, *xs.shape[1:])
+
+
+def build_prefill(cfg: ModelConfig, axis, *, record=None):
+    """``step(params, batch, caches) -> (last-token logits [L, B, 1, V_t],
+    caches)`` on ``axis`` (the model axis, or a (data, model) mesh with
+    the batch cut over data), tagged ``prefill``.  A seq-sharded cache is
+    filled by prefilling unsharded and cutting it (``seq_shards``)."""
+
     def step(params, batch, caches):
-        with bind(model=axis), _serving_ctx("prefill", record):
+        with bind(**_axes_of(axis)), _serving_ctx("prefill", record):
             return lm.prefill(params, cfg, batch, caches)
     return step
 
 
-def build_decode(cfg: ModelConfig, axis: StackedAxis, *, record=None):
-    """``step(params, token, caches, t) -> (logits [p, B, 1, V_t],
-    caches)`` on ``axis``, tagged ``decode``; ``t`` is a host int."""
+def build_decode(cfg: ModelConfig, axis, cell: ShapeCell | None = None, *,
+                 record=None):
+    """``step(params, token, caches, t) -> (logits [L, B, 1, V_t],
+    caches)`` on ``axis``, tagged ``decode``; ``t`` is a host int.  With
+    a seq-sharded ``cell`` the caches' sequence is cut over ``data``
+    (``seq_shards``) and the token ``[L, B, 1]`` is the same on every
+    data rank."""
+    seq = bool(cell is not None and cell.seq_sharded)
+
     def step(params, token, caches, t: int):
-        with bind(model=axis), _serving_ctx("decode", record):
-            return lm.decode_step(params, cfg, token, caches, t)
+        with bind(**_axes_of(axis)), _serving_ctx("decode", record):
+            return lm.decode_step(params, cfg, token, caches, t,
+                                  seq_sharded=seq)
     return step
+
+
+def clone_caches(tree):
+    """A copy of a cache tree (each tensor cloned, the filled lengths
+    kept): decode writes its caches in place."""
+    if isinstance(tree, dict):
+        return {k: clone_caches(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone_caches(v) for v in tree]
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def seq_shards(caches, d: int):
+    """A prefilled unsharded cache tree on ``t`` model lanes laid out as
+    ``d`` sequence shards for a (data d, model t) mesh: each attention
+    cache ``[t, B, S, ...]`` becomes ``[d*t, B, S/d, ...]``, lane ``i*t +
+    j`` holding model rank j's slots ``[i*S/d, (i+1)*S/d)`` (a view when
+    t = B = 1: the shards then write into the prefilled buffers); each
+    SSM state (no sequence dim) is copied to every data rank.  The
+    filled lengths are kept."""
+    def lay(key, x):
+        if key in ("k", "v"):
+            t, b, s = x.shape[:3]
+            if s % d:
+                raise ValueError(f"{s} slots do not split into {d} shards")
+            y = x.reshape(t, b, d, s // d, *x.shape[3:]).movedim(2, 0)
+            return y.reshape(d * t, b, s // d, *x.shape[3:])
+        return x.unsqueeze(0).expand(d, *x.shape).reshape(
+            d * x.shape[0], *x.shape[1:]).clone()
+
+    def node(key, c):
+        if isinstance(c, list):
+            return [node(key, v) for v in c]
+        if isinstance(c, dict):
+            if "c_kv" in c:
+                raise NotImplementedError("an MLA cache has no sequence-"
+                                          "sharded layout")
+            return {k: node(k, v) for k, v in c.items()}
+        return c if key == "len" else lay(key, c)
+    return node(None, caches)
 
 
 # ---------------------------------------------------------------------------
@@ -93,73 +187,146 @@ class ServeResult:
     float32 logits ``[B, V_pad]`` each token was picked from (the
     prefill's last position, then each decode step); host seconds of the
     prefill and of the whole decode loop, each ended by a device
-    synchronize; the dispatch context (records, footer)."""
+    synchronize; the dispatch context (records, footer).  A
+    sequence-sharded decode's ``lane_spread``: per decode step, the
+    largest difference of any data rank's logits from data rank 0's
+    (read after the loop)."""
     tokens: torch.Tensor
     logits: list[torch.Tensor]
     prefill_s: float
     decode_s: float
     ctx: api.TuneContext
+    lane_spread: list[float] | None = None
 
     @property
     def decode_s_per_token(self) -> float:
         return self.decode_s / max(1, len(self.logits) - 1)
 
 
-def full_vocab(logits: torch.Tensor) -> torch.Tensor:
-    """Vocab-sharded last-position logits ``[p, B, S, V_t]`` -> ``[B,
-    p*V_t]``, the shards concatenated in rank order."""
+def full_vocab(logits: torch.Tensor, d: int = 1) -> torch.Tensor:
+    """Vocab-sharded last-position logits ``[L, b, S, V_t]`` -> ``[d*b,
+    t*V_t]``: on a (data d, model t) mesh, data rank i's rows after rank
+    i - 1's, each row's model shards concatenated in rank order."""
     last = logits[:, :, -1]
-    return last.permute(1, 0, 2).reshape(last.shape[1], -1)
+    lanes, b, v_t = last.shape
+    t = lanes // d
+    return last.reshape(d, t, b, v_t).permute(0, 2, 1, 3).reshape(
+        d * b, t * v_t)
 
 
 def _greedy(lg: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return (torch.argmax(lg, dim=-1) % cfg.vocab_size)[:, None]
 
 
-def _sync(axis: StackedAxis) -> None:
+def _sync(axis) -> None:
     if axis.device.type == "cuda":
         torch.cuda.synchronize(axis.device)
 
 
-def serve(cfg: ModelConfig, axis: StackedAxis, params, prompts, s_max: int,
-          n_tokens: int, *, phase_profiles=None, record=None) -> ServeResult:
-    """Prefill ``prompts [B, S]`` and greedy-decode ``n_tokens`` tokens in
-    all (the prefill's and ``n_tokens - 1`` decode steps) over the full
+def _stores(phase_profiles):
+    """(base, per-phase) stores: explicit ``phase_profiles``, else those
+    of ``$PGTUNE_PROFILE_DIR`` (none when it is unset)."""
+    if phase_profiles is not None:
+        return None, phase_profiles
+    return resolve_stores()
+
+
+def _decode_loop(cfg, axis, decode, params, caches, tok, t0: int,
+                 n_steps: int, seq: bool):
+    """``n_steps`` greedy decode steps from ``tok [B, 1]`` at position
+    ``t0``: (tokens, full-vocab logits, per-step data-lane spreads as
+    device scalars, or None)."""
+    d = _data_size(axis)
+    out_tok, out_lg, spread = [], [], []
+    for step in range(n_steps):
+        if seq:
+            lanes = tok.unsqueeze(0).expand(axis.lanes, *tok.shape)
+        else:
+            lanes = lane_batch(tok, axis)
+        logits, caches = decode(params, lanes, caches, t0 + step)
+        if seq:
+            # every data rank holds the same logits: read data rank 0's
+            t = _model_axis(axis).size
+            per = logits.reshape(d, t, *logits.shape[1:])
+            spread.append((per - per[:1]).abs().amax())
+            lg = full_vocab(per[0])
+        else:
+            lg = full_vocab(logits, d)
+        tok = _greedy(lg, cfg)
+        out_tok.append(tok)
+        out_lg.append(lg)
+    return out_tok, out_lg, (spread if seq else None)
+
+
+def serve(cfg: ModelConfig, axis, params, prompts, s_max: int,
+          n_tokens: int, *, patches=None, phase_profiles=None,
+          record=None) -> ServeResult:
+    """Prefill ``prompts [B, S]`` (a VLM's after its ``patches [B, N,
+    patch_dim]``) and greedy-decode ``n_tokens`` tokens in all (the
+    prefill's and ``n_tokens - 1`` decode steps) over the full
     vocabulary, under ``api.tuned(phase_profiles=..., record=...)``; with
     no ``phase_profiles`` the stores of ``$PGTUNE_PROFILE_DIR`` serve, if
-    it is set.  The decode position is a host int; nothing in the loop
-    waits on the device."""
+    it is set.  ``axis``: the model axis, or a (data, model) mesh that
+    cuts the batch over data.  The decode position is a host int (it
+    counts a VLM's patches); nothing in the loop waits on the device."""
     batch, s0 = prompts.shape
+    if patches is not None:
+        s0 += patches.shape[1]
     if s0 + n_tokens - 1 > s_max:
         raise ValueError(f"{s0} prompt + {n_tokens - 1} decode tokens exceed "
                          f"the cache's {s_max} slots")
     prefill = build_prefill(cfg, axis)
     decode = build_decode(cfg, axis)
-    with bind(model=axis):
+    with bind(**_axes_of(axis)):
         caches = lm.init_caches(cfg, batch, s_max)
-    base = None
-    if phase_profiles is None:
-        base, phase_profiles = resolve_stores()
+    inputs = {"tokens": lane_batch(prompts, axis)}
+    if patches is not None:
+        inputs["patches"] = lane_batch(patches, axis)
+    base, phase_profiles = _stores(phase_profiles)
     with api.tuned(profiles=base, phase_profiles=phase_profiles,
                    record=record) as ctx:
         _sync(axis)
         t0 = time.perf_counter()
-        logits, caches = prefill(params, {"tokens": prompts}, caches)
-        lg = full_vocab(logits)
+        logits, caches = prefill(params, inputs, caches)
+        lg = full_vocab(logits, _data_size(axis))
         tok = _greedy(lg, cfg)
-        out_tok, out_lg = [tok], [lg]
         _sync(axis)
         t1 = time.perf_counter()
-        for step in range(n_tokens - 1):
-            logits, caches = decode(params, tok, caches, s0 + step)
-            lg = full_vocab(logits)
-            tok = _greedy(lg, cfg)
-            out_tok.append(tok)
-            out_lg.append(lg)
+        toks, lgs, _ = _decode_loop(cfg, axis, decode, params, caches, tok,
+                                    s0, n_tokens - 1, False)
         _sync(axis)
         t2 = time.perf_counter()
-    return ServeResult(torch.cat(out_tok, dim=1), out_lg, t1 - t0, t2 - t1,
-                       ctx)
+    return ServeResult(torch.cat([tok] + toks, dim=1), [lg] + lgs, t1 - t0,
+                       t2 - t1, ctx)
+
+
+def decode_from(cfg: ModelConfig, axis, params, caches, lg0: torch.Tensor,
+                t0: int, n_tokens: int, *, cell: ShapeCell | None = None,
+                phase_profiles=None, record=None) -> ServeResult:
+    """Greedy-decode from prefilled ``caches`` of length ``t0`` whose last
+    logits were ``lg0 [B, V_pad]`` (its token is the first of
+    ``n_tokens``), under the same context rules as ``serve``.  With a
+    seq-sharded ``cell`` the caches are ``seq_shards`` of a prefill on
+    ``axis``'s data mesh; the token is the same on every data rank, the
+    logits are data rank 0's, and ``lane_spread`` is recorded.  The
+    decode writes ``caches`` in place: decoding again from the same
+    ``t0`` rewrites the same slots before it reads them."""
+    seq = bool(cell is not None and cell.seq_sharded)
+    decode = build_decode(cfg, axis, cell)
+    tok = _greedy(lg0.float(), cfg)
+    base, phase_profiles = _stores(phase_profiles)
+    with api.tuned(profiles=base, phase_profiles=phase_profiles,
+                   record=record) as ctx:
+        _sync(axis)
+        t1 = time.perf_counter()
+        toks, lgs, spread = _decode_loop(cfg, axis, decode, params, caches,
+                                         tok, t0, n_tokens - 1, seq)
+        _sync(axis)
+        t2 = time.perf_counter()
+    return ServeResult(torch.cat([tok] + toks, dim=1), [lg0] + lgs, 0.0,
+                       t2 - t1, ctx,
+                       None if spread is None else
+                       [float(x) for x in spread])
 
 
 def check_serves(ref: ServeResult, got: ServeResult, rtol: float) -> dict:
@@ -198,9 +365,18 @@ def check_serves(ref: ServeResult, got: ServeResult, rtol: float) -> dict:
     return {"steps": steps, "max_rel_err": worst, "diverged_at": diverged}
 
 
+def _mesh(spec: str | None, tp: int, device):
+    """``--mesh dxt`` -> a (data, model) ``StackedMesh``; None -> the model
+    axis of ``tp`` ranks."""
+    if spec is None:
+        return StackedAxis(tp, device)
+    d, t = (int(v) for v in spec.lower().split("x"))
+    return StackedMesh((d, t), ("data", "model"), device)
+
+
 def main(argv=None) -> int:
     from repro_torch.configs import get_config
-    from repro_torch.core import tuner
+    from repro_torch.core import collectives as C, tuner
     from repro_torch.core.trace import Trace
     from repro_torch.models.params import init_tree
 
@@ -209,7 +385,15 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--tp", type=int, default=2,
                     help="model-parallel degree (ranks stacked on the "
-                         "device)")
+                         "device), without --mesh")
+    ap.add_argument("--mesh", default=None,
+                    help="dxt: a (data, model) mesh stacked on the device; "
+                         "the batch (or at --shape long_500k the cache's "
+                         "sequence) is cut over data")
+    ap.add_argument("--shape", default=None, choices=sorted(SHAPES),
+                    help="a decode shape cell; long_500k decodes one "
+                         "request over a sequence-sharded cache (at the "
+                         "smoke size: a prompt of --prompt-len)")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--tokens", type=int, default=24)
     ap.add_argument("--device", default=None,
@@ -220,44 +404,96 @@ def main(argv=None) -> int:
 
     cfg = dataclasses.replace(get_config(args.arch).smoke(),
                               attn_impl="flash")
-    axis = StackedAxis(args.tp, args.device)
+    cell = SHAPES[args.shape] if args.shape else None
+    seq = bool(cell is not None and cell.seq_sharded)
+    axis = _mesh(args.mesh, args.tp, args.device)
+    if seq and not isinstance(axis, StackedMesh):
+        raise SystemExit("--shape long_500k needs --mesh dxt")
+    batch = 1 if seq else args.batch
+    d = _data_size(axis)
+    t = _model_axis(axis).size
     s_max = args.prompt_len + args.tokens + 8
+    if cfg.vlm is not None:
+        s_max += cfg.vlm.n_patches
+    s_max = -(-s_max // d) * d
     gen = torch.Generator(device=axis.device).manual_seed(0)
-    params = init_tree(lm.model_specs(cfg, args.tp), gen, axis)
+    params = init_tree(lm.model_specs(cfg, t), gen, axis)
     rng = np.random.default_rng(0)
     prompts = torch.as_tensor(
-        rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
+        rng.integers(0, cfg.vocab_size, (batch, args.prompt_len)),
         device=axis.device)
-
-    # 1. default serve, recording the phase-tagged workload trace
-    first = serve(cfg, axis, params, prompts, s_max, args.tokens)
-    trace = Trace.from_context(first.ctx)
+    patches = None
+    if cfg.vlm is not None:
+        patches = torch.as_tensor(rng.standard_normal(
+            (batch, cfg.vlm.n_patches, cfg.vlm.patch_dim),
+            dtype=np.float32), device=axis.device)
     out = pathlib.Path(args.out)
+
+    if seq:
+        # prefill unsharded on the model axis (the same weights: each leaf
+        # is one global draw, cut per layout), lay the cache out as d
+        # sequence shards, decode over the mesh; hold it to an unsharded
+        # decode of a clone of the same cache
+        maxis = StackedAxis(t, axis.device)
+        gen = torch.Generator(device=axis.device).manual_seed(0)
+        mparams = init_tree(lm.model_specs(cfg, t), gen, maxis)
+        with bind(model=maxis):
+            caches = lm.init_caches(cfg, 1, s_max)
+        logits, caches = build_prefill(cfg, maxis)(
+            mparams, {"tokens": prompts}, caches)
+        lg0 = full_vocab(logits)
+        clone = clone_caches(caches)
+        shards = seq_shards(caches, d)
+        s0 = args.prompt_len
+
+        def run(phases=None):
+            return decode_from(cfg, axis, params, shards, lg0, s0,
+                               args.tokens, cell=cell,
+                               phase_profiles=phases)
+        first = run()
+        yard = decode_from(cfg, maxis, mparams, clone, lg0, s0, args.tokens)
+        rep = check_serves(yard, first, rtol=2e-2)
+        print(f"seq-sharded decode over {d} shards vs unsharded: logits "
+              f"agree to {rep['max_rel_err']:.2e}; data lanes' logits "
+              f"spread {max(first.lane_spread):.3e}")
+    else:
+        def run(phases=None):
+            return serve(cfg, axis, params, prompts, s_max, args.tokens,
+                         patches=patches, phase_profiles=phases)
+        first = run()
+
+    # 1. the default serve's phase-tagged workload trace
+    trace = Trace.from_context(first.ctx)
     trace.save(out / "trace.jsonl")
     print(trace.summary())
 
     # 2. tune the recorded op mix, per phase, on this device
-    rep = tuner.tune_trace(trace, tuner.MeasuredBackend(args.tp,
-                                                        axis.device))
+    held = (C.wire_held_out("FSDP weights on the quantized wire")
+            if isinstance(axis, StackedMesh) else contextlib.nullcontext())
+    with held:
+        rep = tuner.tune_trace(trace, tuner.MeasuredBackend(None,
+                                                            axis.device))
+    shutil.rmtree(out / "profiles", ignore_errors=True)
     rep.save(out / "profiles")
     print(rep.summary())
     _, phases = resolve_stores(out / "profiles")
 
-    # 3. re-serve with the tuned per-phase stores
-    second = serve(cfg, axis, params, prompts, s_max, args.tokens,
-                   phase_profiles=phases)
-    report = check_serves(first, second, rtol=2e-2)
-    print(f"arch={cfg.name} (smoke) batch={args.batch} tp={args.tp} "
-          f"prompt={args.prompt_len} generated={second.tokens.shape[1]} "
-          f"tokens on {axis.device}; default prefill "
-          f"{first.prefill_s:.3f}s decode {first.decode_s:.3f}s, tuned "
-          f"prefill {second.prefill_s:.3f}s decode {second.decode_s:.3f}s; "
-          f"logits agree to {report['max_rel_err']:.2e}")
-    print("default tokens:", first.tokens[0, :12]
-          .tolist())
-    print("tuned tokens:  ", second.tokens[0, :12].tolist())
+    # 3. serve again under the tuned per-phase stores
+    second = run(phases)
     print("tuned-run dispatch footer:")
     print(api.format_footer(second.ctx))
+    report = check_serves(first, second, rtol=2e-2)
+    where = (f"mesh data {d} x model {t}" if isinstance(axis, StackedMesh)
+             else f"tp={t}")
+    print(f"arch={cfg.name} (smoke) batch={batch} {where} "
+          f"shape={args.shape} prompt={args.prompt_len} "
+          f"generated={second.tokens.shape[1]} tokens on {axis.device}; "
+          f"default prefill {first.prefill_s:.3f}s decode "
+          f"{first.decode_s:.3f}s, tuned prefill {second.prefill_s:.3f}s "
+          f"decode {second.decode_s:.3f}s; logits agree to "
+          f"{report['max_rel_err']:.2e}")
+    print("default tokens:", first.tokens[0, :12].tolist())
+    print("tuned tokens:  ", second.tokens[0, :12].tolist())
     return 0
 
 

@@ -14,12 +14,24 @@ the device to learn its position.  Prefill and decode write the cache IN
 PLACE (the JAX package returns updated copies, which its jit aliases onto
 the donated buffers).
 
+Sequence-sharded cache (``seq_sharded=True`` in decode, the long-context
+``long_500k`` cell): ``{"k", "v": [L, B, S_max/d, KVloc, hd], "len":
+int}`` with data rank i holding the absolute slots ``[i*S_loc,
+(i+1)*S_loc)``.  A decode step writes the new token's k/v into its owner
+shard only, every shard computes flash-decoding partials over its slots
+(``_sdpa_partial``: unnormalized output, row sum, row max), and the
+partials combine over ``data``: the max through ``StackedAxis.pmax``
+(undispatched, as the JAX package's ``lax.pmax``), the two sums through
+``api.allreduce`` (dispatched and tunable).
+
 ``attn_impl="flash"`` goes through ``kernels.flash_attention`` (the Hopper
 kernel on CUDA tensors; there is no fallback), and where a gradient is
 needed through its autograd Function ``FlashAttention`` (the same
 kernel forward, a backward through the plain version, as the JAX package
 differentiates ``_flash_jnp``); ``"ref"`` goes through the dense
-``_sdpa``.
+``_sdpa``.  The prefix-LM mask (``kind="prefix"``, the VLM) runs the
+kernel twice: the prefix rows non-causal over the prefix keys, the text
+rows causal over every key from their own offset (``_flash_prefix``).
 
 MLA (``_attention_mla``, the JAX package's ``models/attention.py:463``):
 the query through a low-rank ``w_dq`` / ``w_uq`` pair, keys and values
@@ -36,8 +48,7 @@ rank's heads as its group, q and k ``kvr + dr`` = 576 wide and v the
 latent's 512 columns (a view of k), through ``kernels.flash_attention``'s
 ``"mla"`` path with scale ``1 / sqrt(nope + rope)``.  ``"ref"`` is the
 NAIVE form: the latent up-projected per use by ``w_ukv`` and the dense
-``_sdpa``.  Cross-attention and sequence-sharded decode come with later
-slices.
+``_sdpa``.  Cross-attention comes with a later slice.
 """
 from __future__ import annotations
 
@@ -46,8 +57,10 @@ import math
 
 import torch
 
+from repro_torch.core import api
 from repro_torch.dist import ops
-from repro_torch.dist.axes import AXES, axis_index, axis_size_or_1
+from repro_torch.dist.axes import (AXES, axis_index, axis_size_or_1,
+                                   get_axis, has_axis)
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import needs_grad, rms_norm, rope
@@ -147,6 +160,30 @@ def _sdpa(q, k, v, mask, *, softcap=None, scale=None):
                         v.float()).to(v.dtype)
 
 
+def _sdpa_partial(q, k, v, mask, *, softcap=None):
+    """Flash-decoding partial over the local keys, grouped: q ``[...,
+    Sq, HK, G, dh]``, k/v ``[..., Skv, HK, dh]`` (each KV head serves its
+    G query heads; no KV head is repeated), mask broadcast to ``[...,
+    Sq, Skv]``.  Returns ``(o, l, m)``: the unnormalized output ``[...,
+    Sq, HK, G, dv]`` in v's dtype (the weights rounded to it before the
+    product), the row sums and row maxima ``[..., HK, G, Sq]`` in
+    float32.  Masked scores are the finite ``NEG``, so a shard whose
+    slots are all masked has ``m = NEG`` and drops out of the combine
+    (``exp(NEG - max) = 0``)."""
+    dh = q.shape[-1]
+    s = torch.einsum("...qhgd,...khd->...hgqk", q.float(),
+                     k.float()) / math.sqrt(dh)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(mask[..., None, None, :, :], s,
+                    torch.full((), NEG, dtype=s.dtype, device=s.device))
+    m = s.amax(-1)
+    w = torch.exp(s - m[..., None])
+    l = w.sum(-1)
+    o = torch.einsum("...hgqk,...khd->...qhgd", w.to(v.dtype), v)
+    return o, l, m
+
+
 def _repeat_kv(k, n_rep: int):
     """``[..., S, H, hd] -> [..., S, H*n_rep, hd]``, each head repeated."""
     if n_rep == 1:
@@ -204,15 +241,44 @@ def _local_kv_select(k_all, cfg: ModelConfig, tp: int):
 
 
 def _flash_args(kind: str, window: int) -> tuple[bool, int]:
-    """(causal, window) of the kernel for a mask kind."""
+    """(causal, window) of the kernel for a mask kind; the prefix-LM mask
+    is two launches (``_flash_prefix``)."""
     if kind == "causal":
         return True, 0
     if kind == "local":
         return True, window
     if kind == "full":
         return False, 0
-    raise NotImplementedError(f"mask kind {kind!r} has no flash path yet "
-                              "(the vlm slice)")
+    raise ValueError(f"mask kind {kind!r} is not one launch of the flash "
+                     "kernel")
+
+
+def _flash(q, k, v, *, causal, window, softcap, q0, scale=None):
+    """One launch: the autograd Function where a gradient is needed, the
+    bare kernel otherwise (serving)."""
+    if needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window, softcap, q0,
+                                    None, scale)
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           softcap=softcap, q0=q0, scale=scale)
+
+
+def _flash_prefix(q, k, v, *, n_prefix: int, softcap, q0: int):
+    """The prefix-LM mask ``(k <= q) | (k < n_prefix)`` as two launches of
+    the kernel, keys from position 0: a query row before ``n_prefix``
+    sees exactly the keys before ``n_prefix`` (non-causal over them), a
+    row at or past it exactly the keys up to itself (causal from its
+    offset).  The outputs are concatenated along S."""
+    sq = q.shape[1]
+    cut = min(max(n_prefix - q0, 0), sq)
+    outs = []
+    if cut:
+        outs.append(_flash(q[:, :cut], k[:, :n_prefix], v[:, :n_prefix],
+                           causal=False, window=0, softcap=softcap, q0=0))
+    if cut < sq:
+        outs.append(_flash(q[:, cut:], k, v, causal=True, window=0,
+                           softcap=softcap, q0=q0 + cut))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -227,18 +293,27 @@ class AttnOut:
 
 
 def attention(p: dict, cfg: ModelConfig, x, *, pos, kind: str = "causal",
-              cache: dict | None = None, mode: str = "train") -> AttnOut:
+              n_prefix: int = 0, cache: dict | None = None,
+              mode: str = "train", seq_sharded: bool = False) -> AttnOut:
     """One attention sub-block (no residual/norm — the stack handles those).
 
     x: ``[p, B, S, D]`` replicated over TP.  pos: ``[1, S]`` absolute
     positions, ``pos0 + arange(S)`` (the same for every rank and row),
     with ``pos0`` 0 in train and prefill mode and the cache's length in
     decode: the flash path takes its query offset from the mode, as a host
-    int, and never reads ``pos``.  mode: train | prefill | decode.  cache
+    int, and never reads ``pos``.  kind: causal | local | prefix (with
+    ``n_prefix``) | full.  mode: train | prefill | decode.  cache
     (prefill out / decode in-out): ``{"k","v": [p, B, S_max, KVloc, hd],
-    "len": int}``.
+    "len": int}``; with ``seq_sharded`` (decode only) the cache's
+    sequence is sharded over ``data`` (``_decode_seq_sharded``).
     """
+    if seq_sharded and mode != "decode":
+        raise NotImplementedError(f"a sequence-sharded cache is read in "
+                                  f"decode mode only, not {mode}")
     if cfg.mla is not None:
+        if seq_sharded:
+            raise NotImplementedError("sequence-sharded decode of an MLA "
+                                      "cache is not supported")
         return _attention_mla(p, cfg, x, pos=pos, kind=kind, cache=cache,
                               mode=mode)
     tp = axis_size_or_1(AXES.model)
@@ -275,6 +350,11 @@ def attention(p: dict, cfg: ModelConfig, x, *, pos, kind: str = "causal",
         new_cache = {"k": cache["k"], "v": cache["v"], "len": s_new}
         k_loc, v_loc, kv_start, kv_valid = k, v, 0, None
     elif mode == "decode":
+        if seq_sharded:
+            o, new_cache = _decode_seq_sharded(cfg, q, k, v, cache,
+                                               kind=kind)
+            return AttnOut(y=ops.row_matmul(o, p["w_o"], fsdp_dim=1),
+                           cache=new_cache)
         t = cache["len"]
         _cache_write(cache["k"], k, t)
         _cache_write(cache["v"], v, t)
@@ -305,17 +385,17 @@ def attention(p: dict, cfg: ModelConfig, x, *, pos, kind: str = "causal",
                                       kv_sharded)
         nb = lead[0] * lead[1]
         qg = q.reshape(nb, s_new, k_sel.shape[3], g, hd)
-        causal, window = _flash_args(kind, cfg.window)
         # positions relative to the first key passed: the masks depend on
         # differences only
         kf, vf = k_sel.flatten(0, 1), v_sel.flatten(0, 1)
         softcap = cfg.attn_softcap or 0.0
-        if needs_grad(qg, kf, vf):
-            o = FlashAttention.apply(qg, kf, vf, causal, window, softcap,
-                                     pos0 - kv_start, None, None)
+        if kind == "prefix":
+            o = _flash_prefix(qg, kf, vf, n_prefix=n_prefix,
+                              softcap=softcap, q0=pos0 - kv_start)
         else:
-            o = flash_attention(qg, kf, vf, causal=causal, window=window,
-                                softcap=softcap, q0=pos0 - kv_start)
+            causal, window = _flash_args(kind, cfg.window)
+            o = _flash(qg, kf, vf, causal=causal, window=window,
+                       softcap=softcap, q0=pos0 - kv_start)
         o = o.reshape(*lead, hq_loc * hd)
     else:
         if kv_sharded:
@@ -326,7 +406,7 @@ def attention(p: dict, cfg: ModelConfig, x, *, pos, kind: str = "causal",
             v_use = _local_kv_select(v_loc, cfg, tp)
         kv_pos = torch.arange(k_use.shape[2], device=x.device)[None]
         mask = make_mask(pos, kv_pos, kind=kind, window=cfg.window,
-                         kv_len_valid=kv_valid)
+                         n_prefix=n_prefix, kv_len_valid=kv_valid)
         o = _sdpa(q.flatten(0, 1), k_use.flatten(0, 1), v_use.flatten(0, 1),
                   mask, softcap=cfg.attn_softcap)
         o = o.reshape(*lead, hq_loc * hd)
@@ -338,6 +418,74 @@ def _cache_write(buf, kv, t: int):
     """Write a ``[p, B, s, ...]`` update at slot ``t`` of ``buf``, in
     place."""
     buf[:, :, t:t + kv.shape[2]] = kv.to(buf.dtype)
+
+
+def _lanes_at(axis, rank: int):
+    """The lanes whose coordinate on ``axis`` is ``rank``: a slice when
+    they are contiguous (the mesh's outer axis), else an index tensor."""
+    lanes = [i for i in range(axis.lanes)
+             if (i // axis.stride) % axis.p == rank]
+    if lanes[-1] - lanes[0] == len(lanes) - 1:
+        return slice(lanes[0], lanes[-1] + 1)
+    return torch.tensor(lanes, device=axis.device)
+
+
+def _decode_seq_sharded(cfg: ModelConfig, q, k_new, v_new, cache, *,
+                        kind: str):
+    """Flash-decoding over a sequence-sharded cache (the data axis).
+
+    q ``[L, B, 1, hq_loc, hd]``, k_new/v_new ``[L, B, 1, KVloc, hd]``;
+    cache k/v ``[L, B, S_loc, KVloc, hd]``, data rank i holding the
+    absolute slots ``[i*S_loc, (i+1)*S_loc)``, ``"len"`` the global
+    length t before this token (a host int).  The new token goes to slot
+    ``t % S_loc`` of the lanes of data rank ``t // S_loc`` only; every
+    lane takes its partial over its own slots (grouped heads, no repeated
+    cache) and the partials combine over ``data``: the maxima through
+    ``StackedAxis.pmax``, the weighted outputs and row sums through
+    ``api.allreduce``.  Returns ``(o [L, B, 1, hq_loc*hd], new_cache)``."""
+    if q.shape[2] != 1:
+        raise ValueError(f"sequence-sharded decode takes one token a step, "
+                         f"got {q.shape[2]}")
+    data = get_axis(AXES.data) if has_axis(AXES.data) else None
+    d = data.size if data is not None else 1
+    s_loc = cache["k"].shape[2]
+    t = cache["len"]
+    owner, slot = divmod(t, s_loc)
+    if owner >= d:
+        raise ValueError(f"the cache's {d} x {s_loc} slots are full at {t}")
+    sel = _lanes_at(data, owner) if data is not None else slice(None)
+    for buf, new in ((cache["k"], k_new), (cache["v"], v_new)):
+        buf[sel, :, slot] = new[sel, :, 0].to(buf.dtype)
+    new_cache = {"k": cache["k"], "v": cache["v"], "len": t + 1}
+
+    tp = axis_size_or_1(AXES.model)
+    hq_loc = cfg.heads_padded(tp) // tp
+    kv_sharded = cfg.n_kv_heads % tp == 0
+    k_sel, v_sel, g = _grouped_kv(cache["k"], cache["v"], cfg, tp, hq_loc,
+                                  kv_sharded)
+    lanes, b = q.shape[:2]
+    qg = q.reshape(lanes, b, 1, k_sel.shape[3], g, cfg.hd)
+    d_idx = (axis_index(AXES.data) if data is not None else
+             torch.zeros(lanes, dtype=torch.int64, device=q.device))
+    kv_pos = d_idx[:, None] * s_loc + torch.arange(s_loc, device=q.device)
+    qpos = torch.full((1, 1), t, dtype=torch.int64, device=q.device)
+    mask = make_mask(qpos, kv_pos, kind=kind, window=cfg.window,
+                     kv_len_valid=t + 1)                      # [L, 1, S_loc]
+    o, l, m = _sdpa_partial(qg, k_sel, v_sel, mask[:, None],
+                            softcap=cfg.attn_softcap)
+    # o [L, B, 1, HK, G, dh]; l, m [L, B, HK, G, 1]
+    if data is not None:
+        a = torch.exp(m - data.pmax(m))
+        a_o = a.permute(0, 1, 4, 2, 3)[..., None].to(o.dtype)
+        num = api.allreduce((o * a_o).reshape(lanes, b, 1, hq_loc, cfg.hd),
+                            data)
+        den = api.allreduce((l * a).reshape(lanes, b, hq_loc, 1), data)
+    else:
+        num = o.reshape(lanes, b, 1, hq_loc, cfg.hd)
+        den = l.reshape(lanes, b, hq_loc, 1)
+    o = num / torch.clamp(den, min=1e-30).transpose(2, 3)[..., None].to(
+        num.dtype)
+    return o.reshape(lanes, b, 1, hq_loc * cfg.hd), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -422,13 +570,8 @@ def _attention_mla(p: dict, cfg: ModelConfig, x, *, pos, kind: str,
         kf = lat[:, :, :pos0 + s_new].flatten(0, 1)[:, :, None, :]
         vf = kf[..., :kvr]                 # the latent: a view of the keys
         causal, window = _flash_args(kind, cfg.window)
-        softcap = cfg.attn_softcap or 0.0
-        if needs_grad(qg, kf):
-            o_lat = FlashAttention.apply(qg, kf, vf, causal, window, softcap,
-                                         pos0, None, scale)
-        else:
-            o_lat = flash_attention(qg, kf, vf, causal=causal, window=window,
-                                    softcap=softcap, q0=pos0, scale=scale)
+        o_lat = _flash(qg, kf, vf, causal=causal, window=window,
+                       softcap=cfg.attn_softcap or 0.0, q0=pos0, scale=scale)
         o_lat = o_lat.reshape(*lead, hq_loc, kvr)
         o = torch.einsum("pbshk,pkhd->pbshd", o_lat, w_uv)
         o = o.reshape(*lead, hq_loc * dvh)

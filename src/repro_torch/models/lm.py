@@ -6,16 +6,24 @@ blocks with a gated MLP), MoE (phi3.5: the MLP is ``models.moe``'s
 expert-parallel block, whose load-balance loss the forward returns; and
 deepseek-v3, whose attention is MLA), SSM (rwkv6: ``rwkv`` blocks) and
 hybrid (zamba2: ``mamba`` blocks with one ``shared_attn`` block, its
-weights shared, after every ``hybrid_period`` of them).  The other
-families raise ``NotImplementedError`` naming the kind: ``encdec`` and
-``vlm`` come with later slices.
+weights shared, after every ``hybrid_period`` of them) and the VLM
+(paligemma: a gemma stack behind a prefix of stub image-patch
+embeddings, projected by ``img_proj``, under the prefix-LM mask).  The
+enc-dec family raises ``NotImplementedError`` naming ``encdec``: it
+comes with a later slice.
 
 Every function runs inside ``dist.axes.bind(model=axis)`` (or, for
-training, ``bind(data=axis)``): tensors carry the rank dim first
-(``[p, B, S, ...]``); tokens are ``[B, S]`` ids that every rank sees, or
-under the data axis each rank's own ``[p, B/p, S]`` slice.  Layers run
-in a Python loop; a scanned group of the JAX package (``stack_plan``) is
-a list of per-layer parameter subtrees here (``models.params``).
+training, ``bind(data=axis)``, or both names as views of one
+``StackedMesh``): tensors carry the lane dim first (``[L, B, S,
+...]``); tokens are ``[B, S]`` ids that every rank sees, or under the
+data axis each lane's own ``[L, B/d, S]`` slice (VLM patches likewise,
+``[B, N, patch_dim]`` or ``[L, B/d, N, patch_dim]``).  Layers run in a
+Python loop; a scanned group of the JAX package (``stack_plan``) is a
+list of per-layer parameter subtrees here (``models.params``).
+
+``seq_sharded=True`` (decode only; the ``long_500k`` cell) keeps every
+attention cache's sequence sharded over ``data`` (``attention.
+_decode_seq_sharded``) and the SSM states replicated over it.
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ from typing import Any
 import torch
 
 from repro_torch.dist import ops
-from repro_torch.dist.axes import AXES, get_axis
+from repro_torch.dist.axes import AXES, get_axis, has_axis
 from repro_torch.models import ssm
 from repro_torch.models.attention import attention, attn_specs
 from repro_torch.models.config import ModelConfig
@@ -51,9 +59,8 @@ class Group:
 def _unsupported(cfg: ModelConfig) -> list[str]:
     kinds = [k for k in cfg.pattern()
              if k not in ("attn", "attn_local", "rwkv", "mamba")]
-    for name in ("encdec", "vlm"):
-        if getattr(cfg, name) is not None:
-            kinds.append(name)
+    if cfg.encdec is not None:
+        kinds.append("encdec")
     return sorted(set(kinds))
 
 
@@ -142,6 +149,9 @@ def model_specs(cfg: ModelConfig, tp: int) -> dict:
             "proj_in": ParamSpec((2 * cfg.d_model, cfg.d_model),
                                  ("data", None), dtype=cfg.dtype),
             **_block_specs("attn", _shared_cfg(cfg), tp)}
+    if cfg.vlm is not None:
+        specs["img_proj"] = ParamSpec((cfg.vlm.patch_dim, cfg.d_model),
+                                      ("data", None), dtype=cfg.dtype)
     return specs
 
 
@@ -154,31 +164,38 @@ def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
 # ---------------------------------------------------------------------------
 
 
-def cache_specs(cfg: ModelConfig, batch: int, s_max: int, tp: int) -> dict:
+def cache_specs(cfg: ModelConfig, batch: int, s_max: int, tp: int, *,
+                seq_sharded: bool = False) -> dict:
     """``ParamSpec`` tree of the KV and SSM caches (global shapes +
     shardings): a KV cache per attention block and per ``shared_attn``
     occurrence (MLA: the latent ``c_kv`` and the rope key ``k_rope``,
     replicated over the model axis), the token-shift / conv tails and the
-    float32 state S per SSM block.  The JAX package's ``"len"`` leaf is a
-    host int that ``init_caches`` adds."""
+    float32 state S per SSM block.  The batch dim is cut over ``data``;
+    with ``seq_sharded`` the attention caches' sequence dim is instead,
+    and the SSM states (no sequence dim) are replicated over it.  The
+    JAX package's ``"len"`` leaf is a host int that ``init_caches``
+    adds."""
     hd = cfg.hd
     kv_dim = "model" if cfg.n_kv_heads % tp == 0 else None
     n_kv = cfg.n_kv_heads
+    # seq-sharded: the sequence over data, the batch (and the SSM states,
+    # which have no sequence dim) replicated over it
+    bdim, sdim = (None, "data") if seq_sharded else ("data", None)
 
     def attn_cache():
         if cfg.mla is not None:
             m = cfg.mla
             return {"self": {
                 "c_kv": ParamSpec((batch, s_max, m.kv_lora_rank),
-                                  ("data", None, None), dtype=cfg.dtype),
+                                  (bdim, sdim, None), dtype=cfg.dtype),
                 "k_rope": ParamSpec((batch, s_max, m.rope_head_dim),
-                                    ("data", None, None), dtype=cfg.dtype),
+                                    (bdim, sdim, None), dtype=cfg.dtype),
             }}
         return {"self": {
             "k": ParamSpec((batch, s_max, n_kv, hd),
-                           ("data", None, kv_dim, None), dtype=cfg.dtype),
+                           (bdim, sdim, kv_dim, None), dtype=cfg.dtype),
             "v": ParamSpec((batch, s_max, n_kv, hd),
-                           ("data", None, kv_dim, None), dtype=cfg.dtype),
+                           (bdim, sdim, kv_dim, None), dtype=cfg.dtype),
         }}
 
     dt, d = cfg.dtype, cfg.d_model
@@ -188,24 +205,24 @@ def cache_specs(cfg: ModelConfig, batch: int, s_max: int, tp: int) -> dict:
             h = ssm.rwkv_heads_padded(cfg, tp)
             sd = cfg.ssm.head_dim
             return {
-                "last_tm": ParamSpec((batch, 1, d), ("data", None, None),
+                "last_tm": ParamSpec((batch, 1, d), (bdim, None, None),
                                      dtype=dt),
-                "last_cm": ParamSpec((batch, 1, d), ("data", None, None),
+                "last_cm": ParamSpec((batch, 1, d), (bdim, None, None),
                                      dtype=dt),
                 "s": ParamSpec((batch, h, sd, sd),
-                               ("data", "model", None, None),
+                               (bdim, "model", None, None),
                                dtype="float32"),
             }
         di = cfg.ssm.expand * d
         nh = di // cfg.ssm.head_dim
         k = cfg.ssm.conv_kernel
         return {
-            "conv_x": ParamSpec((batch, k - 1, di), ("data", None, "model"),
+            "conv_x": ParamSpec((batch, k - 1, di), (bdim, None, "model"),
                                 dtype=dt),
             "conv_bc": ParamSpec((batch, k - 1, 2 * cfg.ssm.state_dim),
-                                 ("data", None, None), dtype=dt),
+                                 (bdim, None, None), dtype=dt),
             "s": ParamSpec((batch, nh, cfg.ssm.state_dim, cfg.ssm.head_dim),
-                           ("data", "model", None, None), dtype="float32"),
+                           (bdim, "model", None, None), dtype="float32"),
         }
 
     def block_cache(kind):
@@ -216,18 +233,25 @@ def cache_specs(cfg: ModelConfig, batch: int, s_max: int, tp: int) -> dict:
         for g in stack_plan(cfg)}}
 
 
-def init_caches(cfg: ModelConfig, batch_size: int, s_max: int):
-    """Zero caches for the bound model axis: ``[p, B, S_max, KVloc, hd]``
-    per attention block, each with ``"len": 0``, and ``[p, *local]`` SSM
+def init_caches(cfg: ModelConfig, batch_size: int, s_max: int, *,
+                seq_sharded: bool = False):
+    """Zero caches for the bound axes (``model``, and ``data`` where it is
+    bound: the global batch, or with ``seq_sharded`` the global
+    sequence, cut over it): ``[L, B_loc, S_loc, KVloc, hd]`` per
+    attention block, each with ``"len": 0``, and ``[L, *local]`` SSM
     states.  An MLA cache's ``c_kv`` and ``k_rope`` are the column blocks
-    of one ``[p, B, S_max, kvr + dr]`` buffer, so the absorbed path reads
+    of one ``[L, B, S_max, kvr + dr]`` buffer, so the absorbed path reads
     its keys, ``concat(c_kv, k_rope)``, as a view
     (``attention.latent_keys``)."""
     axis = get_axis(AXES.model)
-    specs = cache_specs(cfg, batch_size, s_max, axis.size)
+    sizes = {"model": axis.size}
+    if has_axis(AXES.data):
+        sizes["data"] = get_axis(AXES.data).size
+    specs = cache_specs(cfg, batch_size, s_max, axis.size,
+                        seq_sharded=seq_sharded)
 
     def mk(s: ParamSpec):
-        return torch.zeros((axis.size,) + s.local_shape({"model": axis.size}),
+        return torch.zeros((axis.lanes,) + s.local_shape(sizes),
                            dtype=torch_dtype(s.dtype), device=axis.device)
 
     def node(sp):
@@ -253,11 +277,15 @@ def init_caches(cfg: ModelConfig, batch_size: int, s_max: int):
 # ---------------------------------------------------------------------------
 
 
-def _run_attn_block(p, cfg: ModelConfig, x, *, kind, pos, mode, cache):
+def _run_attn_block(p, cfg: ModelConfig, x, *, kind, pos, mode, cache,
+                    n_prefix: int = 0, seq_sharded: bool = False):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    mask_kind = "local" if kind == "attn_local" else "causal"
+    mask_kind = ("local" if kind == "attn_local" else
+                 ("prefix" if n_prefix else "causal"))
     a = attention(p["attn"], cfg, h, pos=pos, kind=mask_kind,
-                  cache=None if cache is None else cache["self"], mode=mode)
+                  n_prefix=n_prefix,
+                  cache=None if cache is None else cache["self"], mode=mode,
+                  seq_sharded=seq_sharded)
     x = x + a.y
     new_cache = {"self": a.cache} if a.cache is not None else None
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
@@ -269,19 +297,21 @@ def _run_attn_block(p, cfg: ModelConfig, x, *, kind, pos, mode, cache):
 
 
 def _run_block(kind, p, cfg: ModelConfig, x, *, pos, mode, cache, shared_p,
-               resid0):
+               resid0, n_prefix: int = 0, seq_sharded: bool = False):
     """One block of any ported kind; returns ``(x, new_cache, aux)``
     (aux: the MoE load-balance loss ``[L]``, else 0.0)."""
     if kind in ("attn", "attn_local"):
         return _run_attn_block(p, cfg, x, kind=kind, pos=pos, mode=mode,
-                               cache=cache)
+                               cache=cache, n_prefix=n_prefix,
+                               seq_sharded=seq_sharded)
     if kind == "shared_attn":
         # zamba2: the shared block on concat(x, resid0), projected in
         h = ops.matmul_accumulate(torch.cat([x, resid0], dim=-1),
                                   shared_p["proj_in"])
         y, c, aux = _run_attn_block(shared_p, _shared_cfg(cfg), h,
                                     kind="attn", pos=pos, mode=mode,
-                                    cache=cache)
+                                    cache=cache, n_prefix=n_prefix,
+                                    seq_sharded=seq_sharded)
         return x + y, c, aux
     if kind == "rwkv":
         return (*ssm.rwkv_block(p, cfg, x, state=cache), 0.0)
@@ -290,7 +320,8 @@ def _run_block(kind, p, cfg: ModelConfig, x, *, pos, mode, cache, shared_p,
     raise ValueError(kind)
 
 
-def _run_stack(params, cfg: ModelConfig, x, *, pos, mode, caches):
+def _run_stack(params, cfg: ModelConfig, x, *, pos, mode, caches,
+               n_prefix: int = 0, seq_sharded: bool = False):
     """Every layer in order; returns ``(x, new_caches, aux)``, aux summed
     over the layers.  ``resid0``, the embedding output, feeds every
     ``shared_attn`` block."""
@@ -312,7 +343,8 @@ def _run_stack(params, cfg: ModelConfig, x, *, pos, mode, caches):
                 x, nc, aux = _run_block(
                     kind, lp.get(key), cfg, x, pos=pos, mode=mode,
                     cache=None if lc is None else lc[key],
-                    shared_p=shared_p, resid0=resid0)
+                    shared_p=shared_p, resid0=resid0, n_prefix=n_prefix,
+                    seq_sharded=seq_sharded)
                 aux_total = aux_total + aux
                 if nc is not None:
                     ncs[key] = nc
@@ -321,13 +353,31 @@ def _run_stack(params, cfg: ModelConfig, x, *, pos, mode, caches):
     return x, (new_caches if caches is not None else None), aux_total
 
 
+def _lane_patches(patches: torch.Tensor, lanes: int) -> torch.Tensor:
+    """VLM patches as a stacked operand: ``[B, N, P]`` that every lane
+    sees become ``[L, B, N, P]``; under the data axis they are each
+    lane's own ``[L, B/d, N, P]`` already (as token ids, ``rank_ids``)."""
+    if has_axis(AXES.data):
+        return patches
+    return patches.unsqueeze(0).expand(lanes, *patches.shape)
+
+
 def _embed_inputs(params, cfg: ModelConfig, batch, *, pos0: int = 0):
-    """Returns ``(x, pos)``: the embedded tokens ``[p, B, S, D]`` and the
-    positions ``[1, S]``."""
+    """Returns ``(x, pos, n_prefix)``: the embedded inputs ``[p, B, S,
+    D]``, the positions ``[1, S]`` and the length of the prefix-LM prefix
+    (VLM: the image patches, projected by ``img_proj`` through
+    ``matmul_accumulate`` and placed before the text; else 0)."""
     scale = (cfg.d_model ** 0.5) if cfg.scale_embed else None
     x = embed_lookup(params["embed"], batch["tokens"], scale=scale)
+    n_prefix = 0
+    if cfg.vlm is not None and "patches" in batch:
+        w = params["img_proj"]
+        patches = _lane_patches(batch["patches"], w.shape[0]).to(w.dtype)
+        img = ops.matmul_accumulate(patches, w).to(x.dtype)
+        x = torch.cat([img, x], dim=2)
+        n_prefix = img.shape[2]
     pos = pos0 + torch.arange(x.shape[2], device=x.device)[None, :]
-    return x, pos
+    return x, pos, n_prefix
 
 
 # ---------------------------------------------------------------------------
@@ -336,13 +386,19 @@ def _embed_inputs(params, cfg: ModelConfig, batch, *, pos0: int = 0):
 
 
 def forward(params, cfg: ModelConfig, batch, *, mode: str = "train",
-            caches=None, pos0: int = 0):
+            caches=None, pos0: int = 0, seq_sharded: bool = False,
+            last_only: bool = False):
     """Full forward.  Returns ``(logits [p, B, S, V_t], new_caches, aux)``:
     aux is the MoE load-balance loss summed over the layers, ``[p]``, and
-    0.0 for a model with no MoE block."""
-    x, pos = _embed_inputs(params, cfg, batch, pos0=pos0)
+    0.0 for a model with no MoE block.  ``last_only``: the logits of the
+    last position only, ``[p, B, 1, V_t]`` (they are per position, so the
+    values are the same)."""
+    x, pos, n_prefix = _embed_inputs(params, cfg, batch, pos0=pos0)
     x, new_caches, aux = _run_stack(params, cfg, x, pos=pos, mode=mode,
-                               caches=caches)
+                                    caches=caches, n_prefix=n_prefix,
+                                    seq_sharded=seq_sharded)
+    if last_only:
+        x = x[:, :, -1:]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(params["embed"], x,
                        params.get("head") if not cfg.tie_embeddings else None,
@@ -352,26 +408,46 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "train",
 
 def loss_fn(params, cfg: ModelConfig, batch):
     """Next-token cross-entropy plus 0.01 of the MoE load-balance loss:
-    ``(loss [p], {"nll", "aux"})``, each rank's mean over its tokens."""
+    ``(loss [p], {"nll", "aux"})``, each rank's mean over its tokens (a
+    VLM's text positions only: the logits after its patches)."""
     logits, _, aux = forward(params, cfg, batch, mode="train")
+    if cfg.vlm is not None:
+        logits = logits[:, :, cfg.vlm.n_patches:]
     mask = batch.get("mask")
     loss = sharded_xent(logits[:, :, :-1], batch["labels"][..., 1:],
                         None if mask is None else mask[..., 1:])
     return loss + 0.01 * aux, {"nll": loss, "aux": aux}
 
 
-def prefill(params, cfg: ModelConfig, batch, caches):
+def prefill(params, cfg: ModelConfig, batch, caches, *,
+            seq_sharded: bool = False):
     """Fill caches from a prompt; returns ``(last-token logits [p, B, 1,
-    V_t], caches)``."""
+    V_t], caches)``.  Only the last position's logits are computed (at
+    524 288 positions the whole ``[S, V_t]`` would not fit the card).
+
+    A sequence-sharded prefill raises: the JAX package's writes the
+    whole prompt at slot 0 of every shard (its ``attention`` prefill
+    branch ignores the sharding) and nothing calls it, since ``long_500k``
+    is a decode cell.  Prefill unsharded and lay the cache out as
+    sequence shards (``launch.serve.seq_shards``)."""
+    if seq_sharded:
+        raise NotImplementedError(
+            "prefill over a sequence-sharded cache is not supported: "
+            "prefill unsharded, then lay the cache out as sequence shards "
+            "(launch.serve.seq_shards)")
     logits, new_caches, _ = forward(params, cfg, batch, mode="prefill",
-                                    caches=caches)
-    return logits[:, :, -1:], new_caches
+                                    caches=caches, last_only=True)
+    return logits, new_caches
 
 
-def decode_step(params, cfg: ModelConfig, token, caches, t: int):
-    """One-token step.  token: ``[B, 1]`` ids (on the device); t: the
-    current length, a host int, so the step never waits on the device."""
+def decode_step(params, cfg: ModelConfig, token, caches, t: int, *,
+                seq_sharded: bool = False):
+    """One-token step.  token: ``[B, 1]`` ids (on the device; under the
+    data axis each lane's ``[L, B/d, 1]``); t: the current length, a host
+    int, so the step never waits on the device.  ``seq_sharded``: the
+    attention caches' sequence is sharded over ``data``."""
     logits, new_caches, _ = forward(params, cfg, {"tokens": token},
-                                    mode="decode", caches=caches, pos0=t)
+                                    mode="decode", caches=caches, pos0=t,
+                                    seq_sharded=seq_sharded)
     return logits, new_caches
 

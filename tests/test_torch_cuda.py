@@ -910,6 +910,132 @@ def test_serve_on_card_matches_the_cpu(cuda):
     assert report["steps"] >= 1
 
 
+# ---------------------------------------------------------------------------
+# head dim 256 (gemma3-1b, paligemma-3b): mma_sync prefill, the prefix
+# split, split_kv over a long cache, and the sequence-sharded decode
+# ---------------------------------------------------------------------------
+
+# (N, Sq, Skv, HK, G, dh, causal, window, softcap, q0, kv_len): gemma3-1b's
+# prefill per lane (4 q heads over 1 KV head at TP 1) and its local layers'
+# window; paligemma-3b's text rows at TP 8 (1 q head a rank) from q0 256
+D256_CASES = [(2, 1024, 1024, 1, 4, 256, True, 0, 0.0, 0, None),
+              (2, 1024, 1024, 1, 4, 256, True, 512, 0.0, 0, None),
+              (8, 1024, 1280, 1, 1, 256, True, 0, 0.0, 256, None),
+              (8, 256, 256, 1, 1, 256, False, 0, 0.0, 0, None)]
+
+
+@needs_cuda
+@pytest.mark.parametrize("case", D256_CASES)
+def test_flash_head_dim_256_prefill_on_mma_sync(cuda, case):
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _flash_inputs(cuda, case, torch.bfloat16)
+    kw = dict(zip(("causal", "window", "softcap", "q0", "kv_len"),
+                  case[6:]))
+    before = dict(FA.flash_attention.launches_by_path)
+    got = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    after = FA.flash_attention.launches_by_path
+    assert {p_: after[p_] - before[p_] for p_ in after if
+            after[p_] != before[p_]} == {"mma_sync": 1}
+    assert _within_limit(FA, got, q, k, v, **kw)
+
+
+@needs_cuda
+@pytest.mark.parametrize("n_prefix", [256, 13])
+def test_flash_prefix_split_on_card_matches_plain(cuda, n_prefix):
+    """The prefix-LM mask as two launches (``attention._flash_prefix``)
+    against the plain version of each half, and a prefix edge one key off
+    rejected by the limit."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention as A
+    case = (8, 384, 384, 1, 2, 256, True, 0, 0.0, 0, None)
+    q, k, v = _flash_inputs(cuda, case, torch.bfloat16)
+    before = FA.flash_attention.launches
+    got = A._flash_prefix(q, k, v, n_prefix=n_prefix, softcap=0.0, q0=0)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 2
+    pre = dict(causal=False)
+    txt = dict(causal=True, q0=n_prefix)
+    assert _within_limit(FA, got[:, :n_prefix], q[:, :n_prefix],
+                         k[:, :n_prefix], v[:, :n_prefix], **pre)
+    assert _within_limit(FA, got[:, n_prefix:], q[:, n_prefix:], k, v, **txt)
+    # the prefix edge one key late: the prefix rows also see key n_prefix
+    off = A._flash_prefix(q, k, v, n_prefix=n_prefix + 1, softcap=0.0, q0=0)
+    assert not _within_limit(FA, off[:, :n_prefix], q[:, :n_prefix],
+                             k[:, :n_prefix], v[:, :n_prefix], **pre)
+
+
+@needs_cuda
+@pytest.mark.parametrize("kv_len", [65537, 131072])
+def test_flash_split_kv_over_a_long_cache(cuda, kv_len):
+    """gemma3-1b's global-layer decode at TP 1 (4 q heads over 1 KV head,
+    dh 256) over a long filled cache, on split_kv."""
+    from repro_torch.kernels import flash_attention as FA
+    case = (1, 1, 131072, 1, 4, 256, True, 0, 0.0, kv_len - 1, kv_len)
+    q, k, v = _flash_inputs(cuda, case, torch.bfloat16)
+    kw = dict(zip(("causal", "window", "softcap", "q0", "kv_len"),
+                  case[6:]))
+    before = FA.flash_attention.launches_by_path["split_kv"]
+    got = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches_by_path["split_kv"] == before + 1
+    assert _within_limit(FA, got, q, k, v, **kw)
+
+
+@needs_cuda
+@pytest.mark.parametrize("d,t", [(4, 1), (2, 2)])
+def test_seq_sharded_decode_step_on_card_matches_the_cpu(cuda, d, t):
+    """One decode step of gemma3-1b's smoke config (a local and a global
+    layer) over a cache laid out as d sequence shards, on the card and on
+    the CPU from the same weights and cache: 2e-2 max-norm relative (the
+    JAX package's bar for its two attention paths); every data rank's
+    logits bit-equal on the card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core._axis import StackedMesh
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_tree
+    cfg = dataclasses.replace(get_config("gemma3-1b").smoke(), n_layers=2,
+                              layer_pattern=("attn_local", "attn"),
+                              attn_impl="flash")
+    s_max, s0 = 16 * d, 16 * d - 9
+    cpu = torch.device("cpu")
+    specs = lm.model_specs(cfg, t)
+    # one draw on the CPU, carried to the card
+    weights = [init_tree(specs, torch.Generator().manual_seed(3), ax)
+               for ax in (StackedAxis(t, cpu),
+                          StackedMesh((d, t), ("data", "model"), cpu))]
+    outs = []
+    for dev in (cuda, cpu):
+        axis = StackedAxis(t, dev)
+        mesh = StackedMesh((d, t), ("data", "model"), dev)
+        mparams, params = (_to(w, dev) for w in weights)
+        prompt = torch.arange(s0, device=dev)[None] * 7 % cfg.vocab_size
+        with tserve.bind(model=axis):
+            caches = lm.init_caches(cfg, 1, s_max)
+        _, caches = tserve.build_prefill(cfg, axis)(
+            mparams, {"tokens": prompt}, caches)
+        shards = tserve.seq_shards(caches, d)
+        tok = torch.full((d * t, 1, 1), 5, device=dev)
+        lg, _ = tserve.build_decode(cfg, mesh, SHAPES["long_500k"])(
+            params, tok, shards, s0)
+        outs.append(lg.float().cpu().reshape(d, t, *lg.shape[1:]))
+    card, cpu = outs
+    for i in range(1, d):
+        assert torch.equal(card[i], card[0])
+    assert float((card - cpu).abs().max() / cpu.abs().max()) <= 2e-2
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}

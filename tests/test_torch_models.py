@@ -141,8 +141,7 @@ def test_configs_equal_the_reference(arch):
                 assert b.kv_heads_padded(tp) == a.kv_heads_padded(tp)
 
 
-@pytest.mark.parametrize("arch,kind", [
-    ("whisper-medium", "encdec"), ("paligemma-3b", "vlm")])
+@pytest.mark.parametrize("arch,kind", [("whisper-medium", "encdec")])
 def test_blocks_not_ported_yet_raise_naming_the_kind(arch, kind):
     with pytest.raises(NotImplementedError, match=kind):
         tlm.model_specs(tconfigs.get_config(arch).smoke(), 2)

@@ -585,3 +585,25 @@ def test_whole_slice_on_cpu_matches_reference(tmp_path):
                            "allgather": "allgather_as_allreduce"}):
         forced = block_port(axis, *(torch.from_numpy(a) for a in ws))
     np.testing.assert_array_equal(to_np(forced), got)
+
+
+def test_wire_held_out_demotes_the_wire_impls_and_restores_the_ledger():
+    saved = TC.demotions()
+    wire = {(op, nm) for op, impls in TC.REGISTRY.items()
+            for nm, impl in impls.items() if impl.wire_dtype is not None}
+    assert wire
+    try:
+        TC.demote("allreduce", "allreduce_as_doubling", "earlier")
+        before = TC.demotions()
+        with TC.wire_held_out("exact"):
+            inside = TC.demotions()
+            assert all(inside[k] == "exact" for k in wire)
+            assert set(inside) == set(before) | wire
+        assert TC.demotions() == before
+        with pytest.raises(RuntimeError), TC.wire_held_out("exact"):
+            raise RuntimeError
+        assert TC.demotions() == before
+    finally:
+        TC.clear_demotions()
+        for (op, nm), why in saved.items():
+            TC.demote(op, nm, why)
