@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's tuning loop, its serving paths (dense, SSM,
 Mixture-of-Experts, multi-head latent attention, a data x model mesh,
-sequence-sharded long-context decode and the prefix-LM VLM) and its
+sequence-sharded long-context decode, the prefix-LM VLM and the
+encoder-decoder) and its
 training paths (one stacked axis, a data x model mesh, a pod x data x
 model mesh, and training through the model kernels) on one CUDA card,
 end to end.
@@ -45,6 +46,12 @@ Phases (each raises on failure; nothing is caught):
    prefix rows non-causal, the text rows from q0 = 256), gemma3-1b's
    decode at kv_len 1056 on ``split_kv``, each timed beside its bound and
    SDPA, and the prefix edge one key late, which the limit must reject;
+   and at whisper-medium's shapes (phase 19, dh 64, non-causal, 1500
+   encoder keys: not a multiple of the 128-key block): the encoder's
+   self-attention and the cross-attention at prefill on ``wgmma``, at
+   decode on ``split_kv`` (at several q0: non-causal sees every key), each
+   timed beside its bound and SDPA, with two planted faults (the decode
+   launched causal, the prefill's ragged last block left out);
    each kernel's path counts (the ring's ``wgmma``/``wmma``/``f32``,
    flash's ``wgmma``/``split_kv``/``mma_sync``/``f32``); the ring's and
    flash's times both as the events mean over back-to-back calls (each
@@ -205,6 +212,12 @@ Phases (each raises on failure; nothing is caught):
    requests of 256 seeded stub patches + 1024 text tokens; the flash
    serve (two flash launches a layer at prefill: the prefix rows and the
    text rows), ``tune_trace`` and the tuned re-serve, and the ``ref``
+   serve of the same weights, each within ``SERVE_RTOL``;
+19. whisper-medium at full width and depth (24 encoder and 24 decoder
+   layers, TP 8 stacked): 4 requests of 1500 seeded stub frames + 192
+   prompt tokens, 1 + 32 tokens, a 448-slot self cache (the encoder runs
+   inside the timed prefill; the cross K/V are cached at 1500 positions);
+   the flash serve, ``tune_trace`` and the tuned re-serve, and the ``ref``
    serve of the same weights, each within ``SERVE_RTOL``.
 
 Each phase's seconds are logged as it ends (``[phase n]``).
@@ -252,11 +265,16 @@ of its runs: 26 ``mma_sync`` and 26 x 32 ``split_kv`` launches a mesh or
 TP 4 serve, 26 ``mma_sync`` at the long prefill, none in a
 sequence-sharded decode (its partials are plain PyTorch, as the JAX
 package's), 26 x 32 ``split_kv`` in the unsharded one; and just before
-phase 18's: 2 x 18 ``mma_sync`` and 18 x 32 ``split_kv`` a flash serve.
-Each row carries its ``long_context_launches`` and
-``vlm_serve_launches``; the kernels line lists flash at head dim 256 as
-``flash_attention_d256`` (phase 3's gemma3-1b prefill numbers, its
-launches by path in phases 17-18).
+phase 18's: 2 x 18 ``mma_sync`` and 18 x 32 ``split_kv`` a flash serve;
+and just before phase 19's: 3 x 24 ``wgmma`` (the encoder's, the
+self-attention's and the cross-attention's prefill launches) and 2 x 24
+x 32 ``split_kv`` a flash serve, all at head dim 64.
+Each row carries its ``long_context_launches``, ``vlm_serve_launches``
+and ``encdec_serve_launches``; the kernels line lists flash at head dim
+256 as ``flash_attention_d256`` (phase 3's gemma3-1b prefill numbers,
+its launches by path in phases 17-19) and whisper's calls as
+``flash_attention_encdec`` (phase 3's encoder self-attention numbers,
+its launches phase 19's at head dim 64).
 The
 ranks are stacked on ONE card: a ring hop is a device-memory copy, so
 the times measure on-chip data movement and launch overhead, not a link
@@ -724,8 +742,11 @@ def check_flash(torch, fa, randn) -> dict:
     mla = check_flash_mla(torch, fa, randn, timed, check, planted, on_path,
                           last_path)
     d256 = check_flash_d256(torch, fa, randn, timed, check, on_path)
+    encdec = check_flash_encdec(torch, randn, timed, check, planted,
+                                on_path, last_path)
     return {"prefill": prefill, "decode": decode, "zamba2_prefill_ms":
-            zamba_ms, "moe_prefill_ms": moe_ms, "mla": mla, "d256": d256}
+            zamba_ms, "moe_prefill_ms": moe_ms, "mla": mla, "d256": d256,
+            "encdec": encdec}
 
 
 def sdpa_backend(torch, fn) -> str:
@@ -946,6 +967,68 @@ def check_flash_d256(torch, fa, randn, timed, check, on_path) -> dict:
         f"gemma3-1b decode dh 256 kv_len {kv_len}", q1, kc, vc,
         lambda: sdpa(q1b, kcb, vcb), q0=kv_len - 1, kv_len=kv_len)
     on_path("gemma3-1b decode dh 256", "split_kv")
+    return out
+
+
+def check_flash_encdec(torch, randn, timed, check, planted, on_path,
+                       last_path) -> dict:
+    """Phase 3 at whisper-medium's shapes (phase 19: TP 8, 4 requests, 2
+    KV heads of 64 a rank, G = 1), all non-causal: the encoder's
+    self-attention (q, k ``[32, 1500, 2, (1,) 64]``) and the
+    cross-attention at prefill (q ``[32, 192, 2, 1, 64]``) on ``wgmma``,
+    whose last 128-key block is ragged (1500 keys), and at decode (q
+    ``[32, 1, 2, 1, 64]``) on ``split_kv``, which must see all 1500 keys
+    whatever q0 is; each held to its plain version, timed beside its bound
+    and ``scaled_dot_product_attention``; and two planted faults the limit
+    must reject: the prefill's ragged last block left out, the decode
+    launched causal at its position."""
+    from repro_torch.configs import get_config
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cfg = get_config(ENCDEC_ARCH)
+    n = SERVE_BATCH * ENCDEC_TP
+    hk, g, dh = cfg.n_kv_heads // ENCDEC_TP, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.hd
+    full = dict(causal=False)
+    out = {}
+
+    def bhsd(t):                      # [N, S, HK, (G,) dh] -> [N, H, S, dh]
+        return t.reshape(t.shape[0], t.shape[1], -1, dh).transpose(
+            1, 2).contiguous()
+
+    q = randn(n, ENCDEC_FRAMES, hk, g, dh)
+    k, v = (randn(n, ENCDEC_FRAMES, hk, dh) for _ in range(2))
+    qb, kb, vb = bhsd(q), bhsd(k), bhsd(v)
+    out["encoder"] = timed("whisper encoder self-attention", q, k, v,
+                           lambda: sdpa(qb, kb, vb), **full)
+    on_path("whisper encoder self-attention", "wgmma")
+    qx = randn(n, ENCDEC_PROMPT, hk, g, dh)
+    qxb = bhsd(qx)
+    out["cross prefill"] = timed("whisper cross-attention prefill", qx, k, v,
+                                 lambda: sdpa(qxb, kb, vb), **full)
+    on_path("whisper cross-attention prefill", "wgmma")
+    ragged = ENCDEC_FRAMES // 128 * 128
+    planted(f"cross prefill without the ragged last block (keys {ragged}-"
+            f"{ENCDEC_FRAMES - 1})", qx, k, v,
+            dict(causal=False, kv_len=ragged), **full)
+    q1 = randn(n, 1, hk, g, dh)
+    q1b = bhsd(q1)
+    worst = (0.0, 0.0)
+    for q0 in (0, ENCDEC_PROMPT, ENCDEC_PROMPT + SERVE_DECODE - 1,
+               ENCDEC_FRAMES + 7):
+        label = f"whisper cross-attention decode q0 {q0}"
+        worst = tuple(map(max, worst, check(label, q1, k, v, q0=q0,
+                                            **full)))
+        on_path(label, "split_kv")
+    log(f"[3] flash_attention whisper cross decode q{list(q1.shape)} "
+        f"k{list(k.shape)} bf16 non-causal, q0 0...{ENCDEC_FRAMES + 7} "
+        f"path {last_path[0]}: max_abs_err {worst[0]:.3e} ({worst[1]:.3f} "
+        f"of the limit)")
+    out["cross decode"] = timed("whisper cross-attention decode", q1, k, v,
+                                lambda: sdpa(q1b, kb, vb), q0=ENCDEC_PROMPT,
+                                **full)
+    on_path("whisper cross-attention decode", "split_kv")
+    planted(f"cross decode launched causal at q0 {ENCDEC_PROMPT}", q1, k, v,
+            dict(causal=True, q0=ENCDEC_PROMPT), q0=ENCDEC_PROMPT, **full)
     return out
 
 
@@ -1247,28 +1330,33 @@ def check_scans(torch, rw, ssd, randn, dev) -> dict:
 
 
 def step_profiles(torch, cfg, axis, params, prompts, tag: str,
-                  needles: tuple) -> dict:
-    """``profile_call`` over one prefill of ``prompts`` and one decode step
-    at position ``SERVE_PROMPT``; the decode step reads the caches that
-    prefill returned (their filled length with them), so its attention
-    spans the prompt."""
+                  needles: tuple, frames=None,
+                  slots: int = SERVE_SLOTS) -> dict:
+    """``profile_call`` over one prefill of ``prompts`` (an enc-dec
+    model's with the encoder on ``frames``) and one decode step at the
+    prompt's end; the decode step reads the caches that prefill returned
+    (their filled length with them), so its attention spans the prompt."""
     from repro_torch.dist.axes import bind
     from repro_torch.launch import serve as sv
     from repro_torch.models import lm
     with bind(model=axis):
-        caches = lm.init_caches(cfg, SERVE_BATCH, SERVE_SLOTS)
+        caches = lm.init_caches(cfg, prompts.shape[0], slots, enc_len=None
+                                if frames is None else frames.shape[1])
     pf, dc = sv.build_prefill(cfg, axis), sv.build_decode(cfg, axis)
+    inputs = {"tokens": prompts}
+    if frames is not None:
+        inputs["frames"] = frames
     filled = []
 
     def prefill():
-        filled[:] = [pf(params, {"tokens": prompts}, caches)[1]]
+        filled[:] = [pf(params, inputs, caches)[1]]
     tok = prompts[:, :1]
     return {
         "prefill": profile_call(torch, f"{cfg.name} one prefill", prefill,
                                 tag, needles),
         "decode": profile_call(torch, f"{cfg.name} one decode step",
                                lambda: dc(params, tok, filled[0],
-                                          SERVE_PROMPT), tag, needles)}
+                                          prompts.shape[1]), tag, needles)}
 
 
 def per_serve_launches(lm, cfg, n_tokens: int) -> dict:
@@ -3544,6 +3632,16 @@ LONG_PROMPT = LONG_SLOTS - SERVE_DECODE
 # stub SigLIP patches of 1152 before the text) at full width and depth, TP
 # 8 stacked; 4 requests of 256 seeded patches + 1024 text tokens
 VLM_ARCH, VLM_TP = "paligemma-3b", 8
+# whisper-medium (src/repro/configs/whisper_medium.py: 24 encoder and 24
+# decoder layers, d_model 1024, 16 q heads over 16 KV heads of 64, d_ff
+# 4096, vocab 51865; the JAX package's simplified whisper: RMSNorm, the
+# gated MLP, a stub front end) at full width and depth, TP 8 stacked (2 q
+# heads and 2 KV heads a rank).  4 requests of 1500 seeded stub frames
+# (max_source_positions of the public openai/whisper-medium config) and a
+# 192-token prompt (the previous window's text), 1 + 32 greedy tokens, a
+# 448-slot self cache (max_target_positions)
+ENCDEC_ARCH, ENCDEC_TP = "whisper-medium", 8
+ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_SLOTS = 1500, 192, 448
 
 
 def _tune(torch, rec, dev, tag: str, label: str, out_dir, held=True):
@@ -3811,72 +3909,64 @@ def long_context_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     return out
 
 
-def vlm_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
-                    card: str, tag: str = "18") -> dict:
-    """paligemma-3b at full width and depth, TP ``VLM_TP`` stacked: 4
-    requests of 256 seeded stub patches + 1024 text tokens, 1 + 32 tokens,
-    2048 slots.  (a) the flash serve recording (two flash launches a layer
-    at prefill, the prefix rows and the text rows, both ``mma_sync``;
-    ``split_kv`` at decode); ``tune_trace`` and the tuned re-serve within
-    ``SERVE_RTOL``; (b) the ``ref`` serve (the dense mask) of the same
-    weights, the flash serve held to it within ``SERVE_RTOL``."""
-    import numpy as np
-    from repro_torch.configs import get_config
+def flash_ref_serves(torch, dev, out_dir: pathlib.Path, wrappers: dict,
+                     card: str, tag: str, cfg, axis, params, prompts,
+                     slots: int, want: dict, label: str, **inputs) -> dict:
+    """Three serves of ``prompts`` (with the model's extra ``inputs``:
+    patches or frames) on ``axis``, 1 + ``SERVE_DECODE`` tokens,
+    ``slots`` slots: (a) the flash serve recording, flash's launches by
+    path ``want``, all at ``cfg.hd``; ``tune_trace`` (the quantized wire
+    kept in) and the tuned re-serve within ``SERVE_RTOL``; (b) the
+    ``ref`` serve of the same weights, the flash serve held to it within
+    ``SERVE_RTOL``.  The kernels' counts are zeroed after a warm-up serve
+    and read after the three; flash's launches at head dim 256 are counted
+    around each of the three, ``ref`` included (``d256_paths``)."""
     from repro_torch.core import api, trace
-    from repro_torch.core._axis import StackedAxis
     from repro_torch.launch import serve as sv
-    from repro_torch.models import lm
-    from repro_torch.models.params import init_tree, tree_leaves
+    from repro_torch.models.params import tree_leaves
 
-    t_phase = time.perf_counter()
-    cfg = dataclasses.replace(get_config(VLM_ARCH), attn_impl="flash")
-    axis = StackedAxis(VLM_TP, dev)
     fa = wrappers["flash_attention"]
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = init_tree(lm.model_specs(cfg, VLM_TP), gen, axis)
     w_bytes = sum(t_.numel() * t_.element_size()
                   for t_ in tree_leaves(params))
-    rng = np.random.default_rng(SEED)
-    prompts = torch.as_tensor(rng.integers(
-        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
-    npf = cfg.vlm.n_patches
-    patches = torch.as_tensor(rng.standard_normal(
-        (SERVE_BATCH, npf, cfg.vlm.patch_dim), dtype=np.float32),
-        device=dev)
     log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV head x {cfg.hd}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {npf} patches of "
-        f"{cfg.vlm.patch_dim}; TP {VLM_TP} stacked; weights "
-        f"{w_bytes / 1e9:.3f} GB ({card})")
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads x {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_count()} "
+        f"parameters; TP {axis.size} stacked; weights {w_bytes / 1e9:.3f} GB "
+        f"stacked; {prompts.shape[0]} requests of {label}, {slots} slots "
+        f"({card})")
     n_tokens = 1 + SERVE_DECODE
-    sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, 2, patches=patches)
-    zero_counts(wrappers)               # the VLM serve path starts here
+    n_prompt = prompts.shape[1] + (inputs["patches"].shape[1]
+                                   if "patches" in inputs else 0)
+    sv.serve(cfg, axis, params, prompts, slots, 2, **inputs)    # warm-up
+    zero_counts(wrappers)               # the serve path starts here
     c0 = counts(wrappers)
     paths: dict = {}
+    dh_paths: dict = {}
     d256_paths: dict = {}
-    want = {"mma_sync": 2 * cfg.n_layers,
-            "split_kv": cfg.n_layers * SERVE_DECODE}
 
     def one(label, c, **kw):
         torch.cuda.reset_peak_memory_stats(dev)
         before, dh0 = dict(fa.launches_by_path), dh_counts(fa)
-        res = sv.serve(c, axis, params, prompts, SERVE_SLOTS, n_tokens,
-                       patches=patches, **kw)
+        res = sv.serve(c, axis, params, prompts, slots, n_tokens, **inputs,
+                       **kw)
         torch.cuda.synchronize()
         got = {k: v for k, v in path_delta(fa, before).items() if v}
-        d256 = dh_delta(fa, dh0)
+        at_dh = dh_delta(fa, dh0, dh=cfg.hd)
+        at256 = dh_delta(fa, dh0, dh=256)
         peak = torch.cuda.max_memory_allocated(dev)
         log(f"[{tag} {label}] flash_attention launches by path "
-            f"{json.dumps(got)}, at head dim 256 {json.dumps(d256)}; peak "
-            f"{peak / 1e9:.3f} GB ({card})")
-        if c.attn_impl == "flash" and (got != want or d256 != want):
+            f"{json.dumps(got)}, at head dim {cfg.hd} {json.dumps(at_dh)}; "
+            f"peak {peak / 1e9:.3f} GB ({card})")
+        if c.attn_impl == "flash" and (got != want or at_dh != want):
             raise RuntimeError(f"{cfg.name} {label}: flash paths {got} (at "
-                               f"head dim 256 {d256}), not {want}")
+                               f"head dim {cfg.hd} {at_dh}), not {want}")
         for k, v in got.items():
             paths[k] = paths.get(k, 0) + v
-        for k, v in d256.items():
+        for k, v in at_dh.items():
+            dh_paths[k] = dh_paths.get(k, 0) + v
+        for k, v in at256.items():
             d256_paths[k] = d256_paths.get(k, 0) + v
-        _serve_line(tag, label, res, SERVE_BATCH, npf + SERVE_PROMPT, card)
+        _serve_line(tag, label, res, prompts.shape[0], n_prompt, card)
         return res, peak
 
     first, peak = one("flash serve", cfg)
@@ -3884,11 +3974,12 @@ def vlm_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     rec.save(out_dir / f"serve_trace_{cfg.name}.jsonl")
     for ln in rec.summary().splitlines():
         log(f"[{tag}] {ln}")
-    _, phases = _tune(torch, rec, dev, tag, "vlm", out_dir, held=False)
+    _, phases = _tune(torch, rec, dev, tag, cfg.name, out_dir, held=False)
     second, _ = one("tuned flash serve", cfg, phase_profiles=phases)
     for ln in api.format_footer(second.ctx).splitlines():
         log(f"[{tag}] {ln}")
-    ref, _ = one("ref serve", dataclasses.replace(cfg, attn_impl="ref"))
+    ref, peak_ref = one("ref serve", dataclasses.replace(cfg,
+                                                          attn_impl="ref"))
     checks = {"flash vs ref": sv.check_serves(ref, first, SERVE_RTOL),
               "tuned vs default": sv.check_serves(first, second, SERVE_RTOL)}
     for label, c in checks.items():
@@ -3896,18 +3987,97 @@ def vlm_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
             f"{c['max_rel_err']:.4e} (tolerance {SERVE_RTOL}), tokens "
             f"diverged at {c['diverged_at']}")
     launches = {k: v - c0[k] for k, v in counts(wrappers).items()}
-    log(f"[VLM serve path {cfg.name}] kernel launches: "
+    log(f"[{tag} serve path {cfg.name}] kernel launches: "
         f"{json.dumps(launches)}")
-    out = {"launches": launches, "paths": paths, "d256_paths": d256_paths,
-           "checks": checks,
-           "peak_bytes": peak, "weights_bytes": w_bytes, "serves": {
-               label: {"prefill_ms": r.prefill_s * 1e3,
-                       "decode_ms_per_token": r.decode_s_per_token * 1e3}
-               for label, r in (("flash", first), ("tuned", second),
-                                ("ref", ref))}}
+    return {"launches": launches, "paths": paths, "dh_paths": dh_paths,
+            "d256_paths": d256_paths,
+            "checks": checks, "peak_bytes": peak, "ref_peak_bytes": peak_ref,
+            "weights_bytes": w_bytes, "serves": {
+                label: {"prefill_ms": r.prefill_s * 1e3,
+                        "decode_ms_per_token": r.decode_s_per_token * 1e3}
+                for label, r in (("flash", first), ("tuned", second),
+                                 ("ref", ref))}}
+
+
+def vlm_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
+                    card: str, tag: str = "18") -> dict:
+    """paligemma-3b at full width and depth, TP ``VLM_TP`` stacked: 4
+    requests of 256 seeded stub patches + 1024 text tokens, 1 + 32 tokens,
+    2048 slots, through ``flash_ref_serves`` (two flash launches a layer
+    at prefill, the prefix rows and the text rows, both ``mma_sync``;
+    ``split_kv`` at decode)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core._axis import StackedAxis
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_tree
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(VLM_ARCH), attn_impl="flash")
+    axis = StackedAxis(VLM_TP, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_tree(lm.model_specs(cfg, VLM_TP), gen, axis)
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
+    npf = cfg.vlm.n_patches
+    patches = torch.as_tensor(rng.standard_normal(
+        (SERVE_BATCH, npf, cfg.vlm.patch_dim), dtype=np.float32),
+        device=dev)
+    out = flash_ref_serves(
+        torch, dev, out_dir, wrappers, card, tag, cfg, axis, params,
+        prompts, SERVE_SLOTS, {"mma_sync": 2 * cfg.n_layers,
+                               "split_kv": cfg.n_layers * SERVE_DECODE},
+        f"{npf} patches of {cfg.vlm.patch_dim} + {SERVE_PROMPT} tokens",
+        patches=patches)
     del params
     torch.cuda.empty_cache()
     log(f"[{tag}] VLM serve phase in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def encdec_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
+                       card: str, tag: str = "19") -> dict:
+    """whisper-medium at full width and depth, TP ``ENCDEC_TP`` stacked:
+    4 requests of ``ENCDEC_FRAMES`` seeded stub frames and an
+    ``ENCDEC_PROMPT``-token prompt, 1 + 32 tokens, ``ENCDEC_SLOTS`` self
+    slots, through ``flash_ref_serves`` (the encoder inside the timed
+    prefill; a serve's flash launches all at head dim 64: 3 a layer on
+    ``wgmma`` at prefill, the encoder's, the self- and the
+    cross-attention's, and 2 a layer a step on ``split_kv``); then
+    ``torch.profiler`` over one prefill and one decode step."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core._axis import StackedAxis
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_tree
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(ENCDEC_ARCH), attn_impl="flash")
+    axis = StackedAxis(ENCDEC_TP, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_tree(lm.model_specs(cfg, ENCDEC_TP), gen, axis)
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (SERVE_BATCH, ENCDEC_PROMPT)), device=dev)
+    frames = torch.as_tensor(rng.standard_normal(
+        (SERVE_BATCH, ENCDEC_FRAMES, cfg.d_model), dtype=np.float32),
+        device=dev)
+    n_dec, n_enc = cfg.n_layers, cfg.encdec.n_enc_layers
+    out = flash_ref_serves(
+        torch, dev, out_dir, wrappers, card, tag, cfg, axis, params,
+        prompts, ENCDEC_SLOTS, {"wgmma": n_enc + 2 * n_dec,
+                                "split_kv": 2 * n_dec * SERVE_DECODE},
+        f"{ENCDEC_FRAMES} frames ({n_enc} encoder layers) + "
+        f"{ENCDEC_PROMPT} tokens", frames=frames)
+    # where a step's device time goes (after the path's counts)
+    out["shares"] = step_profiles(torch, cfg, axis, params, prompts, tag, (
+        "fa_wgmma_kernel", "fa_split_kernel", "nvjet", "gemm",
+        "elementwise", "reduce"), frames=frames, slots=ENCDEC_SLOTS)
+    del params
+    torch.cuda.empty_cache()
+    log(f"[{tag}] enc-dec serve phase in {time.perf_counter() - t_phase:.1f}"
+        f" s")
     return out
 
 
@@ -4412,6 +4582,10 @@ def main(argv=None) -> int:
     kernels["flash_attention_d256"] = dict(
         flash["d256"]["gemma prefill"], name="flash_attention_d256",
         main_path=True)
+    kernels["flash_attention_encdec"] = dict(
+        flash["encdec"]["encoder"], name="flash_attention_encdec",
+        main_path=True)
+    report["flash_encdec"] = flash["encdec"]
     report["flash_d256"] = flash["d256"]
     report["flash_decode"] = flash["decode"]
     report["flash_mla_decode"] = flash["mla"]["decode"]
@@ -4872,6 +5046,22 @@ def main(argv=None) -> int:
         d256[field] = report[key]["d256_paths"]
     d256["launches"] = sum(report["long_context"]["d256_paths"].values()) + \
         sum(report["vlm_serve"]["d256_paths"].values())
+
+    phase("19")
+    # -- 19. whisper-medium: the encoder-decoder serve ----------------------
+    report["encdec_serve"] = encdec_serve_phase(torch, dev, out_dir, every,
+                                                card)
+    for k, v in report["encdec_serve"]["launches"].items():
+        kernels[k]["encdec_serve_launches"] = v
+    # flash's rows by path and head dim in phase 19: the "mla" path, dh 256
+    # and the enc-dec row (phase 3's encoder self-attention numbers; its
+    # launches: phase 19's at head dim 64)
+    mla_row["encdec_serve_launches"] = report["encdec_serve"]["paths"].get(
+        "mla", 0)
+    d256["encdec_serve_launches"] = report["encdec_serve"]["d256_paths"]
+    enc_row = kernels["flash_attention_encdec"]
+    enc_row["encdec_serve_launches"] = report["encdec_serve"]["dh_paths"]
+    enc_row["launches"] = sum(report["encdec_serve"]["dh_paths"].values())
     phase(None)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
@@ -4882,7 +5072,7 @@ def main(argv=None) -> int:
              "main_path", "train_launches", "mesh_train_launches",
              "kernel_train_launches", "moe_serve_launches",
              "mla_serve_launches", "long_context_launches",
-             "vlm_serve_launches")
+             "vlm_serve_launches", "encdec_serve_launches")
     print(json.dumps({"kernels": [{k: kernels[n].get(k) for k in order}
                                   for n in ("guideline_pack", "block_matmul",
                                             "ring_allgather_matmul_rdma",
@@ -4891,6 +5081,7 @@ def main(argv=None) -> int:
                                             "flash_attention",
                                             "flash_attention_mla",
                                             "flash_attention_d256",
+                                            "flash_attention_encdec",
                                             "rwkv6_scan", "ssd_scan")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,9 @@ paper's offline -> online loop on the recorded traffic::
         --mesh 4x1 --shape long_500k
 
 (also ``--arch rwkv6-3b``, ``zamba2-1.2b``, ``paligemma-3b`` (stub image
-patches before the prompt); the smoke-size config: default serve,
+patches before the prompt), ``whisper-medium`` (stub frame embeddings,
+``dec_ratio`` times the prompt's length, for the encoder; drawn from
+``--seed``); the smoke-size config: default serve,
 recording; ``tune_trace`` with the measured backend; serve again under
 the per-phase profiles; the tokens and logits must agree; at ``--shape
 long_500k`` the sharded decode is also held to an unsharded one from the
@@ -259,10 +261,12 @@ def _decode_loop(cfg, axis, decode, params, caches, tok, t0: int,
 
 
 def serve(cfg: ModelConfig, axis, params, prompts, s_max: int,
-          n_tokens: int, *, patches=None, phase_profiles=None,
+          n_tokens: int, *, patches=None, frames=None, phase_profiles=None,
           record=None) -> ServeResult:
     """Prefill ``prompts [B, S]`` (a VLM's after its ``patches [B, N,
-    patch_dim]``) and greedy-decode ``n_tokens`` tokens in all (the
+    patch_dim]``; an enc-dec model's with the encoder run on its ``frames
+    [B, S_enc, D]`` inside the timed prefill, its cross K/V cached at
+    ``S_enc`` positions) and greedy-decode ``n_tokens`` tokens in all (the
     prefill's and ``n_tokens - 1`` decode steps) over the full
     vocabulary, under ``api.tuned(phase_profiles=..., record=...)``; with
     no ``phase_profiles`` the stores of ``$PGTUNE_PROFILE_DIR`` serve, if
@@ -272,16 +276,22 @@ def serve(cfg: ModelConfig, axis, params, prompts, s_max: int,
     batch, s0 = prompts.shape
     if patches is not None:
         s0 += patches.shape[1]
+    if (frames is not None) != (cfg.encdec is not None):
+        raise ValueError(f"{cfg.name}: an enc-dec model is served with "
+                         "frames, and only it")
     if s0 + n_tokens - 1 > s_max:
         raise ValueError(f"{s0} prompt + {n_tokens - 1} decode tokens exceed "
                          f"the cache's {s_max} slots")
     prefill = build_prefill(cfg, axis)
     decode = build_decode(cfg, axis)
     with bind(**_axes_of(axis)):
-        caches = lm.init_caches(cfg, batch, s_max)
+        caches = lm.init_caches(cfg, batch, s_max, enc_len=None if frames
+                                is None else frames.shape[1])
     inputs = {"tokens": lane_batch(prompts, axis)}
     if patches is not None:
         inputs["patches"] = lane_batch(patches, axis)
+    if frames is not None:
+        inputs["frames"] = lane_batch(frames, axis)
     base, phase_profiles = _stores(phase_profiles)
     with api.tuned(profiles=base, phase_profiles=phase_profiles,
                    record=record) as ctx:
@@ -396,6 +406,8 @@ def main(argv=None) -> int:
                          "smoke size: a prompt of --prompt-len)")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--tokens", type=int, default=24)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the weights, prompts, patches and frames")
     ap.add_argument("--device", default=None,
                     help="torch device; the default is the CUDA card")
     ap.add_argument("--out", default="build/serve",
@@ -416,9 +428,9 @@ def main(argv=None) -> int:
     if cfg.vlm is not None:
         s_max += cfg.vlm.n_patches
     s_max = -(-s_max // d) * d
-    gen = torch.Generator(device=axis.device).manual_seed(0)
+    gen = torch.Generator(device=axis.device).manual_seed(args.seed)
     params = init_tree(lm.model_specs(cfg, t), gen, axis)
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(args.seed)
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (batch, args.prompt_len)),
         device=axis.device)
@@ -426,6 +438,11 @@ def main(argv=None) -> int:
     if cfg.vlm is not None:
         patches = torch.as_tensor(rng.standard_normal(
             (batch, cfg.vlm.n_patches, cfg.vlm.patch_dim),
+            dtype=np.float32), device=axis.device)
+    frames = None
+    if cfg.encdec is not None:
+        frames = torch.as_tensor(rng.standard_normal(
+            (batch, args.prompt_len * cfg.encdec.dec_ratio, cfg.d_model),
             dtype=np.float32), device=axis.device)
     out = pathlib.Path(args.out)
 
@@ -435,7 +452,10 @@ def main(argv=None) -> int:
         # sequence shards, decode over the mesh; hold it to an unsharded
         # decode of a clone of the same cache
         maxis = StackedAxis(t, axis.device)
-        gen = torch.Generator(device=axis.device).manual_seed(0)
+        if frames is not None:
+            raise SystemExit(f"{cfg.name}: an enc-dec model has no "
+                             "sequence-sharded decode here")
+        gen = torch.Generator(device=axis.device).manual_seed(args.seed)
         mparams = init_tree(lm.model_specs(cfg, t), gen, maxis)
         with bind(model=maxis):
             caches = lm.init_caches(cfg, 1, s_max)
@@ -459,7 +479,8 @@ def main(argv=None) -> int:
     else:
         def run(phases=None):
             return serve(cfg, axis, params, prompts, s_max, args.tokens,
-                         patches=patches, phase_profiles=phases)
+                         patches=patches, frames=frames,
+                         phase_profiles=phases)
         first = run()
 
     # 1. the default serve's phase-tagged workload trace

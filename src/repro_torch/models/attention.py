@@ -48,7 +48,16 @@ rank's heads as its group, q and k ``kvr + dr`` = 576 wide and v the
 latent's 512 columns (a view of k), through ``kernels.flash_attention``'s
 ``"mla"`` path with scale ``1 / sqrt(nope + rope)``.  ``"ref"`` is the
 NAIVE form: the latent up-projected per use by ``w_ukv`` and the dense
-``_sdpa``.  Cross-attention comes with a later slice.
+``_sdpa``.
+
+Cross-attention (the enc-dec family, whisper): ``attention(...,
+cross_kv=(k, v))`` projects q only and attends to the encoder's k and v
+(``models.lm._cross_kv``) with the ``"full"`` mask, no rope and no cache
+write; on flash that is one non-causal launch.  Where the KV heads are
+replicated (``n_kv % tp != 0``) each rank takes its one KV head, as for
+self-attention: the JAX package's flash path treats a cross K/V as
+sharded there (``src/repro/models/attention.py:370-371``) and picks the
+wrong heads; the port follows its ``ref`` path.
 """
 from __future__ import annotations
 
@@ -111,6 +120,12 @@ def attn_specs(cfg: ModelConfig, tp: int) -> dict:
         specs["k_norm"] = ParamSpec((hd,), (None,), init="zeros",
                                     dtype="float32")
     return specs
+
+
+def cross_attn_specs(cfg: ModelConfig, tp: int) -> dict:
+    """Decoder cross-attention (whisper): q from the decoder, k and v from
+    the encoder's output (``models.lm._cross_kv``)."""
+    return attn_specs(dataclasses.replace(cfg, mla=None), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +309,8 @@ class AttnOut:
 
 def attention(p: dict, cfg: ModelConfig, x, *, pos, kind: str = "causal",
               n_prefix: int = 0, cache: dict | None = None,
-              mode: str = "train", seq_sharded: bool = False) -> AttnOut:
+              mode: str = "train", cross_kv=None, use_rope: bool = True,
+              seq_sharded: bool = False) -> AttnOut:
     """One attention sub-block (no residual/norm — the stack handles those).
 
     x: ``[p, B, S, D]`` replicated over TP.  pos: ``[1, S]`` absolute
@@ -306,11 +322,16 @@ def attention(p: dict, cfg: ModelConfig, x, *, pos, kind: str = "causal",
     (prefill out / decode in-out): ``{"k","v": [p, B, S_max, KVloc, hd],
     "len": int}``; with ``seq_sharded`` (decode only) the cache's
     sequence is sharded over ``data`` (``_decode_seq_sharded``).
+    ``use_rope``: rotate q and k (off for the enc-dec family, whose
+    positions are sincos embeddings).  ``cross_kv``: the encoder's ``(k,
+    v)`` ``[p, B, S_enc, KVloc, hd]`` (``models.lm._cross_kv``) for
+    cross-attention: q is projected (no rope), every encoder position is
+    seen (mask ``"full"``), and nothing is cached, whatever the mode.
     """
     if seq_sharded and mode != "decode":
         raise NotImplementedError(f"a sequence-sharded cache is read in "
                                   f"decode mode only, not {mode}")
-    if cfg.mla is not None:
+    if cfg.mla is not None and cross_kv is None:
         if seq_sharded:
             raise NotImplementedError("sequence-sharded decode of an MLA "
                                       "cache is not supported")
@@ -324,6 +345,11 @@ def attention(p: dict, cfg: ModelConfig, x, *, pos, kind: str = "causal",
     lead = x.shape[:-1]                                  # (p, B, S)
 
     q = ops.col_matmul(x, p["w_q"], fsdp_dim=0).reshape(*lead, hq_loc, hd)
+    if cross_kv is not None:
+        k_loc, v_loc = cross_kv
+        o = _attend(cfg, q, k_loc, v_loc, pos, kind="full", n_prefix=0,
+                    pos0=0, kv_start=0, kv_valid=None)
+        return AttnOut(y=ops.row_matmul(o, p["w_o"], fsdp_dim=1))
     if kv_sharded:
         k = ops.col_matmul(x, p["w_k"], fsdp_dim=0)
         v = ops.col_matmul(x, p["w_v"], fsdp_dim=0)
@@ -336,8 +362,9 @@ def attention(p: dict, cfg: ModelConfig, x, *, pos, kind: str = "causal",
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = rope(q, pos, cfg.rope_theta)
-    k = rope(k, pos, cfg.rope_theta)
+    if use_rope:
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
 
     s_new = x.shape[2]
     pos0 = 0
@@ -375,6 +402,25 @@ def attention(p: dict, cfg: ModelConfig, x, *, pos, kind: str = "causal",
         v_loc = v_loc[:, :, start:start + cfg.window]
         kv_start = start
 
+    o = _attend(cfg, q, k_loc, v_loc, pos, kind=kind, n_prefix=n_prefix,
+                pos0=pos0, kv_start=kv_start, kv_valid=kv_valid)
+    y = ops.row_matmul(o, p["w_o"], fsdp_dim=1)
+    return AttnOut(y=y, cache=new_cache)
+
+
+def _attend(cfg: ModelConfig, q, k_loc, v_loc, pos, *, kind: str,
+            n_prefix: int, pos0: int, kv_start: int, kv_valid):
+    """The rank's heads attended: q ``[p, B, Sq, hq_loc, hd]`` (query i at
+    position ``pos0 + i``) over k/v ``[p, B, Skv, KVloc, hd]`` (key j at
+    position ``kv_start + j``; with ``kv_valid``, the keys before it
+    only) -> ``[p, B, Sq, hq_loc*hd]``.  Flash groups each KV head's q
+    heads (a replicated KV tensor, ``n_kv % tp != 0``, gives each rank
+    its one KV head, also for an encoder's cross K/V); ``ref`` repeats
+    the KV heads to the q heads and masks densely."""
+    tp = axis_size_or_1(AXES.model)
+    hq_loc, hd = q.shape[3], q.shape[4]
+    lead = q.shape[:3]
+    kv_sharded = cfg.n_kv_heads % tp == 0
     if cfg.attn_impl == "flash":
         if kv_valid is not None:
             # only the filled slots (a view): the replicated-kv branch
@@ -384,7 +430,7 @@ def attention(p: dict, cfg: ModelConfig, x, *, pos, kind: str = "causal",
         k_sel, v_sel, g = _grouped_kv(k_loc, v_loc, cfg, tp, hq_loc,
                                       kv_sharded)
         nb = lead[0] * lead[1]
-        qg = q.reshape(nb, s_new, k_sel.shape[3], g, hd)
+        qg = q.reshape(nb, lead[2], k_sel.shape[3], g, hd)
         # positions relative to the first key passed: the masks depend on
         # differences only
         kf, vf = k_sel.flatten(0, 1), v_sel.flatten(0, 1)
@@ -396,22 +442,19 @@ def attention(p: dict, cfg: ModelConfig, x, *, pos, kind: str = "causal",
             causal, window = _flash_args(kind, cfg.window)
             o = _flash(qg, kf, vf, causal=causal, window=window,
                        softcap=softcap, q0=pos0 - kv_start)
-        o = o.reshape(*lead, hq_loc * hd)
+        return o.reshape(*lead, hq_loc * hd)
+    if kv_sharded:
+        k_use = _repeat_kv(k_loc, hq_loc // k_loc.shape[3])
+        v_use = _repeat_kv(v_loc, hq_loc // v_loc.shape[3])
     else:
-        if kv_sharded:
-            k_use = _repeat_kv(k_loc, hq_loc // k_loc.shape[3])
-            v_use = _repeat_kv(v_loc, hq_loc // v_loc.shape[3])
-        else:
-            k_use = _local_kv_select(k_loc, cfg, tp)
-            v_use = _local_kv_select(v_loc, cfg, tp)
-        kv_pos = torch.arange(k_use.shape[2], device=x.device)[None]
-        mask = make_mask(pos, kv_pos, kind=kind, window=cfg.window,
-                         n_prefix=n_prefix, kv_len_valid=kv_valid)
-        o = _sdpa(q.flatten(0, 1), k_use.flatten(0, 1), v_use.flatten(0, 1),
-                  mask, softcap=cfg.attn_softcap)
-        o = o.reshape(*lead, hq_loc * hd)
-    y = ops.row_matmul(o, p["w_o"], fsdp_dim=1)
-    return AttnOut(y=y, cache=new_cache)
+        k_use = _local_kv_select(k_loc, cfg, tp)
+        v_use = _local_kv_select(v_loc, cfg, tp)
+    kv_pos = torch.arange(k_use.shape[2], device=q.device)[None]
+    mask = make_mask(pos, kv_pos, kind=kind, window=cfg.window,
+                     n_prefix=n_prefix, kv_len_valid=kv_valid)
+    o = _sdpa(q.flatten(0, 1), k_use.flatten(0, 1), v_use.flatten(0, 1),
+              mask, softcap=cfg.attn_softcap)
+    return o.reshape(*lead, hq_loc * hd)
 
 
 def _cache_write(buf, kv, t: int):

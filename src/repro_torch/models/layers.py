@@ -49,6 +49,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0):
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
 
 
+def sincos_positions(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Whisper-style absolute sinusoidal embeddings ``[..., S, d_model]``
+    in float32 (sin, then cos); positions ``[..., S]``.  The caller casts
+    them to the activations' dtype before the add."""
+    half = d_model // 2
+    freq = 10_000.0 ** (-torch.arange(half, dtype=torch.float32,
+                                      device=positions.device)
+                        / max(half - 1, 1))
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # gated MLP (column -> row parallel)
 # ---------------------------------------------------------------------------

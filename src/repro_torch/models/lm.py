@@ -8,9 +8,12 @@ deepseek-v3, whose attention is MLA), SSM (rwkv6: ``rwkv`` blocks) and
 hybrid (zamba2: ``mamba`` blocks with one ``shared_attn`` block, its
 weights shared, after every ``hybrid_period`` of them) and the VLM
 (paligemma: a gemma stack behind a prefix of stub image-patch
-embeddings, projected by ``img_proj``, under the prefix-LM mask).  The
-enc-dec family raises ``NotImplementedError`` naming ``encdec``: it
-comes with a later slice.
+embeddings, projected by ``img_proj``, under the prefix-LM mask) and
+the encoder-decoder (whisper: a bidirectional encoder over stub frame
+embeddings, ``params["encoder"]``, and a decoder whose blocks add
+cross-attention to the encoder's output, its K/V cached per block as
+``cross_k``/``cross_v``; no rope anywhere, sincos positions added to the
+frames and to the token embeddings).
 
 Every function runs inside ``dist.axes.bind(model=axis)`` (or, for
 training, ``bind(data=axis)``, or both names as views of one
@@ -33,14 +36,15 @@ from typing import Any
 import torch
 
 from repro_torch.dist import ops
-from repro_torch.dist.axes import AXES, get_axis, has_axis
+from repro_torch.dist.axes import AXES, axis_size_or_1, get_axis, has_axis
 from repro_torch.models import ssm
-from repro_torch.models.attention import attention, attn_specs
+from repro_torch.models.attention import (attention, attn_specs,
+                                          cross_attn_specs)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import moe_block, moe_specs
 from repro_torch.models.layers import (embed_lookup, embed_specs, head_specs,
                                        lm_logits, mlp, mlp_specs, rms_norm,
-                                       sharded_xent)
+                                       sharded_xent, sincos_positions)
 from repro_torch.models.params import ParamSpec, torch_dtype
 
 
@@ -56,24 +60,12 @@ class Group:
     n_rep: int                # repetitions
 
 
-def _unsupported(cfg: ModelConfig) -> list[str]:
-    kinds = [k for k in cfg.pattern()
-             if k not in ("attn", "attn_local", "rwkv", "mamba")]
-    if cfg.encdec is not None:
-        kinds.append("encdec")
-    return sorted(set(kinds))
-
-
 def stack_plan(cfg: ModelConfig) -> list[Group]:
     """The JAX package's grouping: a ``shared_attn`` marker after every
     ``hybrid_period`` layers (zamba2); then one unit per layer when
     ``scan_layers`` is off, else the largest prefix of whole units
     (``layer_pattern``, times ``hybrid_period`` plus the marker for a
     hybrid) as one group and the remainder as another."""
-    bad = _unsupported(cfg)
-    if bad:
-        raise NotImplementedError(f"{cfg.name}: block kinds {bad} are not "
-                                  "ported yet (later slices)")
     pat = list(cfg.pattern())
     if cfg.hybrid_period:
         out = []
@@ -107,8 +99,8 @@ def _block_specs(kind: str, cfg: ModelConfig, tp: int) -> dict:
     if kind == "mamba":
         return ssm.mamba_specs(cfg, tp)
     if kind not in ("attn", "attn_local"):
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    return {
+        raise ValueError(f"unknown block kind {kind!r}")
+    s = {
         "ln1": ParamSpec((cfg.d_model,), (None,), init="zeros",
                          dtype="float32"),
         "attn": attn_specs(cfg, tp),
@@ -116,6 +108,22 @@ def _block_specs(kind: str, cfg: ModelConfig, tp: int) -> dict:
                          dtype="float32"),
         "ffn": (moe_specs(cfg) if cfg.moe is not None
                 else mlp_specs(cfg.d_model, cfg.d_ff, cfg.dtype)),
+    }
+    if cfg.encdec is not None:
+        s["ln_x"] = ParamSpec((cfg.d_model,), (None,), init="zeros",
+                              dtype="float32")
+        s["xattn"] = cross_attn_specs(cfg, tp)
+    return s
+
+
+def _enc_block_specs(cfg: ModelConfig, tp: int) -> dict:
+    return {
+        "ln1": ParamSpec((cfg.d_model,), (None,), init="zeros",
+                         dtype="float32"),
+        "attn": attn_specs(dataclasses.replace(cfg, mla=None), tp),
+        "ln2": ParamSpec((cfg.d_model,), (None,), init="zeros",
+                         dtype="float32"),
+        "ffn": mlp_specs(cfg.d_model, cfg.d_ff, cfg.dtype),
     }
 
 
@@ -131,7 +139,9 @@ def model_specs(cfg: ModelConfig, tp: int) -> dict:
     """The full parameter tree (``ParamSpec`` leaves; a scanned group is a
     list of per-layer subtrees).  A hybrid's shared attention block lives
     outside the stack, under ``"shared_attn"``: ``proj_in [2D, D]`` and one
-    attention block."""
+    attention block.  An enc-dec model's encoder is ``"encoder"``, a list
+    of ``n_enc_layers`` per-layer subtrees (the JAX package's stacked
+    leaves), and ``"enc_final_norm"``."""
     specs: dict[str, Any] = {"embed": embed_specs(
         cfg.vocab_padded, cfg.d_model, cfg.dtype)}
     if not cfg.tie_embeddings:
@@ -149,6 +159,11 @@ def model_specs(cfg: ModelConfig, tp: int) -> dict:
             "proj_in": ParamSpec((2 * cfg.d_model, cfg.d_model),
                                  ("data", None), dtype=cfg.dtype),
             **_block_specs("attn", _shared_cfg(cfg), tp)}
+    if cfg.encdec is not None:
+        specs["encoder"] = [_enc_block_specs(cfg, tp)
+                            for _ in range(cfg.encdec.n_enc_layers)]
+        specs["enc_final_norm"] = ParamSpec((cfg.d_model,), (None,),
+                                            init="zeros", dtype="float32")
     if cfg.vlm is not None:
         specs["img_proj"] = ParamSpec((cfg.vlm.patch_dim, cfg.d_model),
                                       ("data", None), dtype=cfg.dtype)
@@ -165,7 +180,7 @@ def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
 
 
 def cache_specs(cfg: ModelConfig, batch: int, s_max: int, tp: int, *,
-                seq_sharded: bool = False) -> dict:
+                seq_sharded: bool = False, enc_len: int | None = None) -> dict:
     """``ParamSpec`` tree of the KV and SSM caches (global shapes +
     shardings): a KV cache per attention block and per ``shared_attn``
     occurrence (MLA: the latent ``c_kv`` and the rope key ``k_rope``,
@@ -174,7 +189,11 @@ def cache_specs(cfg: ModelConfig, batch: int, s_max: int, tp: int, *,
     with ``seq_sharded`` the attention caches' sequence dim is instead,
     and the SSM states (no sequence dim) are replicated over it.  The
     JAX package's ``"len"`` leaf is a host int that ``init_caches``
-    adds."""
+    adds.  An enc-dec model's attention blocks also cache the encoder's
+    K/V, ``cross_k``/``cross_v [batch, enc_len, n_kv, hd]``; ``enc_len``
+    defaults to ``s_max``, the JAX package's convention (its prefill then
+    replaces the buffers by ones of the encoder's real length;
+    ``init_caches`` takes the real one)."""
     hd = cfg.hd
     kv_dim = "model" if cfg.n_kv_heads % tp == 0 else None
     n_kv = cfg.n_kv_heads
@@ -226,7 +245,16 @@ def cache_specs(cfg: ModelConfig, batch: int, s_max: int, tp: int, *,
         }
 
     def block_cache(kind):
-        return ssm_cache(kind) if kind in ("rwkv", "mamba") else attn_cache()
+        if kind in ("rwkv", "mamba"):
+            return ssm_cache(kind)
+        c = attn_cache()
+        if cfg.encdec is not None and kind != "shared_attn":
+            n = s_max if enc_len is None else enc_len
+            for key in ("cross_k", "cross_v"):
+                c[key] = ParamSpec((batch, n, n_kv, hd),
+                                   (bdim, None, kv_dim, None),
+                                   dtype=cfg.dtype)
+        return c
 
     return {"stack": {g.name: _per_group(g, lambda g=g: {
         f"b{i}_{kind}": block_cache(kind) for i, kind in enumerate(g.unit)})
@@ -234,7 +262,7 @@ def cache_specs(cfg: ModelConfig, batch: int, s_max: int, tp: int, *,
 
 
 def init_caches(cfg: ModelConfig, batch_size: int, s_max: int, *,
-                seq_sharded: bool = False):
+                seq_sharded: bool = False, enc_len: int | None = None):
     """Zero caches for the bound axes (``model``, and ``data`` where it is
     bound: the global batch, or with ``seq_sharded`` the global
     sequence, cut over it): ``[L, B_loc, S_loc, KVloc, hd]`` per
@@ -242,13 +270,16 @@ def init_caches(cfg: ModelConfig, batch_size: int, s_max: int, *,
     states.  An MLA cache's ``c_kv`` and ``k_rope`` are the column blocks
     of one ``[L, B, S_max, kvr + dr]`` buffer, so the absorbed path reads
     its keys, ``concat(c_kv, k_rope)``, as a view
-    (``attention.latent_keys``)."""
+    (``attention.latent_keys``).  An enc-dec model's cross K/V buffers
+    hold ``enc_len`` encoder positions (default ``s_max``): prefill writes
+    the encoder's K/V into them in place, and raises where the encoder's
+    length is another."""
     axis = get_axis(AXES.model)
     sizes = {"model": axis.size}
     if has_axis(AXES.data):
         sizes["data"] = get_axis(AXES.data).size
     specs = cache_specs(cfg, batch_size, s_max, axis.size,
-                        seq_sharded=seq_sharded)
+                        seq_sharded=seq_sharded, enc_len=enc_len)
 
     def mk(s: ParamSpec):
         return torch.zeros((axis.lanes,) + s.local_shape(sizes),
@@ -278,16 +309,20 @@ def init_caches(cfg: ModelConfig, batch_size: int, s_max: int, *,
 
 
 def _run_attn_block(p, cfg: ModelConfig, x, *, kind, pos, mode, cache,
-                    n_prefix: int = 0, seq_sharded: bool = False):
+                    n_prefix: int = 0, enc_out=None,
+                    seq_sharded: bool = False):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     mask_kind = ("local" if kind == "attn_local" else
                  ("prefix" if n_prefix else "causal"))
     a = attention(p["attn"], cfg, h, pos=pos, kind=mask_kind,
                   n_prefix=n_prefix,
                   cache=None if cache is None else cache["self"], mode=mode,
-                  seq_sharded=seq_sharded)
+                  use_rope=cfg.encdec is None, seq_sharded=seq_sharded)
     x = x + a.y
     new_cache = {"self": a.cache} if a.cache is not None else None
+    if cfg.encdec is not None:
+        x, new_cache = _run_cross(p, cfg, x, pos=pos, cache=cache,
+                                  new_cache=new_cache, enc_out=enc_out)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.moe is not None:
         y, aux = moe_block(p["ffn"], cfg, h2)
@@ -296,14 +331,67 @@ def _run_attn_block(p, cfg: ModelConfig, x, *, kind, pos, mode, cache,
     return x + y, new_cache, aux
 
 
+def _run_cross(p, cfg: ModelConfig, x, *, pos, cache, new_cache, enc_out):
+    """The decoder's cross-attention sub-block: ``x + xattn(ln_x(x))``
+    over the encoder's K/V, projected from ``enc_out`` (train, prefill;
+    prefill writes them into the cache's ``cross_k``/``cross_v`` in
+    place) or read from the cache (decode: ``enc_out`` None, the encoder
+    never re-projected).  Returns ``(x, new_cache)``."""
+    hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
+    if enc_out is None:
+        ck, cv = cache["cross_k"], cache["cross_v"]
+    else:
+        ck, cv = _cross_kv(p["xattn"], cfg, enc_out)
+        if cache is not None:                   # prefill
+            _write_cross(cache, ck, cv)
+    ca = attention(p["xattn"], cfg, hx, pos=pos, cross_kv=(ck, cv),
+                   mode="train", use_rope=False)
+    if new_cache is not None:               # prefill, decode
+        new_cache = {**new_cache, "cross_k": cache["cross_k"],
+                     "cross_v": cache["cross_v"]}
+    return x + ca.y, new_cache
+
+
+def _write_cross(cache, ck, cv) -> None:
+    """The encoder's K/V into the cache's cross buffers, in place; raises
+    where the buffers hold another number of encoder positions."""
+    for key, t in (("cross_k", ck), ("cross_v", cv)):
+        buf = cache[key]
+        if buf.shape != t.shape:
+            raise ValueError(f"the cache's {key} holds {buf.shape[2]} "
+                             f"encoder positions, the encoder gave "
+                             f"{t.shape[2]} (init_caches(..., "
+                             f"enc_len={t.shape[2]}))")
+        buf.copy_(t)
+
+
+def _cross_kv(p, cfg: ModelConfig, enc_out):
+    """The encoder's K/V for one decoder block, ``[p, B, S_enc, KVloc,
+    hd]`` each: ``col_matmul(fsdp_dim=0)`` where the KV heads are sharded
+    over the model axis, else every rank projects all of them
+    (``matmul_accumulate`` over ``tp_psum_grad``)."""
+    tp = axis_size_or_1(AXES.model)
+    kv_sharded = cfg.n_kv_heads % tp == 0
+    if kv_sharded:
+        k = ops.col_matmul(enc_out, p["w_k"], fsdp_dim=0)
+        v = ops.col_matmul(enc_out, p["w_v"], fsdp_dim=0)
+    else:
+        k = ops.matmul_accumulate(enc_out, ops.tp_psum_grad(p["w_k"]))
+        v = ops.matmul_accumulate(enc_out, ops.tp_psum_grad(p["w_v"]))
+    n_loc = cfg.n_kv_heads // tp if kv_sharded else cfg.n_kv_heads
+    shape = (*enc_out.shape[:-1], n_loc, cfg.hd)
+    return k.reshape(shape), v.reshape(shape)
+
+
 def _run_block(kind, p, cfg: ModelConfig, x, *, pos, mode, cache, shared_p,
-               resid0, n_prefix: int = 0, seq_sharded: bool = False):
+               resid0, n_prefix: int = 0, enc_out=None,
+               seq_sharded: bool = False):
     """One block of any ported kind; returns ``(x, new_cache, aux)``
     (aux: the MoE load-balance loss ``[L]``, else 0.0)."""
     if kind in ("attn", "attn_local"):
         return _run_attn_block(p, cfg, x, kind=kind, pos=pos, mode=mode,
                                cache=cache, n_prefix=n_prefix,
-                               seq_sharded=seq_sharded)
+                               enc_out=enc_out, seq_sharded=seq_sharded)
     if kind == "shared_attn":
         # zamba2: the shared block on concat(x, resid0), projected in
         h = ops.matmul_accumulate(torch.cat([x, resid0], dim=-1),
@@ -321,7 +409,7 @@ def _run_block(kind, p, cfg: ModelConfig, x, *, pos, mode, cache, shared_p,
 
 
 def _run_stack(params, cfg: ModelConfig, x, *, pos, mode, caches,
-               n_prefix: int = 0, seq_sharded: bool = False):
+               n_prefix: int = 0, enc_out=None, seq_sharded: bool = False):
     """Every layer in order; returns ``(x, new_caches, aux)``, aux summed
     over the layers.  ``resid0``, the embedding output, feeds every
     ``shared_attn`` block."""
@@ -344,7 +432,7 @@ def _run_stack(params, cfg: ModelConfig, x, *, pos, mode, caches,
                     kind, lp.get(key), cfg, x, pos=pos, mode=mode,
                     cache=None if lc is None else lc[key],
                     shared_p=shared_p, resid0=resid0, n_prefix=n_prefix,
-                    seq_sharded=seq_sharded)
+                    enc_out=enc_out, seq_sharded=seq_sharded)
                 aux_total = aux_total + aux
                 if nc is not None:
                     ncs[key] = nc
@@ -354,9 +442,10 @@ def _run_stack(params, cfg: ModelConfig, x, *, pos, mode, caches,
 
 
 def _lane_patches(patches: torch.Tensor, lanes: int) -> torch.Tensor:
-    """VLM patches as a stacked operand: ``[B, N, P]`` that every lane
-    sees become ``[L, B, N, P]``; under the data axis they are each
-    lane's own ``[L, B/d, N, P]`` already (as token ids, ``rank_ids``)."""
+    """VLM patches (or enc-dec frames) as a stacked operand: ``[B, N, P]``
+    that every lane sees become ``[L, B, N, P]``; under the data axis they
+    are each lane's own ``[L, B/d, N, P]`` already (as token ids,
+    ``rank_ids``)."""
     if has_axis(AXES.data):
         return patches
     return patches.unsqueeze(0).expand(lanes, *patches.shape)
@@ -366,7 +455,9 @@ def _embed_inputs(params, cfg: ModelConfig, batch, *, pos0: int = 0):
     """Returns ``(x, pos, n_prefix)``: the embedded inputs ``[p, B, S,
     D]``, the positions ``[1, S]`` and the length of the prefix-LM prefix
     (VLM: the image patches, projected by ``img_proj`` through
-    ``matmul_accumulate`` and placed before the text; else 0)."""
+    ``matmul_accumulate`` and placed before the text; else 0).  An
+    enc-dec model adds the sincos embeddings of the positions (from
+    ``pos0`` in decode)."""
     scale = (cfg.d_model ** 0.5) if cfg.scale_embed else None
     x = embed_lookup(params["embed"], batch["tokens"], scale=scale)
     n_prefix = 0
@@ -377,7 +468,29 @@ def _embed_inputs(params, cfg: ModelConfig, batch, *, pos0: int = 0):
         x = torch.cat([img, x], dim=2)
         n_prefix = img.shape[2]
     pos = pos0 + torch.arange(x.shape[2], device=x.device)[None, :]
+    if cfg.encdec is not None:
+        x = x + sincos_positions(pos, cfg.d_model).to(x.dtype)
     return x, pos, n_prefix
+
+
+def _encode(params, cfg: ModelConfig, frames):
+    """The enc-dec encoder over stub frame embeddings ``[B, S_enc, D]``
+    (every lane's, or under the data axis each lane's ``[L, B/d, S_enc,
+    D]``): sincos positions added, then per layer bidirectional attention
+    (mask ``"full"``, no rope, mode ``"train"``: no cache) and the gated
+    MLP, each behind its RMS norm; the final norm.  Returns ``[L, B,
+    S_enc, D]``."""
+    lanes = params["enc_final_norm"].shape[0]
+    x = _lane_patches(frames, lanes).to(torch_dtype(cfg.dtype))
+    pos = torch.arange(x.shape[2], device=x.device)[None, :]
+    x = x + sincos_positions(pos, cfg.d_model).to(x.dtype)
+    for lp in params["encoder"]:
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        a = attention(lp["attn"], cfg, h, pos=pos, kind="full",
+                      mode="train", use_rope=False)
+        x = x + a.y
+        x = x + mlp(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -392,11 +505,17 @@ def forward(params, cfg: ModelConfig, batch, *, mode: str = "train",
     aux is the MoE load-balance loss summed over the layers, ``[p]``, and
     0.0 for a model with no MoE block.  ``last_only``: the logits of the
     last position only, ``[p, B, 1, V_t]`` (they are per position, so the
-    values are the same)."""
+    values are the same).  An enc-dec model's batch may carry ``frames``
+    (train, prefill): the encoder runs on them and every decoder block
+    attends to its output; without them (decode) the blocks read the
+    cached cross K/V."""
+    enc_out = None
+    if cfg.encdec is not None and "frames" in batch:
+        enc_out = _encode(params, cfg, batch["frames"])
     x, pos, n_prefix = _embed_inputs(params, cfg, batch, pos0=pos0)
     x, new_caches, aux = _run_stack(params, cfg, x, pos=pos, mode=mode,
                                     caches=caches, n_prefix=n_prefix,
-                                    seq_sharded=seq_sharded)
+                                    enc_out=enc_out, seq_sharded=seq_sharded)
     if last_only:
         x = x[:, :, -1:]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -1045,6 +1045,90 @@ def _to_cpu(tree):
 
 
 # ---------------------------------------------------------------------------
+# the enc-dec family (whisper-medium): non-causal flash at head dim 64
+# ---------------------------------------------------------------------------
+
+# (N, Sq, Skv, HK, G, dh, causal, window, softcap, q0, kv_len), path:
+# whisper-medium at TP 8 (2 KV heads of 64 a rank, G = 1), 1500 encoder
+# positions (not a multiple of the 128-key block): the encoder's
+# self-attention, the cross-attention at prefill (192 prompt rows) and at
+# decode (one row, q0 anywhere: non-causal sees all 1500 keys)
+ENCDEC_CASES = [
+    ((4, 1500, 1500, 2, 1, 64, False, 0, 0.0, 0, None), "wgmma"),
+    ((4, 192, 1500, 2, 1, 64, False, 0, 0.0, 0, None), "wgmma"),
+    ((8, 1, 1500, 2, 1, 64, False, 0, 0.0, 0, None), "split_kv"),
+    ((8, 1, 1500, 2, 1, 64, False, 0, 0.0, 192, None), "split_kv"),
+    ((8, 1, 1500, 2, 1, 64, False, 0, 0.0, 4000, None), "split_kv"),
+]
+
+
+@needs_cuda
+@pytest.mark.parametrize("case,path", ENCDEC_CASES)
+def test_flash_encdec_calls_match_plain(cuda, case, path):
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _flash_inputs(cuda, case, torch.bfloat16)
+    kw = dict(zip(("causal", "window", "softcap", "q0", "kv_len"),
+                  case[6:]))
+    before = _paths(FA.flash_attention)
+    got = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _took(FA.flash_attention, before) == {path: 1}
+    assert bool(torch.isfinite(got.float()).all())
+    assert _within_limit(FA, got, q, k, v, **kw)
+
+
+@needs_cuda
+@pytest.mark.parametrize("case,bad", [
+    (ENCDEC_CASES[3][0], dict(causal=True, q0=192)),    # decode launched causal
+    (ENCDEC_CASES[1][0], dict(causal=False, kv_len=1408)),  # ragged block lost
+])
+def test_flash_encdec_limit_rejects_planted_faults(cuda, case, bad):
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _flash_inputs(cuda, case, torch.bfloat16)
+    kw = dict(zip(("causal", "window", "softcap", "q0", "kv_len"),
+                  case[6:]))
+    assert not _within_limit(FA, FA.flash_attention(q, k, v, **bad), q, k, v,
+                             **kw)
+
+
+@needs_cuda
+def test_encdec_serve_on_card_matches_the_cpu(cuda):
+    """whisper-medium's smoke config at head dim 64 (2 encoder and 4
+    decoder layers, TP 2: 2 q heads over 1 KV head a rank) served on the
+    card with 100 stub frames, against the same weights on the CPU: 2e-2
+    max-norm relative.  The encoder's launches (200 folded rows) take
+    ``wgmma``, the 12-token prefill's ``mma_sync``, decode ``split_kv``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_tree
+    cfg = dataclasses.replace(get_config("whisper-medium").smoke(),
+                              head_dim=64, attn_impl="flash")
+    axis = StackedAxis(2, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_tree(lm.model_specs(cfg, 2), gen, axis)
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 12)),
+                              device=cuda)
+    frames = torch.as_tensor(rng.standard_normal(
+        (2, 100, cfg.d_model), dtype=np.float32), device=cuda)
+    before = _paths(FA.flash_attention)
+    on_card = tserve.serve(cfg, axis, params, prompts, 24, 6, frames=frames)
+    torch.cuda.synchronize()
+    n_enc, n_dec = cfg.encdec.n_enc_layers, cfg.n_layers
+    assert _took(FA.flash_attention, before) == {
+        "wgmma": n_enc, "mma_sync": 2 * n_dec, "split_kv": 2 * n_dec * 5}
+    on_cpu = tserve.serve(cfg, StackedAxis(2, "cpu"), _to_cpu(params),
+                          prompts.cpu(), 24, 6, frames=frames.cpu())
+    card_cpu = tserve.ServeResult(
+        on_card.tokens.cpu(), [lg.cpu() for lg in on_card.logits],
+        on_card.prefill_s, on_card.decode_s, on_card.ctx)
+    assert tserve.check_serves(on_cpu, card_cpu, 2e-2)["steps"] >= 1
+
+
+# ---------------------------------------------------------------------------
 # the SSM scans (rwkv6_scan, ssd_scan)
 # ---------------------------------------------------------------------------
 

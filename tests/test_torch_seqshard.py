@@ -334,15 +334,6 @@ def test_input_specs_match_the_reference(arch, cell):
     mesh = _Mesh(data=16, model=16)
     sds, ps = rshapes.input_specs(rcfg, rcell, mesh)
     assert tshapes.dp_axes(mesh) == rshapes.dp_axes(mesh)
-    if tcfg.encdec is not None:
-        # enc-dec is not ported: its specs raise naming it; the batch,
-        # which needs no model, is the reference's
-        with pytest.raises(NotImplementedError, match="encdec"):
-            tshapes.input_specs(tcfg, tcell, mesh)
-        if tcell.kind != "decode":
-            i = 2 if tcell.kind == "train" else 1
-            _walk(tshapes.batch_arg_specs(tcfg, tcell, mesh), sds[i], ps[i])
-        return
     got = tshapes.input_specs(tcfg, tcell, mesh)
     assert len(got) == len(sds)
     if tcell.kind == "train":
@@ -362,13 +353,17 @@ def _per_layer(specs, rcfg):
     """The reference's spec tree with each scanned group's stacked leaves
     cut into a list of per-layer specs (the port's layout)."""
     from repro.models.params import ParamSpec as RSpec
+    def layers(tree, n):
+        return [jax.tree.map(
+            lambda s: RSpec(s.shape[1:], s.dims[1:], s.init, s.scale,
+                            s.dtype), tree,
+            is_leaf=lambda x: isinstance(x, RSpec))] * n
     out = dict(specs, stack=dict(specs["stack"]))
     for g in rlm.stack_plan(rcfg):
         if g.n_rep > 1:
-            out["stack"][g.name] = [jax.tree.map(
-                lambda s: RSpec(s.shape[1:], s.dims[1:], s.init, s.scale,
-                                s.dtype), specs["stack"][g.name],
-                is_leaf=lambda x: isinstance(x, RSpec))] * g.n_rep
+            out["stack"][g.name] = layers(specs["stack"][g.name], g.n_rep)
+    if rcfg.encdec is not None:          # the encoder: always stacked
+        out["encoder"] = layers(specs["encoder"], rcfg.encdec.n_enc_layers)
     return out
 
 

@@ -528,18 +528,23 @@ def test_async_checkpointer_surfaces_a_failed_write(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def test_watchdog_flags_stragglers():
-    import time
+def test_watchdog_flags_stragglers(monkeypatch):
+    """Ten 2 ms steps, then a 50 ms one, on a fake clock: the verdict does
+    not depend on how long a loaded host sleeps."""
+    from repro_torch.ft import watchdog
+    now = [0.0]
+    monkeypatch.setattr(watchdog.time, "perf_counter", lambda: now[0])
+
+    def step(seconds):
+        wd.start_step()
+        now[0] += seconds
+        return wd.end_step()
     wd = StepWatchdog(ratio=3.0)
     for _ in range(10):
-        wd.start_step()
-        time.sleep(0.002)
-        assert not wd.end_step()
-    wd.start_step()
-    time.sleep(0.05)
-    assert wd.end_step()
+        assert not step(0.002)
+    assert step(0.05)
     assert wd.straggler_steps == [10]
-    assert wd.median > 0
+    assert wd.median == pytest.approx(0.002)
 
 
 def test_watchdog_hang_timer_fires():

@@ -290,8 +290,8 @@ def _ref_grads(rcfg, tree, tp, batch, dtype):
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     sharded = jax.tree.map(lambda a: a.astype(dtype),
                            ref_shard(tree, rcfg, tp))
-    loss, g = jax.vmap(jax.value_and_grad(
-        lambda p: rlm.loss_fn(p, cfg, jb)[0]), axis_name="model")(sharded)
+    loss, g = jax.jit(jax.vmap(jax.value_and_grad(
+        lambda p: rlm.loss_fn(p, cfg, jb)[0]), axis_name="model"))(sharded)
     return (np.asarray(loss), ref_join(jax.tree.map(np.asarray, g),
                                        rlm.model_specs(cfg, tp=tp), "model"))
 

@@ -10,7 +10,7 @@
   ``loss_fn`` against the reference's under ``vmap(axis_name="model")``,
   the weights (``img_proj`` among them) carried by ``from_reference``.
 * ``data.synthetic``'s patches are the reference's ``make_batch``'s, and
-  ``lm._unsupported`` names only ``encdec``.
+  every arch builds the reference's stack plan.
 
 Tolerance: float32 differs from the reference in summation order only,
 1e-4 of the output's max-norm (the kernel's plain version sums its chunks
@@ -73,10 +73,16 @@ def _tbatch(b, keys=("tokens", "labels", "patches")):
 
 
 def test_unsupported_names_only_encdec():
+    """Every family is ported (the enc-dec, the last one named
+    unsupported, included): all ten archs build the reference's stack
+    plan."""
+    assert len(tconfigs.ARCHS) == 10
     for arch in tconfigs.ARCHS:
-        cfg = tconfigs.get_config(arch)
-        assert tlm._unsupported(cfg) == (
-            ["encdec"] if cfg.encdec is not None else []), arch
+        got, want = (
+            [(g.name, tuple(g.unit), g.n_rep) for g in m.stack_plan(
+                c.get_config(arch))]
+            for m, c in ((tlm, tconfigs), (rlm, rconfigs)))
+        assert got and got == want, arch
 
 
 def test_patches_are_the_references_make_batch():
