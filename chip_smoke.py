@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's tuning loop, its serving paths (dense, SSM,
 Mixture-of-Experts, multi-head latent attention, a data x model mesh,
-sequence-sharded long-context decode, the prefix-LM VLM and the
-encoder-decoder) and its
+sequence-sharded long-context decode, the prefix-LM VLM, the
+encoder-decoder and a process-group axis) and its
 training paths (one stacked axis, a data x model mesh, a pod x data x
 model mesh, and training through the model kernels) on one CUDA card,
 end to end.
@@ -218,7 +218,22 @@ Phases (each raises on failure; nothing is caught):
    prompt tokens, 1 + 32 tokens, a 448-slot self cache (the encoder runs
    inside the timed prefill; the cross K/V are cached at 1500 positions);
    the flash serve, ``tune_trace`` and the tuned re-serve, and the ``ref``
-   serve of the same weights, each within ``SERVE_RTOL``.
+   serve of the same weights, each within ``SERVE_RTOL``;
+20. the process-group axis (``GroupAxis`` over ``torch.distributed``):
+   (a) NCCL at world 1 (NCCL puts one rank on a GPU): llama3.2-3b at full
+   width and depth, TP 1, phase 10's requests, served on the
+   ``GroupAxis`` and on ``StackedAxis(1)``, the same weights: flash
+   launched 28 x 33 times, the axis' NCCL collectives counted (> 0), the
+   logits bit-equal or within ``SERVE_RTOL``; prefill ms, decode ms a
+   token and peak memory for both, timed again in the other order
+   (group, stacked, stacked, group), and one decode step of each under
+   ``torch.profiler`` (host ms, device busy ms, host ms in the process
+   group's calls); (b) gloo at world 4 on the host's CPU (spawned
+   processes under a hard timeout that kills them): the group selfcheck,
+   flat and (2, 2), with no failure and the stacked run's totals, and a
+   measured tune of ``allreduce`` at the tuning CLI's 13 sizes, every
+   rank the same picks, one profile written; its times are the host
+   CPU's, labelled so.
 
 Each phase's seconds are logged as it ends (``[phase n]``).
 
@@ -268,17 +283,21 @@ package's), 26 x 32 ``split_kv`` in the unsharded one; and just before
 phase 18's: 2 x 18 ``mma_sync`` and 18 x 32 ``split_kv`` a flash serve;
 and just before phase 19's: 3 x 24 ``wgmma`` (the encoder's, the
 self-attention's and the cross-attention's prefill launches) and 2 x 24
-x 32 ``split_kv`` a flash serve, all at head dim 64.
-Each row carries its ``long_context_launches``, ``vlm_serve_launches``
-and ``encdec_serve_launches``; the kernels line lists flash at head dim
-256 as ``flash_attention_d256`` (phase 3's gemma3-1b prefill numbers,
-its launches by path in phases 17-19) and whisper's calls as
+x 32 ``split_kv`` a flash serve, all at head dim 64; and just before
+phase 20(a)'s group serve: flash 28 x 33 times.
+Each row carries its ``long_context_launches``, ``vlm_serve_launches``,
+``encdec_serve_launches`` and ``group_serve_launches``; the kernels
+line lists flash at head dim 256 as ``flash_attention_d256`` (phase 3's
+gemma3-1b prefill numbers, its launches by path in phases 17-19) and
+whisper's calls as
 ``flash_attention_encdec`` (phase 3's encoder self-attention numbers,
 its launches phase 19's at head dim 64).
 The
 ranks are stacked on ONE card: a ring hop is a device-memory copy, so
 the times measure on-chip data movement and launch overhead, not a link
 between GPUs, and both tiers of a two-axis mesh are the same memory.
+Phase 20's world of one card times no link either, and its gloo worlds
+run on the host's CPU.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
@@ -4081,6 +4100,284 @@ def encdec_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the process-group axis (phase 20)
+# ---------------------------------------------------------------------------
+
+# (a) llama3.2-3b at full width and depth, TP 1, phase 10's requests, on a
+# world-1 GroupAxis (NCCL puts one rank on a GPU: one card holds a world of
+# one) against the same serve on StackedAxis(1); (b) gloo at world
+# GROUP_WORLD on the host's CPU, in processes spawned under a hard timeout
+GROUP_ARCH, GROUP_BACKEND, GROUP_WORLD = "llama3.2-3b", "nccl", 4
+GROUP_TIMEOUT_S = 420.0
+
+
+def cpu_model() -> str:
+    """The host CPU's model, from ``/proc/cpuinfo`` (x86: its model name;
+    Arm: the architecture with the implementer and part codes), with the
+    number of CPUs this process may use."""
+    import platform
+    fields = {}
+    try:
+        for ln in pathlib.Path("/proc/cpuinfo").read_text().splitlines():
+            k, _, v = ln.partition(":")
+            fields.setdefault(k.strip(), v.strip())
+    except OSError:
+        pass
+    name = fields.get("model name") or (
+        f"{platform.machine()}, CPU implementer "
+        f"{fields.get('CPU implementer', '?')} part "
+        f"{fields.get('CPU part', '?')}")
+    return f"{name}, {len(os.sched_getaffinity(0))} CPUs"
+
+
+def group_tune_rank(out_dir: str) -> dict:
+    """One rank of (b)'s measured tune: ``allreduce`` at the tuning CLI's
+    13 sizes on a ``GroupAxis`` over the world (``MeasuredBackend(axis=)``,
+    every rank the slowest rank's samples); ``profiles.publish`` has rank
+    0 write the profile once the ranks' digests agree."""
+    from repro_torch.core import profiles, tuner
+    from repro_torch.core._axis import GroupAxis
+    axis = GroupAxis("cpu")
+    rep = tuner.tune(["allreduce"], axis_size=axis.size,
+                     backend=tuner.MeasuredBackend(axis=axis))
+    base, _ = profiles.publish(rep.profiles, out_dir, axis)
+    return {"digest": profiles.stores_digest(base, {}),
+            "summary": rep.summary()}
+
+
+def decode_host_profile(torch, cfg, axis, params, prompts, tag: str,
+                        label: str) -> dict:
+    """One decode step of ``cfg`` on ``axis`` at the prompts' end: its
+    host ms (timed alone), then under ``torch.profiler`` its device busy
+    ms, the host ms inside the process group's calls (ops named
+    ``c10d::``, each call's inclusive time) and the top host ops by self
+    time, so a process axis' extra host time per token is attributed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.dist.axes import bind
+    from repro_torch.launch import serve as sv
+    from repro_torch.models import lm
+    with bind(model=axis):
+        caches = lm.init_caches(cfg, prompts.shape[0], SERVE_SLOTS)
+    pf, dc = sv.build_prefill(cfg, axis), sv.build_decode(cfg, axis)
+    filled = pf(params, {"tokens": prompts}, caches)[1]
+    tok = prompts[:, :1]
+
+    def step():
+        dc(params, tok, filled, prompts.shape[1])
+        torch.cuda.synchronize()
+    step()
+    t0 = time.perf_counter()
+    step()
+    host = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+    rows = prof.key_averages()
+    on_dev = [e for e in rows
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    on_host = [e for e in rows if e not in on_dev]
+    busy = sum(e.self_device_time_total for e in on_dev) / 1e3
+    pg = {e.key: (e.count, e.cpu_time_total / 1e3) for e in on_host
+          if e.key.startswith("c10d::")}
+    pg_ms = sum(ms for _, ms in pg.values())
+    log(f"[{tag}] {label} decode step: host {host:.4f} ms, device busy "
+        f"{busy:.4f} ms; process-group calls {sum(n for n, _ in pg.values())}"
+        f" taking {pg_ms:.4f} ms of host time under the profiler "
+        f"{json.dumps({k: [n, round(ms, 4)] for k, (n, ms) in pg.items()})}")
+    for e in sorted(on_host, key=lambda e: -e.self_cpu_time_total)[:8]:
+        log(f"[{tag}]   host self {e.self_cpu_time_total / 1e3:9.4f} ms "
+            f"x{e.count:5d} {e.key[:80]}")
+    return {"host_ms": host, "busy_ms": busy, "pg_ms": pg_ms,
+            "pg": {k: list(v) for k, v in pg.items()}}
+
+
+def group_serve(torch, dev, wrappers: dict, card: str, tag: str) -> dict:
+    """(a) of phase 20: ``GROUP_ARCH`` at full width and depth, TP 1, phase
+    10's requests (flash), served on a world-1 ``GroupAxis`` over
+    ``GROUP_BACKEND`` and on ``StackedAxis(1)``, the same weights.  The
+    kernels' counts are zeroed just before the group serve and read just
+    after it: flash must launch, 1 + ``SERVE_DECODE`` times a layer, and
+    the axis' collectives must have gone through the backend.  Its logits
+    are held to the stacked serve's: bit-equal, or within
+    ``SERVE_RTOL``.  Both serves then run again in the other order
+    (group, stacked, stacked, group), and ``decode_host_profile`` times
+    one decode step of each axis."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core._axis import GroupAxis, StackedAxis
+    from repro_torch.launch import serve as sv
+    from repro_torch.launch.mesh import init_world
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_tree
+
+    fa = wrappers["flash_attention"]
+    cfg = dataclasses.replace(get_config(GROUP_ARCH), attn_impl="flash")
+    stacked = StackedAxis(1, dev)
+    params = init_tree(lm.model_specs(cfg, 1),
+                       torch.Generator(device=dev).manual_seed(SEED), stacked)
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
+    n_tokens = 1 + SERVE_DECODE
+    with tempfile.TemporaryDirectory() as tmp:
+        init_world(GROUP_BACKEND, rank=0, world=1,
+                   init_method=(pathlib.Path(tmp) / "store").as_uri())
+        try:
+            group = GroupAxis(dev)
+            log(f"[{tag}a] {cfg.name}: {cfg.n_layers} layers, d_model "
+                f"{cfg.d_model}, TP 1 on {group!r} and on StackedAxis(1); "
+                f"{SERVE_BATCH} requests of {SERVE_PROMPT} tokens, "
+                f"{n_tokens} tokens, {SERVE_SLOTS} slots ({card})")
+            for axis in (group, stacked):                     # warm-up
+                sv.serve(cfg, axis, params, prompts, SERVE_SLOTS, 2)
+            serves = {}
+            zero_counts(wrappers)         # the group serve path starts here
+            c0, p0, d0 = counts(wrappers), dict(fa.launches_by_path), \
+                dh_counts(fa)
+            calls0 = dict(group.calls)
+            torch.cuda.reset_peak_memory_stats(dev)
+            res = sv.serve(cfg, group, params, prompts, SERVE_SLOTS, n_tokens)
+            torch.cuda.synchronize()
+            c1 = counts(wrappers)
+            launches = {k: c1[k] - c0[k] for k in c1}
+            require_launched(f"{tag}a group serve",
+                             {"flash_attention": c0["flash_attention"]},
+                             {"flash_attention": c1["flash_attention"]})
+            paths = {k: v for k, v in path_delta(fa, p0).items() if v}
+            calls = {k: v - calls0.get(k, 0) for k, v in group.calls.items()}
+            serves["group"] = (res, torch.cuda.max_memory_allocated(dev))
+            log(f"[{tag}a] flash launches by path {json.dumps(paths)}; "
+                f"{GROUP_BACKEND} collectives of the axis {json.dumps(calls)}")
+            if launches["flash_attention"] != cfg.n_layers * n_tokens:
+                raise RuntimeError(f"flash launched "
+                                   f"{launches['flash_attention']} times, not "
+                                   f"{cfg.n_layers * n_tokens}")
+            if sum(v for k, v in calls.items() if k != "barrier") <= 0:
+                raise RuntimeError(f"no {GROUP_BACKEND} collective ran")
+            d256, d64 = dh_delta(fa, d0, 256), dh_delta(fa, d0, 64)
+            torch.cuda.reset_peak_memory_stats(dev)
+            serves["stacked"] = (sv.serve(cfg, stacked, params, prompts,
+                                          SERVE_SLOTS, n_tokens),
+                                 torch.cuda.max_memory_allocated(dev))
+            # the timed serves ran group then stacked; run them again in
+            # the other order, so an order effect shows apart from the axis
+            again = {label: sv.serve(cfg, axis, params, prompts,
+                                     SERVE_SLOTS, n_tokens)
+                     for label, axis in (("stacked", stacked),
+                                         ("group", group))}
+            steps = {label: decode_host_profile(torch, cfg, axis, params,
+                                                prompts, f"{tag}a", label)
+                     for label, axis in (("group", group),
+                                         ("stacked", stacked))}
+        finally:
+            dist.destroy_process_group()
+    (got, _), (want, _) = serves["group"], serves["stacked"]
+    equal = all(torch.equal(a, b) for a, b in zip(want.logits, got.logits))
+    check = sv.check_serves(want, got, SERVE_RTOL)
+    log(f"[{tag}a] group vs stacked logits: "
+        + ("bit-equal" if equal else
+           f"not bit-equal, max-norm relative {check['max_rel_err']:.4e} "
+           f"(tolerance {SERVE_RTOL}: a one-rank all-reduce or gather "
+           "should be a copy; the kernels are the same)"))
+    out = {"launches": launches, "paths": paths, "d256_paths": d256,
+           "d64_paths": d64, "calls": calls, "bit_equal": equal,
+           "check": check, "serves": {}, "decode_steps": steps}
+    log(f"[{tag}a] launches of the group serve: {json.dumps(launches)}")
+    for label, (r, peak) in serves.items():
+        log(f"[{tag}a] {label} serve: prefill {r.prefill_s * 1e3:.2f} ms, "
+            f"decode {r.decode_s_per_token * 1e3:.3f} ms/token, peak "
+            f"{peak / 1e9:.3f} GB ({card})")
+        out["serves"][label] = {"prefill_ms": r.prefill_s * 1e3,
+                                "decode_ms_per_token":
+                                    r.decode_s_per_token * 1e3,
+                                "peak_bytes": peak}
+    order = [("group", serves["group"][0]), ("stacked", serves["stacked"][0]),
+             ("stacked", again["stacked"]), ("group", again["group"])]
+    log(f"[{tag}a] serves in the order group, stacked, stacked, group: "
+        f"prefill {[round(r.prefill_s * 1e3, 2) for _, r in order]} ms, "
+        "decode "
+        f"{[round(r.decode_s_per_token * 1e3, 3) for _, r in order]} ms a "
+        f"token ({card})")
+    out["abba"] = [{"axis": label, "prefill_ms": r.prefill_s * 1e3,
+                    "decode_ms_per_token": r.decode_s_per_token * 1e3}
+                   for label, r in order]
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def group_cpu(out_dir: pathlib.Path, tag: str) -> dict:
+    """(b) of phase 20: gloo at ``GROUP_WORLD`` ranks on the host's CPU,
+    each world in processes under a hard timeout: the group selfcheck
+    (flat and (2, W/2)) with no failure and the stacked run's totals, then
+    a measured tune of ``allreduce`` at the tuning CLI's 13 sizes
+    (``group_tune_rank``), every rank the same picks and one profile
+    written.  Its times are the host
+    CPU's, not the card's."""
+    from repro_torch.core import collectives as C, selfcheck
+    from repro_torch.launch.mesh import spawn
+
+    host = f"gloo, host CPU ({cpu_model()})"
+    t0 = time.perf_counter()
+    reps = spawn(selfcheck.run_group, GROUP_WORLD, backend="gloo",
+                 args=("cpu",), timeout_s=GROUP_TIMEOUT_S)[0]
+    sc_s = time.perf_counter() - t0
+    held = C.demotions()
+    try:
+        want = [selfcheck.run(GROUP_WORLD, "cpu"),
+                selfcheck.run_mesh((2, GROUP_WORLD // 2), "cpu")]
+    finally:
+        C.clear_demotions()
+        for (op, nm), why in held.items():
+            C.demote(op, nm, why)
+    for got, ref in zip(reps, want):
+        log(f"[{tag}b] selfcheck --world {GROUP_WORLD} {got['devices']}: "
+            f"{got['total']} checks (stacked {ref['total']}), failures "
+            f"{got['failures']}, demoted {got['demoted']}, not applicable "
+            f"{sorted(got['not_applicable'])} ({host}, {sc_s:.1f} s)")
+        if got["failures"] or got["total"] != ref["total"]:
+            raise RuntimeError(f"group selfcheck {got['devices']}: "
+                               f"{got['failures']}, {got['total']} checks "
+                               f"against {ref['total']}")
+    prof = out_dir / "group_profiles"
+    t0 = time.perf_counter()
+    tuned = spawn(group_tune_rank, GROUP_WORLD, backend="gloo",
+                  args=(str(prof),), timeout_s=GROUP_TIMEOUT_S)
+    tune_s = time.perf_counter() - t0
+    log(f"[{tag}b] measured tune of allreduce at world {GROUP_WORLD}, its "
+        f"times on {host}:")
+    text = tuned[0]["summary"]
+    for ln in text.strip().splitlines():
+        log(f"[{tag}b] {ln}")
+    files = sorted(f.name for f in prof.glob("*.pgtune"))
+    digests = {t["digest"] for t in tuned}
+    log(f"[{tag}b] tuned in {tune_s:.1f} s; digests of the ranks' picks "
+        f"{sorted(d[:16] for d in digests)}; profiles written: {files} "
+        f"({host})")
+    if len(digests) != 1 or files != [f"allreduce_p{GROUP_WORLD}.pgtune"]:
+        raise RuntimeError(f"group tune: digests {digests}, profiles "
+                           f"{files}")
+    return {"selfcheck": reps, "selfcheck_s": sc_s, "tune_s": tune_s,
+            "profiles": files, "host": host,
+            "tune_lines": text.strip().splitlines()}
+
+
+def group_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
+                card: str, tag: str = "20") -> dict:
+    """The process-group axis: (a) ``group_serve``, (b) ``group_cpu``."""
+    t_phase = time.perf_counter()
+    out = group_serve(torch, dev, wrappers, card, tag)
+    out["cpu"] = group_cpu(out_dir, tag)
+    log(f"[{tag}] process-group phase in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def block(api, axis, torch, x, wv, wo, wgu, wd):
     """One llama3.2-3b sequence-parallel block on stacked ranks.
 
@@ -5062,6 +5359,15 @@ def main(argv=None) -> int:
     enc_row = kernels["flash_attention_encdec"]
     enc_row["encdec_serve_launches"] = report["encdec_serve"]["dh_paths"]
     enc_row["launches"] = sum(report["encdec_serve"]["dh_paths"].values())
+
+    phase("20")
+    # -- 20. the process-group axis: NCCL at world 1, gloo at world 4 -------
+    report["group"] = group_phase(torch, dev, out_dir, every, card)
+    for k, v in report["group"]["launches"].items():
+        kernels[k]["group_serve_launches"] = v
+    mla_row["group_serve_launches"] = report["group"]["paths"].get("mla", 0)
+    d256["group_serve_launches"] = report["group"]["d256_paths"]
+    enc_row["group_serve_launches"] = report["group"]["d64_paths"]
     phase(None)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
@@ -5072,7 +5378,8 @@ def main(argv=None) -> int:
              "main_path", "train_launches", "mesh_train_launches",
              "kernel_train_launches", "moe_serve_launches",
              "mla_serve_launches", "long_context_launches",
-             "vlm_serve_launches", "encdec_serve_launches")
+             "vlm_serve_launches", "encdec_serve_launches",
+             "group_serve_launches")
     print(json.dumps({"kernels": [{k: kernels[n].get(k) for k in order}
                                   for n in ("guideline_pack", "block_matmul",
                                             "ring_allgather_matmul_rdma",

@@ -16,15 +16,24 @@ axis size are two things: ``axis.lanes`` is the length of dim 0,
 ``axis.size`` the group a collective runs over.
 
 Per-rank integers (``index()``, ring source ranks, rooted masks) are
-``[lanes]`` tensors on the axis device, so the same mock-up code would
-run unchanged on a process-group axis that holds one rank per process.
+``[lanes]`` tensors on the axis device, so the same mock-up code runs
+unchanged on a process axis.
+
+``GroupAxis`` and ``GroupMesh`` are that process axis, the counterpart
+of the JAX package's ``shard_map`` mode: one rank per process, the
+collectives of ``torch.distributed`` over a process group (NCCL on the
+card, gloo on the CPU).  Every tensor on a process axis is ``[1, ...]``,
+this process's one lane (``lanes == 1``), and ``index()`` holds its
+coordinate, so no mock-up changes.
 """
 from __future__ import annotations
 
+import collections
 import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def resolve_device(device=None) -> torch.device:
@@ -273,6 +282,285 @@ class StackedMesh:
         return self._axes[name]
 
     __getitem__ = axis
+
+
+# ---------------------------------------------------------------------------
+# the process axis: one rank per process, over torch.distributed
+# ---------------------------------------------------------------------------
+
+_NO_GRID = ("is not defined on a process-group axis (GroupAxis): its "
+            "ranks are processes, one lane each, so there is no grid of "
+            "lanes to index")
+
+
+class GroupAxis:
+    """One rank axis whose ranks are processes of a ``torch.distributed``
+    process group: the counterpart of a ``shard_map`` mesh axis.
+
+    ``GroupAxis(device)`` spans every process of the initialized world
+    (``launch.mesh.init_world``); ``GroupMesh(shape, names)[name]`` is a
+    view of one named axis of a mesh of processes.  The lane interface is
+    ``StackedAxis``'s with one lane: every tensor is ``[1, ...]``,
+    ``lanes == 1``, ``size`` the group's world, ``index()`` a 1-element
+    tensor holding this process's coordinate (``rank`` as a Python int),
+    ``lane_index()`` ``tensor([0])``.  ``groups()`` and ``stride`` are
+    not defined.  ``calls`` counts the library collectives issued, one
+    each, and the barriers under ``barrier``.
+
+    The device follows the backend: NCCL runs on the card, gloo only on
+    the CPU, and either must be asked for; nothing falls back, and a
+    backend that lacks a collective raises."""
+
+    lanes = 1
+
+    def __init__(self, device=None, *, name: str = ""):
+        if not dist.is_initialized():
+            raise RuntimeError("no process group: call launch.mesh."
+                               "init_world first")
+        world = dist.get_world_size()
+        dev = _group_device(device)
+        self._setup((world,), 0, name, dev, dist.group.WORLD,
+                    list(range(world)), dist.get_rank(), dist.get_rank())
+
+    @classmethod
+    def _view(cls, shape, dim, name, device, group, ranks, coord,
+              mesh_rank) -> "GroupAxis":
+        ax = cls.__new__(cls)
+        ax._setup(shape, dim, name, device, group, ranks, coord, mesh_rank)
+        return ax
+
+    def _setup(self, shape, dim, name, device, group, ranks, coord,
+               mesh_rank) -> None:
+        self.shape = tuple(shape)         # the mesh of processes
+        self.dim = dim                    # this axis' place in it
+        self.name = name
+        self.p = self.shape[dim]
+        self.device = device
+        self.group = group
+        self.ranks = list(ranks)          # global ranks in axis order
+        self.rank = int(coord)            # this process's coordinate
+        self.mesh_rank = int(mesh_rank)   # its lane in the mesh's layout
+        self.calls: collections.Counter = collections.Counter()
+        self._index: dict[torch.dtype, torch.Tensor] = {}
+        self._lane = torch.zeros(1, dtype=torch.long, device=device)
+
+    def __repr__(self) -> str:
+        return (f"GroupAxis({self.name!r}, p={self.p}, rank={self.rank}, "
+                f"mesh={self.shape}, backend="
+                f"{dist.get_backend(self.group)}, device={self.device})")
+
+    @property
+    def size(self) -> int:
+        return self.p
+
+    @property
+    def stride(self) -> int:
+        raise NotImplementedError(f"stride {_NO_GRID}")
+
+    def groups(self) -> torch.Tensor:
+        raise NotImplementedError(f"groups() {_NO_GRID}")
+
+    def index(self, dtype: torch.dtype = torch.int64) -> torch.Tensor:
+        """This process's coordinate on the axis: a ``[1]`` tensor."""
+        t = self._index.get(dtype)
+        if t is None:
+            t = torch.tensor([self.rank], dtype=dtype, device=self.device)
+            self._index[dtype] = t
+        return t
+
+    def lane_index(self) -> torch.Tensor:
+        return self._lane
+
+    def barrier(self) -> None:
+        """A 1-element all-reduce over the group, then wait for the card
+        (counted under ``barrier``, apart from the collectives)."""
+        self.calls["barrier"] += 1
+        dist.all_reduce(torch.ones(1, device=self.device), group=self.group)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _one(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] != 1:
+            raise ValueError(f"leading dim {x.shape[0]} != 1 lane of "
+                             f"{self!r}")
+        if x.device != self.device:
+            raise ValueError(f"operand on {x.device}, {self!r}")
+        return x.contiguous()
+
+    def _blocks(self, x: torch.Tensor) -> int:
+        rows = x.shape[1]
+        if rows % self.p:
+            raise ValueError(f"rows {rows} not divisible by axis size "
+                             f"{self.p}")
+        return rows // self.p
+
+    # -- collectives (each one library call, counted) -----------------------
+    def all_gather(self, x: torch.Tensor, tiled: bool = True) -> torch.Tensor:
+        """``[1, n, ...]`` -> ``[1, p*n, ...]`` (tiled) or ``[1, p, n,
+        ...]``, in rank order."""
+        x = self._one(x)
+        rest = tuple(x.shape[1:])
+        out = x.new_empty((self.p,) + rest)
+        self.calls["all_gather"] += 1
+        dist.all_gather_into_tensor(out, x, group=self.group)
+        if tiled:
+            return out.view((1, self.p * x.shape[1]) + rest[1:])
+        return out.unsqueeze(0)
+
+    def _all_reduce(self, x: torch.Tensor, op, name: str) -> torch.Tensor:
+        y = self._one(x).clone()
+        self.calls[name] += 1
+        dist.all_reduce(y, op=op, group=self.group)
+        return y
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the group; every rank holds the sum."""
+        return self._all_reduce(x, dist.ReduceOp.SUM, "psum")
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """Maximum over the group; every rank holds it."""
+        return self._all_reduce(x, dist.ReduceOp.MAX, "pmax")
+
+    def psum_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """``[1, p*n, ...]`` -> ``[1, n, ...]``: block ``rank`` of the sum
+        over the group."""
+        n = self._blocks(x)
+        x = self._one(x)
+        out = x.new_empty((1, n) + tuple(x.shape[2:]))
+        self.calls["psum_scatter"] += 1
+        dist.reduce_scatter_tensor(out[0], x[0], group=self.group)
+        return out
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``[1, p*n, ...]`` -> ``[1, p*n, ...]``: block j is rank j's
+        block ``rank``."""
+        self._blocks(x)
+        x = self._one(x)
+        out = torch.empty_like(x)
+        self.calls["all_to_all"] += 1
+        dist.all_to_all_single(out[0], x[0], group=self.group)
+        return out
+
+    def pshift(self, x: torch.Tensor, pairs) -> torch.Tensor:
+        """``ppermute`` over (src, dst) coordinate pairs: one batch of
+        point-to-point sends and receives (global ranks); partial
+        permutations are legal and a rank with no source receives zeros;
+        a pair from a rank to itself is a local copy."""
+        x = self._one(x)
+        src, dsts = None, []
+        for s, d in pairs:
+            s, d = int(s), int(d)
+            if not (0 <= s < self.p and 0 <= d < self.p):
+                raise ValueError(f"pair {(s, d)} outside axis {self.p}")
+            if d == self.rank:
+                if src is not None:
+                    raise ValueError(f"rank {d} has two sources")
+                src = s
+            if s == self.rank:
+                dsts.append(d)
+        out = torch.zeros_like(x) if src is None else torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, self.ranks[d], self.group)
+               for d in dsts if d != self.rank]
+        if src == self.rank:
+            out.copy_(x)
+        elif src is not None:
+            ops.append(dist.P2POp(dist.irecv, out, self.ranks[src],
+                                  self.group))
+        if ops:
+            self.calls["pshift"] += 1
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return out
+
+
+def _group_device(device) -> torch.device:
+    """The device of a process axis: it must be the backend's (NCCL the
+    card, gloo the CPU)."""
+    backend = dist.get_backend()
+    dev = resolve_device(device)
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError(f"NCCL runs on the card, not on {dev}")
+    if backend == "gloo" and dev.type != "cpu":
+        raise ValueError(f"gloo runs here only on the CPU: pass "
+                         f"device='cpu', not {dev}")
+    return dev
+
+
+class GroupMesh:
+    """A mesh of named axes over every process of the world: the
+    counterpart of the JAX package's ``make_host_mesh(shape, names)``
+    under ``shard_map``.  Rank r's coordinates are ``r`` unravelled in
+    row-major order over ``shape`` (the order ``StackedMesh`` gives its
+    lanes), so rank r holds lane r of the mesh's stacked layout
+    (``mesh_rank``).  ``mesh[name]`` is a ``GroupAxis`` over the ranks
+    that share every other coordinate; every rank builds every group, in
+    the same order (``dist.new_group``)."""
+
+    lanes = 1
+
+    def __init__(self, shape, names, device=None):
+        self.shape = tuple(int(s) for s in shape)
+        self.names = tuple(names)
+        if len(self.shape) != len(self.names) or not self.shape:
+            raise ValueError(f"mesh shape {self.shape} and names "
+                             f"{self.names} differ in length")
+        if min(self.shape) < 1 or len(set(self.names)) != len(self.names):
+            raise ValueError(f"bad mesh {self.shape} {self.names}")
+        if not dist.is_initialized():
+            raise RuntimeError("no process group: call launch.mesh."
+                               "init_world first")
+        world = dist.get_world_size()
+        if math.prod(self.shape) != world:
+            raise ValueError(f"mesh {self.shape} needs "
+                             f"{math.prod(self.shape)} processes, the "
+                             f"world has {world}")
+        self.device = _group_device(device)
+        self.rank = dist.get_rank()
+        coords = np.unravel_index(self.rank, self.shape)
+        grid = np.arange(world).reshape(self.shape)
+        self._axes = {}
+        for k, name in enumerate(self.names):
+            rows = np.moveaxis(grid, k, -1).reshape(-1, self.shape[k])
+            mine = None
+            for row in rows:
+                g = dist.new_group([int(r) for r in row])
+                if self.rank in row:
+                    mine = (g, [int(r) for r in row])
+            self._axes[name] = GroupAxis._view(
+                self.shape, k, name, self.device, mine[0], mine[1],
+                coords[k], self.rank)
+
+    def __repr__(self) -> str:
+        return (f"GroupMesh({dict(zip(self.names, self.shape))}, "
+                f"rank={self.rank}, device={self.device})")
+
+    @property
+    def mesh_rank(self) -> int:
+        return self.rank
+
+    def axis(self, name: str) -> GroupAxis:
+        return self._axes[name]
+
+    __getitem__ = axis
+
+    def barrier(self) -> None:
+        """A 1-element all-reduce over every process, then wait for the
+        card."""
+        ones = torch.ones(1, device=self.device)
+        dist.all_reduce(ones)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+def is_mesh(axis) -> bool:
+    """A mesh of named axes (stacked or of processes), as opposed to one
+    axis."""
+    return isinstance(axis, (StackedMesh, GroupMesh))
+
+
+def spans_processes(axis) -> bool:
+    """A process axis or mesh: ranks are processes, one lane each."""
+    return isinstance(axis, (GroupAxis, GroupMesh))
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,11 @@ cell: ``p`` the outer axis, ``p2`` the inner one) and the ``rs_axis`` of
 reduce-scatter axis).  A ``costmodel.MeshTopo`` installed with
 ``set_mesh_topo`` (or ``tuned(mesh_topo=...)``) stamps each cell's tier
 token from the axes' names.
+
+The axis may be stacked (``StackedAxis``) or span processes
+(``GroupAxis``, one lane a process): on a process axis of more than one
+rank the one-kernel ring (``allgather_matmul``'s ``fused_ring`` on CUDA
+operands) is not admissible (``collectives.off_process_axis``).
 """
 from __future__ import annotations
 
@@ -257,9 +262,11 @@ def _make_cell(op: str, payload: torch.Tensor, axis: StackedAxis,
     return OpCell(op, p, nbytes, dtype, mm_k, mm_m, mm_n, role, tier=tier)
 
 
-def _admit(op: str, name: str, cell: OpCell, ctx: TuneContext | None) -> str:
+def _admit(op: str, name: str, cell: OpCell, ctx: TuneContext | None,
+           axis, device: torch.device) -> str:
     """The pow2 guard, the world guard (a hierarchical impl needs a
-    two-axis cell, a flat one a flat cell), the demotion ledger and the
+    two-axis cell, a flat one a flat cell), the process-axis guard (no
+    one-kernel ring across processes), the demotion ledger and the
     scratch budget: an inadmissible choice falls back to the default."""
     cand = C.REGISTRY[op].get(name)
     if cand is None:
@@ -271,6 +278,8 @@ def _admit(op: str, name: str, cell: OpCell, ctx: TuneContext | None) -> str:
                                or (cell.p2 & (cell.p2 - 1)) != 0):
         return "default"
     if cand.hier != cell.hier:
+        return "default"
+    if C.off_process_axis(op, name, axis, device):
         return "default"
     if C.is_demoted(op, name):
         return "default"
@@ -316,7 +325,7 @@ def _select(op: str, payload: torch.Tensor, axis: StackedAxis,
             name = ctx.choices.get(key)
             if name is None:
                 name = ctx.choices[key] = _lookup(op, cell, ph, ctx, env)
-    name = _admit(op, name, cell, ctx)
+    name = _admit(op, name, cell, ctx, axis, payload.device)
     if ctx is not None:
         ctx.record.append(DispatchRecord(cell, name, ph))
     return name
@@ -331,7 +340,7 @@ def _dispatch(op: str, payload: torch.Tensor, axis: StackedAxis,
         if other is not None and (other.shape != axis.shape
                                   or other.dim == axis.dim):
             raise ValueError(f"{op}: {axis!r} and {other!r} are not two "
-                             "axes of one StackedMesh")
+                             "axes of one StackedMesh (or of one GroupMesh)")
     ctx = _ctx()
     if ctx is not None and ctx.chunk_bytes and "chunk" not in kw:
         kw["chunk"] = max(1, ctx.chunk_bytes // payload.element_size())

@@ -56,9 +56,11 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core._axis import StackedAxis, ring_perm, shift_perm
+from repro_torch.core._axis import (GroupAxis, StackedAxis, ring_perm,
+                                    shift_perm)
 from repro_torch.core.cell import OP_MM_ROLE
 from repro_torch.kernels import quant as Q
+from repro_torch.kernels.collective_matmul_rdma import ONE_ADDRESS_SPACE
 from repro_torch.kernels.pack import guideline_pack
 
 # ---------------------------------------------------------------------------
@@ -596,6 +598,19 @@ def allgather_matmul_fused_ring(x, axis: StackedAxis, *, w,
     from repro_torch.kernels import collective_matmul as cmm
     return cmm.ring_allgather_matmul(x, w, axis,
                                      return_gathered=return_gathered)
+
+
+def off_process_axis(op: str, name: str, axis, device: torch.device
+                     ) -> str | None:
+    """Why impl ``name`` of ``op`` cannot serve on ``axis`` with operands
+    on ``device``, or None.  The one stated rule: on a process axis of
+    more than one rank, ``allgather_matmul``'s ``fused_ring`` on CUDA
+    operands (the one-kernel ring) is out of the admissible set."""
+    if ((op, name) == ("allgather_matmul", "fused_ring")
+            and device.type == "cuda" and isinstance(axis, GroupAxis)
+            and axis.size > 1):
+        return ONE_ADDRESS_SPACE
+    return None
 
 
 def matmul_reducescatter_default(x, axis: StackedAxis, *, w, **_):

@@ -11,6 +11,15 @@ sample measures the on-chip data movement and launch overhead of the
 mock-up, not a link between GPUs.  The measured axis size is a parameter
 (default 8), not a device count.
 
+On a process axis (``Bench(axis=GroupAxis)``, one rank a process) the
+barrier is the 1-element all-reduce over the axis' group, then the
+device synchronize, and each sample's elapsed time is reduced with a
+max all-reduce over the group after the timed window: every rank holds
+the slowest rank's times, the same samples, so the NREP estimator takes
+the same branch on every rank (ranks that disagreed on a count would
+call different numbers of collectives and hang).  A two-axis cell there
+replays on a ``GroupMesh`` of its ``(p, p2)``.
+
 Replay is keyed on the full ``OpCell``: a fused collective-matmul cell is
 re-executed with the RECORDED GEMM — dtype and ``(mm_k, mm_m, mm_n)``
 exactly as the callsite issued them.  Fused cells without recorded
@@ -20,7 +29,7 @@ A two-axis cell (hierarchical, or 2-D) replays on a ``StackedMesh`` of
 shape ``(p, p2)`` over the bench's lanes, the counterpart of the JAX
 package's ``_mesh2``: the payload streams over the outer axis and the
 impl gets the inner axis as ``inner_axis=`` or ``rs_axis=``, as at
-dispatch.  Its world ``p * p2`` must equal the bench's lane count.
+dispatch.  Its world ``p * p2`` must equal the bench's axis size.
 """
 from __future__ import annotations
 
@@ -31,7 +40,8 @@ import time
 import torch
 
 from repro_torch.core import collectives as C
-from repro_torch.core._axis import StackedAxis, StackedMesh
+from repro_torch.core._axis import (GroupMesh, StackedAxis, StackedMesh,
+                                    spans_processes)
 from repro_torch.core.cell import OpCell
 
 #: ops whose cells carry a fused-matmul geometry the replay must honor
@@ -83,7 +93,9 @@ def problem_shapes(cell: OpCell) -> dict[str, tuple[int, ...]]:
 
 
 class Bench:
-    """Replays tuning cells on a stacked axis of ``p`` ranks.
+    """Replays tuning cells on a stacked axis of ``p`` ranks, or on
+    ``axis``, a process axis (a ``GroupAxis`` or one axis of a
+    ``GroupMesh``; ``p`` is then its size).
 
     Built operands are kept for the ``MAX_CASES`` most recent cells, so the
     NREP estimator's repeated sampling reuses them; the impls of one cell
@@ -91,11 +103,12 @@ class Bench:
 
     MAX_CASES = 8
 
-    def __init__(self, p: int = 8, device=None):
-        self.axis = StackedAxis(p, device)
+    def __init__(self, p: int = 8, device=None, *, axis=None):
+        self.axis = StackedAxis(p, device) if axis is None else axis
         self._cases: collections.OrderedDict = collections.OrderedDict()
         self._operands: collections.OrderedDict = collections.OrderedDict()
-        self._bar = torch.ones((p, 1), device=self.axis.device)
+        self._meshes: dict[tuple, GroupMesh] = {}
+        self._bar = torch.ones((self.axis.lanes, 1), device=self.axis.device)
 
     @property
     def p(self) -> int:
@@ -133,12 +146,13 @@ class Bench:
             return got
         shapes = problem_shapes(cell)
         dt = getattr(torch, cell.dtype or "float32")
-        got = {"x": torch.ones((self.p,) + shapes["x"], dtype=dt,
+        lanes = self.axis.lanes
+        got = {"x": torch.ones((lanes,) + shapes["x"], dtype=dt,
                                device=self.device)}
         if "w" in shapes:
-            lanes = (cell.op in ("matmul_accumulate",
-                                 "matmul_reducescatter_2d"))
-            got["w"] = torch.ones(((self.p,) if lanes else ())
+            stacked = (cell.op in ("matmul_accumulate",
+                                   "matmul_reducescatter_2d"))
+            got["w"] = torch.ones(((lanes,) if stacked else ())
                                   + shapes["w"], dtype=dt,
                                   device=self.device)
         self._operands[cell] = got
@@ -151,8 +165,7 @@ class Bench:
         if cell.world() != self.p:
             raise ValueError(f"bench runs {self.p} lanes, not the "
                              f"{cell.p}x{cell.p2} mesh of {cell}")
-        mesh = StackedMesh((cell.p, cell.p2), ("bench", "bench2"),
-                           self.device)
+        mesh = self._mesh2(cell.p, cell.p2)
         outer, inner = mesh["bench"], mesh["bench2"]
         ins = self._inputs(cell)
         x = ins["x"]
@@ -167,6 +180,18 @@ class Bench:
         def run():
             return fn(x, outer, inner_axis=inner)
         return run
+
+    def _mesh2(self, p: int, p2: int):
+        """The ``(p, p2)`` mesh of the bench's ranks: stacked lanes, or
+        (on a process axis, which must span every process) a
+        ``GroupMesh``, built once: every rank builds it at the same
+        cell."""
+        if not spans_processes(self.axis):
+            return StackedMesh((p, p2), ("bench", "bench2"), self.device)
+        if (p, p2) not in self._meshes:
+            self._meshes[(p, p2)] = GroupMesh((p, p2), ("bench", "bench2"),
+                                              self.device)
+        return self._meshes[(p, p2)]
 
     def _case1(self, cell: OpCell, fn):
         if cell.p != self.p:
@@ -192,10 +217,18 @@ class Bench:
         return run
 
     def barrier(self) -> None:
-        """1-element stacked all-reduce, then wait for the device."""
+        """1-element all-reduce over the axis, then wait for the device."""
         self.axis.psum(self._bar)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _slowest(self, out: list[float]) -> list[float]:
+        """On a process axis, each sample's maximum over the group (after
+        the timed window): every rank then holds the same samples."""
+        if not spans_processes(self.axis):
+            return out
+        t = torch.tensor([out], dtype=torch.float64, device=self.device)
+        return self.axis.pmax(t)[0].tolist()
 
     def sample_latency(self, cell: OpCell, impl: str, count: int,
                        *, barrier: bool = True) -> list[float]:
@@ -222,7 +255,7 @@ class Bench:
                 t0 = time.perf_counter()
                 run()
                 out.append(time.perf_counter() - t0)
-        return out
+        return self._slowest(out)
 
     def sweep_axis(self, op: str, sizes, *, impl: str = "default",
                    count: int = 5,

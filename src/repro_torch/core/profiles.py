@@ -13,15 +13,23 @@ Lookup is O(1) to find the (op, p, geom, tier) profile + O(log M) bisect
 over the sorted ranges.  ``lookup_cell`` resolves geometry: exact >
 nearest tuned geometry (same role + dtype + p2 + tier, log-space shape
 distance) > the geometry-less (op, p) profile.
+
+Across processes (``publish``) rank 0 writes what every rank tuned, a
+barrier follows, every rank loads it back, and the digests of every
+rank's picks, gathered over the axis, must agree.
 """
 from __future__ import annotations
 
 import bisect
 import dataclasses
+import hashlib
 import json
 import os
 import pathlib
+import shutil
 import warnings
+
+import torch
 
 from repro_torch.core.cell import Geom, OpCell
 
@@ -339,3 +347,48 @@ def resolve_stores(directory: str | pathlib.Path | None = None) \
                       f"({type(e).__name__}: {e}); serving untuned "
                       "defaults")
         return None, {}
+
+
+def stores_digest(base: "ProfileStore | None",
+                  phases: dict[str, "ProfileStore"]) -> str:
+    """sha256 of the picks of a base store and per-phase stores: every
+    profile's Listing-1 text with its phase, in a fixed order."""
+    lines = sorted((ph, prof.to_text())
+                   for ph, store in [("", base), *sorted(phases.items())]
+                   if store is not None for prof in store)
+    return hashlib.sha256(json.dumps(lines).encode()).hexdigest()
+
+
+def publish(report, directory: str | pathlib.Path, axis, *,
+            fmt: str = "text") \
+        -> tuple["ProfileStore | None", dict[str, "ProfileStore"]]:
+    """Write once the profiles every rank of ``axis`` (a process axis
+    over every rank that tuned) computed, and load them back on every
+    rank: ``(base_store, phase_stores)``.
+
+    ``report`` is a ``ProfileStore`` (the base store) or a
+    ``tuner.TraceTuneReport`` (its per-phase stores).  The digests of
+    the ranks' own picks are all-gathered and must agree; rank 0 then
+    replaces ``directory`` with them, a barrier follows, and every rank
+    loads the directory, whose digest must equal its own."""
+    if isinstance(report, ProfileStore):
+        own = stores_digest(report, {})
+    else:
+        own = stores_digest(None, report.phase_profiles)
+    word = int.from_bytes(bytes.fromhex(own)[:8], "little", signed=True)
+    got = axis.all_gather(torch.tensor([[word]], dtype=torch.int64,
+                                       device=axis.device))
+    words = got.flatten().tolist()
+    if len(set(words)) != 1:
+        raise RuntimeError(f"ranks tuned different picks: digests "
+                           f"{words} (rank {axis.rank}: {word})")
+    d = pathlib.Path(directory)
+    if axis.rank == 0:
+        shutil.rmtree(d, ignore_errors=True)
+        report.save(d, fmt=fmt)
+    axis.barrier()
+    base, phases = load_stores(d)
+    if stores_digest(base, phases) != own:
+        raise RuntimeError(f"rank {axis.rank} read back other picks from "
+                           f"{d} than it tuned")
+    return base, phases

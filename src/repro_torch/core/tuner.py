@@ -15,7 +15,9 @@ Two interchangeable backends, always passed explicitly:
 
 * ``CostModelBackend(topo)``  — the α-β-γ model of ``core.costmodel``.
 * ``MeasuredBackend(p, device)`` — device time on the stacked axis with
-  barrier + NREP (``core.measure``).
+  barrier + NREP (``core.measure``); ``MeasuredBackend(axis=...)`` on a
+  process axis (one rank a process), where it replays the cells whose
+  world is the group's and note-skips the others.
 
 The tuner also verifies the other two guideline classes (monotony and
 split-robustness) and reports — but does not repair — those.
@@ -30,7 +32,8 @@ from typing import Sequence
 
 from repro_torch.core import costmodel, measure, nrep
 from repro_torch.core.cell import OpCell
-from repro_torch.core.collectives import REGISTRY, is_demoted
+from repro_torch.core.collectives import (REGISTRY, is_demoted,
+                                         off_process_axis)
 from repro_torch.core.profiles import Profile, ProfileStore, Range
 
 DEFAULT_SIZES = (1, 8, 32, 64, 100, 512, 1024, 4096, 8192, 32768,
@@ -112,16 +115,25 @@ class MeasuredBackend:
     without geometry (v1 traces) are unmeasurable (``inf``), which the
     tuner note-skips.  ``p=None`` replays every cell at its own world
     (``OpCell.world()``): the ranks are stacked on one device, so no
-    device count ties the replay to one axis size."""
+    device count ties the replay to one axis size.
+
+    ``axis=`` (a ``GroupAxis`` or one axis of a ``GroupMesh``) measures
+    across processes instead: ``p`` is the axis size, the cells of other
+    worlds are note-skipped, a two-axis cell replays on a ``GroupMesh``
+    of its ``(p, p2)``, and every rank holds the same samples
+    (``measure.Bench``), so every rank picks the same impls.  There the
+    one-kernel ring is unmeasurable (``collectives.off_process_axis``)."""
 
     name = "measured"
 
-    def __init__(self, p: int | None = 8, device=None, *,
+    def __init__(self, p: int | None = 8, device=None, *, axis=None,
                  rse_1byte: float = 0.05, rse_large: float = 0.10,
                  K: int = 5, max_nrep: int = 50):
-        self.p = p
+        self.p = p if axis is None else axis.size
         self._device = device
         self._benches: dict[int, measure.Bench] = {}
+        if axis is not None:
+            self._benches[self.p] = measure.Bench(axis=axis)
         self.rse_1byte = rse_1byte
         self.rse_large = rse_large
         self.K = K
@@ -174,7 +186,8 @@ class MeasuredBackend:
             raise ValueError(
                 f"measured backend runs at p={bench.p}, not "
                 f"{cell.world()}")
-        if not self._measurable(cell):
+        if not self._measurable(cell) or off_process_axis(
+                cell.op, impl, bench.axis, bench.device):
             return math.inf
         count = self.nrep_for(cell, impl)
         return statistics.median(bench.sample_latency(cell, impl, count))

@@ -37,6 +37,11 @@ Every collective over one name then runs within the groups of lanes that
 share the other name's coordinate, and the ops that need both axes at
 once (``matmul_reducescatter_2d``, ``row_matmul(fsdp_dim=1)``) take the
 two views.  ``pod`` is never bound.
+
+The same holds across processes: ``bind(model=GroupAxis(device))`` (one
+rank per process, tensors ``[1, ...]``) or the two views of a
+``GroupMesh`` (``core._axis``, ``launch.mesh``); every function here
+takes either kind of axis.
 """
 from __future__ import annotations
 
@@ -46,7 +51,10 @@ import threading
 
 import torch
 
-from repro_torch.core._axis import StackedAxis
+from repro_torch.core._axis import GroupAxis, StackedAxis
+
+#: a rank axis of either kind: lanes stacked on one device, or processes
+Axis = StackedAxis | GroupAxis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,16 +73,16 @@ AXES = MeshAxes()
 _TLS = threading.local()
 
 
-def _bound() -> dict[str, StackedAxis]:
+def _bound() -> dict[str, Axis]:
     return getattr(_TLS, "axes", {})
 
 
 @contextlib.contextmanager
-def bind(**axes: StackedAxis):
+def bind(**axes: Axis):
     """Bind axis names to axis objects for the calls inside (nested
     bindings add to, and may shadow, the enclosing ones).  The ops that
-    use two names at once need them to be views of one ``StackedMesh``
-    and check it (``core.api``)."""
+    use two names at once need them to be views of one mesh
+    (``StackedMesh`` or ``GroupMesh``) and check it (``core.api``)."""
     for name in axes:
         if name not in tuple(AXES):
             raise ValueError(f"unknown axis name {name!r}; known: "
@@ -92,7 +100,7 @@ def has_axis(axis_name: str | None) -> bool:
     return bool(axis_name) and axis_name in _bound()
 
 
-def get_axis(axis_name: str) -> StackedAxis:
+def get_axis(axis_name: str) -> Axis:
     """The axis object bound to ``axis_name``; raises when unbound."""
     try:
         return _bound()[axis_name]
@@ -111,5 +119,6 @@ def axis_size_or_1(axis_name: str | None) -> int:
 
 def axis_index(axis_name: str) -> torch.Tensor:
     """Each lane's index along ``axis_name``: a ``[lanes]`` int64 tensor on
-    the axis device (the stacked counterpart of ``lax.axis_index``)."""
+    the axis device (the counterpart of ``lax.axis_index``; ``[1]`` on a
+    process axis)."""
     return get_axis(axis_name).index()

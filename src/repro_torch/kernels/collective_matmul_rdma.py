@@ -43,7 +43,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core._axis import StackedAxis
+from repro_torch.core._axis import GroupAxis, StackedAxis
 from repro_torch.kernels import _build
 from repro_torch.kernels.collective_matmul import (_DTYPE_CODE, block_matmul,
                                                    block_matmul_plain)
@@ -219,6 +219,14 @@ def _launch(x, w, out, gath, p, my, blocks_mode) -> str:
     return path
 
 
+#: why the one-kernel ring does not run across processes
+ONE_ADDRESS_SPACE = ("the one-kernel ring writes into its neighbour's "
+                     "buffer and flags, so it needs every rank's memory "
+                     "in one address space; a process axis holds one rank "
+                     "a process (a ring across GPUs over peer memory is "
+                     "not ported)")
+
+
 def ring_allgather_matmul_rdma(x: torch.Tensor, w: torch.Tensor,
                                axis: StackedAxis, *,
                                return_gathered: bool = False):
@@ -229,8 +237,13 @@ def ring_allgather_matmul_rdma(x: torch.Tensor, w: torch.Tensor,
     ``all_gather(x)`` ``[p, p*n, K]``.  At p == 1 it is ``block_matmul``.
     On an axis of a ``StackedMesh`` (``[L, ...]`` operands, L lanes in
     groups of p) each group is one ring: one launch per group.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    On a process axis (``GroupAxis``) of more than one rank it raises:
+    the kernel's ring needs every rank's memory in one address space."""
     p = axis.size
+    if isinstance(axis, GroupAxis) and p > 1:
+        raise NotImplementedError(f"ring_allgather_matmul_rdma on {axis!r}: "
+                                  f"{ONE_ADDRESS_SPACE}")
     if axis.lanes != p:
         return _per_group(x, w, axis, return_gathered)
     if x.dim() != 3 or x.shape[0] != p:

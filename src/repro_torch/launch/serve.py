@@ -35,6 +35,15 @@ the per-phase profiles; the tokens and logits must agree; at ``--shape
 long_500k`` the sharded decode is also held to an unsharded one from the
 same prefill, and the prompt is cut to the smoke size).  Without
 ``--device cpu`` it runs on the card.
+Across processes, ``axis`` is a ``GroupAxis`` (TP, one rank a process)
+or a (data, model) ``GroupMesh`` (``launch.mesh``): each process holds
+one lane, the full-vocab logits are gathered with the axis' own
+``all_gather`` (every rank holds them and picks the same tokens), and
+the sequence-sharded decode raises ``NotImplementedError`` there.  The
+CLI runs it over gloo on the CPU with ``--world N --dist-backend gloo``
+(TP N, or ``--mesh dxt`` with d*t = N); the measured tune replays the
+cells whose world is N, and rank 0 writes the profiles every rank
+tuned (``profiles.publish``).
 The fleet mode of the JAX package (``store_ref=``, ``plan=``) and its
 builders' own tuning arguments (``profiles=``, ``force=``,
 ``phase_profiles=``, ``profile_dir=``) are not ported: no caller here
@@ -53,9 +62,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import api
-from repro_torch.core._axis import StackedAxis, StackedMesh
-from repro_torch.core.profiles import resolve_stores
+from repro_torch.core._axis import (GroupAxis, StackedAxis, is_mesh,
+                                    spans_processes)
+from repro_torch.core.profiles import publish, resolve_stores
 from repro_torch.dist.axes import bind
+from repro_torch.launch.mesh import (make_group_mesh, make_host_mesh,
+                                    spawn)
 from repro_torch.launch.shapes import SHAPES, ShapeCell
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
@@ -81,31 +93,36 @@ def _serving_ctx(tag, record):
 
 
 def _axes_of(axis) -> dict:
-    """The names to bind for ``axis``: a ``StackedAxis`` is the model
-    axis; a ``StackedMesh`` binds each of its names (data and model)."""
-    if isinstance(axis, StackedMesh):
+    """The names to bind for ``axis``: one axis (``StackedAxis`` or
+    ``GroupAxis``) is the model axis; a mesh binds each of its names
+    (data and model)."""
+    if is_mesh(axis):
         return {n: axis[n] for n in axis.names}
     return {"model": axis}
 
 
 def _data_size(axis) -> int:
-    return axis["data"].size if isinstance(axis, StackedMesh) else 1
+    return axis["data"].size if is_mesh(axis) else 1
 
 
-def _model_axis(axis) -> StackedAxis:
-    return axis["model"] if isinstance(axis, StackedMesh) else axis
+def _model_axis(axis):
+    return axis["model"] if is_mesh(axis) else axis
 
 
 def lane_batch(x: torch.Tensor, axis) -> torch.Tensor:
     """A global ``[B, ...]`` batch as the lanes see it: unchanged on a
     model axis (every rank sees it); on a mesh each lane's data rank's
-    slice, ``[L, B/d, ...]`` (lane ``i*t + j`` holds slice i)."""
-    if not isinstance(axis, StackedMesh):
+    slice, ``[L, B/d, ...]`` (lane ``i*t + j`` holds slice i; on a
+    ``GroupMesh`` this process's, ``[1, B/d, ...]``)."""
+    if not is_mesh(axis):
         return x
     d, t = axis["data"].size, axis["model"].size
     if x.shape[0] % d:
         raise ValueError(f"batch {x.shape[0]} does not split over data {d}")
     xs = x.reshape(d, x.shape[0] // d, *x.shape[1:])
+    if spans_processes(axis):
+        i = axis["data"].rank
+        return xs[i:i + 1]
     return xs.unsqueeze(1).expand(d, t, *xs.shape[1:]).reshape(
         d * t, *xs.shape[1:])
 
@@ -130,6 +147,11 @@ def build_decode(cfg: ModelConfig, axis, cell: ShapeCell | None = None, *,
     (``seq_shards``) and the token ``[L, B, 1]`` is the same on every
     data rank."""
     seq = bool(cell is not None and cell.seq_sharded)
+    if seq and spans_processes(axis):
+        raise NotImplementedError(
+            "the sequence-sharded decode indexes stacked lanes "
+            "(models.attention._lanes_at); it does not run on a process "
+            "axis")
 
     def step(params, token, caches, t: int):
         with bind(**_axes_of(axis)), _serving_ctx("decode", record):
@@ -216,12 +238,31 @@ def full_vocab(logits: torch.Tensor, d: int = 1) -> torch.Tensor:
         d * b, t * v_t)
 
 
+def _vocab_of(logits: torch.Tensor, axis) -> torch.Tensor:
+    """``full_vocab`` on ``axis``: on a process axis the model shards (then
+    the data ranks' rows) are gathered with the axes' own
+    ``all_gather``, so every rank holds the ``[d*b, t*V_t]`` logits."""
+    if not spans_processes(axis):
+        return full_vocab(logits, _data_size(axis))
+    model = _model_axis(axis)
+    last = logits[:, :, -1]                               # [1, b, V_t]
+    g = model.all_gather(last, tiled=False)[0]            # [t, b, V_t]
+    rows = g.permute(1, 0, 2).reshape(1, last.shape[1], -1)
+    if is_mesh(axis):
+        rows = axis["data"].all_gather(rows)              # [1, d*b, .]
+    return rows[0]
+
+
 def _greedy(lg: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return (torch.argmax(lg, dim=-1) % cfg.vocab_size)[:, None]
 
 
 def _sync(axis) -> None:
-    if axis.device.type == "cuda":
+    """Wait for the device; on a process axis also for every rank (a
+    barrier over the axis), so a host time is the slowest rank's."""
+    if spans_processes(axis):
+        axis.barrier()
+    elif axis.device.type == "cuda":
         torch.cuda.synchronize(axis.device)
 
 
@@ -253,7 +294,7 @@ def _decode_loop(cfg, axis, decode, params, caches, tok, t0: int,
             spread.append((per - per[:1]).abs().amax())
             lg = full_vocab(per[0])
         else:
-            lg = full_vocab(logits, d)
+            lg = _vocab_of(logits, axis)
         tok = _greedy(lg, cfg)
         out_tok.append(tok)
         out_lg.append(lg)
@@ -298,7 +339,7 @@ def serve(cfg: ModelConfig, axis, params, prompts, s_max: int,
         _sync(axis)
         t0 = time.perf_counter()
         logits, caches = prefill(params, inputs, caches)
-        lg = full_vocab(logits, _data_size(axis))
+        lg = _vocab_of(logits, axis)
         tok = _greedy(lg, cfg)
         _sync(axis)
         t1 = time.perf_counter()
@@ -375,21 +416,18 @@ def check_serves(ref: ServeResult, got: ServeResult, rtol: float) -> dict:
     return {"steps": steps, "max_rel_err": worst, "diverged_at": diverged}
 
 
-def _mesh(spec: str | None, tp: int, device):
+def _mesh(spec: str | None, tp: int, device, processes: bool = False):
     """``--mesh dxt`` -> a (data, model) ``StackedMesh``; None -> the model
-    axis of ``tp`` ranks."""
+    axis of ``tp`` ranks.  ``processes``: the same over the processes of
+    the world (``GroupMesh``, or a ``GroupAxis`` of every rank)."""
     if spec is None:
-        return StackedAxis(tp, device)
+        return GroupAxis(device) if processes else StackedAxis(tp, device)
     d, t = (int(v) for v in spec.lower().split("x"))
-    return StackedMesh((d, t), ("data", "model"), device)
+    make = make_group_mesh if processes else make_host_mesh
+    return make((d, t), ("data", "model"), device)
 
 
 def main(argv=None) -> int:
-    from repro_torch.configs import get_config
-    from repro_torch.core import collectives as C, tuner
-    from repro_torch.core.trace import Trace
-    from repro_torch.models.params import init_tree
-
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="llama3.2-3b")
     ap.add_argument("--batch", type=int, default=4)
@@ -412,15 +450,43 @@ def main(argv=None) -> int:
                     help="torch device; the default is the CUDA card")
     ap.add_argument("--out", default="build/serve",
                     help="directory for the trace and the profiles")
+    ap.add_argument("--world", type=int, default=None,
+                    help="serve across N processes, one rank each: TP N "
+                         "(--tp is ignored), or --mesh dxt with d*t = N")
+    ap.add_argument("--dist-backend", default="nccl",
+                    choices=("nccl", "gloo"),
+                    help="the process group's backend with --world (NCCL: "
+                         "one rank per GPU; gloo: pass --device cpu)")
     args = ap.parse_args(argv)
+    if args.world:
+        return spawn(_cli, args.world, backend=args.dist_backend,
+                     args=(args,), timeout_s=CLI_TIMEOUT_S)[0]
+    return _cli(args)
 
+
+#: a ``--world`` serve that has not finished by then has hung
+CLI_TIMEOUT_S = 900.0
+
+
+def _cli(args) -> int:
+    """The CLI's serve, tune and re-serve, on stacked ranks or (with
+    ``--world``) on this rank of the world; rank 0 prints."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives as C, tuner
+    from repro_torch.core.trace import Trace
+    from repro_torch.models.params import init_tree
+
+    procs = bool(args.world)
     cfg = dataclasses.replace(get_config(args.arch).smoke(),
                               attn_impl="flash")
     cell = SHAPES[args.shape] if args.shape else None
     seq = bool(cell is not None and cell.seq_sharded)
-    axis = _mesh(args.mesh, args.tp, args.device)
-    if seq and not isinstance(axis, StackedMesh):
-        raise SystemExit("--shape long_500k needs --mesh dxt")
+    axis = _mesh(args.mesh, args.tp, args.device, procs)
+    say = print if not procs or axis.mesh_rank == 0 else (lambda *a: None)
+    if seq and (procs or not is_mesh(axis)):
+        raise SystemExit("--shape long_500k needs --mesh dxt on stacked "
+                         "ranks (the sequence-sharded decode does not run "
+                         "across processes)")
     batch = 1 if seq else args.batch
     d = _data_size(axis)
     t = _model_axis(axis).size
@@ -473,7 +539,7 @@ def main(argv=None) -> int:
         first = run()
         yard = decode_from(cfg, maxis, mparams, clone, lg0, s0, args.tokens)
         rep = check_serves(yard, first, rtol=2e-2)
-        print(f"seq-sharded decode over {d} shards vs unsharded: logits "
+        say(f"seq-sharded decode over {d} shards vs unsharded: logits "
               f"agree to {rep['max_rel_err']:.2e}; data lanes' logits "
               f"spread {max(first.lane_spread):.3e}")
     else:
@@ -485,36 +551,45 @@ def main(argv=None) -> int:
 
     # 1. the default serve's phase-tagged workload trace
     trace = Trace.from_context(first.ctx)
-    trace.save(out / "trace.jsonl")
-    print(trace.summary())
+    if not procs or axis.mesh_rank == 0:
+        trace.save(out / "trace.jsonl")
+    say(trace.summary())
 
-    # 2. tune the recorded op mix, per phase, on this device
+    # 2. tune the recorded op mix, per phase, on this device (across
+    # processes: the cells whose world is the world's, on every rank)
     held = (C.wire_held_out("FSDP weights on the quantized wire")
-            if isinstance(axis, StackedMesh) else contextlib.nullcontext())
+            if is_mesh(axis) else contextlib.nullcontext())
+    world = (axis if isinstance(axis, GroupAxis) else GroupAxis(axis.device)
+             ) if procs else None
     with held:
-        rep = tuner.tune_trace(trace, tuner.MeasuredBackend(None,
-                                                            axis.device))
-    shutil.rmtree(out / "profiles", ignore_errors=True)
-    rep.save(out / "profiles")
-    print(rep.summary())
-    _, phases = resolve_stores(out / "profiles")
+        rep = tuner.tune_trace(trace, tuner.MeasuredBackend(
+            None, axis.device, axis=world))
+    if procs:
+        _, phases = publish(rep, out / "profiles", world)
+    else:
+        shutil.rmtree(out / "profiles", ignore_errors=True)
+        rep.save(out / "profiles")
+        _, phases = resolve_stores(out / "profiles")
+    say(rep.summary())
 
     # 3. serve again under the tuned per-phase stores
     second = run(phases)
-    print("tuned-run dispatch footer:")
-    print(api.format_footer(second.ctx))
+    say("tuned-run dispatch footer:")
+    say(api.format_footer(second.ctx))
     report = check_serves(first, second, rtol=2e-2)
-    where = (f"mesh data {d} x model {t}" if isinstance(axis, StackedMesh)
-             else f"tp={t}")
-    print(f"arch={cfg.name} (smoke) batch={batch} {where} "
+    where = (f"mesh data {d} x model {t}" if is_mesh(axis) else f"tp={t}")
+    if procs:
+        where += (f" over {args.world} processes "
+                  f"({args.dist_backend})")
+    say(f"arch={cfg.name} (smoke) batch={batch} {where} "
           f"shape={args.shape} prompt={args.prompt_len} "
           f"generated={second.tokens.shape[1]} tokens on {axis.device}; "
           f"default prefill {first.prefill_s:.3f}s decode "
           f"{first.decode_s:.3f}s, tuned prefill {second.prefill_s:.3f}s "
           f"decode {second.decode_s:.3f}s; logits agree to "
           f"{report['max_rel_err']:.2e}")
-    print("default tokens:", first.tokens[0, :12].tolist())
-    print("tuned tokens:  ", second.tokens[0, :12].tolist())
+    say("default tokens:", first.tokens[0, :12].tolist())
+    say("tuned tokens:  ", second.tokens[0, :12].tolist())
     return 0
 
 

@@ -12,6 +12,11 @@ a ``StackedMesh`` (data and model together) the leaf is ``[d*t,
 each dim cut by the size of the name it is assigned to, and a leaf with
 no dim for one of the names is the same on every rank of that name.
 
+On a process axis (``GroupAxis``, ``GroupMesh``: one rank a process)
+the layout is the same ``[L, ...]`` and each process holds one lane of
+it, ``[1, ...]``: ``local`` takes it out of the shards that ``shard``
+and ``from_reference`` build, and ``init_tree`` returns it.
+
 The JAX package groups repeated layers into ``lax.scan`` groups whose
 leaves carry a leading ``n_rep`` dim.  The port runs layers in a Python
 loop, so a scanned group is a LIST of per-layer subtrees instead
@@ -27,7 +32,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core._axis import StackedMesh
+from repro_torch.core._axis import is_mesh, spans_processes
 
 Tree = Any      # nested dicts and lists of ParamSpec (or tensors)
 
@@ -121,11 +126,27 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def layout(axis, name: str = "model") -> list[tuple[str, int]]:
-    """``(name, size)`` of each stacked axis, outer first: every name of a
-    ``StackedMesh``, or the one ``name`` of a ``StackedAxis``."""
-    if isinstance(axis, StackedMesh):
+    """``(name, size)`` of each axis of the lane layout, outer first: every
+    name of a mesh (``StackedMesh`` or ``GroupMesh``), or the one ``name``
+    of an axis (``StackedAxis`` or ``GroupAxis``)."""
+    if is_mesh(axis):
         return list(zip(axis.names, axis.shape))
     return [(name, axis.size)]
+
+
+def local(tree, axis):
+    """This process's lane of stacked ``[L, ...]`` shards on a process
+    axis or mesh: each tensor leaf's lane ``axis.mesh_rank`` as ``[1,
+    ...]`` (a copy, so the other lanes can be freed).  On a stacked axis
+    the tree is returned as it is."""
+    if not spans_processes(axis):
+        return tree
+    r = axis.mesh_rank
+    if isinstance(tree, dict):
+        return {k: local(v, axis) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [local(v, axis) for v in tree]
+    return tree[r:r + 1].clone()
 
 
 def shard(full: torch.Tensor, spec: ParamSpec, axis,
@@ -180,8 +201,8 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
     if spec.init in ("zeros", "ones"):
         fill = torch.zeros if spec.init == "zeros" else torch.ones
         lay = layout(axis, name)
-        return fill((math.prod(s for _, s in lay),)
-                    + spec.local_shape(dict(lay)),
+        lanes = 1 if spans_processes(axis) else math.prod(s for _, s in lay)
+        return fill((lanes,) + spec.local_shape(dict(lay)),
                     dtype=dt, device=axis.device)
     if spec.init != "normal":
         raise ValueError(f"unknown init {spec.init!r}")
@@ -191,7 +212,7 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
         full = torch.randn(spec.shape, generator=generator,
                            device=axis.device,
                            dtype=torch.float32).mul_(std).to(dt)
-        return shard(full, spec, axis, name)
+        return local(shard(full, spec, axis, name), axis)
     # a float32 draw of the whole leaf would need 4 bytes an element beside
     # it (15 GB for one of deepseek-v3's expert leaves): draw it in slabs of
     # about SLAB_BYTES along dim 0
@@ -202,7 +223,7 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
         full[i:i + n] = torch.randn(
             (n,) + spec.shape[1:], generator=generator, device=axis.device,
             dtype=torch.float32).mul_(std).to(dt)
-    return shard(full, spec, axis, name)
+    return local(shard(full, spec, axis, name), axis)
 
 
 def init_tree(tree: Tree, generator: torch.Generator, axis,
@@ -214,7 +235,8 @@ def init_tree(tree: Tree, generator: torch.Generator, axis,
     of float32 slab by slab along dim 0) and cut into the
     ranks' shards along the dims assigned to ``name`` (to each name of a
     ``StackedMesh``), so a replicated leaf is the same on every rank and
-    the model does not depend on the layout.
+    the model does not depend on the layout.  On a process axis every
+    process draws the same leaves and keeps its own lane (``local``).
     The generator must live on the axis device."""
     return tree_map_specs(lambda s: _init_leaf(s, generator, axis, name),
                           tree)

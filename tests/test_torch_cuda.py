@@ -2177,3 +2177,82 @@ def test_ep_alltoall_forced_impls_equal_the_default_on_the_card(cuda, impl):
     with api.tuned(force={"alltoall": impl}):
         forced = _moe_run(cfg, on, xm.to(cuda), ax4)[1]
     assert torch.equal(forced, base)
+
+
+# ---------------------------------------------------------------------------
+# the process axis on the card: NCCL at world 1 (NCCL puts one rank on a
+# GPU, so one card holds a world of one)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_world(tmp_path_factory):
+    """This process as the one rank of an NCCL world (a FileStore
+    rendezvous); the group is destroyed after the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; NCCL runs only on the card "
+                    "(chip_smoke.py phase 20 runs it there)")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_world
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    init_world("nccl", rank=0, world=1, init_method=store.as_uri())
+    yield
+    dist.destroy_process_group()
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nccl_group_axis_matches_the_stacked_axis(cuda, nccl_world, dtype):
+    """Every primitive of a world-1 ``GroupAxis`` on NCCL against
+    ``StackedAxis(1)``: at one rank each is a copy, so bit-equal; each
+    NCCL call is counted (a self pair and an empty shift issue none)."""
+    from repro_torch.core._axis import GroupAxis
+    g = torch.Generator(device="cpu").manual_seed(26)
+    x = torch.randn(1, 6, 5, generator=g).to(dtype).to(cuda)
+    ax, st = GroupAxis(cuda), StackedAxis(1, cuda)
+    for name, run in (
+            ("all_gather", lambda a: a.all_gather(x)),
+            ("all_gather_untiled", lambda a: a.all_gather(x, tiled=False)),
+            ("all_to_all", lambda a: a.all_to_all(x)),
+            ("psum", lambda a: a.psum(x)),
+            ("pmax", lambda a: a.pmax(x)),
+            ("psum_scatter", lambda a: a.psum_scatter(x)),
+            ("pshift_self", lambda a: a.pshift(x, [(0, 0)])),
+            ("pshift_none", lambda a: a.pshift(x, []))):
+        got, want = run(ax), run(st)
+        assert got.is_cuda and torch.equal(got, want), name
+    torch.cuda.synchronize()
+    assert ax.calls == {"all_gather": 2, "all_to_all": 1, "psum": 1,
+                        "pmax": 1, "psum_scatter": 1}
+    assert ax.index().tolist() == [0] and ax.lanes == 1
+
+
+@needs_cuda
+def test_nccl_group_serve_matches_the_stacked_serve(cuda, nccl_world):
+    """A two-layer smoke serve on a world-1 NCCL ``GroupAxis`` against the
+    same weights on ``StackedAxis(1)``: flash launches the same, the
+    axis' collectives run through NCCL, the logits within 2e-2."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core._axis import GroupAxis
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_tree
+    cfg = dataclasses.replace(get_config("llama3.2-3b").smoke(),
+                              attn_impl="flash", n_layers=2)
+    axis = StackedAxis(1, cuda)
+    params = init_tree(lm.model_specs(cfg, 1),
+                       torch.Generator(device=cuda).manual_seed(5), axis)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 24),
+                            generator=torch.Generator().manual_seed(6)
+                            ).to(cuda)
+    group = GroupAxis(cuda)
+    before = FA.flash_attention.launches
+    got = tserve.serve(cfg, group, params, prompts, 40, 5)
+    assert FA.flash_attention.launches == before + cfg.n_layers * 5
+    assert group.calls["all_gather"] > 0 and group.calls["psum"] > 0
+    want = tserve.serve(cfg, axis, params, prompts, 40, 5)
+    report = tserve.check_serves(want, got, 2e-2)
+    assert report["diverged_at"] is None and torch.equal(got.tokens,
+                                                         want.tokens)
