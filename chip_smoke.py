@@ -4,8 +4,8 @@ Mixture-of-Experts, multi-head latent attention, a data x model mesh,
 sequence-sharded long-context decode, the prefix-LM VLM, the
 encoder-decoder and a process-group axis) and its
 training paths (one stacked axis, a data x model mesh, a pod x data x
-model mesh, and training through the model kernels) on one CUDA card,
-end to end.
+model mesh, and training through the model kernels), and the fleet loop
+with its fault tolerance, on one CUDA card, end to end.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -233,7 +233,29 @@ Phases (each raises on failure; nothing is caught):
    flat and (2, 2), with no failure and the stacked run's totals, and a
    measured tune of ``allreduce`` at the tuning CLI's 13 sizes, every
    rank the same picks, one profile written; its times are the host
-   CPU's, labelled so.
+   CPU's, labelled so;
+21. the fleet loop and fault tolerance, llama3.2-3b at full width and
+   depth, TP 8 stacked, 1 + 16 tokens a request, 2048 slots: (a) four
+   servers of one set of weights, mixes (batch, prompt) A (4, 1024), B
+   (8, 512), C (2, 1024), D (1, 1536), each recording into a
+   ``ShardRecorder`` flushed as an epoch-1 shard; ``merge_shards`` keeps
+   the total weight; ``tune_trace`` (measured) of the merged trace
+   published as epoch 1; a live server on mix B through steps built ONCE
+   with a ``Plan`` under the watched ``StoreRef`` serves epoch 0, epoch 1
+   (after ``poll``; its vector changes iff the epoch picked a mock-up at
+   a plan site), an ``explore(eps=1)`` vector and epoch 2 (tuned by a
+   ``FeedbackBackend`` from the explored pairs' card replays, round the
+   shard's ``#@lat`` lines), each within ``SERVE_RTOL`` of epoch 0, with
+   a stale epoch-0 manifest refused; (b) a torn and a corrupted shard
+   quarantined exactly, their samples dropped; a skewed epoch 3 refused;
+   an epoch 4 that routes every plan site to the impl the measured tune
+   found slowest for its cell, against an ``EpochTripwire`` (threshold
+   1.2) fed each decode step's synchronized time: it must fire exactly
+   when the medians say, and then the rolled-back pass runs epoch 2's
+   vector with epoch 2's logits and epoch 4 is not adopted again; the
+   ``FleetCoordinator`` on a fake clock (phase 5's Topo as its backend)
+   sees a killed server go dead; (c) ``examples/torch_elastic_restart.py``
+   on the card: two restarts, a bit-identical final state.
 
 Each phase's seconds are logged as it ends (``[phase n]``).
 
@@ -284,9 +306,12 @@ phase 18's: 2 x 18 ``mma_sync`` and 18 x 32 ``split_kv`` a flash serve;
 and just before phase 19's: 3 x 24 ``wgmma`` (the encoder's, the
 self-attention's and the cross-attention's prefill launches) and 2 x 24
 x 32 ``split_kv`` a flash serve, all at head dim 64; and just before
-phase 20(a)'s group serve: flash 28 x 33 times.
+phase 20(a)'s group serve: flash 28 x 33 times; and just before phase
+21(a): 28 x 17 times every serve of the fleet loop (28 ``wgmma``, 28 x
+16 ``split_kv``), each step of the loop's launches logged.
 Each row carries its ``long_context_launches``, ``vlm_serve_launches``,
-``encdec_serve_launches`` and ``group_serve_launches``; the kernels
+``encdec_serve_launches``, ``group_serve_launches`` and
+``fleet_launches``; the kernels
 line lists flash at head dim 256 as ``flash_attention_d256`` (phase 3's
 gemma3-1b prefill numbers, its launches by path in phases 17-19) and
 whisper's calls as
@@ -4378,6 +4403,383 @@ def group_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the fleet loop and fault tolerance (phase 21)
+# ---------------------------------------------------------------------------
+
+# llama3.2-3b at full width and depth, TP P stacked, as in phase 10: four
+# servers share one set of weights, each with its own (batch, prompt) mix,
+# so each records other cells; 1 + FLEET_DECODE greedy tokens a request
+FLEET_ARCH = "llama3.2-3b"
+FLEET_MIXES = {"A": (4, 1024), "B": (8, 512), "C": (2, 1024),
+               "D": (1, 1536)}
+FLEET_LIVE = "B"            # the mix the live server serves
+FLEET_DECODE, FLEET_SLOTS = 16, SERVE_SLOTS
+FLEET_PLAN = 64             # the plan's capacity
+FLEET_EXPLORE_OBS = 4       # latency samples of each explored pair
+FLEET_TRIP = 1.2            # EpochTripwire threshold
+
+
+def fleet_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
+                card: str, topo, tag: str = "21") -> dict:
+    """The fleet loop on the card: (a) four servers record shards, the
+    merged trace is tuned with the measured backend into epoch 1, and a
+    live server built once with ``tuned(store_ref=..., plan=...)`` serves
+    epoch 0, epoch 1, an ``explore(eps=1)`` vector and epoch 2 (tuned from
+    the explored pairs' card timings, round the ``#@lat`` lines); (b) the
+    faults: a torn and a corrupted shard quarantined, a skewed epoch 3
+    refused, a bad epoch 4 against the ``EpochTripwire``, the coordinator
+    on a fake clock with a killed server; (c) the restart example.  The
+    kernels' counts are zeroed just before (a) and read around every step
+    of the loop; every serve must launch flash once per layer and token,
+    the prefill on ``wgmma`` and the decode on ``split_kv``."""
+    import statistics
+    import warnings
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import api, profiles, trace, tuner
+    from repro_torch.core._axis import StackedAxis
+    from repro_torch.ft import ChaosMonkey, FleetCoordinator
+    from repro_torch.launch import serve as sv
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_tree
+
+    t_phase = time.perf_counter()
+    fa = wrappers["flash_attention"]
+    cfg = dataclasses.replace(get_config(FLEET_ARCH), attn_impl="flash")
+    axis = StackedAxis(P, dev)
+    params = init_tree(lm.model_specs(cfg, P),
+                       torch.Generator(device=dev).manual_seed(SEED), axis)
+    rng = np.random.default_rng(SEED)
+    prompts = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                                  device=dev)
+               for k, (b, s) in FLEET_MIXES.items()}
+    n_tokens = 1 + FLEET_DECODE
+    per_serve = per_serve_launches(lm, cfg, n_tokens)["flash_attention"]
+    n_blk = per_serve // n_tokens
+    want_paths = dict.fromkeys(fa.launches_by_path, 0)
+    want_paths.update(wgmma=n_blk, split_kv=n_blk * (n_tokens - 1))
+    root = out_dir / "fleet"
+    shutil.rmtree(root, ignore_errors=True)
+    shards, live = root / "shards", root / "live"
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"TP {P} stacked; servers "
+        f"{ {k: f'{b} x {s}' for k, (b, s) in FLEET_MIXES.items()} }, "
+        f"{n_tokens} tokens, {FLEET_SLOTS} slots ({card})")
+    sv.serve(cfg, axis, params, prompts[FLEET_LIVE], FLEET_SLOTS, 2)
+    steps_log: dict = {}
+    zero_counts(wrappers)              # the fleet path starts here
+
+    def step(label: str, fn, serves: bool = False):
+        """Run one step of the loop; log (and keep) its kernel launches;
+        a serve must launch flash as ``per_serve_launches`` says."""
+        c0, p0 = counts(wrappers), dict(fa.launches_by_path)
+        out = fn()
+        c1 = counts(wrappers)
+        got = {k: c1[k] - c0[k] for k in c1}
+        paths = path_delta(fa, p0)
+        steps_log[label] = got
+        log(f"[{tag} {label}] kernel launches: {json.dumps(got)}; flash "
+            f"by path {json.dumps(paths)}")
+        if serves and (got["flash_attention"] != per_serve
+                       or paths != want_paths):
+            raise RuntimeError(f"{label}: flash launched "
+                               f"{got['flash_attention']} times on "
+                               f"{paths}, not {per_serve} on {want_paths}")
+        return out
+
+    def serve(mix: str, **kw):
+        return sv.serve(cfg, axis, params, prompts[mix], FLEET_SLOTS,
+                        n_tokens, **kw)
+
+    # -- (a) 1. the fleet records: one shard a server, epoch 1 ------------
+    weights = {}
+    for i, mix in enumerate(FLEET_MIXES):
+        rec = trace.ShardRecorder(f"srv{mix}", seed=i)
+        step(f"record srv{mix}", lambda: serve(mix, record=rec), True)
+        weights[mix] = rec.total()
+        path = rec.flush(shards, epoch=1)
+        log(f"[{tag}] {path.name}: {trace.shard_meta(path)}")
+    merged = trace.Trace.merge_shards(shards)
+    log(f"[{tag}] {merged.summary()}")
+    if merged.quarantined or merged.total() != sum(weights.values()):
+        raise RuntimeError(f"merge kept {merged.total()} of "
+                           f"{sum(weights.values())} dispatches")
+    # -- 2. tune the merged trace on the card: epoch 1 --------------------
+    mb = tuner.MeasuredBackend(P, dev)
+    t0 = time.perf_counter()
+    rep1 = step("tune epoch 1",
+                lambda: tuner.tune_trace(merged.trace, mb))
+    log(f"[{tag}] tune_trace (measured) in {time.perf_counter() - t0:.1f} s")
+    lat1: dict = {}
+    for m in rep1.measurements:
+        lat1[(m.cell, m.impl)] = m.latency
+        log(f"[{tag}] measured {m.op} {m.nbytes}B {m.impl}: "
+            f"{m.latency * 1e3:.4f} ms")
+    for ln in rep1.summary().splitlines():
+        log(f"[{tag}] epoch 1: {ln}")
+
+    # -- 3. the live server: steps built once, four passes ----------------
+    ref = profiles.resolve_stores(live, watch=True)
+    if ref.epoch != -1:
+        raise RuntimeError(f"an empty live directory read as epoch "
+                           f"{ref.epoch}")
+    plan = api.Plan(FLEET_PLAN)
+    built = {"n": 0}
+    real = (sv.build_prefill, sv.build_decode)
+
+    def counted(fn):
+        def build(*a, **k):
+            built["n"] += 1
+            return fn(*a, **k)
+        return build
+    sv.build_prefill, sv.build_decode = map(counted, real)
+    try:
+        steps = (sv.build_prefill(cfg, axis, plan=plan),
+                 sv.build_decode(cfg, axis, plan=plan))
+    finally:
+        sv.build_prefill, sv.build_decode = real
+    live_rec = trace.ShardRecorder("live", seed=len(FLEET_MIXES))
+    passes: dict = {}
+
+    def live_pass(label: str, vec):
+        sv.build_prefill, sv.build_decode = map(counted, real)
+        try:
+            res = step(label, lambda: serve(
+                FLEET_LIVE, store_ref=ref, plan=plan, plan_vec=vec,
+                steps=steps, record=live_rec, time_steps=True), True)
+        finally:
+            sv.build_prefill, sv.build_decode = real
+        passes[label] = res
+        log(f"[{tag} {label}] epoch {ref.epoch}, vector "
+            f"{vec[:len(plan)].tolist()}: prefill {res.prefill_s * 1e3:.2f} "
+            f"ms, decode {res.decode_s_per_token * 1e3:.3f} ms/token, "
+            f"median step {statistics.median(res.step_s) * 1e3:.3f} ms")
+        return res
+
+    vec0 = plan.vector(ref)
+    res0 = live_pass("epoch 0", vec0)
+    sites = plan.sites()
+    for cell, ph, impls in sites:
+        log(f"[{tag}] plan site {ph} {cell.op} {cell.nbytes}B: {impls}")
+    if not sites:
+        raise RuntimeError("no dispatch site registered on the plan")
+    rep1.save(live, epoch=1, source_digest=trace.shard_digest(shards))
+    if not ref.poll() or ref.epoch != 1:
+        raise RuntimeError(f"poll did not adopt epoch 1 (epoch {ref.epoch})")
+    vec1 = plan.vector(ref)
+    picks = {(c.op, c.nbytes, ph): ref.lookup(c, ph) for c, ph, _ in sites}
+    chose = any(n not in (None, "default") for n in picks.values())
+    changed = bool((vec1 != vec0).any())
+    log(f"[{tag}] epoch 1 picks at the plan sites: {picks}; vector changed: "
+        f"{changed}")
+    if changed != chose:
+        raise RuntimeError(f"epoch 1: the vector changed ({changed}) where "
+                           f"the stores chose a mock-up ({chose}) or not")
+    res1 = live_pass("epoch 1", vec1)
+    profiles.write_manifest(live, 0)           # a delayed epoch-0 writer
+    with warnings.catch_warnings(record=True) as wlog:
+        warnings.simplefilter("always")
+        stale = ref.poll()
+    if stale or ref.epoch != 1 or not any("stale" in str(w.message)
+                                          for w in wlog):
+        raise RuntimeError("a stale epoch-0 manifest was not refused with "
+                           "a warning")
+    log(f"[{tag}] stale epoch-0 manifest refused: {wlog[-1].message}")
+    vec_x, explored = plan.explore(ref, eps=1.0,
+                                   rng=np.random.default_rng(SEED))
+    if not explored or not (vec_x != vec1).any():
+        raise RuntimeError("explore(eps=1) flipped no site")
+    res_x = live_pass("explore", vec_x)
+    # the explored pairs timed on the card (replays of each cell), round
+    # the shard's #@lat lines into epoch 2's tune
+    for (cell, ph), impl in explored.items():
+        for _ in range(FLEET_EXPLORE_OBS):
+            live_rec.observe(cell, impl, mb.latency(cell, impl))
+    live_rec.flush(shards, epoch=2)
+    observed = trace.load_shard_latencies(shards)
+    log(f"[{tag}] fed back: " + "; ".join(
+        f"{c.op} {c.nbytes}B {im}: "
+        f"{[round(t * 1e3, 4) for t in v]} ms"
+        for (c, im), v in observed.items()))
+    if set(observed) != {(c, im) for (c, _), im in explored.items()}:
+        raise RuntimeError("the explored pairs did not round-trip through "
+                           "the shards")
+    fb = tuner.FeedbackBackend(mb, observed)
+    rep2 = step("tune epoch 2", lambda: tuner.tune_trace(
+        trace.Trace.merge_shards(shards).trace, fb))
+    for ln in rep2.summary().splitlines():
+        log(f"[{tag}] epoch 2: {ln}")
+    rep2.save(live, epoch=2, source_digest=trace.shard_digest(shards))
+    if not ref.poll() or ref.epoch != 2:
+        raise RuntimeError(f"poll did not adopt epoch 2 (epoch {ref.epoch})")
+    vec2 = plan.vector(ref)
+    res2 = live_pass("epoch 2", vec2)
+    if built["n"] != 2:
+        raise RuntimeError(f"the steps were built {built['n']} times, not "
+                           "once each")
+    checks = {}
+    for label in ("epoch 1", "explore", "epoch 2"):
+        checks[label] = sv.check_serves(res0, passes[label], SERVE_RTOL)
+        log(f"[{tag}] {label} vs epoch 0: {json.dumps(checks[label])}")
+
+    # -- (b) faults: chaos on a copy of the shards -------------------------
+    chaos = root / "chaos"
+    shutil.copytree(shards, chaos)
+    monkey = ChaosMonkey(seed=SEED)
+    torn = monkey.tear_shard(chaos / "shard-srvA-e000001.jsonl")
+    bad = monkey.corrupt_line(chaos / "shard-live-e000002.jsonl")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        report = trace.Trace.merge_shards(chaos)
+        skip = [n.path for n in report.quarantined]
+        kept = trace.load_shard_latencies(chaos, skip=skip)
+        every_lat = trace.load_shard_latencies(chaos)
+    log(f"[{tag}] chaos: {[str(e) for e in monkey.events]}")
+    log(f"[{tag}] {report.summary()}")
+    if {n.path.name for n in report.quarantined} != {torn.name, bad.name} \
+            or kept or not every_lat:
+        raise RuntimeError("chaos: the torn and the corrupted shard were "
+                           "not quarantined exactly, or their samples kept")
+    # the bad generation: every plan site to the admissible impl the
+    # measured tune found slowest for its cell
+    slow = {}
+    for cell, ph, impls in sites:
+        timed = {im: lat1[(cell, im)] for im in impls if (cell, im) in lat1}
+        slow[(cell, ph)] = max(timed, key=timed.get)
+    log(f"[{tag}] bad epoch: " + "; ".join(
+        f"{ph} {c.nbytes}B -> {im} ({lat1[(c, im)] * 1e3:.4f} ms)"
+        for (c, ph), im in slow.items()))
+    bad_phases: dict = {}
+    for (cell, ph), im in sorted(slow.items()):
+        bad_phases.setdefault(ph, []).append(
+            profiles.Range(cell.nbytes, cell.nbytes, im))
+    bad_rep = tuner.TraceTuneReport(
+        phase_profiles={ph: profiles.ProfileStore([profiles.Profile(
+            "allreduce", P, rs)]) for ph, rs in bad_phases.items()},
+        measurements=[], est_default_s={}, est_tuned_s={})
+    bad_rep.save(live, epoch=3, source_digest="bad")
+    monkey.skew_profiles(live)
+    with warnings.catch_warnings(record=True) as wlog:
+        warnings.simplefilter("always")
+        skewed = ref.poll()
+    if skewed or ref.epoch != 2 or not any("skew" in str(w.message)
+                                           for w in wlog):
+        raise RuntimeError("a skewed epoch 3 was not refused")
+    log(f"[{tag}] skewed epoch 3 refused: {wlog[-1].message}")
+    # the tripwire over epoch 2's decode steps, then epoch 4's
+    tw = api.EpochTripwire(ref, threshold=FLEET_TRIP)
+    costs = {2: list(res2.step_s)}
+    for c in costs[2]:
+        if tw.observe(c):
+            raise RuntimeError("the tripwire fired on epoch 2 itself")
+    bad_rep.save(live, epoch=4, source_digest="bad")
+    if not ref.poll() or ref.epoch != 4:
+        raise RuntimeError(f"poll did not adopt epoch 4 (epoch {ref.epoch})")
+    vec4 = plan.vector(ref)
+    res4 = live_pass("epoch 4", vec4)
+    costs[4] = list(res4.step_s)
+    base = statistics.median(costs[2][-tw.window:])
+    expect, fired_at = None, None
+    for i in range(len(costs[4])):
+        win = costs[4][max(0, i + 1 - tw.window):i + 1]
+        if len(win) >= tw.min_samples and \
+                statistics.median(win) > FLEET_TRIP * base:
+            expect = i
+            break
+    with warnings.catch_warnings(record=True) as wlog:
+        warnings.simplefilter("always")
+        for i, c in enumerate(costs[4]):
+            if tw.observe(c):
+                fired_at = i
+                break
+    log(f"[{tag}] tripwire: epoch 2 median {base * 1e3:.3f} ms a step, "
+        f"epoch 4 steps {[round(c * 1e3, 3) for c in costs[4]]} ms; "
+        f"expected to fire at {expect}, fired at {fired_at} "
+        f"({'fired' if fired_at is not None else 'did not fire'})")
+    if fired_at != expect:
+        raise RuntimeError(f"tripwire fired at {fired_at}, the medians say "
+                           f"{expect}")
+    trip = {"baseline_ms": base * 1e3, "fired_at": fired_at,
+            "epoch4_median_ms": statistics.median(costs[4]) * 1e3}
+    if fired_at is not None:
+        if ref.epoch != 2 or tw.fired != [(4, 2)]:
+            raise RuntimeError(f"rollback left epoch {ref.epoch}")
+        vec_r = plan.vector(ref)
+        if not np.array_equal(vec_r, vec2):
+            raise RuntimeError("the rolled-back vector is not epoch 2's")
+        res_r = live_pass("rolled back", vec_r)
+        trip["rolled_back"] = sv.check_serves(res2, res_r, SERVE_RTOL)
+        log(f"[{tag}] rolled back vs epoch 2: "
+            f"{json.dumps(trip['rolled_back'])}")
+        with warnings.catch_warnings(record=True) as wlog:
+            warnings.simplefilter("always")
+            again = ref.poll()
+        if again or ref.epoch != 2:
+            raise RuntimeError("the poisoned epoch 4 was adopted again")
+        log(f"[{tag}] epoch 4 not adopted again (poisoned"
+            f"{': ' + str(wlog[-1].message) if wlog else ', manifest unchanged'})")
+    if built["n"] != 2:
+        raise RuntimeError(f"the steps were built {built['n']} times")
+    # the coordinator on a fake clock; a killed server goes dead
+    now = [0.0]
+    co = FleetCoordinator(shards, ref, backend=tuner.CostModelBackend(topo),
+                          heartbeat_timeout=30.0, clock=lambda: now[0])
+    st0 = co.scan()
+    log(f"[{tag}] coordinator: {st0.summary()}")
+    monkey.kill_server("srvD", at_epoch=3)
+    now[0] += 20.0
+    for server in [f"srv{m}" for m in FLEET_MIXES] + ["live"]:
+        if monkey.alive(server, 3):
+            trace.ShardRecorder(server).flush(shards, epoch=3)
+    now[0] += 20.0
+    st1 = co.scan()
+    log(f"[{tag}] coordinator after srvD was killed: {st1.summary()}")
+    if st1.dead != ["srvD"] or "srvD" in st1.alive:
+        raise RuntimeError(f"coordinator: dead {st1.dead}, not ['srvD']")
+
+    # -- (c) the restart example on the card -------------------------------
+    restart = _example("torch_elastic_restart")
+    out = io.StringIO()
+    argv = ["--ckpt-dir", str(root / "ckpt")]
+    if dev.type != "cuda":
+        argv += ["--device", str(dev)]
+    t0 = time.perf_counter()
+
+    def run_restart():
+        with contextlib.redirect_stdout(out):
+            return restart.main(argv)
+    rc = step("restart", run_restart)
+    lines = out.getvalue().strip().splitlines()
+    for ln in lines[-3:]:
+        log(f"[{tag}c] {ln}")
+    if rc != 0 or "restarts: 2" not in out.getvalue():
+        raise RuntimeError(f"the restart example failed (rc {rc})")
+    log(f"[{tag}c] restart example in {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(root / "ckpt", ignore_errors=True)
+
+    launches = {k: sum(s[k] for s in steps_log.values())
+                for k in wrappers}
+    log(f"[serve path fleet] kernel launches: {json.dumps(launches)}")
+    paths = {"paths": dict(fa.launches_by_path),     # zeroed before (a)
+             "d256_paths": dh_delta(fa, {}, 256),
+             "d64_paths": dh_delta(fa, {}, 64)}
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] fleet phase in {seconds:.1f} s")
+    return {"launches": launches, "steps": steps_log,
+            "plan_sites": len(sites), "explored": len(explored),
+            "vector_changed_at_1": changed, "epoch1_picks": {
+                f"{k[2]} {k[0]} {k[1]}": v for k, v in picks.items()},
+            "decode_ms_per_token": {
+                k: r.decode_s_per_token * 1e3 for k, r in passes.items()},
+            "prefill_ms": {k: r.prefill_s * 1e3 for k, r in passes.items()},
+            "checks": checks, "tripwire": trip, "chaos": {
+                "quarantined": [n.path.name for n in report.quarantined]},
+            "coordinator": [st0.summary(), st1.summary()],
+            "seconds": seconds, **paths}
+
+
 def block(api, axis, torch, x, wv, wo, wgu, wd):
     """One llama3.2-3b sequence-parallel block on stacked ranks.
 
@@ -5368,6 +5770,15 @@ def main(argv=None) -> int:
     mla_row["group_serve_launches"] = report["group"]["paths"].get("mla", 0)
     d256["group_serve_launches"] = report["group"]["d256_paths"]
     enc_row["group_serve_launches"] = report["group"]["d64_paths"]
+
+    phase("21")
+    # -- 21. the fleet loop and fault tolerance: llama3.2-3b ---------------
+    report["fleet"] = fleet_phase(torch, dev, out_dir, every, card, topo)
+    for k, v in report["fleet"]["launches"].items():
+        kernels[k]["fleet_launches"] = v
+    mla_row["fleet_launches"] = report["fleet"]["paths"].get("mla", 0)
+    d256["fleet_launches"] = report["fleet"]["d256_paths"]
+    enc_row["fleet_launches"] = report["fleet"]["d64_paths"]
     phase(None)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
@@ -5379,7 +5790,7 @@ def main(argv=None) -> int:
              "kernel_train_launches", "moe_serve_launches",
              "mla_serve_launches", "long_context_launches",
              "vlm_serve_launches", "encdec_serve_launches",
-             "group_serve_launches")
+             "group_serve_launches", "fleet_launches")
     print(json.dumps({"kernels": [{k: kernels[n].get(k) for k in order}
                                   for n in ("guideline_pack", "block_matmul",
                                             "ring_allgather_matmul_rdma",

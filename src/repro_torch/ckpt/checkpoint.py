@@ -115,7 +115,9 @@ def restore(ckpt_dir, step: int, like_tree):
             if tgt == torch.bfloat16 and arr.dtype == np.uint16:
                 # raw-bits round trip
                 return torch.from_numpy(arr.view(np.int16)).view(tgt)
-            return torch.from_numpy(np.ascontiguousarray(arr)).to(tgt)
+            # ascontiguousarray makes a 0-dim leaf 1-dim: reshape back
+            return torch.from_numpy(np.ascontiguousarray(arr)).reshape(
+                arr.shape).to(tgt)
         return load(like_tree, ())
 
 

@@ -9,13 +9,24 @@ Selection order per call:
 4. phase-specific performance profiles      (trace-replay tuning; the store
    matching the active ``api.phase`` tag)
 5. loaded performance profiles              (PGMPITuneD online redirection)
+6. the live fleet ``store_ref``             (hot-swappable epochal stores;
+   see ``profiles.StoreRef``)
 7. the default implementation
 
-(Step 6 of the JAX package, the hot-swappable fleet ``store_ref``, is not
-ported.)  The JAX package chooses at trace time, so its compiled program
-holds only the winner.  Eager PyTorch chooses on every call, so the
-choice is cached per (cell, phase) inside the active context and a
-repeated call costs one dict lookup after the cell is built.
+The JAX package chooses at trace time, so its compiled program holds only
+the winner.  Eager PyTorch chooses on every call, so the choice is cached
+per (cell, phase) inside the active context and a repeated call costs one
+dict lookup after the cell is built.  A choice read through a
+``store_ref`` is cached under the ref's live epoch, so a swapped or
+rolled-back generation reaches a site that has already run.
+
+Fleet hot-swap: under ``tuned(plan=Plan(), store_ref=ref)`` each eligible
+site dispatches at RUN time: it holds a slot of the plan and runs the
+admissible impl whose index the plan vector holds there.  The vector is a
+host array (numpy, or a CPU ``torch.int32`` tensor) the step takes as its
+trailing argument and exposes with ``plan_input``; a new profile epoch
+changes its contents, and the step built once serves every epoch.  Plan
+sites record ``PLAN_IMPL``.
 
 The context carries the scratch budget (the paper's
 ``size_msg_buffer_bytes``): a mock-up whose Table-1 extra memory exceeds
@@ -43,12 +54,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import statistics
 import threading
 
+import numpy as np
 import torch
 
 from repro_torch.core import collectives as C
-from repro_torch.core._axis import StackedAxis
+from repro_torch.core._axis import GroupAxis, StackedAxis
 from repro_torch.core.cell import OP_MM_ROLE, OpCell, dtype_name
 from repro_torch.core.profiles import OP_TO_MPI, ProfileStore
 
@@ -79,10 +92,15 @@ class TuneContext:
     record: list[DispatchRecord] = dataclasses.field(default_factory=list)
     chunk_bytes: int = 0
     phase_profiles: dict[str, ProfileStore] | None = None
+    # fleet retuning: live hot-swappable stores (profiles.StoreRef) and
+    # the runtime-dispatch plan (api.Plan) — see module docstring
+    store_ref: object | None = None
+    plan: "Plan | None" = None
     # per-axis interconnect map (costmodel.MeshTopo): stamps each
     # dispatched cell's tier token
     mesh_topo: object | None = None
-    # (cell, phase, PGTUNE_MODULE spec) -> impl named by steps 2-7
+    # (cell, phase, PGTUNE_MODULE spec, store_ref epoch) -> impl named by
+    # steps 2-7
     choices: dict = dataclasses.field(default_factory=dict, repr=False)
 
 
@@ -155,6 +173,8 @@ def tuned(profiles: ProfileStore | None = None,
           chunk_bytes: int = 0,
           phase_profiles: dict[str, ProfileStore] | None = None,
           record: list | None = None,
+          store_ref=None,
+          plan: "Plan | None" = None,
           mesh_topo=None):
     """Activate tuning for every collective of this module issued inside.
 
@@ -162,9 +182,17 @@ def tuned(profiles: ProfileStore | None = None,
     selection); ``profiles`` is the PGMPITuneD mode; ``phase_profiles``
     maps a phase tag to a store consulted before ``profiles`` (what
     ``tuner.tune_trace`` emits).  ``record`` lets the caller supply the
-    list dispatches are appended to.  Without any of these, defaults are
-    used but calls are still recorded.  ``mesh_topo`` (a
-    ``costmodel.MeshTopo``) stamps the cells' tier tokens."""
+    sink dispatches are appended to (a list, or a
+    ``trace.ShardRecorder``).  Without any of these, defaults are used but
+    calls are still recorded.  ``mesh_topo`` (a ``costmodel.MeshTopo``)
+    stamps the cells' tier tokens.
+
+    Fleet mode: ``store_ref`` (a ``profiles.StoreRef``) is consulted after
+    the explicit stores and read LIVE, so a swapped-in epoch changes what
+    later calls select without a new context.  ``plan`` additionally
+    switches eligible sites to runtime dispatch (the branch index read
+    from the ``plan_input`` vector), so a swap takes effect in steps
+    already built."""
     prev = _ctx()
     ctx = TuneContext(profiles=profiles, force=dict(force or {}),
                       scratch_budget_bytes=scratch_budget_bytes,
@@ -172,7 +200,7 @@ def tuned(profiles: ProfileStore | None = None,
                       phase_profiles=(dict(phase_profiles)
                                       if phase_profiles else None),
                       record=record if record is not None else [],
-                      mesh_topo=mesh_topo)
+                      store_ref=store_ref, plan=plan, mesh_topo=mesh_topo)
     _TLS.ctx = ctx
     try:
         yield ctx
@@ -292,7 +320,7 @@ def _admit(op: str, name: str, cell: OpCell, ctx: TuneContext | None,
 def _lookup(op: str, cell: OpCell, ph: str, ctx: TuneContext | None,
             env: dict[str, str]) -> str:
     """Selection steps 2-7: force table, ``PGTUNE_MODULE``, phase
-    profiles, profiles, default."""
+    profiles, profiles, the live ``store_ref``, default."""
     name = None
     if ctx is not None and op in ctx.force:
         name = ctx.force[op]
@@ -305,6 +333,8 @@ def _lookup(op: str, cell: OpCell, ph: str, ctx: TuneContext | None,
                 name = store.lookup_cell(cell)
         if name is None and ctx.profiles is not None:
             name = ctx.profiles.lookup_cell(cell)
+        if name is None and ctx.store_ref is not None:
+            name = ctx.store_ref.lookup(cell, ph)
     return name or "default"
 
 
@@ -320,8 +350,11 @@ def _select(op: str, payload: torch.Tensor, axis: StackedAxis,
             name = _lookup(op, cell, ph, None, env)
         else:
             # the lookup is cached; admission is not, so a demotion made
-            # while the context is open takes effect on the next call
-            key = (cell, ph, spec)
+            # while the context is open takes effect on the next call.
+            # A live store_ref's epoch is part of the key: a swap or a
+            # rollback must reach sites that have already run.
+            ref = ctx.store_ref
+            key = (cell, ph, spec, None if ref is None else ref.epoch)
             name = ctx.choices.get(key)
             if name is None:
                 name = ctx.choices[key] = _lookup(op, cell, ph, ctx, env)
@@ -329,6 +362,228 @@ def _select(op: str, payload: torch.Tensor, axis: StackedAxis,
     if ctx is not None:
         ctx.record.append(DispatchRecord(cell, name, ph))
     return name
+
+
+# ---------------------------------------------------------------------------
+# runtime dispatch plans (fleet hot-swap)
+# ---------------------------------------------------------------------------
+
+#: recorded impl marker for sites dispatched through a runtime plan — the
+#: branch taken is decided per call by the plan vector
+PLAN_IMPL = "plan"
+
+
+class Plan:
+    """A runtime dispatch plan: the fixed-capacity impl-index vector that
+    makes profile hot-swaps take effect without rebuilding a step.
+
+    Under a Plan each eligible dispatch site holds a slot and runs the
+    impl of its admissible list whose index the plan vector holds there
+    (``plan_input``).  The vector's length is the fixed ``capacity``; its
+    CONTENTS are re-derived from the live stores (``vector(ref)``)
+    whenever an epoch lands.
+
+    Sites are keyed ``(cell, phase)``: new cells take fresh slots from the
+    spare capacity.  When capacity runs out, or a site's admissible set
+    drifts from the one it registered with (a demotion), the site falls
+    back to ordinary static dispatch — visible via ``len(plan)`` vs
+    ``plan.capacity``.
+    """
+
+    def __init__(self, capacity: int = 128):
+        self.capacity = int(capacity)
+        self._sites: dict[tuple[OpCell, str],
+                          tuple[int, tuple[str, ...]]] = {}
+        # the admissible impls of a site, computed once: keyed by what
+        # they depend on besides the cell (see ``_dispatch_plan``)
+        self._admissible: dict[tuple, tuple[str, ...]] = {}
+
+    def __len__(self) -> int:
+        return len(self._sites)
+
+    def slot(self, cell: OpCell, phase: str,
+             impls: tuple[str, ...]) -> int | None:
+        """Stable vector slot for a dispatch site (None = dispatch
+        statically: capacity exhausted, or the admissible set drifted
+        from what this site was registered with)."""
+        key = (cell, phase)
+        hit = self._sites.get(key)
+        if hit is not None:
+            s, known = hit
+            return s if known == impls else None
+        if len(self._sites) >= self.capacity:
+            return None
+        s = len(self._sites)
+        self._sites[key] = (s, impls)
+        return s
+
+    def sites(self) -> list[tuple[OpCell, str, tuple[str, ...]]]:
+        return [(cell, ph, impls) for (cell, ph), (_s, impls)
+                in sorted(self._sites.items(), key=lambda kv: kv[1][0])]
+
+    def _resolve(self, cell, ph, store_ref, base, phases):
+        if store_ref is not None:
+            return store_ref.lookup(cell, ph)
+        store = (phases or {}).get(ph)
+        name = store.lookup_cell(cell) if store is not None else None
+        if name is None and base is not None:
+            name = base.lookup_cell(cell)
+        return name
+
+    def vector(self, store_ref=None, *, base: ProfileStore | None = None,
+               phases: dict[str, ProfileStore] | None = None) -> np.ndarray:
+        """The plan vector for the CURRENT profile generation: slot i
+        holds the index (into that site's admissible impl list, 0 =
+        default) the live stores select.  Unregistered slots stay 0."""
+        vec = np.zeros(self.capacity, dtype=np.int32)
+        for (cell, ph), (s, impls) in self._sites.items():
+            name = self._resolve(cell, ph, store_ref, base, phases)
+            if name in impls:
+                vec[s] = impls.index(name)
+        return vec
+
+    def explore(self, store_ref=None, *, eps: float, rng,
+                base: ProfileStore | None = None,
+                phases: dict[str, ProfileStore] | None = None):
+        """The exploration-budget vector: start from ``vector(...)`` and,
+        per site, with probability ``eps`` flip to the next entry of the
+        site's admissible ring (profiles only store winners, so "next"
+        stands in for second-best; for default-serving sites that is the
+        first mock-up).  Returns ``(vec, explored)`` where ``explored``
+        maps ``(cell, phase) -> impl`` for the flipped sites, so the serve
+        loop can attribute the latencies it measures
+        (``ShardRecorder.observe``) to what actually ran."""
+        vec = self.vector(store_ref, base=base, phases=phases)
+        explored: dict[tuple[OpCell, str], str] = {}
+        for (cell, ph), (s, impls) in sorted(self._sites.items(),
+                                             key=lambda kv: kv[1][0]):
+            if len(impls) < 2 or float(rng.random()) >= eps:
+                continue
+            vec[s] = (int(vec[s]) + 1) % len(impls)
+            explored[(cell, ph)] = impls[vec[s]]
+        return vec, explored
+
+
+@contextlib.contextmanager
+def plan_input(vec):
+    """Expose a step's plan-vector argument (a numpy array or a CPU
+    integer tensor) to the dispatch sites inside; builders wrap the model
+    call in this.  The vector is read once on entry, so a step reads the
+    contents it was called with.  A CUDA vector is refused: every site
+    would synchronize with the card to read its index."""
+    if isinstance(vec, torch.Tensor) and vec.device.type != "cpu":
+        raise ValueError(f"plan vector on {vec.device}: keep it on the "
+                         "host (a numpy array or a CPU tensor)")
+    prev = getattr(_TLS, "plan_vec", None)
+    _TLS.plan_vec = vec.tolist()
+    try:
+        yield
+    finally:
+        _TLS.plan_vec = prev
+
+
+class EpochTripwire:
+    """Plan-level auto-rollback: revert a freshly adopted epoch whose
+    OBSERVED cost regresses past the prior epoch's.
+
+    The staleness and digest guards stop bad publishes; nothing on the
+    read side stops a well-formed but wrong epoch.  The tripwire watches
+    the one place regression is observable, the serve loop's per-step
+    cost.  Feed it each step's observed cost via ``observe``; it buckets
+    costs by the ``StoreRef``'s live epoch, takes the median of a
+    finished epoch's window as the next epoch's baseline, and when the
+    current epoch's windowed median exceeds ``threshold ×`` baseline it
+    calls ``ref.rollback()`` — vector contents only, no step rebuilt, and
+    the bad epoch is poisoned against re-adoption.
+
+    The window is the last ``window`` costs; medians make a single
+    exploration spike or latency outlier unable to trip it.
+    """
+
+    def __init__(self, ref, *, threshold: float = 1.5, window: int = 8,
+                 min_samples: int = 4):
+        self.ref = ref
+        self.threshold = float(threshold)
+        self.window = int(window)
+        self.min_samples = int(min_samples)
+        self._epoch = ref.epoch
+        self._costs: list[float] = []
+        self._baseline: float | None = None   # prior epoch's median cost
+        self.fired: list[tuple[int, int]] = []  # (bad epoch, restored)
+
+    @property
+    def baseline(self) -> float | None:
+        return self._baseline
+
+    def observe(self, cost: float) -> bool:
+        """Record one observed step cost under the CURRENT live epoch;
+        returns True iff this observation fired a rollback."""
+        epoch = self.ref.epoch
+        if epoch != self._epoch:
+            if epoch > self._epoch and len(self._costs) >= self.min_samples:
+                # the finished epoch's steady-state cost becomes the new
+                # epoch's yardstick
+                self._baseline = statistics.median(self._costs)
+            # on epoch < self._epoch (a rollback we didn't fire) the
+            # baseline stays: it IS the restored epoch's own median
+            self._costs = []
+            self._epoch = epoch
+        self._costs.append(float(cost))
+        del self._costs[:-self.window]
+        if self._baseline is None or len(self._costs) < self.min_samples:
+            return False
+        med = statistics.median(self._costs)
+        if med <= self.threshold * self._baseline:
+            return False
+        restored = self.ref.rollback()
+        if restored is None:
+            return False   # nothing retained; keep serving + observing
+        self.fired.append((epoch, restored))
+        self._epoch = restored
+        self._costs = []
+        return True
+
+
+def _admissible_impls(op: str, cell: OpCell, ctx: TuneContext | None,
+                      axis=None, device: torch.device | None = None
+                      ) -> tuple[str, ...]:
+    """The impls a runtime plan may switch between for one site, default
+    first and the rest sorted: exactly those static dispatch admits
+    (``_admit``: pow2, world, process axis, demotions, scratch budget),
+    which depend on the cell and the axis, never on the profile."""
+    device = torch.device("cpu") if device is None else device
+    names = ["default"] + sorted(n for n in C.REGISTRY[op] if n != "default")
+    return tuple(n for n in names
+                 if _admit(op, n, cell, ctx, axis, device) == n)
+
+
+_NO_PLAN = object()
+
+
+def _dispatch_plan(op: str, payload: torch.Tensor, axis, ctx: TuneContext,
+                   plan_vec: list[int], kw):
+    """Run one site through the plan: the admissible impl at the index
+    its slot holds.  Returns ``_NO_PLAN`` when the site must dispatch
+    statically."""
+    cell = _make_cell(op, payload, axis, kw)
+    plan = ctx.plan
+    key = (cell, payload.device.type,
+           isinstance(axis, GroupAxis) and axis.size > 1,
+           C.demotion_version(), ctx.scratch_budget_bytes)
+    impls = plan._admissible.get(key)
+    if impls is None:
+        impls = plan._admissible[key] = _admissible_impls(
+            op, cell, ctx, axis, payload.device)
+    if len(impls) < 2:
+        return _NO_PLAN
+    ph = current_phase()
+    slot = plan.slot(cell, ph, impls)
+    if slot is None:
+        return _NO_PLAN
+    ctx.record.append(DispatchRecord(cell, PLAN_IMPL, ph))
+    idx = min(max(plan_vec[slot], 0), len(impls) - 1)
+    return C.REGISTRY[op][impls[idx]].fn(payload, axis, **kw)
+
 
 
 def _dispatch(op: str, payload: torch.Tensor, axis: StackedAxis,
@@ -344,6 +599,13 @@ def _dispatch(op: str, payload: torch.Tensor, axis: StackedAxis,
     ctx = _ctx()
     if ctx is not None and ctx.chunk_bytes and "chunk" not in kw:
         kw["chunk"] = max(1, ctx.chunk_bytes // payload.element_size())
+    if impl is None and ctx is not None and ctx.plan is not None:
+        plan_vec = getattr(_TLS, "plan_vec", None)
+        if (plan_vec is not None and op not in ctx.force
+                and op not in _env_force()[1]):
+            out = _dispatch_plan(op, payload, axis, ctx, plan_vec, kw)
+            if out is not _NO_PLAN:
+                return out
     name = _select(op, payload, axis, impl, kw)
     return C.REGISTRY[op][name].fn(payload, axis, **kw)
 

@@ -1075,6 +1075,7 @@ FLAT_OPS = tuple(op for op in OPS if op not in FUSED_OPS)
 # ---------------------------------------------------------------------------
 
 _DEMOTED: dict[tuple[str, str], str] = {}
+_DEMOTION_VERSION = [0]
 
 
 def demote(op: str, name: str, reason: str = "tolerance") -> None:
@@ -1084,6 +1085,13 @@ def demote(op: str, name: str, reason: str = "tolerance") -> None:
     if name not in REGISTRY[op]:
         raise KeyError(f"unknown impl {op}.{name}")
     _DEMOTED[(op, name)] = reason
+    _DEMOTION_VERSION[0] += 1
+
+
+def demotion_version() -> int:
+    """A number that changes whenever the ledger does: what a cache of
+    admissible sets keys on."""
+    return _DEMOTION_VERSION[0]
 
 
 def is_demoted(op: str, name: str) -> bool:
@@ -1097,6 +1105,7 @@ def demotions() -> dict[tuple[str, str], str]:
 
 def clear_demotions() -> None:
     _DEMOTED.clear()
+    _DEMOTION_VERSION[0] += 1
 
 
 @contextlib.contextmanager

@@ -34,7 +34,8 @@ from repro_torch.core import costmodel, measure, nrep
 from repro_torch.core.cell import OpCell
 from repro_torch.core.collectives import (REGISTRY, is_demoted,
                                          off_process_axis)
-from repro_torch.core.profiles import Profile, ProfileStore, Range
+from repro_torch.core.profiles import (Profile, ProfileStore, Range,
+                                      write_manifest)
 
 DEFAULT_SIZES = (1, 8, 32, 64, 100, 512, 1024, 4096, 8192, 32768,
                  100_000, 1_048_576, 16_777_216)
@@ -346,13 +347,24 @@ class TraceTuneReport:
         lines += [f"note: {n}" for n in self.notes]
         return "\n".join(lines) or "empty trace"
 
-    def save(self, directory, *, fmt: str = "text") -> None:
+    def save(self, directory, *, fmt: str = "text",
+             epoch: int | None = None,
+             source_digest: str | None = None) -> None:
         """One subdirectory per phase (``<dir>/<phase>/<op>_p<P>.pgtune``),
-        the layout ``profiles.load_stores`` reads back."""
+        the layout ``profiles.load_stores`` reads back.
+
+        With ``epoch=`` the write becomes a fleet profile generation: a
+        top-level ``MANIFEST.json`` (epoch, source-shard digest, geometry
+        census, demotions) is written LAST, so a
+        ``resolve_stores(watch=True)`` ref polling the directory only
+        ever swaps in a complete epoch."""
         d = pathlib.Path(directory)
         d.mkdir(parents=True, exist_ok=True)
         for ph, store in sorted(self.phase_profiles.items()):
             store.save(d / ph, fmt=fmt)
+        if epoch is not None:
+            write_manifest(d, epoch, source_digest=source_digest,
+                           phases=self.phase_profiles)
 
 
 def tune_trace(trace, backend=None, *, min_win: float = 0.10,
@@ -436,6 +448,144 @@ def tune_trace(trace, backend=None, *, min_win: float = 0.10,
     return TraceTuneReport(phase_profiles=phase_profiles, measurements=ms,
                            est_default_s=est_default, est_tuned_s=est_tuned,
                            notes=notes)
+
+
+# ---------------------------------------------------------------------------
+# fleet feedback (exploration-budget measurements -> next epoch's tuner)
+# ---------------------------------------------------------------------------
+
+
+def _mad_filter(samples: list[float], k: float) -> list[float]:
+    """Median/MAD outlier rejection: keep samples within ``k`` robust
+    deviations of the median.  The scale is floored at 5% of |median|
+    (and an absolute epsilon) because the MAD of near-identical samples
+    is 0, which would reject every sample but the exact median.  Returns
+    at least ``[median]`` so a cell never loses ALL its observations."""
+    if len(samples) < 3 or k <= 0:
+        return list(samples)
+    med = statistics.median(samples)
+    mad = statistics.median([abs(x - med) for x in samples])
+    scale = max(mad, 0.05 * abs(med), 1e-12)
+    kept = [x for x in samples if abs(x - med) <= k * scale]
+    return kept or [med]
+
+
+class FeedbackBackend:
+    """A backend that prefers LIVE fleet measurements over its base estimate.
+
+    The exploration budget (``Plan.explore`` + ``ShardRecorder.observe``)
+    deposits real ``(cell, impl, latency)`` samples into the trace shards;
+    ``trace.load_shard_latencies`` collects them across the fleet.  Wrapping
+    the next epoch's tuner backend in this class makes ``tune_trace`` price
+    any (cell, impl) with enough observed samples from the fleet's own wall
+    clock — the loop that lets profiles track hardware/load drift — while
+    everything unexplored still falls back to the base backend.
+
+    Fleet measurements are HOSTILE inputs: one explored step that landed
+    on a network hiccup can be 100× the true latency, and with only a
+    handful of samples per (cell, impl) even a median shifts.  Samples
+    are therefore filtered at construction with median/MAD outlier
+    rejection (drop anything more than ``mad_k`` robust deviations from
+    the median; the MAD is floored at 5% of the median so near-identical
+    samples don't reject everything); ``rejected`` counts the dropped
+    samples for the chaos gates.  Set ``mad_k=0`` to disable.
+    """
+
+    def __init__(self, base, observed: dict[tuple[OpCell, str],
+                                            Sequence[float]],
+                 *, min_samples: int = 3, mad_k: float = 4.0):
+        self.base = base
+        self.name = f"feedback+{base.name}"
+        self.min_samples = min_samples
+        self.mad_k = float(mad_k)
+        self.rejected = 0
+        self._obs: dict[tuple[OpCell, str], list[float]] = {}
+        for k, v in observed.items():
+            if len(v) == 0:
+                continue
+            kept = _mad_filter([float(x) for x in v], self.mad_k)
+            self.rejected += len(v) - len(kept)
+            self._obs[k] = kept
+
+    @property
+    def supported_axis_size(self) -> int | None:
+        # cells WITH observations need no replay, but unexplored cells
+        # still hit the base backend, so its replay constraint stands
+        return getattr(self.base, "supported_axis_size", None)
+
+    def observed_for(self, cell: OpCell, impl: str) -> list[float]:
+        return list(self._obs.get((cell, impl), ()))
+
+    def latency(self, cell: OpCell, impl: str) -> float:
+        s = self._obs.get((cell, impl))
+        if s is not None and len(s) >= self.min_samples:
+            return statistics.median(s)
+        return self.base.latency(cell, impl)
+
+    def nrep_for(self, cell: OpCell, impl: str) -> int:
+        s = self._obs.get((cell, impl))
+        if s is not None and len(s) >= self.min_samples:
+            return len(s)
+        return self.base.nrep_for(cell, impl)
+
+
+def estimate_trace_cost(trace, backend=None, *,
+                        base: ProfileStore | None = None,
+                        phases: dict[str, ProfileStore] | None = None,
+                        scratch_budget_bytes: int | None = None
+                        ) -> dict[str, float]:
+    """Frequency-weighted modeled collective time of serving ``trace``
+    under a given set of profiles — the fleet benchmark's yardstick for
+    "the merged profile beats any single-shard profile on the union
+    workload".
+
+    For every recorded cell the impl the stores would dispatch (phase
+    store, then ``base``, then the default) is priced on ``backend`` and
+    weighted by the cell's trace count.  Inadmissible or unmeasurable
+    selections fall back to the default impl, mirroring dispatch.
+
+    ``backend`` is required: the port prices nothing on constants that
+    were not fit on its own hardware (a ``Topo`` from
+    ``costmodel.fit_topo``, or a ``MeasuredBackend``).
+    """
+    if backend is None:
+        raise ValueError("estimate_trace_cost needs an explicit backend "
+                         "(a CostModelBackend on a fitted Topo, or a "
+                         "MeasuredBackend)")
+    out: dict[str, float] = {}
+    for ph in trace.phases():
+        total = 0.0
+        for cell, weight in sorted(trace.cells(phase=ph).items()):
+            if cell.op not in REGISTRY:
+                continue
+            name = None
+            store = (phases or {}).get(ph)
+            if store is not None:
+                name = store.lookup_cell(cell)
+            if name is None and base is not None:
+                name = base.lookup_cell(cell)
+            if name is None or name not in REGISTRY[cell.op]:
+                name = "default"
+            impl = REGISTRY[cell.op][name]
+            p, nbytes = cell.p, cell.nbytes
+            if name != "default" and (
+                    (impl.requires_pow2 and (
+                        (p & (p - 1)) != 0
+                        or (cell.p2 and (cell.p2 & (cell.p2 - 1)) != 0)))
+                    or getattr(impl, "hier", False) != cell.hier
+                    or is_demoted(cell.op, name)
+                    or (scratch_budget_bytes is not None
+                        and impl.extra_bytes(nbytes, p)
+                        > scratch_budget_bytes)):
+                name = "default"
+            t = backend.latency(cell, name)
+            if math.isinf(t) and name != "default":
+                t = backend.latency(cell, "default")
+            if math.isinf(t):
+                continue
+            total += weight * t
+        out[ph] = total
+    return out
 
 
 def _coalesce(ranges: list[Range]) -> list[Range]:

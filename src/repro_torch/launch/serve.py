@@ -44,10 +44,17 @@ CLI runs it over gloo on the CPU with ``--world N --dist-backend gloo``
 (TP N, or ``--mesh dxt`` with d*t = N); the measured tune replays the
 cells whose world is N, and rank 0 writes the profiles every rank
 tuned (``profiles.publish``).
-The fleet mode of the JAX package (``store_ref=``, ``plan=``) and its
-builders' own tuning arguments (``profiles=``, ``force=``,
-``phase_profiles=``, ``profile_dir=``) are not ported: no caller here
-needs them.
+Fleet mode: ``build_prefill``/``build_decode``/``serve`` take
+``store_ref=`` (a ``profiles.StoreRef``, e.g. from
+``resolve_stores(watch=True)``) and ``plan=`` (an ``api.Plan``).  With a
+plan the step takes one TRAILING argument, the plan vector (a host array:
+``plan.vector(store_ref)``), and runs the model under
+``api.plan_input(vec)``, so every multi-impl dispatch site runs the impl
+the vector names.  A new profile epoch is adopted by feeding the next
+call a new vector: the step built once serves every epoch.  The JAX
+builders' other tuning arguments (``profiles=``, ``force=``,
+``phase_profiles=``, ``profile_dir=``) are not ported: a step runs under
+the ambient context, which ``serve`` opens.
 """
 from __future__ import annotations
 
@@ -74,21 +81,28 @@ from repro_torch.models.config import ModelConfig
 
 
 @contextlib.contextmanager
-def _serving_ctx(tag, record):
+def _serving_ctx(tag, record, store_ref=None, plan=None):
     """Phase-tag the step under the ambient context; with ``record=``,
-    inherit the ambient context's tuning inputs and swap its sink (a
-    fresh context would silently shadow a caller-managed api.tuned)."""
-    if record is None:
+    ``store_ref=`` or ``plan=``, open a context that inherits every
+    tuning input of the ambient one (a fresh context would silently
+    shadow a caller-managed api.tuned) and overrides those given."""
+    amb = api._ctx()
+    given = (("record", record), ("store_ref", store_ref), ("plan", plan))
+    if all(v is None or (amb is not None and getattr(amb, k) is v)
+           for k, v in given):
         with api.phase(tag):
             yield
         return
-    amb = api._ctx()
-    inherited = {} if amb is None else dict(
+    inputs = {} if amb is None else dict(
         profiles=amb.profiles, phase_profiles=amb.phase_profiles,
         force=amb.force or None,
         scratch_budget_bytes=amb.scratch_budget_bytes,
-        chunk_bytes=amb.chunk_bytes)
-    with api.tuned(record=record, **inherited), api.phase(tag):
+        chunk_bytes=amb.chunk_bytes, record=amb.record,
+        store_ref=amb.store_ref, plan=amb.plan, mesh_topo=amb.mesh_topo)
+    for k, v in given:
+        if v is not None:
+            inputs[k] = v
+    with api.tuned(**inputs), api.phase(tag):
         yield
 
 
@@ -127,25 +141,36 @@ def lane_batch(x: torch.Tensor, axis) -> torch.Tensor:
         d * t, *xs.shape[1:])
 
 
-def build_prefill(cfg: ModelConfig, axis, *, record=None):
+def build_prefill(cfg: ModelConfig, axis, *, record=None, store_ref=None,
+                  plan=None):
     """``step(params, batch, caches) -> (last-token logits [L, B, 1, V_t],
     caches)`` on ``axis`` (the model axis, or a (data, model) mesh with
     the batch cut over data), tagged ``prefill``.  A seq-sharded cache is
-    filled by prefilling unsharded and cutting it (``seq_shards``)."""
+    filled by prefilling unsharded and cutting it (``seq_shards``).  With
+    ``plan=`` the step takes a trailing plan vector (module docstring)."""
+    if plan is None:
+        def step(params, batch, caches):
+            with bind(**_axes_of(axis)), _serving_ctx(
+                    "prefill", record, store_ref):
+                return lm.prefill(params, cfg, batch, caches)
+        return step
 
-    def step(params, batch, caches):
-        with bind(**_axes_of(axis)), _serving_ctx("prefill", record):
+    def plan_step(params, batch, caches, plan_vec):
+        with bind(**_axes_of(axis)), _serving_ctx(
+                "prefill", record, store_ref, plan), \
+                api.plan_input(plan_vec):
             return lm.prefill(params, cfg, batch, caches)
-    return step
+    return plan_step
 
 
 def build_decode(cfg: ModelConfig, axis, cell: ShapeCell | None = None, *,
-                 record=None):
+                 record=None, store_ref=None, plan=None):
     """``step(params, token, caches, t) -> (logits [L, B, 1, V_t],
     caches)`` on ``axis``, tagged ``decode``; ``t`` is a host int.  With
     a seq-sharded ``cell`` the caches' sequence is cut over ``data``
     (``seq_shards``) and the token ``[L, B, 1]`` is the same on every
-    data rank."""
+    data rank.  With ``plan=`` the step takes a trailing plan vector
+    (module docstring)."""
     seq = bool(cell is not None and cell.seq_sharded)
     if seq and spans_processes(axis):
         raise NotImplementedError(
@@ -153,11 +178,21 @@ def build_decode(cfg: ModelConfig, axis, cell: ShapeCell | None = None, *,
             "(models.attention._lanes_at); it does not run on a process "
             "axis")
 
-    def step(params, token, caches, t: int):
-        with bind(**_axes_of(axis)), _serving_ctx("decode", record):
+    if plan is None:
+        def step(params, token, caches, t: int):
+            with bind(**_axes_of(axis)), _serving_ctx(
+                    "decode", record, store_ref):
+                return lm.decode_step(params, cfg, token, caches, t,
+                                      seq_sharded=seq)
+        return step
+
+    def plan_step(params, token, caches, t: int, plan_vec):
+        with bind(**_axes_of(axis)), _serving_ctx(
+                "decode", record, store_ref, plan), \
+                api.plan_input(plan_vec):
             return lm.decode_step(params, cfg, token, caches, t,
                                   seq_sharded=seq)
-    return step
+    return plan_step
 
 
 def clone_caches(tree):
@@ -214,13 +249,15 @@ class ServeResult:
     synchronize; the dispatch context (records, footer).  A
     sequence-sharded decode's ``lane_spread``: per decode step, the
     largest difference of any data rank's logits from data rank 0's
-    (read after the loop)."""
+    (read after the loop).  ``step_s``: with ``time_steps``, the host
+    seconds of each decode step, each ended by a device synchronize."""
     tokens: torch.Tensor
     logits: list[torch.Tensor]
     prefill_s: float
     decode_s: float
     ctx: api.TuneContext
     lane_spread: list[float] | None = None
+    step_s: list[float] | None = None
 
     @property
     def decode_s_per_token(self) -> float:
@@ -275,10 +312,11 @@ def _stores(phase_profiles):
 
 
 def _decode_loop(cfg, axis, decode, params, caches, tok, t0: int,
-                 n_steps: int, seq: bool):
+                 n_steps: int, seq: bool, extra=(), step_s=None):
     """``n_steps`` greedy decode steps from ``tok [B, 1]`` at position
     ``t0``: (tokens, full-vocab logits, per-step data-lane spreads as
-    device scalars, or None)."""
+    device scalars, or None).  ``extra``: trailing step arguments (a plan
+    vector); a ``step_s`` list gets each step's synchronized seconds."""
     d = _data_size(axis)
     out_tok, out_lg, spread = [], [], []
     for step in range(n_steps):
@@ -286,7 +324,9 @@ def _decode_loop(cfg, axis, decode, params, caches, tok, t0: int,
             lanes = tok.unsqueeze(0).expand(axis.lanes, *tok.shape)
         else:
             lanes = lane_batch(tok, axis)
-        logits, caches = decode(params, lanes, caches, t0 + step)
+        if step_s is not None:
+            t_a = time.perf_counter()
+        logits, caches = decode(params, lanes, caches, t0 + step, *extra)
         if seq:
             # every data rank holds the same logits: read data rank 0's
             t = _model_axis(axis).size
@@ -296,6 +336,9 @@ def _decode_loop(cfg, axis, decode, params, caches, tok, t0: int,
         else:
             lg = _vocab_of(logits, axis)
         tok = _greedy(lg, cfg)
+        if step_s is not None:
+            _sync(axis)
+            step_s.append(time.perf_counter() - t_a)
         out_tok.append(tok)
         out_lg.append(lg)
     return out_tok, out_lg, (spread if seq else None)
@@ -303,7 +346,8 @@ def _decode_loop(cfg, axis, decode, params, caches, tok, t0: int,
 
 def serve(cfg: ModelConfig, axis, params, prompts, s_max: int,
           n_tokens: int, *, patches=None, frames=None, phase_profiles=None,
-          record=None) -> ServeResult:
+          record=None, store_ref=None, plan=None, plan_vec=None,
+          steps=None, time_steps: bool = False) -> ServeResult:
     """Prefill ``prompts [B, S]`` (a VLM's after its ``patches [B, N,
     patch_dim]``; an enc-dec model's with the encoder run on its ``frames
     [B, S_enc, D]`` inside the timed prefill, its cross K/V cached at
@@ -313,7 +357,15 @@ def serve(cfg: ModelConfig, axis, params, prompts, s_max: int,
     no ``phase_profiles`` the stores of ``$PGTUNE_PROFILE_DIR`` serve, if
     it is set.  ``axis``: the model axis, or a (data, model) mesh that
     cuts the batch over data.  The decode position is a host int (it
-    counts a VLM's patches); nothing in the loop waits on the device."""
+    counts a VLM's patches); nothing in the loop waits on the device
+    unless ``time_steps`` asks for each step's time (``step_s``).
+
+    Fleet mode: ``store_ref=`` serves the live generation (no
+    ``$PGTUNE_PROFILE_DIR`` stores are loaded beside it) and ``plan=``
+    dispatches through the plan with ``plan_vec`` (default
+    ``plan.vector(store_ref)``).  ``steps=(prefill, decode)`` serves
+    through steps the caller built (with the same ``plan``), so that one
+    pair of steps serves every epoch."""
     batch, s0 = prompts.shape
     if patches is not None:
         s0 += patches.shape[1]
@@ -323,8 +375,13 @@ def serve(cfg: ModelConfig, axis, params, prompts, s_max: int,
     if s0 + n_tokens - 1 > s_max:
         raise ValueError(f"{s0} prompt + {n_tokens - 1} decode tokens exceed "
                          f"the cache's {s_max} slots")
-    prefill = build_prefill(cfg, axis)
-    decode = build_decode(cfg, axis)
+    if steps is None:
+        steps = (build_prefill(cfg, axis, plan=plan),
+                 build_decode(cfg, axis, plan=plan))
+    prefill, decode = steps
+    extra = ()
+    if plan is not None:
+        extra = (plan.vector(store_ref) if plan_vec is None else plan_vec,)
     with bind(**_axes_of(axis)):
         caches = lm.init_caches(cfg, batch, s_max, enc_len=None if frames
                                 is None else frames.shape[1])
@@ -333,22 +390,24 @@ def serve(cfg: ModelConfig, axis, params, prompts, s_max: int,
         inputs["patches"] = lane_batch(patches, axis)
     if frames is not None:
         inputs["frames"] = lane_batch(frames, axis)
-    base, phase_profiles = _stores(phase_profiles)
+    base, phase_profiles = ((None, phase_profiles) if store_ref is not None
+                            else _stores(phase_profiles))
+    step_s = [] if time_steps else None
     with api.tuned(profiles=base, phase_profiles=phase_profiles,
-                   record=record) as ctx:
+                   record=record, store_ref=store_ref, plan=plan) as ctx:
         _sync(axis)
         t0 = time.perf_counter()
-        logits, caches = prefill(params, inputs, caches)
+        logits, caches = prefill(params, inputs, caches, *extra)
         lg = _vocab_of(logits, axis)
         tok = _greedy(lg, cfg)
         _sync(axis)
         t1 = time.perf_counter()
         toks, lgs, _ = _decode_loop(cfg, axis, decode, params, caches, tok,
-                                    s0, n_tokens - 1, False)
+                                    s0, n_tokens - 1, False, extra, step_s)
         _sync(axis)
         t2 = time.perf_counter()
     return ServeResult(torch.cat([tok] + toks, dim=1), [lg] + lgs, t1 - t0,
-                       t2 - t1, ctx)
+                       t2 - t1, ctx, step_s=step_s)
 
 
 def decode_from(cfg: ModelConfig, axis, params, caches, lg0: torch.Tensor,
