@@ -255,7 +255,26 @@ Phases (each raises on failure; nothing is caught):
    vector with epoch 2's logits and epoch 4 is not adopted again; the
    ``FleetCoordinator`` on a fake clock (phase 5's Topo as its backend)
    sees a killed server go dead; (c) ``examples/torch_elastic_restart.py``
-   on the card: two restarts, a bit-identical final state.
+   on the card: two restarts, a bit-identical final state;
+22. analysis at the graph layer (``repro_torch.analysis``): (a) the dry
+   run ``python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape
+   all --multi-pod both --topo <phase 5's fit>`` in a process of its own
+   (the fake world must be its default group; the cells in parallel
+   processes), full width and all 28 layers captured on fake tensors as
+   one rank of a fake world of 256 (16 x 16) and 512 (2 x 16 x 16):
+   every applicable cell ``ok`` with no unmapped site and a footer,
+   ``long_500k`` skipped with its reason, each cell's roofline row and
+   capture seconds logged; (b) phase 10's TP 8 stacked prefill (4 x 1024)
+   and one decode step captured on fake tensors on the card's device
+   with ``ref`` attention: ``program_costs``, the bound on the data
+   sheet's rates, its share of phase 10's measured times (by the graph,
+   by model flops, by the arguments read once), the graph's memory
+   estimate beside phase 10's peak; (c) the rewrite mode on a gloo world
+   of 4 on the host CPU (no card number): the JAX package's rewrite
+   program with ``allgather_as_ring`` and ``alltoall_as_ppermute`` forced,
+   bit-exact on every rank, every record matched; (d) the tuning-potential
+   line of (a)'s prefill and decode graphs on phase 5's ``Topo``.  No
+   kernel launches in it: the counts are zeroed before and read 0 after.
 
 Each phase's seconds are logged as it ends (``[phase n]``).
 
@@ -349,8 +368,9 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
-H100_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+# the H100's data-sheet rates (HBM3 bytes/s, peak FLOP/s by dtype) every
+# bound divides by: ``repro_torch.analysis.roofline``'s, bound in main()
+H100_BYTES_PER_S = H100_FLOPS = None
 SEED = 20170701
 DEVICE = "cuda"
 
@@ -4780,6 +4800,244 @@ def fleet_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
             "seconds": seconds, **paths}
 
 
+# ---------------------------------------------------------------------------
+# analysis at the graph layer (phase 22)
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARCH = "llama3.2-3b"
+#: the dry run's cells in processes of their own, at once (the card's host
+#: has 8 cores; the two train cells take the longest)
+DRYRUN_JOBS = 6
+DRYRUN_TIMEOUT_S = 600.0
+#: more dry-run flags (a CPU rehearsal passes ``--smoke``)
+DRYRUN_FLAGS: tuple = ()
+#: the rewrite's movement mock-ups (a reduction mock-up reorders the sum
+#: and is legitimately not bit-exact)
+REWRITE_FORCE = {"allgather": "allgather_as_ring",
+                 "alltoall": "alltoall_as_ppermute"}
+REWRITE_CHANGED = [["allgather", "allgather_as_ring"],
+                   ["alltoall", "alltoall_as_ppermute"]]
+
+
+def rewrite_rank() -> dict:
+    """One rank of (c): the JAX package's ``REWRITE_SCRIPT`` program
+    (``tests/test_hlo_interpose.py``: all-gather, matmul, reduce-scatter,
+    all-reduce, all-to-all) on a ``GroupAxis`` of gloo processes,
+    rewritten with the movement mock-ups forced (``interpose.rewrite``)."""
+    import torch
+    from repro_torch.analysis.interpose import rewrite
+    from repro_torch.core import api
+    from repro_torch.core._axis import GroupAxis
+
+    axis = GroupAxis("cpu")
+
+    def body(x, w):
+        g = api.allgather(x, axis)
+        s = api.reducescatter(g @ w, axis)
+        return api.alltoall(api.allreduce(s * 2.0, axis), axis)
+    x = torch.arange(16 * 16, dtype=torch.float32).reshape(16, 16) / 7.0
+    w = torch.ones((16, 16), dtype=torch.float32) * 0.5
+    t0 = time.perf_counter()
+    res = rewrite(body, x[4 * axis.rank:4 * axis.rank + 4][None], w,
+                  force=dict(REWRITE_FORCE))
+    return {"bitexact": res.bitexact, "diffs": res.diffs,
+            "changed": sorted([r.cell.op, r.impl] for r in res.changed),
+            "matched": sorted({r.cell.op for r, _ in res.matched}),
+            "unmatched": [r.cell.op for r in res.unmatched_records],
+            "extra": [s.name for s in res.extra_sites],
+            "seconds": time.perf_counter() - t0}
+
+
+def step_roofline(torch, dev, served: dict, card: str, tag: str) -> dict:
+    """(b): phase 10's llama3.2-3b TP-P stacked prefill (``SERVE_BATCH`` x
+    ``SERVE_PROMPT``) and one decode step captured on fake tensors on the
+    card's device, ``ref`` attention (the kernels cannot be traced), and
+    their bounds on the H100's data-sheet rates against phase 10's
+    measured times and peak memory."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.analysis.graph import capture, program_costs
+    from repro_torch.analysis.roofline import (H100_SXM, model_flops,
+                                               roofline_terms)
+    from repro_torch.configs import get_config
+    from repro_torch.core._axis import StackedAxis
+    from repro_torch.dist.axes import bind
+    from repro_torch.launch import dryrun, serve as sv
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.models import lm
+    from repro_torch.models.params import torch_dtype, tree_map_specs
+
+    cfg = get_config(DRYRUN_ARCH)
+    if cfg.attn_impl != "ref":
+        raise RuntimeError(f"{cfg.name}: attn_impl {cfg.attn_impl}")
+    axis = StackedAxis(P, dev)
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    with mode:
+        params = tree_map_specs(lambda s: torch.empty(
+            (P,) + s.local_shape({"model": P}), dtype=torch_dtype(s.dtype),
+            device=dev), lm.model_specs(cfg, P))
+        tokens = torch.empty((SERVE_BATCH, SERVE_PROMPT), dtype=torch.int64,
+                             device=dev)
+        tok = torch.empty((SERVE_BATCH, 1), dtype=torch.int64, device=dev)
+        with bind(model=axis):
+            caches = lm.init_caches(cfg, SERVE_BATCH, SERVE_SLOTS)
+    measured = served["serves"]["default"]
+    steps = {
+        "prefill": (sv.build_prefill(cfg, axis),
+                    (params, {"tokens": tokens}, caches),
+                    ShapeCell("phase10_prefill", SERVE_PROMPT, SERVE_BATCH,
+                              "prefill"), measured["prefill_ms"]),
+        "decode": (sv.build_decode(cfg, axis),
+                   (params, tok, dryrun.with_len(caches, SERVE_PROMPT),
+                    SERVE_PROMPT),
+                   ShapeCell("phase10_decode", SERVE_SLOTS, SERVE_BATCH,
+                             "decode"), measured["decode_ms_per_token"])}
+    peak = int(served["peak_bytes"])
+    out = {}
+    for name, (fn, args, cell, ms) in steps.items():
+        t0 = time.perf_counter()
+        gm = capture(fn, *args)
+        pc = program_costs(gm)
+        cap_s = time.perf_counter() - t0
+        rl = roofline_terms(DRYRUN_ARCH, name, f"TP {P} stacked", cost={},
+                            coll={}, cfg=cfg, cell=cell, n_devices=1,
+                            chip=H100_SXM, flops_override=pc["dot_flops"],
+                            bytes_override=pc["bytes"], dtype=cfg.dtype,
+                            stacked=True)
+        mf = model_flops(cfg, cell, 1)
+        t_model = mf / H100_SXM.flops(cfg.dtype) * 1e3
+        t_args = pc["argument_bytes"] / H100_SXM.hbm_bytes_per_s * 1e3
+        bound = rl.step_time_bound * 1e3
+        row = {"program_costs": {k: pc[k] for k in (
+            "dot_flops", "bytes", "nodes", "argument_bytes", "output_bytes",
+            "peak_live_bytes")}, "roofline": rl.row(),
+            "bound_ms": bound, "model_flops": mf,
+            "model_flops_ms": t_model, "argument_bytes_ms": t_args,
+            "measured_ms": ms, "share_graph": bound / ms,
+            "share_model_flops": t_model / ms,
+            "share_argument_bytes": t_args / ms, "capture_s": cap_s}
+        out[name] = row
+        log(f"[{tag}b] {DRYRUN_ARCH} {name} (TP {P} stacked, "
+            f"{SERVE_BATCH} x {SERVE_PROMPT if name == 'prefill' else 1} "
+            f"tokens, ref attention, fake tensors on {dev}): "
+            f"{pc['nodes']} nodes captured in {cap_s:.1f} s; dot flops "
+            f"{pc['dot_flops']:.4e}, eager bytes {pc['bytes']:.4e}, "
+            f"argument bytes {pc['argument_bytes']:.4e}, peak live "
+            f"{pc['peak_live_bytes']:.4e}")
+        log(f"[{tag}b] {name} bound on the data sheet ({H100_SXM.source}): "
+            f"graph {bound:.4f} ms ({rl.bottleneck}: compute "
+            f"{rl.t_compute * 1e3:.4f} ms, memory {rl.t_memory * 1e3:.4f} "
+            f"ms), model flops {mf:.4e} -> {t_model:.4f} ms, arguments "
+            f"read once {t_args:.4f} ms; phase 10 measured {ms:.3f} ms "
+            f"({card}): share of the graph bound {bound / ms:.4f}, by "
+            f"model flops {t_model / ms:.4f}, by argument bytes "
+            f"{t_args / ms:.4f}")
+    est = out["prefill"]["program_costs"]
+    log(f"[{tag}b] the prefill graph's memory estimate: arguments "
+        f"{est['argument_bytes'] / 1e9:.3f} GB + peak live "
+        f"{est['peak_live_bytes'] / 1e9:.3f} GB = "
+        f"{(est['argument_bytes'] + est['peak_live_bytes']) / 1e9:.3f} GB "
+        f"(eager, ref attention, no frees but last uses) beside phase 10's "
+        f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB (flash "
+        "attention, tune_trace's replays included)")
+    out["phase10_peak_bytes"] = peak
+    return out
+
+
+def analysis_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
+                   card: str, topo, served: dict, tag: str = "22") -> dict:
+    """Analysis at the graph layer: (a) the dry run of ``DRYRUN_ARCH`` at
+    full width and depth on the 16 x 16 and 2 x 16 x 16 fake worlds, every
+    shape, priced on phase 5's fitted ``Topo``; (b) ``step_roofline``;
+    (c) the rewrite mode on a gloo world of 4 on the host CPU; (d) the
+    tuning-potential lines of (a)'s prefill and decode graphs.  Nothing
+    here launches a kernel (fake tensors, gloo on the CPU): the counts of
+    ``wrappers`` are zeroed before and must read 0 after."""
+    from repro_torch.launch.mesh import spawn
+
+    t_phase = time.perf_counter()
+    zero_counts(wrappers)
+    out: dict = {}
+    # the fake process-group backend the dry run's worlds are made of
+    # (``launch.mesh.init_fake_world``); a torch without it fails (a)
+    import torch.testing._internal.distributed.fake_pg as fake_pg
+    out["fake_pg"] = f"{fake_pg.__name__} (torch {torch.__version__})"
+    log(f"[{tag}a] fake process group: torch's \"fake\" backend from "
+        f"{out['fake_pg']}")
+    # (a) the dry run, in a process of its own: the fake world must be
+    # that process's default group
+    topo_path = out_dir / "topo.json"
+    topo_path.write_text(json.dumps(dataclasses.asdict(topo)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           DRYRUN_ARCH, "--shape", "all", "--multi-pod", "both", "--topo",
+           str(topo_path), "--jobs", str(DRYRUN_JOBS), "--out",
+           str(out_dir / "dryrun"), *DRYRUN_FLAGS]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                       timeout=DRYRUN_TIMEOUT_S)
+    dry_s = time.perf_counter() - t0
+    cells = [json.loads(ln) for ln in r.stdout.splitlines()
+             if ln.startswith("{")]
+    log(f"[{tag}a] {' '.join(cmd[1:])}: exit {r.returncode}, "
+        f"{len(cells)} cells in {dry_s:.1f} s (fake worlds, host CPU)")
+    for c in cells:
+        if c["status"] == "skip":
+            log(f"[{tag}a] {c['arch']} {c['shape']} {c['mesh']}: skip "
+                f"({c['reason']})")
+            continue
+        log(f"[{tag}a] {c['arch']} {c['shape']} {c['mesh']}: "
+            f"{c['status']}, {c.get('sites')} sites, unmapped "
+            f"{c.get('unmapped')}, trace_s {c.get('trace_s')}, roofline "
+            f"{json.dumps(c.get('roofline'))}")
+    bad = [c for c in cells if c["status"] == "error" or (
+        c["status"] == "ok" and (c["unmapped"] or not c["pgmpi_footer"]))]
+    skips = {c["shape"] for c in cells if c["status"] == "skip"}
+    if r.returncode or bad or len(cells) != 8 or skips != {"long_500k"}:
+        raise RuntimeError(f"dry run: exit {r.returncode}, bad cells "
+                           f"{[(c['shape'], c['mesh'], c.get('error')) for c in bad]}, "
+                           f"skips {skips}; stderr {r.stderr[-2000:]}")
+    out["dryrun"] = {"seconds": dry_s, "cells": [
+        {k: c.get(k) for k in ("shape", "mesh", "status", "reason", "sites",
+                               "trace_s", "roofline", "memory",
+                               "collectives", "tuning_potential",
+                               "modeled_collective_latency_us")}
+        for c in cells]}
+
+    # (b) the roofline of the card's own steps
+    out["steps"] = step_roofline(torch, dev, served, card, tag)
+
+    # (c) the rewrite mode across processes
+    host = f"gloo, host CPU ({cpu_model()}), no card number"
+    t0 = time.perf_counter()
+    ranks = spawn(rewrite_rank, 4, backend="gloo", timeout_s=GROUP_TIMEOUT_S)
+    rw_s = time.perf_counter() - t0
+    for i, g in enumerate(ranks):
+        if not g["bitexact"] or g["changed"] != REWRITE_CHANGED or \
+                g["unmatched"] or g["extra"] or g["matched"] != [
+                    "allgather", "allreduce", "alltoall", "reducescatter"]:
+            raise RuntimeError(f"rewrite rank {i}: {g}")
+    log(f"[{tag}c] rewrite on a world of 4 ({host}): bit-exact on every "
+        f"rank, changed {ranks[0]['changed']}, matched "
+        f"{ranks[0]['matched']}, unmatched [], extra []; "
+        f"{rw_s:.1f} s with the world's start")
+    out["rewrite"] = {"ranks": ranks, "seconds": rw_s, "host": host}
+
+    # (d) the tuning-potential report of (a)'s prefill and decode graphs
+    for c in cells:
+        if c["shape"] in ("prefill_32k", "decode_32k"):
+            tp = c["tuning_potential"]
+            log(f"[{tag}d] {c['arch']} {c['shape']} {c['mesh']} on "
+                f"{tp['topo']}: {tp['line']}")
+    after = counts(wrappers)
+    if any(after.values()):
+        raise RuntimeError(f"phase {tag} launched kernels: {after}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[{tag}] analysis phase in {out['seconds']:.1f} s; no kernel "
+        "launched (fake tensors, gloo on the CPU)")
+    return out
+
+
 def block(api, axis, torch, x, wv, wo, wgu, wd):
     """One llama3.2-3b sequence-parallel block on stacked ranks.
 
@@ -4816,6 +5074,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    global H100_BYTES_PER_S, H100_FLOPS
+    from repro_torch.analysis.roofline import H100_BYTES_PER_S, H100_FLOPS
     from repro_torch.core import api, collectives as C, costmodel, measure
     from repro_torch.core import profiles, selfcheck, trace, tuner
     from repro_torch.core._axis import StackedAxis
@@ -5779,6 +6039,11 @@ def main(argv=None) -> int:
     mla_row["fleet_launches"] = report["fleet"]["paths"].get("mla", 0)
     d256["fleet_launches"] = report["fleet"]["d256_paths"]
     enc_row["fleet_launches"] = report["fleet"]["d64_paths"]
+
+    phase("22")
+    # -- 22. analysis at the graph layer: dry run, roofline, rewrite -------
+    report["analysis"] = analysis_phase(torch, dev, out_dir, every, card,
+                                        topo, report["serve"])
     phase(None)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -34,6 +34,7 @@ import math
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import is_fake
 
 
 def resolve_device(device=None) -> torch.device:
@@ -73,6 +74,14 @@ def tree_rounds(p: int) -> int:
     while (1 << r) < p:
         r += 1
     return r
+
+
+def _keep(cache: dict, key, t: torch.Tensor) -> None:
+    """Cache ``t`` unless it is a fake tensor (made while a program is
+    captured on fake tensors, ``analysis.graph.capture``): a real run
+    after the capture must not meet it."""
+    if not is_fake(t):
+        cache[key] = t
 
 
 class StackedAxis:
@@ -129,7 +138,7 @@ class StackedAxis:
         if t is None:
             t = ((torch.arange(self.lanes, device=self.device)
                   // self.stride) % self.p).to(dtype)
-            self._index[dtype] = t
+            _keep(self._index, dtype, t)
         return t
 
     def lane_index(self) -> torch.Tensor:
@@ -365,7 +374,7 @@ class GroupAxis:
         t = self._index.get(dtype)
         if t is None:
             t = torch.tensor([self.rank], dtype=dtype, device=self.device)
-            self._index[dtype] = t
+            _keep(self._index, dtype, t)
         return t
 
     def lane_index(self) -> torch.Tensor:
@@ -475,8 +484,14 @@ class GroupAxis:
 
 def _group_device(device) -> torch.device:
     """The device of a process axis: it must be the backend's (NCCL the
-    card, gloo the CPU)."""
+    card, gloo the CPU).  The fake backend (``launch.mesh.init_fake_world``)
+    moves no data: its tensors are fake, and the device (default the
+    CPU) only labels them, so a ``cuda`` label needs no card."""
     backend = dist.get_backend()
+    if backend == "fake":
+        dev = torch.device("cpu" if device is None else device)
+        return torch.device(dev.type, 0) if (
+            dev.type == "cuda" and dev.index is None) else dev
     dev = resolve_device(device)
     if backend == "nccl" and dev.type != "cuda":
         raise ValueError(f"NCCL runs on the card, not on {dev}")

@@ -45,6 +45,29 @@ OP_MM_ROLE = {
     "matmul_reducescatter_2d": "2d",
 }
 
+#: mm_role -> fused dispatcher op (the inverse of ``OP_MM_ROLE``; both
+#: 2-D roles fold onto the one 2-D op)
+ROLE_TO_OP = {
+    "gather": "allgather_matmul",
+    "scatter": "matmul_reducescatter",
+    "contract": "matmul_accumulate",
+    "2d": "matmul_reducescatter_2d",
+    "2dT": "matmul_reducescatter_2d",
+}
+
+#: collective class -> dispatcher op name, under the JAX package's HLO
+#: class names (``analysis.graph`` normalises every c10d op to these, so
+#: the two packages' sites compare field by field).  collective-permute has
+#: no dispatcher registry entry (no mock-ups) but still gets a cell, so a
+#: graph scan maps EVERY collective.
+HLO_TO_OP = {
+    "all-gather": "allgather",
+    "all-reduce": "allreduce",
+    "reduce-scatter": "reducescatter",
+    "all-to-all": "alltoall",
+    "collective-permute": "collective_permute",
+}
+
 #: element sizes of the dtypes numpy does not know by name
 _ITEMSIZE = {"bfloat16": 2, "float8_e4m3fn": 1, "float8_e5m2": 1}
 
@@ -140,6 +163,36 @@ class OpCell:
             return None
         return Geom(self.dtype, self.mm_k, self.mm_m, self.mm_n,
                     self.mm_role, self.p2)
+
+    @classmethod
+    def plain(cls, op: str, p: int, nbytes: int,
+              dtype: str = "float32") -> "OpCell":
+        return cls(op=op, p=p, nbytes=nbytes, dtype=dtype)
+
+    @classmethod
+    def from_hlo(cls, base_op: str, p: int, nbytes: int,
+                 dtype: str = "float32", *,
+                 gemm: "tuple[int, int, int] | None" = None,
+                 mm_role: str = "") -> "OpCell":
+        """The tuning cell of one collective site of a captured program.
+
+        ``base_op`` is the collective class (``"all-gather"``,
+        ``"reduce-scatter"``, ...; ``HLO_TO_OP``).  A site adjacent to a
+        matmul (an all-gather feeding it, or a matmul feeding a
+        reduce-scatter) passes ``gemm=(mm_k, mm_m, mm_n)`` and ``mm_role``
+        and maps to the FUSED dispatcher op, so the cost model prices the
+        fused-ring mock-ups against what the program ran.  Raises
+        ``KeyError`` for a class with no dispatcher op (callers report it
+        as unmapped, never skip it)."""
+        if gemm is not None and mm_role:
+            mm_k, mm_m, mm_n = gemm
+            return cls(op=ROLE_TO_OP[mm_role], p=p, nbytes=nbytes,
+                       dtype=dtype, mm_k=mm_k, mm_m=mm_m, mm_n=mm_n,
+                       mm_role=mm_role)
+        op = HLO_TO_OP.get(base_op)
+        if op is None:
+            raise KeyError(f"no dispatcher op for collective {base_op!r}")
+        return cls.plain(op, p, nbytes, dtype)
 
     # -- derived cells -------------------------------------------------------
     def scaled_to(self, nbytes: int) -> "OpCell":

@@ -6,8 +6,12 @@ one device, ``core._axis.StackedMesh``); ``make_group_mesh`` builds the
 process mesh (``GroupMesh``, one rank per process over
 ``torch.distributed``), for which ``init_world`` starts the process
 group and ``spawn`` runs a function on every rank of a fresh world of
-local processes.  ``make_production_mesh`` (16 x 16 or 2 x 16 x 16
-chips) has no counterpart.
+local processes.  ``make_production_mesh`` builds the JAX package's
+production meshes (16 x 16, or 2 x 16 x 16 with a pod axis) as a
+``GroupMesh`` over a fake world (``init_fake_world``): torch's ``"fake"``
+process-group backend, whose collectives move nothing, so one process
+can capture (``analysis.graph.capture``) what each of 256 or 512 ranks
+would run, on fake tensors (``launch.dryrun``).
 
 NCCL is the default backend and runs one rank per GPU: it refuses two
 ranks on one card, so a world above the number of visible GPUs raises.
@@ -67,6 +71,50 @@ def init_world(backend: str = "nccl", *, rank: int, world: int,
     dist.init_process_group(backend, init_method=init_method, store=store,
                             rank=rank, world_size=world,
                             timeout=COLLECTIVE_TIMEOUT)
+
+
+def init_fake_world(world: int, *, rank: int = 0) -> None:
+    """Make this process rank ``rank`` of a fake world of ``world`` ranks:
+    torch's ``"fake"`` backend (``torch.testing._internal.distributed.
+    fake_pg``), whose collectives return their outputs unfilled and wait
+    for no one.  Only fake tensors should meet it (a capture); it raises
+    if a default process group already exists
+    (``dist.destroy_process_group`` ends the fake world)."""
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"a default process group ({dist.get_backend()}, world "
+            f"{dist.get_world_size()}) already exists: destroy it before "
+            "making a fake world")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    warnings.filterwarnings("ignore", message=_OLD_NAMES)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+
+
+#: the JAX package's production meshes: a 16 x 16 (data, model) pod, and
+#: two of them over a pod axis
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> GroupMesh:
+    """The production mesh as a ``GroupMesh`` of the fake world
+    (``init_fake_world(256)``, or ``512`` with ``multi_pod``); any other
+    world raises.  ``device`` labels the fake tensors (default the
+    CPU)."""
+    shape, names = PRODUCTION_MESHES[bool(multi_pod)]
+    n = 1
+    for s in shape:
+        n *= s
+    if not dist.is_initialized() or dist.get_backend() != "fake" \
+            or dist.get_world_size() != n:
+        have = (f"{dist.get_backend()} world {dist.get_world_size()}"
+                if dist.is_initialized() else "no process group")
+        raise RuntimeError(f"the {'x'.join(map(str, shape))} production "
+                           f"mesh needs a fake world of {n} "
+                           f"(init_fake_world({n})), not {have}")
+    return GroupMesh(shape, names, device)
 
 
 def make_host_mesh(shape, axes, device=None) -> StackedMesh:

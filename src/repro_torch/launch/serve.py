@@ -38,9 +38,9 @@ same prefill, and the prompt is cut to the smoke size).  Without
 Across processes, ``axis`` is a ``GroupAxis`` (TP, one rank a process)
 or a (data, model) ``GroupMesh`` (``launch.mesh``): each process holds
 one lane, the full-vocab logits are gathered with the axis' own
-``all_gather`` (every rank holds them and picks the same tokens), and
-the sequence-sharded decode raises ``NotImplementedError`` there.  The
-CLI runs it over gloo on the CPU with ``--world N --dist-backend gloo``
+``all_gather`` (every rank holds them and picks the same tokens); in the
+sequence-sharded decode each process holds its own shard, and the data
+rank that owns a slot writes it.  The CLI runs it over gloo on the CPU with ``--world N --dist-backend gloo``
 (TP N, or ``--mesh dxt`` with d*t = N); the measured tune replays the
 cells whose world is N, and rank 0 writes the profiles every rank
 tuned (``profiles.publish``).
@@ -172,11 +172,6 @@ def build_decode(cfg: ModelConfig, axis, cell: ShapeCell | None = None, *,
     data rank.  With ``plan=`` the step takes a trailing plan vector
     (module docstring)."""
     seq = bool(cell is not None and cell.seq_sharded)
-    if seq and spans_processes(axis):
-        raise NotImplementedError(
-            "the sequence-sharded decode indexes stacked lanes "
-            "(models.attention._lanes_at); it does not run on a process "
-            "axis")
 
     if plan is None:
         def step(params, token, caches, t: int):
@@ -327,7 +322,13 @@ def _decode_loop(cfg, axis, decode, params, caches, tok, t0: int,
         if step_s is not None:
             t_a = time.perf_counter()
         logits, caches = decode(params, lanes, caches, t0 + step, *extra)
-        if seq:
+        if seq and spans_processes(axis):
+            # every data rank holds the same logits: gather the data
+            # ranks' to read their spread from data rank 0's
+            lg = _vocab_of(logits, _model_axis(axis))
+            every = axis["data"].all_gather(lg[None], tiled=False)[0]
+            spread.append((every - every[:1]).abs().amax())
+        elif seq:
             # every data rank holds the same logits: read data rank 0's
             t = _model_axis(axis).size
             per = logits.reshape(d, t, *logits.shape[1:])
@@ -533,7 +534,7 @@ def _cli(args) -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import collectives as C, tuner
     from repro_torch.core.trace import Trace
-    from repro_torch.models.params import init_tree
+    from repro_torch.models.params import init_tree, local
 
     procs = bool(args.world)
     cfg = dataclasses.replace(get_config(args.arch).smoke(),
@@ -542,10 +543,8 @@ def _cli(args) -> int:
     seq = bool(cell is not None and cell.seq_sharded)
     axis = _mesh(args.mesh, args.tp, args.device, procs)
     say = print if not procs or axis.mesh_rank == 0 else (lambda *a: None)
-    if seq and (procs or not is_mesh(axis)):
-        raise SystemExit("--shape long_500k needs --mesh dxt on stacked "
-                         "ranks (the sequence-sharded decode does not run "
-                         "across processes)")
+    if seq and not is_mesh(axis):
+        raise SystemExit("--shape long_500k needs --mesh dxt")
     batch = 1 if seq else args.batch
     d = _data_size(axis)
     t = _model_axis(axis).size
@@ -588,7 +587,7 @@ def _cli(args) -> int:
             mparams, {"tokens": prompts}, caches)
         lg0 = full_vocab(logits)
         clone = clone_caches(caches)
-        shards = seq_shards(caches, d)
+        shards = local(seq_shards(caches, d), axis)
         s0 = args.prompt_len
 
         def run(phases=None):

@@ -23,15 +23,29 @@ PartitionSpec)`` pairs.  The trees are the port's: a scanned group is a
 list of per-layer subtrees, and a cache's filled length is a host int,
 not a leaf.  ``mesh`` is a ``StackedMesh`` or any object whose
 ``.shape`` maps axis names to sizes.
+
+``local_args(cfg, cell, mesh)`` turns every leaf into a fake tensor of
+its LOCAL shape (each global dim divided by the product of the mesh axes
+it is cut over), the optimizer state of a train cell included, with the
+lane dim in front: what one process of a ``GroupMesh`` holds, or the
+``[L, ...]`` stack of a ``StackedMesh``.  It takes the place of the JAX
+package's ``tree_pspecs``, ``tree_global_sds``, ``batch_pspec``,
+``_cache_pspecs``, ``_opt_sds`` and ``trainer.opt_state_pspecs``: the
+port has no ``PartitionSpec``, and ``launch.dryrun`` captures a cell on
+these fake arguments.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
+import torch
+
+from repro_torch.core._axis import spans_processes
 from repro_torch.data.synthetic import batch_specs
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import ParamSpec, tree_map_specs
+from repro_torch.models.params import ParamSpec, torch_dtype, tree_map_specs
 from repro_torch.optim.optimizers import state_specs
 
 
@@ -165,3 +179,40 @@ def input_specs(cfg: ModelConfig, cell: ShapeCell, mesh) -> tuple:
                   (None, None) if cell.seq_sharded else (_batch_dim(mesh),
                                                           None))
     return params, tok, caches, ArgSpec((), "int32", ())
+
+
+def map_args(fn, tree):
+    """Apply ``fn`` to every ``ArgSpec`` leaf of nested tuples, dicts and
+    lists (other leaves are kept)."""
+    if isinstance(tree, ArgSpec):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_args(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_args(fn, v) for v in tree]
+    if isinstance(tree, tuple):
+        return tuple(map_args(fn, v) for v in tree)
+    return tree
+
+
+def local_args(cfg: ModelConfig, cell: ShapeCell, mesh, *, device=None,
+               mode=None) -> tuple:
+    """``input_specs(cfg, cell, mesh)`` with every ``ArgSpec`` leaf a fake
+    tensor ``[L, *local_shape]`` (a scalar leaf stays 0-d): ``L`` is 1 on
+    a process mesh (``GroupMesh``, one lane a process) and the number of
+    lanes on a stacked one.  The tensors live in ``mode`` (a new
+    ``FakeTensorMode`` that lets the program's own real constants in) on
+    ``device`` (default the mesh's), so a cell of any size costs no
+    memory; ``analysis.graph.capture`` traces on them."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    sizes = mesh_sizes(mesh)
+    lanes = 1 if spans_processes(mesh) else math.prod(sizes.values())
+    mode = mode or FakeTensorMode(allow_non_fake_inputs=True)
+    dev = device if device is not None else getattr(mesh, "device", "cpu")
+
+    def fake(a: ArgSpec):
+        shape = () if not a.shape else (lanes,) + a.local_shape(sizes)
+        with mode:
+            return torch.empty(shape, dtype=torch_dtype(a.dtype),
+                               device=dev)
+    return map_args(fake, input_specs(cfg, cell, mesh))

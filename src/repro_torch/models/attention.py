@@ -67,6 +67,7 @@ import math
 import torch
 
 from repro_torch.core import api
+from repro_torch.core._axis import spans_processes
 from repro_torch.dist import ops
 from repro_torch.dist.axes import (AXES, axis_index, axis_size_or_1,
                                    get_axis, has_axis)
@@ -481,7 +482,8 @@ def _decode_seq_sharded(cfg: ModelConfig, q, k_new, v_new, cache, *,
     cache k/v ``[L, B, S_loc, KVloc, hd]``, data rank i holding the
     absolute slots ``[i*S_loc, (i+1)*S_loc)``, ``"len"`` the global
     length t before this token (a host int).  The new token goes to slot
-    ``t % S_loc`` of the lanes of data rank ``t // S_loc`` only; every
+    ``t % S_loc`` of the lanes of data rank ``t // S_loc`` only (on a
+    process axis, by the process whose data rank that is); every
     lane takes its partial over its own slots (grouped heads, no repeated
     cache) and the partials combine over ``data``: the maxima through
     ``StackedAxis.pmax``, the weighted outputs and row sums through
@@ -496,9 +498,16 @@ def _decode_seq_sharded(cfg: ModelConfig, q, k_new, v_new, cache, *,
     owner, slot = divmod(t, s_loc)
     if owner >= d:
         raise ValueError(f"the cache's {d} x {s_loc} slots are full at {t}")
-    sel = _lanes_at(data, owner) if data is not None else slice(None)
-    for buf, new in ((cache["k"], k_new), (cache["v"], v_new)):
-        buf[sel, :, slot] = new[sel, :, 0].to(buf.dtype)
+    if data is None:
+        sel = slice(None)
+    elif spans_processes(data):
+        # one lane a process: write where this data rank owns the slot
+        sel = slice(0, 1) if data.rank == owner else None
+    else:
+        sel = _lanes_at(data, owner)
+    if sel is not None:
+        for buf, new in ((cache["k"], k_new), (cache["v"], v_new)):
+            buf[sel, :, slot] = new[sel, :, 0].to(buf.dtype)
     new_cache = {"k": cache["k"], "v": cache["v"], "len": t + 1}
 
     tp = axis_size_or_1(AXES.model)

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.dist import ops
 from repro_torch.dist.axes import AXES, axis_index, get_axis, has_axis
@@ -126,8 +127,15 @@ class _TakeRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         (rows,) = ctx.saved_tensors
-        uniq, inv = torch.unique(rows, return_inverse=True)
         wide = torch.promote_types(g.dtype, torch.float32)
+        if is_fake(rows):
+            # a capture on fake tensors (analysis.graph) cannot size
+            # unique's output: the same sums, into a table-sized buffer
+            acc = torch.zeros(ctx.n_rows, g.shape[-1], dtype=wide,
+                              device=g.device).index_add_(0, rows,
+                                                          g.to(wide))
+            return acc.to(g.dtype), None
+        uniq, inv = torch.unique(rows, return_inverse=True)
         acc = torch.zeros(uniq.numel(), g.shape[-1], dtype=wide,
                           device=g.device).index_add_(0, inv, g.to(wide))
         dt = g.new_zeros(ctx.n_rows, g.shape[-1])

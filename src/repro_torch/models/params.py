@@ -137,8 +137,9 @@ def layout(axis, name: str = "model") -> list[tuple[str, int]]:
 def local(tree, axis):
     """This process's lane of stacked ``[L, ...]`` shards on a process
     axis or mesh: each tensor leaf's lane ``axis.mesh_rank`` as ``[1,
-    ...]`` (a copy, so the other lanes can be freed).  On a stacked axis
-    the tree is returned as it is."""
+    ...]`` (a copy, so the other lanes can be freed); a leaf that is no
+    tensor (a cache's filled length) is kept.  On a stacked axis the tree
+    is returned as it is."""
     if not spans_processes(axis):
         return tree
     r = axis.mesh_rank
@@ -146,6 +147,8 @@ def local(tree, axis):
         return {k: local(v, axis) for k, v in tree.items()}
     if isinstance(tree, list):
         return [local(v, axis) for v in tree]
+    if not isinstance(tree, torch.Tensor):
+        return tree
     return tree[r:r + 1].clone()
 
 
