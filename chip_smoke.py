@@ -36,16 +36,20 @@ Phases (each raises on failure; nothing is caught):
    zamba2's shared-attention shape (dh 64, 4 heads and 4 KV heads per
    rank) and phi3.5-moe's (dh 128, 4 q heads over 1 KV head per rank:
    its prefill on ``wgmma``, every decode step's length on ``split_kv``)
-   and, on its ``"mla"`` path, deepseek-v3's at TP 8 (q ``[32, S, 1, 16,
+   and, on its MLA paths, deepseek-v3's at TP 8 (q ``[32, S, 1, 16,
    576]``, the latent keys ``[32, S, 1, 576]``, v their first 512
-   columns as a view, scale ``1 / sqrt(192)``): the prefill and every
-   decode kv_len 1025-1056, v also as its own tensor, two planted faults,
-   times, bound, SDPA (E = 576, Ev = 512) and the kernels SDPA ran; and
-   at head dim 256 (phases 17-18): gemma3-1b's prefill per lane on
-   ``mma_sync`` (global and windowed), paligemma-3b's prefix split (the
-   prefix rows non-causal, the text rows from q0 = 256), gemma3-1b's
-   decode at kv_len 1056 on ``split_kv``, each timed beside its bound and
-   SDPA, and the prefix edge one key late, which the limit must reject;
+   columns as a view, scale ``1 / sqrt(192)``): the prefill on
+   ``"mla_wgmma"`` and every decode kv_len 1025-1056 on ``"mla"``, v also
+   as its own tensor (``"mla"``), two planted faults, times, bound, SDPA
+   (E = 576, Ev = 512) and the kernels SDPA ran; and at head dim 256
+   (phases 17-18): gemma3-1b's prefill per lane on ``wgmma`` (global and
+   windowed), paligemma-3b's prefix split (the prefix rows non-causal,
+   the text rows from q0 = 256), gemma3-1b's decode at kv_len 1056 on
+   ``split_kv``, each timed beside its bound and SDPA, the prefix edge
+   one key late, which the limit must reject, and a global and a local
+   layer of the long_500k prefill (q ``[1, 524 256, 1, 4, 256]``) held to
+   the plain version on two slices of 256 rows, timed by CUDA events over
+   3 launches beside the bound (and SDPA's flash backend, global);
    and at whisper-medium's shapes (phase 19, dh 64, non-causal, 1500
    encoder keys: not a multiple of the 128-key block): the encoder's
    self-attention and the cross-attention at prefill on ``wgmma``, at
@@ -53,7 +57,8 @@ Phases (each raises on failure; nothing is caught):
    timed beside its bound and SDPA, with two planted faults (the decode
    launched causal, the prefill's ragged last block left out);
    each kernel's path counts (the ring's ``wgmma``/``wmma``/``f32``,
-   flash's ``wgmma``/``split_kv``/``mma_sync``/``f32``); the ring's and
+   flash's ``wgmma``/``split_kv``/``mma_sync``/``mla_wgmma``/``mla``/
+   ``f32``); the ring's and
    flash's times both as the events mean over back-to-back calls (each
    ring call reads the error words back, a host round trip; a decode call
    is shorter than its host time) and as the kernel's device time from
@@ -185,7 +190,8 @@ Phases (each raises on failure; nothing is caught):
 16. serve deepseek-v3-671b at full width, cut to ``MLA_LAYERS`` = 2 of 61
    layers (MLA attention, 256 experts of d_ff 2048, top-8, 1 shared; TP
    p = 8 stacked: 16 q heads and 32 experts a rank; absorbed attention
-   through flash's ``"mla"`` path; phase 10's requests): (a) the default
+   through flash's MLA paths, ``"mla_wgmma"`` at prefill and ``"mla"`` at
+   decode; phase 10's requests): (a) the default
    serve, recording, routes probed; ``tune_trace`` (measured; cells whose
    replay passes ``MLA_REPLAY_CAP`` held out, logged), the profiles saved
    and reloaded; (b) the tuned re-serve, held as phase 15's (b); (c) the
@@ -200,7 +206,7 @@ Phases (each raises on failure; nothing is caught):
    ``tune_trace`` (the quantized wire held out), the tuned re-serve, and
    the same requests over model only (TP 4), each within ``SERVE_RTOL``;
    (b) the ``long_500k`` cell: a prompt of ``LONG_PROMPT`` tokens
-   prefilled on one model lane (flash on ``mma_sync``), its 524 288-slot
+   prefilled on one model lane (flash on ``wgmma``), its 524 288-slot
    cache laid out as 8 sequence shards on (data 8, model 1), 32
    sequence-sharded decode steps (the combine's allreduces over data
    dispatched; every data lane's logits bit-equal), 32 unsharded steps
@@ -312,16 +318,18 @@ attention must launch 16 x 33 times a serve, 16 on ``wgmma`` (the
 prefill) and 16 x 32 on ``split_kv``; each row carries its
 ``moe_serve_launches``.  They are zeroed again just before the MLA
 serve path (phase 16) and read after its third serve: flash attention
-must launch 2 x 33 times an absorbed serve, all on ``"mla"``; each row
-carries its ``mla_serve_launches``, and the kernels line lists the
-``"mla"`` path as ``flash_attention_mla`` (phase 3's prefill numbers),
-with its launches in phases 12-16 read from flash's counts by path.
+must launch 2 x 33 times an absorbed serve, 2 on ``"mla_wgmma"`` (the
+prefill) and 2 x 32 on ``"mla"``; each row carries its
+``mla_serve_launches``, and the kernels line lists the MLA paths as
+``flash_attention_mla`` (phase 3's prefill numbers, the ``mla_wgmma``
+kernel's), with its launches in phases 12-16 read from flash's counts by
+path (both MLA paths; ``paths`` splits them).
 They are zeroed again just before phase 17's path and read around each
-of its runs: 26 ``mma_sync`` and 26 x 32 ``split_kv`` launches a mesh or
-TP 4 serve, 26 ``mma_sync`` at the long prefill, none in a
+of its runs: 26 ``wgmma`` and 26 x 32 ``split_kv`` launches a mesh or
+TP 4 serve, 26 ``wgmma`` at the long prefill, none in a
 sequence-sharded decode (its partials are plain PyTorch, as the JAX
 package's), 26 x 32 ``split_kv`` in the unsharded one; and just before
-phase 18's: 2 x 18 ``mma_sync`` and 18 x 32 ``split_kv`` a flash serve;
+phase 18's: 2 x 18 ``wgmma`` and 18 x 32 ``split_kv`` a flash serve;
 and just before phase 19's: 3 x 24 ``wgmma`` (the encoder's, the
 self-attention's and the cross-attention's prefill launches) and 2 x 24
 x 32 ``split_kv`` a flash serve, all at head dim 64; and just before
@@ -868,11 +876,12 @@ def sdpa_fastest(torch, label: str, calls: dict):
 
 def check_flash_mla(torch, fa, randn, timed, check, planted, on_path,
                     last_path) -> dict:
-    """Phase 3 for the ``"mla"`` path: deepseek-v3-671b's absorbed
-    attention at TP 8 (phase 16's shapes: q ``[32, S, 1, 16, 576]``, the
-    latent keys ``[32, S, 1, 576]``, v their first 512 columns as a view,
-    scale ``1 / sqrt(192)``) against the plain version at the prefill
-    shape and at every decode kv_len, with v its own tensor too; times,
+    """Phase 3 for the MLA paths: deepseek-v3-671b's absorbed attention
+    at TP 8 (phase 16's shapes: q ``[32, S, 1, 16, 576]``, the latent keys
+    ``[32, S, 1, 576]``, v their first 512 columns as a view, scale ``1 /
+    sqrt(192)``) against the plain version at the prefill shape (on
+    ``"mla_wgmma"``) and at every decode kv_len (on ``"mla"``), with v its
+    own tensor too (``"mla"``); times,
     bound and ``scaled_dot_product_attention`` (E = 576, Ev = 512) at the
     prefill and the first and last decode kv_len: the faster of the
     grouped call (one KV head, ``enable_gqa``) and the call on k and v
@@ -900,7 +909,7 @@ def check_flash_mla(torch, fa, randn, timed, check, planted, on_path,
             efficient, lambda: sdpa(qb, kx, kx[..., :dv], is_causal=True,
                                     scale=scale))})
     prefill = timed("mla prefill", q, k, v, lib, causal=True, scale=scale)
-    on_path("mla prefill", "mla")
+    on_path("mla prefill", "mla_wgmma")
     err, share = check("mla prefill, v its own tensor", q, k,
                        k[..., :dv].contiguous(), scale=scale)
     on_path("mla prefill, v its own tensor", "mla")
@@ -948,8 +957,8 @@ def check_flash_mla(torch, fa, randn, timed, check, planted, on_path,
 
 
 def check_flash_d256(torch, fa, randn, timed, check, on_path) -> dict:
-    """Phase 3 at head dim 256 (phases 17-18's shapes, all on
-    ``mma_sync`` at prefill): gemma3-1b's prefill per lane on the (data 2,
+    """Phase 3 at head dim 256 (phases 17-18's shapes, all on ``wgmma`` at
+    prefill): gemma3-1b's prefill per lane on the (data 2,
     model 4) mesh (q ``[16, 1024, 1, 1, 256]``, global and its local
     layers' 512-key window); paligemma-3b's prefix split at TP 8, the
     prefix rows ``[32, 256, 1, 1, 256]`` non-causal over the prefix keys
@@ -957,8 +966,9 @@ def check_flash_d256(torch, fa, randn, timed, check, on_path) -> dict:
     all 1280 keys; gemma3-1b's decode at kv_len 1056 in a 2048-slot cache
     (``split_kv``); each held to its plain version, timed beside its
     bound and ``scaled_dot_product_attention`` (whose flash backend takes
-    dh 256); and the prefix edge one key late, which the limit must
-    reject."""
+    dh 256); the prefix edge one key late, which the limit must reject;
+    and a global and a local layer of the long_500k prefill
+    (``long_prefill``)."""
     from torch.nn.attention.bias import causal_lower_right
     from repro_torch.configs import get_config
     from repro_torch.models import attention as A
@@ -978,10 +988,10 @@ def check_flash_d256(torch, fa, randn, timed, check, on_path) -> dict:
     out["gemma prefill"] = timed(
         "gemma3-1b prefill dh 256", q, k, v,
         lambda: sdpa(qb, kb, vb, is_causal=True), causal=True)
-    on_path("gemma3-1b prefill dh 256", "mma_sync")
+    on_path("gemma3-1b prefill dh 256", "wgmma")
     w = get_config(LONG_ARCH).window
     err, share = check("gemma3-1b local prefill", q, k, v, window=w)
-    on_path("gemma3-1b local prefill", "mma_sync")
+    on_path("gemma3-1b local prefill", "wgmma")
     log(f"[3] flash_attention gemma3-1b local-layer prefill window {w}: "
         f"max_abs_err {err:.3e} ({share:.3f} of the limit)")
     # paligemma-3b at TP 8: its prefix rows and its text rows
@@ -993,7 +1003,7 @@ def check_flash_d256(torch, fa, randn, timed, check, on_path) -> dict:
         "paligemma prefix rows", pq, pk, pv,
         lambda: sdpa(qpb[:, :, :npf], kpb[:, :, :npf], vpb[:, :, :npf]),
         causal=False)
-    on_path("paligemma prefix rows", "mma_sync")
+    on_path("paligemma prefix rows", "wgmma")
     tq = qp[:, npf:]
     # the text rows' mask is causal aligned to the last key (query i sees
     # keys <= i + npf): SDPA's lower-right causal bias
@@ -1002,7 +1012,7 @@ def check_flash_d256(torch, fa, randn, timed, check, on_path) -> dict:
         "paligemma text rows", tq, kp, vp,
         lambda: sdpa(qpb[:, :, npf:], kpb, vpb, attn_mask=text_bias),
         causal=True, q0=npf)
-    on_path("paligemma text rows", "mma_sync")
+    on_path("paligemma text rows", "wgmma")
     # the split as the model runs it (two launches) against the plain
     # version of each half; then the prefix edge one key late
     before = fa.flash_attention.launches
@@ -1031,7 +1041,80 @@ def check_flash_d256(torch, fa, randn, timed, check, on_path) -> dict:
         f"gemma3-1b decode dh 256 kv_len {kv_len}", q1, kc, vc,
         lambda: sdpa(q1b, kcb, vcb), q0=kv_len - 1, kv_len=kv_len)
     on_path("gemma3-1b decode dh 256", "split_kv")
+    out["long prefill"] = long_prefill(torch, fa, randn)
     return out
+
+
+def long_prefill(torch, fa, randn) -> dict:
+    """A global and a local layer of gemma3-1b's long_500k prefill on one
+    model lane (q ``[1, LONG_PROMPT, 1, 4, 256]``, one launch each): the
+    output's first 256 query rows and 256 rows that see 511 x 1024 keys
+    held to the plain version over the keys they see (the local layer's
+    from the window's start, 768 keys); each timed with CUDA events over
+    3 launches beside its bound, the global layer beside
+    ``scaled_dot_product_attention`` on its flash backend (k and v
+    expanded to the 4 heads)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.configs import get_config
+    cfg = get_config(LONG_ARCH)
+    n_q, dh, w, L = cfg.n_heads, cfg.hd, cfg.window, LONG_PROMPT
+    q = randn(1, L, 1, n_q, dh)
+    k, v = (randn(1, L, 1, dh) for _ in range(2))
+    out = {}
+    for label, kw in (("global", dict(causal=True)),
+                      ("local", dict(causal=True, window=w))):
+        before = dict(fa.flash_attention.launches_by_path)
+        got = fa.flash_attention(q, k, v, **kw)
+        took = {p_: n for p_, n in path_delta(fa.flash_attention,
+                                              before).items() if n}
+        if took != {"wgmma": 1}:
+            raise RuntimeError(f"long prefill {label} layer: paths {took}, "
+                               "not one wgmma launch")
+        worst = 0.0
+        for r0 in (0, L // 1024 * 1024 - 256):   # keys whole plain chunks
+            k0 = max(0, r0 - w) if label == "local" else 0
+            want = fa.flash_attention_plain(
+                q[:, r0:r0 + 256], k[:, k0:r0 + 256], v[:, k0:r0 + 256],
+                q0=r0 - k0, **kw)
+            lim = fa.tolerance(q[:, r0:r0 + 256], k[:, k0:r0 + 256],
+                               v[:, k0:r0 + 256], want, q0=r0 - k0, **kw)
+            share = float(((got[:, r0:r0 + 256].float() - want.float()).abs()
+                           / lim).max())
+            if not share <= 1.0 or not bool(torch.isfinite(
+                    got[:, r0:r0 + 256].float()).all()):
+                raise RuntimeError(f"long prefill {label} layer: rows "
+                                   f"{r0}.. at {share:.3f} of the limit")
+            worst = max(worst, share)
+        del got
+        flops, byts = flash_work(1, L, 1, n_q, dh, 0, L, True,
+                                 kw.get("window", 0), q.element_size())
+        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw),
+                     iters=3, warmup=1)
+        bound = max(flops / H100_FLOPS["bfloat16"],
+                    byts / H100_BYTES_PER_S) * 1e3
+        out[label] = {"ms": ms, "bound_ms": bound, "share_of_limit": worst,
+                      "tflops": flops / ms / 1e9}
+        log(f"[3] flash_attention long_500k {label} layer q{list(q.shape)} "
+            f"{kw}: rows 0..255 and {L // 1024 * 1024 - 256}.. within "
+            f"{worst:.3f} of the limit; {ms:.3f} ms (events, mean of 3) "
+            f"bound {bound:.3f} ms ({flops / 1e12:.1f} TFLOP) = "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+    qb = q.reshape(1, L, n_q, dh).transpose(1, 2)
+    kx, vx = (t.reshape(1, L, 1, dh).transpose(1, 2).expand(
+        1, n_q, L, dh).contiguous() for t in (k, v))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        lib = time_ms(torch, lambda: torch.nn.functional
+                      .scaled_dot_product_attention(qb, kx, vx,
+                                                    is_causal=True),
+                      iters=3, warmup=1)
+    out["global"]["library_ms"] = lib
+    log(f"[3] long_500k global layer: scaled_dot_product_attention (flash "
+        f"backend, k and v expanded to {n_q} heads) {lib:.3f} ms; the "
+        f"kernel {out['global']['ms'] / lib:.2f}x of it")
+    del q, k, v, qb, kx, vx
+    torch.cuda.empty_cache()
+    return out
+
 
 
 def check_flash_encdec(torch, randn, timed, check, planted, on_path,
@@ -3491,7 +3574,9 @@ def mla_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
         want_paths = dict.fromkeys(paths, 0)
         if c.attn_impl == "flash":
             want.update(per_serve)
-            want_paths["mla"] = per_serve["flash_attention"]
+            # the prefill on the wgmma kernel, every decode step on "mla"
+            want_paths["mla_wgmma"] = c.n_layers
+            want_paths["mla"] = per_serve["flash_attention"] - c.n_layers
         for kname in per_serve:
             if got[kname] != want[kname]:
                 raise RuntimeError(f"{c.name} {label}: {kname} launched "
@@ -3596,14 +3681,17 @@ def mla_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
         raise RuntimeError(f"{cfg.name}: the default serve does not repeat")
     c1 = counts(wrappers)
     launches = {k: c1[k] - c0[k] for k in c1}
-    mla_launches = per_serve["flash_attention"] * 3
-    if fa.launches_by_path["mla"] != mla_launches:
-        raise RuntimeError(f"{cfg.name}: {fa.launches_by_path['mla']} mla "
-                           f"launches on the path, not {mla_launches}")
+    mla_paths = {"mla_wgmma": cfg.n_layers * 3,
+                 "mla": (per_serve["flash_attention"] - cfg.n_layers) * 3}
+    got_paths = {k: fa.launches_by_path[k] for k in mla_paths}
+    if got_paths != mla_paths:
+        raise RuntimeError(f"{cfg.name}: MLA launches on the path "
+                           f"{got_paths}, not {mla_paths}")
+    mla_launches = sum(mla_paths.values())
     d256 = dh_delta(fa, dh0)
     log(f"[mla serve path {cfg.name}] kernel launches: "
-        f"{json.dumps(launches)}; flash_attention on mla "
-        f"{fa.launches_by_path['mla']}; at head dim 256 {json.dumps(d256)}")
+        f"{json.dumps(launches)}; flash_attention by MLA path "
+        f"{json.dumps(got_paths)}; at head dim 256 {json.dumps(d256)}")
 
     # (d) absorbed against naive, the same weights (after the path's
     # counts): routed by its own router, whose near-ties flip (held as
@@ -3658,13 +3746,13 @@ def mla_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
 
     # (e) where a step's device time goes
     shares = step_profiles(torch, cfg, axis, params, prompts, tag, (
-        "fa_mla_kernel", "nvjet", "gemm", "index", "elementwise"))
+        "fa_mla", "nvjet", "gemm", "index", "elementwise"))
     del params, first, second, third, naive, pinned
     torch.cuda.empty_cache()
     log(f"[{tag}] MLA serve phase in {time.perf_counter() - t_phase:.1f} s "
         f"({card})")
     return {"launches": launches, "mla_launches": mla_launches,
-            "d256_paths": d256,
+            "mla_paths": got_paths, "d256_paths": d256,
             "per_serve": per_serve, "peaks": peaks,
             "weights_bytes": w_bytes, "held_out": [
                 (e.phase, e.op, e.nbytes) for e in held],
@@ -3749,7 +3837,7 @@ def long_context_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     held out), the tuned re-serve within ``SERVE_RTOL`` of it, and the
     default serve held to the same requests over model only (TP 4).
     (b) ``long_500k``: prefill a ``LONG_PROMPT``-token prompt on one
-    model lane (flash on ``mma_sync``), lay its 524 288-slot cache out as
+    model lane (flash on ``wgmma``), lay its 524 288-slot cache out as
     8 sequence shards on (data 8, model 1), decode 32 steps over the
     shards (the combine's two allreduces over data dispatched), every
     data lane's logits bit-equal under the defaults; 32 unsharded decode
@@ -3816,7 +3904,7 @@ def long_context_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     sv.serve(cfg, mesh, params, prompts, SERVE_SLOTS, 2)      # warm-up
     zero_counts(wrappers)          # the long-context serve path starts here
     c0 = counts(wrappers)
-    per_serve = {"mma_sync": n_attn, "split_kv": n_attn * SERVE_DECODE}
+    per_serve = {"wgmma": n_attn, "split_kv": n_attn * SERVE_DECODE}
     first, peak_a = flash_run("a default serve", lambda: sv.serve(
         cfg, mesh, params, prompts, SERVE_SLOTS, n_tokens), per_serve)
     rec = trace.Trace.from_context(first.ctx)
@@ -3874,7 +3962,7 @@ def long_context_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     t0 = time.perf_counter()
     (logits, caches), peak_pf = flash_run(
         "b prefill", lambda: prefill(params1, {"tokens": prompt}, caches),
-        {"mma_sync": n_attn})
+        {"wgmma": n_attn})
     prefill_s = time.perf_counter() - t0
     lg0 = sv.full_vocab(logits)
     if not bool(torch.isfinite(lg0).all()):
@@ -4068,7 +4156,7 @@ def vlm_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     """paligemma-3b at full width and depth, TP ``VLM_TP`` stacked: 4
     requests of 256 seeded stub patches + 1024 text tokens, 1 + 32 tokens,
     2048 slots, through ``flash_ref_serves`` (two flash launches a layer
-    at prefill, the prefix rows and the text rows, both ``mma_sync``;
+    at prefill, the prefix rows and the text rows, both ``wgmma``;
     ``split_kv`` at decode)."""
     import numpy as np
     from repro_torch.configs import get_config
@@ -4090,7 +4178,7 @@ def vlm_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
         device=dev)
     out = flash_ref_serves(
         torch, dev, out_dir, wrappers, card, tag, cfg, axis, params,
-        prompts, SERVE_SLOTS, {"mma_sync": 2 * cfg.n_layers,
+        prompts, SERVE_SLOTS, {"wgmma": 2 * cfg.n_layers,
                                "split_kv": cfg.n_layers * SERVE_DECODE},
         f"{npf} patches of {cfg.vlm.patch_dim} + {SERVE_PROMPT} tokens",
         patches=patches)
@@ -5143,11 +5231,19 @@ def main(argv=None) -> int:
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s")
     for lib in ("block_matmul", "agmm_ring", "flash_attention",
                 "rwkv6_scan", "ssd_scan"):
+        fn = ""
         for ln in _build.build_log(lib).splitlines():
             if "Function properties for" in ln:
-                log(f"[2] ptxas {lib}: {ln.split('for ', 1)[1][:100]}")
+                fn = ln.split('for ', 1)[1]
+                log(f"[2] ptxas {lib}: {fn[:100]}")
             elif "registers" in ln or "spill" in ln or "smem" in ln:
                 log(f"[2] ptxas {lib}:   {ln.strip()}")
+                # flash's wgmma kernels hold their accumulators in
+                # registers: a spill serializes their products
+                if ("fa_wgmma_kernel" in fn or "fa_mla_wgmma" in fn) and \
+                        "spill stores" in ln and \
+                        " 0 bytes spill stores" not in ln:
+                    raise RuntimeError(f"ptxas spilled in {fn}: {ln}")
     for dt in (torch.bfloat16, torch.float32):
         log(f"[2] agmm_ring blocks per rank at p={P}, n={TOKENS // P}, "
             f"m={2 * D_FF // P}, {dt}: "
@@ -5955,14 +6051,18 @@ def main(argv=None) -> int:
     report["moe_serve"] = moe_serve_phase(torch, dev, out_dir, every, card)
     for k, v in report["moe_serve"]["launches"].items():
         kernels[k]["moe_serve_launches"] = v
-    # the "mla" path's launches in each path's run (phases 12-15 read
+    # the MLA paths' launches in each path's run (phases 12-15 read
     # flash's counts by path around their runs)
     mla_row = kernels["flash_attention_mla"]
+
+    def mla_count(paths: dict) -> int:
+        return paths.get("mla", 0) + paths.get("mla_wgmma", 0)
     for key, field in (("train", "train_launches"),
                        ("mesh_train", "mesh_train_launches"),
                        ("kernel_train", "kernel_train_launches")):
-        mla_row[field] = report[key]["paths"]["flash_attention"]["mla"]
-    mla_row["moe_serve_launches"] = report["moe_serve"]["flash_paths"]["mla"]
+        mla_row[field] = mla_count(report[key]["paths"]["flash_attention"])
+    mla_row["moe_serve_launches"] = mla_count(
+        report["moe_serve"]["flash_paths"])
 
     phase("16")
     # -- 16. the MLA serve: deepseek-v3-671b, 2 of 61 layers ---------------
@@ -5973,6 +6073,8 @@ def main(argv=None) -> int:
         "mla_launches"]
     kernels["flash_attention_mla"]["mla_serve_launches"] = report[
         "mla_serve"]["mla_launches"]
+    kernels["flash_attention_mla"]["paths"] = report["mla_serve"][
+        "mla_paths"]
 
     phase("17")
     # -- 17. gemma3-1b: the data x model serve and long_500k ----------------
@@ -5990,10 +6092,9 @@ def main(argv=None) -> int:
     # flash at head dim 256: phase 3's gemma3-1b prefill numbers, and its
     # launches at that head dim by path in each path's run (phases 12-18
     # read flash's counts by head dim around their runs)
-    mla_row["long_context_launches"] = report["long_context"]["paths"].get(
-        "mla", 0)
-    mla_row["vlm_serve_launches"] = report["vlm_serve"]["paths"].get("mla",
-                                                                     0)
+    mla_row["long_context_launches"] = mla_count(
+        report["long_context"]["paths"])
+    mla_row["vlm_serve_launches"] = mla_count(report["vlm_serve"]["paths"])
     d256 = kernels["flash_attention_d256"]
     for key, field in (("train", "train_launches"),
                        ("mesh_train", "mesh_train_launches"),
@@ -6005,6 +6106,10 @@ def main(argv=None) -> int:
         d256[field] = report[key]["d256_paths"]
     d256["launches"] = sum(report["long_context"]["d256_paths"].values()) + \
         sum(report["vlm_serve"]["d256_paths"].values())
+    d256["paths"] = {k: report["long_context"]["d256_paths"].get(k, 0)
+                     + report["vlm_serve"]["d256_paths"].get(k, 0)
+                     for k in {**report["long_context"]["d256_paths"],
+                               **report["vlm_serve"]["d256_paths"]}}
 
     phase("19")
     # -- 19. whisper-medium: the encoder-decoder serve ----------------------
@@ -6015,8 +6120,8 @@ def main(argv=None) -> int:
     # flash's rows by path and head dim in phase 19: the "mla" path, dh 256
     # and the enc-dec row (phase 3's encoder self-attention numbers; its
     # launches: phase 19's at head dim 64)
-    mla_row["encdec_serve_launches"] = report["encdec_serve"]["paths"].get(
-        "mla", 0)
+    mla_row["encdec_serve_launches"] = mla_count(
+        report["encdec_serve"]["paths"])
     d256["encdec_serve_launches"] = report["encdec_serve"]["d256_paths"]
     enc_row = kernels["flash_attention_encdec"]
     enc_row["encdec_serve_launches"] = report["encdec_serve"]["dh_paths"]
@@ -6027,7 +6132,7 @@ def main(argv=None) -> int:
     report["group"] = group_phase(torch, dev, out_dir, every, card)
     for k, v in report["group"]["launches"].items():
         kernels[k]["group_serve_launches"] = v
-    mla_row["group_serve_launches"] = report["group"]["paths"].get("mla", 0)
+    mla_row["group_serve_launches"] = mla_count(report["group"]["paths"])
     d256["group_serve_launches"] = report["group"]["d256_paths"]
     enc_row["group_serve_launches"] = report["group"]["d64_paths"]
 
@@ -6036,7 +6141,7 @@ def main(argv=None) -> int:
     report["fleet"] = fleet_phase(torch, dev, out_dir, every, card, topo)
     for k, v in report["fleet"]["launches"].items():
         kernels[k]["fleet_launches"] = v
-    mla_row["fleet_launches"] = report["fleet"]["paths"].get("mla", 0)
+    mla_row["fleet_launches"] = mla_count(report["fleet"]["paths"])
     d256["fleet_launches"] = report["fleet"]["d256_paths"]
     enc_row["fleet_launches"] = report["fleet"]["d64_paths"]
 
@@ -6051,7 +6156,7 @@ def main(argv=None) -> int:
     log(f"[done] {report['seconds']:.1f} s")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "main_path", "train_launches", "mesh_train_launches",
+             "main_path", "paths", "train_launches", "mesh_train_launches",
              "kernel_train_launches", "moe_serve_launches",
              "mla_serve_launches", "long_context_launches",
              "vlm_serve_launches", "encdec_serve_launches",

@@ -1,6 +1,6 @@
-"""Device time of flash attention's ``"mla"`` path at deepseek-v3-671b's
-TP 8 serve shapes, on the card: the prefill (q ``[32, 1024, 1, 16,
-576]``, causal) and the decode at kv_len 1025 and 1056 in a 2048-slot
+"""Device time of flash attention's MLA paths at deepseek-v3-671b's TP 8
+serve shapes, on the card: the prefill (q ``[32, 1024, 1, 16, 576]``,
+causal; ``"mla_wgmma"``) and the decode (``"mla"``) at kv_len 1025 and 1056 in a 2048-slot
 latent cache, the keys contiguous or a view of the serve's joint cache
 buffer ``[8, 4, 2048, 576]``, with the L2 cache warm (the same keys
 launch after launch) or flushed before each launch (a 128 MB write).

@@ -32,28 +32,44 @@
 // TFLOP/s dense bf16).  Its decode (Sq = 1, G = 3) is ~6 flop per byte of
 // K/V: bound by the bytes of the cache it reads (3.35 TB/s).  The G query
 // heads of a KV head are folded into the rows of a tile (row = i*G + g),
-// so the group's K/V are read once.  Five kernels, one per call, chosen
+// so the group's K/V are read once.  Six kernels, one per call, chosen
 // before the launch by plan() (flash_attention_plan):
-//   * fa_wgmma_kernel, bf16 prefill (at least 64 folded rows, dh 64 or
-//     128, 16-byte strides): a CTA of 384 threads per 128 folded rows of
-//     one (n, KV head), one CTA per SM, the row tiles with the most keys
-//     first (causal tiles differ in work).  Thread 256 is the producer: it
-//     loads K/V blocks of 128 keys by TMA (4-D tensor maps encoded per
-//     call with the key extent set to kv_len, so nothing at or beyond
-//     kv_len is read: TMA zero-fills it) into two 128-byte-swizzled
-//     stages, K and V each with a full and an empty barrier, so the next
-//     block's K loads while this block's PV product runs.  Warpgroups 0
-//     and 1 (registers moved to them by setmaxnreg) hold 64 rows each:
-//     S = Q K^T on wgmma m64n128k16 (Q and K K-major in shared memory; Q
-//     stored there by 16-byte loads, since a tile of folded rows is not a
-//     TMA box when G does not divide 128), the online softmax in float32
-//     registers in base 2 (the row max and sum across the quad that
-//     shares a row; the mask only on blocks that cross the causal edge,
-//     the window or kv_len, the softcap test once per block: a branch per
-//     score cost as much as the products), then P rounded to bf16 in
-//     registers is the register A operand of O += P V on wgmma (V
+//   * fa_wgmma_kernel, bf16 prefill (at least 64 folded rows, dh 64, 128
+//     or 256, 16-byte strides): a CTA per 128 folded rows of one (n, KV
+//     head), one CTA per SM, the row tiles with the most keys first
+//     (causal tiles differ in work).  K/V blocks of BN keys (128; 64 at dh
+//     256) come by TMA (4-D tensor maps encoded per call with the key
+//     extent set to kv_len, so nothing at or beyond kv_len is read: TMA
+//     zero-fills it) into two 128-byte-swizzled stages, K and V each with
+//     a full and an empty barrier, so the next block's K loads while this
+//     block's PV product runs; at dh 64 and 128 a third warpgroup is the
+//     producer (its registers moved to the consumers by setmaxnreg), at
+//     dh 256 thread 0 issues the loads between its products (see
+//     WgShape).  Warpgroups 0 and 1 hold 64 rows each: Q is stored in
+//     shared memory by 16-byte loads (stage_q: a tile of folded rows is
+//     not a TMA box when G does not divide 128; all of a thread's loads
+//     in flight at once) and read from there by every block's products;
+//     S = Q K^T on wgmma m64nBNk16 (Q and K K-major), the online softmax
+//     in float32 registers in base 2 (the row max and sum across the
+//     quad that shares a row; the mask only on blocks that cross the
+//     causal edge, the window or kv_len, the softcap test once per block:
+//     a branch per score cost as much as the products), then P rounded to
+//     bf16 in registers is the register A operand of O += P V on wgmma (V
 //     MN-major, the transpose-B bit; the accumulator's layout of two
-//     8-key groups is A's layout of one 16-key step).
+//     8-key groups is A's layout of one 16-key step).  At dh 256 the
+//     budget is the register file: O is 64 x 256 float32 a warpgroup (128
+//     registers a thread), so BN is 64 (S in 32 registers, on m64n64k16)
+//     and O += P V is one m64n256k16 per 16 keys; shared memory holds Q
+//     (64 KB) and two K and two V stages of 32 KB (193 KB).  Filling the
+//     card: gemma3-1b's prefill per lane on the (2, 4) mesh, [16, 1024,
+//     1, 1, 256], is 8 row tiles x 16 lanes = 128 CTAs on 132 SMs, one
+//     wave, and the causal tiles hold 2 to 16 blocks: the heaviest-first
+//     order starts the 16-block tiles at once, so the launch takes the
+//     heaviest tile's 16 blocks where the mean is 9.  A 64-row CTA would
+//     halve that tile but leave one consumer warpgroup on an SM, whose
+//     softmax then idles the tensor cores; long_500k's 16 383 tiles fill
+//     the card many times over.  Bound by operations at every served
+//     dh-256 prefill (the long prefill's global layer: 5.63e14 FLOP).
 //   * fa_split_kernel, bf16 decode (at most 16 folded rows): the keys any
 //     query sees are cut into chunks of 128 and the chunks into splits,
 //     enough for two CTAs per SM over the (n, KV head) pairs (llama's 32
@@ -68,22 +84,40 @@
 //   * fa_bf16_kernel, other bf16 calls: 8 warps of 16 rows, K/V blocks of
 //     32 keys double-buffered by cp.async, mma.sync with ldmatrix
 //     operands (the same per-warp step as the split decode).
-//   * fa_mla_kernel, bf16 with dv != dh or dh > 256: DeepSeek's absorbed
-//     multi-head latent attention, q and k 576 wide (the 512-wide latent
-//     and the 64-wide rope part), v the latent's 512 columns, 16 q heads
-//     over one KV head at TP 8.  Its prefill (N = 32, Sq = Skv = 1024,
-//     G = 16, causal) is 585 GFLOP over 76 MB: bound by operations; its
-//     decode (Sq = 1, kv_len ~1056) reads 38.9 MB of latent cache for
-//     1.2 GFLOP: bound by bytes.  A 16 x 512 float32 accumulator is the
-//     whole register file of a warp, so the output's columns are split
-//     across the CTA's 8 warps (64 each) while S = Q K^T is split by
-//     rows and key slices, and P and each row's rescale factor pass
-//     through shared memory between the two.  Q stays in shared memory
-//     (576-wide rows); when v is a view of k (the model's absorbed path)
-//     V is read from the K stage, so K blocks are double-buffered and the
-//     latent is read once.  Prefill: 64 folded rows a CTA, 32-key blocks;
-//     decode: 16 rows, 64-key blocks split across CTAs, one per SM, merged
-//     by the last CTA of each (n, KV head) as in fa_split_kernel.
+//   * fa_mla_wgmma_kernel, the bf16 MLA prefill (DeepSeek's absorbed
+//     multi-head latent attention: q and k 576 wide, the 512-wide latent
+//     and the 64-wide rope part; v the latent, a view of k's first 512
+//     columns; 16 q heads over one KV head at TP 8; at least 64 folded
+//     rows, 16-byte strides).  Its prefill (N = 32, Sq = Skv = 1024, G =
+//     16, causal) is 585 GFLOP over 76 MB: bound by operations.  A CTA of
+//     256 threads holds 64 folded rows (4 query positions) and Q (72 KB)
+//     for the whole KV loop; thread 0 loads 64-key K blocks of all 576
+//     columns by TMA into two stages (144 KB), and V is read from the
+//     same stage, so the latent is read once.  S is split by keys across
+//     the two warpgroups (m64n32k16 over the 576-deep Q, 16 registers a
+//     thread), the row maxima meet in shared memory, P goes to shared
+//     memory in bf16 in the swizzle wgmma reads (8 KB), and each
+//     warpgroup computes O += P V for half the output's columns on
+//     m64n256k16 (a 64 x 256 float32 accumulator: 128 registers a
+//     thread), since 512 columns in one warpgroup's registers would not
+//     fit.  What holds it back is L2: every 64-row tile reads its keys'
+//     whole 1 152-byte rows (5.1 GB of K blocks at the serve prefill
+//     against 38 MB of distinct keys), and 64 rows is the most a CTA's
+//     registers hold with a 512-wide O; without its products the kernel
+//     takes 70 % of its time (kernels/variants.py).
+//   * fa_mla_kernel, other bf16 calls with dv != dh or dh > 256: the MLA
+//     decode, a v that is its own tensor, and MLA prefills of fewer than
+//     64 folded rows.  The decode (Sq = 1, kv_len ~1056) reads 38.9 MB of
+//     latent cache for 1.2 GFLOP: bound by bytes.  A 16 x 512 float32
+//     accumulator is the whole register file of a warp, so the output's
+//     columns are split across the CTA's 8 warps (64 each) while S = Q K^T
+//     is split by rows and key slices, and P and each row's rescale
+//     factor pass through shared memory between the two.  Q stays in
+//     shared memory (576-wide rows); when v is a view of k V is read from
+//     the K stage, so K blocks are double-buffered and the latent is read
+//     once.  Prefill: 64 folded rows a CTA, 32-key blocks; decode: 16
+//     rows, 64-key blocks split across CTAs, one per SM, merged by the
+//     last CTA of each (n, KV head) as in fa_split_kernel.
 //   * fa_f32_kernel, float32: full float32 FMA (no TF32), 4 warps of 4
 //     rows, a lane per key for S, a lane per output column for O (dh up to
 //     576).
@@ -671,18 +705,32 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 prefill: wgmma and TMA (dh 64 or 128)
+// bf16 prefill: wgmma and TMA (dh 64, 128 or 256)
 // ---------------------------------------------------------------------------
 
+// dh 64 and 128: 128-key blocks, 384 threads, the third warpgroup the
+// producer (its registers moved to the consumers by setmaxnreg).  dh 256:
+// 64-key blocks, so that S (32 float32 registers a thread on m64n64) sits
+// beside O (64 x 256 float32 a warpgroup: 128 registers), P and the
+// softmax state (128-key blocks would put S at 64); and 256 threads, the
+// two consumer warpgroups alone, thread 0 issuing the TMA loads between
+// its products.  ptxas compiled the consumers of a 384-thread CTA within
+// 168 registers a thread (three warps share an SM sub-partition's 16 384
+// registers), whatever setmaxnreg moves at run time: S and O spilled and
+// the wgmma instructions were serialized (C7512), as at 288 threads;
+// with 256 threads each has up to 255.  Shared memory at dh 256: Q 64
+// KB, two K and two V stages of 32 KB each, 193 KB in all.
 template <int DH>
 struct WgShape {
   static constexpr int BM = 128;              // folded rows of a CTA
-  static constexpr int BN = 128;              // keys of a K/V block
-  static constexpr int BOX = 128 * 128;       // 128 rows of 64 dims
+  static constexpr int BN = DH == 256 ? 64 : 128;   // keys of a K/V block
+  static constexpr int Q_BOX = BM * 128;      // a Q box: BM rows of 64 dims
+  static constexpr int KV_BOX = BN * 128;     // a K/V box: BN rows of 64 dims
   static constexpr int Q_BYTES = BM * DH * 2;
   static constexpr int KV_BYTES = BN * DH * 2;
   static constexpr int STAGES = 2;
-  static constexpr int THREADS = 384;
+  static constexpr int THREADS = DH == 256 ? 256 : 384;
+  static constexpr bool PRODUCER_WG = THREADS == 384;  // else thread 0
   static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024 + 256;
 };
 
@@ -699,19 +747,66 @@ __device__ __forceinline__ int kv_coord(const KvOrder& ord, int i, int j,
   return ord.key == i ? j : ord.head == i ? h : n;
 }
 
+// S (m64 x BN keys) += Q K^T, one k16 step.
+template <int BN>
+__device__ __forceinline__ void wgmma_qk(float (&s)[BN / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (BN == 64)
+    hopper::wgmma_ss_n64_bf16<0>(s, da, db, scale_d);
+  else
+    hopper::wgmma_ss_n128_bf16<0>(s, da, db, scale_d);
+}
+
 template <int DH>
 __device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
   if constexpr (DH == 64)
     hopper::wgmma_rs_n64_bf16<1>(o, a, db, 1);
-  else
+  else if constexpr (DH == 128)
     hopper::wgmma_rs_n128_bf16<1>(o, a, db, 1);
+  else
+    hopper::wgmma_rs_n256_bf16<1>(o, a, db, 1);
+}
+
+// Q of a tile (ROWS folded rows of DH dims from row0; rows at or beyond
+// `rows` zero) into the 128-byte swizzle, boxes of 64 dims BOX bytes
+// apart, by the 256 consumer threads: every thread issues all its 16-byte
+// loads before its first store, so the tile costs one round trip to
+// memory, not one a load (a CTA alone on its SM waits through all of
+// them).  A tile of folded rows is not a TMA box when G does not divide
+// it.
+template <int ROWS, int DH, int BOX>
+__device__ __forceinline__ void stage_q(unsigned char* Qs,
+                                        const __nv_bfloat16* qb,
+                                        const Params& P, int row0,
+                                        int rows) {
+  constexpr int CH = DH / 8;                  // 16-byte chunks of a row
+  constexpr int N = ROWS * CH / 256;          // a thread's chunks
+  static_assert(ROWS * CH % 256 == 0, "Q tile in whole passes");
+  int4 v[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = threadIdx.x + 256 * i;
+    const int R = row0 + c / CH;
+    v[i] = make_int4(0, 0, 0, 0);
+    if (R < rows)
+      v[i] = __ldg(reinterpret_cast<const int4*>(
+          qb + (R / P.g) * P.q_ss + (R % P.g) * P.q_sg + (c % CH) * 8));
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = threadIdx.x + 256 * i;
+    const int r = c / CH, k = c % CH;
+    *reinterpret_cast<int4*>(Qs + (k / 8) * BOX + r * 128 +
+                             (((k % 8) ^ (r % 8)) * 16)) = v[i];
+  }
 }
 
 // A CTA: 128 folded query rows (row = i*G + g) of one (n, KV head), the
-// heaviest row tiles first; warpgroups 0-1 hold 64 rows each, thread 256
-// is the TMA producer of 128-key K/V blocks (2 stages).
+// heaviest row tiles first; warpgroups 0-1 hold 64 rows each; the TMA
+// producer of BN-key K/V blocks (2 stages) is thread 256 of a third
+// warpgroup, or at dh 256 thread 0 between its products (WgShape).
 template <int DH>
 __global__ void __launch_bounds__(WgShape<DH>::THREADS, 1)
     fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
@@ -720,6 +815,7 @@ __global__ void __launch_bounds__(WgShape<DH>::THREADS, 1)
   using T = __nv_bfloat16;
   using S = WgShape<DH>;
   constexpr int BOXES = DH / 64;
+  constexpr int NS = S::BN / 2;              // S registers a thread
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = hopper::smem_u32(smem_raw);
   unsigned char* Qs = smem_raw + (((base + 1023u) & ~1023u) - base);
@@ -751,47 +847,46 @@ __global__ void __launch_bounds__(WgShape<DH>::THREADS, 1)
   }
   __syncthreads();
 
-  if (threadIdx.x >= 256) {
-    // ---- the producer: K and V blocks by TMA --------------------------------
-    hopper::reg_dealloc<40>();
-    if (threadIdx.x != 256) return;
-    hopper::PipeState st;
-    for (int kb = kb_lo; kb < kb_hi; ++kb) {
-      hopper::mbar_wait(&empty_k[st.stage], st.phase ^ 1u);
-      hopper::mbar_expect_tx(&full_k[st.stage], S::KV_BYTES);
-      const int j = kb * S::BN;
-      for (int b = 0; b < BOXES; ++b)
-        hopper::tma_load_4d(Ks + st.stage * S::KV_BYTES + b * S::BOX, &tm_k,
-                            &full_k[st.stage], b * 64, kv_coord(ok, 0, j, h, n),
-                            kv_coord(ok, 1, j, h, n), kv_coord(ok, 2, j, h, n));
-      hopper::mbar_wait(&empty_v[st.stage], st.phase ^ 1u);
-      hopper::mbar_expect_tx(&full_v[st.stage], S::KV_BYTES);
-      for (int b = 0; b < BOXES; ++b)
-        hopper::tma_load_4d(Vs + st.stage * S::KV_BYTES + b * S::BOX, &tm_v,
-                            &full_v[st.stage], b * 64, kv_coord(ov, 0, j, h, n),
-                            kv_coord(ov, 1, j, h, n), kv_coord(ov, 2, j, h, n));
-      st.advance(S::STAGES);
+  // the producer's step: block kb's K and V by TMA into the stage `ps`
+  // names, once the consumers have freed it
+  auto produce = [&](hopper::PipeState& ps, int kb) {
+    hopper::mbar_wait(&empty_k[ps.stage], ps.phase ^ 1u);
+    hopper::mbar_expect_tx(&full_k[ps.stage], S::KV_BYTES);
+    const int j = kb * S::BN;
+    for (int b = 0; b < BOXES; ++b)
+      hopper::tma_load_4d(Ks + ps.stage * S::KV_BYTES + b * S::KV_BOX, &tm_k,
+                          &full_k[ps.stage], b * 64, kv_coord(ok, 0, j, h, n),
+                          kv_coord(ok, 1, j, h, n), kv_coord(ok, 2, j, h, n));
+    hopper::mbar_wait(&empty_v[ps.stage], ps.phase ^ 1u);
+    hopper::mbar_expect_tx(&full_v[ps.stage], S::KV_BYTES);
+    for (int b = 0; b < BOXES; ++b)
+      hopper::tma_load_4d(Vs + ps.stage * S::KV_BYTES + b * S::KV_BOX, &tm_v,
+                          &full_v[ps.stage], b * 64, kv_coord(ov, 0, j, h, n),
+                          kv_coord(ov, 1, j, h, n), kv_coord(ov, 2, j, h, n));
+    ps.advance(S::STAGES);
+  };
+  hopper::PipeState ps;                 // the producer's place in the ring
+  if constexpr (S::PRODUCER_WG) {
+    if (threadIdx.x >= 256) {
+      // ---- the producer warpgroup: thread 256 ------------------------------
+      hopper::reg_dealloc<40>();
+      if (threadIdx.x != 256) return;
+      for (int kb = kb_lo; kb < kb_hi; ++kb) produce(ps, kb);
+      return;
     }
-    return;
+    hopper::reg_alloc<232>();
+  } else if (threadIdx.x == 0) {        // thread 0 fills the ring first
+    for (int kb = kb_lo; kb < min(kb_hi, kb_lo + S::STAGES); ++kb)
+      produce(ps, kb);
   }
 
   // ---- the consumers --------------------------------------------------------
-  hopper::reg_alloc<232>();
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32, gid = lane >> 2, tig = lane & 3;
-  // Q: 16-byte loads into the 128-byte swizzle (a tile of folded rows is
-  // not a TMA box when G does not divide 128), then a barrier of the two
-  // consumer warpgroups
-  const T* qb = static_cast<const T*>(P.q) + n * P.q_sn + h * P.q_sh;
-  for (int c = threadIdx.x; c < S::BM * DH / 8; c += 256) {
-    const int r = c / (DH / 8), d0 = (c % (DH / 8)) * 8, R = row0 + r;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (R < rows)
-      v = __ldg(reinterpret_cast<const int4*>(
-          qb + (R / P.g) * P.q_ss + (R % P.g) * P.q_sg + d0));
-    *reinterpret_cast<int4*>(Qs + (d0 / 64) * S::BOX + r * 128 +
-                             ((((d0 % 64) / 8) ^ (r % 8)) * 16)) = v;
-  }
+  // Q (stage_q), then a barrier of the two consumer warpgroups
+  stage_q<S::BM, DH, S::Q_BOX>(
+      Qs, static_cast<const T*>(P.q) + n * P.q_sn + h * P.q_sh, P, row0,
+      rows);
   hopper::fence_proxy_async_shared();    // generic stores -> wgmma reads
   hopper::named_bar_sync(1, 256);
 
@@ -813,8 +908,8 @@ __global__ void __launch_bounds__(WgShape<DH>::THREADS, 1)
 
   hopper::PipeState st;
   for (int kb = kb_lo; kb < kb_hi; ++kb) {
-    // S = Q K^T (both K-major): 64 rows x 128 keys per warpgroup
-    float s[64];
+    // S = Q K^T (both K-major): 64 rows x BN keys per warpgroup
+    float s[NS];
     hopper::mbar_wait(&full_k[st.stage], st.phase);
     const uint64_t dk = hopper::desc_sw128(Ks + st.stage * S::KV_BYTES, 16,
                                            1024);
@@ -822,8 +917,9 @@ __global__ void __launch_bounds__(WgShape<DH>::THREADS, 1)
     hopper::wg_fence();
 #pragma unroll
     for (int ks = 0; ks < DH / 16; ++ks) {
-      const uint64_t off = (ks / 4) * (S::BOX >> 4) + (ks % 4) * 2;
-      hopper::wgmma_ss_n128_bf16<0>(s, dq + off, dk + off, ks > 0);
+      const uint64_t inner = (ks % 4) * 2;   // 32 bytes a k16 step
+      wgmma_qk<S::BN>(s, dq + (ks / 4) * (S::Q_BOX >> 4) + inner,
+                      dk + (ks / 4) * (S::KV_BOX >> 4) + inner, ks > 0);
     }
     hopper::wg_commit();
     hopper::wg_wait<0>();
@@ -836,7 +932,7 @@ __global__ void __launch_bounds__(WgShape<DH>::THREADS, 1)
     const bool whole = k_last < P.kv_len &&
                        (!P.causal || k_last <= wq_min) &&
                        (P.window <= 0 || k_first > wq_max - P.window);
-    logits<64>(P, s);
+    logits<NS>(P, s);
     if (!whole) {   // a real branch, taken where the block crosses an edge
       // score (j, e) is key k_first + 2 tig + 8j + e: two compares of a
       // constant with the row's bounds shifted by k_first + 2 tig (the
@@ -845,7 +941,7 @@ __global__ void __launch_bounds__(WgShape<DH>::THREADS, 1)
       const int la = lo_a - base, ha = hi_a - base;
       const int lb = lo_b - base, hb = hi_b - base;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < S::BN / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * j + e;
@@ -856,7 +952,7 @@ __global__ void __launch_bounds__(WgShape<DH>::THREADS, 1)
     }
     float mx_a = NEG, mx_b = NEG;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < S::BN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         mx_a = fmaxf(mx_a, s[4 * j + e]);
@@ -870,7 +966,7 @@ __global__ void __launch_bounds__(WgShape<DH>::THREADS, 1)
     m_b = mn_b;
     float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < S::BN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         s[4 * j + e] = exp2f(s[4 * j + e] - mn_a);
@@ -894,7 +990,7 @@ __global__ void __launch_bounds__(WgShape<DH>::THREADS, 1)
     // 2kk+1 is A's); V [keys, dh] is MN-major (transpose-B)
     hopper::mbar_wait(&full_v[st.stage], st.phase);
     const uint64_t dv = hopper::desc_sw128(Vs + st.stage * S::KV_BYTES,
-                                           S::BOX, 1024);
+                                           S::KV_BOX, 1024);
     uint32_t pa[S::BN / 16][4];
 #pragma unroll
     for (int kk = 0; kk < S::BN / 16; ++kk)
@@ -912,6 +1008,12 @@ __global__ void __launch_bounds__(WgShape<DH>::THREADS, 1)
     hopper::fence_operands(o);
     if (lane == 0) hopper::mbar_arrive(&empty_v[st.stage]);
     st.advance(S::STAGES);
+    if constexpr (!S::PRODUCER_WG) {
+      // thread 0: block kb + STAGES into the stage block kb leaves, once
+      // the other warpgroup is done with it too
+      if (threadIdx.x == 0 && kb + S::STAGES < kb_hi)
+        produce(ps, kb + S::STAGES);
+    }
   }
 
   const float inv_a = 1.f / fmaxf(quad_sum(l_a), 1e-30f);
@@ -1310,6 +1412,258 @@ __global__ void __launch_bounds__(MLA_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 MLA prefill: wgmma and TMA (q/k 576 wide, v k's first 512 columns)
+// ---------------------------------------------------------------------------
+
+// 64 folded rows a CTA (4 query positions at G = 16), 64-key blocks of
+// 576 columns.  Shared memory, in bytes: Q 64 x 576 x 2 = 73 728 (9
+// boxes of 64 dims), two K stages of 73 728, P 64 x 64 x 2 = 8 192 (one
+// box), the two halves' row statistics 2 x 64 x 4 = 512, four mbarriers
+// 32, and up to 1 023 to align Q to 1 024: 230 943 of the 232 448 a
+// block may have.
+struct MlaWgShape {
+  static constexpr int BM = 64;                  // folded rows of a CTA
+  static constexpr int BN = 64;                  // keys of a K block
+  static constexpr int HALF = BN / 2;            // keys of a warpgroup's S
+  static constexpr int BOX = 64 * 128;           // 64 rows of 64 dims
+  static constexpr int BOXES = MLA_DQ / 64;      // 9
+  static constexpr int Q_BYTES = BM * MLA_DQ * 2;
+  static constexpr int K_BYTES = BN * MLA_DQ * 2;
+  static constexpr int P_BYTES = BM * BN * 2;
+  static constexpr int STAGES = 2;
+  static constexpr int THREADS = 256;   // no producer warps (WgShape<256>)
+  static constexpr int SMEM = Q_BYTES + STAGES * K_BYTES + P_BYTES +
+                              2 * BM * 4 + 2 * STAGES * 8 + 1023;
+  static_assert(SMEM <= 232448, "MLA wgmma tile exceeds shared memory");
+};
+
+// A CTA: 64 folded query rows of one (n, KV head), the heaviest row tiles
+// first; 256 threads, the two consumer warpgroups (registers: see
+// WgShape<256>; O alone is 128).  Thread 0 loads 64-key K blocks (all
+// 576 columns) by TMA into two stages between its products; v is k's
+// first 512 columns, read from the same stage.  Per
+// block, warpgroup w (of 0 and 1):
+//   S_w = Q K[32 w : 32 w + 32]^T on m64n32k16 (A = Q, B = K, both
+//     K-major in shared memory) over the 36 k16 steps of 576;
+//   the row maxima of the two halves meet in shared memory (a named
+//     barrier of the 256 consumers), so both warpgroups scale by the same
+//     alpha and take p against the same maximum;
+//   P_w (bf16) into its 32 columns of the 64 x 64 P tile in shared
+//     memory, in the 128-byte swizzle wgmma reads (A, K-major); a second
+//     barrier, and each warpgroup reads all of P;
+//   O_w += P V[:, 256 w : 256 w + 256] on m64n256k16 (A = P, B = V
+//     MN-major: the stage's boxes 4 w .. 4 w + 3, the transpose-B bit):
+//     the warpgroup holds the 64 x 256 float32 accumulator of its half of
+//     the output's columns (128 registers a thread).
+// Each half's l is summed per thread; the two meet at the end.
+__global__ void __launch_bounds__(MlaWgShape::THREADS, 1)
+    fa_mla_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k, Params P,
+                        KvOrder ok) {
+  using T = __nv_bfloat16;
+  using S = MlaWgShape;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = hopper::smem_u32(smem_raw);
+  unsigned char* Qs = smem_raw + (((base + 1023u) & ~1023u) - base);
+  unsigned char* Ks = Qs + S::Q_BYTES;
+  unsigned char* Ps = Ks + S::STAGES * S::K_BYTES;
+  float* red = reinterpret_cast<float*>(Ps + S::P_BYTES);   // [2][BM]
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 2 * S::BM);
+  uint64_t* empty = full + S::STAGES;       // K (and V) read by both halves
+
+  const int rows = P.sq * P.g;
+  const int tiles = (rows + S::BM - 1) / S::BM;
+  const int groups = P.n * P.hk;
+  const int nh = blockIdx.x % groups;
+  const int n = nh / P.hk, h = nh % P.hk;
+  const int row0 = (tiles - 1 - blockIdx.x / groups) * S::BM;
+  const int row_end = min(row0 + S::BM, rows);
+  const int q_min = P.q0 + row0 / P.g, q_max = P.q0 + (row_end - 1) / P.g;
+  int kb_lo, kb_hi;
+  block_range(P, S::BN, q_min, q_max, &kb_lo, &kb_hi);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::STAGES; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 8);      // the consumer warps
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // thread 0 produces: block kb's 576 columns by TMA into the stage `ps`
+  // names, once both warpgroups have freed it; it fills the ring first
+  auto produce = [&](hopper::PipeState& ps, int kb) {
+    hopper::mbar_wait(&empty[ps.stage], ps.phase ^ 1u);
+    hopper::mbar_expect_tx(&full[ps.stage], S::K_BYTES);
+    const int j = kb * S::BN;
+    for (int b = 0; b < S::BOXES; ++b)
+      hopper::tma_load_4d(Ks + ps.stage * S::K_BYTES + b * S::BOX, &tm_k,
+                          &full[ps.stage], b * 64, kv_coord(ok, 0, j, h, n),
+                          kv_coord(ok, 1, j, h, n), kv_coord(ok, 2, j, h, n));
+    ps.advance(S::STAGES);
+  };
+  hopper::PipeState ps;
+  if (threadIdx.x == 0)
+    for (int kb = kb_lo; kb < min(kb_hi, kb_lo + S::STAGES); ++kb)
+      produce(ps, kb);
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, gid = lane >> 2, tig = lane & 3;
+  stage_q<S::BM, MLA_DQ, S::BOX>(
+      Qs, static_cast<const T*>(P.q) + n * P.q_sn + h * P.q_sh, P, row0,
+      rows);
+  hopper::fence_proxy_async_shared();    // generic stores -> wgmma reads
+  hopper::named_bar_sync(1, 256);
+
+  // this thread's rows of the tile (both warpgroups hold all 64 rows)
+  const int ra = warp * 16 + gid, rb = ra + 8;
+  const int qpos_a = P.q0 + (row0 + ra) / P.g;
+  const int qpos_b = P.q0 + (row0 + rb) / P.g;
+  const int lo_a = P.window > 0 ? max(0, qpos_a - P.window + 1) : 0;
+  const int lo_b = P.window > 0 ? max(0, qpos_b - P.window + 1) : 0;
+  const int hi_a = P.causal ? min(P.kv_len, qpos_a + 1) : P.kv_len;
+  const int hi_b = P.causal ? min(P.kv_len, qpos_b + 1) : P.kv_len;
+  float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;
+  float o[MLA_DV / 4];                   // 64 rows x 256 columns
+#pragma unroll
+  for (int i = 0; i < MLA_DV / 4; ++i) o[i] = 0.f;
+  const uint64_t dq = hopper::desc_sw128(Qs, 16, 1024);
+  const uint64_t dp = hopper::desc_sw128(Ps, 16, 1024);
+
+  hopper::PipeState st;
+  for (int kb = kb_lo; kb < kb_hi; ++kb) {
+    unsigned char* Kst = Ks + st.stage * S::K_BYTES;
+    float s[S::HALF / 2];
+    hopper::mbar_wait(&full[st.stage], st.phase);
+    const uint64_t dk = hopper::desc_sw128(Kst + wg * S::HALF * 128, 16,
+                                           1024);
+    hopper::fence_operands(s);
+    hopper::wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < MLA_DQ / 16; ++ks) {
+      const uint64_t off = (ks / 4) * (S::BOX >> 4) + (ks % 4) * 2;
+      hopper::wgmma_ss_n32_bf16<0>(s, dq + off, dk + off, ks > 0);
+    }
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::fence_operands(s);
+
+    // the block's mask only where it crosses an edge for some row of the
+    // tile; score (j, e) of this half is key k0 + 2 tig + 8 j + e
+    const int b_first = kb * S::BN, b_last = b_first + S::BN - 1;
+    const bool whole = b_last < P.kv_len &&
+                       (!P.causal || b_last <= q_min) &&
+                       (P.window <= 0 || b_first > q_max - P.window);
+    logits<S::HALF / 2>(P, s);
+    if (!whole) {
+      const int k0 = b_first + wg * S::HALF + 2 * tig;
+      const int la = lo_a - k0, ha = hi_a - k0;
+      const int lb = lo_b - k0, hb = hi_b - k0;
+#pragma unroll
+      for (int j = 0; j < S::HALF / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + e;
+          s[4 * j + e] = (c >= la) & (c < ha) ? s[4 * j + e] : NEG;
+          s[4 * j + 2 + e] = (c >= lb) & (c < hb) ? s[4 * j + 2 + e] : NEG;
+        }
+      }
+    }
+    // the two halves' row maxima meet in shared memory
+    float mx_a = NEG, mx_b = NEG;
+#pragma unroll
+    for (int j = 0; j < S::HALF / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mx_a = fmaxf(mx_a, s[4 * j + e]);
+        mx_b = fmaxf(mx_b, s[4 * j + 2 + e]);
+      }
+    }
+    mx_a = quad_max(mx_a);
+    mx_b = quad_max(mx_b);
+    if (tig == 0) {
+      red[wg * S::BM + ra] = mx_a;
+      red[wg * S::BM + rb] = mx_b;
+    }
+    hopper::named_bar_sync(1, 256);
+    const float mn_a = fmaxf(m_a, fmaxf(red[ra], red[S::BM + ra]));
+    const float mn_b = fmaxf(m_b, fmaxf(red[rb], red[S::BM + rb]));
+    const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    // p, this half's row sums, and P (bf16) into the swizzled tile: keys
+    // 32 w + 8 j + 2 tig are 16-byte chunk 4 w + j of the row
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < S::HALF / 8; ++j) {
+      const float p0 = exp2f(s[4 * j] - mn_a), p1 = exp2f(s[4 * j + 1] - mn_a);
+      const float p2 = exp2f(s[4 * j + 2] - mn_b);
+      const float p3 = exp2f(s[4 * j + 3] - mn_b);
+      sum_a += p0 + p1;
+      sum_b += p2 + p3;
+      const int chunk = wg * (S::HALF / 8) + j;
+      *reinterpret_cast<uint32_t*>(Ps + ra * 128 + ((chunk ^ gid) * 16) +
+                                   tig * 4) = hopper::pack_bf16(p0, p1);
+      *reinterpret_cast<uint32_t*>(Ps + rb * 128 + ((chunk ^ gid) * 16) +
+                                   tig * 4) = hopper::pack_bf16(p2, p3);
+    }
+    l_a = l_a * al_a + sum_a;
+    l_b = l_b * al_b + sum_b;
+#pragma unroll
+    for (int j = 0; j < MLA_DV / 16; ++j) {
+      o[4 * j] *= al_a;
+      o[4 * j + 1] *= al_a;
+      o[4 * j + 2] *= al_b;
+      o[4 * j + 3] *= al_b;
+    }
+    hopper::fence_proxy_async_shared();  // P's stores -> wgmma reads
+    hopper::named_bar_sync(1, 256);      // both halves of P are written
+
+    // O_w += P V[:, 256 w : 256 w + 256]: V is the stage's first 512
+    // columns, MN-major (boxes of 64 columns, LBO a box apart)
+    const uint64_t dv = hopper::desc_sw128(Kst + wg * 4 * S::BOX, S::BOX,
+                                           1024);
+    hopper::fence_operands(o);
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < S::BN / 16; ++kk)
+      hopper::wgmma_ss_n256_bf16<1>(o, dp + kk * 2,
+                                    dv + kk * (16 * 128 >> 4), 1);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::fence_operands(o);
+    if (lane == 0) hopper::mbar_arrive(&empty[st.stage]);
+    st.advance(S::STAGES);
+    if (threadIdx.x == 0 && kb + S::STAGES < kb_hi)
+      produce(ps, kb + S::STAGES);
+  }
+
+  // each row's l: the quad's partials, then the two halves' (red is free:
+  // both halves passed the last block's second barrier)
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  if (tig == 0) {
+    red[wg * S::BM + ra] = l_a;
+    red[wg * S::BM + rb] = l_b;
+  }
+  hopper::named_bar_sync(1, 256);
+  const float inv_a = 1.f / fmaxf(red[ra] + red[S::BM + ra], 1e-30f);
+  const float inv_b = 1.f / fmaxf(red[rb] + red[S::BM + rb], 1e-30f);
+  T* ob = static_cast<T*>(P.o) + n * P.o_sn + h * P.o_sh + wg * (MLA_DV / 2);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int R = row0 + (half ? rb : ra);
+    if (R >= rows) continue;
+    T* orow = ob + (R / P.g) * P.o_ss + (R % P.g) * P.o_sg;
+    const float inv = half ? inv_b : inv_a;
+#pragma unroll
+    for (int j = 0; j < MLA_DV / 16; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + tig * 2) =
+          __floats2bfloat162_rn(o[4 * j + 2 * half] * inv,
+                                o[4 * j + 2 * half + 1] * inv);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32: FMA
 // ---------------------------------------------------------------------------
 
@@ -1450,7 +1804,8 @@ enum Path {
   PATH_MMA_SYNC = 1,
   PATH_WGMMA = 2,
   PATH_SPLIT = 3,
-  PATH_MLA = 4
+  PATH_MLA = 4,
+  PATH_MLA_WGMMA = 5
 };
 
 struct Plan {
@@ -1484,19 +1839,26 @@ inline int sm_count() {
 }
 
 // float32 -> fa_f32_kernel; bf16 with v narrower than k or dh above 256
-// (MLA) -> fa_mla_kernel, its decode shape (at most 16 folded rows) with
-// the visible blocks split across CTAs for one CTA per SM; other bf16
-// with at most 16 folded rows (decode) -> fa_split_kernel, with enough
-// splits of the KV range for two CTAs per SM; bf16 prefill at dh 64 or
-// 128 whose strides TMA can use (vec_ok) and with at least 64 folded rows
-// -> fa_wgmma_kernel; other bf16 -> fa_bf16_kernel (mma.sync).
+// (MLA): the prefill at dh 576 and dv 512 with v a view of k (v_in_k),
+// at least 64 folded rows, strides TMA can use (vec_ok) and kv_len > 0 ->
+// fa_mla_wgmma_kernel, other MLA calls -> fa_mla_kernel, its decode
+// shape (at most 16 folded rows) with the visible blocks split across
+// CTAs for one CTA per SM; other bf16 with at most 16 folded rows
+// (decode) -> fa_split_kernel, with enough splits of the KV range for two
+// CTAs per SM; bf16 prefill at dh 64, 128 or 256 whose strides TMA can
+// use (vec_ok), with at least 64 folded rows and kv_len > 0 ->
+// fa_wgmma_kernel; other bf16 -> fa_bf16_kernel (mma.sync).
 inline Plan plan(int dtype, int n, int sq, int hk, int g, int dh, int dv,
-                 int q0, int kv_len, int causal, int window, int vec_ok) {
+                 int q0, int kv_len, int causal, int window, int vec_ok,
+                 int v_in_k) {
   Plan pl;
   pl.dhp = padded_dh(dh);
   const int rows = sq * g;
   if (dtype == 0) {
     pl.path = PATH_F32;
+  } else if (dh == MLA_DQ && dv == MLA_DV && v_in_k && vec_ok &&
+             rows >= MlaWgShape::BM && kv_len > 0) {
+    pl.path = PATH_MLA_WGMMA;
   } else if (dv != dh || dh > 256) {
     pl.path = PATH_MLA;
     pl.splits = 1;
@@ -1533,7 +1895,7 @@ inline Plan plan(int dtype, int n, int sq, int hk, int g, int dh, int dv,
     pl.key_lo = lo;
     pl.key_hi = hi;
     pl.scratch = (long long)groups * pl.splits * SPLIT_ROWS * (pl.dhp + 2);
-  } else if (vec_ok && (dh == 64 || dh == 128) && rows >= 64 &&
+  } else if (vec_ok && (dh == 64 || dh == 128 || dh == 256) && rows >= 64 &&
              kv_len > 0) {
     pl.path = PATH_WGMMA;
   }
@@ -1573,16 +1935,18 @@ int launch_split(const Params& P, const Plan& pl, float* part, int* tickets,
   return 0;
 }
 
-// The tensor map of k or v [N, kv_len, HK, dh] (strides in elements), its
-// outer dims ordered by stride; `ord` says where each coordinate goes.
+// The tensor map of k or v [N, kv_len, HK, dh] (strides in elements) in
+// boxes of `keys` keys and 64 dims, its outer dims ordered by stride;
+// `ord` says where each coordinate goes.
 inline int kv_map(CUtensorMap* map, const void* base, const Params& P,
-                  long long sn, long long ss, long long sh, KvOrder* ord) {
+                  long long sn, long long ss, long long sh, int keys,
+                  KvOrder* ord) {
   struct Dim {
     long long stride;
     uint64_t extent;
     uint32_t box;
     int which;   // 0 key, 1 head, 2 batch
-  } d[3] = {{ss, (uint64_t)P.kv_len, 128, 0},
+  } d[3] = {{ss, (uint64_t)P.kv_len, (uint32_t)keys, 0},
             {sh, (uint64_t)P.hk, 1, 1},
             {sn, (uint64_t)P.n, 1, 2}};
   for (int i = 0; i < 3; ++i)          // by stride (insertion sort)
@@ -1614,14 +1978,34 @@ int launch_wgmma(const Params& P, cudaStream_t s) {
   CUtensorMap tk, tv;
   KvOrder ok, ov;
   int rc;
-  if ((rc = kv_map(&tk, P.k, P, P.k_sn, P.k_ss, P.k_sh, &ok)) ||
-      (rc = kv_map(&tv, P.v, P, P.v_sn, P.v_ss, P.v_sh, &ov)))
+  constexpr int BN = WgShape<DH>::BN;
+  if ((rc = kv_map(&tk, P.k, P, P.k_sn, P.k_ss, P.k_sh, BN, &ok)) ||
+      (rc = kv_map(&tv, P.v, P, P.v_sn, P.v_ss, P.v_sh, BN, &ov)))
     return rc;
   const long long ctas = (long long)((P.sq * P.g + WgShape<DH>::BM - 1) /
                                      WgShape<DH>::BM) * P.n * P.hk;
   if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   fa_wgmma_kernel<DH><<<static_cast<unsigned>(ctas), WgShape<DH>::THREADS,
                         bytes, s>>>(tk, tv, P, ok, ov);
+  return 0;
+}
+
+int launch_mla_wgmma(const Params& P, cudaStream_t s) {
+  using S = MlaWgShape;
+  static bool configured = false;
+  if (!configured) {
+    set_smem(fa_mla_wgmma_kernel, S::SMEM);
+    configured = true;
+  }
+  CUtensorMap tk;
+  KvOrder ok;
+  if (const int rc = kv_map(&tk, P.k, P, P.k_sn, P.k_ss, P.k_sh, S::BN, &ok))
+    return rc;
+  const long long ctas =
+      (long long)((P.sq * P.g + S::BM - 1) / S::BM) * P.n * P.hk;
+  if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  fa_mla_wgmma_kernel<<<static_cast<unsigned>(ctas), S::THREADS, S::SMEM,
+                        s>>>(tk, P, ok);
   return 0;
 }
 
@@ -1685,7 +2069,7 @@ extern "C" int flash_attention(
       dh > MLA_DQ || (dtype == 1 && (dv > MLA_DV || (dh > 256 && dv == dh))))
     return static_cast<int>(cudaErrorInvalidValue);
   const Plan pl = plan(dtype, n, sq, hk, g, dh, dv, q0, kv_len, causal,
-                       window, vec_ok);
+                       window, vec_ok, v_in_k);
   int rc = 0;
   if (pl.path == PATH_F32) {
     if (pl.dhp <= 32) launch_f32<32>(P, s);
@@ -1710,8 +2094,12 @@ extern "C" int flash_attention(
     else if (pl.dhp == 64) rc = launch_split<64>(P, pl, part, tk, s);
     else if (pl.dhp == 128) rc = launch_split<128>(P, pl, part, tk, s);
     else rc = launch_split<256>(P, pl, part, tk, s);
+  } else if (pl.path == PATH_MLA_WGMMA) {
+    rc = launch_mla_wgmma(P, s);
   } else if (pl.path == PATH_WGMMA) {
-    rc = dh == 64 ? launch_wgmma<64>(P, s) : launch_wgmma<128>(P, s);
+    rc = dh == 64    ? launch_wgmma<64>(P, s)
+         : dh == 128 ? launch_wgmma<128>(P, s)
+                     : launch_wgmma<256>(P, s);
   } else {
     if (pl.dhp == 16) launch_bf16<16>(P, s);
     else if (pl.dhp == 32) launch_bf16<32>(P, s);
@@ -1724,14 +2112,14 @@ extern "C" int flash_attention(
 }
 
 // The path a call with these arguments takes (0 float32, 1 mma.sync, 2
-// wgmma, 3 split decode, 4 MLA) and, in *scratch, the float32 scratch it
-// needs.
+// wgmma, 3 split decode, 4 MLA, 5 MLA prefill on wgmma) and, in *scratch,
+// the float32 scratch it needs.
 extern "C" int flash_attention_plan(int dtype, int n, int sq, int hk, int g,
                                     int dh, int dv, int q0, int kv_len,
                                     int causal, int window, int vec_ok,
-                                    long long* scratch) {
+                                    int v_in_k, long long* scratch) {
   const Plan pl = plan(dtype, n, sq, hk, g, dh, dv, q0, kv_len, causal,
-                       window, vec_ok);
+                       window, vec_ok, v_in_k);
   *scratch = pl.scratch;
   return pl.path;
 }

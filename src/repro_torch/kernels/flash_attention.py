@@ -26,19 +26,29 @@ alignment, before the launch; every call is one launch.
 ``flash_attention.launches_by_path`` counts them by path, and
 ``flash_attention.launches_by_dh`` by head dim, then path:
 
-* ``"wgmma"``: bf16 prefill (at least 64 folded rows, dh 64 or 128, 16-byte
-  strides): warp-specialized CTAs of 128 folded rows, K/V blocks of 128
-  keys by TMA, both products on ``wgmma``;
+* ``"wgmma"``: bf16 prefill (at least 64 folded rows, dh 64, 128 or 256,
+  16-byte strides): CTAs of 128 folded rows, K/V blocks of 128 keys by
+  TMA from a producer warpgroup (at dh 256, where O alone is 128
+  registers a thread: 64-key blocks, thread 0 issuing the loads), both
+  products on ``wgmma``; bound by operations;
 * ``"split_kv"``: bf16 decode (at most 16 folded rows): the KV range split
   across CTAs, float32 partials in scratch that this wrapper allocates, the
   last CTA of each (n, KV head) merging them (``_tickets`` keeps the
   per-head counters, re-armed by the kernel);
 * ``"mma_sync"``: other bf16 calls, 32-key blocks on ``mma.sync``;
-* ``"mla"``: bf16 with ``dv != dh`` or ``dh > 256`` (MLA: dh up to 576, dv
-  up to 512): 8 warps a CTA splitting the output's columns, S and P
-  through shared memory, the value rows read from the key stage when v is
-  a view of k; at most 16 folded rows (decode) the visible blocks split
-  across CTAs with float32 partials in scratch, as ``split_kv`` does;
+* ``"mla_wgmma"``: the bf16 MLA prefill (dh 576, dv 512, v a view of k's
+  first 512 columns, at least 64 folded rows, 16-byte strides): CTAs of 64
+  folded rows holding Q, 64-key K blocks by TMA with V read from the same
+  stage, S split by keys across two warpgroups, P through shared memory,
+  each warpgroup's O += P V over half the output's columns, all on
+  ``wgmma``; bound by operations;
+* ``"mla"``: other bf16 calls with ``dv != dh`` or ``dh > 256`` (MLA: dh
+  up to 576, dv up to 512; the decode, a v that is its own tensor): 8
+  warps a CTA splitting the output's columns, S and P through shared
+  memory, the value rows read from the key stage when v is a view of k;
+  at most 16 folded rows (decode) the visible blocks split across CTAs
+  with float32 partials in scratch, as ``split_kv`` does; the decode is
+  bound by the bytes of the latent cache;
 * ``"f32"``: float32, full float32 FMA (dh up to 576).
 
 ``flash_attention_plain`` is a PyTorch copy of the JAX package's
@@ -69,8 +79,8 @@ CHUNK = 1024                       # _flash_jnp's KV chunk
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DH = 256                  # the dense bf16 paths
 MLA_DH, MLA_DV = 576, 512     # the "mla" path's widest q/k and v
-PATHS = ("f32", "mma_sync", "wgmma", "split_kv",
-         "mla")                                    # flash_attention_plan
+PATHS = ("f32", "mma_sync", "wgmma", "split_kv", "mla",
+         "mla_wgmma")                              # flash_attention_plan
 _TICKETS: dict = {}          # device -> int32 counters, zero between calls
 
 
@@ -85,7 +95,7 @@ def _lib() -> ctypes.CDLL:
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
         plan = lib.flash_attention_plan
         plan.restype = ctypes.c_int
-        plan.argtypes = [ctypes.c_int] * 12 + [
+        plan.argtypes = [ctypes.c_int] * 13 + [
             ctypes.POINTER(ctypes.c_longlong)]
     return lib
 
@@ -222,7 +232,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     need = ctypes.c_longlong(0)
     path = PATHS[lib.flash_attention_plan(
         _DTYPE_CODE[q.dtype], n, sq, hk, g, dh, dv, int(q0), kv_len,
-        int(bool(causal)), int(window), vec_ok, ctypes.byref(need))]
+        int(bool(causal)), int(window), vec_ok, v_in_k, ctypes.byref(need))]
     scratch = tickets = None
     if need.value:
         scratch = torch.empty(need.value, dtype=torch.float32,

@@ -6,16 +6,19 @@
 Each variant is a copy of ``csrc/`` with a few source edits (a stage
 count, a tile width, one part of the loop taken out or put back), built
 like the kernels themselves into ``build/variants/<name>/`` and timed by
-the device time that ``torch.profiler`` records (mean per launch of 20)
-at the shapes of ``chip_smoke.py`` phase 3.  A variant that takes work out
-computes a wrong result: it shows where the time goes, nothing more; the
-base variants are checked against their plain versions.  Needs a CUDA
-card.  Prints the card's name and power limit, then one line per variant
+the device time that ``torch.profiler`` records (mean per launch of 20;
+long_500k's prefill layers by CUDA events over 2 launches) at the shapes
+of ``chip_smoke.py`` phase 3.  A variant that takes work out computes a wrong result: it shows
+where the time goes, nothing more; the base variants, and flash's two
+that give plan() back the kernels the dh-256 and MLA prefills ran on
+before (``mma_sync``, ``mla``), are checked against their plain versions.
+Needs a CUDA card.  Prints the card's name and power limit, then one line per variant
 and shape.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import shutil
 import subprocess
 
@@ -63,27 +66,54 @@ _NO_EXP = (_FA, "        s[4 * j + e] = exp2f(s[4 * j + e] - mn_a);\n"
            "        s[4 * j + 2 + e] = s[4 * j + 2 + e] - mn_b;")
 _NO_PV = (_FA, "      wgmma_pv<DH>(o, pa[kk], dv + kk * (16 * 128 >> 4));",
           "      o[kk] += __uint_as_float(pa[kk][0] ^ pa[kk][3]);")
-_NO_S = (_FA, "      hopper::wgmma_ss_n128_bf16<0>(s, dq + off, dk + off, "
+_NO_S = (_FA, "      wgmma_qk<S::BN>(s, dq + (ks / 4) * (S::Q_BOX >> 4) + inner,\n"
+              "                      dk + (ks / 4) * (S::KV_BOX >> 4) + inner, "
               "ks > 0);",
-         "      s[ks] = __uint_as_float((uint32_t)(dq + off + dk));")
+         "      s[ks] = __uint_as_float((uint32_t)(dq + inner + dk));")
+# the MLA prefill kernel (fa_mla_wgmma_kernel)
+_MLA_NO_S = (_FA, "      hopper::wgmma_ss_n32_bf16<0>(s, dq + off, dk + off, "
+                  "ks > 0);",
+             "      s[ks % 16] = __uint_as_float((uint32_t)(dq + off + dk));")
+_MLA_NO_PV = (_FA, "      hopper::wgmma_ss_n256_bf16<1>(o, dp + kk * 2,\n"
+                   "                                    dv + kk * (16 * 128 >> "
+                   "4), 1);",
+              "      o[kk] += __uint_as_float((uint32_t)(dp + dv));")
 FLASH = {
     "base": [],
+    # the kernels that the dh-256 wgmma instance and the MLA wgmma prefill
+    # took over from, chosen by plan() as before: dh 256 on mma.sync, the
+    # MLA prefill on "mla"
+    "dh 256 on mma_sync": [
+        (_FA, "(dh == 64 || dh == 128 || dh == 256) && rows >= 64 &&",
+         "(dh == 64 || dh == 128) && rows >= 64 &&")],
+    "MLA prefill on mla": [
+        (_FA, "  } else if (dh == MLA_DQ && dv == MLA_DV && v_in_k && vec_ok &&",
+         "  } else if (false && dh == MLA_DQ && dv == MLA_DV && v_in_k &&")],
+    # each Q load waits for the one before it: the round trip a load that
+    # the first port's Q loop paid before its store
+    "Q loads one round trip each": [
+        (_FA, "    if (R < rows)\n      v[i] = __ldg(",
+         "    if (R < rows && (i == 0 || v[i - 1].x != 0x7fc00001))\n"
+         "      v[i] = __ldg(")],
     "3 stages": [(_FA, "  static constexpr int STAGES = 2;\n"
-                       "  static constexpr int THREADS = 384;",
-                  "  static constexpr int STAGES = 3;\n"
-                  "  static constexpr int THREADS = 384;")],
+                       "  static constexpr int THREADS = DH == 256 ? 256 : 384;",
+                  "  static constexpr int STAGES = DH == 256 ? 2 : 3;\n"
+                  "  static constexpr int THREADS = DH == 256 ? 256 : 384;")],
     "lightest row tiles first": [
         (_FA, "  const int row0 = (tiles - 1 - blockIdx.x / groups) * S::BM;",
          "  const int row0 = (blockIdx.x / groups) * S::BM;")],
-    "softcap test per score": [(_FA, "    logits<64>(P, s);\n",
+    "softcap test per score": [(_FA, "    logits<NS>(P, s);\n",
                                 "#pragma unroll\n"
-                                "    for (int i = 0; i < 64; ++i)\n"
+                                "    for (int i = 0; i < NS; ++i)\n"
                                 "      s[i] = cap(P, s[i]) * LOG2E;\n")],
     "no mask": [_NO_MASK],
     "no exp": [_NO_EXP],
     "no PV product": [_NO_PV],
     "no S product": [_NO_S],
     "no math (pipeline only)": [_NO_MASK, _NO_EXP, _NO_PV, _NO_S],
+    "MLA: no PV product": [_MLA_NO_PV],
+    "MLA: no S product": [_MLA_NO_S],
+    "MLA: no math (pipeline only)": [_MLA_NO_S, _MLA_NO_PV],
 }
 
 
@@ -244,6 +274,22 @@ def device_ms(fn, needle: str, iters: int = 20, tries: int = 3) -> float:
                        f"{tries} sessions of {iters} calls")
 
 
+def events_ms(fn, iters: int) -> float:
+    """Mean ms a call of ``fn`` over ``iters`` back-to-back calls between
+    two CUDA events, after one warm-up call: for launches of a second and
+    more (long_500k's global layer), whose host time hides, and after
+    which ``torch.profiler`` sessions recorded no launch at all."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
 def _variant_lib(lib: str, name: str, edits):
     """Build ``lib`` from a copy of csrc/ with ``edits`` applied and load
     it; returns a stand-in for the wrapper module's ``_lib``."""
@@ -305,38 +351,71 @@ def ring(only, gen) -> None:
 
 def flash(only, gen) -> None:
     dev = torch.device("cuda")
-    shapes = (  # (label, (N, Sq, HK, G, dh), causal)
-        ("llama3.2-3b prefill, causal", (32, 1024, 1, 3, 128), True),
-        ("llama3.2-3b prefill, no mask", (32, 1024, 1, 3, 128), False),
-        ("N 8, S 4096, no mask", (8, 4096, 1, 1, 128), False),
-        ("zamba2-1.2b prefill, causal", (32, 1024, 4, 1, 64), True))
-    ins = {}
-    for label, (nb, s, hk, g, dh), _ in shapes:
-        ins[label] = tuple(
-            torch.randn(*sh, generator=gen, device=dev).bfloat16()
-            for sh in ((nb, s, hk, g, dh), (nb, s, hk, dh), (nb, s, hk, dh)))
+    mla = dict(scale=192 ** -0.5)
+    long_len = 524288 - 32                   # long_500k's prompt, one lane
+    shapes = (  # (label, (N, Sq, Skv, HK, G, dh, dv or None: v = k), kw)
+        ("llama3.2-3b prefill, causal", (32, 1024, 1024, 1, 3, 128, None),
+         dict(causal=True)),
+        ("llama3.2-3b prefill, no mask", (32, 1024, 1024, 1, 3, 128, None),
+         dict(causal=False)),
+        ("N 8, S 4096, no mask", (8, 4096, 4096, 1, 1, 128, None),
+         dict(causal=False)),
+        ("zamba2-1.2b prefill, causal", (32, 1024, 1024, 4, 1, 64, None),
+         dict(causal=True)),
+        ("gemma3-1b prefill per lane, dh 256",
+         (16, 1024, 1024, 1, 1, 256, None), dict(causal=True)),
+        ("gemma3-1b local layer, dh 256", (16, 1024, 1024, 1, 1, 256, None),
+         dict(causal=True, window=512)),
+        ("paligemma-3b prefix rows, dh 256", (32, 256, 256, 1, 1, 256, None),
+         dict(causal=False)),
+        ("paligemma-3b text rows, dh 256", (32, 1024, 1280, 1, 1, 256, None),
+         dict(causal=True, q0=256)),
+        ("deepseek-v3 MLA prefill, v a view of k",
+         (32, 1024, 1024, 1, 16, 576, 512), dict(causal=True, **mla)),
+        # long_500k's prefill layers: timed by events over 2 launches, not
+        # held to the plain version here (chip_smoke.py phase 3 holds them
+        # on slices)
+        ("gemma3-1b long_500k global layer",
+         (1, long_len, long_len, 1, 4, 256, None), dict(causal=True)),
+        ("gemma3-1b long_500k local layer",
+         (1, long_len, long_len, 1, 4, 256, None),
+         dict(causal=True, window=512)))
+    ins, flops = {}, {}
+    for label, (nb, sq, skv, hk, g, dh, dv), kw in shapes:
+        q, k, v = (torch.randn(*sh, generator=gen, device=dev).bfloat16()
+                   for sh in ((nb, sq, hk, g, dh), (nb, skv, hk, dh),
+                              (nb, skv, hk, dh)))
+        ins[label] = (q, k, v if dv is None else k[..., :dv])
+        q0, w = kw.get("q0", 0), kw.get("window", 0)
+        pairs = sum((min(skv, q0 + i + 1) if kw["causal"] else skv)
+                    - (max(0, q0 + i - w + 1) if w else 0)
+                    for i in range(sq))
+        flops[label] = 2 * (dh + (dv or dh)) * pairs * nb * hk * g
     for name, edits in FLASH.items():
         if only and name not in only:
             continue
         lib = _variant_lib("flash_attention", name, edits)
         keep, fa._lib = fa._lib, lib
         try:
-            for label, (nb, s, hk, g, dh), causal in shapes:
+            for label, (nb, sq, skv, hk, g, dh, dv), kw in shapes:
                 q, k, v = ins[label]
-                got = fa.flash_attention(q, k, v, causal=causal)
+                before = dict(fa.flash_attention.launches_by_path)
+                got = fa.flash_attention(q, k, v, **kw)
+                path = [p_ for p_, c in fa.flash_attention.launches_by_path
+                        .items() if c != before[p_]]
                 err = ""
-                if name == "base":
-                    want = fa.flash_attention_plain(q, k, v, causal=causal)
+                long = sq == long_len
+                if not long and name in ("base", "dh 256 on mma_sync",
+                                         "MLA prefill on mla"):
+                    want = fa.flash_attention_plain(q, k, v, **kw)
                     ok = bool(((got.float() - want.float()).abs()
-                               <= fa.tolerance(q, k, v, want,
-                                               causal=causal)).all())
+                               <= fa.tolerance(q, k, v, want, **kw)).all())
                     err = f", within the limit: {ok}"
-                ms = device_ms(lambda: fa.flash_attention(
-                    q, k, v, causal=causal), "fa_wgmma")
-                pairs = s * (s + 1) // 2 if causal else s * s
-                flops = 4 * dh * pairs * nb * hk * g
-                print(f"flash {name}: {label} {ms:.4f} ms = "
-                      f"{flops / ms / 1e9:.1f} TFLOP/s{err}", flush=True)
+                call = functools.partial(fa.flash_attention, q, k, v, **kw)
+                ms = events_ms(call, 2) if long else device_ms(call, "fa_")
+                print(f"flash {name}: {label} path {'/'.join(path)} "
+                      f"{ms:.4f} ms = {flops[label] / ms / 1e9:.1f} "
+                      f"TFLOP/s{err}", flush=True)
         finally:
             fa._lib = keep
 

@@ -720,6 +720,15 @@ MLA_CASES = [
 ]
 
 
+def _mla_path(case, view) -> str:
+    """The path plan() gives an MLA call: the wgmma prefill at
+    deepseek-v3's widths with v a view of k and at least 64 folded rows,
+    else "mla" (decode, v its own tensor, smoke widths)."""
+    n, sq, skv, g, dqk, dv = case[:6]
+    return "mla_wgmma" if (view and (dqk, dv) == (576, 512)
+                           and sq * g >= 64) else "mla"
+
+
 def _mla_inputs(cuda, case, view, dtype=torch.bfloat16):
     n, sq, skv, g, dqk, dv = case[:6]
     gen = torch.Generator(device="cpu").manual_seed(sum(case[:6]))
@@ -734,8 +743,9 @@ def _mla_inputs(cuda, case, view, dtype=torch.bfloat16):
 @pytest.mark.parametrize("view", [True, False])
 @pytest.mark.parametrize("case", MLA_CASES)
 def test_flash_mla_path_matches_plain(cuda, case, view):
-    """The "mla" path at the serve shapes of deepseek-v3 at TP 8 and at
-    ragged ones, with v a view of k (the model's) and its own tensor."""
+    """The MLA paths at the serve shapes of deepseek-v3 at TP 8 and at
+    ragged ones, with v a view of k (the model's) and its own tensor: the
+    prefill with v a view of k on "mla_wgmma", the rest on "mla"."""
     from repro_torch.kernels import flash_attention as FA
     q, k, v = _mla_inputs(cuda, case, view)
     kw = dict(zip(("causal", "window", "softcap", "q0", "kv_len"),
@@ -743,7 +753,7 @@ def test_flash_mla_path_matches_plain(cuda, case, view):
     before = _paths(FA.flash_attention)
     got = FA.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert _took(FA.flash_attention, before) == {"mla": 1}
+    assert _took(FA.flash_attention, before) == {_mla_path(case, view): 1}
     assert tuple(got.shape) == tuple(q.shape[:4]) + (case[5],)
     assert bool(torch.isfinite(got.float()).all())
     assert _within_limit(FA, got, q, k, v, **kw)
@@ -847,7 +857,7 @@ def test_flash_function_at_mla_widths_launches_mla_and_grads_match(
     before = _paths(FA.flash_attention)
     y = FA.FlashAttention.apply(q, k, v, True, 0, 0.0, 0, None, MLA_SCALE)
     torch.cuda.synchronize()
-    assert _took(FA.flash_attention, before) == {"mla": 1}
+    assert _took(FA.flash_attention, before) == {_mla_path(case, view): 1}
     kw = dict(scale=MLA_SCALE)
     assert _within_limit(FA, y.detach(), q.detach(), k.detach(), v.detach(),
                          **kw)
@@ -911,32 +921,55 @@ def test_serve_on_card_matches_the_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
-# head dim 256 (gemma3-1b, paligemma-3b): mma_sync prefill, the prefix
-# split, split_kv over a long cache, and the sequence-sharded decode
+# head dim 256 (gemma3-1b, paligemma-3b, gemma2-9b): the wgmma prefill
+# (mma_sync below 64 folded rows), the prefix split, split_kv over a long
+# cache, and the sequence-sharded decode
 # ---------------------------------------------------------------------------
 
 # (N, Sq, Skv, HK, G, dh, causal, window, softcap, q0, kv_len): gemma3-1b's
 # prefill per lane (4 q heads over 1 KV head at TP 1) and its local layers'
 # window; paligemma-3b's text rows at TP 8 (1 q head a rank) from q0 256
+# and its prefix rows; gemma2-9b at TP 8 (2 q heads over 1 KV head, window
+# 4096, softcap 50) past its window; folded rows not a multiple of the
+# kernel's 128; kv_len inside a 64-key block with NaNs beyond it; and 45
+# folded rows, which stay on mma_sync
 D256_CASES = [(2, 1024, 1024, 1, 4, 256, True, 0, 0.0, 0, None),
               (2, 1024, 1024, 1, 4, 256, True, 512, 0.0, 0, None),
               (8, 1024, 1280, 1, 1, 256, True, 0, 0.0, 256, None),
-              (8, 256, 256, 1, 1, 256, False, 0, 0.0, 0, None)]
+              (8, 256, 256, 1, 1, 256, False, 0, 0.0, 0, None),
+              (1, 4608, 4608, 1, 2, 256, True, 4096, 50.0, 0, None),
+              (3, 77, 77, 1, 3, 256, True, 0, 0.0, 0, None),
+              (2, 128, 512, 1, 1, 256, True, 0, 0.0, 72, 200),
+              (2, 15, 15, 1, 3, 256, True, 0, 0.0, 0, None)]
 
 
 @needs_cuda
 @pytest.mark.parametrize("case", D256_CASES)
 def test_flash_head_dim_256_prefill_on_mma_sync(cuda, case):
+    """Every dh-256 prefill of at least 64 folded rows takes the wgmma
+    path (the name is the first port's, whose kernel was mma.sync); keys
+    at or beyond kv_len hold NaNs, which the kernel never reads."""
     from repro_torch.kernels import flash_attention as FA
     q, k, v = _flash_inputs(cuda, case, torch.bfloat16)
     kw = dict(zip(("causal", "window", "softcap", "q0", "kv_len"),
                   case[6:]))
+    if case[8]:                    # scores large enough for the cap to bite
+        q, k = q * 4, k * 4
+    kv_len = case[10]
+    if kv_len is not None:
+        k[:, kv_len:] = float("nan")
+        v[:, kv_len:] = float("nan")
     before = dict(FA.flash_attention.launches_by_path)
     got = FA.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     after = FA.flash_attention.launches_by_path
+    want = "wgmma" if case[1] * case[4] >= 64 else "mma_sync"
     assert {p_: after[p_] - before[p_] for p_ in after if
-            after[p_] != before[p_]} == {"mma_sync": 1}
+            after[p_] != before[p_]} == {want: 1}
+    assert bool(torch.isfinite(got.float()).all())
+    if kv_len is not None:
+        k[:, kv_len:] = 0
+        v[:, kv_len:] = 0
     assert _within_limit(FA, got, q, k, v, **kw)
 
 

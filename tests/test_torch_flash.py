@@ -17,8 +17,9 @@ Tolerances are the reference test's (``tests/test_kernels.py:22-23``):
 rounding of p and of the output).  The kernel itself runs only on the
 card (``tests/test_torch_cuda.py``, ``chip_smoke.py``), held to its plain
 version within the finer elementwise limit ``FA.tolerance``; here that
-limit is checked at the serve path's shapes: it admits the plain version
-run in the kernel's 32-key blocks and rejects planted faults.
+limit is checked at the serve path's shapes (head dim 128, 256 and MLA's
+576/512): it admits the plain version run in the kernel's key blocks (32,
+or 64 at dh 256 and on the MLA prefill) and rejects planted faults.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -139,6 +140,13 @@ KIND = {(True, 0): "causal", (True, 1): "local", (False, 0): "full"}
     (2, 1, 128, 1, 4, 16, True, 0, 0.0, 127, 128),      # decode, full cache
     (2, 1, 24, 2, 2, 16, True, 24, 0.0, 29, 24),        # windowed decode
     (2, 3, 96, 2, 2, 32, True, 0, 25.0, 50, 53),        # 3 tokens, softcap
+    # head dim 256: gemma2-9b at TP 8 (2 q heads over 1 KV head, softcap
+    # 50, its 4096-key window cut with S to 40 of 100 keys), rows after a
+    # prefix (q0 > 0, paligemma's text rows), and 210 folded rows (not a
+    # multiple of 64)
+    (1, 100, 100, 1, 2, 256, True, 40, 50.0, 0, None),
+    (2, 40, 72, 1, 1, 256, True, 0, 0.0, 32, None),
+    (1, 70, 70, 1, 3, 256, True, 0, 0.0, 0, None),
 ])
 def test_model_layout_matches_flash_jnp(dtype, case):
     b, sq, skv, hk, g, dh, causal, window, softcap, q0, kv_len = case
@@ -180,16 +188,35 @@ def test_cpu_tensors_take_the_plain_version_and_bad_inputs_raise():
 
 # the kernel-vs-plain limit at the serve path's shapes (llama3.2-3b at TP 8
 # stacked: one KV head and 3 q heads per rank; the prefill's 32 rows cut
-# to 2 here)
+# to 2 here); at head dim 256 gemma3-1b's prefill per lane on the (2, 4)
+# mesh (16 lanes cut to 4) and paligemma-3b's text and prefix rows at TP 8
+# (32 cut to 4); deepseek-v3's absorbed MLA prefill at TP 8 (q/k 576, v
+# k's first 512 columns, 32 rows cut to 1)
 SERVE_PREFILL = (2, 1024, 1024, 1, 3, 128)
 SERVE_DECODE = (32, 1, 2048, 1, 3, 128)
+GEMMA_LANE = (4, 1024, 1024, 1, 1, 256)
+PALI_TEXT = (4, 1024, 1280, 1, 1, 256)
+PALI_PREFIX = (4, 256, 1280, 1, 1, 256)
+MLA_PREFILL = (1, 1024, 1024, 1, 16, 576, 512)
+MLA_SCALE = 1.0 / 192 ** 0.5
 
 
 def _serve_inputs(shape):
-    n, sq, skv, hk, g, dh = shape
+    """q, k, v in bf16; a seventh entry dv makes v k's first dv columns
+    (MLA's view)."""
+    n, sq, skv, hk, g, dh = shape[:6]
     gen = torch.Generator().manual_seed(sum(shape))
-    return [torch.randn(*s, generator=gen).to(torch.bfloat16)
-            for s in ((n, sq, hk, g, dh), (n, skv, hk, dh), (n, skv, hk, dh))]
+    q, k, v = [torch.randn(*s, generator=gen).to(torch.bfloat16)
+               for s in ((n, sq, hk, g, dh), (n, skv, hk, dh),
+                         (n, skv, hk, dh))]
+    return (q, k, k[..., :shape[6]]) if len(shape) > 6 else (q, k, v)
+
+
+def _block_keys(shape) -> int:
+    """The key block of the kernel a shape takes: 64 at dh 256 and on the
+    MLA prefill, 32 keys on the other paths the limit is checked for (the
+    mma.sync kernel's block, finer than wgmma's 128)."""
+    return 64 if shape[5] >= 256 else 32
 
 
 def _within(got, want, limit) -> bool:
@@ -199,14 +226,19 @@ def _within(got, want, limit) -> bool:
 @pytest.mark.parametrize("shape,kw", [
     (SERVE_PREFILL, {}),
     (SERVE_DECODE, dict(q0=1024, kv_len=1025)),
-    (SERVE_DECODE, dict(q0=1055, kv_len=1056))])
+    (SERVE_DECODE, dict(q0=1055, kv_len=1056)),
+    (GEMMA_LANE, {}),
+    (GEMMA_LANE, dict(window=512)),                      # a local layer
+    (PALI_TEXT, dict(q0=256)),
+    (MLA_PREFILL, dict(scale=MLA_SCALE))])
 def test_limit_admits_the_kernels_block_schedule(monkeypatch, shape, kw):
-    """The plain version in 32-key chunks rounds p after the running maxima
-    the kernel's blocks give; it stays within the limit."""
+    """The plain version in the kernel's key blocks (``_block_keys``)
+    rounds p after the running maxima those blocks give; it stays within
+    the limit."""
     q, k, v = _serve_inputs(shape)
     want = FA.flash_attention_plain(q, k, v, **kw)
     limit = FA.tolerance(q, k, v, want, **kw)
-    monkeypatch.setattr(FA, "CHUNK", 32)
+    monkeypatch.setattr(FA, "CHUNK", _block_keys(shape))
     assert _within(FA.flash_attention_plain(q, k, v, **kw), want, limit)
 
 
@@ -217,6 +249,15 @@ def test_limit_admits_the_kernels_block_schedule(monkeypatch, shape, kw):
      dict(q0=1024, kv_len=1024)),                        # last slot left out
     (SERVE_DECODE, dict(q0=1055, kv_len=1056),
      dict(q0=1056, kv_len=1057)),                        # one slot too many
+    # head dim 256 and the MLA prefill, 64-key blocks
+    (GEMMA_LANE, {}, dict(window=1024 - 64)),            # first block dropped
+    (GEMMA_LANE, {}, dict(q0=1)),                        # causal edge late
+    (PALI_TEXT, dict(q0=256), dict(q0=257)),             # causal edge late
+    (PALI_PREFIX, dict(causal=False, kv_len=256),
+     dict(causal=False, kv_len=257)),                    # prefix edge late
+    (MLA_PREFILL, dict(scale=MLA_SCALE),
+     dict(scale=MLA_SCALE, window=1024 - 64)),           # first block dropped
+    (MLA_PREFILL, dict(scale=MLA_SCALE), dict(scale=MLA_SCALE, q0=1)),
 ])
 def test_limit_rejects_planted_faults(shape, kw, bad):
     q, k, v = _serve_inputs(shape)

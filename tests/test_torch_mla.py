@@ -111,6 +111,10 @@ FLASH = [
     (2, 1, 16, 4, 24, 16, True, 0, 0.0, 9, 10, 8),           # decode
     (1, 10, 10, 2, 24, 16, True, 4, 0.0, 0, None, 1024),     # window
     (2, 3, 16, 2, 40, 32, True, 0, 5.0, 13, None, 8),        # softcap
+    # deepseek-v3's widths (q/k 576, v 512) in the MLA prefill kernel's
+    # 64-key blocks: 16 q heads a rank, and a window with a softcap
+    (1, 70, 70, 16, 576, 512, True, 0, 0.0, 0, None, 64),
+    (1, 70, 70, 4, 576, 512, True, 40, 20.0, 0, None, 64),
 ]
 
 
