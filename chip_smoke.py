@@ -4,7 +4,8 @@ Mixture-of-Experts, multi-head latent attention, a data x model mesh,
 sequence-sharded long-context decode, the prefix-LM VLM, the
 encoder-decoder and a process-group axis) and its
 training paths (one stacked axis, a data x model mesh, a pod x data x
-model mesh, and training through the model kernels), and the fleet loop
+model mesh, a process mesh, and training through the model kernels,
+whisper-medium's and paligemma-3b's included), and the fleet loop
 with its fault tolerance, on one CUDA card, end to end.
 
     python3 chip_smoke.py [--out DIR]
@@ -280,7 +281,31 @@ Phases (each raises on failure; nothing is caught):
    program with ``allgather_as_ring`` and ``alltoall_as_ppermute`` forced,
    bit-exact on every rank, every record matched; (d) the tuning-potential
    line of (a)'s prefill and decode graphs on phase 5's ``Topo``.  No
-   kernel launches in it: the counts are zeroed before and read 0 after.
+   kernel launches in it: the counts are zeroed before and read 0 after;
+23. training across processes (``Trainer(processes=True)``): (a)
+   llama3.2-3b at full width, ``TRAIN_LAYERS`` layers, flash, on a
+   world-1 NCCL ``GroupMesh`` of (pod, data, model) = (1, 1, 1) and on
+   the same mesh stacked on the card, the same weights and batches (2 x
+   1024 tokens): a warm-up, two timed and one profiled step of each in
+   turn, each step's loss and the parameters after them bit-equal or
+   within ``TRAIN_RTOL``; the step times side by side, the NCCL calls a
+   step, the process group's host time in the profiled step, flash's
+   launches in the group steps (> 0); (b) ``python -m
+   repro_torch.launch.train --smoke --world 1 --dist-backend nccl``: 3
+   steps, a checkpoint, resumed to 5; (c) one gloo world of 8 on the
+   host's CPU: the reference's four archs at (2, 4) and llama3.2-3b at
+   (2, 2, 2), smoke size, float32, two steps held to the stacked step
+   lane for lane (bit-equal at (2, 2, 2)) with equal dispatch records,
+   its times the host CPU's;
+24. two more families trained through flash's autograd Function, each
+   at full width, bf16, AdamW, TP 8 stacked: (a) whisper-medium, 24 + 24
+   layers, 2 x 1500 stub frames (187 decoder tokens); (b) paligemma-3b,
+   18 layers, 2 x (256 stub patches + 1024 text tokens), the text-only
+   loss: 1 warm-up, 3 timed and one profiled step (median step ms, peak
+   memory, device busy share, flash's launches by path and head dim:
+   ``wgmma`` at dh 64 and 256), then one step's loss and gradients
+   within ``TRAIN_RTOL`` of the ``ref`` step's from the same weights and
+   batch.
 
 Each phase's seconds are logged as it ends (``[phase n]``).
 
@@ -335,10 +360,13 @@ self-attention's and the cross-attention's prefill launches) and 2 x 24
 x 32 ``split_kv`` a flash serve, all at head dim 64; and just before
 phase 20(a)'s group serve: flash 28 x 33 times; and just before phase
 21(a): 28 x 17 times every serve of the fleet loop (28 ``wgmma``, 28 x
-16 ``split_kv``), each step of the loop's launches logged.
+16 ``split_kv``), each step of the loop's launches logged; and just
+before phase 23(a)'s group steps (flash must launch in them; the stacked
+steps' launches are not counted) and phase 24's path (flash on
+``wgmma`` in each family's timed steps).
 Each row carries its ``long_context_launches``, ``vlm_serve_launches``,
-``encdec_serve_launches``, ``group_serve_launches`` and
-``fleet_launches``; the kernels
+``encdec_serve_launches``, ``group_serve_launches``, ``fleet_launches``,
+``group_train_launches`` and ``family_train_launches``; the kernels
 line lists flash at head dim 256 as ``flash_attention_d256`` (phase 3's
 gemma3-1b prefill numbers, its launches by path in phases 17-19) and
 whisper's calls as
@@ -348,8 +376,8 @@ The
 ranks are stacked on ONE card: a ring hop is a device-memory copy, so
 the times measure on-chip data movement and launch overhead, not a link
 between GPUs, and both tiers of a two-axis mesh are the same memory.
-Phase 20's world of one card times no link either, and its gloo worlds
-run on the host's CPU.
+Phases 20 and 23's worlds of one card time no link either, and their
+gloo worlds run on the host's CPU.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
@@ -1763,15 +1791,17 @@ def footer_by_phase(rec) -> dict:
     return out
 
 
-def timed_steps(torch, tr, params, opt, batches, tag: str, sub: str = "a"):
-    """``TRAIN_WARMUP`` warm-up and ``TRAIN_STEPS`` timed steps of ``tr``,
-    then one step under ``torch.profiler`` (device busy share, the top
-    kernels): ``(params, opt, losses, times, step_rec, profiled)``, with
-    ``step_rec`` the dispatches of the last timed step; logged as
-    ``[{tag}{sub}]``."""
+def timed_steps(torch, tr, params, opt, batches, tag: str, sub: str = "a",
+                warmup: int | None = None, steps: int | None = None):
+    """``warmup`` (``TRAIN_WARMUP``) warm-up and ``steps``
+    (``TRAIN_STEPS``) timed steps of ``tr``, then one step under
+    ``torch.profiler`` (device busy share, the top kernels): ``(params,
+    opt, losses, times, step_rec, profiled)``, with ``step_rec`` the
+    dispatches of the last timed step; logged as ``[{tag}{sub}]``."""
     from torch.profiler import ProfilerActivity, profile
+    warmup = TRAIN_WARMUP if warmup is None else warmup
     losses, times, step_rec = [], [], None
-    n_a = TRAIN_WARMUP + TRAIN_STEPS + 1
+    n_a = warmup + (TRAIN_STEPS if steps is None else steps) + 1
     for i in range(n_a - 1):
         torch.cuda.synchronize()
         n0 = len(tr.record)
@@ -1779,12 +1809,12 @@ def timed_steps(torch, tr, params, opt, batches, tag: str, sub: str = "a"):
         params, opt, m = tr.step(params, opt, batches[i], i)
         losses.append(float(m["loss"]))          # waits for the step
         dt = time.perf_counter() - t0
-        if i >= TRAIN_WARMUP:
+        if i >= warmup:
             times.append(dt)
         step_rec = tr.record[n0:]
         log(f"[{tag}{sub}] step {i}: loss {losses[-1]:.6f} grad_norm "
             f"{float(m['grad_norm']):.4f} lr {float(m['lr']):.3e} "
-            f"{dt * 1e3:.2f} ms{' (warm-up)' if i < TRAIN_WARMUP else ''}")
+            f"{dt * 1e3:.2f} ms{' (warm-up)' if i < warmup else ''}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -5126,6 +5156,505 @@ def analysis_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# training across processes (phase 23)
+# ---------------------------------------------------------------------------
+
+# (a) llama3.2-3b at full width, phase 12's TRAIN_LAYERS layers, flash, on a
+# world-1 NCCL GroupMesh of (pod, data, model) = (1, 1, 1) against
+# Trainer(mesh=(1, 1, 1)) stacked on the same card: the same weights and
+# batches of GROUP_TRAIN_BATCH x TRAIN_SEQ tokens; a warm-up step, two timed
+# steps (group then stacked, in turn) and one profiled step of each
+GROUP_TRAIN_MESH, GROUP_TRAIN_BATCH, GROUP_TRAIN_STEPS = (1, 1, 1), 2, 4
+# (b) the train CLI at world 1 on NCCL: the smoke config, CLI_STEPS steps,
+# then resumed to CLI_STEPS + 2
+GROUP_CLI_STEPS, GROUP_CLI_TIMEOUT_S = 3, 300.0
+# (c) gloo worlds of GROUP_TRAIN_WORLD on the host's CPU at smoke size, the
+# reference's four archs at (2, 4) and llama3.2-3b at (2, 2, 2), float32,
+# two steps (indices 50, 51) held to the stacked step lane for lane: bit
+# for bit where every axis has two ranks (gloo's sum of two is the stacked
+# one); at (2, 4) the model axis sums four ranks in gloo's order, so the
+# loss within GROUP_LOSS_RTOL, the grad norm within GROUP_NORM_RTOL, the
+# AdamW moments within GROUP_MOMENT_RTOL of each leaf's max (leaves whose
+# gradient is a sum that cancels: rwkv6-3b's norm is 1e4 at its init) and
+# each parameter within GROUP_ADAM_STEP learning rates a step (AdamW
+# moves an element whose gradient is rounding noise by up to the learning
+# rate, either way); tests/test_torch_train_group.py holds the same
+GROUP_TRAIN_WORLD = 8
+GROUP_TRAIN_CASES = (("llama3.2-3b", (2, 4)), ("phi3.5-moe-42b-a6.6b", (2, 4)),
+                     ("rwkv6-3b", (2, 4)), ("zamba2-1.2b", (2, 4)),
+                     ("llama3.2-3b", (2, 2, 2)))
+GROUP_LOSS_RTOL, GROUP_NORM_RTOL, GROUP_MOMENT_RTOL = 1e-5, 1e-3, 1e-2
+GROUP_ADAM_STEP = 2.01
+
+
+def group_train_rank(jobs: list) -> list:
+    """One rank of (c): for each job ``(cfg, mesh, tree, batches,
+    start)`` a ``Trainer`` over the world from the global ``tree``, one
+    step a batch from index ``start``; this rank's lanes of the params
+    and AdamW moments (float32 numpy), each step's metrics and dispatch
+    records (cell, impl, phase), and the gloo calls of its axes."""
+    from repro_torch.core._axis import is_mesh
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import Trainer
+    out = []
+    for cfg, mesh, tree, batches, start in jobs:
+        tr = Trainer(cfg, mesh=mesh, device="cpu", processes=True,
+                     record=[])
+        params, opt = tr.from_global(tree)
+        metrics, records = [], []
+        for i, b in enumerate(batches):
+            n = len(tr.record)
+            params, opt, m = tr.step(params, opt, tr.put_batch(b), start + i)
+            metrics.append({k: float(v) for k, v in m.items()})
+            records.append(sorted((dataclasses.astuple(r.cell), r.impl,
+                                   r.phase) for r in tr.record[n:]))
+        axes = ([tr.axis[n] for n in tr.axis.names] if is_mesh(tr.axis)
+                else [tr.axis])
+        out.append({
+            "metrics": metrics, "records": records,
+            "params": [t.float().numpy().copy() for t in tree_leaves(params)],
+            "opt": [t.float().numpy().copy() for k in ("m", "v")
+                    for t in tree_leaves(opt[k])],
+            "calls": sum(sum(v for k, v in ax.calls.items()
+                             if k != "barrier") for ax in axes)})
+    return out
+
+
+def group_train_card(torch, dev, wrappers: dict, card: str,
+                     tag: str) -> dict:
+    """(a) of phase 23: ``GROUP_ARCH`` at full width, ``TRAIN_LAYERS``
+    layers, flash, trained on a world-1 NCCL ``GroupMesh`` of
+    ``GROUP_TRAIN_MESH`` and on the same mesh stacked on the card, from
+    the same weights (each trainer's ``init(SEED)``) and batches: a
+    warm-up step, two timed and one profiled step of each, in turn.  The
+    kernels' counts are zeroed just before the group steps start: flash
+    must launch in them.  Each step's loss and the parameters after the
+    steps are held to the stacked trainer's: bit-equal, or within
+    ``TRAIN_RTOL``.  A world of one card times no link."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch.mesh import init_world
+    from repro_torch.models.params import tree_paths
+    from repro_torch.train import Trainer
+
+    fa = wrappers["flash_attention"]
+    cfg = dataclasses.replace(get_config(GROUP_ARCH), n_layers=TRAIN_LAYERS,
+                              attn_impl="flash")
+    out: dict = {"steps": {"group": [], "stacked": []}}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_world(GROUP_BACKEND, rank=0, world=1,
+                   init_method=(pathlib.Path(tmp) / "store").as_uri())
+        try:
+            group = Trainer(cfg, mesh=GROUP_TRAIN_MESH, device=dev,
+                            processes=True, record=[])
+            stacked = Trainer(cfg, mesh=GROUP_TRAIN_MESH, device=dev,
+                              record=[])
+            state = {"group": group.init(SEED), "stacked": stacked.init(SEED)}
+            trainers = {"group": group, "stacked": stacked}
+            axes = [group.axis[n] for n in group.axis.names]
+            log(f"[{tag}a] {cfg.name}: {cfg.n_layers} of "
+                f"{get_config(GROUP_ARCH).n_layers} layers at full width, "
+                f"flash, {cfg.dtype}, {cfg.optimizer}; {group.axis!r} and "
+                f"the same mesh stacked; {GROUP_TRAIN_BATCH} x {TRAIN_SEQ} "
+                f"tokens a step ({card}; a world of one card times no "
+                "link)")
+            batches = [make_batch(cfg, GROUP_TRAIN_BATCH, TRAIN_SEQ, i)
+                       for i in range(GROUP_TRAIN_STEPS)]
+            zero_counts(wrappers)     # the group train path starts here
+            c_group = dict.fromkeys(wrappers, 0)
+            paths: dict = {}
+            by_dh: dict = {64: {}, 256: {}}
+            for i, b in enumerate(batches):
+                profiled = i == GROUP_TRAIN_STEPS - 1
+                for label in ("group", "stacked"):
+                    tr = trainers[label]
+                    batch = tr.put_batch(b)
+                    calls0 = sum(sum(ax.calls.values()) for ax in axes)
+                    c_before, p_before, d_before = counts(wrappers), dict(
+                        fa.launches_by_path), dh_counts(fa)
+                    torch.cuda.synchronize()
+                    ctx = (profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA])
+                           if profiled else contextlib.nullcontext())
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    with ctx as prof:
+                        t0 = time.perf_counter()
+                        params, opt, m = tr.step(*state[label], batch, i)
+                        loss = float(m["loss"])        # waits for the step
+                        dt = (time.perf_counter() - t0) * 1e3
+                    state[label] = (params, opt)
+                    if label == "group":      # the group steps' launches
+                        for k, v in counts(wrappers).items():
+                            c_group[k] += v - c_before[k]
+                        for k, v in path_delta(fa, p_before).items():
+                            paths[k] = paths.get(k, 0) + v
+                        for dh, got in by_dh.items():
+                            for k, v in dh_delta(fa, d_before, dh).items():
+                                got[k] = got.get(k, 0) + v
+                    step = {"loss": loss, "grad_norm": float(m["grad_norm"]),
+                            "ms": dt, "peak_bytes":
+                                torch.cuda.max_memory_allocated(dev),
+                            "nccl_calls": sum(sum(ax.calls.values())
+                                              for ax in axes) - calls0}
+                    if profiled:
+                        rows = prof.key_averages()
+                        on_dev = [e for e in rows if str(getattr(
+                            e, "device_type", "")).endswith("CUDA")]
+                        step["busy_ms"] = sum(e.self_device_time_total
+                                              for e in on_dev) / 1e3
+                        pg = [e for e in rows if e not in on_dev
+                              and e.key.startswith("c10d::")]
+                        step["pg_calls"] = sum(e.count for e in pg)
+                        step["pg_host_ms"] = sum(e.cpu_time_total
+                                                 for e in pg) / 1e3
+                    out["steps"][label].append(step)
+                    log(f"[{tag}a] step {i} {label}: loss {loss:.6f} "
+                        f"grad_norm {step['grad_norm']:.4f} {dt:.2f} ms"
+                        f"{' (warm-up)' if i == 0 else ''}"
+                        f"{' (profiled)' if profiled else ''}, "
+                        f"{step['nccl_calls']} NCCL calls, peak "
+                        f"{step['peak_bytes'] / 1e9:.3f} GB"
+                        + (f"; device busy {step['busy_ms']:.2f} ms, "
+                           f"{step['pg_calls']} process-group calls taking "
+                           f"{step['pg_host_ms']:.3f} ms of host time"
+                           if profiled else ""))
+            paths = {k: v for k, v in paths.items() if v}
+            want = dict(tree_paths(state["stacked"][0]))
+            got = dict(tree_paths(state["group"][0]))
+        finally:
+            dist.destroy_process_group()
+    log(f"[{tag}a] kernel launches in the group steps: "
+        f"{json.dumps(c_group)}; flash by path {json.dumps(paths)}")
+    if c_group["flash_attention"] <= 0:
+        raise RuntimeError(f"[{tag}a] flash never launched in the group "
+                           "steps")
+    if min(s["nccl_calls"] for s in out["steps"]["group"]) <= 0:
+        raise RuntimeError(f"[{tag}a] a group step made no NCCL call")
+    equal = all(torch.equal(got[k], want[k]) for k in want) and all(
+        a["loss"] == b["loss"] for a, b in zip(out["steps"]["group"],
+                                               out["steps"]["stacked"]))
+    err, leaf = grads_rel_err(torch, got, want)
+    lerr = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in
+               zip(out["steps"]["group"], out["steps"]["stacked"]))
+    log(f"[{tag}a] group vs stacked after {GROUP_TRAIN_STEPS} steps: "
+        + ("bit-equal" if equal else
+           f"not bit-equal: params max-norm relative {err:.3e} ({leaf}), "
+           f"losses {lerr:.3e} (tolerance {TRAIN_RTOL})"))
+    if not equal and not (err <= TRAIN_RTOL and lerr <= TRAIN_RTOL):
+        raise RuntimeError(f"[{tag}a] the group steps differ from the "
+                           f"stacked ones: params {err} at {leaf}, loss "
+                           f"{lerr}")
+    timed = {k: [s["ms"] for s in v[1:-1]] for k, v in out["steps"].items()}
+    log(f"[{tag}a] timed steps, group {timed['group']} ms beside stacked "
+        f"{timed['stacked']} ms ({card}; a world of one card times no link)")
+    del state, trainers, group, stacked, got, want
+    torch.cuda.empty_cache()
+    out.update(bit_equal=equal, param_rel_err=err, loss_rel_err=lerr,
+               launches=c_group, paths=paths, d256_paths=by_dh[256],
+               d64_paths=by_dh[64], timed_ms=timed)
+    return out
+
+
+def group_train_cli(out_dir: pathlib.Path, tag: str) -> dict:
+    """(b) of phase 23: ``python -m repro_torch.launch.train --smoke
+    --world 1 --dist-backend nccl`` (``GROUP_BACKEND``) on the card,
+    ``GROUP_CLI_STEPS`` steps, then resumed for two more from its
+    checkpoint."""
+    ck = out_dir / "group_train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    runs = []
+    for steps in (GROUP_CLI_STEPS, GROUP_CLI_STEPS + 2):
+        argv = [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+                "--world", "1", "--dist-backend", GROUP_BACKEND, "--mesh",
+                "1x1x1", "--steps", str(steps), "--log-every", "1", "--seq",
+                "64", "--ckpt-dir", str(ck)]
+        if GROUP_BACKEND == "gloo":              # gloo runs on the CPU
+            argv += ["--device", "cpu"]
+        t0 = time.perf_counter()
+        res = subprocess.run(argv, capture_output=True, text=True, env=env,
+                             timeout=GROUP_CLI_TIMEOUT_S, cwd=ROOT)
+        sec = time.perf_counter() - t0
+        for ln in res.stdout.strip().splitlines():
+            log(f"[{tag}b] {ln}")
+        if res.returncode != 0:
+            raise RuntimeError(f"[{tag}b] the train CLI failed "
+                               f"({res.returncode}): {res.stderr[-3000:]}")
+        runs.append({"steps": steps, "seconds": sec, "stdout": res.stdout})
+        log(f"[{tag}b] --world 1 --dist-backend {GROUP_BACKEND} --steps "
+            f"{steps}: {sec:.1f} s")
+    first, second = (r["stdout"] for r in runs)
+    done = f"steps over 1 processes ({GROUP_BACKEND}"
+    if f"done: {GROUP_CLI_STEPS} {done}" not in first \
+            or f"resumed from step {GROUP_CLI_STEPS}" not in second \
+            or f"done: 2 {done}" not in second:
+        raise RuntimeError(f"[{tag}b] the CLI did not train, checkpoint and "
+                           "resume")
+    shutil.rmtree(ck, ignore_errors=True)
+    return {"runs": [{k: r[k] for k in ("steps", "seconds")} for r in runs]}
+
+
+def group_train_cpu(tag: str) -> dict:
+    """(c) of phase 23: one gloo world of ``GROUP_TRAIN_WORLD`` processes
+    on the host's CPU runs every case of ``GROUP_TRAIN_CASES`` at smoke
+    size in float32 (``group_train_rank``), each held to the stacked
+    ``Trainer`` on the CPU lane for lane; the times are the host CPU's."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import Trainer
+
+    host = f"gloo, host CPU ({cpu_model()})"
+    jobs, want = [], []
+    t0 = time.perf_counter()
+    for arch, mesh in GROUP_TRAIN_CASES:
+        cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
+        rng = np.random.default_rng(SEED)
+        batches = []
+        for _ in range(2):
+            toks = rng.integers(0, cfg.vocab_size, (8, 16)).astype(np.int32)
+            batches.append({"tokens": toks, "labels": toks.copy()})
+        st = Trainer(cfg, mesh=mesh, device="cpu", record=[])
+        params, opt = st.init(SEED)
+        # a copy: the stacked steps below update the state in place
+        tree = _clone_tree(st.to_global(params, opt))
+        jobs.append((cfg, mesh, tree, batches, 50))
+        metrics, records = [], []
+        for i, b in enumerate(batches):
+            n = len(st.record)
+            params, opt, m = st.step(params, opt, st.put_batch(b), 50 + i)
+            metrics.append({k: float(v) for k, v in m.items()})
+            records.append(sorted((dataclasses.astuple(r.cell), r.impl,
+                                   r.phase) for r in st.record[n:]))
+        want.append({"metrics": metrics, "records": records,
+                     "params": [t.float().numpy() for t in
+                                tree_leaves(params)],
+                     "opt": [t.float().numpy() for k in ("m", "v")
+                             for t in tree_leaves(opt[k])]})
+    stacked_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = spawn(group_train_rank, GROUP_TRAIN_WORLD, backend="gloo",
+                args=(jobs,), timeout_s=GROUP_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    out = {"host": host, "world_s": world_s, "stacked_s": stacked_s,
+           "cases": []}
+    for c, (arch, mesh) in enumerate(GROUP_TRAIN_CASES):
+        w = want[c]
+        exact = all(n <= 2 for n in mesh)
+        lr = sum(m["lr"] for m in w["metrics"])
+        worst = {"loss": 0.0, "grad_norm": 0.0, "moments": 0.0,
+                 "params_per_lr": 0.0}
+        for r in range(GROUP_TRAIN_WORLD):
+            g = got[r][c]
+            if g["records"] != w["records"]:
+                raise RuntimeError(f"[{tag}c] {arch} {mesh} rank {r}: the "
+                                   "records differ from the stacked step's")
+            if g["calls"] <= 0:
+                raise RuntimeError(f"[{tag}c] {arch} {mesh}: no gloo call")
+            for gm, wm in zip(g["metrics"], w["metrics"]):
+                for k in ("loss", "grad_norm"):
+                    worst[k] = max(worst[k], abs(gm[k] - wm[k]) / abs(wm[k]))
+            for a, b in zip(g["opt"], w["opt"]):
+                b = b[r:r + 1]
+                worst["moments"] = max(worst["moments"], float(
+                    np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)))
+            for a, b in zip(g["params"], w["params"]):
+                worst["params_per_lr"] = max(worst["params_per_lr"], float(
+                    np.abs(a - b[r:r + 1]).max() / lr))
+        ok = (all(v == 0 for v in worst.values()) if exact else
+              worst["loss"] <= GROUP_LOSS_RTOL
+              and worst["grad_norm"] <= GROUP_NORM_RTOL
+              and worst["moments"] <= GROUP_MOMENT_RTOL
+              and worst["params_per_lr"] <= GROUP_ADAM_STEP)
+        log(f"[{tag}c] {arch} at {'x'.join(map(str, mesh))}, world "
+            f"{GROUP_TRAIN_WORLD}, 2 steps vs stacked, worst over ranks: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+            + (" (bit-equal)" if exact and ok else "")
+            + f"; records equal ({host})")
+        if not ok:
+            raise RuntimeError(f"[{tag}c] {arch} {mesh}: the process steps "
+                               f"differ from the stacked ones {worst}")
+        out["cases"].append({"arch": arch, "mesh": list(mesh), **worst})
+    log(f"[{tag}c] the world of {GROUP_TRAIN_WORLD} ran the "
+        f"{len(GROUP_TRAIN_CASES)} cases in {world_s:.1f} s, the stacked "
+        f"steps {stacked_s:.1f} s ({host})")
+    return out
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return tree.clone()
+
+
+def group_train_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
+                      card: str, tag: str = "23") -> dict:
+    """Training across processes: (a) ``group_train_card``, (b)
+    ``group_train_cli``, (c) ``group_train_cpu``."""
+    t_phase = time.perf_counter()
+    out = group_train_card(torch, dev, wrappers, card, tag)
+    out["cli"] = group_train_cli(out_dir, tag)
+    out["cpu"] = group_train_cpu(tag)
+    log(f"[{tag}] training across processes in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# two more families trained through the kernels (phase 24)
+# ---------------------------------------------------------------------------
+
+# (a) whisper-medium, 24 + 24 layers at full width, TP ENCDEC_TP stacked,
+# FAMILY_BATCH requests of ENCDEC_FRAMES stub frames (and the decoder's
+# ENCDEC_FRAMES / dec_ratio tokens); (b) paligemma-3b, 18 layers at full
+# width, TP VLM_TP stacked, FAMILY_BATCH requests of 256 stub patches +
+# SERVE_PROMPT text tokens, the text-only loss.  Both bf16, AdamW; one
+# warm-up, FAMILY_STEPS timed and one profiled step each
+FAMILY_BATCH, FAMILY_WARMUP, FAMILY_STEPS = 2, 1, 3
+
+
+def family_train(torch, dev, wrappers: dict, card: str, tag: str,
+                 label: str, arch: str, tp: int, seq: int, n_layers=None):
+    """Train ``arch`` at full width (``n_layers`` cuts the depth) on ``tp``
+    stacked model ranks through flash's autograd Function, on batches of
+    ``make_batch``'s shapes drawn from ``SEED``: timed steps
+    (``timed_steps``: peak memory, busy share), flash's launches by path
+    and head dim in them; then one step's loss and gradients against the
+    ``ref`` step's from the same weights and batch, within
+    ``TRAIN_RTOL``."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_specs
+    from repro_torch.models.params import tree_nbytes, tree_paths
+    from repro_torch.optim import state_specs
+    from repro_torch.train import Trainer
+
+    fa = wrappers["flash_attention"]
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, attn_impl="flash",
+                              n_layers=n_layers or full.n_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = Trainer(cfg, mesh=(1, tp), device=dev, record=[])
+    params, opt = tr.init(SEED)
+    n_a = FAMILY_WARMUP + FAMILY_STEPS + 1
+    # make_batch's shapes, drawn from SEED (make_batch seeds from
+    # hash(cfg.name), which each process salts): every run checks the
+    # same step
+    rng = np.random.default_rng(SEED)
+    batches = []
+    for _ in range(n_a + 1):
+        b = {k: rng.standard_normal(shape, dtype=np.float32)
+             if dt == "bfloat16" else
+             rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+             for k, (shape, dt) in batch_specs(cfg, FAMILY_BATCH,
+                                               seq).items()}
+        b["labels"] = b["tokens"].copy()
+        batches.append(tr.put_batch(b))
+    shapes = {k: list(v.shape) for k, v in batches[0].items()}
+    log(f"[{tag}{label}] {arch}: {cfg.n_layers} of {full.n_layers} layers"
+        + (f" + {cfg.encdec.n_enc_layers} encoder layers"
+           if cfg.encdec else "")
+        + f" at full width (d_model {cfg.d_model}, head dim {cfg.head_dim}),"
+        f" {cfg.dtype}, {cfg.optimizer}, TP {tp} stacked, flash; params "
+        f"{tree_nbytes(tr.specs) / 1e9:.3f} GB + optimizer state "
+        f"{tree_nbytes(state_specs(cfg.optimizer, tr.specs)) / 1e9:.3f} GB;"
+        f" a step's batch {json.dumps(shapes)} ({card})")
+    p0, d0 = dict(fa.launches_by_path), dh_counts(fa)
+    c0 = counts(wrappers)["flash_attention"]
+    params, opt, losses, times, _, prof = timed_steps(
+        torch, tr, params, opt, batches, tag, label, FAMILY_WARMUP,
+        FAMILY_STEPS)
+    torch.cuda.synchronize()
+    took = {k: v for k, v in path_delta(fa, p0).items() if v}
+    by_dh = {dh: dh_delta(fa, d0, dh) for dh in (64, 128, 256)}
+    by_dh = {dh: v for dh, v in by_dh.items() if v}
+    n_flash = counts(wrappers)["flash_attention"] - c0
+    med = sorted(times)[len(times) // 2]
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[{tag}{label}] {arch}: median step {med * 1e3:.2f} ms over "
+        f"{FAMILY_STEPS} steps, peak device memory {peak / 1e9:.3f} GB, "
+        f"device busy {100 * prof['busy_share']:.1f} % of the profiled "
+        f"step; flash launches in the {n_a} steps {n_flash}, by path "
+        f"{json.dumps(took)}, by head dim {json.dumps(by_dh)} ({card})")
+    if n_flash <= 0 or took.get("wgmma", 0) <= 0:
+        raise RuntimeError(f"[{tag}{label}] flash did not train on its "
+                           f"wgmma path: {took}")
+    del opt
+    batch = batches[n_a]
+    del batches
+    torch.cuda.empty_cache()
+    loss0, g0 = tr.grads(params, batch)
+    g0 = dict(tree_paths(g0))
+    ref_tr = Trainer(dataclasses.replace(cfg, attn_impl="ref"), mesh=(1, tp),
+                     device=dev)
+    torch.cuda.empty_cache()
+    loss1, g1 = ref_tr.grads(params, batch)
+    errs = {k: grads_rel_err(torch, {k: g0[k]}, {k: w})[0]
+            for k, w in tree_paths(g1)}
+    lerr = abs(float(loss0) - float(loss1)) / abs(float(loss1))
+    leaf = max(errs, key=errs.get)
+    worst = sorted(errs, key=errs.get, reverse=True)[:5]
+    log(f"[{tag}{label}] the five leaves farthest apart (max-norm "
+        f"relative): {', '.join(f'{k} {errs[k]:.3e}' for k in worst)}")
+    log(f"[{tag}{label}] step through flash vs ref attention: loss "
+        f"{float(loss0):.6f} vs {float(loss1):.6f} (rel {lerr:.3e}), "
+        f"gradients max-norm relative {errs[leaf]:.3e} at {leaf} "
+        f"(tolerance {TRAIN_RTOL})")
+    if not (errs[leaf] <= TRAIN_RTOL and lerr <= TRAIN_RTOL):
+        raise RuntimeError(f"[{tag}{label}] the flash step differs from "
+                           f"the ref step: grads {errs[leaf]} at {leaf}, "
+                           f"loss {lerr}")
+    del tr, ref_tr, params, g0, g1, batch
+    torch.cuda.empty_cache()
+    return {"n_layers": cfg.n_layers, "batch": shapes,
+            "step_ms": [t * 1e3 for t in times],
+            "median_step_ms": med * 1e3, "peak_bytes": peak,
+            "profiled_step": prof, "losses": losses, "flash_launches": n_flash,
+            "paths": took, "by_dh": by_dh, "grad_rel_err": errs[leaf],
+            "leaf": leaf, "loss_rel_err": lerr}
+
+
+def family_train_phase(torch, dev, wrappers: dict, card: str,
+                       tag: str = "24") -> dict:
+    """(a) whisper-medium and (b) paligemma-3b trained through flash
+    (``family_train``).  The kernels' counts are zeroed just before the
+    path and read after it."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    fa = wrappers["flash_attention"]
+    zero_counts(wrappers)                  # the path starts here
+    c0, p0, d0 = counts(wrappers), dict(fa.launches_by_path), dh_counts(fa)
+    pali = get_config(VLM_ARCH)
+    out = {ENCDEC_ARCH: family_train(torch, dev, wrappers, card, tag, "a",
+                                     ENCDEC_ARCH, ENCDEC_TP, ENCDEC_FRAMES),
+           VLM_ARCH: family_train(torch, dev, wrappers, card, tag, "b",
+                                  VLM_ARCH, VLM_TP,
+                                  pali.vlm.n_patches + SERVE_PROMPT)}
+    c1 = counts(wrappers)
+    out["launches"] = {k: c1[k] - c0[k] for k in c1}
+    out["paths"] = path_delta(fa, p0)
+    out["d256_paths"] = dh_delta(fa, d0, 256)
+    out["d64_paths"] = dh_delta(fa, d0, 64)
+    log(f"[family train path] kernel launches: {json.dumps(out['launches'])};"
+        f" flash by path {json.dumps(out['paths'])}, dh 64 "
+        f"{json.dumps(out['d64_paths'])}, dh 256 "
+        f"{json.dumps(out['d256_paths'])}")
+    log(f"[{tag}] family train phase in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def block(api, axis, torch, x, wv, wo, wgu, wd):
     """One llama3.2-3b sequence-parallel block on stacked ranks.
 
@@ -6149,6 +6678,24 @@ def main(argv=None) -> int:
     # -- 22. analysis at the graph layer: dry run, roofline, rewrite -------
     report["analysis"] = analysis_phase(torch, dev, out_dir, every, card,
                                         topo, report["serve"])
+
+    phase("23")
+    # -- 23. training across processes: NCCL world 1, the CLI, gloo ------
+    report["group_train"] = group_train_phase(torch, dev, out_dir, every,
+                                              card)
+
+    phase("24")
+    # -- 24. whisper-medium and paligemma-3b trained through flash --------
+    report["family_train"] = family_train_phase(torch, dev, every, card)
+    # each row's launches in phases 23 and 24, flash's rows by path and
+    # head dim
+    for key in ("group_train", "family_train"):
+        field = f"{key}_launches"
+        for k, v in report[key]["launches"].items():
+            kernels[k][field] = v
+        mla_row[field] = mla_count(report[key]["paths"])
+        d256[field] = report[key]["d256_paths"]
+        enc_row[field] = report[key]["d64_paths"]
     phase(None)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
@@ -6160,7 +6707,8 @@ def main(argv=None) -> int:
              "kernel_train_launches", "moe_serve_launches",
              "mla_serve_launches", "long_context_launches",
              "vlm_serve_launches", "encdec_serve_launches",
-             "group_serve_launches", "fleet_launches")
+             "group_serve_launches", "fleet_launches",
+             "group_train_launches", "family_train_launches")
     print(json.dumps({"kernels": [{k: kernels[n].get(k) for k in order}
                                   for n in ("guideline_pack", "block_matmul",
                                             "ring_allgather_matmul_rdma",

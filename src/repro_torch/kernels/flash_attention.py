@@ -55,7 +55,12 @@ alignment, before the launch; every call is one launch.
 ``models/attention.py:_flash_jnp`` with the same arguments: an online
 softmax over KV chunks of ``CHUNK`` keys, float32 scores and accumulator
 (float64 for float64 inputs), p rounded to v's dtype before the PV
-product.  CPU tensors take it; on the card it checks the kernel, within
+product.  Where ``_flash_jnp`` halves its chunk until it divides the keys
+(down to chunks of 4 keys at whisper-medium's 1500 frames), the plain
+version stops halving at ``MIN_CHUNK`` keys and takes a shorter last
+chunk: the same function in another summation order, and a fifteenth of
+the launches at 1500 keys (a whisper-medium training step differentiates
+48 such calls).  CPU tensors take it; on the card it checks the kernel, within
 ``tolerance``, and is what training differentiates: ``FlashAttention`` is
 the ``torch.autograd.Function`` whose forward is ``flash_attention`` (the
 kernel on CUDA tensors) and whose backward recomputes the attention
@@ -76,6 +81,7 @@ from repro_torch.kernels._recompute import grads_through
 
 NEG = -1e30
 CHUNK = 1024                       # _flash_jnp's KV chunk
+MIN_CHUNK = 64                     # the plain version halves it no further
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DH = 256                  # the dense bf16 paths
 MLA_DH, MLA_DV = 576, 512     # the "mla" path's widest q/k and v
@@ -139,15 +145,15 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           kv_len: int | None = None,
                           scale: float | None = None) -> torch.Tensor:
     """The plain PyTorch version (``_flash_jnp``'s schedule): online
-    softmax over KV chunks of ``CHUNK`` keys (halved until it divides
-    Skv)."""
+    softmax over KV chunks of ``CHUNK`` keys, halved until it divides Skv
+    but not below ``MIN_CHUNK`` (the last chunk is then shorter)."""
     _check(q, k, v)
     n, sq, hk, g, dh = q.shape
     dv = v.shape[-1]
     skv = k.shape[1]
     kv_len = skv if kv_len is None else kv_len
     c = min(CHUNK, skv)
-    while c > 1 and skv % c:
+    while c > MIN_CHUNK and skv % c:
         c //= 2
     scale = 1.0 / math.sqrt(dh) if scale is None else scale
     qpos = q0 + torch.arange(sq, device=q.device)

@@ -34,6 +34,17 @@ parallelism between pods).  Its ``opt_state_pspecs`` is sharding
 metadata for ``shard_map`` and has no counterpart here: optimizer states
 are stacked like their parameters (``optim.state_specs`` gives their
 global layout for checkpoints).
+
+Across processes (``Trainer(processes=True)``) the same mesh is laid
+over the ranks of the initialized world, one lane a process: a
+``GroupMesh`` where the stacked trainer builds a ``StackedMesh``, a
+``GroupAxis`` where it builds a ``StackedAxis``; rank r holds lane r of
+the stacked layout.  The step functions are unchanged: they work on a
+leading lane dim, and a process holds one lane.  What the host side adds
+is outside the dispatcher, as the JAX package's host side is: rank 0's
+batch broadcast to every rank (each process salts ``hash(cfg.name)``,
+which ``make_batch`` seeds from), the mean loss of ``grads`` over the
+world, and the lanes gathered to rank 0 for a checkpoint.
 """
 from __future__ import annotations
 
@@ -44,15 +55,17 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import api
-from repro_torch.core._axis import StackedAxis, StackedMesh
+from repro_torch.core._axis import (GroupAxis, GroupMesh, StackedAxis,
+                                    StackedMesh, is_mesh, spans_processes)
 from repro_torch.dist.axes import (AXES, axis_size_or_1, bind, get_axis,
                                    has_axis)
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import (ParamSpec, from_reference, init_tree,
-                                       layout, stacked, to_reference,
+                                       layout, local, stacked, to_reference,
                                        tree_leaves, tree_unflatten)
 from repro_torch.optim import get_optimizer, lr_schedule, state_specs
 
@@ -209,7 +222,13 @@ class Trainer:
     ``StackedMesh`` of ``d*t`` lanes (``axis`` the mesh, ``name`` None);
     (1, 1) binds no axis.  ``mesh=(pod, d, t)`` always binds the three
     views of a ``StackedMesh`` of ``pod*d*t`` lanes, sizes of 1
-    included, as the JAX package's mesh with a pod axis does."""
+    included, as the JAX package's mesh with a pod axis does.
+
+    ``processes=True`` lays the same mesh over the processes of the
+    initialized world (``launch.mesh.init_world``), whose size must be
+    the mesh's: a ``GroupMesh`` for a mesh, a ``GroupAxis`` for one axis
+    above 1 (or for (1, 1), which binds no axis).  Every rank then calls
+    every method, each on its own lane."""
     cfg: ModelConfig
     mesh: tuple[int, ...] = (1, 1)       # (data, model) or (pod, d, t)
     device: Any = None
@@ -221,6 +240,7 @@ class Trainer:
     base_lr: float = 3e-4
     warmup: int = 100
     record: list | None = None           # shared dispatch-record sink
+    processes: bool = False              # one rank a process of the world
 
     def __post_init__(self):
         self.mesh = tuple(int(n) for n in self.mesh)
@@ -228,16 +248,25 @@ class Trainer:
             raise ValueError(f"mesh {self.mesh}: (data, model) or (pod, "
                              "data, model), every size >= 1")
         d, t = self.mesh[-2:]
+        if self.processes:
+            world = dist.get_world_size() if dist.is_initialized() else 0
+            if world != math.prod(self.mesh):
+                raise ValueError(
+                    f"mesh {self.mesh} has {math.prod(self.mesh)} ranks, "
+                    f"the world {world} processes")
         if len(self.mesh) == 3 or (d > 1 and t > 1):
             self.name = None
-            self.axis = StackedMesh(
+            make = GroupMesh if self.processes else StackedMesh
+            self.axis = make(
                 self.mesh, (AXES.pod, AXES.data, AXES.model)[-len(self.mesh):],
                 self.device)
         else:
             self.name = (AXES.data if d > 1
                          else (AXES.model if t > 1 else None))
-            self.axis = StackedAxis(max(d, t), self.device,
-                                    name=self.name or "")
+            self.axis = (GroupAxis(self.device, name=self.name or "")
+                         if self.processes else
+                         StackedAxis(max(d, t), self.device,
+                                     name=self.name or ""))
         self.specs = lm.model_specs(self.cfg, t)
         self._init, self._grad, self._train = make_step_fns(
             self.cfg, self.axis, self.name, n_micro=self.n_micro,
@@ -245,7 +274,7 @@ class Trainer:
             warmup=self.warmup)
 
     def _bound(self):
-        if isinstance(self.axis, StackedMesh):
+        if is_mesh(self.axis):
             return bind(**{n: self.axis[n] for n in self.axis.names})
         if self.name is None:
             return contextlib.nullcontext()
@@ -276,6 +305,11 @@ class Trainer:
             loss, grads = self._grad(params, batch)
             if has_axis(AXES.data):
                 loss = loss.mean()
+                if spans_processes(self.axis):
+                    # the lanes' mean: the model ranks of a data rank
+                    # hold the same loss
+                    dist.all_reduce(loss)
+                    loss = loss / dist.get_world_size()
         return loss if loss.dim() == 0 else loss[0], grads
 
     def put_batch(self, batch: dict) -> dict:
@@ -283,18 +317,31 @@ class Trainer:
         axis each rank's contiguous slice of the rows, ``[p, B/p, ...]``
         (on a mesh ``[d*t, B/d, ...]``: data rank i's slice on each of its
         t model ranks; with a pod axis ``[pod*d*t, B/(pod*d), ...]``, pod
-        rank i's data rank j taking slice ``i*d + j``)."""
+        rank i's data rank j taking slice ``i*d + j``).
+
+        Across processes every rank must call it, with arrays of the same
+        shapes: each takes rank 0's batch (a broadcast, key by key in
+        sorted order) and keeps its lane of that layout, ``[1, B/(pod*d),
+        ...]``; without a data axis every rank sees the whole batch."""
         d, t_ = math.prod(self.mesh[:-1]), self.mesh[-1]
+        procs = spans_processes(self.axis)
         out = {}
-        for k, v in batch.items():
-            t = torch.as_tensor(np.asarray(v), device=self.axis.device)
+        for k in sorted(batch):
+            # a copy across processes: the broadcast writes into it
+            t = (torch.tensor if procs else torch.as_tensor)(
+                np.asarray(batch[k]), device=self.axis.device)
+            if procs:
+                dist.broadcast(t, src=0)
             if d > 1 or len(self.mesh) == 3:
                 if t.shape[0] % d:
                     raise ValueError(f"batch {t.shape[0]} does not split "
                                      f"over {d} data ranks")
                 t = t.reshape(d, 1, -1, *t.shape[1:])
-                t = t.expand(d, t_, *t.shape[2:]).reshape(
-                    d * t_, *t.shape[2:])
+                if procs:
+                    t = t[self.axis.mesh_rank // t_]
+                else:
+                    t = t.expand(d, t_, *t.shape[2:]).reshape(
+                        d * t_, *t.shape[2:])
             out[k] = t
         return out
 
@@ -306,10 +353,19 @@ class Trainer:
         opt["count"] = ParamSpec((), (), "zeros", None, "int32")
         return {"params": scanned(self.specs), "opt": opt}
 
-    def to_global(self, params, opt_state) -> dict:
-        """``{"params", "opt"}`` as CPU tensors in the global layout."""
+    def to_global(self, params, opt_state) -> dict | None:
+        """``{"params", "opt"}`` as CPU tensors in the global layout.
+        Across processes every rank must call it: each leaf's lanes are
+        gathered to rank 0, which returns the tree; the other ranks
+        return None."""
         name = self.name or AXES.model
         osp = state_specs(self.cfg.optimizer, self.specs)
+        if spans_processes(self.axis):
+            params = _gather_lanes(params)
+            opt_state = dict(opt_state, **{k: _gather_lanes(opt_state[k])
+                                           for k in osp})
+            if dist.get_rank() != 0:
+                return None
         opt = {k: to_reference(opt_state[k], s, self.axis, name)
                for k, s in osp.items()}
         opt["count"] = opt_state["count"].detach().cpu().clone()
@@ -318,15 +374,36 @@ class Trainer:
 
     def from_global(self, tree: dict):
         """The inverse of ``to_global``: ``(params, opt_state)`` stacked on
-        the device."""
+        the device; across processes each rank's lane of them, from the
+        global tree every rank holds."""
         name = self.name or AXES.model
-        params = from_reference(tree["params"], self.specs, self.axis, name)
+        params = local(from_reference(tree["params"], self.specs, self.axis,
+                                      name), self.axis)
         osp = state_specs(self.cfg.optimizer, self.specs)
-        opt = {k: from_reference(tree["opt"][k], s, self.axis, name)
+        opt = {k: local(from_reference(tree["opt"][k], s, self.axis, name),
+                        self.axis)
                for k, s in osp.items()}
         opt["count"] = torch.as_tensor(np.asarray(tree["opt"]["count"]),
                                        dtype=torch.int32).reshape(())
         return params, opt
+
+
+def _gather_lanes(tree):
+    """Every rank's ``[1, ...]`` lane of each leaf, gathered to rank 0 of
+    the world in rank order (its lanes' order) as ``[world, ...]``; the
+    other ranks get their own lanes back.  A plain gather outside the
+    dispatcher, as the JAX package's ``device_get`` of a checkpoint is."""
+    if isinstance(tree, dict):
+        return {k: _gather_lanes(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_gather_lanes(v) for v in tree]
+    x = tree.detach().contiguous()
+    if dist.get_rank() != 0:
+        dist.gather(x, dst=0)
+        return x
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.gather(x, parts, dst=0)
+    return torch.cat(parts)
 
 
 def scanned(specs):

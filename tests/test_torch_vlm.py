@@ -9,6 +9,8 @@
   before the text): ``forward``, ``prefill`` + ``decode_step`` and
   ``loss_fn`` against the reference's under ``vmap(axis_name="model")``,
   the weights (``img_proj`` among them) carried by ``from_reference``.
+* ``Trainer.grads`` of that loss against ``jax.grad`` of the reference's
+  at tp 1 and 2.
 * ``data.synthetic``'s patches are the reference's ``make_batch``'s, and
   every arch builds the reference's stack plan.
 
@@ -27,6 +29,7 @@ import torch
 import test_torch_ref  # noqa: F401  (the reference's import shims)
 from test_torch_models import (port_cfg, port_params, ref_params, ref_shard,
                                rel, rvmap, tnp)
+from test_torch_train import pairs, ref_join
 
 from repro import configs as rconfigs
 from repro.data import make_batch as rmake_batch
@@ -38,6 +41,8 @@ from repro_torch.dist.axes import bind
 from repro_torch.launch import serve as tserve
 from repro_torch.models import attention as tattn
 from repro_torch.models import lm as tlm
+from repro_torch.models.params import from_reference, to_reference, tree_leaves
+from repro_torch.train import Trainer
 
 B, S_TXT, S_MAX = 2, 12, 32
 
@@ -252,3 +257,29 @@ def test_vlm_serve_on_a_mesh_matches_the_model_axis(batch, weights):
     assert torch.equal(got.tokens, want.tokens)
     for a, b in zip(got.logits, want.logits):
         assert rel(tnp(a), tnp(b)) < 1e-5
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_vlm_loss_and_gradients_match_jax_grad(batch, weights, tp):
+    """``Trainer.grads`` of the text-only loss against ``jax.grad`` of the
+    reference's ``loss_fn`` under ``vmap(axis_name="model")``, each leaf
+    (``img_proj`` among them) within 1e-4 of its max-norm: float32, the
+    two packages differ in summation order only."""
+    rcfg = pali(attn_impl="flash")
+    jb = _jbatch(batch)
+    loss, g = jax.jit(jax.vmap(jax.value_and_grad(
+        lambda p: rlm.loss_fn(p, rcfg, jb)[0]), axis_name="model"))(
+        ref_shard(weights, rcfg, tp))
+    want = ref_join(jax.tree.map(np.asarray, g), rlm.model_specs(rcfg, tp=tp),
+                    "model")
+    tr = Trainer(port_cfg(rcfg), mesh=(1, tp), device="cpu")
+    params = from_reference(weights, tr.specs, tr.axis, "model")
+    got_loss, grads = tr.grads(params, tr.put_batch(batch))
+    assert float(got_loss) == pytest.approx(float(loss[0]), rel=1e-5)
+    got = to_reference(grads, tr.specs, tr.axis, "model")
+    n = 0
+    for path, gt, w in pairs(got, want):
+        assert rel(tnp(gt), w) < 1e-4, path
+        n += 1
+    assert n == len(tree_leaves(got)) == len(jax.tree.leaves(want))
+    assert np.abs(tnp(got["img_proj"])).max() > 0
