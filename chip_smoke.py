@@ -395,6 +395,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -661,7 +662,8 @@ def check_flash(torch, fa, randn) -> dict:
             raise RuntimeError(f"flash_attention: the limit passes the "
                                f"planted fault {label}")
 
-    def timed(label, q, k, v, lib, **kw):
+    def timed(label, q, k, v, lib, *,
+              lib_name="scaled_dot_product_attention", **kw):
         err, share = check(label, q, k, v, **kw)
         n, sq, hk, g, dh = q.shape
         flops, byts = flash_work(n, sq, hk, g, dh, kw.get("q0", 0),
@@ -686,15 +688,16 @@ def check_flash(torch, fa, randn) -> dict:
                 q, k, v, **kw), iters=5),
             bound_ms=max(t_b, t_f) * 1e3,
             bound_by="bytes" if t_b > t_f else "operations",
-            library_ms=time_ms(torch, lib))
+            library_ms=None if lib is None else time_ms(torch, lib))
         rec["path"] = last_path[0]
         rec["events_ms"] = events_ms
+        lib_s = "none" if lib is None else f"{rec['library_ms']:.4f} ms"
         log(f"[3] flash_attention {label} q{list(q.shape)} k{list(k.shape)} "
             f"{name_dt[q.dtype]} {kw} path {rec['path']}: max_abs_err "
             f"{err:.3e} ({share:.3f} of the limit) kernel device time "
             f"{rec['ms']:.4f} ms (events mean {events_ms:.4f} ms) plain "
             f"{rec['plain_ms']:.4f} ms "
-            f"scaled_dot_product_attention {rec['library_ms']:.4f} ms bound "
+            f"{lib_name} {lib_s} bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {flops / 1e9:.2f} "
             f"GFLOP, {byts / 1e6:.2f} MB) = {flops / rec['ms'] / 1e9:.1f} "
             f"TFLOP/s, {byts / rec['ms'] / 1e6:.1f} GB/s")
@@ -1069,7 +1072,67 @@ def check_flash_d256(torch, fa, randn, timed, check, on_path) -> dict:
         f"gemma3-1b decode dh 256 kv_len {kv_len}", q1, kc, vc,
         lambda: sdpa(q1b, kcb, vcb), q0=kv_len - 1, kv_len=kv_len)
     on_path("gemma3-1b decode dh 256", "split_kv")
+    out.update(d256_decodes(torch, randn, timed, on_path, q1, kc, vc, kv_len))
     out["long prefill"] = long_prefill(torch, fa, randn)
+    return out
+
+
+def d256_decodes(torch, randn, timed, on_path, q1, kc, vc, kv_len) -> dict:
+    """Phase 3's other dh-256 decodes (``split_kv``, fa_ring_kernel), each
+    held to its plain version and timed beside its bound and SDPA:
+    gemma3-1b's local layers (the 512-key window of the global decode's
+    cache), paligemma-3b's at TP 8 after its 256 patches (``[32, 1, 1, 1,
+    256]`` at kv_len 1312) and gemma2-9b's at TP 8 (``[32, 1, 1, 2, 256]``,
+    softcap 50, window 4096, kv_len 1056), whose softcap no SDPA call
+    computes: its library call is ``flex_attention`` (eager, the scores
+    materialized) with the softcap and the window as its score_mod and
+    the two query heads on one KV head (``enable_gqa``)."""
+    from torch.nn.attention.flex_attention import flex_attention
+    from repro_torch.configs import get_config
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dh = get_config(LONG_ARCH).hd
+    out = {}
+
+    def bhsd(t):                      # [N, S, HK, (G,) dh] -> [N, H, S, dh]
+        return t.reshape(t.shape[0], t.shape[1], -1, dh).transpose(
+            1, 2).contiguous()
+
+    w = get_config(LONG_ARCH).window
+    lo = max(0, kv_len - w)           # the window's first key
+    q1b, kwb, vwb = bhsd(q1), bhsd(kc[:, lo:kv_len]), bhsd(vc[:, lo:kv_len])
+    out["local decode"] = timed(
+        f"gemma3-1b local-layer decode dh 256 window {w} kv_len {kv_len}",
+        q1, kc, vc, lambda: sdpa(q1b, kwb, vwb), q0=kv_len - 1,
+        kv_len=kv_len, window=w)
+    on_path("gemma3-1b local-layer decode dh 256", "split_kv")
+    n_v = SERVE_BATCH * VLM_TP
+    kv_v = get_config(VLM_ARCH).vlm.n_patches + SERVE_PROMPT + SERVE_DECODE
+    qv = randn(n_v, 1, 1, 1, dh)
+    kcv, vcv = (randn(n_v, SERVE_SLOTS, 1, dh) for _ in range(2))
+    qvb, kvb, vvb = bhsd(qv), bhsd(kcv[:, :kv_v]), bhsd(vcv[:, :kv_v])
+    out["vlm decode"] = timed(
+        f"paligemma-3b decode dh 256 kv_len {kv_v}", qv, kcv, vcv,
+        lambda: sdpa(qvb, kvb, vvb), q0=kv_v - 1, kv_len=kv_v)
+    on_path("paligemma-3b decode dh 256", "split_kv")
+    g2 = get_config("gemma2-9b")
+    hk2, gg = g2.n_kv_heads // VLM_TP, g2.n_heads // g2.n_kv_heads
+    q2 = randn(n_v, 1, hk2, gg, g2.hd, scale=4.0)   # the softcap bites
+    kc2 = randn(n_v, SERVE_SLOTS, hk2, g2.hd, scale=4.0)
+    vc2 = randn(n_v, SERVE_SLOTS, hk2, g2.hd)
+    cap2, w2, q02 = g2.attn_softcap, g2.window, kv_len - 1
+
+    def capped(score, b, h, qi, ki):  # gemma2's softcap, then its window
+        s = cap2 * torch.tanh(score / cap2)
+        return torch.where(q02 + qi - ki < w2, s, -float("inf"))
+
+    q2b, k2b, v2b = (bhsd(t) for t in (q2, kc2[:, :kv_len], vc2[:, :kv_len]))
+    out["gemma2 decode"] = timed(
+        f"gemma2-9b TP {VLM_TP} decode dh 256 softcap {g2.attn_softcap} "
+        f"window {g2.window} kv_len {kv_len}", q2, kc2, vc2,
+        lambda: flex_attention(q2b, k2b, v2b, score_mod=capped,
+                               enable_gqa=True),
+        lib_name="flex_attention (eager)", q0=q02, kv_len=kv_len, window=w2, softcap=cap2)
+    on_path("gemma2-9b decode dh 256", "split_kv")
     return out
 
 
@@ -1176,12 +1239,15 @@ def check_flash_encdec(torch, randn, timed, check, planted, on_path,
     out["encoder"] = timed("whisper encoder self-attention", q, k, v,
                            lambda: sdpa(qb, kb, vb), **full)
     on_path("whisper encoder self-attention", "wgmma")
+    ragged = ENCDEC_FRAMES // 128 * 128
+    planted(f"encoder self-attention without the ragged last block (keys "
+            f"{ragged}-{ENCDEC_FRAMES - 1})", q, k, v,
+            dict(causal=False, kv_len=ragged), **full)
     qx = randn(n, ENCDEC_PROMPT, hk, g, dh)
     qxb = bhsd(qx)
     out["cross prefill"] = timed("whisper cross-attention prefill", qx, k, v,
                                  lambda: sdpa(qxb, kb, vb), **full)
     on_path("whisper cross-attention prefill", "wgmma")
-    ragged = ENCDEC_FRAMES // 128 * 128
     planted(f"cross prefill without the ragged last block (keys {ragged}-"
             f"{ENCDEC_FRAMES - 1})", qx, k, v,
             dict(causal=False, kv_len=ragged), **full)
@@ -3480,7 +3546,7 @@ def moe_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
 
     # where a step's device time goes (after the path's counts)
     shares = step_profiles(torch, cfg, axis, params, prompts, tag, (
-        "fa_wgmma_kernel", "fa_split_kernel", "nvjet", "gemm", "index",
+        "fa_wgmma", "fa_ring_kernel", "nvjet", "gemm", "index",
         "scan"))
     del params, first, second, third, forced
     torch.cuda.empty_cache()
@@ -4254,7 +4320,7 @@ def encdec_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
         f"{ENCDEC_PROMPT} tokens", frames=frames)
     # where a step's device time goes (after the path's counts)
     out["shares"] = step_profiles(torch, cfg, axis, params, prompts, tag, (
-        "fa_wgmma_kernel", "fa_split_kernel", "nvjet", "gemm",
+        "fa_wgmma", "fa_ring_kernel", "nvjet", "gemm",
         "elementwise", "reduce"), frames=frames, slots=ENCDEC_SLOTS)
     del params
     torch.cuda.empty_cache()
@@ -4929,6 +4995,9 @@ DRYRUN_JOBS = 6
 DRYRUN_TIMEOUT_S = 600.0
 #: more dry-run flags (a CPU rehearsal passes ``--smoke``)
 DRYRUN_FLAGS: tuple = ()
+#: train_4k's micro-batches in the dry run (the cell's own is 8): its
+#: trace unrolls them, so it is cut in depth as a model's layers are
+DRYRUN_MICRO = 2
 #: the rewrite's movement mock-ups (a reduction mock-up reorders the sum
 #: and is legitimately not bit-exact)
 REWRITE_FORCE = {"allgather": "allgather_as_ring",
@@ -5065,7 +5134,8 @@ def analysis_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
                    card: str, topo, served: dict, tag: str = "22") -> dict:
     """Analysis at the graph layer: (a) the dry run of ``DRYRUN_ARCH`` at
     full width and depth on the 16 x 16 and 2 x 16 x 16 fake worlds, every
-    shape, priced on phase 5's fitted ``Topo``; (b) ``step_roofline``;
+    shape (train_4k in ``DRYRUN_MICRO`` micro-batches), priced on phase
+    5's fitted ``Topo``; (b) ``step_roofline``;
     (c) the rewrite mode on a gloo world of 4 on the host CPU; (d) the
     tuning-potential lines of (a)'s prefill and decode graphs.  Nothing
     here launches a kernel (fake tensors, gloo on the CPU): the counts of
@@ -5089,8 +5159,9 @@ def analysis_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
            DRYRUN_ARCH, "--shape", "all", "--multi-pod", "both", "--topo",
-           str(topo_path), "--jobs", str(DRYRUN_JOBS), "--out",
-           str(out_dir / "dryrun"), *DRYRUN_FLAGS]
+           str(topo_path), "--jobs", str(DRYRUN_JOBS), "--n-micro",
+           str(DRYRUN_MICRO), "--out", str(out_dir / "dryrun"),
+           *DRYRUN_FLAGS]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, capture_output=True, text=True, env=env,
                        timeout=DRYRUN_TIMEOUT_S)
@@ -5673,6 +5744,18 @@ def block(api, axis, torch, x, wv, wo, wgu, wd):
     return x2 + api.matmul_reducescatter(u, wd, axis)
 
 
+#: spill bytes ptxas may report for a flash wgmma kernel (a name's
+#: fragment: bytes); every other such kernel spills none
+FLASH_SPILL_OK = {"fa_wgmma64_kernel": 8}
+
+
+def spill_bytes(line: str):
+    """The spill stores of a ptxas ``... bytes spill stores ...`` line, or
+    None for another line."""
+    m = re.search(r"(\d+) bytes spill stores", line)
+    return None if m is None else int(m.group(1))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
@@ -5765,13 +5848,23 @@ def main(argv=None) -> int:
             if "Function properties for" in ln:
                 fn = ln.split('for ', 1)[1]
                 log(f"[2] ptxas {lib}: {fn[:100]}")
-            elif "registers" in ln or "spill" in ln or "smem" in ln:
+            elif "registers" in ln or "spill" in ln or "smem" in ln or \
+                    "C75" in ln:
                 log(f"[2] ptxas {lib}:   {ln.strip()}")
                 # flash's wgmma kernels hold their accumulators in
-                # registers: a spill serializes their products
-                if ("fa_wgmma_kernel" in fn or "fa_mla_wgmma" in fn) and \
-                        "spill stores" in ln and \
-                        " 0 bytes spill stores" not in ln:
+                # registers: a spill, or a register defined under a
+                # product in flight, serializes their products (ptxas
+                # C75xx, a line that names its kernel);
+                # fa_wgmma64_kernel's 8 bytes are stored before its loop
+                # and loaded after it
+                if lib == "flash_attention" and \
+                        "wgmma.mma_async instructions are serialized" in ln:
+                    raise RuntimeError(f"ptxas serialized wgmma: {ln}")
+                spilled = spill_bytes(ln)
+                allowed = max((b for k, b in FLASH_SPILL_OK.items()
+                               if k in fn), default=0)
+                if spilled is not None and lib == "flash_attention" and \
+                        "wgmma" in fn and spilled > allowed:
                     raise RuntimeError(f"ptxas spilled in {fn}: {ln}")
     for dt in (torch.bfloat16, torch.float32):
         log(f"[2] agmm_ring blocks per rank at p={P}, n={TOKENS // P}, "
@@ -6533,7 +6626,7 @@ def main(argv=None) -> int:
                  flash_attention=fa.flash_attention,
                  rwkv6_scan=rw.rwkv6_scan, ssd_scan=ssd.ssd_scan)
     served = serve_phase(torch, dev, out_dir, every, "llama3.2-3b", "10",
-                         ("fa_wgmma_kernel", "fa_split_kernel"))
+                         ("fa_wgmma", "fa_ring_kernel"))
     report["serve"] = served
     kernels["flash_attention"]["launches"] = served["launches"][
         "flash_attention"]
@@ -6547,8 +6640,8 @@ def main(argv=None) -> int:
                                         "rwkv6_decode_kernel")),
             ("zamba2-1.2b", "ssd_scan", ("ssd_chunk_kernel",
                                          "ssd_decode_kernel",
-                                         "fa_wgmma_kernel",
-                                         "fa_split_kernel"))):
+                                         "fa_wgmma",
+                                         "fa_ring_kernel"))):
         got = serve_phase(torch, dev, out_dir, every, arch, "11", needles)
         got["state_carry_rel_err"] = state_carry_check(torch, dev, every,
                                                        arch)

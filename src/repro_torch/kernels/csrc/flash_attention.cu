@@ -32,17 +32,17 @@
 // TFLOP/s dense bf16).  Its decode (Sq = 1, G = 3) is ~6 flop per byte of
 // K/V: bound by the bytes of the cache it reads (3.35 TB/s).  The G query
 // heads of a KV head are folded into the rows of a tile (row = i*G + g),
-// so the group's K/V are read once.  Six kernels, one per call, chosen
+// so the group's K/V are read once.  Eight kernels, one per call, chosen
 // before the launch by plan() (flash_attention_plan):
-//   * fa_wgmma_kernel, bf16 prefill (at least 64 folded rows, dh 64, 128
-//     or 256, 16-byte strides): a CTA per 128 folded rows of one (n, KV
+//   * fa_wgmma_kernel, bf16 prefill (at least 64 folded rows, dh 128 or
+//     256, 16-byte strides): a CTA per 128 folded rows of one (n, KV
 //     head), one CTA per SM, the row tiles with the most keys first
 //     (causal tiles differ in work).  K/V blocks of BN keys (128; 64 at dh
 //     256) come by TMA (4-D tensor maps encoded per call with the key
 //     extent set to kv_len, so nothing at or beyond kv_len is read: TMA
 //     zero-fills it) into two 128-byte-swizzled stages, K and V each with
 //     a full and an empty barrier, so the next block's K loads while this
-//     block's PV product runs; at dh 64 and 128 a third warpgroup is the
+//     block's PV product runs; at dh 128 a third warpgroup is the
 //     producer (its registers moved to the consumers by setmaxnreg), at
 //     dh 256 thread 0 issues the loads between its products (see
 //     WgShape).  Warpgroups 0 and 1 hold 64 rows each: Q is stored in
@@ -70,17 +70,35 @@
 //     softmax then idles the tensor cores; long_500k's 16 383 tiles fill
 //     the card many times over.  Bound by operations at every served
 //     dh-256 prefill (the long prefill's global layer: 5.63e14 FLOP).
-//   * fa_split_kernel, bf16 decode (at most 16 folded rows): the keys any
-//     query sees are cut into chunks of 128 and the chunks into splits,
-//     enough for two CTAs per SM over the (n, KV head) pairs (llama's 32
-//     pairs at kv_len 1056: 9 splits, 288 CTAs, where one CTA per pair
-//     filled 32 of 132 SMs).  A CTA's 4 warps take 32 keys of a chunk each
-//     on mma.sync m16n8k16 (3 rows would waste a 64-row wgmma, and decode
-//     is bound by bytes), merge their softmax states, and write a float32
-//     partial (o, m, l) to scratch; the last CTA of its pair to finish (an
-//     atomic ticket) merges the splits into the output and re-arms the
-//     ticket.  A call whose keys fit one split writes its output at once.
-//     One launch per call.
+//   * fa_wgmma64_kernel, the same prefill at dh 64 (whisper-medium's
+//     encoder self-attention, [32, 1500, 2, 1, 64] non-causal: 36.9 GFLOP,
+//     0.0373 ms at the card's peak, and 1.44e8 exponentials, ~0.037 ms at
+//     16 a clock an SM: at dh 64 the exponentials cost as much as the
+//     products).  The same tiles, blocks and TMA maps as fa_wgmma_kernel,
+//     four stages, and the softmax under the products: each warpgroup
+//     issues S of block j with O += P V of block j - 1 and runs block j's
+//     softmax while the PV product runs, and the two warpgroups take turns
+//     to issue (a ping-pong on named barriers), so one's exponentials run
+//     under the other's products; a score is one FFMA and one ex2.approx.
+//     288 threads, a producer warp beside the two warpgroups; without a
+//     softcap (see Wg64Shape).
+//   * fa_ring_kernel, bf16 decode (at most 16 folded rows; gemma3-1b,
+//     paligemma-3b, gemma2-9b at dh 256; gemma3-1b's [16, 1, 1, 1, 256] at
+//     kv_len 1056 reads 17.3 MB: 0.0052 ms at 3.35 TB/s; llama's dh 128,
+//     whisper's dh 64; dh up to 32 zero-padded to 32): the keys any query
+//     sees are cut into 32-key blocks and the blocks into splits, as many
+//     as fill the card's resident CTAs once (the occupancy API's count;
+//     gemma3-1b: 16 splits x 16 pairs = 256 CTAs on 264 slots).  A CTA
+//     streams its blocks through a ring of cp.async stages (3 at dh 256,
+//     107 KB with Q: two CTAs an SM), so it starts with all its stages in
+//     flight and keeps the rest in flight while a block is computed; each
+//     of its 4 warps takes 8 keys of a block on mma.sync (S on m16n8k16, O
+//     += P V on m16n8k8: 3 rows would waste a 64-row wgmma, and decode is
+//     bound by bytes), the warps merge their softmax states, and the CTA
+//     writes a float32 partial (o, m, l) to scratch; the last CTA of its
+//     pair to finish (an atomic ticket) merges the splits into the output
+//     in one pass and re-arms the ticket.  A call whose keys fit one split
+//     writes its output at once.  One launch per call.
 //   * fa_bf16_kernel, other bf16 calls: 8 warps of 16 rows, K/V blocks of
 //     32 keys double-buffered by cp.async, mma.sync with ldmatrix
 //     operands (the same per-warp step as the split decode).
@@ -117,7 +135,7 @@
 //     the K stage, so K blocks are double-buffered and the latent is read
 //     once.  Prefill: 64 folded rows a CTA, 32-key blocks; decode: 16
 //     rows, 64-key blocks split across CTAs, one per SM, merged by the
-//     last CTA of each (n, KV head) as in fa_split_kernel.
+//     last CTA of each (n, KV head) as in fa_ring_kernel.
 //   * fa_f32_kernel, float32: full float32 FMA (no TF32), 4 warps of 4
 //     rows, a lane per key for S, a lane per output column for O (dh up to
 //     576).
@@ -281,6 +299,18 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a @ b for one 16x8x8 tile: a 16x8 row-major (2 registers: rows
+// lane/4 and +8, columns 2 (lane % 4) and +1, the layout of a 16x8 tile's
+// accumulator), b 8x8 column-major (1 register), c 16x8 float32.
+__device__ __forceinline__ void mma_bf16_k8(float c[4], const uint32_t a[2],
+                                            uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
 // Stage ROWS rows of DHP elements into shared memory (row pitch LDS):
@@ -531,40 +561,120 @@ __global__ void __launch_bounds__(TC_THREADS) fa_bf16_kernel(Params P) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 decode: the KV loop split across CTAs
+// bf16 decode: a ring of 32-key blocks, the KV loop split across CTAs
 // ---------------------------------------------------------------------------
 
-constexpr int SPLIT_THREADS = 128;            // 4 warps
-constexpr int SPLIT_ROWS = 16;                // folded rows: one mma tile
-constexpr int SPLIT_KEYS = 32 * (SPLIT_THREADS / 32);  // 32 keys a warp
+// The split decode it replaced staged a 128-key chunk (135 KB at dh 256:
+// one CTA an SM) and waited for all of it before any math, so its SM had
+// no load in flight while it computed.  fa_ring_kernel streams 32-key
+// blocks of K and V through a ring of STAGES stages (33 KB each at dh 256;
+// 107 KB with Q: two CTAs an SM), each stage's loads one cp.async group: a
+// CTA starts with all STAGES blocks in flight, and while block j is
+// computed the next STAGES - 1 are.  Each of the 4 warps takes 8 keys of a
+// block: S (16 rows x 8 keys) on mma.sync m16n8k16 over dh, then O += P V
+// on m16n8k8, whose A operand is the layout of S's accumulator; each warp
+// keeps its own softmax state and 16 x DHP float32 O (128 registers a
+// thread at dh 256), and the warps' states merge at the end.  plan() sizes
+// the splits from the residency the occupancy API reports, so the grid is
+// one wave, and each split takes an equal share of the blocks (within
+// one).  Head dims up to 32 take DHP 32, the columns past dh zero.
+constexpr int RING_THREADS = 128;              // 4 warps
+constexpr int SPLIT_ROWS = 16;                 // folded rows: one mma tile
+constexpr int RING_KEYS = 32;                  // keys of a block: 8 a warp
+constexpr int RING_MAX_SPLITS = 256;           // partials a (n, KV head)
+constexpr int RING_MIN_DHP = 32;               // dh 16 runs zero-padded
 
 template <int DHP>
-struct SplitShape {
-  static constexpr int LDS = DHP + 8;
-  static constexpr int KV = (SPLIT_ROWS + 2 * SPLIT_KEYS) * LDS * 2;
-  // the warps' partials (m, l and o of 16 rows each) reuse K and V
-  static constexpr int PART = 4 * SPLIT_ROWS * (DHP + 2) * 4;
-  static constexpr int SMEM = KV > PART ? KV : PART;
+struct RingShape {
+  static_assert(DHP % 32 == 0, "whole 32-dim steps of S");
+  static constexpr int LDS = DHP + 8;          // smem row pitch: no conflicts
+  static constexpr int STAGES = DHP == 256 ? 3 : 4;
+  static constexpr int Q_ELEMS = SPLIT_ROWS * LDS;
+  static constexpr int STAGE_ELEMS = 2 * RING_KEYS * LDS;   // K, then V
+  static constexpr int PS = SPLIT_ROWS * (DHP + 2);  // floats of a partial
+  static constexpr int KV = (Q_ELEMS + STAGES * STAGE_ELEMS) * 2;
+  // after the loop the same memory holds the warps' partials, then in the
+  // last CTA of (n, h) the split groups' merged states (o, m and l)
+  static constexpr int PART = 4 * PS * 4;
+  static constexpr int MERGE = SPLIT_ROWS * (DHP / 4) * (16 + 8);
+  static constexpr int MAX_AFTER = PART > MERGE ? PART : MERGE;
+  static constexpr int SMEM = KV > MAX_AFTER ? KV : MAX_AFTER;
 };
 
-// Split `split` of (n, h) walks chunks [split*cps, (split+1)*cps) of
-// SPLIT_KEYS keys from key_lo (up to key_hi); each of its 4 warps takes 32
-// keys of a chunk with its own softmax state.  The warps' states merge
-// into the CTA's partial (o unnormalized, m and l in base 2), written to
-// part[(n*HK + h)*splits + split]; the last CTA of (n, h) to finish (its
-// ticket) merges the splits' partials into the output and re-arms the
-// ticket for the next launch.  With one split the merged state is the
-// output.
+// One warp's share of a block: its 8 keys (rows Kw of K and Vw of V, the
+// first at position k_first) against the 16 query rows Qs; the online
+// softmax of rows a and b (l a per-thread partial) and O += P V, as in
+// warp_block.
+template <int DHP, int LDS>
+__device__ __forceinline__ void ring_step(
+    const __nv_bfloat16* Qs, const __nv_bfloat16* Kw,
+    const __nv_bfloat16* Vw, const Params& P, int k_first, int qpos_a,
+    int qpos_b, float& m_a, float& m_b, float& l_a, float& l_b,
+    float (&o)[DHP / 8][4]) {
+  const int lane = threadIdx.x % 32, tig = lane & 3;
+  // S = Q K^T, 32 dims a step: two A tiles of Q, and one ldmatrix.x4 of
+  // the 8 keys gives the B operands of both 16-dim steps
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int k32 = 0; k32 < DHP / 32; ++k32) {
+    uint32_t a0[4], a1[4], kr[4];
+    ldsm_x4(a0, Qs + (lane & 15) * LDS + k32 * 32 + (lane >> 4) * 8);
+    ldsm_x4(a1, Qs + (lane & 15) * LDS + k32 * 32 + 16 + (lane >> 4) * 8);
+    ldsm_x4(kr, Kw + (lane & 7) * LDS + k32 * 32 + (lane >> 3) * 8);
+    const uint32_t b0[2] = {kr[0], kr[1]}, b1[2] = {kr[2], kr[3]};
+    mma_bf16(s, a0, b0);
+    mma_bf16(s, a1, b1);
+  }
+  logits<4>(P, s);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int col = k_first + 2 * tig + e;
+    s[e] = visible(P, col, qpos_a) ? s[e] : NEG;
+    s[2 + e] = visible(P, col, qpos_b) ? s[2 + e] : NEG;
+  }
+  const float mn_a = fmaxf(m_a, quad_max(fmaxf(s[0], s[1])));
+  const float mn_b = fmaxf(m_b, quad_max(fmaxf(s[2], s[3])));
+  const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
+  m_a = mn_a;
+  m_b = mn_b;
+  const float p0 = exp2f(s[0] - mn_a), p1 = exp2f(s[1] - mn_a);
+  const float p2 = exp2f(s[2] - mn_b), p3 = exp2f(s[3] - mn_b);
+  l_a = l_a * al_a + p0 + p1;
+  l_b = l_b * al_b + p2 + p3;
+  const uint32_t a[2] = {hopper::pack_bf16(p0, p1),
+                         hopper::pack_bf16(p2, p3)};
+  // O += P V: output tile t's B is the 8 keys x 8 columns of V, read
+  // transposed; one ldmatrix.x4.trans gives four tiles' B
+#pragma unroll
+  for (int t = 0; t < DHP / 8; t += 4) {
+    uint32_t vr[4];
+    ldsm_x4_t(vr, Vw + (lane & 7) * LDS + t * 8 + (lane >> 3) * 8);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      o[t + i][0] *= al_a;
+      o[t + i][1] *= al_a;
+      o[t + i][2] *= al_b;
+      o[t + i][3] *= al_b;
+      mma_bf16_k8(o[t + i], a, vr[i]);
+    }
+  }
+}
+
+// Split `split` of (n, h) walks its share of the 32-key blocks of [key_lo,
+// key_hi); the warps' states merge into the CTA's partial (o unnormalized,
+// m and l in base 2) at part[(n*HK + h)*splits + split], and the last CTA
+// of (n, h) to finish (its ticket) merges the splits into the output and
+// re-arms the ticket.  With one split the merged state is the output.
 template <int DHP>
-__global__ void __launch_bounds__(SPLIT_THREADS)
-    fa_split_kernel(Params P, float* part, int* tickets, int splits, int cps,
-                    int key_lo, int key_hi) {
+__global__ void __launch_bounds__(RING_THREADS)
+    fa_ring_kernel(Params P, float* part, int* tickets, int splits,
+                   int key_lo, int key_hi) {
   using T = __nv_bfloat16;
-  constexpr int LDS = SplitShape<DHP>::LDS;
+  using R = RingShape<DHP>;
+  constexpr int LDS = R::LDS, PS = R::PS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = Qs + SPLIT_ROWS * LDS;
-  T* Vs = Ks + SPLIT_KEYS * LDS;
+  T* ring = Qs + R::Q_ELEMS;
   __shared__ int last;
 
   const int split = blockIdx.x, h = blockIdx.y, n = blockIdx.z;
@@ -573,13 +683,57 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
   const T* kb0 = static_cast<const T*>(P.k) + n * P.k_sn + h * P.k_sh;
   const T* vb0 = static_cast<const T*>(P.v) + n * P.v_sn + h * P.v_sh;
   const T* any = static_cast<const T*>(P.q);
-  stage_rows<DHP, LDS, SPLIT_ROWS, SPLIT_THREADS>(
+  const int nblocks = (key_hi - key_lo + RING_KEYS - 1) / RING_KEYS;
+  const int b0 = static_cast<int>((long long)split * nblocks / splits);
+  const int nb =
+      static_cast<int>((long long)(split + 1) * nblocks / splits) - b0;
+
+  stage_rows<DHP, LDS, SPLIT_ROWS, RING_THREADS>(
       Qs,
       [&](int r) -> const T* {
         return r < rows ? qb + (r / P.g) * P.q_ss + (r % P.g) * P.q_sg
                         : nullptr;
       },
       any, P.dh, P.vec_ok);
+  // a block's K and V rows: with 16-byte strides thread t copies the
+  // 16-byte chunk t % CH of rows t / CH + i * RPP, its addresses a stride
+  // apart (a fixed loop, no division), else stage_rows' element loads
+  constexpr int CH = DHP / 8, RPP = RING_THREADS / CH;   // rows a pass
+  const int c_d0 = (threadIdx.x % CH) * 8, c_r0 = threadIdx.x / CH;
+  auto load = [&](int stage, int b) {
+    const int k0 = key_lo + b * RING_KEYS;
+    T* Ks = ring + stage * R::STAGE_ELEMS;
+    if (P.vec_ok) {
+#pragma unroll
+      for (int i = 0; i < RING_KEYS / RPP; ++i) {
+        const int r = c_r0 + i * RPP, j = k0 + r;
+        const bool in = j < key_hi && c_d0 < P.dh;
+        cp_async16(Ks + r * LDS + c_d0, in ? kb0 + j * P.k_ss + c_d0 : any,
+                   in ? 16 : 0);
+        cp_async16(Ks + (RING_KEYS + r) * LDS + c_d0,
+                   in ? vb0 + j * P.v_ss + c_d0 : any, in ? 16 : 0);
+      }
+      return;
+    }
+    stage_rows<DHP, LDS, RING_KEYS, RING_THREADS>(
+        Ks,
+        [&](int r) -> const T* {
+          return k0 + r < key_hi ? kb0 + (k0 + r) * P.k_ss : nullptr;
+        },
+        any, P.dh, P.vec_ok);
+    stage_rows<DHP, LDS, RING_KEYS, RING_THREADS>(
+        Ks + RING_KEYS * LDS,
+        [&](int r) -> const T* {
+          return k0 + r < key_hi ? vb0 + (k0 + r) * P.v_ss : nullptr;
+        },
+        any, P.dh, P.vec_ok);
+  };
+  // fill the ring: one group a stage (Q in the first), empty groups past
+  // the split's blocks, so that group j holds block j
+  for (int i = 0; i < R::STAGES; ++i) {
+    if (i < nb) load(i, b0 + i);
+    cp_async_commit();
+  }
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane >> 2, tig = lane & 3;
@@ -592,66 +746,52 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
 
-  const int nchunks = (key_hi - key_lo + SPLIT_KEYS - 1) / SPLIT_KEYS;
-  const int c_end = min((split + 1) * cps, nchunks);
-  for (int ci = split * cps; ci < c_end; ++ci) {
-    const int k0 = key_lo + ci * SPLIT_KEYS;
-    stage_rows<DHP, LDS, SPLIT_KEYS, SPLIT_THREADS>(
-        Ks,
-        [&](int r) -> const T* {
-          return k0 + r < key_hi ? kb0 + (k0 + r) * P.k_ss : nullptr;
-        },
-        any, P.dh, P.vec_ok);
-    stage_rows<DHP, LDS, SPLIT_KEYS, SPLIT_THREADS>(
-        Vs,
-        [&](int r) -> const T* {
-          return k0 + r < key_hi ? vb0 + (k0 + r) * P.v_ss : nullptr;
-        },
-        any, P.dh, P.vec_ok);
+  for (int j = 0; j < nb; ++j) {
+    const int stage = j % R::STAGES;
+    cp_async_wait<R::STAGES - 1>();   // this thread's loads of block j
+    __syncthreads();                  // and every thread's have landed
+    const T* Ks = ring + stage * R::STAGE_ELEMS;
+    ring_step<DHP, LDS>(Qs, Ks + warp * 8 * LDS,
+                        Ks + (RING_KEYS + warp * 8) * LDS, P,
+                        key_lo + (b0 + j) * RING_KEYS + warp * 8, qpos_a,
+                        qpos_b, m_a, m_b, l_a, l_b, o);
+    __syncthreads();                  // every warp is done with the stage
+    if (j + R::STAGES < nb) load(stage, b0 + j + R::STAGES);
     cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    const int kw = k0 + warp * 32;
-    if (kw < key_hi)
-      warp_block<DHP, LDS>(Qs, Ks + warp * 32 * LDS, Vs + warp * 32 * LDS, P,
-                           kw, false, qpos_a, qpos_b, m_a, m_b, l_a, l_b, o);
-    __syncthreads();             // K and V are free for the next chunk
   }
   cp_async_wait<0>();
   __syncthreads();
 
-  // the warps' states -> shared memory: m, l, o per row of 16
-  float* wm = reinterpret_cast<float*>(smem_raw) +
-              warp * SPLIT_ROWS * (DHP + 2);
+  // the warps' states of the live rows -> shared memory: m, l, o
+  float* wm = reinterpret_cast<float*>(smem_raw) + warp * PS;
   float* wl = wm + SPLIT_ROWS;
   float* wo = wl + SPLIT_ROWS;
   l_a = quad_sum(l_a);
   l_b = quad_sum(l_b);
-  if (tig == 0) {
-    wm[gid] = m_a;
-    wm[gid + 8] = m_b;
-    wl[gid] = l_a;
-    wl[gid + 8] = l_b;
-  }
 #pragma unroll
-  for (int t = 0; t < DHP / 8; ++t)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      wo[gid * DHP + t * 8 + tig * 2 + e] = o[t][e];
-      wo[(gid + 8) * DHP + t * 8 + tig * 2 + e] = o[t][2 + e];
+  for (int half = 0; half < 2; ++half) {
+    const int r = gid + 8 * half;
+    if (r >= rows) continue;
+    if (tig == 0) {
+      wm[r] = half ? m_b : m_a;
+      wl[r] = half ? l_b : l_a;
     }
+#pragma unroll
+    for (int t = 0; t < DHP / 8; ++t)
+      *reinterpret_cast<float2*>(wo + r * DHP + t * 8 + tig * 2) =
+          make_float2(o[t][2 * half], o[t][2 * half + 1]);
+  }
   __syncthreads();
 
   // the CTA's partial: the warps merged by their maxima; with one split it
   // is the output, written at once (no partial, no ticket)
   const long long group = (long long)n * P.hk + h;
-  float* pg = part + group * splits * SPLIT_ROWS * (DHP + 2);
+  float* pg = part + group * splits * PS;
   T* ob = static_cast<T*>(P.o) + n * P.o_sn + h * P.o_sh;
   auto at = [&](int w) {
-    return reinterpret_cast<const float*>(smem_raw) +
-           w * SPLIT_ROWS * (DHP + 2);
+    return reinterpret_cast<const float*>(smem_raw) + w * PS;
   };
-  for (int i = threadIdx.x; i < rows * DHP; i += SPLIT_THREADS) {
+  for (int i = threadIdx.x; i < rows * DHP; i += RING_THREADS) {
     const int r = i / DHP, d = i % DHP;
     float M = NEG;
 #pragma unroll
@@ -669,7 +809,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
             __float2bfloat16(O / fmaxf(L, 1e-30f));
       continue;
     }
-    float* ps = pg + (long long)split * SPLIT_ROWS * (DHP + 2);
+    float* ps = pg + (long long)split * PS;
     ps[2 * SPLIT_ROWS + r * DHP + d] = O;
     if (d == 0) {
       ps[r] = M;
@@ -684,22 +824,59 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
   if (!last) return;
   __threadfence();
 
-  // the last CTA of (n, h): every split merged into the output
-  for (int i = threadIdx.x; i < rows * DHP; i += SPLIT_THREADS) {
-    const int r = i / DHP, d = i % DHP;
-    if (d >= P.dh) continue;
-    float M = NEG;
-    for (int sp = 0; sp < splits; ++sp)
-      M = fmaxf(M, __ldcg(pg + (long long)sp * SPLIT_ROWS * (DHP + 2) + r));
-    float L = 0.f, O = 0.f;
-    for (int sp = 0; sp < splits; ++sp) {
-      const float* ps = pg + (long long)sp * SPLIT_ROWS * (DHP + 2);
-      const float f = exp2f(__ldcg(ps + r) - M);
-      L += __ldcg(ps + SPLIT_ROWS + r) * f;
-      O += __ldcg(ps + 2 * SPLIT_ROWS + r * DHP + d) * f;
+  // the last CTA of (n, h): the splits cut into sg groups, so that every
+  // thread has loads to make; a thread merges, for its output float4 and
+  // its group's splits, each split's m, l and o into a running state (the
+  // loads of one split independent of the state, so unrolled they are in
+  // flight together), and the groups' states meet in shared memory
+  const int cells = rows * (DHP / 4);           // float4s of the output
+  const int sg = max(1, RING_THREADS / cells);  // split groups
+  float4* red_o = reinterpret_cast<float4*>(smem_raw);
+  float2* red_ml = reinterpret_cast<float2*>(red_o + SPLIT_ROWS * (DHP / 4));
+  for (int i = threadIdx.x; i < cells * sg; i += RING_THREADS) {
+    const int c = i % cells, gr = i / cells;
+    const int r = c / (DHP / 4), d = (c % (DHP / 4)) * 4;
+    float M = NEG, L = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int sp = gr; sp < splits; sp += sg) {
+      const float* ps = pg + (long long)sp * PS;
+      const float m = __ldcg(ps + r), l = __ldcg(ps + SPLIT_ROWS + r);
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(
+          ps + 2 * SPLIT_ROWS + r * DHP + d));
+      const float mn = fmaxf(M, m);
+      const float fo = exp2f(M - mn), fn = exp2f(m - mn);
+      L = L * fo + l * fn;
+      acc.x = acc.x * fo + v.x * fn;
+      acc.y = acc.y * fo + v.y * fn;
+      acc.z = acc.z * fo + v.z * fn;
+      acc.w = acc.w * fo + v.w * fn;
+      M = mn;
     }
-    ob[(r / P.g) * P.o_ss + (r % P.g) * P.o_sg + d] =
-        __float2bfloat16(O / fmaxf(L, 1e-30f));
+    red_o[i] = acc;
+    red_ml[i] = make_float2(M, L);
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < cells; c += RING_THREADS) {
+    const int r = c / (DHP / 4), d = (c % (DHP / 4)) * 4;
+    float M = NEG;
+    for (int gr = 0; gr < sg; ++gr) M = fmaxf(M, red_ml[gr * cells + c].x);
+    float L = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int gr = 0; gr < sg; ++gr) {
+      const float2 ml = red_ml[gr * cells + c];
+      const float4 v = red_o[gr * cells + c];
+      const float f = exp2f(ml.x - M);
+      L += ml.y * f;
+      a[0] += v.x * f;
+      a[1] += v.y * f;
+      a[2] += v.z * f;
+      a[3] += v.w * f;
+    }
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+    T* orow = ob + (r / P.g) * P.o_ss + (r % P.g) * P.o_sg;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (d + e < P.dh) orow[d + e] = __float2bfloat16(a[e] * inv);
   }
   if (threadIdx.x == 0) tickets[group] = 0;
 }
@@ -1034,6 +1211,336 @@ __global__ void __launch_bounds__(WgShape<DH>::THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 prefill at dh 64: the softmax under the products
+// ---------------------------------------------------------------------------
+
+// At dh 64 a 64 x 128 block of scores costs as many clocks of the SM's
+// exponential units (8192 ex2 at 16 a clock) as of its tensor cores (2 x
+// 1.05 MFLOP), so fa_wgmma_kernel<64>'s order (S, wait, softmax, O += P
+// V, wait) leaves the tensor cores idle through every softmax.
+// fa_wgmma64_kernel runs the softmax under the products:
+//   * within a warpgroup, S_j = Q K_j^T is issued with O += P_{j-1} V_{j-1}
+//     and block j's softmax runs in S's registers while the PV product
+//     runs (wgmma_wait<1>, then <0>); P_j (bf16, the PV product's register
+//     operand) is packed from them once that product is done, so S (64
+//     registers on m64n128), P (32) and O (32) fit ptxas's 168 (a second
+//     P buffer spilled);
+//   * between the two consumer warpgroups, a ping-pong on named barriers
+//     2 and 3: a warpgroup issues its products after the other has issued
+//     its own, so one's exponentials run under the other's products
+//     (FlashAttention-3's schedule);
+//   * no register that a product in flight reads or writes is touched: a
+//     register defined under a product serializes the products (ptxas
+//     C7513, C7515), so P and O's rescale come after the wait, O's zeros
+//     are pinned before the loop and the descriptors are made before the
+//     products;
+//   * a score is one FFMA (to base 2, less the row maximum) and one
+//     ex2.approx, and the mask is tested only on blocks that cross an edge.
+// A CTA holds 128 folded rows and walks 128-key blocks with 288 threads:
+// the two consumer warpgroups and a producer warp (thread 256 issues the
+// TMA loads, always ahead: loads issued by a consumer between its blocks
+// took about 7 % longer), within ptxas's 168 registers a thread (S 64, P
+// 32, O 32).  A softcap's tanh would not fit beside them: capped calls
+// take fa_wgmma_kernel<64>.  Four K and four V stages of 16 KB beside Q
+// (16 KB).
+struct Wg64Shape {
+  static constexpr int DH = 64;
+  static constexpr int BM = 128;              // folded rows of a CTA
+  static constexpr int BN = 128;              // keys of a K/V block
+  static constexpr int Q_BOX = BM * 128;      // BM rows of 64 dims
+  static constexpr int KV_BOX = BN * 128;
+  static constexpr int Q_BYTES = BM * DH * 2;
+  static constexpr int KV_BYTES = BN * DH * 2;
+  static constexpr int STAGES = 4;
+  static constexpr int THREADS = 288;
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024 + 256;
+};
+
+// Keeps the compiler from moving accesses of P's registers across a
+// wgmma wait: a product that reads them runs until it is waited for.
+template <int N>
+__device__ __forceinline__ void fence_u32(uint32_t (&p)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(p[i][e])::"memory");
+}
+
+// The online softmax of a block's S, in place (64 rows x NS / 2 keys, key
+// 8j + 2 tig + e of the block in s[4j + e] (row a) and s[4j + 2 + e] (row
+// b)): the running maxima m and sums l (per-thread partials) of rows a
+// and b, their rescale al, and each score's p in its place.  With MASK, keys
+// outside [lo, hi) of a row (bounds relative to the thread's first key)
+// are -inf (a block that crosses no edge skips the test: two compares
+// and a select a score, twice, cost as much as the rest of the softmax);
+// sc takes a score to base 2.
+template <bool MASK, int NS>
+__device__ __forceinline__ void block_softmax(float (&s)[NS], float sc,
+                                              int la, int ha, int lb, int hb,
+                                              float (&m)[2], float (&l)[2],
+                                              float (&al)[2]) {
+  auto v = [&](int i, int lo, int hi) {
+    const int c = 8 * (i / 4) + (i % 2);
+    return !MASK || ((c >= lo) & (c < hi)) ? s[i] : -INFINITY;
+  };
+  float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mx_a = fmaxf(mx_a, v(4 * j + e, la, ha));
+      mx_b = fmaxf(mx_b, v(4 * j + 2 + e, lb, hb));
+    }
+  }
+  const float mn_a = fmaxf(m[0], quad_max(mx_a) * sc);
+  const float mn_b = fmaxf(m[1], quad_max(mx_b) * sc);
+  al[0] = hopper::ex2(m[0] - mn_a);
+  al[1] = hopper::ex2(m[1] - mn_b);
+  m[0] = mn_a;
+  m[1] = mn_b;
+  float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+    const float p0 = hopper::ex2(fmaf(v(4 * j, la, ha), sc, -mn_a));
+    const float p1 = hopper::ex2(fmaf(v(4 * j + 1, la, ha), sc, -mn_a));
+    const float p2 = hopper::ex2(fmaf(v(4 * j + 2, lb, hb), sc, -mn_b));
+    const float p3 = hopper::ex2(fmaf(v(4 * j + 3, lb, hb), sc, -mn_b));
+    sum_a += p0 + p1;
+    sum_b += p2 + p3;
+    s[4 * j] = p0;
+    s[4 * j + 1] = p1;
+    s[4 * j + 2] = p2;
+    s[4 * j + 3] = p3;
+  }
+  l[0] = l[0] * al[0] + sum_a;
+  l[1] = l[1] * al[1] + sum_b;
+}
+
+// A CTA: 128 folded query rows of one (n, KV head), the heaviest row tiles
+// first, as fa_wgmma_kernel; the masked scores are -inf, so a score's
+// exponential is one FFMA and one ex2 (a row that sees no key at all sums
+// to 0 and writes 0).
+__global__ void __launch_bounds__(Wg64Shape::THREADS, 1)
+    fa_wgmma64_kernel(const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, Params P,
+                      KvOrder ok, KvOrder ov) {
+  using T = __nv_bfloat16;
+  using S = Wg64Shape;
+  constexpr int NS = S::BN / 2;              // S registers a thread
+  constexpr int NK = S::BN / 16;             // 16-key steps of O += P V
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = hopper::smem_u32(smem_raw);
+  unsigned char* Qs = smem_raw + (((base + 1023u) & ~1023u) - base);
+  unsigned char* Ks = Qs + S::Q_BYTES;
+  unsigned char* Vs = Ks + S::STAGES * S::KV_BYTES;
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(Vs + S::STAGES * S::KV_BYTES);
+  uint64_t* full_v = full_k + S::STAGES;
+  uint64_t* empty_k = full_v + S::STAGES;   // K read by S = Q K^T
+  uint64_t* empty_v = empty_k + S::STAGES;  // V read by O += P V
+
+  const int rows = P.sq * P.g;
+  const int tiles = (rows + S::BM - 1) / S::BM;
+  const int groups = P.n * P.hk;
+  const int nh = blockIdx.x % groups;
+  const int n = nh / P.hk, h = nh % P.hk;
+  const int row0 = (tiles - 1 - blockIdx.x / groups) * S::BM;
+  const int row_end = min(row0 + S::BM, rows);
+  int kb_lo, kb_hi;
+  block_range(P, S::BN, P.q0 + row0 / P.g, P.q0 + (row_end - 1) / P.g,
+              &kb_lo, &kb_hi);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::STAGES; ++i) {
+      hopper::mbar_init(&full_k[i], 1);
+      hopper::mbar_init(&full_v[i], 1);
+      hopper::mbar_init(&empty_k[i], 8);    // the consumer warps
+      hopper::mbar_init(&empty_v[i], 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- the producer warp: thread 256 ----------------------------------
+    if (threadIdx.x != 256) return;
+    hopper::PipeState ps;
+    for (int kb = kb_lo; kb < kb_hi; ++kb) {
+      const int j = kb * S::BN;
+      hopper::mbar_wait(&empty_k[ps.stage], ps.phase ^ 1u);
+      hopper::mbar_expect_tx(&full_k[ps.stage], S::KV_BYTES);
+      hopper::tma_load_4d(Ks + ps.stage * S::KV_BYTES, &tm_k,
+                          &full_k[ps.stage], 0, kv_coord(ok, 0, j, h, n),
+                          kv_coord(ok, 1, j, h, n), kv_coord(ok, 2, j, h, n));
+      hopper::mbar_wait(&empty_v[ps.stage], ps.phase ^ 1u);
+      hopper::mbar_expect_tx(&full_v[ps.stage], S::KV_BYTES);
+      hopper::tma_load_4d(Vs + ps.stage * S::KV_BYTES, &tm_v,
+                          &full_v[ps.stage], 0, kv_coord(ov, 0, j, h, n),
+                          kv_coord(ov, 1, j, h, n), kv_coord(ov, 2, j, h, n));
+      ps.advance(S::STAGES);
+    }
+    return;
+  }
+
+  // ---- the consumers --------------------------------------------------------
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, gid = lane >> 2, tig = lane & 3;
+  stage_q<S::BM, S::DH, S::Q_BOX>(
+      Qs, static_cast<const T*>(P.q) + n * P.q_sn + h * P.q_sh, P, row0,
+      rows);
+  hopper::fence_proxy_async_shared();    // generic stores -> wgmma reads
+  hopper::named_bar_sync(1, 256);
+
+  const int wrow = wg * 64 + warp * 16;          // the warp's first row
+  const int qpos_a = P.q0 + (row0 + wrow + gid) / P.g;
+  const int qpos_b = P.q0 + (row0 + wrow + gid + 8) / P.g;
+  const int wq_min = P.q0 + (row0 + wg * 64) / P.g;
+  const int wq_max = P.q0 + (row0 + wg * 64 + 63) / P.g;
+  const int lo_a = P.window > 0 ? max(0, qpos_a - P.window + 1) : 0;
+  const int lo_b = P.window > 0 ? max(0, qpos_b - P.window + 1) : 0;
+  const int hi_a = P.causal ? min(P.kv_len, qpos_a + 1) : P.kv_len;
+  const int hi_b = P.causal ? min(P.kv_len, qpos_b + 1) : P.kv_len;
+  const float sc = P.scale * LOG2E;       // a score's factor to base 2
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, al[2];
+  float o[S::DH / 2];
+#pragma unroll
+  for (int i = 0; i < S::DH / 2; ++i) o[i] = 0.f;
+  // the zeros stay here: moved down under a product, their definitions
+  // serialize the products (ptxas C7515)
+  hopper::fence_operands(o);
+  float s[NS];                 // S, then the block's p in its place
+  uint32_t pa[NK][4];          // P (bf16) of the block whose O += P V is next
+  const uint64_t dq = hopper::desc_sw128(Qs + wg * 64 * 128, 16, 1024);
+  hopper::PipeState kst, vst;  // the K and the V stage read next
+
+  // the descriptor of the K (V) block in stage kst (vst), once it has
+  // landed, made before the products that read it
+  auto k_desc = [&]() {
+    hopper::mbar_wait(&full_k[kst.stage], kst.phase);
+    return hopper::desc_sw128(Ks + kst.stage * S::KV_BYTES, 16, 1024);
+  };
+  auto v_desc = [&]() {
+    hopper::mbar_wait(&full_v[vst.stage], vst.phase);
+    return hopper::desc_sw128(Vs + vst.stage * S::KV_BYTES, S::KV_BOX, 1024);
+  };
+  // S = Q K^T (both K-major), committed
+  auto wgmma_s = [&](uint64_t dk) {
+#pragma unroll
+    for (int ks = 0; ks < S::DH / 16; ++ks)
+      hopper::wgmma_ss_n128_bf16<0>(s, dq + ks * 2, dk + ks * 2, ks > 0);
+    hopper::wg_commit();
+  };
+  // O += P V (V MN-major: transpose-B), P from pa, committed
+  auto wgmma_pv = [&](uint64_t dv) {
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+      hopper::wgmma_rs_n64_bf16<1>(o, pa[kk], dv + kk * (16 * 128 >> 4), 1);
+    hopper::wg_commit();
+  };
+  // block kb's softmax in s (the mask only where the block crosses the
+  // causal edge, the window or kv_len for a row of the warpgroup)
+  auto softmax = [&](int kb) {
+    const int k_first = kb * S::BN, k_last = k_first + S::BN - 1;
+    const bool whole = k_last < P.kv_len &&
+                       (!P.causal || k_last <= wq_min) &&
+                       (P.window <= 0 || k_first > wq_max - P.window);
+    const int kbase = k_first + 2 * tig;
+    const int la = lo_a - kbase, ha = hi_a - kbase;
+    const int lb = lo_b - kbase, hb = hi_b - kbase;
+    if (whole)
+      block_softmax<false>(s, sc, la, ha, lb, hb, m, l, al);
+    else
+      block_softmax<true>(s, sc, la, ha, lb, hb, m, l, al);
+  };
+  // P (bf16) from s: the accumulator's key groups 2kk and 2kk + 1 are the
+  // A operand's 16-key step kk
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[kk][i] = hopper::pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+  };
+
+  const int nblk = kb_hi - kb_lo;
+  // the ping-pong: warpgroup w issues its products after a bar.sync on 2 +
+  // w, which the other warpgroup's arrival (after issuing its own) lets
+  // through; warpgroup 0 goes first.  Each warpgroup issues nblk times
+  // and waits nblk times; warpgroup 1's first arrival is made up front
+  // and its arrival after its last issue left out, so the counts match.
+  auto my_turn = [&]() { hopper::named_bar_sync(2 + wg, 256); };
+  auto your_turn = [&](bool last_issue) {
+    if (!(wg == 1 && last_issue)) hopper::named_bar_arrive(3 - wg, 256);
+  };
+  if (wg == 1 && nblk > 0) hopper::named_bar_arrive(2, 256);
+  if (nblk > 0) {
+    my_turn();
+    const uint64_t dk0 = k_desc();
+    hopper::fence_operands(s);
+    hopper::wg_fence();
+    wgmma_s(dk0);
+    your_turn(nblk == 1);
+    hopper::wg_wait<0>();
+    hopper::fence_operands(s);
+    if (lane == 0) hopper::mbar_arrive(&empty_k[kst.stage]);
+    kst.advance(S::STAGES);
+    softmax(kb_lo);                    // O is 0: no rescale
+    pack_p();
+    for (int kb = kb_lo + 1; kb < kb_hi; ++kb) {
+      my_turn();
+      const uint64_t dk = k_desc(), dv = v_desc();
+      hopper::fence_operands(s);
+      hopper::fence_operands(o);
+      fence_u32(pa);
+      hopper::wg_fence();
+      wgmma_s(dk);                     // S of block kb
+      wgmma_pv(dv);                    // O += P V of block kb - 1
+      your_turn(kb == kb_hi - 1);
+      hopper::wg_wait<1>();            // S is done; the PV product runs on
+      hopper::fence_operands(s);
+      if (lane == 0) hopper::mbar_arrive(&empty_k[kst.stage]);
+      kst.advance(S::STAGES);
+      softmax(kb);                     // under the PV product
+      hopper::wg_wait<0>();
+      hopper::fence_operands(o);
+      fence_u32(pa);
+      if (lane == 0) hopper::mbar_arrive(&empty_v[vst.stage]);
+      vst.advance(S::STAGES);
+#pragma unroll
+      for (int j = 0; j < S::DH / 8; ++j) {
+        o[4 * j] *= al[0];
+        o[4 * j + 1] *= al[0];
+        o[4 * j + 2] *= al[1];
+        o[4 * j + 3] *= al[1];
+      }
+      pack_p();
+    }
+    const uint64_t dv = v_desc();      // the last block's O += P V
+    hopper::fence_operands(o);
+    fence_u32(pa);
+    hopper::wg_fence();
+    wgmma_pv(dv);
+    hopper::wg_wait<0>();
+    hopper::fence_operands(o);
+    fence_u32(pa);
+  }
+
+  const float inv_a = 1.f / fmaxf(quad_sum(l[0]), 1e-30f);
+  const float inv_b = 1.f / fmaxf(quad_sum(l[1]), 1e-30f);
+  T* ob = static_cast<T*>(P.o) + n * P.o_sn + h * P.o_sh;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int R = row0 + wrow + gid + 8 * half;
+    if (R >= rows) continue;
+    T* orow = ob + (R / P.g) * P.o_ss + (R % P.g) * P.o_sg;
+    const float inv = half ? inv_b : inv_a;
+#pragma unroll
+    for (int j = 0; j < S::DH / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + tig * 2) =
+          __floats2bfloat162_rn(o[4 * j + 2 * half] * inv,
+                                o[4 * j + 2 * half + 1] * inv);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // bf16 MLA: keys up to 576 wide, values up to 512 wide
 // ---------------------------------------------------------------------------
 
@@ -1067,7 +1574,7 @@ struct MlaShape {
 
 // Prefill: 64 folded rows, 32-key blocks (155 KB of shared memory).
 // Decode (at most 16 folded rows): 16 rows, 64-key blocks (171 KB), the
-// blocks split across CTAs like fa_split_kernel's chunks.
+// blocks split across CTAs like fa_ring_kernel's.
 using MlaPrefill = MlaShape<4, 32>;
 using MlaDecode = MlaShape<1, 64>;
 
@@ -1798,7 +2305,7 @@ void launch_f32(const Params& P, cudaStream_t s) {
 }
 
 
-// How a call runs: the kernel, and for the split decode its chunks.
+// How a call runs: the kernel, and for a split decode its splits.
 enum Path {
   PATH_F32 = 0,
   PATH_MMA_SYNC = 1,
@@ -1811,7 +2318,8 @@ enum Path {
 struct Plan {
   int path = PATH_MMA_SYNC;
   int dhp = 0;                 // the head dim the kernel is built for
-  int splits = 0, cps = 0;     // split decode: CTAs per (n, h), chunks each
+  int splits = 0;              // split decodes: CTAs per (n, h)
+  int cps = 0;                 // MLA: blocks a CTA
   int key_lo = 0, key_hi = 0;  // split decode: the keys some query sees
   long long scratch = 0;       // split decode: floats of partials
   bool mla_decode = false;     // MLA: MlaDecode (split), else MlaPrefill
@@ -1838,16 +2346,43 @@ inline int sm_count() {
   return sms;
 }
 
+// The CTAs of fa_ring_kernel<DHP> an SM holds at once, from the occupancy
+// API (its shared memory and registers), read once.
+template <int DHP>
+int ring_residency() {
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    constexpr int bytes = RingShape<DHP>::SMEM;
+    set_smem(fa_ring_kernel<DHP>, bytes);
+    int b = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &b, fa_ring_kernel<DHP>, RING_THREADS, bytes) != cudaSuccess ||
+        b < 1)
+      b = 1;
+    per_sm = b;
+  }
+  return per_sm;
+}
+
+inline int ring_residency(int dhp) {
+  return dhp == 32    ? ring_residency<32>()
+         : dhp == 64  ? ring_residency<64>()
+         : dhp == 128 ? ring_residency<128>()
+                      : ring_residency<256>();
+}
+
 // float32 -> fa_f32_kernel; bf16 with v narrower than k or dh above 256
 // (MLA): the prefill at dh 576 and dv 512 with v a view of k (v_in_k),
 // at least 64 folded rows, strides TMA can use (vec_ok) and kv_len > 0 ->
 // fa_mla_wgmma_kernel, other MLA calls -> fa_mla_kernel, its decode
 // shape (at most 16 folded rows) with the visible blocks split across
 // CTAs for one CTA per SM; other bf16 with at most 16 folded rows
-// (decode) -> fa_split_kernel, with enough splits of the KV range for two
-// CTAs per SM; bf16 prefill at dh 64, 128 or 256 whose strides TMA can
-// use (vec_ok), with at least 64 folded rows and kv_len > 0 ->
-// fa_wgmma_kernel; other bf16 -> fa_bf16_kernel (mma.sync).
+// (decode) -> fa_ring_kernel, its 32-key blocks shared out over as many
+// splits as fill the card's resident CTAs once; bf16 prefill at dh 64,
+// 128 or 256 whose strides TMA can use (vec_ok), with at least 64 folded
+// rows and kv_len > 0 -> at dh 64 fa_wgmma64_kernel (with a softcap
+// fa_wgmma_kernel<64>), else fa_wgmma_kernel; other bf16 ->
+// fa_bf16_kernel (mma.sync).
 inline Plan plan(int dtype, int n, int sq, int hk, int g, int dh, int dv,
                  int q0, int kv_len, int causal, int window, int vec_ok,
                  int v_in_k) {
@@ -1886,12 +2421,11 @@ inline Plan plan(int dtype, int n, int sq, int hk, int g, int dh, int dv,
     if (causal) hi = qmax < 0 ? 0 : min(hi, qmax + 1);
     int lo = window > 0 ? max(0, q0 - window + 1) : 0;
     lo = min(lo, hi);
-    const int chunks = (hi - lo + SPLIT_KEYS - 1) / SPLIT_KEYS;
     const int groups = n * hk;
-    int splits = (2 * sm_count() + groups - 1) / groups;
-    splits = max(1, min(splits, chunks));
-    pl.cps = max(1, (chunks + splits - 1) / splits);
-    pl.splits = max(1, (chunks + pl.cps - 1) / pl.cps);
+    pl.dhp = max(pl.dhp, RING_MIN_DHP);
+    const int blocks = (hi - lo + RING_KEYS - 1) / RING_KEYS;
+    const int slots = ring_residency(pl.dhp) * sm_count();
+    pl.splits = max(1, min(min(slots / groups, blocks), RING_MAX_SPLITS));
     pl.key_lo = lo;
     pl.key_hi = hi;
     pl.scratch = (long long)groups * pl.splits * SPLIT_ROWS * (pl.dhp + 2);
@@ -1921,17 +2455,12 @@ int launch_mla(const Params& P, const Plan& pl, float* part, int* tickets,
 }
 
 template <int DHP>
-int launch_split(const Params& P, const Plan& pl, float* part, int* tickets,
-                 cudaStream_t s) {
-  constexpr int bytes = SplitShape<DHP>::SMEM;
-  static bool configured = false;
-  if (!configured) {
-    set_smem(fa_split_kernel<DHP>, bytes);
-    configured = true;
-  }
+int launch_ring(const Params& P, const Plan& pl, float* part, int* tickets,
+                cudaStream_t s) {
+  ring_residency<DHP>();         // sets the shared-memory opt-in once
   const dim3 grid(pl.splits, P.hk, P.n);
-  fa_split_kernel<DHP><<<grid, SPLIT_THREADS, bytes, s>>>(
-      P, part, tickets, pl.splits, pl.cps, pl.key_lo, pl.key_hi);
+  fa_ring_kernel<DHP><<<grid, RING_THREADS, RingShape<DHP>::SMEM, s>>>(
+      P, part, tickets, pl.splits, pl.key_lo, pl.key_hi);
   return 0;
 }
 
@@ -1987,6 +2516,27 @@ int launch_wgmma(const Params& P, cudaStream_t s) {
   if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   fa_wgmma_kernel<DH><<<static_cast<unsigned>(ctas), WgShape<DH>::THREADS,
                         bytes, s>>>(tk, tv, P, ok, ov);
+  return 0;
+}
+
+int launch_wgmma64(const Params& P, cudaStream_t s) {
+  using S = Wg64Shape;
+  static bool configured = false;
+  if (!configured) {
+    set_smem(fa_wgmma64_kernel, S::SMEM);
+    configured = true;
+  }
+  CUtensorMap tk, tv;
+  KvOrder ok, ov;
+  int rc;
+  if ((rc = kv_map(&tk, P.k, P, P.k_sn, P.k_ss, P.k_sh, S::BN, &ok)) ||
+      (rc = kv_map(&tv, P.v, P, P.v_sn, P.v_ss, P.v_sh, S::BN, &ov)))
+    return rc;
+  const long long ctas =
+      (long long)((P.sq * P.g + S::BM - 1) / S::BM) * P.n * P.hk;
+  if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  fa_wgmma64_kernel<<<static_cast<unsigned>(ctas), S::THREADS, S::SMEM, s>>>(
+      tk, tv, P, ok, ov);
   return 0;
 }
 
@@ -2089,15 +2639,15 @@ extern "C" int flash_attention(
       return static_cast<int>(cudaErrorInvalidValue);
     float* part = static_cast<float*>(scratch);
     int* tk = static_cast<int*>(tickets);
-    if (pl.dhp == 16) rc = launch_split<16>(P, pl, part, tk, s);
-    else if (pl.dhp == 32) rc = launch_split<32>(P, pl, part, tk, s);
-    else if (pl.dhp == 64) rc = launch_split<64>(P, pl, part, tk, s);
-    else if (pl.dhp == 128) rc = launch_split<128>(P, pl, part, tk, s);
-    else rc = launch_split<256>(P, pl, part, tk, s);
+    rc = pl.dhp == 32    ? launch_ring<32>(P, pl, part, tk, s)
+         : pl.dhp == 64  ? launch_ring<64>(P, pl, part, tk, s)
+         : pl.dhp == 128 ? launch_ring<128>(P, pl, part, tk, s)
+                         : launch_ring<256>(P, pl, part, tk, s);
   } else if (pl.path == PATH_MLA_WGMMA) {
     rc = launch_mla_wgmma(P, s);
   } else if (pl.path == PATH_WGMMA) {
-    rc = dh == 64    ? launch_wgmma<64>(P, s)
+    rc = dh == 64 && !(softcap > 0.f) ? launch_wgmma64(P, s)
+         : dh == 64  ? launch_wgmma<64>(P, s)
          : dh == 128 ? launch_wgmma<128>(P, s)
                      : launch_wgmma<256>(P, s);
   } else {

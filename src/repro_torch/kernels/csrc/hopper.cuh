@@ -191,6 +191,12 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Counts this warp's threads toward barrier `id` of `threads` threads and
+// goes on: the other side of a bar.sync that waits for them.
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // -- wgmma --------------------------------------------------------------------
 
 // Matrix descriptor of a 128-byte-swizzled tile at p (16-byte aligned,
@@ -228,6 +234,14 @@ template <int N>
 __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) fence_operand(d[i]);
+}
+
+// 2^x in one instruction (ex2.approx.ftz: 2 ulp, subnormals flushed);
+// exp2f without --use_fast_math takes several.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

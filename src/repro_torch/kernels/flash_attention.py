@@ -30,11 +30,18 @@ alignment, before the launch; every call is one launch.
   16-byte strides): CTAs of 128 folded rows, K/V blocks of 128 keys by
   TMA from a producer warpgroup (at dh 256, where O alone is 128
   registers a thread: 64-key blocks, thread 0 issuing the loads), both
-  products on ``wgmma``; bound by operations;
+  products on ``wgmma``; bound by operations.  At dh 64, where a block's
+  exponentials cost as much as its products, the softmax runs under the
+  products: each warpgroup's softmax of one block beside its PV product
+  of the block before, and the two warpgroups taking turns to issue
+  (``fa_wgmma64_kernel``);
 * ``"split_kv"``: bf16 decode (at most 16 folded rows): the KV range split
   across CTAs, float32 partials in scratch that this wrapper allocates, the
   last CTA of each (n, KV head) merging them (``_tickets`` keeps the
-  per-head counters, re-armed by the kernel);
+  per-head counters, re-armed by the kernel).  The keys stream through a
+  ring of 32-key blocks (two CTAs an SM at dh 256; head dims up to 32
+  zero-padded to 32), the splits sized to fill the card's resident CTAs
+  once (``fa_ring_kernel``);
 * ``"mma_sync"``: other bf16 calls, 32-key blocks on ``mma.sync``;
 * ``"mla_wgmma"``: the bf16 MLA prefill (dh 576, dv 512, v a view of k's
   first 512 columns, at least 64 folded rows, 16-byte strides): CTAs of 64

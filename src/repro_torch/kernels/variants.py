@@ -1,7 +1,7 @@
 """Ablations of the hand-written CUDA kernels, timed on the card.
 
     python -m repro_torch.kernels.variants [ring] [flash] [matmul] [rwkv]
-        [ssd] [--only NAME ...]
+        [ssd] [--only NAME ...] [--csrc DIR] [--no-long] [--shapes TEXT ...]
 
 Each variant is a copy of ``csrc/`` with a few source edits (a stage
 count, a tile width, one part of the loop taken out or put back), built
@@ -9,16 +9,20 @@ like the kernels themselves into ``build/variants/<name>/`` and timed by
 the device time that ``torch.profiler`` records (mean per launch of 20;
 long_500k's prefill layers by CUDA events over 2 launches) at the shapes
 of ``chip_smoke.py`` phase 3.  A variant that takes work out computes a wrong result: it shows
-where the time goes, nothing more; the base variants, and flash's two
-that give plan() back the kernels the dh-256 and MLA prefills ran on
-before (``mma_sync``, ``mla``), are checked against their plain versions.
-Needs a CUDA card.  Prints the card's name and power limit, then one line per variant
-and shape.
+where the time goes, nothing more; the base variants, and flash's that
+give plan() back a kernel a path ran on before (``FLASH_CHECKED``), are
+checked against their plain versions.  ``--csrc DIR`` builds the
+variants from another copy of ``csrc/`` (a parent commit's, unpacked by
+``git archive``), so that two sources are timed in one run; ``--no-long``
+leaves out long_500k's prefill layers, ``--shapes`` keeps the flash shapes
+whose label holds one of the texts.  Needs a CUDA card.  Prints the
+card's name and power limit, then one line per variant and shape.
 """
 from __future__ import annotations
 
 import argparse
 import functools
+import pathlib
 import shutil
 import subprocess
 
@@ -78,6 +82,12 @@ _MLA_NO_PV = (_FA, "      hopper::wgmma_ss_n256_bf16<1>(o, dp + kk * 2,\n"
                    "                                    dv + kk * (16 * 128 >> "
                    "4), 1);",
               "      o[kk] += __uint_as_float((uint32_t)(dp + dv));")
+_D64_NO_S = (_FA, "      hopper::wgmma_ss_n128_bf16<0>(s, dq + ks * 2, dk + ks * 2, "
+                  "ks > 0);",
+             "      s[ks] = __uint_as_float((uint32_t)(dq + ks + dk));")
+_D64_NO_PV = (_FA, "      hopper::wgmma_rs_n64_bf16<1>(o, pa[kk], dv + kk * (16 * 128 "
+                   ">> 4), 1);",
+              "      o[kk] += __uint_as_float(pa[kk][0] ^ pa[kk][3]);")
 FLASH = {
     "base": [],
     # the kernels that the dh-256 wgmma instance and the MLA wgmma prefill
@@ -114,7 +124,50 @@ FLASH = {
     "MLA: no PV product": [_MLA_NO_PV],
     "MLA: no S product": [_MLA_NO_S],
     "MLA: no math (pipeline only)": [_MLA_NO_S, _MLA_NO_PV],
+    # the kernel the dh-64 prefill ran on before fa_wgmma64_kernel
+    # (fa_wgmma_kernel<64>, which capped calls keep); the decodes' former
+    # kernel is gone from the source, so the parent's source times it:
+    # --csrc
+    "replaced: dh-64 prefill": [
+        (_FA, "rc = dh == 64 && !(softcap > 0.f) ? launch_wgmma64(P, s)",
+         "rc = false ? launch_wgmma64(P, s)")],
+    "dh-256 decode: 2 stages (3 CTAs an SM)": [
+        (_FA, "static constexpr int STAGES = DHP == 256 ? 3 : 4;",
+         "static constexpr int STAGES = DHP == 256 ? 2 : 4;")],
+    # where fa_ring_kernel's time goes: without the last CTA's merge of
+    # the splits (every split decode's: the ticket is not taken), without
+    # its loads, without its math
+    "decodes: no merge of the splits": [
+        (_FA, "if (threadIdx.x == 0) last = atomicAdd(tickets + group, 1) == "
+              "splits - 1;", "if (threadIdx.x == 0) last = 0;")],
+    "ring decode: no loads": [
+        (_FA, "    if (i < nb) load(i, b0 + i);", "    (void)load;"),
+        (_FA, "    if (j + R::STAGES < nb) load(stage, b0 + j + R::STAGES);",
+         "")],
+    "ring decode: no math": [(_FA, "    ring_step<DHP, LDS>(",
+                                "    if (false) ring_step<DHP, LDS>(")],
+    "dh 64: no ping-pong": [
+        (_FA, "  auto my_turn = [&]() { hopper::named_bar_sync(2 + wg, 256); };",
+         "  auto my_turn = [&]() {};"),
+        (_FA, "    if (!(wg == 1 && last_issue)) hopper::named_bar_arrive(3 - "
+              "wg, 256);", "    (void)last_issue;"),
+        (_FA, "  if (wg == 1 && nblk > 0) hopper::named_bar_arrive(2, 256);",
+         "")],
+    "dh 64: 2 stages": [(_FA, "  static constexpr int STAGES = 4;\n"
+                              "  static constexpr int THREADS = 288;",
+                         "  static constexpr int STAGES = 2;\n"
+                         "  static constexpr int THREADS = 288;")],
+    "dh 64: no exp": [(_FA, "hopper::ex2(fmaf(", "(fmaf(")],
+    "dh 64: no PV product": [_D64_NO_PV],
+    "dh 64: no S product": [_D64_NO_S],
+    "dh 64: no math (pipeline only)": [(_FA, "hopper::ex2(fmaf(", "(fmaf("),
+                                       _D64_NO_PV, _D64_NO_S],
 }
+# flash variants that compute the function, held to the plain version
+FLASH_CHECKED = ("base", "dh 256 on mma_sync", "MLA prefill on mla",
+                 "replaced: dh-64 prefill",
+                 "dh-256 decode: 2 stages (3 CTAs an SM)",
+                 "dh 64: no ping-pong", "dh 64: 2 stages")
 
 
 _TILE_N = (_BM, "return 2 * wide > sms ? 256 : 128;", "return {};")
@@ -290,14 +343,19 @@ def events_ms(fn, iters: int) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+CSRC = None         # --csrc: the copy of csrc/ the variants are built from
+_SOURCE = ""        # its tag in flash's lines
+
+
 def _variant_lib(lib: str, name: str, edits):
-    """Build ``lib`` from a copy of csrc/ with ``edits`` applied and load
-    it; returns a stand-in for the wrapper module's ``_lib``."""
+    """Build ``lib`` from a copy of csrc/ (or of ``CSRC``) with ``edits``
+    applied and load it; returns a stand-in for the wrapper module's
+    ``_lib``."""
     mod = _MODULES[lib]
     slug = "".join(c if c.isalnum() else "_" for c in f"{lib}_{name}")
     d = _build.build_dir().parent / "variants" / slug
     shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(_build.CSRC, d)
+    shutil.copytree(CSRC or _build.CSRC, d)
     for fname, old, new in edits:
         path = d / fname
         text = path.read_text()
@@ -349,13 +407,15 @@ def ring(only, gen) -> None:
               f"{err:.3e}", flush=True)
 
 
-def flash(only, gen) -> None:
+def flash(only, gen, no_long=False, keep=()) -> None:
     dev = torch.device("cuda")
     mla = dict(scale=192 ** -0.5)
     long_len = 524288 - 32                   # long_500k's prompt, one lane
     shapes = (  # (label, (N, Sq, Skv, HK, G, dh, dv or None: v = k), kw)
         ("llama3.2-3b prefill, causal", (32, 1024, 1024, 1, 3, 128, None),
          dict(causal=True)),
+        ("llama3.2-3b decode kv_len 1056", (32, 1, 2048, 1, 3, 128, None),
+         dict(causal=True, q0=1055, kv_len=1056)),
         ("llama3.2-3b prefill, no mask", (32, 1024, 1024, 1, 3, 128, None),
          dict(causal=False)),
         ("N 8, S 4096, no mask", (8, 4096, 4096, 1, 1, 128, None),
@@ -372,6 +432,31 @@ def flash(only, gen) -> None:
          dict(causal=True, q0=256)),
         ("deepseek-v3 MLA prefill, v a view of k",
          (32, 1024, 1024, 1, 16, 576, 512), dict(causal=True, **mla)),
+        ("deepseek-v3 MLA decode kv_len 1056",
+         (32, 1, 2048, 1, 16, 576, 512),
+         dict(causal=True, q0=1055, kv_len=1056, **mla)),
+        # whisper-medium at TP 8 (phase 19): dh 64, non-causal
+        ("whisper-medium encoder self-attention, dh 64",
+         (32, 1500, 1500, 2, 1, 64, None), dict(causal=False)),
+        ("whisper-medium cross-attention prefill, dh 64",
+         (32, 192, 1500, 2, 1, 64, None), dict(causal=False)),
+        ("whisper-medium cross-attention decode, dh 64",
+         (32, 1, 1500, 2, 1, 64, None), dict(causal=False, q0=192)),
+        # the dh-256 decodes: gemma3-1b per lane on the (2, 4) mesh (global
+        # and local layers), paligemma-3b and gemma2-9b at TP 8
+        ("gemma3-1b decode kv_len 1056, dh 256",
+         (16, 1, 2048, 1, 1, 256, None),
+         dict(causal=True, q0=1055, kv_len=1056)),
+        ("gemma3-1b local decode kv_len 1056, dh 256",
+         (16, 1, 2048, 1, 1, 256, None),
+         dict(causal=True, window=512, q0=1055, kv_len=1056)),
+        ("paligemma-3b decode kv_len 1312, dh 256",
+         (32, 1, 2048, 1, 1, 256, None),
+         dict(causal=True, q0=1311, kv_len=1312)),
+        ("gemma2-9b TP 8 decode kv_len 1056, dh 256",
+         (32, 1, 2048, 1, 2, 256, None),
+         dict(causal=True, window=4096, softcap=50.0, q0=1055,
+              kv_len=1056)),
         # long_500k's prefill layers: timed by events over 2 launches, not
         # held to the plain version here (chip_smoke.py phase 3 holds them
         # on slices)
@@ -380,6 +465,10 @@ def flash(only, gen) -> None:
         ("gemma3-1b long_500k local layer",
          (1, long_len, long_len, 1, 4, 256, None),
          dict(causal=True, window=512)))
+    if no_long:
+        shapes = tuple(s for s in shapes if s[1][1] != long_len)
+    if keep:
+        shapes = tuple(s for s in shapes if any(k in s[0] for k in keep))
     ins, flops = {}, {}
     for label, (nb, sq, skv, hk, g, dh, dv), kw in shapes:
         q, k, v = (torch.randn(*sh, generator=gen, device=dev).bfloat16()
@@ -387,7 +476,8 @@ def flash(only, gen) -> None:
                               (nb, skv, hk, dh)))
         ins[label] = (q, k, v if dv is None else k[..., :dv])
         q0, w = kw.get("q0", 0), kw.get("window", 0)
-        pairs = sum((min(skv, q0 + i + 1) if kw["causal"] else skv)
+        kvl = kw.get("kv_len", skv)
+        pairs = sum((min(kvl, q0 + i + 1) if kw["causal"] else kvl)
                     - (max(0, q0 + i - w + 1) if w else 0)
                     for i in range(sq))
         flops[label] = 2 * (dh + (dv or dh)) * pairs * nb * hk * g
@@ -405,15 +495,15 @@ def flash(only, gen) -> None:
                         .items() if c != before[p_]]
                 err = ""
                 long = sq == long_len
-                if not long and name in ("base", "dh 256 on mma_sync",
-                                         "MLA prefill on mla"):
+                if not long and name in FLASH_CHECKED:
                     want = fa.flash_attention_plain(q, k, v, **kw)
                     ok = bool(((got.float() - want.float()).abs()
                                <= fa.tolerance(q, k, v, want, **kw)).all())
                     err = f", within the limit: {ok}"
                 call = functools.partial(fa.flash_attention, q, k, v, **kw)
                 ms = events_ms(call, 2) if long else device_ms(call, "fa_")
-                print(f"flash {name}: {label} path {'/'.join(path)} "
+                print(f"flash {name}{_SOURCE}: {label} path "
+                      f"{'/'.join(path)} "
                       f"{ms:.4f} ms = {flops[label] / ms / 1e9:.1f} "
                       f"TFLOP/s{err}", flush=True)
         finally:
@@ -526,6 +616,12 @@ def main(argv=None) -> int:
                     help=f"any of {', '.join(KERNELS)} (default: all)")
     ap.add_argument("--only", nargs="*", default=[],
                     help="variant names to run (default: all)")
+    ap.add_argument("--csrc", default=None,
+                    help="build the variants from this copy of csrc/")
+    ap.add_argument("--no-long", action="store_true",
+                    help="flash: leave out long_500k's prefill layers")
+    ap.add_argument("--shapes", nargs="*", default=[],
+                    help="flash: the shapes whose label holds one of these")
     args = ap.parse_args(argv)
     if set(args.kernels) - set(KERNELS):
         ap.error(f"kernels are {', '.join(KERNELS)}, not {args.kernels}")
@@ -534,10 +630,17 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+    global CSRC, _SOURCE
+    if args.csrc:
+        CSRC = pathlib.Path(args.csrc).resolve()
+        _SOURCE = f" [{args.csrc}]"
     gen = torch.Generator(device="cuda").manual_seed(20170701)
     for name, run in KERNELS.items():
         if name in args.kernels:
-            run(set(args.only), gen)
+            if name == "flash":
+                run(set(args.only), gen, args.no_long, args.shapes)
+            else:
+                run(set(args.only), gen)
     return 0
 
 

@@ -609,6 +609,13 @@ WGMMA_CASES = [
     (2, 96, 300, 1, 3, 128, True, 0, 0.0, 204, 300),      # a later chunk
     (2, 64, 256, 2, 1, 128, False, 0, 0.0, 0, 200),       # kv_len in a block
     (3, 77, 77, 1, 4, 64, False, 0, 0.0, 0, None),        # full attention
+    # dh 64 (fa_wgmma64_kernel): a window, rows from q0 > 0 with kv_len
+    # inside a 128-key block, G = 2, and 4096 keys non-causal (the four
+    # stages of the ring wrap eight times)
+    (2, 300, 300, 1, 1, 64, True, 100, 0.0, 0, None),
+    (2, 96, 400, 2, 1, 64, True, 0, 0.0, 200, 296),
+    (2, 256, 256, 1, 2, 64, True, 0, 0.0, 0, None),
+    (1, 128, 4096, 2, 1, 64, False, 0, 0.0, 0, None),
 ]
 
 
@@ -649,17 +656,42 @@ def test_flash_wgmma_reads_no_key_beyond_kv_len(cuda, dh):
 
 @needs_cuda
 @pytest.mark.parametrize("kv_len", [1, 100, 1025, 2048])
-@pytest.mark.parametrize("hk,g,dh", [(1, 3, 128), (4, 1, 64)])
+@pytest.mark.parametrize("hk,g,dh", [(1, 3, 128), (4, 1, 64), (1, 1, 256),
+                                     (1, 2, 256), (2, 2, 16), (1, 3, 20)])
 def test_flash_split_decode_matches_plain(cuda, kv_len, hk, g, dh):
-    """One decode token per row against a 2048-slot cache (llama's and
-    zamba2's heads per rank): the KV range split across CTAs, the last CTA
-    of each head merging; slots beyond kv_len hold NaNs."""
+    """One decode token per row against a 2048-slot cache (llama's,
+    zamba2's, gemma3-1b's and paligemma-3b's, and gemma2-9b's heads per
+    rank; the smoke configs' dh 16, and dh 20, whose rows are not 16-byte
+    aligned): the KV range split across CTAs in fa_ring_kernel's 32-key
+    blocks (dh up to 32 zero-padded to 32), the last CTA of each head
+    merging; slots beyond kv_len hold NaNs."""
+    _split_decode_case(cuda, (32, 1, 2048, hk, g, dh, True, 0, 0.0,
+                              kv_len - 1, kv_len))
+
+
+@needs_cuda
+@pytest.mark.parametrize("case", [
+    # gemma3-1b's local layers: a 512-key window that cuts the cache
+    (16, 1, 2048, 1, 1, 256, True, 512, 0.0, 1055, 1056),
+    # gemma2-9b at TP 8: G 2, softcap 50, its 4096-key window past 4500
+    # keys
+    (4, 1, 8192, 1, 2, 256, True, 4096, 50.0, 4499, 4500)])
+def test_flash_split_decode_d256_window_and_softcap(cuda, case):
+    _split_decode_case(cuda, case)
+
+
+def _split_decode_case(cuda, case):
+    """A decode call on split_kv against the plain version, with NaNs in the
+    slots at or beyond kv_len and twice in a row (the tickets re-armed)."""
     from repro_torch.kernels import flash_attention as FA
-    case = (32, 1, 2048, hk, g, dh, True, 0, 0.0, kv_len - 1, kv_len)
+    kv_len = case[10]
     q, k, v = _flash_inputs(cuda, case, torch.bfloat16)
+    if case[8]:                    # scores large enough for the cap to bite
+        q, k = q * 4, k * 4
     k[:, kv_len:] = float("nan")
     v[:, kv_len:] = float("nan")
-    kw = dict(q0=kv_len - 1, kv_len=kv_len)
+    kw = dict(zip(("causal", "window", "softcap", "q0", "kv_len"),
+                  case[6:]))
     before = _paths(FA.flash_attention)
     got = FA.flash_attention(q, k, v, **kw)
     again = FA.flash_attention(q, k, v, **kw)    # the tickets re-armed
@@ -1114,6 +1146,7 @@ def test_flash_encdec_calls_match_plain(cuda, case, path):
 @pytest.mark.parametrize("case,bad", [
     (ENCDEC_CASES[3][0], dict(causal=True, q0=192)),    # decode launched causal
     (ENCDEC_CASES[1][0], dict(causal=False, kv_len=1408)),  # ragged block lost
+    (ENCDEC_CASES[0][0], dict(causal=False, kv_len=1408)),  # the encoder's
 ])
 def test_flash_encdec_limit_rejects_planted_faults(cuda, case, bad):
     from repro_torch.kernels import flash_attention as FA

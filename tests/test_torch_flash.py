@@ -147,6 +147,16 @@ KIND = {(True, 0): "causal", (True, 1): "local", (False, 0): "full"}
     (1, 100, 100, 1, 2, 256, True, 40, 50.0, 0, None),
     (2, 40, 72, 1, 1, 256, True, 0, 0.0, 32, None),
     (1, 70, 70, 1, 3, 256, True, 0, 0.0, 0, None),
+    # the dh-256 decodes (fa_ring_kernel's function): gemma2-9b's TP 8
+    # grouping (G 2, softcap 50) with its window cut to 40 keys of the 151
+    # filled, a decode after paligemma's prefix (q0 90 of 96 slots), and
+    # a 3-token step of 2 q heads after a prefix
+    (1, 1, 160, 1, 2, 256, True, 40, 50.0, 150, 151),
+    (2, 1, 96, 1, 1, 256, True, 0, 0.0, 90, 91),
+    (2, 3, 96, 1, 2, 256, True, 0, 0.0, 60, 63),
+    # dh 64 non-causal (whisper's encoder) over 1100 keys: the plain
+    # version's 64-key chunks end in a chunk of 12
+    (1, 40, 1100, 1, 2, 64, False, 0, 0.0, 0, None),
 ])
 def test_model_layout_matches_flash_jnp(dtype, case):
     b, sq, skv, hk, g, dh, causal, window, softcap, q0, kv_len = case
@@ -191,7 +201,9 @@ def test_cpu_tensors_take_the_plain_version_and_bad_inputs_raise():
 # to 2 here); at head dim 256 gemma3-1b's prefill per lane on the (2, 4)
 # mesh (16 lanes cut to 4) and paligemma-3b's text and prefix rows at TP 8
 # (32 cut to 4); deepseek-v3's absorbed MLA prefill at TP 8 (q/k 576, v
-# k's first 512 columns, 32 rows cut to 1)
+# k's first 512 columns, 32 rows cut to 1); gemma3-1b's dh-256 decode per
+# lane (16 lanes) and whisper-medium's encoder self-attention at TP 8 (32
+# rows cut to 2)
 SERVE_PREFILL = (2, 1024, 1024, 1, 3, 128)
 SERVE_DECODE = (32, 1, 2048, 1, 3, 128)
 GEMMA_LANE = (4, 1024, 1024, 1, 1, 256)
@@ -199,6 +211,8 @@ PALI_TEXT = (4, 1024, 1280, 1, 1, 256)
 PALI_PREFIX = (4, 256, 1280, 1, 1, 256)
 MLA_PREFILL = (1, 1024, 1024, 1, 16, 576, 512)
 MLA_SCALE = 1.0 / 192 ** 0.5
+GEMMA_DECODE = (16, 1, 2048, 1, 1, 256)
+WHISPER_ENC = (2, 1500, 1500, 2, 1, 64)
 
 
 def _serve_inputs(shape):
@@ -213,9 +227,13 @@ def _serve_inputs(shape):
 
 
 def _block_keys(shape) -> int:
-    """The key block of the kernel a shape takes: 64 at dh 256 and on the
-    MLA prefill, 32 keys on the other paths the limit is checked for (the
-    mma.sync kernel's block, finer than wgmma's 128)."""
+    """The key block of the kernel a shape takes: 8 on a decode of at most
+    16 folded rows that is not MLA (a warp's keys of fa_ring_kernel's
+    block), 64 at dh 256 and on the MLA prefill, 32 keys on the other
+    paths the limit is checked for (the mma.sync kernel's block, finer
+    than wgmma's 128)."""
+    if shape[5] <= 256 and len(shape) == 6 and shape[1] * shape[4] <= 16:
+        return 8
     return 64 if shape[5] >= 256 else 32
 
 
@@ -230,7 +248,9 @@ def _within(got, want, limit) -> bool:
     (GEMMA_LANE, {}),
     (GEMMA_LANE, dict(window=512)),                      # a local layer
     (PALI_TEXT, dict(q0=256)),
-    (MLA_PREFILL, dict(scale=MLA_SCALE))])
+    (MLA_PREFILL, dict(scale=MLA_SCALE)),
+    (GEMMA_DECODE, dict(q0=1055, kv_len=1056)),
+    (WHISPER_ENC, dict(causal=False))])
 def test_limit_admits_the_kernels_block_schedule(monkeypatch, shape, kw):
     """The plain version in the kernel's key blocks (``_block_keys``)
     rounds p after the running maxima those blocks give; it stays within
@@ -258,6 +278,10 @@ def test_limit_admits_the_kernels_block_schedule(monkeypatch, shape, kw):
     (MLA_PREFILL, dict(scale=MLA_SCALE),
      dict(scale=MLA_SCALE, window=1024 - 64)),           # first block dropped
     (MLA_PREFILL, dict(scale=MLA_SCALE), dict(scale=MLA_SCALE, q0=1)),
+    # the dh-256 decode's last filled slot left out; the encoder's ragged
+    # last 128-key block lost
+    (GEMMA_DECODE, dict(q0=1055, kv_len=1056), dict(q0=1055, kv_len=1055)),
+    (WHISPER_ENC, dict(causal=False), dict(causal=False, kv_len=1408)),
 ])
 def test_limit_rejects_planted_faults(shape, kw, bad):
     q, k, v = _serve_inputs(shape)
