@@ -41,7 +41,7 @@ Phases (each raises on failure; nothing is caught):
    576]``, the latent keys ``[32, S, 1, 576]``, v their first 512
    columns as a view, scale ``1 / sqrt(192)``): the prefill on
    ``"mla_wgmma"`` and every decode kv_len 1025-1056 on ``"mla"``, v also
-   as its own tensor (``"mla"``), two planted faults, times, bound, SDPA
+   as its own tensor (``"mla"``), three planted faults, times, bound, SDPA
    (E = 576, Ev = 512) and the kernels SDPA ran; and at head dim 256
    (phases 17-18): gemma3-1b's prefill per lane on ``wgmma`` (global and
    windowed), paligemma-3b's prefix split (the prefix rows non-causal,
@@ -238,9 +238,9 @@ Phases (each raises on failure; nothing is caught):
    group's calls); (b) gloo at world 4 on the host's CPU (spawned
    processes under a hard timeout that kills them): the group selfcheck,
    flat and (2, 2), with no failure and the stacked run's totals, and a
-   measured tune of ``allreduce`` at the tuning CLI's 13 sizes, every
-   rank the same picks, one profile written; its times are the host
-   CPU's, labelled so;
+   measured tune of ``allreduce`` at ``GROUP_TUNE_SIZES`` (4 sizes up to
+   1 MiB), every rank the same picks, one profile written; its times are
+   the host CPU's, labelled so;
 21. the fleet loop and fault tolerance, llama3.2-3b at full width and
    depth, TP 8 stacked, 1 + 16 tokens a request, 2048 slots: (a) four
    servers of one set of weights, mixes (batch, prompt) A (4, 1024), B
@@ -348,7 +348,9 @@ prefill) and 2 x 32 on ``"mla"``; each row carries its
 ``mla_serve_launches``, and the kernels line lists the MLA paths as
 ``flash_attention_mla`` (phase 3's prefill numbers, the ``mla_wgmma``
 kernel's), with its launches in phases 12-16 read from flash's counts by
-path (both MLA paths; ``paths`` splits them).
+path (both MLA paths; ``paths`` splits them), and the decode's kernel as
+``flash_attention_mla_decode`` (phase 3's numbers at kv_len 1056, its
+launches phase 16's on ``"mla"``).
 They are zeroed again just before phase 17's path and read around each
 of its runs: 26 ``wgmma`` and 26 x 32 ``split_kv`` launches a mesh or
 TP 4 serve, 26 ``wgmma`` at the long prefill, none in a
@@ -958,6 +960,7 @@ def check_flash_mla(torch, fa, randn, timed, check, planted, on_path,
     err, share = check("mla decode, v its own tensor", q1, kc,
                        vc.contiguous(), q0=SERVE_PROMPT,
                        kv_len=SERVE_PROMPT + 1, scale=scale)
+    on_path("mla decode, v its own tensor", "mla")
     log(f"[3] flash_attention mla decode q{list(q1.shape)} k{list(kc.shape)} "
         f"bf16, kv_len {SERVE_PROMPT + 1}...{SERVE_PROMPT + SERVE_DECODE} "
         f"path {last_path[0]}: max_abs_err {worst[0]:.3e} ({worst[1]:.3f} "
@@ -968,6 +971,10 @@ def check_flash_mla(torch, fa, randn, timed, check, planted, on_path,
     planted("mla: last filled slot left out", q1, kc, vc,
             dict(q0=SERVE_PROMPT, kv_len=SERVE_PROMPT, scale=scale),
             q0=SERVE_PROMPT, kv_len=SERVE_PROMPT + 1, scale=scale)
+    last = SERVE_PROMPT + SERVE_DECODE
+    planted("mla: one slot too many", q1, kc, vc,
+            dict(q0=last, kv_len=last + 1, scale=scale),
+            q0=last - 1, kv_len=last, scale=scale)
     decode = {}
     for kv_len in (SERVE_PROMPT + 1, SERVE_PROMPT + SERVE_DECODE):
         q1b = q1.reshape(n_fold, g, 1, dqk)
@@ -3592,7 +3599,7 @@ MLA_REPLAY_CAP = 8e9
 def mla_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
                     card: str, tag: str = "16") -> dict:
     """Serve deepseek-v3-671b (``MLA_LAYERS`` layers, full width, TP ``P``)
-    on the card through the ``"mla"`` path: (a) the default serve,
+    on the card through flash's MLA paths: (a) the default serve,
     recording, with rank 0's routes probed; ``tune_trace`` of its trace
     (measured) with the weights freed, then drawn again from the seed
     (cells over ``MLA_REPLAY_CAP`` held out only if the whole trace runs
@@ -3605,9 +3612,9 @@ def mla_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
     every request's logits within ``SERVE_RTOL`` (the JAX package's
     absorbed-vs-naive check, ``tests/test_attn_variants.py:45-55``, at
     full width).  Flash
-    must launch once per layer and forward on its ``"mla"`` path in each
-    absorbed serve.  (e) ``torch.profiler`` over one prefill and one
-    decode step.  Times, rates and memory sizes name ``card``."""
+    must launch once per layer and forward in each absorbed serve, the
+    prefill on ``"mla_wgmma"`` and every decode step on ``"mla"``.  (e)
+    ``torch.profiler`` over one prefill and one decode step.  Times, rates and memory sizes name ``card``."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import profiles, trace, tuner
@@ -4339,6 +4346,10 @@ def encdec_serve_phase(torch, dev, out_dir: pathlib.Path, wrappers: dict,
 # GROUP_WORLD on the host's CPU, in processes spawned under a hard timeout
 GROUP_ARCH, GROUP_BACKEND, GROUP_WORLD = "llama3.2-3b", "nccl", 4
 GROUP_TIMEOUT_S = 420.0
+# (b)'s measured tune: phase 10's sizes (TUNE_SIZES) up to 1 MiB; the
+# tuning CLI's 13 sizes took 31-263 s of the host's CPU, most of it in the
+# 16 MiB cell
+GROUP_TUNE_SIZES = tuple(s for s in TUNE_SIZES if s <= 1 << 20)
 
 
 def cpu_model() -> str:
@@ -4361,14 +4372,15 @@ def cpu_model() -> str:
 
 
 def group_tune_rank(out_dir: str) -> dict:
-    """One rank of (b)'s measured tune: ``allreduce`` at the tuning CLI's
-    13 sizes on a ``GroupAxis`` over the world (``MeasuredBackend(axis=)``,
-    every rank the slowest rank's samples); ``profiles.publish`` has rank
-    0 write the profile once the ranks' digests agree."""
+    """One rank of (b)'s measured tune: ``allreduce`` at
+    ``GROUP_TUNE_SIZES`` on a ``GroupAxis`` over the world
+    (``MeasuredBackend(axis=)``, every rank the slowest rank's samples);
+    ``profiles.publish`` has rank 0 write the profile once the ranks'
+    digests agree."""
     from repro_torch.core import profiles, tuner
     from repro_torch.core._axis import GroupAxis
     axis = GroupAxis("cpu")
-    rep = tuner.tune(["allreduce"], axis_size=axis.size,
+    rep = tuner.tune(["allreduce"], GROUP_TUNE_SIZES, axis_size=axis.size,
                      backend=tuner.MeasuredBackend(axis=axis))
     base, _ = profiles.publish(rep.profiles, out_dir, axis)
     return {"digest": profiles.stores_digest(base, {}),
@@ -4544,7 +4556,7 @@ def group_cpu(out_dir: pathlib.Path, tag: str) -> dict:
     """(b) of phase 20: gloo at ``GROUP_WORLD`` ranks on the host's CPU,
     each world in processes under a hard timeout: the group selfcheck
     (flat and (2, W/2)) with no failure and the stacked run's totals, then
-    a measured tune of ``allreduce`` at the tuning CLI's 13 sizes
+    a measured tune of ``allreduce`` at ``GROUP_TUNE_SIZES``
     (``group_tune_rank``), every rank the same picks and one profile
     written.  Its times are the host
     CPU's, not the card's."""
@@ -6256,6 +6268,9 @@ def main(argv=None) -> int:
     kernels["flash_attention"] = flash["prefill"]
     kernels["flash_attention_mla"] = dict(
         flash["mla"]["prefill"], name="flash_attention_mla", main_path=True)
+    kernels["flash_attention_mla_decode"] = dict(
+        flash["mla"]["decode"][SERVE_PROMPT + SERVE_DECODE],
+        name="flash_attention_mla_decode", main_path=True)
     kernels["flash_attention_d256"] = dict(
         flash["d256"]["gemma prefill"], name="flash_attention_d256",
         main_path=True)
@@ -6697,6 +6712,10 @@ def main(argv=None) -> int:
         "mla_serve"]["mla_launches"]
     kernels["flash_attention_mla"]["paths"] = report["mla_serve"][
         "mla_paths"]
+    dec_row = kernels["flash_attention_mla_decode"]
+    dec_row["launches"] = dec_row["mla_serve_launches"] = report[
+        "mla_serve"]["mla_paths"]["mla"]
+    dec_row["paths"] = {"mla": dec_row["launches"]}
 
     phase("17")
     # -- 17. gemma3-1b: the data x model serve and long_500k ----------------
@@ -6710,7 +6729,7 @@ def main(argv=None) -> int:
     report["vlm_serve"] = vlm_serve_phase(torch, dev, out_dir, every, card)
     for k, v in report["vlm_serve"]["launches"].items():
         kernels[k]["vlm_serve_launches"] = v
-    # the "mla" path's launches in phases 17-18 (flash's counts by path);
+    # the MLA paths' launches in phases 17-18 (flash's counts by path);
     # flash at head dim 256: phase 3's gemma3-1b prefill numbers, and its
     # launches at that head dim by path in each path's run (phases 12-18
     # read flash's counts by head dim around their runs)
@@ -6739,7 +6758,7 @@ def main(argv=None) -> int:
                                                 card)
     for k, v in report["encdec_serve"]["launches"].items():
         kernels[k]["encdec_serve_launches"] = v
-    # flash's rows by path and head dim in phase 19: the "mla" path, dh 256
+    # flash's rows by path and head dim in phase 19: the MLA paths, dh 256
     # and the enc-dec row (phase 3's encoder self-attention numbers; its
     # launches: phase 19's at head dim 64)
     mla_row["encdec_serve_launches"] = mla_count(
@@ -6809,6 +6828,7 @@ def main(argv=None) -> int:
                                             "quant_pack", "dequant_unpack",
                                             "flash_attention",
                                             "flash_attention_mla",
+                                            "flash_attention_mla_decode",
                                             "flash_attention_d256",
                                             "flash_attention_encdec",
                                             "rwkv6_scan", "ssd_scan")]}))

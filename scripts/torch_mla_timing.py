@@ -3,7 +3,9 @@ serve shapes, on the card: the prefill (q ``[32, 1024, 1, 16, 576]``,
 causal; ``"mla_wgmma"``) and the decode (``"mla"``) at kv_len 1025 and 1056 in a 2048-slot
 latent cache, the keys contiguous or a view of the serve's joint cache
 buffer ``[8, 4, 2048, 576]``, with the L2 cache warm (the same keys
-launch after launch) or flushed before each launch (a 128 MB write).
+launch after launch) or flushed before each launch (a 128 MB write: the
+served decode finds its latent cold, the expert layers between two
+layers' decodes streaming GBs of weights).
 Each time is the kernel's device time from ``torch.profiler`` (mean of
 20 launches); the card's name and power limit first.
 

@@ -146,6 +146,20 @@ FLASH = {
          "")],
     "ring decode: no math": [(_FA, "    ring_step<DHP, LDS>(",
                                 "    if (false) ring_step<DHP, LDS>(")],
+    # where the MLA decode's time goes (fa_mla_kernel<1, 64>; the edits
+    # also reach the "mla" prefill instance): without its K/V loads (Q
+    # still staged), without its S and PV products; "decodes: no merge of
+    # the splits" also takes its merge out
+    "mla decode: no loads": [
+        (_FA, "  if (b_lo < b_hi) stage(0, b_lo);", "  (void)stage;"),
+        (_FA, "    if (nbuf == 2 && kb + 1 < b_hi) stage(buf ^ 1, kb + 1);",
+         "")],
+    "mla decode: no math": [
+        (_FA, "    for (int k32 = 0; k32 < nk32; ++k32) {",
+         "    for (int k32 = 0; k32 < 0; ++k32) {"),
+        (_FA, "      for (int kk = 0; kk < BN / 16; ++kk) {\n"
+              "        uint32_t a[RG][4];",
+         "      for (int kk = 0; kk < 0; ++kk) {\n        uint32_t a[RG][4];")],
     "dh 64: no ping-pong": [
         (_FA, "  auto my_turn = [&]() { hopper::named_bar_sync(2 + wg, 256); };",
          "  auto my_turn = [&]() {};"),

@@ -749,6 +749,19 @@ MLA_CASES = [
     (2, 70, 70, 4, 576, 512, True, 40, 20.0, 0, None),      # window, cap
     (3, 33, 33, 4, 24, 16, True, 0, 0.0, 0, None),          # smoke widths
     (3, 1, 40, 4, 24, 16, True, 0, 0.0, 30, 31),            # smoke decode
+    # the decode's 64-key blocks, 4 splits at 32 (n, KV head) pairs:
+    # kv_len 16 x 64 exactly (4 splits of 4 blocks); 33 (one block, one
+    # CTA that writes out at once); 97 (two splits, the last one block of
+    # 33 keys); 385 (4 splits of 2 blocks, the last one block of one
+    # key); a window whose first visible key is inside a block (the
+    # served rows, and 3 query positions of 4 heads, whose later rows'
+    # first keys fall inside the first block)
+    (32, 1, 2048, 16, 576, 512, True, 0, 0.0, 1023, 1024),
+    (32, 1, 2048, 16, 576, 512, True, 0, 0.0, 32, 33),
+    (32, 1, 2048, 16, 576, 512, True, 0, 0.0, 96, 97),
+    (32, 1, 2048, 16, 576, 512, True, 0, 0.0, 384, 385),
+    (32, 1, 2048, 16, 576, 512, True, 100, 0.0, 1055, 1056),
+    (4, 3, 300, 4, 576, 512, True, 50, 0.0, 200, 203),
 ]
 
 
@@ -793,13 +806,14 @@ def test_flash_mla_path_matches_plain(cuda, case, view):
 
 @needs_cuda
 def test_flash_mla_limit_rejects_planted_faults(cuda):
-    """The limit holding the "mla" path sees the scale of the dense paths
+    """The limit holding the MLA paths sees the scale of the dense paths
     (1 / sqrt(576)), the last filled slot left out, and the causal edge
     one key late."""
     from repro_torch.kernels import flash_attention as FA
     for case, bad in (
             (MLA_CASES[0], dict(scale=None)),
             (MLA_CASES[1], dict(q0=1023, kv_len=1024, scale=MLA_SCALE)),
+            (MLA_CASES[2], dict(q0=1056, kv_len=1057, scale=MLA_SCALE)),
             (MLA_CASES[5], dict(q0=1, scale=MLA_SCALE))):
         q, k, v = _mla_inputs(cuda, case, True)
         kw = dict(zip(("causal", "window", "softcap", "q0", "kv_len"),
@@ -813,10 +827,13 @@ def test_flash_mla_decode_reads_no_slot_beyond_kv_len(cuda):
     from repro_torch.kernels import flash_attention as FA
     q, k, v = _mla_inputs(cuda, MLA_CASES[2], True)
     kw = dict(q0=1055, kv_len=1056, scale=MLA_SCALE)
+    before = _paths(FA.flash_attention)
     want = FA.flash_attention(q, k, v, **kw)
     k[:, 1056:] = float("nan")
     got = FA.flash_attention(q, k, v, **kw)
     again = FA.flash_attention(q, k, v, **kw)    # the tickets re-armed
+    torch.cuda.synchronize()
+    assert _took(FA.flash_attention, before) == {"mla": 3}
     assert torch.equal(got, want) and torch.equal(again, want)
 
 

@@ -18,8 +18,9 @@ rounding of p and of the output).  The kernel itself runs only on the
 card (``tests/test_torch_cuda.py``, ``chip_smoke.py``), held to its plain
 version within the finer elementwise limit ``FA.tolerance``; here that
 limit is checked at the serve path's shapes (head dim 128, 256 and MLA's
-576/512): it admits the plain version run in the kernel's key blocks (32,
-or 64 at dh 256 and on the MLA prefill) and rejects planted faults.
+576/512, prefill and decode): it admits the plain version run in the
+kernel's key blocks (8 on the dense decodes, 32 on mma.sync, 64 at dh
+256 and on the MLA paths) and rejects planted faults.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -201,15 +202,16 @@ def test_cpu_tensors_take_the_plain_version_and_bad_inputs_raise():
 # to 2 here); at head dim 256 gemma3-1b's prefill per lane on the (2, 4)
 # mesh (16 lanes cut to 4) and paligemma-3b's text and prefix rows at TP 8
 # (32 cut to 4); deepseek-v3's absorbed MLA prefill at TP 8 (q/k 576, v
-# k's first 512 columns, 32 rows cut to 1); gemma3-1b's dh-256 decode per
-# lane (16 lanes) and whisper-medium's encoder self-attention at TP 8 (32
-# rows cut to 2)
+# k's first 512 columns, 32 rows cut to 1) and its decode (32 rows cut to
+# 4); gemma3-1b's dh-256 decode per lane (16 lanes) and whisper-medium's
+# encoder self-attention at TP 8 (32 rows cut to 2)
 SERVE_PREFILL = (2, 1024, 1024, 1, 3, 128)
 SERVE_DECODE = (32, 1, 2048, 1, 3, 128)
 GEMMA_LANE = (4, 1024, 1024, 1, 1, 256)
 PALI_TEXT = (4, 1024, 1280, 1, 1, 256)
 PALI_PREFIX = (4, 256, 1280, 1, 1, 256)
 MLA_PREFILL = (1, 1024, 1024, 1, 16, 576, 512)
+MLA_DECODE = (4, 1, 2048, 1, 16, 576, 512)
 MLA_SCALE = 1.0 / 192 ** 0.5
 GEMMA_DECODE = (16, 1, 2048, 1, 1, 256)
 WHISPER_ENC = (2, 1500, 1500, 2, 1, 64)
@@ -229,9 +231,10 @@ def _serve_inputs(shape):
 def _block_keys(shape) -> int:
     """The key block of the kernel a shape takes: 8 on a decode of at most
     16 folded rows that is not MLA (a warp's keys of fa_ring_kernel's
-    block), 64 at dh 256 and on the MLA prefill, 32 keys on the other
-    paths the limit is checked for (the mma.sync kernel's block, finer
-    than wgmma's 128)."""
+    block), 64 at dh 256 and on the MLA paths (the MLA decode's block,
+    whose running maxima every warp shares, and the prefill's), 32 keys
+    on the other paths the limit is checked for (the mma.sync kernel's
+    block, finer than wgmma's 128)."""
     if shape[5] <= 256 and len(shape) == 6 and shape[1] * shape[4] <= 16:
         return 8
     return 64 if shape[5] >= 256 else 32
@@ -249,6 +252,7 @@ def _within(got, want, limit) -> bool:
     (GEMMA_LANE, dict(window=512)),                      # a local layer
     (PALI_TEXT, dict(q0=256)),
     (MLA_PREFILL, dict(scale=MLA_SCALE)),
+    (MLA_DECODE, dict(q0=1055, kv_len=1056, scale=MLA_SCALE)),
     (GEMMA_DECODE, dict(q0=1055, kv_len=1056)),
     (WHISPER_ENC, dict(causal=False))])
 def test_limit_admits_the_kernels_block_schedule(monkeypatch, shape, kw):
@@ -278,6 +282,11 @@ def test_limit_admits_the_kernels_block_schedule(monkeypatch, shape, kw):
     (MLA_PREFILL, dict(scale=MLA_SCALE),
      dict(scale=MLA_SCALE, window=1024 - 64)),           # first block dropped
     (MLA_PREFILL, dict(scale=MLA_SCALE), dict(scale=MLA_SCALE, q0=1)),
+    # the MLA decode's last filled slot left out, and one slot too many
+    (MLA_DECODE, dict(q0=1055, kv_len=1056, scale=MLA_SCALE),
+     dict(q0=1055, kv_len=1055, scale=MLA_SCALE)),
+    (MLA_DECODE, dict(q0=1055, kv_len=1056, scale=MLA_SCALE),
+     dict(q0=1056, kv_len=1057, scale=MLA_SCALE)),
     # the dh-256 decode's last filled slot left out; the encoder's ragged
     # last 128-key block lost
     (GEMMA_DECODE, dict(q0=1055, kv_len=1056), dict(q0=1055, kv_len=1055)),
